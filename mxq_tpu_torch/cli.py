@@ -1,0 +1,108 @@
+"""Command line of the PyTorch port: the ``serve`` subcommand of the slot
+engine (port of ``mxq_tpu/cli.py`` cmd_serve).
+
+    python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8
+
+Weights are random, drawn from ``--seed`` on the device (no checkpoint
+loading yet). Prints one JSON line: requests, tokens, tokens/s and the
+engine's stats.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import numpy as np
+import torch
+
+from mxq_tpu_torch import resolve_device
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def cmd_serve(args) -> dict:
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.serving import engine as eng
+
+    for flag in ("paged", "spec_decode", "prefill_a8"):
+        if getattr(args, flag):
+            raise NotImplementedError(f"--{flag} {llama.NOT_PORTED}")
+    if args.lm_head_bits != 16:
+        raise NotImplementedError(f"--lm_head_bits {llama.NOT_PORTED}")
+    if args.kv_bits not in (8, 32):
+        raise SystemExit(f"--kv_bits must be 8 (int8 cache) or 32 (bf16 "
+                         f"cache), not {args.kv_bits}")
+    if args.w_bits != 32:
+        raise NotImplementedError(f"--w_bits fake-quant {llama.NOT_PORTED}")
+    dev = resolve_device(args.device)
+    cfg = getattr(llama.LlamaConfig, args.preset)()
+    if args.layers:
+        # shallow drive of a full-width preset
+        cfg = dataclasses.replace(cfg, num_hidden_layers=args.layers)
+    params = llama.init_params(cfg, args.seed, _DTYPES[args.dtype], dev)
+    if args.packed:
+        params = llama.quantize_params_packed(params, cfg, device=dev)
+    e = eng.Engine(params, cfg, eng.EngineConfig(
+        num_slots=args.slots, max_len=args.max_len,
+        kv_quant=args.kv_bits < 32,
+        greedy=args.temperature == 0.0,
+        temperature=args.temperature or 1.0,
+        top_k=args.top_k, top_p=args.top_p, seed=args.seed), device=dev)
+    rng = np.random.RandomState(0)
+    for _ in range(args.requests):
+        e.submit(rng.randint(0, cfg.vocab_size,
+                             size=args.prompt_len).astype(np.int32),
+                 max_new_tokens=args.max_new_tokens)
+    t0 = time.time()
+    done = e.run()
+    dt = time.time() - t0
+    total = sum(len(r.generated) for r in done)
+    out = {"requests": len(done), "tokens": total,
+           "tokens_per_sec": total / dt,
+           "stats": {k: round(v, 4) if isinstance(v, float) else v
+                     for k, v in e.stats().items()}}
+    print(json.dumps(out), flush=True)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="mxq_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("serve")
+    p.add_argument("--preset", default="tiny",
+                   choices=["tiny", "llama2_7b", "llama2_13b", "llama2_70b"])
+    p.add_argument("--layers", type=int, default=None,
+                   help="override the preset's depth")
+    p.add_argument("--dtype", default="float32", choices=sorted(_DTYPES))
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default) or 'cpu' for the plain path")
+    p.add_argument("--w_bits", type=int, default=32)
+    p.add_argument("--kv_bits", type=int, default=8)
+    p.add_argument("--packed", action="store_true")
+    p.add_argument("--slots", type=int, default=4)
+    p.add_argument("--max_len", type=int, default=512)
+    p.add_argument("--max_new_tokens", type=int, default=32)
+    p.add_argument("--requests", type=int, default=8)
+    p.add_argument("--prompt_len", type=int, default=8)
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="0 = greedy; >0 samples with top_k/top_p")
+    p.add_argument("--top_k", type=int, default=0)
+    p.add_argument("--top_p", type=float, default=1.0)
+    # options of mxq_tpu's serve whose kernels are not ported yet
+    p.add_argument("--prefill_a8", action="store_true")
+    p.add_argument("--lm_head_bits", type=int, default=16)
+    p.add_argument("--spec_decode", action="store_true")
+    p.add_argument("--paged", action="store_true")
+    p.set_defaults(fn=cmd_serve)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,202 @@
+// K1 and K2: y = x @ dequant(p) for the packed MXQ format (packfmt.py),
+// x rounded to bf16, f32 accumulation.
+//
+// Replaces the TPU kernels
+//   K1  mxq_tpu/ops/mxq_matmul.py _kernel_body (:66) via _mxq_matmul_padded
+//       (:554) and _stacked_kernel (:1033) — the B>=2 GEMV/GEMM;
+//   K2  mxq_tpu/ops/mxq_matmul.py _bdg_kernel (:360) via
+//       _mxq_matmul_bdg_padded (:429) and _stacked_bdg_kernel (:1096) —
+//       the exact B=1 GEMV.
+// A stacked weight is only a layer offset: the wrapper passes the layer's
+// base pointers.
+//
+// Bound on the H100: bytes. At decode batch sizes every packed weight is
+// read once (~2.9 bits/weight) and each weight feeds B multiply-adds, far
+// below the ~295 operations per byte the card needs before arithmetic
+// limits. The design therefore aims at coalesced weight reads and enough
+// blocks in flight:
+//  * one thread per output column n; a warp reads 32 neighbouring int32
+//    words of one packed row (128 contiguous bytes);
+//  * the per-group algebra of the reference kernel: for every 16-code
+//    group, dot the raw codes with x, then apply s*dot - s*z*sum(x) once,
+//    so the per-weight work is shift, mask, convert and one FMA per batch
+//    row; the 4-bit plane accumulates raw-code dots and applies its
+//    per-channel scale and zero once at the end;
+//  * x of one 1024-column k-tile is staged in shared memory as f32 (all
+//    threads of a warp read the same element: a broadcast), together with
+//    its per-group sums;
+//  * K is split across blocks (blockIdx.z) in units of packed meta rows
+//    (64 input columns each) so that N/128 column blocks still fill the
+//    132 SMs; a second pass adds the partial sums in a fixed order
+//    (deterministic, no atomics).
+// BT batch rows are held in registers per thread: BT=8 for K1, BT=1 for K2.
+// Not yet tuned: no cp.async/TMA pipelining, no tensor cores.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int KT = 1024;        // input columns per k-tile (16 blocks of 64)
+constexpr int THREADS = 128;    // columns per block
+
+template <int BT>
+__global__ void __launch_bounds__(THREADS)
+mxq_gemv_kernel(const __nv_bfloat16* __restrict__ x, int B, int K, int ldx,
+                const uint32_t* __restrict__ w2,
+                const uint32_t* __restrict__ w4,
+                const uint32_t* __restrict__ meta2,
+                const __nv_bfloat16* __restrict__ qscale,
+                const __nv_bfloat16* __restrict__ qmin,
+                const float* __restrict__ smeta4,
+                int nbp, int npad, int rows_per_split,
+                float* __restrict__ part) {
+  __shared__ float xs[BT][KT];
+  __shared__ float gsum[BT][48];     // sum of x over each 2-bit group
+  __shared__ float bsum4[BT][16];    // sum of x over each block's 4-bit part
+
+  const int n = blockIdx.x * THREADS + threadIdx.x;   // npad % 128 == 0
+  const int b0 = blockIdx.y * BT;
+  const int split = blockIdx.z;
+  const int m0 = split * rows_per_split;
+  const int m1 = min(nbp, m0 + rows_per_split);
+
+  float acc[BT], acc4[BT], xsum4[BT];
+#pragma unroll
+  for (int bb = 0; bb < BT; ++bb) acc[bb] = acc4[bb] = xsum4[bb] = 0.f;
+
+  for (int m = m0; m < m1;) {
+    const int t = m / 16;
+    const int mend = min(m1, (t + 1) * 16);
+    __syncthreads();
+    for (int i = threadIdx.x; i < BT * KT; i += THREADS) {
+      const int bb = i / KT, c = i % KT;
+      const int row = b0 + bb, col = t * KT + c;
+      xs[bb][c] = (row < B && col < K)
+                      ? __bfloat162float(x[(size_t)row * ldx + col]) : 0.f;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < BT * 64; i += THREADS) {
+      const int bb = i / 64, g = i % 64;
+      const float* p = g < 48 ? &xs[bb][64 * (g / 3) + 16 * (g % 3)]
+                              : &xs[bb][64 * (g - 48) + 48];
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) s += p[j];
+      if (g < 48) gsum[bb][g] = s; else bsum4[bb][g - 48] = s;
+    }
+    __syncthreads();
+
+    for (int mm = m; mm < mend; ++mm) {
+      const int r = mm - t * 16;
+      const size_t mo = (size_t)mm * npad + n;
+      const uint32_t meta = meta2[mo];
+      const float qs = __bfloat162float(qscale[mo]);
+      const float qm = __bfloat162float(qmin[mo]);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const int g = 16 * i + r;                     // group within tile
+        const float zc = (float)((meta >> (2 * i)) & 3u);
+        const float sc = (float)((meta >> (6 + 8 * i)) & 255u);
+        const float s = qs * sc + qm;
+        const uint32_t word = w2[(size_t)(t * 48 + g) * npad + n];
+        const int off = 64 * (g / 3) + 16 * (g % 3);  // x column in tile
+        float dot[BT];
+#pragma unroll
+        for (int bb = 0; bb < BT; ++bb) dot[bb] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const float c = (float)((word >> (2 * j)) & 3u);
+#pragma unroll
+          for (int bb = 0; bb < BT; ++bb) dot[bb] += xs[bb][off + j] * c;
+        }
+#pragma unroll
+        for (int bb = 0; bb < BT; ++bb)
+          acc[bb] += s * dot[bb] - s * zc * gsum[bb][g];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t word = w4[(size_t)(2 * mm + h) * npad + n];
+        const int off = 64 * r + 48 + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float c = (float)((word >> (4 * j)) & 15u);
+#pragma unroll
+          for (int bb = 0; bb < BT; ++bb) acc4[bb] += xs[bb][off + j] * c;
+        }
+      }
+#pragma unroll
+      for (int bb = 0; bb < BT; ++bb) xsum4[bb] += bsum4[bb][r];
+    }
+    m = mend;
+  }
+
+  const float s4 = smeta4[n], z4 = smeta4[npad + n];
+#pragma unroll
+  for (int bb = 0; bb < BT; ++bb) {
+    const int row = b0 + bb;
+    if (row < B)
+      part[((size_t)split * B + row) * npad + n] =
+          acc[bb] + s4 * acc4[bb] - s4 * z4 * xsum4[bb];
+  }
+}
+
+// y[b, n] = sum over splits of part[split, b, n], in split order.
+__global__ void reduce_splits_kernel(const float* __restrict__ part,
+                                     int ksplit, int B, int npad, int O,
+                                     float* __restrict__ y) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * O) return;
+  const int b = i / O, n = i % O;
+  float s = 0.f;
+  for (int k = 0; k < ksplit; ++k) s += part[((size_t)k * B + b) * npad + n];
+  y[i] = s;
+}
+
+template <int BT>
+int launch(const void* x, int B, int K, int ldx, const void* w2,
+           const void* w4, const void* meta2, const void* qscale,
+           const void* qmin, const void* smeta4, int nbp, int npad, int O,
+           int rows_per_split, int ksplit, void* part, void* y,
+           void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  dim3 grid(npad / THREADS, (B + BT - 1) / BT, ksplit);
+  mxq_gemv_kernel<BT><<<grid, THREADS, 0, st>>>(
+      (const __nv_bfloat16*)x, B, K, ldx, (const uint32_t*)w2,
+      (const uint32_t*)w4, (const uint32_t*)meta2,
+      (const __nv_bfloat16*)qscale, (const __nv_bfloat16*)qmin,
+      (const float*)smeta4, nbp, npad, rows_per_split, (float*)part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int total = B * O;
+  reduce_splits_kernel<<<(total + 255) / 256, 256, 0, st>>>(
+      (const float*)part, ksplit, B, npad, O, (float*)y);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K1: batch rows in tiles of 8 per thread.
+int mxq_gemv_k1(const void* x, int B, int K, int ldx, const void* w2,
+                const void* w4, const void* meta2, const void* qscale,
+                const void* qmin, const void* smeta4, int nbp, int npad,
+                int O, int rows_per_split, int ksplit, void* part, void* y,
+                void* stream) {
+  return launch<8>(x, B, K, ldx, w2, w4, meta2, qscale, qmin, smeta4, nbp,
+                   npad, O, rows_per_split, ksplit, part, y, stream);
+}
+
+// K2: one batch row.
+int mxq_gemv_k2(const void* x, int B, int K, int ldx, const void* w2,
+                const void* w4, const void* meta2, const void* qscale,
+                const void* qmin, const void* smeta4, int nbp, int npad,
+                int O, int rows_per_split, int ksplit, void* part, void* y,
+                void* stream) {
+  return launch<1>(x, B, K, ldx, w2, w4, meta2, qscale, qmin, smeta4, nbp,
+                   npad, O, rows_per_split, ksplit, part, y, stream);
+}
+
+}  // extern "C"

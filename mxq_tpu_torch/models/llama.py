@@ -1,0 +1,423 @@
+"""Llama with packed-MXQ linears and an int8 KV cache, in PyTorch (port of
+``mxq_tpu/models/llama.py``).
+
+Parameters are a plain dict as in the JAX version: linear weights are
+stored ``[in, out]`` (forward is ``x @ w``), every per-layer tensor is
+stacked on a leading ``[L]`` axis, and ``quantize_params_packed`` turns the
+projections into stacked :class:`PackedMXQLinear`. Layers run in a Python
+loop (the JAX version scans); caches are updated in place.
+
+Packed linears dispatch in :func:`quant_linear`: 512 tokens or more go to
+the prefill path (kernel K3 + two GEMMs), fewer to K1 (B >= 2) or K2
+(B == 1). Decode with the stacked int8 cache goes through K4
+(``ops.attn_int8.decode_attend_update``). Cache-less or position-0 prefill
+attention of 128+ tokens on the card uses
+``torch.nn.functional.scaled_dot_product_attention``, the counterpart of the
+library flash attention the JAX version calls; on the CPU it takes the
+einsum path, as JAX does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from mxq_tpu_torch import resolve_device
+from mxq_tpu_torch.config import MXQConfig
+from mxq_tpu_torch.packfmt import PackedMXQLinear, quantize_pack, stack_packed
+from mxq_tpu_torch.ops import attn_int8, mxq_matmul
+from mxq_tpu_torch.serving import kvcache
+
+NOT_PORTED = "not ported yet, see ROADMAP.md"
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 2048
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    w_bits: int = 32
+    a_bits: int = 32
+    kv_bits: int = 32
+    a_symmetric: bool = True
+    scheme: MXQConfig = dataclasses.field(default_factory=MXQConfig)
+    # "auto": SDPA on the card for cache-less / position-0 prefill of 128+
+    # tokens, einsum elsewhere; "xla": always einsum; "flash": always SDPA
+    attn_impl: str = "auto"
+    # 8 would route prefill through an int8 GEMM (kernel K5): not ported
+    prefill_act_bits: int = 32
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def tiny(cls, **kw) -> "LlamaConfig":
+        """A test-size config (everything divisible by the MXQ block of 64)."""
+        d = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                 num_hidden_layers=2, num_attention_heads=4,
+                 num_key_value_heads=4, max_position_embeddings=256)
+        d.update(kw)
+        return cls(**d)
+
+    @classmethod
+    def llama2_7b(cls, **kw) -> "LlamaConfig":
+        return cls(**kw)
+
+    @classmethod
+    def llama2_13b(cls, **kw) -> "LlamaConfig":
+        d = dict(hidden_size=5120, intermediate_size=13824,
+                 num_hidden_layers=40, num_attention_heads=40,
+                 num_key_value_heads=40)
+        d.update(kw)
+        return cls(**d)
+
+    @classmethod
+    def llama2_70b(cls, **kw) -> "LlamaConfig":
+        d = dict(hidden_size=8192, intermediate_size=28672,
+                 num_hidden_layers=80, num_attention_heads=64,
+                 num_key_value_heads=8, max_position_embeddings=4096)
+        d.update(kw)
+        return cls(**d)
+
+
+LAYER_LINEARS = ("q_proj", "k_proj", "v_proj", "o_proj",
+                 "gate_proj", "up_proj", "down_proj")
+
+
+def _linear_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, int]]:
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    kv = cfg.num_key_value_heads * cfg.head_dim
+    return dict(q_proj=(h, h), k_proj=(h, kv), v_proj=(h, kv), o_proj=(h, h),
+                gate_proj=(h, i), up_proj=(h, i), down_proj=(i, h))
+
+
+def init_params(cfg: LlamaConfig, seed: int = 0, dtype=torch.float32,
+                device: str | torch.device = "cuda") -> dict:
+    """Random-init parameters from one ``torch.Generator`` seeded with
+    ``seed`` (the draws differ from the JAX version's). Linear weights are
+    [in, out]; each layer is drawn separately, in f32, so peak memory stays
+    one layer above the result."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    l = cfg.num_hidden_layers
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+
+    layers = {}
+    for name, (fan_in, fan_out) in _linear_shapes(cfg).items():
+        stack = torch.empty((l, fan_in, fan_out), dtype=dtype, device=dev)
+        for i in range(l):
+            stack[i] = normal((fan_in, fan_out), 1.0 / math.sqrt(fan_in))
+        layers[name] = stack
+    layers["input_layernorm"] = torch.ones((l, cfg.hidden_size), dtype=dtype,
+                                           device=dev)
+    layers["post_attention_layernorm"] = torch.ones(
+        (l, cfg.hidden_size), dtype=dtype, device=dev)
+    params = {"embed_tokens": normal((cfg.vocab_size, cfg.hidden_size), 0.02),
+              "layers": layers,
+              "norm": torch.ones((cfg.hidden_size,), dtype=dtype, device=dev)}
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = normal((cfg.hidden_size, cfg.vocab_size), 0.02)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# building blocks
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """LlamaRMSNorm: variance in f32."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * weight
+
+
+def rope_tables(cfg: LlamaConfig, positions: torch.Tensor):
+    """cos/sin tables [..., T, D] for positions [..., T]."""
+    d = cfg.head_dim
+    inv_freq = 1.0 / (cfg.rope_theta ** (
+        torch.arange(0, d, 2, dtype=torch.float32,
+                     device=positions.device) / d))
+    freqs = positions[..., None].float() * inv_freq
+    emb = torch.cat([freqs, freqs], dim=-1)
+    return torch.cos(emb), torch.sin(emb)
+
+
+def _rotate_half(x):
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def apply_rope(q, k, cos, sin):
+    """q, k [B, T, H, D]; cos/sin [B, T, D]."""
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    q2 = q * cos + _rotate_half(q) * sin
+    k2 = k * cos + _rotate_half(k) * sin
+    return q2.to(q.dtype), k2.to(k.dtype)
+
+
+def quant_linear(x: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
+    """``x @ w`` for a dense [in, out] weight or one layer of a packed
+    linear (the serving path)."""
+    if 2 < cfg.a_bits < 32:
+        raise NotImplementedError(f"activation fake-quant {NOT_PORTED}")
+    if isinstance(w, PackedMXQLinear):
+        tokens = math.prod(x.shape[:-1])
+        if tokens >= 512:
+            if cfg.prefill_act_bits == 8:
+                raise NotImplementedError(
+                    f"int8-activation prefill (kernel K5) {NOT_PORTED}")
+            return mxq_matmul.mxq_matmul_prefill(x, w, None, cfg.scheme)
+        return mxq_matmul.mxq_matmul(x, w, cfg.scheme)
+    if cfg.w_bits < 32:
+        raise NotImplementedError(f"w_bits<32 fake-quant {NOT_PORTED}")
+    return x @ w
+
+
+_PACKED_GROUPS = {"qkv_proj": ("q_proj", "k_proj", "v_proj"),
+                  "o_proj": ("o_proj",),
+                  "gate_up_proj": ("gate_proj", "up_proj"),
+                  "down_proj": ("down_proj",)}
+
+
+def quantize_params_packed(params: dict, cfg: LlamaConfig,
+                           device: str | torch.device = "cuda") -> dict:
+    """Pack the seven projections of every layer into four stacked
+    :class:`PackedMXQLinear` on ``device``, one layer at a time (each
+    layer's dense weights are moved there, packed and dropped): q/k/v and
+    gate/up are concatenated along the output dim (numerically identical
+    to packing them apart). Embeddings, norms and the head stay dense."""
+    dev = resolve_device(device)
+    layers = params["layers"]
+    out_layers = {k: v.to(dev) for k, v in layers.items()
+                  if k not in LAYER_LINEARS}
+    for name, parts in _PACKED_GROUPS.items():
+        packs = []
+        for i in range(cfg.num_hidden_layers):
+            w = torch.cat([layers[p][i].to(dev) for p in parts], dim=-1)
+            packs.append(quantize_pack(w.T, cfg.scheme))
+            del w
+        out_layers[name] = stack_packed(packs)
+        del packs
+    out = {k: v.to(dev) for k, v in params.items() if k != "layers"}
+    out["layers"] = out_layers
+    return out
+
+
+def _cache_len(caches: dict) -> int:
+    return (caches["k_codes"].shape[3] if "k_codes" in caches
+            else caches["k"].shape[2])
+
+
+def _sdpa(q, k, v, d):
+    """Causal attention through PyTorch's fused SDPA: q, k, v [B, T, H, D]."""
+    ctx = F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, scale=1.0 / math.sqrt(d))
+    return ctx.transpose(1, 2)
+
+
+def attention(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
+              cache_pos: Optional[int] = None, layer_idx: Optional[int] = None):
+    """LlamaAttention, GQA-ready. ``cache`` is the stacked cache dict (int8:
+    codes [L,B,H,S,D] + scales [L,B,H,S]; bf16: k/v [L,B,S,H,D]) written in
+    place at rows ``cache_pos..`` of layer ``layer_idx``. Returns
+    (out, pending): the int8 decode path's scale rows (ks, vs) for the
+    caller to commit after the layer loop, else None."""
+    b, t, _ = x.shape
+    nh, nkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
+    if cfg.kv_bits < 32:
+        raise NotImplementedError(f"KV fake-quant (kv_bits<32) {NOT_PORTED}")
+
+    if "qkv_proj" in layer:
+        qkv = quant_linear(x, layer["qkv_proj"], cfg)
+        q = qkv[..., : nh * d]
+        k = qkv[..., nh * d: (nh + nkv) * d]
+        v = qkv[..., (nh + nkv) * d:]
+    else:
+        q = quant_linear(x, layer["q_proj"], cfg)
+        k = quant_linear(x, layer["k_proj"], cfg)
+        v = quant_linear(x, layer["v_proj"], cfg)
+    q = q.reshape(b, t, nh, d)
+    k = k.reshape(b, t, nkv, d)
+    v = v.reshape(b, t, nkv, d)
+    q, k = apply_rope(q, k, cos, sin)
+
+    on_card = x.device.type == "cuda"
+    prefill_flash = (cache is not None and t >= 128 and cache_pos == 0
+                     and (cfg.attn_impl == "flash"
+                          or (cfg.attn_impl == "auto" and on_card)))
+    pend = None
+    if cache is not None:
+        idx = layer_idx
+        if "k_codes" in cache:
+            kc, ksc = kvcache.quantize_kv_headmajor(k)     # [B,H,T,D], [B,H,T]
+            vc, vsc = kvcache.quantize_kv_headmajor(v)
+            if t == 1:
+                positions = torch.full((b,), cache_pos, dtype=torch.int32,
+                                       device=x.device)
+                ctx, _, pend = attn_int8.decode_attend_update(
+                    cache, q[:, 0], kc, ksc, vc, vsc, idx, positions)
+                ctx = ctx.reshape(b, 1, nh * d).to(x.dtype)
+                return quant_linear(ctx, layer["o_proj"], cfg), pend
+            layer_cache = {n: cache[n][idx] for n in
+                           ("k_codes", "k_scale", "v_codes", "v_scale")}
+            kvcache.cache_update_layer(layer_cache, k, v, cache_pos)
+            if prefill_flash:
+                # attend the int8-roundtripped fresh keys: the values decode
+                # reads back from the cache
+                k = (kc.float() * ksc.float()[..., None]).transpose(1, 2) \
+                    .to(x.dtype)
+                v = (vc.float() * vsc.float()[..., None]).transpose(1, 2) \
+                    .to(x.dtype)
+            else:
+                k, v = kvcache.cache_read_layer(layer_cache, dtype=x.dtype)
+        else:
+            s = cache["k"].shape[2]
+            if not 0 <= cache_pos <= s - t:
+                raise ValueError(f"rows {cache_pos}..{cache_pos + t} do not "
+                                 f"fit a cache of {s}")
+            cache["k"][idx, :, cache_pos:cache_pos + t] = k
+            cache["v"][idx, :, cache_pos:cache_pos + t] = v
+            if not prefill_flash:
+                k = cache["k"][idx].to(x.dtype)
+                v = cache["v"][idx].to(x.dtype)
+
+    if nkv != nh:
+        k = torch.repeat_interleave(k, nh // nkv, dim=2)
+        v = torch.repeat_interleave(v, nh // nkv, dim=2)
+
+    use_flash = (cfg.attn_impl == "flash"
+                 or (cfg.attn_impl == "auto" and on_card and t >= 128
+                     and (cache is None or prefill_flash)))
+    if use_flash:
+        ctx = _sdpa(q, k, v, d).reshape(b, t, nh * d).to(x.dtype)
+    else:
+        qf = q.transpose(1, 2).float()
+        kf = k.transpose(1, 2).float()
+        vf = v.transpose(1, 2)
+        scores = torch.einsum("bhtd,bhsd->bhts", qf, kf) / math.sqrt(d)
+        probs = torch.softmax(scores + mask, dim=-1).to(vf.dtype)
+        ctx = torch.einsum("bhts,bhsd->bhtd", probs, vf)
+        ctx = ctx.transpose(1, 2).reshape(b, t, nh * d).to(x.dtype)
+    return quant_linear(ctx, layer["o_proj"], cfg), pend
+
+
+def mlp(x, layer, cfg: LlamaConfig):
+    """SiLU(gate) * up -> down."""
+    if "gate_up_proj" in layer:
+        gu = quant_linear(x, layer["gate_up_proj"], cfg)
+        g, u = gu.chunk(2, dim=-1)
+    else:
+        g = quant_linear(x, layer["gate_proj"], cfg)
+        u = quant_linear(x, layer["up_proj"], cfg)
+    return quant_linear(F.silu(g) * u, layer["down_proj"], cfg)
+
+
+def decoder_layer(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
+                  cache_pos=None, layer_idx=None):
+    h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
+    attn_out, pend = attention(h, layer, cfg, cos, sin, mask, cache,
+                               cache_pos, layer_idx)
+    x = x + attn_out
+    h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+    return x + mlp(h, layer, cfg), pend
+
+
+def causal_mask(t: int, s: Optional[int] = None, offset: int = 0,
+                device: str | torch.device = "cpu") -> torch.Tensor:
+    """[1, 1, T, S] additive causal mask; ``offset`` is query 0's position."""
+    s = s if s is not None else t
+    qi = torch.arange(t, device=device)[:, None] + offset
+    ki = torch.arange(s, device=device)[None, :]
+    m = torch.where(ki <= qi, 0.0, torch.finfo(torch.float32).min)
+    return m[None, None].float()
+
+
+def layer_view(params: dict, idx: int) -> dict:
+    """Layer ``idx`` of the stacked parameters, as views."""
+    return {k: (v.layer(idx) if isinstance(v, PackedMXQLinear) else v[idx])
+            for k, v in params["layers"].items()}
+
+
+def lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    head = params.get("lm_head")
+    if head is None:
+        return x @ params["embed_tokens"].T
+    if not isinstance(head, torch.Tensor):
+        raise NotImplementedError(f"packed lm_head (kernel K7) {NOT_PORTED}")
+    return x @ head
+
+
+def check_params_device(params: dict, dev: torch.device) -> None:
+    have = params["embed_tokens"].device
+    if have.type != dev.type:
+        raise ValueError(f"parameters live on {have}, not on {dev}")
+
+
+def forward(params, input_ids, cfg: LlamaConfig, *, positions=None,
+            caches=None, cache_pos=None, mask=None,
+            device: str | torch.device = "cuda"):
+    """Full model forward -> (logits [B, T, V] f32, caches). ``caches`` (a
+    stacked cache dict or None) is updated in place and returned."""
+    dev = resolve_device(device)
+    check_params_device(params, dev)
+    input_ids = torch.as_tensor(input_ids, device=dev)
+    b, t = input_ids.shape
+    x = params["embed_tokens"][input_ids]
+    if positions is None:
+        start = 0 if cache_pos is None else cache_pos
+        positions = torch.arange(t, device=dev)[None, :] + start
+        positions = positions.expand(b, t)
+    cos, sin = rope_tables(cfg, positions)
+    cos = cos.to(x.dtype)
+    sin = sin.to(x.dtype)
+    if mask is None:
+        if caches is not None:
+            kpos = torch.arange(_cache_len(caches), device=dev)
+            valid = kpos[None, None, :] <= positions[:, :, None]
+            mask = torch.where(valid, 0.0,
+                               torch.finfo(torch.float32).min)[:, None]
+        else:
+            mask = causal_mask(t, device=dev)
+
+    pend = []
+    for idx in range(cfg.num_hidden_layers):
+        x, p = decoder_layer(x, layer_view(params, idx), cfg, cos, sin, mask,
+                             caches, cache_pos, idx)
+        if p is not None:
+            pend.append(p)
+    if pend:
+        # the int8 decode path wrote the code rows in its kernel; commit the
+        # scale rows of all layers at once: val [L, B, H, 1]
+        caches["k_scale"][:, :, :, cache_pos:cache_pos + 1] = \
+            torch.stack([p[0] for p in pend])
+        caches["v_scale"][:, :, :, cache_pos:cache_pos + 1] = \
+            torch.stack([p[1] for p in pend])
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    return lm_head(params, x).float(), caches
+
+
+def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device: str | torch.device = "cuda"):
+    """Stacked bf16 cache: k/v [L, B, S, H, D]."""
+    dev = resolve_device(device)
+    shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}

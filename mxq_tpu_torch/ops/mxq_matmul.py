@@ -1,0 +1,209 @@
+"""y = x @ dequant(p) for packed MXQ linears: dispatch, plain PyTorch
+versions, and the wrappers of kernels K1, K2 and K3 (``csrc/``).
+
+Port of ``mxq_tpu/ops/mxq_matmul.py``. The function every path computes is
+``bf16(x) @ unpack_dequant(p)`` with f32 accumulation:
+
+* decode, B >= 2 rows  -> K1 (:func:`gemv_batched`, ``csrc/mxq_gemv.cu``)
+* decode, B == 1 row   -> K2 (:func:`gemv_single`, same source)
+* prefill, >= 512 rows -> K3 (:func:`dequant_planes`, ``csrc/mxq_dequant.cu``)
+  unpacks to bf16 planes, then two ``torch.matmul`` GEMMs (as the TPU left
+  them to XLA); the 512-row switch lives in ``models/llama.quant_linear``.
+
+Every wrapper runs its plain version for CPU tensors only; for CUDA tensors
+it launches its kernel or raises. ``<wrapper>.launches`` counts launches.
+A stacked [L, ...] weight is only a layer offset (:meth:`PackedMXQLinear.layer`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mxq_tpu_torch import packfmt
+from mxq_tpu_torch.config import DEFAULT_SCHEME, MXQConfig
+from mxq_tpu_torch.packfmt import PackedMXQLinear
+
+_COLS_PER_BLOCK = 128     # csrc/mxq_gemv.cu THREADS
+_K1_ROWS = 8              # batch rows per thread in K1
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def gemv_plain(x: torch.Tensor, p: PackedMXQLinear,
+               cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
+    """Plain version of K1 and K2: bf16(x) [B, K] @ dequant(p) -> f32 [B, O]."""
+    xb = x.to(torch.bfloat16).float()
+    return xb @ packfmt.unpack_dequant(p, cfg)
+
+
+def dequant_planes_plain(p: PackedMXQLinear,
+                         cfg: MXQConfig = DEFAULT_SCHEME):
+    """Plain version of K3: the bf16 planes ``wd2 [NBP*48, N]`` and
+    ``wd4 [NBP*16, N]`` in natural plane order (row ``word*16 + j`` holds
+    code j of ``w2`` row ``word``), each value ``s*c - s*z`` rounded once
+    to bf16."""
+    s_eff, zc = packfmt.group_params(p, cfg)
+    neg_sz = s_eff * zc
+    codes2 = packfmt._unpack_along_sublanes(p.w2, cfg.bits_lo).float()
+    wd2 = (torch.repeat_interleave(s_eff, cfg.group, dim=0) * codes2
+           - torch.repeat_interleave(neg_sz, cfg.group, dim=0))
+    codes4 = packfmt._unpack_along_sublanes(p.w4, cfg.bits_hi).float()
+    s4 = p.smeta4[0:1]
+    sz4 = s4 * p.smeta4[1:2]
+    wd4 = s4 * codes4 - sz4
+    return wd2.to(torch.bfloat16), wd4.to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_packed(p: PackedMXQLinear, dev: torch.device) -> None:
+    if p.stacked:
+        raise ValueError("pass one layer of a stacked pack (p.layer(i))")
+    want = {"w2": torch.int32, "w4": torch.int32, "meta2": torch.int32,
+            "qscale": torch.bfloat16, "qmin": torch.bfloat16,
+            "smeta4": torch.float32}
+    nbp, n = p.meta2.shape
+    rows = {"w2": nbp * 3, "w4": nbp * 2, "meta2": nbp, "qscale": nbp,
+            "qmin": nbp, "smeta4": 8}
+    for f, dt in want.items():
+        t = getattr(p, f)
+        if t.device != dev or t.dtype != dt or not t.is_contiguous() \
+                or tuple(t.shape) != (rows[f], n):
+            raise ValueError(f"packed field {f}: {t.dtype} {tuple(t.shape)} "
+                             f"on {t.device}, contiguous={t.is_contiguous()}"
+                             f"; want {dt} {(rows[f], n)} contiguous on {dev}")
+    if nbp % packfmt.NB_TILE or n % packfmt.N_LANE:
+        raise ValueError(f"packed shape {(nbp, n)} is not padded to the format")
+
+
+def _split_rows(nbp: int, n_padded: int, b_tiles: int, sms: int) -> int:
+    """Meta rows (64 input columns each) per K split: enough splits that
+    about two blocks per SM are in flight. A split never straddles a
+    k-tile: it is a divisor of 16 rows or a multiple of 16."""
+    want = -(-2 * sms // ((n_padded // _COLS_PER_BLOCK) * b_tiles))
+    cands = [1, 2, 4, 8] + list(range(16, nbp + 1, 16))
+    fits = [c for c in cands if -(-nbp // c) >= want]
+    return max(fits) if fits else 1
+
+
+def _gemv_cuda(fn_name: str, rows_per_thread: int, x: torch.Tensor,
+               p: PackedMXQLinear) -> torch.Tensor:
+    from mxq_tpu_torch import _build
+    if x.dim() != 2 or x.shape[1] != p.in_features:
+        raise ValueError(f"x must be [B, {p.in_features}], got "
+                         f"{tuple(x.shape)}")
+    _check_packed(p, x.device)
+    xb = x.to(torch.bfloat16).contiguous()
+    b, k = xb.shape
+    nbp, n = p.meta2.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    rows = _split_rows(nbp, n, -(-b // rows_per_thread), sms)
+    ksplit = -(-nbp // rows)
+    part = torch.empty((ksplit, b, n), dtype=torch.float32, device=x.device)
+    y = torch.empty((b, p.out_features), dtype=torch.float32,
+                    device=x.device)
+    fn = getattr(_build.load("mxq_gemv"), fn_name)
+    err = fn(xb.data_ptr(), b, k, k, p.w2.data_ptr(), p.w4.data_ptr(),
+             p.meta2.data_ptr(), p.qscale.data_ptr(), p.qmin.data_ptr(),
+             p.smeta4.data_ptr(), nbp, n, p.out_features, rows, ksplit,
+             part.data_ptr(), y.data_ptr(),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, fn_name)
+    return y
+
+
+def gemv_batched(x: torch.Tensor, p: PackedMXQLinear,
+                 cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
+    """K1: bf16(x) [B, K] @ dequant(p) -> f32 [B, O] for B >= 2."""
+    if x.device.type == "cpu":
+        return gemv_plain(x, p, cfg)
+    y = _gemv_cuda("mxq_gemv_k1", _K1_ROWS, x, p)
+    gemv_batched.launches += 1
+    return y
+
+
+def gemv_single(x: torch.Tensor, p: PackedMXQLinear,
+                cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
+    """K2: bf16(x) [1, K] @ dequant(p) -> f32 [1, O]."""
+    if x.device.type == "cpu":
+        return gemv_plain(x, p, cfg)
+    if x.shape[0] != 1:
+        raise ValueError(f"K2 takes one row, got {x.shape[0]}")
+    y = _gemv_cuda("mxq_gemv_k2", 1, x, p)
+    gemv_single.launches += 1
+    return y
+
+
+def dequant_planes(p: PackedMXQLinear, cfg: MXQConfig = DEFAULT_SCHEME):
+    """K3: the bf16 planes of :func:`dequant_planes_plain`."""
+    dev = p.device
+    if dev.type == "cpu":
+        return dequant_planes_plain(p, cfg)
+    from mxq_tpu_torch import _build
+    _check_packed(p, dev)
+    nbp, n = p.meta2.shape
+    wd2 = torch.empty((nbp * 48, n), dtype=torch.bfloat16, device=dev)
+    wd4 = torch.empty((nbp * 16, n), dtype=torch.bfloat16, device=dev)
+    err = _build.load("mxq_dequant").mxq_dequant_k3(
+        p.w2.data_ptr(), p.w4.data_ptr(), p.meta2.data_ptr(),
+        p.qscale.data_ptr(), p.qmin.data_ptr(), p.smeta4.data_ptr(), nbp, n,
+        wd2.data_ptr(), wd4.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mxq_dequant_k3")
+    dequant_planes.launches += 1
+    return wd2, wd4
+
+
+gemv_batched.launches = 0
+gemv_single.launches = 0
+dequant_planes.launches = 0
+KERNELS = {"K1": gemv_batched, "K2": gemv_single, "K3": dequant_planes}
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+
+def mxq_matmul(x: torch.Tensor, p: PackedMXQLinear,
+               cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
+    """y = x @ dequant(p) (decode regime). ``x`` [..., K] any float dtype,
+    rounded to bf16; returns [..., O] in x.dtype. One row goes to K2, more
+    rows to K1."""
+    lead = x.shape[:-1]
+    xb = x.reshape(-1, x.shape[-1])
+    if xb.shape[0] == 1:
+        y = gemv_single(xb, p, cfg)
+    else:
+        y = gemv_batched(xb, p, cfg)
+    return y.to(x.dtype).reshape(lead + (p.out_features,))
+
+
+def mxq_matmul_stacked(x: torch.Tensor, p: PackedMXQLinear, layer_idx: int,
+                       cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
+    """y = x @ dequant(p[layer_idx]) for a stacked [L, ...] pack."""
+    return mxq_matmul(x, p.layer(layer_idx), cfg)
+
+
+def mxq_matmul_prefill(x: torch.Tensor, p: PackedMXQLinear,
+                       layer_idx: int | None = None,
+                       cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
+    """y = x @ dequant(p) for the GEMM regime: K3 unpacks the planes to
+    bf16, then ``bf16(x2) @ wd2 + bf16(x4) @ wd4`` in bf16 (the TPU's two
+    XLA GEMMs and their bf16 rounding). ``p`` may be stacked with
+    ``layer_idx``."""
+    if layer_idx is not None:
+        p = p.layer(layer_idx)
+    lead = x.shape[:-1]
+    xb = x.reshape(-1, x.shape[-1])
+    x2, x4 = packfmt.pad_inputs_split(xb, p, cfg)
+    wd2, wd4 = dequant_planes(p, cfg)
+    y = (x2.to(torch.bfloat16) @ wd2) + (x4.to(torch.bfloat16) @ wd4)
+    return y[:, : p.out_features].to(x.dtype).reshape(
+        lead + (p.out_features,))

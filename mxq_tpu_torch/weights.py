@@ -1,0 +1,69 @@
+"""Parameters as numpy trees: the bridge that lets ``mxq_tpu`` and this
+port compute from the same weights, and lets one port model move between
+devices.
+
+A numpy tree is the parameter dict with numpy arrays for dense leaves and,
+for each packed linear, a dict of its fields (``w2``, ``w4``, ``meta2``,
+``qscale``, ``qmin``, ``smeta4`` arrays plus the ``in_features`` and
+``out_features`` ints). bf16 arrays are ``ml_dtypes.bfloat16`` (what
+``np.asarray`` gives for a JAX bf16 array); they cross as their raw 16 bits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mxq_tpu_torch import resolve_device
+from mxq_tpu_torch.packfmt import FIELDS, PackedMXQLinear
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)
+                                .copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 comes back as ``ml_dtypes.bfloat16``."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_from_numpy(tree, device: str | torch.device = "cuda"):
+    """Numpy tree -> the port's params on ``device``: dense tensors, and a
+    :class:`PackedMXQLinear` for every dict holding the packed fields."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        if "w2" in tree:
+            return PackedMXQLinear(
+                *(tensor_from_numpy(tree[f], dev) for f in FIELDS),
+                in_features=int(tree["in_features"]),
+                out_features=int(tree["out_features"]))
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    return tensor_from_numpy(tree, dev)
+
+
+def params_to_numpy(params):
+    """Inverse of :func:`params_from_numpy`."""
+    if isinstance(params, PackedMXQLinear):
+        out = {f: tensor_to_numpy(getattr(params, f)) for f in FIELDS}
+        out.update(in_features=params.in_features,
+                   out_features=params.out_features)
+        return out
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    return tensor_to_numpy(params)
+
+
+def params_to(params, device: str | torch.device):
+    """The same parameters on another device (a copy)."""
+    dev = resolve_device(device)
+    if isinstance(params, (PackedMXQLinear, torch.Tensor)):
+        return params.to(dev)
+    return {k: params_to(v, dev) for k, v in params.items()}

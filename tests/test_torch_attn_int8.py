@@ -1,0 +1,148 @@
+"""The int8 KV cache and decode attention of mxq_tpu_torch against mxq_tpu:
+quantization codes and scales exactly, and K4's plain version (what the
+wrapper runs on CPU tensors) against JAX's fused-write kernel in interpret
+mode at ctx rel <= 1e-5, with the written rows equal and every other cache
+byte untouched."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxq_tpu.ops import attn_int8 as ja8
+from mxq_tpu.serving import kvcache as jkv
+from mxq_tpu_torch.ops import attn_int8 as ta8
+from mxq_tpu_torch.serving import kvcache as tkv
+from torch_port_helpers import bits, rel, to_torch
+
+import ml_dtypes
+
+L, B, HQ, HKV, S, D = 2, 2, 4, 2, 32, 64
+
+
+def _inputs(seed=0, positions=(0, 31), hq=HQ, hkv=HKV, b=B):
+    rng = np.random.default_rng(seed)
+    bf = ml_dtypes.bfloat16
+    codes = lambda *s: rng.integers(-127, 128, s).astype(np.int8)  # noqa
+    return dict(
+        q=rng.standard_normal((b, hq, D)).astype(np.float32),
+        kc=codes(L, b, hkv, S, D), vc=codes(L, b, hkv, S, D),
+        ks=(rng.random((L, b, hkv, S)) * 0.02 + 0.001).astype(bf),
+        vs=(rng.random((L, b, hkv, S)) * 0.02 + 0.001).astype(bf),
+        kcur=codes(b, hkv, 1, D), vcur=codes(b, hkv, 1, D),
+        kscur=(rng.random((b, hkv, 1)) * 0.02 + 0.001).astype(bf),
+        vscur=(rng.random((b, hkv, 1)) * 0.02 + 0.001).astype(bf),
+        positions=np.asarray(positions, np.int32))
+
+
+def test_quantize_kv_headmajor_exact():
+    x = np.random.default_rng(1).standard_normal((2, 5, 3, 64)).astype(
+        np.float32) * 3
+    x[0, 0, 0] = 0.0                       # an all-zero row: scale 0
+    cj, sj = jkv.quantize_kv_headmajor(jnp.asarray(x))
+    ct, st = tkv.quantize_kv_headmajor(torch.from_numpy(x))
+    assert ct.shape == (2, 3, 5, 64) and st.shape == (2, 3, 5)
+    assert torch.equal(ct, to_torch(cj))
+    assert torch.equal(bits(st), bits(to_torch(sj)))
+    np.testing.assert_array_equal(
+        tkv.dequantize_kv(ct, st[..., None], 64, torch.float32).numpy(),
+        np.asarray(jkv.dequantize_kv(cj, sj[..., None], 64, jnp.float32)))
+
+
+def test_cache_update_and_read_layer_match_jax():
+    rng = np.random.default_rng(2)
+    k = rng.standard_normal((2, 4, 3, 64)).astype(np.float32)
+    v = rng.standard_normal((2, 4, 3, 64)).astype(np.float32)
+    jc = {n: c[0] for n, c in jkv.init_quant_cache(1, 2, 16, 3, 64).items()}
+    tc = {n: c[0] for n, c in tkv.init_quant_cache(1, 2, 16, 3, 64).items()}
+    jc = jkv.cache_update_layer(jc, jnp.asarray(k), jnp.asarray(v), 5)
+    tkv.cache_update_layer(tc, torch.from_numpy(k), torch.from_numpy(v), 5)
+    for n in tc:
+        assert torch.equal(bits(tc[n]), bits(to_torch(jc[n]))), n
+    for a, b in zip(tkv.cache_read_layer(tc, dtype=torch.float32),
+                    jkv.cache_read_layer(jc, dtype=jnp.float32)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    with pytest.raises(ValueError):
+        tkv.cache_update_layer(tc, torch.from_numpy(k), torch.from_numpy(v),
+                               13)
+
+
+@pytest.mark.parametrize("hq,hkv,positions", [
+    (HQ, HKV, (0, 31)),            # GQA; no history and the last row
+    (4, 4, (7, 30)),               # MHA
+])
+def test_fused_write_plain_matches_jax(hq, hkv, positions):
+    a = _inputs(hq=hq, hkv=hkv, positions=positions)
+    t = {k: to_torch(v) for k, v in a.items()}
+    kc0, vc0 = t["kc"].clone(), t["vc"].clone()
+    for idx in range(L):
+        cj, kcj, vcj = ja8.int8_decode_attention_fused_write(
+            jnp.asarray(a["q"]), jnp.asarray(a["kc"]),
+            jnp.asarray(a["ks"]), jnp.asarray(a["vc"]),
+            jnp.asarray(a["vs"]), jnp.asarray(a["kcur"]),
+            jnp.asarray(a["kscur"]), jnp.asarray(a["vcur"]),
+            jnp.asarray(a["vscur"]), jnp.int32(idx),
+            jnp.asarray(a["positions"]))
+        kc, vc = kc0.clone(), vc0.clone()
+        ct, kc2, vc2 = ta8.int8_decode_attention_fused_write(
+            t["q"], kc, t["ks"], vc, t["vs"], t["kcur"], t["kscur"],
+            t["vcur"], t["vscur"], idx, t["positions"])
+        assert kc2 is kc and vc2 is vc          # written in place
+        assert ct.shape == (B, hq, D) and ct.dtype == torch.float32
+        assert rel(ct, cj) <= 1e-5, idx
+        assert torch.equal(kc, to_torch(kcj)) and torch.equal(
+            vc, to_torch(vcj)), idx
+        # rows other than (idx, b, :, positions[b]) are untouched
+        rows = torch.arange(B)
+        pos = t["positions"].long()
+        kc[idx, rows, :, pos] = kc0[idx, rows, :, pos]
+        vc[idx, rows, :, pos] = vc0[idx, rows, :, pos]
+        assert torch.equal(kc, kc0) and torch.equal(vc, vc0)
+
+
+def test_fused_write_equals_write_then_attend_oracle():
+    """Attending the history plus the out-of-cache current token equals
+    splicing the current row in and running the dequantize-then-attend
+    oracle (up to the bf16 rounding of p*v_scale)."""
+    a = _inputs(seed=3, positions=(5, 20))
+    t = {k: to_torch(v) for k, v in a.items()}
+    idx, rows, pos = 1, torch.arange(B), t["positions"].long()
+    kc, vc = t["kc"].clone(), t["vc"].clone()
+    ctx, _, _ = ta8.int8_decode_attention_fused_write(
+        t["q"], kc, t["ks"], vc, t["vs"], t["kcur"], t["kscur"], t["vcur"],
+        t["vscur"], idx, t["positions"])
+    ks, vs = t["ks"][idx].clone(), t["vs"][idx].clone()
+    ks[rows, :, pos] = t["kscur"][:, :, 0]
+    vs[rows, :, pos] = t["vscur"][:, :, 0]
+    q = t["q"].to(torch.bfloat16).float()
+    ref = ta8.int8_decode_attention_reference(q, kc[idx], ks, vc[idx], vs,
+                                              t["positions"])
+    refj = ja8.int8_decode_attention_reference(
+        jnp.asarray(q.numpy()), jnp.asarray(kc[idx].numpy()),
+        jnp.asarray(ks.float().numpy()), jnp.asarray(vc[idx].numpy()),
+        jnp.asarray(vs.float().numpy()), jnp.asarray(a["positions"]))
+    assert rel(ref, refj) <= 1e-5
+    assert rel(ctx, ref) <= 1e-2
+
+
+def test_decode_attend_update_contract():
+    a = _inputs(seed=4, positions=(3, 9))
+    t = {k: to_torch(v) for k, v in a.items()}
+    cache = {"k_codes": t["kc"], "k_scale": t["ks"], "v_codes": t["vc"],
+             "v_scale": t["vs"]}
+    ctx, out, pend = ta8.decode_attend_update(
+        cache, t["q"], t["kcur"], t["kscur"], t["vcur"], t["vscur"], 0,
+        t["positions"])
+    assert out is cache and ctx.shape == (B, HQ, D)
+    assert pend[0] is t["kscur"] and pend[1] is t["vscur"]
+    assert torch.equal(cache["k_codes"][0, 1, :, 9], t["kcur"][1, :, 0])
+
+
+def test_cpu_call_launches_nothing():
+    a = _inputs(seed=5)
+    t = {k: to_torch(v) for k, v in a.items()}
+    before = ta8.int8_decode_attention_fused_write.launches
+    ta8.int8_decode_attention_fused_write(
+        t["q"], t["kc"], t["ks"], t["vc"], t["vs"], t["kcur"], t["kscur"],
+        t["vcur"], t["vscur"], 0, t["positions"])
+    assert ta8.int8_decode_attention_fused_write.launches == before

@@ -1,0 +1,274 @@
+"""The port's slot Engine (device="cpu", the plain kernel versions) against
+mxq_tpu's Engine: greedy tokens equal token for token on the tiny preset,
+packed, with the int8 KV cache, at num_slots 2 and 1 and under continuous
+batching; and the engine's own invariants (near-capacity clamp, chunked
+prefill, cancel, stats, sampling filters, the default device)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mxq_tpu.models import llama as jl
+from mxq_tpu.serving import engine as jeng
+from mxq_tpu_torch.models import llama as tl
+from mxq_tpu_torch.serving import engine as teng
+from torch_port_helpers import port_params
+
+TCFG = tl.LlamaConfig.tiny()
+PROMPTS = [np.arange(5, dtype=np.int32) + 7, np.arange(9, dtype=np.int32) + 40]
+# continuous batching: 5 requests through 2 slots, 3+i new tokens each
+BATCH = [(np.arange(3 + i, dtype=np.int32) * 5 + i, 3 + i) for i in range(5)]
+
+
+def _run(engine_mod, params, cfg, slots, reqs, **kw):
+    ecfg = engine_mod.EngineConfig(num_slots=slots, max_len=64,
+                                   prefill_buckets=(16,), kv_quant=True)
+    e = (engine_mod.Engine(params, cfg, ecfg, **kw) if kw
+         else engine_mod.Engine(params, cfg, ecfg))
+    rs = [e.submit(p, max_new_tokens=n) for p, n in reqs]
+    done = e.run()
+    assert len(done) == len(reqs)
+    return [list(r.generated) for r in rs]
+
+
+@pytest.fixture(scope="module")
+def packed_models():
+    """The JAX tiny packed model and its runs — one fixture, because the
+    JAX engine on the CPU takes tens of seconds."""
+    cfg = jl.LlamaConfig.tiny()
+    jp = jl.quantize_params_packed(jl.init_params(cfg, jax.random.PRNGKey(0)),
+                                   cfg)
+    two = [(p, 6) for p in PROMPTS]
+    want = {slots: _run(jeng, jp, cfg, slots, two) for slots in (2, 1)}
+    want["batch"] = _run(jeng, jp, cfg, 2, BATCH)
+    return port_params(jp), want
+
+
+@pytest.mark.parametrize("slots", [2, 1])
+def test_greedy_tokens_equal_jax(packed_models, slots):
+    tp, want = packed_models
+    got = _run(teng, tp, TCFG, slots, [(p, 6) for p in PROMPTS],
+               device="cpu")
+    assert got == want[slots]
+
+
+def test_continuous_batching_equals_jax(packed_models):
+    tp, want = packed_models
+    got = _run(teng, tp, TCFG, 2, BATCH, device="cpu")
+    assert got == want["batch"]
+    assert [len(g) for g in got] == [n for _, n in BATCH]
+
+
+# ---------------------------------------------------------------------------
+# the port's own engine invariants (reference: a no-cache greedy recompute)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def dense():
+    return tl.init_params(TCFG, seed=0, device="cpu")
+
+
+def greedy_reference(params, prompt, n_new):
+    ids = list(prompt)
+    for _ in range(n_new):
+        logits, _ = tl.forward(params, np.asarray([ids], np.int32), TCFG,
+                               device="cpu")
+        ids.append(int(logits[0, -1].argmax()))
+    return ids[len(prompt):]
+
+
+def _engine(params, **kw):
+    base = dict(num_slots=2, max_len=64, prefill_buckets=(16,),
+                kv_quant=False)
+    base.update(kw)
+    return teng.Engine(params, TCFG, teng.EngineConfig(**base), device="cpu")
+
+
+def test_bf16_cache_engine_tracks_greedy_reference(dense):
+    """The bf16-cache branch of the decode forward: five requests through
+    two slots; the first tokens equal the no-cache recompute."""
+    e = _engine(dense)
+    reqs = [e.submit(np.arange(3, dtype=np.int32) + i, max_new_tokens=3 + i)
+            for i in range(5)]
+    assert len(e.run()) == 5
+    for i, r in enumerate(reqs):
+        assert r.done and len(r.generated) == 3 + i
+        ref = greedy_reference(dense, np.arange(3, dtype=np.int32) + i, 3)
+        assert r.generated[:3] == ref
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_admit_at_max_len_minus_one_horizon8(dense, kv_quant):
+    """A slot admitted at plen = max_len-1 gets horizon 8 steps with a
+    fixed active mask: write rows clamp to max_len-1 (K4 requires
+    S > max(positions)), overflow tokens are dropped, the neighbour is
+    unaffected."""
+    rng = np.random.RandomState(7)
+    max_len = 16
+    full = rng.randint(1, TCFG.vocab_size, size=max_len - 1).astype(np.int32)
+    short = rng.randint(1, TCFG.vocab_size, size=4).astype(np.int32)
+    e = _engine(dense, max_len=max_len, prefill_buckets=(max_len,),
+                kv_quant=kv_quant, horizon=8)
+    rf = e.submit(full, max_new_tokens=8)
+    rs = e.submit(short, max_new_tokens=5)
+    assert len(e.run()) == 2
+    assert len(rf.generated) == 1
+    ref_short = greedy_reference(dense, short, 5)
+    if kv_quant:
+        assert rs.generated[0] == ref_short[0]
+    else:
+        assert rf.generated == greedy_reference(dense, full, 1)
+        assert rs.generated == ref_short
+
+
+@pytest.mark.parametrize("kv_quant", [False, True])
+def test_overflow_steps_clamp_and_zero(dense, kv_quant):
+    """From position max_len-2 with horizon 8, steps i >= 2 are out of
+    range: their tokens are 0 and no cache row below max_len-1 differs from
+    a horizon-2 run."""
+    max_len, b = 16, 2
+    e = _engine(dense, max_len=max_len, prefill_buckets=(max_len,),
+                kv_quant=kv_quant, horizon=8)
+    caches0 = {k: v.clone() for k, v in e.caches.items()}
+    args = (torch.zeros(b, dtype=torch.int32),
+            torch.tensor([3, 5], dtype=torch.int32), torch.zeros(b, dtype=bool),
+            torch.tensor([max_len - 2, 2], dtype=torch.int32),
+            torch.ones(b, dtype=bool))
+    toks8 = e._decode_chunk(*args, horizon=8)
+    c8 = {k: v.clone() for k, v in e.caches.items()}
+    e.caches = {k: v.clone() for k, v in caches0.items()}
+    toks2 = e._decode_chunk(*args, horizon=2)
+    assert (toks8[2:, 0] == 0).all()
+    assert torch.equal(toks8[:2], toks2)
+    seq_axis = 3 if kv_quant else 2
+    for name in c8:
+        keep = [slice(None)] * c8[name].dim()
+        keep[1] = slice(0, 1)
+        keep[seq_axis] = slice(0, max_len - 1)
+        assert torch.equal(c8[name][tuple(keep)],
+                           e.caches[name][tuple(keep)]), name
+
+
+def test_chunked_prefill_matches_single_bucket(dense):
+    """Prompts longer than the largest bucket prefill in chunks, and a
+    final window that would overrun the cache shifts left."""
+    rng = np.random.RandomState(4)
+    prompt = rng.randint(1, TCFG.vocab_size, size=40).astype(np.int32)
+    ref = greedy_reference(dense, prompt, 4)
+    for buckets, max_len in (((16,), 128), ((64,), 128), ((32,), 48)):
+        e = _engine(dense, max_len=max_len, prefill_buckets=buckets)
+        req = e.submit(prompt, max_new_tokens=4)
+        e.run()
+        assert req.generated == ref, buckets
+
+
+def test_overlong_prompt_keeps_tail(dense):
+    rng = np.random.RandomState(3)
+    prompt = rng.randint(1, TCFG.vocab_size, size=40).astype(np.int32)
+    e = _engine(dense, max_len=32)
+    req = e.submit(prompt, max_new_tokens=4)
+    e.run()
+    assert req.done and req.generated == greedy_reference(dense,
+                                                          prompt[-31:], 1)
+
+
+def test_cancel_and_stats(dense):
+    e = _engine(dense, num_slots=1, horizon=2)
+    prompt = np.arange(1, 6, dtype=np.int32)
+    r0 = e.submit(prompt, max_new_tokens=30)
+    r1 = e.submit(prompt + 1, max_new_tokens=4)
+    r2 = e.submit(prompt + 2, max_new_tokens=4)
+    e.step()                      # r0 running
+    assert e.cancel(r1)           # queued
+    assert e.cancel(r0)           # running: frees the slot
+    done = e.run()
+    assert r2 in done and r2.generated == greedy_reference(dense,
+                                                           prompt + 2, 4)
+    assert r0.done and r1.done and r1.generated == []
+    assert not e.cancel(r2)
+    st = e.stats()
+    assert set(st) == {"requests_submitted", "requests_finished",
+                       "tokens_generated", "ttft_p50_s", "ttft_p95_s",
+                       "e2e_p50_s", "e2e_p95_s", "tokens_per_sec"}
+    assert st["requests_submitted"] == 3
+    assert st["tokens_generated"] == sum(len(r.generated)
+                                         for r in (r0, r1, r2))
+
+
+def test_stream_yields_the_tokens_of_run(dense):
+    prompts = [np.arange(4, dtype=np.int32) + i for i in range(3)]
+    e = _engine(dense, horizon=3)
+    reqs = [e.submit(p, max_new_tokens=4) for p in prompts]
+    seen = {r.uid: [] for r in reqs}
+    for r, tok in e.stream():
+        seen[r.uid].append(tok)
+    assert all(seen[r.uid] == r.generated for r in reqs)
+    assert all(r.done for r in reqs)
+
+
+def test_filter_logits_keeps_jax_support():
+    """Top-k / top-p filtering keeps exactly the tokens JAX's
+    sample_token can draw: every JAX draw lies in the kept set, and the
+    kept sets are those of the JAX formula on these inputs."""
+    logits = np.random.default_rng(0).standard_normal((4, 64)).astype(
+        np.float32) * 3
+    for top_k, top_p in ((5, 1.0), (0, 0.6), (8, 0.5)):
+        lg = teng.filter_logits(torch.from_numpy(logits), 0.7, top_k, top_p)
+        kept = (lg > teng.NEG).numpy()
+        if top_k:
+            assert (kept.sum(-1) <= top_k).all()
+        keys = jax.random.split(jax.random.PRNGKey(1), 200)
+        draws = np.stack([np.asarray(jeng.sample_token(
+            jnp.asarray(logits), k, False, 0.7, top_k, top_p)) for k in keys])
+        for row in range(4):
+            assert kept[row, draws[:, row]].all(), (top_k, top_p, row)
+            # the most likely kept tokens are drawn at least once
+            assert kept[row, np.bincount(draws[:, row], minlength=64)
+                        .argmax()]
+
+
+def test_sampling_modes(dense):
+    prompt = np.arange(1, 9, dtype=np.int32)
+    ref = greedy_reference(dense, prompt, 5)
+    for kw in (dict(temperature=0.9, top_k=1), dict(temperature=1.0,
+                                                    top_p=1e-9)):
+        e = _engine(dense, greedy=False, **kw)
+        req = e.submit(prompt, max_new_tokens=5)
+        e.run()
+        assert req.generated == ref, kw
+    outs = []
+    for seed in (7, 7, 8):
+        e = _engine(dense, greedy=False, temperature=1.0, top_k=50, seed=seed)
+        req = e.submit(prompt, max_new_tokens=8)
+        e.run()
+        outs.append(req.generated)
+    assert outs[0] == outs[1] and len(outs[2]) == 8
+
+
+def test_unported_options_raise(dense):
+    for kw in (dict(prefill_a8=True), dict(lm_head_bits=4)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            _engine(dense, **kw)
+
+
+def test_engine_without_device_raises_on_a_host_without_cuda(dense):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        teng.Engine(dense, TCFG)
+
+
+def test_cli_serve_on_cpu():
+    from mxq_tpu_torch import cli
+    base = ["serve", "--device", "cpu", "--preset", "tiny", "--packed",
+            "--slots", "2", "--max_len", "64", "--requests", "3",
+            "--max_new_tokens", "3"]
+    out = cli.main(base)
+    assert out["requests"] == 3 and out["tokens"] == 9
+    assert out["stats"]["requests_finished"] == 3
+    for flag in ("--paged", "--spec_decode", "--prefill_a8"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli.main(base + [flag])
