@@ -6,17 +6,25 @@
 
 Phases, each printing one JSON line:
   build    compile csrc/*.cu with nvcc (one process per source, in parallel)
-  kernels  hold K1-K4 against their plain PyTorch versions at llama2_7b's
-           shapes and time kernel, plain version, bound and library call
-  serve    three runs of llama2_7b at full depth, each with the launch
+  kernels  hold K1-K4 and K9-K11 against their plain PyTorch versions at
+           llama2_7b's shapes and time kernel, plain version, bound and
+           library call
+  serve    six runs of llama2_7b at full depth, each with the launch
            counts set to 0 before it and read after it:
            `mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8`
            in-process (must launch K1, K4), the Engine at 8 slots with
-           prompts in every prefill bucket (K1, K3, K4), and a one-slot
-           Engine (K2, K4)
+           prompts in every prefill bucket (K1, K3, K4), a one-slot Engine
+           (K2, K4); the same cli serve with --paged (K1, K11), a one-slot
+           PagedEngine (K2, K11), and a PagedEngine whose 8 requests share
+           a 512-token prefix (prefix-cache hits, a repeated request's
+           tokens equal to its first run's); then where a decode step's
+           time goes, slot and paged
   e2e      at 2 layers of 7B width, one B=8 decode step and one 512-token
            prefill with the kernels, held against the same forward with
-           the plain versions on the card and against the CPU
+           the plain versions on the card and against the CPU; one B=8
+           paged decode step (K11) against the same step with the plain
+           versions and against the slot engine's step from the same
+           int8 state
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device, without the package beside it, or when any check fails.
@@ -53,6 +61,12 @@ KERNEL_INFO = {
            "mxq_tpu/ops/mxq_matmul.py:713"),
     "K4": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
            "mxq_tpu/ops/attn_int8.py:318"),
+    "K9": ("cuda", "mxq_tpu_torch/csrc/paged_attn_int8.cu",
+           "mxq_tpu/ops/attn_int8.py:559"),
+    "K10": ("cuda", "mxq_tpu_torch/csrc/paged_attn_int8.cu",
+            "mxq_tpu/ops/attn_int8.py:658"),
+    "K11": ("cuda", "mxq_tpu_torch/csrc/paged_attn_int8.cu",
+            "mxq_tpu/ops/attn_int8.py:773"),
 }
 
 
@@ -272,7 +286,101 @@ def phase_kernels(torch, timer):
                         f"rest={rest_ok}")
     summary["K4"] = summarise(
         [row], "B=8 Hq=Hkv=32 D=128 S=2048, mixed positions")
-    return summary, failures
+    del kc, vc, kc1, vc1, kc2, vc2, kd, vd
+    f = paged_kernels(torch, timer, gen, rows, summary)
+    return summary, failures + f
+
+
+def paged_kernels(torch, timer, gen, rows, summary):
+    """K9, K10, K11 at llama2_7b's shapes: B=8, Hq=Hkv=32, D=128, pages of
+    128 rows, 16 pages per sequence (max_len 2048), shuffled tables with
+    the null page 0 past each position's page, the null page's scales NaN
+    (it must never be read)."""
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    B, H, D, PS, PPS = 8, 32, 128, a8.PAGE_INT8, 16
+    LP = 1 + B * PPS
+    cat = dict(generator=gen, device="cuda")
+    plist = [0, 1, 17, 127, 128, 300, 1024, 2046]
+    pos = torch.tensor(plist, dtype=torch.int32, device="cuda")
+    codes = lambda *s: torch.randint(-127, 128, s, dtype=torch.int8,  # noqa
+                                     **cat)
+    scales = lambda *s: (torch.rand(s, **cat) * 0.02  # noqa: E731
+                         + 0.001).to(torch.bfloat16)
+    kp, vp = codes(H, LP, PS, D), codes(H, LP, PS, D)
+    ks, vs = scales(H, LP, 1, PS), scales(H, LP, 1, PS)
+    ks[:, 0] = vs[:, 0] = float("nan")
+    tables = (torch.randperm(LP - 1, **cat)[:B * PPS] + 1).reshape(
+        B, PPS).to(torch.int32)
+    for i, p in enumerate(plist):
+        tables[i, p // PS + 1:] = 0
+    q = torch.randn((B, H, D), **cat).to(torch.bfloat16)
+    cur = [codes(B, H, D), scales(B, H), codes(B, H, D), scales(B, H)]
+    pool = [kp, ks, vp, vs]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # the library yardstick: SDPA over each sequence's pages gathered and
+    # dequantized to bf16, masked to the rows the kernel attends
+    idx = tables.long()
+    kd = (kp[:, idx].float() * ks[:, idx, 0].float()[..., None]).to(
+        torch.bfloat16).permute(1, 0, 2, 3, 4).reshape(B, H, PPS * PS, D)
+    vd = (vp[:, idx].float() * vs[:, idx, 0].float()[..., None]).to(
+        torch.bfloat16).permute(1, 0, 2, 3, 4).reshape(B, H, PPS * PS, D)
+    qs = q[:, :, None, :]
+    failures = []
+    for key, bound_t, fn, plain, extra in (
+            ("K9", pos + 1, a8.int8_paged_decode_attention,
+             a8.int8_paged_decode_attention_plain, []),
+            ("K10", pos, a8.int8_paged_decode_attention_cur,
+             a8.int8_paged_decode_attention_cur_plain, cur),
+            ("K11", pos, a8.int8_paged_decode_attend_update,
+             a8.int8_paged_decode_attend_update_plain, cur)):
+        mine = [t.clone() for t in pool]
+        theirs = [t.clone() for t in pool]
+        out = fn(q, *mine, *extra, bound_t, tables)
+        ref = plain(q, *theirs, *extra, bound_t, tables)
+        if key == "K11":
+            out, ref = out[0], ref[0]
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        finite = bool(torch.isfinite(out).all())
+        same = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+                   for a, b in zip(mine, theirs))
+        changed = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+                      for a, b in zip(mine, pool))
+        nrows = int(bound_t.sum())        # pool rows this call reads
+        nbytes = (nrows * H * (2 * D + 2 * 2) + B * H * D * 2
+                  + B * PPS * 4 + B * 4 + B * H * D * 4)
+        if extra:
+            nbytes += 2 * B * H * (D + 2)             # the current token
+        if key == "K11":
+            nbytes += 2 * B * H * (D + 2)             # its written rows
+        bms, by = bound_ms(nbytes, 4.0 * (nrows + (1 if extra else 0) * B)
+                           * H * D)
+        amask = (torch.arange(PPS * PS, device="cuda")[None, None, None, :]
+                 < (pos + 1)[:, None, None, None])
+        row = {"kernel": key, "B": B, "H": H, "D": D, "pages_per_seq": PPS,
+               "positions": plist, "rel_err": err,
+               "max_abs_err": float((out - ref).abs().max()),
+               "finite_with_nan_null_page": finite,
+               "pools_equal_to_plain": same, "bytes_changed": changed,
+               "kernel_ms": timer(lambda: fn(q, *mine, *extra, bound_t,
+                                             tables)),
+               "plain_ms": timer(lambda: plain(q, *theirs, *extra, bound_t,
+                                               tables), iters=3),
+               "bound_ms": bms, "bound_by": by,
+               "library_ms": timer(lambda: sdpa(qs, kd, vd,
+                                                attn_mask=amask))}
+        rows.append(row)
+        emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
+        # K11 changes exactly its rows and lanes; K9/K10 change nothing
+        max_changed = 2 * B * H * (D + 2) if key == "K11" else 0
+        if not (err <= 1e-3 and finite and same
+                and changed <= max_changed):
+            failures.append(f"{key}: rel {err:.3g} finite={finite} "
+                            f"pools_equal={same} changed={changed}")
+        summary[key] = summarise(
+            [row], "B=8 Hq=Hkv=32 D=128, 16 pages of 128 per sequence, "
+            "mixed positions")
+    return failures
 
 
 def phase_serve(torch):
@@ -281,6 +389,7 @@ def phase_serve(torch):
     from mxq_tpu_torch.ops import attn_int8 as a8
     from mxq_tpu_torch.ops import mxq_matmul as mm
     from mxq_tpu_torch.serving import engine as eng
+    from mxq_tpu_torch.serving import paged
     import numpy as np
 
     kernels = {**mm.KERNELS, **a8.KERNELS}
@@ -339,22 +448,88 @@ def phase_serve(torch):
     counted("engine_slots8", ("K1", "K3", "K4"),
             lambda: engine_run(8, (100, 400, 1500, 100, 400, 1500)))
     counted("engine_slots1", ("K2", "K4"), lambda: engine_run(1, (100,)))
+
+    # paged serving: the README's paged command, then the PagedEngine
+    counted("cli_paged", ("K1", "K11"), lambda: cli.main(
+        ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits", "8",
+         "--paged", "--slots", "8", "--max_len", "2048", "--requests", "8",
+         "--prompt_len", "100", "--max_new_tokens", "32",
+         "--seed", str(SEED)]))
+    if runs["cli_paged"]["requests"] != 8 \
+            or runs["cli_paged"]["tokens"] != 8 * 32:
+        failures.append(f"cli serve --paged finished "
+                        f"{runs['cli_paged']['requests']} requests, "
+                        f"{runs['cli_paged']['tokens']} tokens")
+
+    def paged_engine(slots):
+        return paged.PagedEngine(params, cfg, num_slots=slots,
+                                 total_pages=slots * 16 + 1, max_len=2048,
+                                 kv_bits=8, seed=SEED, device="cuda")
+
+    def paged_run(e, prompts, new=16):
+        reqs = [e.submit(p, max_new_tokens=new) for p in prompts]
+        t1 = time.monotonic()
+        done = e.run()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t1
+        toks = [len(r.generated) for r in reqs]
+        if len(done) != len(reqs) or any(n != new for n in toks) or any(
+                not 0 <= t < cfg.vocab_size for r in reqs
+                for t in r.generated):
+            failures.append(f"paged slots={e.num_slots}: tokens {toks}")
+        return reqs, {"prompt_lens": [len(p) for p in prompts],
+                      "requests_finished": len(done), "tokens": sum(toks),
+                      "tokens_per_sec": sum(toks) / dt, "stats": e.stats()}
+
+    counted("paged_slots1", ("K2", "K11"), lambda: paged_run(
+        paged_engine(1), [rng.integers(0, cfg.vocab_size, 100)
+                          .astype(np.int32)])[1])
+
+    def prefix_run():
+        """8 requests sharing a 512-token prefix with distinct 32-token
+        tails, then request 0's prompt again on the same engine."""
+        e = paged_engine(8)
+        prefix = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+        prompts = [np.concatenate([prefix, rng.integers(
+            0, cfg.vocab_size, 32).astype(np.int32)]) for _ in range(8)]
+        reqs, res = paged_run(e, prompts)
+        hits = e.prefix_hits
+        again, _ = paged_run(e, prompts[:1])
+        res.update(prefix_pages_hit=hits,
+                   pages_saved=hits,
+                   prefill_tokens_skipped=hits * e.pool.page_size,
+                   repeat_prefix_pages_hit=e.prefix_hits - hits,
+                   repeat_tokens_equal=again[0].generated
+                   == reqs[0].generated)
+        if not hits > 0 or not res["repeat_tokens_equal"]:
+            failures.append(f"paged prefix run: hits {hits}, repeat "
+                            f"equal {res['repeat_tokens_equal']}")
+        return res
+
+    counted("paged_prefix", ("K1", "K11"), prefix_run)
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in kernels}
-    profile = decode_step_profile(torch, params, cfg)
+    # the two engines' decode steps, wall-clocked in turns (the host's
+    # speed drifts between seconds), then profiled
+    step_fns = {"slot": slot_step(torch, params, cfg),
+                "paged": paged_step(torch, params, cfg)}
+    walls = {k: [] for k in step_fns}
+    for _ in range(3):
+        for k, fn in step_fns.items():
+            walls[k].append(wall_ms(torch, fn))
+    profile = {k: decode_step_profile(torch, fn, walls[k])
+               for k, fn in step_fns.items()}
+    del step_fns
     del params
     emit({"phase": "serve", **runs, "launches_total": launches,
           "decode_step_profile": profile})
     return launches, failures
 
 
-def decode_step_profile(torch, params, cfg, b=8, pos=1000, steps=4):
-    """Where a decode step's time goes: the engine's decode forward for
-    ``b`` slots at cache position ``pos`` of the full model. Wall time per
-    step from the host clock without the profiler; device time per kernel
-    from torch.profiler; idle share = 1 - device busy / wall."""
-    from torch.profiler import ProfilerActivity, profile
-    from mxq_tpu_torch.serving import engine as eng
+def slot_step(torch, params, cfg, b=8, pos=1000):
+    """One decode step of the slot engine (``llama.decode_slots``) for
+    ``b`` slots at cache row ``pos + i``, int8 cache."""
+    from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.serving import kvcache
 
     cache = kvcache.init_quant_cache(cfg.num_hidden_layers, b, 2048,
@@ -362,19 +537,52 @@ def decode_step_profile(torch, params, cfg, b=8, pos=1000, steps=4):
                                      device="cuda")
     toks = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
     start = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+    return lambda i: llama.decode_slots(params, toks, cfg, cache, start + i)
 
+
+def paged_step(torch, params, cfg, b=8, pos=1000):
+    """One decode step of the paged engine (``paged.paged_decode_step``,
+    K11 per layer) for ``b`` slots at row ``pos + i``, int8 pool, each slot
+    holding 16 pages of 128 rows."""
+    from mxq_tpu_torch.serving import paged
+
+    pool = paged.PagedPool.create(cfg, b, 1 + 16 * b, page_size=128,
+                                  max_len=2048, kv_bits=8, device="cuda")
+    tables = (1 + torch.arange(16 * b, dtype=torch.int32,
+                               device="cuda")).reshape(b, 16)
+    toks = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
+    start = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+    return lambda i: paged.paged_decode_step(
+        params, pool.k_pages, pool.v_pages, toks, start + i, tables, cfg)
+
+
+def wall_ms(torch, step, steps=8) -> float:
+    """Host-clock ms per call of ``step(i)`` over ``steps`` calls, after a
+    warm-up round, ending in a synchronize."""
     def run():
         for i in range(steps):
-            eng._forward_multipos(params, toks, cfg, cache, start + i)
+            step(i)
         torch.cuda.synchronize()
 
     run()
     t0 = time.monotonic()
     run()
-    wall_ms = (time.monotonic() - t0) * 1e3 / steps
+    return (time.monotonic() - t0) * 1e3 / steps
+
+
+def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
+    """Where a decode step's time goes: ``step(i)`` is one full-model decode
+    step for ``b`` slots at row ``pos + i``; ``walls`` its host-clock ms
+    per step from :func:`wall_ms`, without the profiler. Device time per
+    kernel from torch.profiler; idle share = 1 - device busy / median
+    wall."""
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run()
+        for i in range(steps):
+            step(i)
+        torch.cuda.synchronize()
     per_kernel = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -384,29 +592,36 @@ def decode_step_profile(torch, params, cfg, b=8, pos=1000, steps=4):
             us = e.self_cuda_time_total
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3 / steps
     busy = sum(per_kernel.values())
+    wall = statistics.median(walls)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    return {"slots": b, "position": pos, "wall_ms_per_step": wall_ms,
+    return {"slots": b, "position": pos, "wall_ms_per_step": wall,
+            "wall_ms_per_step_rounds": walls,
             "device_busy_ms_per_step": busy,
-            "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+            "idle_share": 1.0 - busy / wall if wall else None,
             "top_kernels_ms_per_step": {k[:80]: v for k, v in top}}
 
 
 @contextlib.contextmanager
 def plain_versions(mm, a8):
-    """Route the packed linears and K4 through their plain PyTorch versions
-    on the card, so one forward can be held against the same forward with
-    the kernels on the same device (no kernel launches, no counts)."""
+    """Route the packed linears, K4 and K11 through their plain PyTorch
+    versions on the card, so one forward can be held against the same
+    forward with the kernels on the same device (no kernel launches, no
+    counts)."""
     saved = (mm.gemv_batched, mm.gemv_single, mm.dequant_planes,
-             a8.int8_decode_attention_fused_write)
+             a8.int8_decode_attention_fused_write,
+             a8.int8_paged_decode_attend_update)
     mm.gemv_batched = mm.gemv_single = mm.gemv_plain
     mm.dequant_planes = mm.dequant_planes_plain
     a8.int8_decode_attention_fused_write = \
         a8.int8_decode_attention_fused_write_plain
+    a8.int8_paged_decode_attend_update = \
+        a8.int8_paged_decode_attend_update_plain
     try:
         yield
     finally:
         (mm.gemv_batched, mm.gemv_single, mm.dequant_planes,
-         a8.int8_decode_attention_fused_write) = saved
+         a8.int8_decode_attention_fused_write,
+         a8.int8_paged_decode_attend_update) = saved
 
 
 def phase_e2e(torch):
@@ -422,12 +637,17 @@ def phase_e2e(torch):
     - card against CPU from the same weights and state: decode <= 1e-2;
       prefill <= 1e-2 with f32 activations and <= 3e-2 with bf16, where
       the bf16 outputs of the two prefill GEMMs come from cuBLAS on one
-      side and the CPU library on the other."""
+      side and the CPU library on the other.
+    - the paged decode step (K1 + K11) from a pool holding the same int8
+      rows: against itself with the plain versions on the card, and
+      against the slot engine's K4 step, each <= 1e-2 (K11 rounds
+      p * v_scale against the running max of each page, K4 against the
+      global max)."""
     from mxq_tpu_torch import weights
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.ops import attn_int8 as a8
     from mxq_tpu_torch.ops import mxq_matmul as mm
-    from mxq_tpu_torch.serving import kvcache
+    from mxq_tpu_torch.serving import kvcache, paged
 
     cfg = llama.LlamaConfig.llama2_7b(num_hidden_layers=2)
     # both sides attend through SDPA in the prefill ("flash"), so the
@@ -439,10 +659,18 @@ def phase_e2e(torch):
     pids = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen)
     counts = (mm.gemv_batched, a8.int8_decode_attention_fused_write,
               mm.dequant_planes)
+    k11 = a8.KERNELS["K11"]
     failures, out = [], {"phase": "e2e"}
 
     def agree(a, ref):
         return float((a.argmax(-1) == ref.argmax(-1)).float().mean())
+
+    def paged_logits(params, pool, tables):
+        pos = torch.full((b,), t0, dtype=torch.int32, device="cuda")
+        logits, _, _ = paged.paged_decode_step(
+            params, pool.k_pages, pool.v_pages,
+            ids[:, t0:].to("cuda", torch.int32), pos, tables, cfg)
+        return logits.cpu()
 
     for dtype, host_pre_gate in ((torch.float32, 1e-2),
                                  (torch.bfloat16, 3e-2)):
@@ -459,18 +687,25 @@ def phase_e2e(torch):
             cpu_params = weights.params_to(params, "cpu")
             cpu_cache = {k: v.cpu() for k, v in cache.items()}
             plain_cache = {k: v.clone() for k, v in cache.items()}
+            pool, tables = pool_from_slot_cache(torch, paged, cfg, cache)
+            plain_pool, _ = pool_from_slot_cache(torch, paged, cfg, cache)
             before = [fn.launches for fn in counts]
+            k11_before = k11.launches
             card, _ = llama.forward(params, ids[:, t0:], cfg, caches=cache,
                                     cache_pos=t0, device="cuda")
             card_p, _ = llama.forward(params, pids, sdpa_cfg, device="cuda")
+            card_paged = paged_logits(params, pool, tables)
             used = [fn.launches - n for fn, n in zip(counts, before)]
+            k11_used = k11.launches - k11_before
             with plain_versions(mm, a8):
                 plain, _ = llama.forward(params, ids[:, t0:], cfg,
                                          caches=plain_cache, cache_pos=t0,
                                          device="cuda")
                 plain_p, _ = llama.forward(params, pids, sdpa_cfg,
                                            device="cuda")
+                plain_paged = paged_logits(params, plain_pool, tables)
             plain_used = [fn.launches - n for fn, n in zip(counts, before)]
+            k11_plain_used = k11.launches - k11_before - k11_used
             host, _ = llama.forward(cpu_params, ids[:, t0:], cfg,
                                     caches=cpu_cache, cache_pos=t0,
                                     device="cpu")
@@ -484,26 +719,61 @@ def phase_e2e(torch):
                    "prefill_rel_vs_cpu": rel_err(card_p, host_p),
                    "decode_argmax_agreement_vs_cpu": agree(card, host),
                    "prefill_argmax_agreement_vs_cpu": agree(card_p, host_p),
+                   "paged_rel_vs_card_plain": rel_err(card_paged,
+                                                      plain_paged),
+                   "paged_rel_vs_slot_k4": rel_err(card_paged, card[:, 0]),
+                   "paged_argmax_agreement_vs_slot_k4": agree(card_paged,
+                                                              card[:, 0]),
                    "k1_k4_k3_launches": used,
+                   "k11_launches": k11_used,
                    "shapes_finite": (
                        tuple(card.shape) == (b, 1, cfg.vocab_size)
                        and tuple(card_p.shape) == (1, 512, cfg.vocab_size)
+                       and tuple(card_paged.shape) == (b, cfg.vocab_size)
                        and bool(torch.isfinite(card).all())
-                       and bool(torch.isfinite(card_p).all()))}
+                       and bool(torch.isfinite(card_p).all())
+                       and bool(torch.isfinite(card_paged).all()))}
             out[name] = res
             gates = {"decode_rel_vs_card_plain": 1e-2,
                      "prefill_rel_vs_card_plain": 1e-3,
                      "decode_rel_vs_cpu": 1e-2,
-                     "prefill_rel_vs_cpu": host_pre_gate}
+                     "prefill_rel_vs_cpu": host_pre_gate,
+                     "paged_rel_vs_card_plain": 1e-2,
+                     "paged_rel_vs_slot_k4": 1e-2}
             failures += [f"e2e {name} {k} {res[k]:.3g} > {g}"
                          for k, g in gates.items() if not res[k] <= g]
             if not res["shapes_finite"] or min(used) <= 0 \
-                    or plain_used != used:
+                    or plain_used != used or k11_plain_used != 0 \
+                    or k11_used != cfg.num_hidden_layers:
                 failures.append(f"e2e {name}: shapes/launches {res}, "
-                                f"plain run {plain_used}")
-            del params, cpu_params, cache, cpu_cache, plain_cache
+                                f"plain run {plain_used}, K11 "
+                                f"{k11_plain_used}")
+            del params, cpu_params, cache, cpu_cache, plain_cache, pool
+            del plain_pool
     emit(out)
     return failures
+
+
+def pool_from_slot_cache(torch, paged, cfg, cache):
+    """A PagedPool holding the rows of the stacked int8 slot cache (codes
+    [L, B, H, S, D], S a multiple of 128): slot b's rows in logical pages
+    1 + b*pps .. (b+1)*pps in order. Returns (pool, page tables [B, pps])."""
+    l, b, h, s, d = cache["k_codes"].shape
+    ps = 128
+    pps = s // ps
+    npg = 1 + b * pps
+    pool = paged.PagedPool.create(cfg, b, npg, max_len=s, kv_bits=8,
+                                  device="cuda")
+    for name, pages in (("k", pool.k_pages), ("v", pool.v_pages)):
+        codes = cache[f"{name}_codes"].reshape(l, b, h, pps, ps, d)
+        pages["codes"].view(h, l, npg, ps, d)[:, :, 1:] = codes.permute(
+            2, 0, 1, 3, 4, 5).reshape(h, l, b * pps, ps, d)
+        scales = cache[f"{name}_scale"].reshape(l, b, h, pps, ps)
+        pages["scales"].view(h, l, npg, ps)[:, :, 1:] = scales.permute(
+            2, 0, 1, 3, 4).reshape(h, l, b * pps, ps)
+    tables = (1 + torch.arange(b * pps, dtype=torch.int32,
+                               device="cuda")).reshape(b, pps)
+    return pool, tables
 
 
 def main(argv=None) -> int:

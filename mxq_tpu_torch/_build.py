@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("mxq_gemv", "mxq_dequant", "attn_int8")
+SOURCES = ("mxq_gemv", "mxq_dequant", "attn_int8", "paged_attn_int8")
 _EXTRA_FLAGS = {
     # K3 must equal its plain PyTorch version bit for bit: no FMA fusion.
     "mxq_dequant": ["--fmad=false"],
@@ -42,6 +42,8 @@ SIGNATURES = {
     "attn_int8": {
         "attn_int8_k4": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P,
                          P]},
+    "paged_attn_int8": {
+        "paged_attn_int8": [P] * 11 + [I] * 8 + [F, P, P]},
 }
 
 

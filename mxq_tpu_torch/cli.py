@@ -1,7 +1,10 @@
 """Command line of the PyTorch port: the ``serve`` subcommand of the slot
-engine (port of ``mxq_tpu/cli.py`` cmd_serve).
+engine and, with ``--paged``, of the paged engine (port of
+``mxq_tpu/cli.py`` cmd_serve).
 
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8
+    python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8 \
+        --paged
 
 Weights are random, drawn from ``--seed`` on the device (no checkpoint
 loading yet). Prints one JSON line: requests, tokens, tokens/s and the
@@ -26,15 +29,27 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def cmd_serve(args) -> dict:
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.serving import engine as eng
+    from mxq_tpu_torch.serving import paged
 
-    for flag in ("paged", "spec_decode", "prefill_a8"):
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag} {llama.NOT_PORTED}")
-    if args.lm_head_bits != 16:
-        raise NotImplementedError(f"--lm_head_bits {llama.NOT_PORTED}")
+    if args.paged and args.spec_decode:
+        raise SystemExit("--spec_decode applies to the slot engine "
+                         "(drop --paged)")
     if args.kv_bits not in (8, 32):
-        raise SystemExit(f"--kv_bits must be 8 (int8 cache) or 32 (bf16 "
-                         f"cache), not {args.kv_bits}")
+        raise SystemExit(f"--kv_bits must be 8 (int8 cache or page pool) or "
+                         f"32 (bf16), not {args.kv_bits}")
+    if args.paged:
+        if args.prefill_a8:
+            print("note: --prefill_a8 applies to the slot engine only",
+                  flush=True)
+        if args.lm_head_bits != 16:
+            print("note: --lm_head_bits applies to the slot engine only",
+                  flush=True)
+    else:
+        for flag in ("spec_decode", "prefill_a8"):
+            if getattr(args, flag):
+                raise NotImplementedError(f"--{flag} {llama.NOT_PORTED}")
+        if args.lm_head_bits != 16:
+            raise NotImplementedError(f"--lm_head_bits {llama.NOT_PORTED}")
     if args.w_bits != 32:
         raise NotImplementedError(f"--w_bits fake-quant {llama.NOT_PORTED}")
     dev = resolve_device(args.device)
@@ -45,12 +60,22 @@ def cmd_serve(args) -> dict:
     params = llama.init_params(cfg, args.seed, _DTYPES[args.dtype], dev)
     if args.packed:
         params = llama.quantize_params_packed(params, cfg, device=dev)
-    e = eng.Engine(params, cfg, eng.EngineConfig(
-        num_slots=args.slots, max_len=args.max_len,
-        kv_quant=args.kv_bits < 32,
-        greedy=args.temperature == 0.0,
-        temperature=args.temperature or 1.0,
-        top_k=args.top_k, top_p=args.top_p, seed=args.seed), device=dev)
+    sampling = dict(greedy=args.temperature == 0.0,
+                    temperature=args.temperature or 1.0, top_k=args.top_k,
+                    top_p=args.top_p, seed=args.seed)
+    if args.paged:
+        # bf16 pages of 64 rows, int8 pages of 128 (the paged kernels'
+        # page); +1: page 0 is the reserved null page
+        ps = 128 if args.kv_bits == 8 else 64
+        pages = args.slots * (-(-args.max_len // ps)) + 1
+        e = paged.PagedEngine(params, cfg, num_slots=args.slots,
+                              total_pages=pages, page_size=ps,
+                              max_len=args.max_len, kv_bits=args.kv_bits,
+                              device=dev, **sampling)
+    else:
+        e = eng.Engine(params, cfg, eng.EngineConfig(
+            num_slots=args.slots, max_len=args.max_len,
+            kv_quant=args.kv_bits < 32, **sampling), device=dev)
     rng = np.random.RandomState(0)
     for _ in range(args.requests):
         e.submit(rng.randint(0, cfg.vocab_size,
@@ -93,11 +118,12 @@ def main(argv=None):
                    help="0 = greedy; >0 samples with top_k/top_p")
     p.add_argument("--top_k", type=int, default=0)
     p.add_argument("--top_p", type=float, default=1.0)
+    p.add_argument("--paged", action="store_true",
+                   help="the paged engine (int8 pool at --kv_bits 8)")
     # options of mxq_tpu's serve whose kernels are not ported yet
     p.add_argument("--prefill_a8", action="store_true")
     p.add_argument("--lm_head_bits", type=int, default=16)
     p.add_argument("--spec_decode", action="store_true")
-    p.add_argument("--paged", action="store_true")
     p.set_defaults(fn=cmd_serve)
 
     args = ap.parse_args(argv)

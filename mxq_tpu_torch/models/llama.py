@@ -232,18 +232,12 @@ def _sdpa(q, k, v, d):
     return ctx.transpose(1, 2)
 
 
-def attention(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
-              cache_pos: Optional[int] = None, layer_idx: Optional[int] = None):
-    """LlamaAttention, GQA-ready. ``cache`` is the stacked cache dict (int8:
-    codes [L,B,H,S,D] + scales [L,B,H,S]; bf16: k/v [L,B,S,H,D]) written in
-    place at rows ``cache_pos..`` of layer ``layer_idx``. Returns
-    (out, pending): the int8 decode path's scale rows (ks, vs) for the
-    caller to commit after the layer loop, else None."""
+def _qkv(x, layer, cfg: LlamaConfig):
+    """The q, k, v projections of x [B, T, hidden]: [B, T, H, D] each."""
     b, t, _ = x.shape
     nh, nkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     if cfg.kv_bits < 32:
         raise NotImplementedError(f"KV fake-quant (kv_bits<32) {NOT_PORTED}")
-
     if "qkv_proj" in layer:
         qkv = quant_linear(x, layer["qkv_proj"], cfg)
         q = qkv[..., : nh * d]
@@ -253,34 +247,53 @@ def attention(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
         q = quant_linear(x, layer["q_proj"], cfg)
         k = quant_linear(x, layer["k_proj"], cfg)
         v = quant_linear(x, layer["v_proj"], cfg)
-    q = q.reshape(b, t, nh, d)
-    k = k.reshape(b, t, nkv, d)
-    v = v.reshape(b, t, nkv, d)
+    return q.reshape(b, t, nh, d), k.reshape(b, t, nkv, d), \
+        v.reshape(b, t, nkv, d)
+
+
+def masked_attention(q, k, v, mask):
+    """Softmax attention of q [B, T, Hq, D] over k, v [B, S, Hkv, D] (GQA:
+    k/v heads repeated) with an additive mask broadcast to [B, Hq, T, S]:
+    f32 scores, probabilities in v's type. Returns [B, T, Hq, D]."""
+    nh, nkv, d = q.shape[2], k.shape[2], q.shape[3]
+    if nkv != nh:
+        k = torch.repeat_interleave(k, nh // nkv, dim=2)
+        v = torch.repeat_interleave(v, nh // nkv, dim=2)
+    qf = q.transpose(1, 2).float()
+    kf = k.transpose(1, 2).float()
+    vf = v.transpose(1, 2)
+    scores = torch.einsum("bhtd,bhsd->bhts", qf, kf) / math.sqrt(d)
+    probs = torch.softmax(scores + mask, dim=-1).to(vf.dtype)
+    return torch.einsum("bhts,bhsd->bhtd", probs, vf).transpose(1, 2)
+
+
+def attention(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
+              cache_pos: Optional[int] = None, layer_idx: Optional[int] = None):
+    """LlamaAttention, GQA-ready (a T=1 decode step over a cache goes
+    through :func:`decode_slots` instead). ``cache`` is the stacked
+    cache dict (int8: codes [L,B,H,S,D] + scales [L,B,H,S]; bf16: k/v
+    [L,B,S,H,D]) written in place at rows ``cache_pos..`` of layer
+    ``layer_idx``."""
+    b, t, _ = x.shape
+    nh, d = cfg.num_attention_heads, cfg.head_dim
+    q, k, v = _qkv(x, layer, cfg)
     q, k = apply_rope(q, k, cos, sin)
 
     on_card = x.device.type == "cuda"
     prefill_flash = (cache is not None and t >= 128 and cache_pos == 0
                      and (cfg.attn_impl == "flash"
                           or (cfg.attn_impl == "auto" and on_card)))
-    pend = None
     if cache is not None:
         idx = layer_idx
         if "k_codes" in cache:
-            kc, ksc = kvcache.quantize_kv_headmajor(k)     # [B,H,T,D], [B,H,T]
-            vc, vsc = kvcache.quantize_kv_headmajor(v)
-            if t == 1:
-                positions = torch.full((b,), cache_pos, dtype=torch.int32,
-                                       device=x.device)
-                ctx, _, pend = attn_int8.decode_attend_update(
-                    cache, q[:, 0], kc, ksc, vc, vsc, idx, positions)
-                ctx = ctx.reshape(b, 1, nh * d).to(x.dtype)
-                return quant_linear(ctx, layer["o_proj"], cfg), pend
             layer_cache = {n: cache[n][idx] for n in
                            ("k_codes", "k_scale", "v_codes", "v_scale")}
             kvcache.cache_update_layer(layer_cache, k, v, cache_pos)
             if prefill_flash:
                 # attend the int8-roundtripped fresh keys: the values decode
                 # reads back from the cache
+                kc, ksc = kvcache.quantize_kv_headmajor(k)
+                vc, vsc = kvcache.quantize_kv_headmajor(v)
                 k = (kc.float() * ksc.float()[..., None]).transpose(1, 2) \
                     .to(x.dtype)
                 v = (vc.float() * vsc.float()[..., None]).transpose(1, 2) \
@@ -298,24 +311,19 @@ def attention(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
                 k = cache["k"][idx].to(x.dtype)
                 v = cache["v"][idx].to(x.dtype)
 
-    if nkv != nh:
-        k = torch.repeat_interleave(k, nh // nkv, dim=2)
-        v = torch.repeat_interleave(v, nh // nkv, dim=2)
-
     use_flash = (cfg.attn_impl == "flash"
                  or (cfg.attn_impl == "auto" and on_card and t >= 128
                      and (cache is None or prefill_flash)))
     if use_flash:
-        ctx = _sdpa(q, k, v, d).reshape(b, t, nh * d).to(x.dtype)
+        nkv = k.shape[2]
+        if nkv != nh:
+            k = torch.repeat_interleave(k, nh // nkv, dim=2)
+            v = torch.repeat_interleave(v, nh // nkv, dim=2)
+        ctx = _sdpa(q, k, v, d)
     else:
-        qf = q.transpose(1, 2).float()
-        kf = k.transpose(1, 2).float()
-        vf = v.transpose(1, 2)
-        scores = torch.einsum("bhtd,bhsd->bhts", qf, kf) / math.sqrt(d)
-        probs = torch.softmax(scores + mask, dim=-1).to(vf.dtype)
-        ctx = torch.einsum("bhts,bhsd->bhtd", probs, vf)
-        ctx = ctx.transpose(1, 2).reshape(b, t, nh * d).to(x.dtype)
-    return quant_linear(ctx, layer["o_proj"], cfg), pend
+        ctx = masked_attention(q, k, v, mask)
+    ctx = ctx.reshape(b, t, nh * d).to(x.dtype)
+    return quant_linear(ctx, layer["o_proj"], cfg)
 
 
 def mlp(x, layer, cfg: LlamaConfig):
@@ -332,11 +340,77 @@ def mlp(x, layer, cfg: LlamaConfig):
 def decoder_layer(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
                   cache_pos=None, layer_idx=None):
     h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
-    attn_out, pend = attention(h, layer, cfg, cos, sin, mask, cache,
-                               cache_pos, layer_idx)
-    x = x + attn_out
+    x = x + attention(h, layer, cfg, cos, sin, mask, cache, cache_pos,
+                      layer_idx)
     h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
-    return x + mlp(h, layer, cfg), pend
+    return x + mlp(h, layer, cfg)
+
+
+def decode_step(params, tokens, cfg: LlamaConfig, positions, attend):
+    """One decode token for every slot: tokens [B, 1] at positions [B].
+    The one T=1 decoder layer loop of the port (norm, q/k/v, RoPE, the
+    attention step, o_proj, MLP); the caller's cache lives in ``attend``:
+    ``attend(layer_idx, q, k, v)`` gets q [B, 1, Hq, D] and k, v
+    [B, 1, Hkv, D] after RoPE, stores k, v where its cache keeps them and
+    returns ctx [B, Hq, D]. Returns logits [B, 1, V] f32."""
+    b = tokens.shape[0]
+    x = params["embed_tokens"][tokens]
+    cos, sin = rope_tables(cfg, positions[:, None].float())
+    cos = cos.to(x.dtype)
+    sin = sin.to(x.dtype)
+    width = cfg.num_attention_heads * cfg.head_dim
+    for idx in range(cfg.num_hidden_layers):
+        layer = layer_view(params, idx)
+        h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
+        q, k, v = _qkv(h, layer, cfg)
+        q, k = apply_rope(q, k, cos, sin)
+        ctx = attend(idx, q, k, v).reshape(b, 1, width).to(x.dtype)
+        x = x + quant_linear(ctx, layer["o_proj"], cfg)
+        h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
+        x = x + mlp(h, layer, cfg)
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    return lm_head(params, x).float()
+
+
+def decode_slots(params, tokens, cfg: LlamaConfig, caches: dict, positions):
+    """:func:`decode_step` over a stacked slot cache, each slot b writing
+    and attending at its own row positions[b] (tokens [B, 1]). The int8
+    cache goes through K4 (``attn_int8.decode_attend_update``): K4 writes
+    the code rows per layer, and the scale rows of all layers are committed
+    after the layer loop. The bf16 cache is scattered at the rows and
+    attended with :func:`masked_attention` over rows <= positions[b].
+    Updates ``caches`` in place; returns logits [B, 1, V] f32."""
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    pos = positions.long()
+    if "k_codes" not in caches:
+        kpos = torch.arange(_cache_len(caches), device=tokens.device)
+        mask = torch.where(kpos[None, :] <= pos[:, None], 0.0,
+                           torch.finfo(torch.float32).min)[:, None, None, :]
+
+        def attend(idx, q, k, v):
+            caches["k"][idx, rows, pos] = k[:, 0].to(caches["k"].dtype)
+            caches["v"][idx, rows, pos] = v[:, 0].to(caches["v"].dtype)
+            return masked_attention(q, caches["k"][idx], caches["v"][idx],
+                                    mask)[:, 0]
+
+        return decode_step(params, tokens, cfg, positions, attend)
+    pend = []
+
+    def attend(idx, q, k, v):
+        kc, ksc = kvcache.quantize_kv_headmajor(k)        # [B,H,1,D], [B,H,1]
+        vc, vsc = kvcache.quantize_kv_headmajor(v)
+        ctx, _, p = attn_int8.decode_attend_update(
+            caches, q[:, 0], kc, ksc, vc, vsc, idx, positions)
+        pend.append(p)
+        return ctx
+
+    logits = decode_step(params, tokens, cfg, positions, attend)
+    # scale rows of every layer at each slot's own row: [B, L, H]
+    caches["k_scale"][:, rows, :, pos] = \
+        torch.stack([p[0][..., 0] for p in pend]).transpose(0, 1)
+    caches["v_scale"][:, rows, :, pos] = \
+        torch.stack([p[1][..., 0] for p in pend]).transpose(0, 1)
+    return logits
 
 
 def causal_mask(t: int, s: Optional[int] = None, offset: int = 0,
@@ -374,11 +448,16 @@ def forward(params, input_ids, cfg: LlamaConfig, *, positions=None,
             caches=None, cache_pos=None, mask=None,
             device: str | torch.device = "cuda"):
     """Full model forward -> (logits [B, T, V] f32, caches). ``caches`` (a
-    stacked cache dict or None) is updated in place and returned."""
+    stacked cache dict or None) is updated in place and returned. One
+    token with a cache and neither ``positions`` nor ``mask`` is a decode
+    step of every slot at row ``cache_pos`` (:func:`decode_slots`)."""
     dev = resolve_device(device)
     check_params_device(params, dev)
     input_ids = torch.as_tensor(input_ids, device=dev)
     b, t = input_ids.shape
+    if t == 1 and caches is not None and positions is None and mask is None:
+        pos = torch.full((b,), cache_pos, dtype=torch.int32, device=dev)
+        return decode_slots(params, input_ids, cfg, caches, pos), caches
     x = params["embed_tokens"][input_ids]
     if positions is None:
         start = 0 if cache_pos is None else cache_pos
@@ -396,19 +475,9 @@ def forward(params, input_ids, cfg: LlamaConfig, *, positions=None,
         else:
             mask = causal_mask(t, device=dev)
 
-    pend = []
     for idx in range(cfg.num_hidden_layers):
-        x, p = decoder_layer(x, layer_view(params, idx), cfg, cos, sin, mask,
-                             caches, cache_pos, idx)
-        if p is not None:
-            pend.append(p)
-    if pend:
-        # the int8 decode path wrote the code rows in its kernel; commit the
-        # scale rows of all layers at once: val [L, B, H, 1]
-        caches["k_scale"][:, :, :, cache_pos:cache_pos + 1] = \
-            torch.stack([p[0] for p in pend])
-        caches["v_scale"][:, :, :, cache_pos:cache_pos + 1] = \
-            torch.stack([p[1] for p in pend])
+        x = decoder_layer(x, layer_view(params, idx), cfg, cos, sin, mask,
+                          caches, cache_pos, idx)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     return lm_head(params, x).float(), caches
 

@@ -1,6 +1,7 @@
 """One-token decode attention straight off the int8 KV cache: the plain
-PyTorch version, the wrapper of kernel K4 (``csrc/attn_int8.cu``) and the
-dispatch point the model and engine share.
+PyTorch versions, the wrappers of kernel K4 (``csrc/attn_int8.cu``) and of
+the paged kernels K9-K11 (``csrc/paged_attn_int8.cu``), and the dispatch
+point the model and engine share.
 
 Port of ``mxq_tpu/ops/attn_int8.py`` (``_attend`` :50-94,
 ``int8_decode_attention_fused_write`` :449, the dequantize-then-attend
@@ -138,7 +139,236 @@ def int8_decode_attention_fused_write(q, k_codes, k_scale, v_codes, v_scale,
 
 
 int8_decode_attention_fused_write.launches = 0
-KERNELS = {"K4": int8_decode_attention_fused_write}
+
+
+# ---------------------------------------------------------------------------
+# Paged int8 decode attention (port of attn_int8.py:540-1049)
+# ---------------------------------------------------------------------------
+#
+# The folded pool of serving/paged.py: code pages [KVH, LP, PAGE, D] int8,
+# scales [KVH, LP, 1, PAGE] bf16 (one per (head, token)), page tables
+# [B, pages_per_seq] int32 of PHYSICAL page ids. Each (batch, kv head) folds
+# the pages of its table in order into a flash-style running (max m, denom
+# l, acc), rows masked to ``row < bound[b]``; pages wholly past the bound
+# change nothing (alpha = 1, pexp = 0) and are never read.
+
+PAGE_INT8 = 128
+
+
+def _paged_attend_plain(q, k_pages, k_scales, v_pages, v_scales, bound,
+                        tables, cur=None):
+    """The TPU kernels' per-page online fold (attn_int8.py:575-600, and the
+    current-token fold :701-717 when ``cur`` = (kcur [B, KVH, D] int8,
+    kscur [B, KVH] bf16, vcur, vscur) is given). q [B, Hq, D]; bound [B]:
+    rows < bound[b] are attended. Returns ctx [B, Hq, D] f32."""
+    b, hq, d = q.shape
+    hkv, _, ps, _ = k_pages.shape
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    qf = q.to(torch.bfloat16).float().reshape(b, hkv, g, d)
+    m = torch.full((b, hkv, g, 1), NEG, device=q.device)
+    l = torch.zeros((b, hkv, g, 1), device=q.device)
+    acc = torch.zeros((b, hkv, g, d), device=q.device)
+    rows = torch.arange(ps, device=q.device)
+    pps = tables.shape[1]
+    # pages past every sequence's bound fold in as the identity: skip them
+    npages = min(pps, -(-int(bound.max()) // ps)) if b else 0
+    for j in range(npages):
+        pid = tables[:, j].long()
+        valid = ((j * ps + rows)[None, :] < bound[:, None])[:, None, None, :]
+        kc = k_pages[:, pid].float()                      # [KVH, B, ps, D]
+        ks = k_scales[:, pid, 0].float().transpose(0, 1)  # [B, KVH, ps]
+        vs = v_scales[:, pid, 0].float().transpose(0, 1)
+        st = torch.einsum("bhgd,hbsd->bhgs", qf, kc) \
+            * (ks * scale)[:, :, None, :]
+        st = torch.where(valid, st, NEG)
+        m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        # gate on the mask, not the logit: with m_new still NEG a masked
+        # row's exp(st - m_new) would be 1
+        pexp = torch.where(valid, torch.exp(st - m_new), 0.0)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + pexp.sum(dim=-1, keepdim=True)
+        pv = torch.where(valid, pexp * vs[:, :, None, :], 0.0)
+        pv = pv.to(torch.bfloat16).float()
+        acc = acc * alpha + torch.einsum("bhgs,hbsd->bhgd", pv,
+                                         v_pages[:, pid].float())
+        m = m_new
+    if cur is not None:
+        kcur, kscur, vcur, vscur = cur
+        stc = torch.einsum("bhgd,bhd->bhg", qf, kcur.float())[..., None]
+        stc = stc * (kscur.float() * scale)[:, :, None, None]
+        m_fin = torch.maximum(m, stc)
+        alpha2 = torch.exp(m - m_fin)
+        pc = torch.exp(stc - m_fin)
+        l = l * alpha2 + pc
+        pcb = (pc * vscur.float()[:, :, None, None]).to(torch.bfloat16)
+        acc = acc * alpha2 + pcb.float() * vcur.float()[:, :, None, :]
+    return (acc / l.clamp_min(1e-30)).reshape(b, hq, d)
+
+
+def _paged_write_plain(k_pages, k_scales, v_pages, v_scales, kcur, kscur,
+                       vcur, vscur, positions, tables):
+    """K11's write: the current code row and scale lane of every (b, head)
+    at (tables[b, pos // PAGE], pos % PAGE); nothing where pos // PAGE is
+    past the table (the TPU kernel's write step never comes then)."""
+    ps, pps = k_pages.shape[2], tables.shape[1]
+    pos = positions.long()
+    ok = pos // ps < pps
+    pid = tables[ok, pos[ok] // ps].long()
+    off = pos[ok] % ps
+    k_pages[:, pid, off] = kcur[ok].transpose(0, 1)
+    v_pages[:, pid, off] = vcur[ok].transpose(0, 1)
+    k_scales[:, pid, 0, off] = kscur[ok].T.to(k_scales.dtype)
+    v_scales[:, pid, 0, off] = vscur[ok].T.to(v_scales.dtype)
+
+
+def int8_paged_decode_attention_plain(q, k_pages, k_scales, v_pages,
+                                      v_scales, lengths, page_tables):
+    """Plain version of K9."""
+    return _paged_attend_plain(q, k_pages, k_scales, v_pages, v_scales,
+                               lengths, page_tables)
+
+
+def int8_paged_decode_attention_cur_plain(q, k_pages, k_scales, v_pages,
+                                          v_scales, kcur, kscur, vcur, vscur,
+                                          positions, page_tables):
+    """Plain version of K10."""
+    return _paged_attend_plain(q, k_pages, k_scales, v_pages, v_scales,
+                               positions, page_tables,
+                               (kcur, kscur, vcur, vscur))
+
+
+def int8_paged_decode_attend_update_plain(q, k_pages, k_scales, v_pages,
+                                          v_scales, kcur, kscur, vcur, vscur,
+                                          positions, page_tables):
+    """Plain version of K11 (same contract, in-place write)."""
+    ctx = _paged_attend_plain(q, k_pages, k_scales, v_pages, v_scales,
+                              positions, page_tables,
+                              (kcur, kscur, vcur, vscur))
+    _paged_write_plain(k_pages, k_scales, v_pages, v_scales, kcur, kscur,
+                       vcur, vscur, positions, page_tables)
+    return ctx, k_pages, k_scales, v_pages, v_scales
+
+
+def _check_paged(what, q, k_pages, k_scales, v_pages, v_scales, bound,
+                 tables, cur):
+    b, hq, d = q.shape
+    hkv, lp, ps, _ = k_pages.shape
+    g = hq // hkv
+    want = [("q", q, torch.bfloat16, (b, hq, d)),
+            ("k_pages", k_pages, torch.int8, (hkv, lp, ps, d)),
+            ("v_pages", v_pages, torch.int8, (hkv, lp, ps, d)),
+            ("k_scales", k_scales, torch.bfloat16, (hkv, lp, 1, ps)),
+            ("v_scales", v_scales, torch.bfloat16, (hkv, lp, 1, ps)),
+            ("bound", bound, torch.int32, (b,)),
+            ("page_tables", tables, torch.int32, (b, tables.shape[1]))]
+    if cur is not None:
+        want += [("kcur", cur[0], torch.int8, (b, hkv, d)),
+                 ("kscur", cur[1], torch.bfloat16, (b, hkv)),
+                 ("vcur", cur[2], torch.int8, (b, hkv, d)),
+                 ("vscur", cur[3], torch.bfloat16, (b, hkv))]
+    dev = q.device
+    for name, t, dt, shape in want:
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{what} {name}: {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}, contiguous={t.is_contiguous()}; "
+                             f"want {dt} {shape} contiguous on {dev}")
+    if hq % hkv or not 1 <= g <= 8 or d not in (64, 128) or ps != PAGE_INT8:
+        raise ValueError(f"{what} takes D in (64, 128), 1..8 query heads per "
+                         f"kv head and pages of {PAGE_INT8} rows, got D={d}, "
+                         f"Hq={hq}, Hkv={hkv}, page={ps}")
+    codes = [k_pages, v_pages] + ([cur[0], cur[2]] if cur is not None else [])
+    if any(t.data_ptr() % 4 for t in codes):
+        raise ValueError(f"{what}: code tensors must start 4-byte aligned "
+                         "(the kernel loads D/32 codes at once)")
+
+
+def _paged_launch(what, q, k_pages, k_scales, v_pages, v_scales, bound,
+                  tables, cur=None, write=False):
+    """Check the arguments and launch the K9/K10/K11 kernel (``cur`` and
+    ``write`` are its compile-time flags). Returns ctx [B, Hq, D] f32."""
+    from mxq_tpu_torch import _build
+    qb = q.to(torch.bfloat16).contiguous()
+    _check_paged(what, qb, k_pages, k_scales, v_pages, v_scales, bound,
+                 tables, cur)
+    b, hq, d = q.shape
+    hkv, lp = k_pages.shape[:2]
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    kcur, kscur, vcur, vscur = cur if cur is not None else (None,) * 4
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = _build.load("paged_attn_int8").paged_attn_int8(
+        qb.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
+        v_pages.data_ptr(), v_scales.data_ptr(), ptr(kcur), ptr(kscur),
+        ptr(vcur), ptr(vscur), bound.data_ptr(), tables.data_ptr(), b, hkv,
+        hq // hkv, d, lp, tables.shape[1], int(cur is not None), int(write),
+        1.0 / math.sqrt(d), out.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, what)
+    return out
+
+
+def int8_paged_decode_attention(q, k_pages, k_scales, v_pages, v_scales,
+                                lengths, page_tables):
+    """K9: decode attention over one layer's pages of the int8 pool.
+
+    q [B, Hq, D]; k/v_pages [KVH, LP, 128, D] int8; k/v_scales
+    [KVH, LP, 1, 128] bf16; lengths [B] int32 (rows < lengths[b] are
+    attended, the current row already written); page_tables [B, PPS] int32
+    physical page ids. Returns [B, Hq, D] f32."""
+    if q.device.type == "cpu":
+        return int8_paged_decode_attention_plain(
+            q, k_pages, k_scales, v_pages, v_scales, lengths, page_tables)
+    out = _paged_launch("K9", q, k_pages, k_scales, v_pages, v_scales,
+                        lengths, page_tables)
+    int8_paged_decode_attention.launches += 1
+    return out
+
+
+def int8_paged_decode_attention_cur(q, k_pages, k_scales, v_pages, v_scales,
+                                    kcur, kscur, vcur, vscur, positions,
+                                    page_tables):
+    """K10: K9 over rows < positions[b], plus the current token out of the
+    pool (kcur/vcur [B, KVH, D] int8, kscur/vscur [B, KVH] bf16) folded in
+    after the last page. Returns [B, Hq, D] f32."""
+    if q.device.type == "cpu":
+        return int8_paged_decode_attention_cur_plain(
+            q, k_pages, k_scales, v_pages, v_scales, kcur, kscur, vcur, vscur,
+            positions, page_tables)
+    out = _paged_launch("K10", q, k_pages, k_scales, v_pages, v_scales,
+                        positions, page_tables, (kcur, kscur, vcur, vscur))
+    int8_paged_decode_attention_cur.launches += 1
+    return out
+
+
+def int8_paged_decode_attend_update(q, k_pages, k_scales, v_pages, v_scales,
+                                    kcur, kscur, vcur, vscur, positions,
+                                    page_tables):
+    """K11: K10, and the current token's code row and scale lane written
+    into the pool IN PLACE at (page_tables[b, pos // 128], pos % 128) for
+    every kv head (nothing where pos // 128 is past the table). Returns
+    (ctx [B, Hq, D] f32, k_pages, k_scales, v_pages, v_scales): the pool
+    tensors are the ones given, where JAX returns new buffers. The write
+    page must belong to sequence b alone (refcount 1): rows >= pos are
+    never read, so no other block of the launch reads the written row."""
+    if q.device.type == "cpu":
+        return int8_paged_decode_attend_update_plain(
+            q, k_pages, k_scales, v_pages, v_scales, kcur, kscur, vcur, vscur,
+            positions, page_tables)
+    out = _paged_launch("K11", q, k_pages, k_scales, v_pages, v_scales,
+                        positions, page_tables, (kcur, kscur, vcur, vscur),
+                        write=True)
+    int8_paged_decode_attend_update.launches += 1
+    return out, k_pages, k_scales, v_pages, v_scales
+
+
+int8_paged_decode_attention.launches = 0
+int8_paged_decode_attention_cur.launches = 0
+int8_paged_decode_attend_update.launches = 0
+KERNELS = {"K4": int8_decode_attention_fused_write,
+           "K9": int8_paged_decode_attention,
+           "K10": int8_paged_decode_attention_cur,
+           "K11": int8_paged_decode_attend_update}
 
 
 def int8_decode_attention_reference(q, k_codes, k_scale, v_codes, v_scale,

@@ -27,7 +27,6 @@ import torch
 
 from mxq_tpu_torch import resolve_device
 from mxq_tpu_torch.models import llama
-from mxq_tpu_torch.ops import attn_int8
 from mxq_tpu_torch.serving import kvcache
 
 NEG = torch.finfo(torch.float32).min
@@ -152,6 +151,16 @@ class _PyScheduler:
         return len(self._queue)
 
 
+def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> device tensor without waiting for queued work (the
+    array is copied into pinned memory first, so the host may change it
+    right after)."""
+    t = torch.from_numpy(np.array(arr))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 class _HostCopy:
     """A device tensor on its way to the host: a non-blocking copy into
     pinned memory and an event, so reading it waits for this copy only."""
@@ -213,15 +222,6 @@ class Engine:
 
     # ---- device work ----
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor without waiting for queued work (the
-        array is copied into pinned memory first, so the host may change it
-        right after)."""
-        t = torch.from_numpy(np.array(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
-
     def _pick(self, logits: torch.Tensor) -> torch.Tensor:
         e = self.ecfg
         return sample_token(logits, self._gen, e.greedy, e.temperature,
@@ -247,8 +247,8 @@ class Engine:
             in_range = positions + i < max_len
             pos_i = torch.where(in_range, positions + i,
                                 max_len - 1).to(torch.int32)
-            logits = _forward_multipos(self.params, toks, self.cfg,
-                                       self.caches, pos_i)
+            logits = llama.decode_slots(self.params, toks, self.cfg,
+                                        self.caches, pos_i)
             nxt = self._pick(logits[:, -1])
             nxt = torch.where(active & in_range, nxt, 0).to(torch.int32)
             out.append(nxt)
@@ -268,7 +268,7 @@ class Engine:
         kpos = torch.arange(s, device=self.device)[None, :]
         mask = torch.where((kpos <= qpos) & (kpos < offset + length), 0.0,
                            NEG)
-        logits, _ = llama.forward(self.params, self._to_device(ids),
+        logits, _ = llama.forward(self.params, to_device(ids, self.device),
                                   self.cfg, caches=sl, cache_pos=offset,
                                   mask=mask[None, None], device=self.device)
         return self._pick(logits[0:1, length - 1])[0]
@@ -379,13 +379,14 @@ class Engine:
         else:
             chained = torch.zeros((b,), dtype=torch.int32, device=self.device)
             use_chain = np.zeros(b, bool)
-        host_toks = self._to_device(self._last_tok)
+        host_toks = to_device(self._last_tok, self.device)
         for s, (fd, _) in self._pending_first.items():
             if self._slot_uid[s] is not None:
                 host_toks[s] = fd                    # device to device
         toks = self._decode_chunk(
-            chained, host_toks, self._to_device(use_chain),
-            self._to_device(self._pos), self._to_device(active), horizon)
+            chained, host_toks, to_device(use_chain, self.device),
+            to_device(self._pos, self.device),
+            to_device(active, self.device), horizon)
         snap = dict(toks=toks, host=_HostCopy(toks), active=active,
                     gen=self._admit_gen.copy(), uids=list(self._slot_uid),
                     horizon=horizon)
@@ -489,77 +490,3 @@ class Engine:
         finally:
             if self._stream_buf is buf:
                 self._stream_buf = prev
-
-
-def _forward_multipos(params, tokens, cfg, caches, positions):
-    """Decode forward where every slot b writes its KV at its own row
-    ``positions[b]`` (tokens [B, 1]). The int8 cache goes through K4, which
-    writes the code rows; the scale rows of all layers are committed after
-    the layer loop. The bf16 cache is scattered and attended with einsum.
-    Caches are updated in place. Returns logits [B, 1, V] f32."""
-    b, tt = tokens.shape
-    quant = "k_codes" in caches
-    if quant and tt != 1:
-        raise NotImplementedError(
-            f"multi-token verify (speculative decoding) {llama.NOT_PORTED}")
-    x = params["embed_tokens"][tokens]
-    posmat = positions[:, None] + torch.arange(tt, device=tokens.device)
-    cos, sin = llama.rope_tables(cfg, posmat.float())
-    cos = cos.to(x.dtype)
-    sin = sin.to(x.dtype)
-    if not quant:
-        kpos = torch.arange(llama._cache_len(caches),
-                            device=tokens.device)[None, None, :]
-        mask = torch.where(kpos <= posmat[:, :, None], 0.0, NEG)[:, None]
-    nh, nkv, d = (cfg.num_attention_heads, cfg.num_key_value_heads,
-                  cfg.head_dim)
-    rows = torch.arange(b, device=tokens.device)
-    pend = []
-    for idx in range(cfg.num_hidden_layers):
-        layer = llama.layer_view(params, idx)
-        h = llama.rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
-        if "qkv_proj" in layer:
-            qkv = llama.quant_linear(h, layer["qkv_proj"], cfg)
-            q = qkv[..., : nh * d].reshape(b, tt, nh, d)
-            k = qkv[..., nh * d: (nh + nkv) * d].reshape(b, tt, nkv, d)
-            v = qkv[..., (nh + nkv) * d:].reshape(b, tt, nkv, d)
-        else:
-            q = llama.quant_linear(h, layer["q_proj"], cfg).reshape(b, tt, nh, d)
-            k = llama.quant_linear(h, layer["k_proj"], cfg).reshape(b, tt, nkv, d)
-            v = llama.quant_linear(h, layer["v_proj"], cfg).reshape(b, tt, nkv, d)
-        q, k = llama.apply_rope(q, k, cos, sin)
-
-        if quant:
-            kc, ks = kvcache.quantize_kv_headmajor(k)   # [B,H,1,D], [B,H,1]
-            vc, vs = kvcache.quantize_kv_headmajor(v)
-            ctx, _, p = attn_int8.decode_attend_update(
-                caches, q[:, 0], kc, ks, vc, vs, idx, positions)
-            pend.append(p)
-            ctx = ctx.reshape(b, tt, nh * d).to(x.dtype)
-        else:
-            caches["k"][idx, rows[:, None], posmat] = k.to(caches["k"].dtype)
-            caches["v"][idx, rows[:, None], posmat] = v.to(caches["v"].dtype)
-            kk, vv = caches["k"][idx], caches["v"][idx]
-            if nkv != nh:
-                kk = torch.repeat_interleave(kk, nh // nkv, dim=2)
-                vv = torch.repeat_interleave(vv, nh // nkv, dim=2)
-            qf = q.transpose(1, 2).float()
-            kf = kk.transpose(1, 2).float()
-            vf = vv.transpose(1, 2)
-            scores = torch.einsum("bhtd,bhsd->bhts", qf, kf) / np.sqrt(d)
-            probs = torch.softmax(scores + mask, dim=-1).to(vf.dtype)
-            ctx = torch.einsum("bhts,bhsd->bhtd", probs, vf)
-            ctx = ctx.transpose(1, 2).reshape(b, tt, nh * d).to(x.dtype)
-        x = x + llama.quant_linear(ctx, layer["o_proj"], cfg)
-        h2 = llama.rms_norm(x, layer["post_attention_layernorm"],
-                            cfg.rms_norm_eps)
-        x = x + llama.mlp(h2, layer, cfg)
-    if pend:
-        # scale rows of every layer at each slot's own row: [B, L, H]
-        pos = positions.long()
-        caches["k_scale"][:, rows, :, pos] = \
-            torch.stack([p[0][..., 0] for p in pend]).transpose(0, 1)
-        caches["v_scale"][:, rows, :, pos] = \
-            torch.stack([p[1][..., 0] for p in pend]).transpose(0, 1)
-    x = llama.rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    return llama.lm_head(params, x).float()

@@ -7,6 +7,7 @@ for each packed linear, a dict of its fields (``w2``, ``w4``, ``meta2``,
 ``qscale``, ``qmin``, ``smeta4`` arrays plus the ``in_features`` and
 ``out_features`` ints). bf16 arrays are ``ml_dtypes.bfloat16`` (what
 ``np.asarray`` gives for a JAX bf16 array); they cross as their raw 16 bits.
+:func:`pool_from_numpy` carries a paged KV pool across the same way.
 """
 
 from __future__ import annotations
@@ -67,3 +68,26 @@ def params_to(params, device: str | torch.device):
     if isinstance(params, (PackedMXQLinear, torch.Tensor)):
         return params.to(dev)
     return {k: params_to(v, dev) for k, v in params.items()}
+
+
+def pool_from_numpy(pool, k_pages, v_pages):
+    """Copy a paged KV pool given as numpy into ``pool`` (a
+    ``serving.paged.PagedPool``) in place: ``k_pages``/``v_pages`` are the
+    bf16 pages [KVH, L*P, ps, D], or for the int8 pool dicts of ``codes``
+    (int8) and ``scales`` (bf16 [KVH, L*P, 1, ps]), as ``np.asarray`` gives
+    them for ``mxq_tpu``'s pool. Shapes and types must match. Returns
+    ``pool``."""
+    def copy(dst: torch.Tensor, src):
+        t = tensor_from_numpy(src, "cpu")
+        if t.shape != dst.shape or t.dtype != dst.dtype:
+            raise ValueError(f"pool array {t.dtype} {tuple(t.shape)} does "
+                             f"not fit {dst.dtype} {tuple(dst.shape)}")
+        dst.copy_(t)
+
+    for dst, src in ((pool.k_pages, k_pages), (pool.v_pages, v_pages)):
+        if isinstance(dst, dict):
+            for name in ("codes", "scales"):
+                copy(dst[name], src[name])
+        else:
+            copy(dst, src)
+    return pool

@@ -269,6 +269,6 @@ def test_cli_serve_on_cpu():
     out = cli.main(base)
     assert out["requests"] == 3 and out["tokens"] == 9
     assert out["stats"]["requests_finished"] == 3
-    for flag in ("--paged", "--spec_decode", "--prefill_a8"):
+    for flag in ("--spec_decode", "--prefill_a8"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cli.main(base + [flag])

@@ -1,6 +1,7 @@
-"""K1-K4 on the card against their plain PyTorch versions at small shapes.
-Needs a CUDA device and nvcc (marker ``cuda``); skips elsewhere. Run on the
-H100 with ``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``;
+"""K1-K4 and K9-K11 on the card against their plain PyTorch versions at
+small shapes. Needs a CUDA device and nvcc (marker ``cuda``); skips
+elsewhere. Run on the H100 with
+``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``;
 ``chip_smoke.py`` holds the same kernels at llama2_7b's shapes."""
 
 import math
@@ -72,3 +73,66 @@ def test_attention_kernel_matches_plain(gen, hq, hkv, d):
     torch.cuda.synchronize()
     assert float((ctx - ref).abs().max() / ref.abs().max()) <= 1e-3
     assert torch.equal(kc1, kc) and torch.equal(vc1, vc)
+
+
+def _paged_inputs(gen, pos, hkv, g, d, pps, lp):
+    """Pools of ``lp`` pages, and tables holding shuffled pages up to each
+    position's page and the null page 0 after it."""
+    b = len(pos)
+    cat = dict(generator=gen, device="cuda")
+    ps = a8.PAGE_INT8
+    pages = lambda: torch.randint(-127, 128, (hkv, lp, ps, d),  # noqa: E731
+                                  dtype=torch.int8, **cat)
+    scales = lambda *s: (torch.rand(s, **cat) * 0.02  # noqa: E731
+                         + 1e-3).to(torch.bfloat16)
+    ks, vs = scales(hkv, lp, 1, ps), scales(hkv, lp, 1, ps)
+    ks[:, 0] = vs[:, 0] = float("nan")         # the null page is never read
+    perm = torch.randperm(lp - 1, generator=gen, device="cuda")[:b * pps] + 1
+    tables = perm.reshape(b, pps).to(torch.int32)
+    for i, p in enumerate(pos):
+        tables[i, p // ps + 1:] = 0
+    return dict(q=torch.randn((b, hkv * g, d), **cat).to(torch.bfloat16),
+                k_pages=pages(), k_scales=ks, v_pages=pages(), v_scales=vs,
+                kcur=torch.randint(-127, 128, (b, hkv, d), dtype=torch.int8,
+                                   **cat),
+                kscur=scales(b, hkv),
+                vcur=torch.randint(-127, 128, (b, hkv, d), dtype=torch.int8,
+                                   **cat),
+                vscur=scales(b, hkv),
+                tables=tables.contiguous())
+
+
+@pytest.mark.parametrize("g,d", [(1, 64), (4, 128), (8, 128)])
+def test_paged_kernels_match_plain(gen, g, d):
+    """K9, K10 and K11 against their plain versions, shuffled tables, a
+    NaN null page; K11's written rows bit-exact, no other byte changed."""
+    hkv, pps = 2, 3
+    ps = a8.PAGE_INT8
+    plist = [0, 1, 127, 128, 300, pps * ps - 1]
+    t = _paged_inputs(gen, plist, hkv, g, d, pps, 24)
+    pos = torch.tensor(plist, dtype=torch.int32, device="cuda")
+    pool = [t[k] for k in ("k_pages", "k_scales", "v_pages", "v_scales")]
+    cur = [t[k] for k in ("kcur", "kscur", "vcur", "vscur")]
+    for fn, plain, args in (
+            (a8.int8_paged_decode_attention,
+             a8.int8_paged_decode_attention_plain, [pos + 1]),
+            (a8.int8_paged_decode_attention_cur,
+             a8.int8_paged_decode_attention_cur_plain, cur + [pos])):
+        got = fn(t["q"], *pool, *args, t["tables"])
+        ref = plain(t["q"], *pool, *args, t["tables"])
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(got).all())
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-3
+    mine = [p.clone() for p in pool]
+    theirs = [p.clone() for p in pool]
+    ctx = a8.int8_paged_decode_attend_update(t["q"], *mine, *cur, pos,
+                                             t["tables"])[0]
+    ref = a8.int8_paged_decode_attend_update_plain(t["q"], *theirs, *cur,
+                                                   pos, t["tables"])[0]
+    torch.cuda.synchronize()
+    assert float((ctx - ref).abs().max() / ref.abs().max()) <= 1e-3
+    for a, b in zip(mine, theirs):               # bytes: the NaNs compare
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    changed = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
+                  for a, b in zip(mine, pool))
+    assert changed <= 2 * 6 * hkv * (d + 2)     # the written rows and lanes
