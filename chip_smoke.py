@@ -6,10 +6,10 @@
 
 Phases, each printing one JSON line:
   build    compile csrc/*.cu with nvcc (one process per source, in parallel)
-  kernels  hold K1-K4 and K9-K11 against their plain PyTorch versions at
-           llama2_7b's shapes and time kernel, plain version, bound and
-           library call
-  serve    six runs of llama2_7b at full depth, each with the launch
+  kernels  hold K1-K5, K4a-K4d, K7, K8 and K9-K11 against their plain
+           PyTorch versions at llama2_7b's shapes and time kernel, plain
+           version, bound and library call
+  serve    ten runs of llama2_7b at full depth, each with the launch
            counts set to 0 before it and read after it:
            `mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8`
            in-process (must launch K1, K4), the Engine at 8 slots with
@@ -17,14 +17,21 @@ Phases, each printing one JSON line:
            (K2, K4); the same cli serve with --paged (K1, K11), a one-slot
            PagedEngine (K2, K11), and a PagedEngine whose 8 requests share
            a 512-token prefix (prefix-cache hits, a repeated request's
-           tokens equal to its first run's); then where a decode step's
-           time goes, slot and paged
+           tokens equal to its first run's); cli serve --spec_decode (K1,
+           K4a); the Engine at float32 on repetitive prompts with
+           speculative decoding always on (K1, K4a) and plain (K1, K4),
+           7 of 8 requests' tokens equal; cli serve --prefill_a8
+           --lm_head_bits 4 with 600-token prompts (K1, K4, K5, K7); then
+           where a decode step's time goes, slot and paged, and where a
+           speculative verify round's does
   e2e      at 2 layers of 7B width, one B=8 decode step and one 512-token
            prefill with the kernels, held against the same forward with
            the plain versions on the card and against the CPU; one B=8
            paged decode step (K11) against the same step with the plain
            versions and against the slot engine's step from the same
-           int8 state
+           int8 state; the int8-activation prefill (K5), a decode step
+           with the uniform-4b head (K7), and a T=5 verify step (K4a)
+           against five decode steps
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device, without the package beside it, or when any check fails.
@@ -61,6 +68,20 @@ KERNEL_INFO = {
            "mxq_tpu/ops/mxq_matmul.py:713"),
     "K4": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
            "mxq_tpu/ops/attn_int8.py:318"),
+    "K4a": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
+            "mxq_tpu/ops/attn_int8.py:97"),
+    "K4b": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
+            "mxq_tpu/ops/attn_int8.py:154"),
+    "K4c": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
+            "mxq_tpu/ops/attn_int8.py:232"),
+    "K4d": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
+            "mxq_tpu/ops/attn_int8.py:1101"),
+    "K5": ("cuda", "mxq_tpu_torch/csrc/mxq_dequant.cu",
+           "mxq_tpu/ops/mxq_matmul.py:856"),
+    "K7": ("cuda", "mxq_tpu_torch/csrc/uniform_gemv.cu",
+           "mxq_tpu/ops/uniform4.py:117"),
+    "K8": ("cuda", "mxq_tpu_torch/csrc/uniform_gemv.cu",
+           "mxq_tpu/ops/uniform4.py:292"),
     "K9": ("cuda", "mxq_tpu_torch/csrc/paged_attn_int8.cu",
            "mxq_tpu/ops/attn_int8.py:559"),
     "K10": ("cuda", "mxq_tpu_torch/csrc/paged_attn_int8.cu",
@@ -222,6 +243,7 @@ def phase_kernels(torch, timer):
             failures.append(f"K3 {name}: not bit-equal (max abs {err:.3g})")
     summary["K3"] = summarise([r for r in rows if r["kernel"] == "K3"],
                               "one llama2_7b layer (qkv, o, gate_up, down)")
+    failures += a8_kernels(torch, timer, gen, packs, rows, summary)
     del packs
 
     # K4: B=8, Hq=Hkv=32, D=128, S=2048, positions incl. 0 and 2046
@@ -286,9 +308,216 @@ def phase_kernels(torch, timer):
                         f"rest={rest_ok}")
     summary["K4"] = summarise(
         [row], "B=8 Hq=Hkv=32 D=128 S=2048, mixed positions")
-    del kc, vc, kc1, vc1, kc2, vc2, kd, vd
-    f = paged_kernels(torch, timer, gen, rows, summary)
-    return summary, failures + f
+    del kc1, vc1, kc2, vc2, kd, vd
+    failures += attention_flag_kernels(
+        torch, timer, rows, summary, q, kc, ks, vc, vs,
+        (kcur, kscur, vcur, vscur), idx, positions)
+    del kc, vc
+    failures += paged_kernels(torch, timer, gen, rows, summary)
+    failures += uniform_kernels(torch, timer, gen, rows, summary)
+    return summary, failures
+
+
+def attention_flag_kernels(torch, timer, rows, summary, q, kc, ks, vc, vs,
+                           cur, idx, positions):
+    """K4a/K4c (rows <= pos, no current token) and K4b/K4d (rows < pos plus
+    the current token, no write) at K4's shapes and positions: the K4a
+    call on a layer view, the K4c call on the stack (one launch, one
+    counter), likewise K4b and K4d. Plus a verify-shaped K4a call: 5
+    queries per slot at pos .. pos+4 (capped at S-1). Gate ctx rel <= 1e-3;
+    the cache must be left byte for byte."""
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    B, H, S, D = q.shape[0], q.shape[1], kc.shape[3], q.shape[2]
+    kscur, vscur = cur[1], cur[3]
+    kc0, vc0 = kc.clone(), vc.clone()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = q[:, :, None, :]
+    rws = torch.arange(B, device="cuda")
+    pos = positions.long()
+    # the library yardstick: SDPA over the dequantized bf16 layer, masked
+    # to rows <= pos; for K4b/K4d row pos holds the current token (codes
+    # and scales), which attending rows < pos plus that token is
+    ks_c, vs_c = ks[idx].clone(), vs[idx].clone()
+    kc_c, vc_c = kc[idx].clone(), vc[idx].clone()
+    kc_c[rws, :, pos] = cur[0][:, :, 0]
+    vc_c[rws, :, pos] = cur[2][:, :, 0]
+    ks_c[rws, :, pos] = kscur[:, :, 0]
+    vs_c[rws, :, pos] = vscur[:, :, 0]
+
+    def dequant(c, sc):
+        return (c.float() * sc.float()[..., None]).to(torch.bfloat16)
+
+    lib_a = (dequant(kc[idx], ks[idx]), dequant(vc[idx], vs[idx]))
+    lib_b = (dequant(kc_c, ks_c), dequant(vc_c, vs_c))
+    del kc_c, vc_c, ks_c, vs_c
+    amask = (torch.arange(S, device="cuda")[None, None, None, :]
+             <= positions[:, None, None, None])
+    stacked = (kc, ks, vc, vs)
+    view = (kc[idx], ks[idx], vc[idx], vs[idx])
+    calls = {
+        "K4a": (lambda: a8.int8_decode_attention(q, *view, positions),
+                lambda: a8.int8_decode_attention_stacked_plain(
+                    q, *stacked, idx, positions), lib_a, False),
+        "K4c": (lambda: a8.int8_decode_attention_stacked(
+                    q, *stacked, idx, positions),
+                lambda: a8.int8_decode_attention_stacked_plain(
+                    q, *stacked, idx, positions), lib_a, False),
+        "K4b": (lambda: a8.int8_decode_attention_cur(
+                    q, *view, *cur, positions),
+                lambda: a8.int8_decode_attention_cur_folded_plain(
+                    q, *stacked, *cur, idx, positions), lib_b, True),
+        "K4d": (lambda: a8.int8_decode_attention_cur_folded(
+                    q, *stacked, *cur, idx, positions),
+                lambda: a8.int8_decode_attention_cur_folded_plain(
+                    q, *stacked, *cur, idx, positions), lib_b, True)}
+    failures = []
+    for key, (fn, plain, (kd, vd), has_cur) in calls.items():
+        out, ref = fn(), plain()
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        # rows each (b, h) reads: < pos with the current token, <= pos
+        # without it
+        nrows = int((positions if has_cur else positions + 1)
+                    .clamp(max=S).sum())
+        nbytes = (nrows * H * (2 * D + 2 * 2) + B * H * D * 2 + B * 4
+                  + B * H * D * 4 + (2 * B * H * (D + 2) if has_cur else 0))
+        bms, by = bound_ms(nbytes, 4.0 * (nrows + (B if has_cur else 0))
+                           * H * D)
+        row = {"kernel": key, "B": B, "H": H, "S": S, "D": D,
+               "rel_err": err, "max_abs_err": float((out - ref).abs().max()),
+               "kernel_ms": timer(fn), "plain_ms": timer(plain, iters=3),
+               "bound_ms": bms, "bound_by": by,
+               "library_ms": timer(lambda: sdpa(qs, kd, vd,
+                                                attn_mask=amask))}
+        if key == "K4c":
+            # a speculative verify's 5 queries per slot, one launch each
+            vpos = [torch.clamp(positions + i, max=S - 1) for i in range(5)]
+            verr = 0.0
+            for vp in vpos:
+                o = a8.int8_decode_attention_stacked(q, *stacked, idx, vp)
+                r = a8.int8_decode_attention_stacked_plain(q, *stacked, idx,
+                                                           vp)
+                torch.cuda.synchronize()
+                verr = max(verr, rel_err(o, r))
+            row["verify_5_queries_rel_err"] = verr
+            row["verify_5_queries_ms"] = timer(lambda: [
+                a8.int8_decode_attention_stacked(q, *stacked, idx, vp)
+                for vp in vpos])
+            err = max(err, verr)
+        untouched = torch.equal(kc, kc0) and torch.equal(vc, vc0)
+        row["cache_untouched"] = untouched
+        rows.append(row)
+        emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
+        if not (err <= 1e-3 and untouched):
+            failures.append(f"{key}: rel {err:.3g} cache untouched "
+                            f"{untouched}")
+        summary[key] = summarise(
+            [row], "B=8 Hq=Hkv=32 D=128 S=2048, mixed positions, "
+            + ("rows < pos + current token" if has_cur else "rows <= pos"))
+    return failures
+
+
+def a8_kernels(torch, timer, gen, packs, rows, summary):
+    """K5 at the four 7B linears: its transposed int8 planes against the
+    plain version's (equal but for half-way ties, each off by one code:
+    both round (s*c - s*z) * inv once per operation), and
+    mxq_matmul_prefill_a8 at 512 rows through K5 against the same through
+    the plain version (<= 5e-3 * max|y|), with the bf16-plane K3 path's
+    time beside it."""
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    from mxq_tpu_torch.ops import mxq_matmul as mm
+    failures = []
+    for name, p in packs.items():
+        inv = 1.0 / mm.int8_weight_scale(p)
+        q2, q4 = mm.dequant_int8_planes(p, inv)
+        r2, r4 = mm.dequant_int8_planes_plain(p, inv)
+        torch.cuda.synchronize()
+        diffs = [(a.int() - b.int()).abs() for a, b in ((q2, r2), (q4, r4))]
+        ties = sum(int((d > 0).sum()) for d in diffs)
+        maxd = max(int(d.max()) for d in diffs)
+        nbytes = (packed_bytes(p) + inv.numel() * 4 + q2.numel()
+                  + q4.numel())
+        bms, by = bound_ms(nbytes, 0.0)
+        del diffs, r2, r4
+        x = torch.randn((512, p.in_features), generator=gen, device="cuda")
+        y = mm.mxq_matmul_prefill_a8(x, p)
+        with plain_versions(mm, a8):
+            ref = mm.mxq_matmul_prefill_a8(x, p)
+        torch.cuda.synchronize()
+        yerr = rel_err(y, ref)
+        row = {"kernel": "K5", "linear": name, "codes": q2.numel()
+               + q4.numel(), "codes_differing": ties, "max_code_diff": maxd,
+               "max_abs_err": float(maxd),
+               "kernel_ms": timer(lambda: mm.dequant_int8_planes(p, inv)),
+               "plain_ms": timer(lambda: mm.dequant_int8_planes_plain(
+                   p, inv), iters=3),
+               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "a8_linear_512_rel_err": yerr,
+               "a8_linear_512_ms": timer(
+                   lambda: mm.mxq_matmul_prefill_a8(x, p)),
+               "k3_linear_512_ms": timer(
+                   lambda: mm.mxq_matmul_prefill(x, p))}
+        del q2, q4, x, y, ref
+        rows.append(row)
+        emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
+        if not (maxd <= 1 and ties <= 64 and yerr <= 5e-3):
+            failures.append(f"K5 {name}: {ties} codes differ (max "
+                            f"{maxd}), a8 linear rel {yerr:.3g}")
+    summary["K5"] = summarise([r for r in rows if r["kernel"] == "K5"],
+                              "one llama2_7b layer (qkv, o, gate_up, down)")
+    return failures
+
+
+def uniform_kernels(torch, timer, gen, rows, summary):
+    """K7 at the lm_head shape (4096 -> 32000, N padded to 32768), B = 1, 8,
+    128 and a 2048-row prefill bucket; K8 at the four 7B linears packed
+    uniform-2b, B=8. Gate rel <= 1e-4 of max|y| against bf16(x) @
+    dequant. Library: x_bf16 @ W_bf16 of the dequantized weight."""
+    from mxq_tpu_torch.ops import uniform4 as u4
+    failures = []
+
+    def one(key, fn, p, b, name, iters=10):
+        x = torch.randn((b, p.in_features), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        y = fn(x, p)
+        ref = u4.uniform_matmul_plain(x, p)
+        torch.cuda.synchronize()
+        err = rel_err(y, ref)
+        wbf = u4.unpack_dequant(p).to(torch.bfloat16)
+        nbytes = sum(t.numel() * t.element_size() for t in (p.w, p.s, p.z)) \
+            + x.numel() * 2 + b * p.out_features * 4
+        bms, by = bound_ms(nbytes, 2.0 * b * p.in_features * p.out_features)
+        row = {"kernel": key, "linear": name, "B": b, "rel_err": err,
+               "max_abs_err": float((y - ref).abs().max()),
+               "kernel_ms": timer(lambda: fn(x, p), iters=iters),
+               "plain_ms": timer(lambda: u4.uniform_matmul_plain(x, p),
+                                 iters=3),
+               "bound_ms": bms, "bound_by": by,
+               "library_ms": timer(lambda: x @ wbf, iters=iters)}
+        del wbf
+        rows.append(row)
+        emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
+        if not err <= 1e-4:
+            failures.append(f"{key} {name} B={b}: rel {err:.3g}")
+
+    w = torch.randn((32000, 4096), generator=gen, device="cuda") * 0.02
+    head = u4.quantize_pack_u4(w)
+    del w
+    for b in (1, 8, 128, 2048):
+        one("K7", u4.u4_gemv, head, b, "lm_head", iters=10 if b < 2048 else 3)
+    summary["K7"] = summarise(
+        [r for r in rows if r["kernel"] == "K7" and r["B"] == 8],
+        "llama2_7b lm_head 4096->32000, B=8")
+    del head
+    for name, (o, k) in SHAPES_7B.items():
+        w = torch.randn((o, k), generator=gen, device="cuda") / math.sqrt(k)
+        p = u4.quantize_pack_u2(w)
+        del w
+        one("K8", u4.u2_gemv, p, 8, name)
+    summary["K8"] = summarise([r for r in rows if r["kernel"] == "K8"],
+                              "one llama2_7b layer (qkv, o, gate_up, down) "
+                              "packed uniform-2b, B=8")
+    return failures
 
 
 def paged_kernels(torch, timer, gen, rows, summary):
@@ -389,10 +618,11 @@ def phase_serve(torch):
     from mxq_tpu_torch.ops import attn_int8 as a8
     from mxq_tpu_torch.ops import mxq_matmul as mm
     from mxq_tpu_torch.serving import engine as eng
-    from mxq_tpu_torch.serving import paged
+    from mxq_tpu_torch.ops import uniform4 as u4
+    from mxq_tpu_torch.serving import paged, spec
     import numpy as np
 
-    kernels = {**mm.KERNELS, **a8.KERNELS}
+    kernels = {**mm.KERNELS, **a8.KERNELS, **u4.KERNELS}
     runs, failures = {}, []
 
     def counted(name, need, drive):
@@ -507,12 +737,74 @@ def phase_serve(torch):
         return res
 
     counted("paged_prefix", ("K1", "K11"), prefix_run)
+
+    # the slot engine's three serve options at full depth: prompt-lookup
+    # speculative decoding through cli serve (random prompts: the drafts
+    # miss and the auto-disable falls back to plain chunks) ...
+    spec_args = ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits",
+                 "8", "--slots", "8", "--max_len", "2048", "--requests", "8",
+                 "--seed", str(SEED)]
+    counted("cli_spec", ("K1", "K4a"), lambda: cli.main(
+        spec_args + ["--spec_decode", "--prompt_len", "100",
+                     "--max_new_tokens", "32"]))
+    if runs["cli_spec"]["tokens"] != 8 * 32:
+        failures.append(f"cli serve --spec_decode gave "
+                        f"{runs['cli_spec']['tokens']} tokens")
+
+    # ... the Engine at float32 on repetitive prompts, always speculating,
+    # against plain decode on the same prompts and weights ...
+    params32 = llama.quantize_params_packed(
+        llama.init_params(cfg, SEED, torch.float32, "cuda"), cfg,
+        device="cuda")
+    pattern = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+    rep_prompts = [np.roll(np.tile(pattern, 8), i) for i in range(8)]
+
+    def repetitive_run(speculate):
+        e = eng.Engine(params32, cfg, eng.EngineConfig(
+            num_slots=8, max_len=2048, seed=SEED), device="cuda")
+        reqs = [e.submit(p, max_new_tokens=32) for p in rep_prompts]
+        t1 = time.monotonic()
+        if speculate:
+            spec.run_spec_pipelined(e, auto_disable=False)
+        else:
+            e.run()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t1
+        toks = sum(len(r.generated) for r in reqs)
+        return {"tokens": toks, "tokens_per_sec": toks / dt,
+                "generated": [list(map(int, r.generated)) for r in reqs],
+                "stats": e.stats()}
+
+    counted("engine_spec_repetitive", ("K1", "K4a"),
+            lambda: repetitive_run(True))
+    counted("engine_plain_repetitive", ("K1", "K4"),
+            lambda: repetitive_run(False))
+    got = runs["engine_spec_repetitive"].pop("generated")
+    want = runs["engine_plain_repetitive"].pop("generated")
+    same = sum(a == b for a, b in zip(got, want))
+    runs["engine_spec_repetitive"]["requests_equal_to_plain"] = same
+    if same < 7 or runs["engine_spec_repetitive"]["tokens"] != 8 * 32:
+        failures.append(f"spec on repetitive prompts: {same} of 8 requests "
+                        "equal to plain decode")
+    del params32
+
+    # ... and the int8-activation prefill with the packed uniform-4b head:
+    # 600-token prompts go to the 2048 bucket (K5), the head runs at the
+    # bucket's rows in prefill and at 8 rows in decode (K7)
+    counted("cli_a8_u4", ("K1", "K4", "K5", "K7"), lambda: cli.main(
+        spec_args + ["--prefill_a8", "--lm_head_bits", "4",
+                     "--prompt_len", "600", "--max_new_tokens", "16"]))
+    if runs["cli_a8_u4"]["tokens"] != 8 * 16:
+        failures.append(f"cli serve --prefill_a8 --lm_head_bits 4 gave "
+                        f"{runs['cli_a8_u4']['tokens']} tokens")
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in kernels}
-    # the two engines' decode steps, wall-clocked in turns (the host's
-    # speed drifts between seconds), then profiled
+    # the two engines' decode steps and one speculative verify round,
+    # wall-clocked in turns (the host's speed drifts between seconds),
+    # then profiled
     step_fns = {"slot": slot_step(torch, params, cfg),
-                "paged": paged_step(torch, params, cfg)}
+                "paged": paged_step(torch, params, cfg),
+                "spec": verify_step(torch, params, cfg)}
     walls = {k: [] for k in step_fns}
     for _ in range(3):
         for k, fn in step_fns.items():
@@ -538,6 +830,23 @@ def slot_step(torch, params, cfg, b=8, pos=1000):
     toks = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
     start = torch.full((b,), pos, dtype=torch.int32, device="cuda")
     return lambda i: llama.decode_slots(params, toks, cfg, cache, start + i)
+
+
+def verify_step(torch, params, cfg, b=8, pos=1000, t=5):
+    """One speculative verify round of the slot engine
+    (``llama.decode_slots`` with T=5 tokens per slot: K1 at 40 rows, K4a
+    five times per layer) for ``b`` slots at cache rows ``pos + t*i ..``,
+    int8 cache."""
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.serving import kvcache
+
+    cache = kvcache.init_quant_cache(cfg.num_hidden_layers, b, 2048,
+                                     cfg.num_key_value_heads, cfg.head_dim,
+                                     device="cuda")
+    toks = torch.zeros((b, t), dtype=torch.int32, device="cuda")
+    start = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+    return lambda i: llama.decode_slots(params, toks, cfg, cache,
+                                        start + t * i)
 
 
 def paged_step(torch, params, cfg, b=8, pos=1000):
@@ -603,25 +912,33 @@ def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
 
 @contextlib.contextmanager
 def plain_versions(mm, a8):
-    """Route the packed linears, K4 and K11 through their plain PyTorch
-    versions on the card, so one forward can be held against the same
-    forward with the kernels on the same device (no kernel launches, no
-    counts)."""
-    saved = (mm.gemv_batched, mm.gemv_single, mm.dequant_planes,
-             a8.int8_decode_attention_fused_write,
-             a8.int8_paged_decode_attend_update)
-    mm.gemv_batched = mm.gemv_single = mm.gemv_plain
-    mm.dequant_planes = mm.dequant_planes_plain
-    a8.int8_decode_attention_fused_write = \
-        a8.int8_decode_attention_fused_write_plain
-    a8.int8_paged_decode_attend_update = \
-        a8.int8_paged_decode_attend_update_plain
+    """Route the packed linears (K1-K3, K5), the K4 family, K11 and the
+    uniform linears (K7, K8) through their plain PyTorch versions on the
+    card, so one forward can be held against the same forward with the
+    kernels on the same device (no kernel launches, no counts)."""
+    from mxq_tpu_torch.ops import uniform4 as u4
+    swaps = [(mm, "gemv_batched", mm.gemv_plain),
+             (mm, "gemv_single", mm.gemv_plain),
+             (mm, "dequant_planes", mm.dequant_planes_plain),
+             (mm, "dequant_int8_planes", mm.dequant_int8_planes_plain),
+             (a8, "int8_decode_attention_fused_write",
+              a8.int8_decode_attention_fused_write_plain),
+             (a8, "int8_decode_attention_stacked",
+              a8.int8_decode_attention_stacked_plain),
+             (a8, "int8_decode_attention_cur_folded",
+              a8.int8_decode_attention_cur_folded_plain),
+             (a8, "int8_paged_decode_attend_update",
+              a8.int8_paged_decode_attend_update_plain),
+             (u4, "u4_gemv", u4.uniform_matmul_plain),
+             (u4, "u2_gemv", u4.uniform_matmul_plain)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (mm.gemv_batched, mm.gemv_single, mm.dequant_planes,
-         a8.int8_decode_attention_fused_write,
-         a8.int8_paged_decode_attend_update) = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def phase_e2e(torch):
@@ -642,7 +959,8 @@ def phase_e2e(torch):
       rows: against itself with the plain versions on the card, and
       against the slot engine's K4 step, each <= 1e-2 (K11 rounds
       p * v_scale against the running max of each page, K4 against the
-      global max)."""
+      global max).
+    - the slot engine's options (:func:`e2e_serve_options`)."""
     from mxq_tpu_torch import weights
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.ops import attn_int8 as a8
@@ -657,6 +975,7 @@ def phase_e2e(torch):
     b, t0, s = 8, 32, 256
     ids = torch.randint(0, cfg.vocab_size, (b, t0 + 1), generator=gen)
     pids = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen)
+    vids = torch.randint(0, cfg.vocab_size, (b, 5), generator=gen)
     counts = (mm.gemv_batched, a8.int8_decode_attention_fused_write,
               mm.dequant_planes)
     k11 = a8.KERNELS["K11"]
@@ -687,6 +1006,10 @@ def phase_e2e(torch):
             cpu_params = weights.params_to(params, "cpu")
             cpu_cache = {k: v.cpu() for k, v in cache.items()}
             plain_cache = {k: v.clone() for k, v in cache.items()}
+            opt_res, opt_fail = e2e_serve_options(
+                torch, cfg, sdpa_cfg, params, cache, ids[:, t0:], vids, pids,
+                t0)
+            failures += [f"e2e {name} {f}" for f in opt_fail]
             pool, tables = pool_from_slot_cache(torch, paged, cfg, cache)
             plain_pool, _ = pool_from_slot_cache(torch, paged, cfg, cache)
             before = [fn.launches for fn in counts]
@@ -732,7 +1055,8 @@ def phase_e2e(torch):
                        and tuple(card_paged.shape) == (b, cfg.vocab_size)
                        and bool(torch.isfinite(card).all())
                        and bool(torch.isfinite(card_p).all())
-                       and bool(torch.isfinite(card_paged).all()))}
+                       and bool(torch.isfinite(card_paged).all())),
+                   **opt_res}
             out[name] = res
             gates = {"decode_rel_vs_card_plain": 1e-2,
                      "prefill_rel_vs_card_plain": 1e-3,
@@ -752,6 +1076,74 @@ def phase_e2e(torch):
             del plain_pool
     emit(out)
     return failures
+
+
+def e2e_serve_options(torch, cfg, sdpa_cfg, params, cache, ids, vids, pids,
+                      t0):
+    """The slot engine's three serve options at 2 layers of 7B width, from
+    the prefilled int8 state ``cache`` (left unchanged):
+    - the int8-activation prefill (K5) of the 512 tokens ``pids``, against
+      the same forward with the plain versions on the card (<= 1e-3: K5's
+      planes equal its plain version's, the int8 GEMM is exact) and
+      reported against the bf16-plane (K3) prefill (<= 0.1: the int8
+      quantization error, 4.7e-2 to 5.9e-2 of max|logit| on the tiny
+      model's CPU tests; the linear alone is held to 3e-2 in the kernels
+      phase);
+    - one B=8 decode step with the uniform-4b head (K7) against the plain
+      versions (<= 1e-2);
+    - one T=5 verify step (``vids``; K4a) against 5 sequential decode steps
+      fed the same tokens from the same state (<= 1e-2; argmax agreement
+      reported).
+    Returns (results, failures)."""
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    from mxq_tpu_torch.ops import mxq_matmul as mm
+    from mxq_tpu_torch.ops import uniform4 as u4
+
+    b = ids.shape[0]
+    k5, k7, k4a = mm.KERNELS["K5"], u4.KERNELS["K7"], a8.KERNELS["K4a"]
+    state = lambda: {k: v.clone() for k, v in cache.items()}  # noqa: E731
+    a8_cfg = dataclasses.replace(sdpa_cfg, prefill_act_bits=8)
+    params_u4 = dict(params, lm_head=u4.quantize_pack_u4(
+        params["lm_head"].T))
+    dev_ids = ids.to("cuda", torch.int32)
+    dev_vids = vids.to("cuda", torch.int32)
+    pos = torch.full((b,), t0, dtype=torch.int32, device="cuda")
+    before = (k5.launches, k7.launches, k4a.launches)
+    card_a8, _ = llama.forward(params, pids, a8_cfg, device="cuda")
+    card_u4 = llama.decode_slots(params_u4, dev_ids, cfg, state(), pos)
+    verify = llama.decode_slots(params, dev_vids, cfg, state(), pos)
+    used = [c.launches - n for c, n in zip((k5, k7, k4a), before)]
+    seq_cache = state()
+    steps = torch.cat([llama.decode_slots(params, dev_vids[:, i:i + 1], cfg,
+                                          seq_cache, pos + i)
+                       for i in range(vids.shape[1])], dim=1)
+    with plain_versions(mm, a8):
+        plain_a8, _ = llama.forward(params, pids, a8_cfg, device="cuda")
+        plain_u4 = llama.decode_slots(params_u4, dev_ids, cfg, state(), pos)
+    k3_pre, _ = llama.forward(params, pids, sdpa_cfg, device="cuda")
+    plain_used = [c.launches - n for c, n in zip((k5, k7, k4a), before)]
+    res = {"a8_prefill_rel_vs_card_plain": rel_err(card_a8, plain_a8),
+           "a8_prefill_rel_vs_k3_prefill": rel_err(card_a8, k3_pre),
+           "a8_prefill_argmax_agreement_vs_k3": float(
+               (card_a8.argmax(-1) == k3_pre.argmax(-1)).float().mean()),
+           "u4_head_decode_rel_vs_card_plain": rel_err(card_u4, plain_u4),
+           "verify_rel_vs_sequential_decode": rel_err(verify, steps),
+           "verify_argmax_agreement_vs_sequential": float(
+               (verify.argmax(-1) == steps.argmax(-1)).float().mean()),
+           "k5_k7_k4a_launches": used}
+    gates = {"a8_prefill_rel_vs_card_plain": 1e-3,
+             "a8_prefill_rel_vs_k3_prefill": 0.1,
+             "u4_head_decode_rel_vs_card_plain": 1e-2,
+             "verify_rel_vs_sequential_decode": 1e-2}
+    failures = [f"{k} {res[k]:.3g} > {g}" for k, g in gates.items()
+                if not res[k] <= g]
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (card_a8, card_u4, verify))
+    if not finite or min(used) <= 0 or plain_used != used:
+        failures.append(f"options: finite {finite}, K5/K7/K4a launches "
+                        f"{used}, after the plain run {plain_used}")
+    return res, failures
 
 
 def pool_from_slot_cache(torch, paged, cfg, cache):

@@ -23,9 +23,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("mxq_gemv", "mxq_dequant", "attn_int8", "paged_attn_int8")
+SOURCES = ("mxq_gemv", "mxq_dequant", "attn_int8", "paged_attn_int8",
+           "uniform_gemv")
 _EXTRA_FLAGS = {
-    # K3 must equal its plain PyTorch version bit for bit: no FMA fusion.
+    # K3 and K5 must equal their plain PyTorch versions bit for bit: no
+    # FMA fusion.
     "mxq_dequant": ["--fmad=false"],
 }
 _CUTLASS = Path("/usr/local/cutlass/include")
@@ -38,12 +40,14 @@ SIGNATURES = {
     "mxq_gemv": {
         name: [P, I, I, I, P, P, P, P, P, P, I, I, I, I, I, P, P, P]
         for name in ("mxq_gemv_k1", "mxq_gemv_k2")},
-    "mxq_dequant": {"mxq_dequant_k3": [P, P, P, P, P, P, I, I, P, P, P]},
+    "mxq_dequant": {"mxq_dequant_k3": [P, P, P, P, P, P, I, I, P, P, P],
+                    "mxq_dequant_k5": [P, P, P, P, P, P, P, I, I, P, P, P]},
     "attn_int8": {
-        "attn_int8_k4": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, F, P,
-                         P]},
+        "attn_int8": [P] * 10 + [I] * 7 + [F, P, P]},
     "paged_attn_int8": {
         "paged_attn_int8": [P] * 11 + [I] * 8 + [F, P, P]},
+    "uniform_gemv": {
+        "uniform_gemv": [I, P, I, I, P, P, P, I, I, I, I, I, P, P, P]},
 }
 
 

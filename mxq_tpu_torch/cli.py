@@ -5,6 +5,10 @@ engine and, with ``--paged``, of the paged engine (port of
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8 \
         --paged
+    python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8 \
+        --spec_decode                 # prompt-lookup speculative decoding
+    python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8 \
+        --prefill_a8 --lm_head_bits 4 --prompt_len 600
 
 Weights are random, drawn from ``--seed`` on the device (no checkpoint
 loading yet). Prints one JSON line: requests, tokens, tokens/s and the
@@ -29,7 +33,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def cmd_serve(args) -> dict:
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.serving import engine as eng
-    from mxq_tpu_torch.serving import paged
+    from mxq_tpu_torch.serving import paged, spec
 
     if args.paged and args.spec_decode:
         raise SystemExit("--spec_decode applies to the slot engine "
@@ -44,12 +48,6 @@ def cmd_serve(args) -> dict:
         if args.lm_head_bits != 16:
             print("note: --lm_head_bits applies to the slot engine only",
                   flush=True)
-    else:
-        for flag in ("spec_decode", "prefill_a8"):
-            if getattr(args, flag):
-                raise NotImplementedError(f"--{flag} {llama.NOT_PORTED}")
-        if args.lm_head_bits != 16:
-            raise NotImplementedError(f"--lm_head_bits {llama.NOT_PORTED}")
     if args.w_bits != 32:
         raise NotImplementedError(f"--w_bits fake-quant {llama.NOT_PORTED}")
     dev = resolve_device(args.device)
@@ -75,14 +73,19 @@ def cmd_serve(args) -> dict:
     else:
         e = eng.Engine(params, cfg, eng.EngineConfig(
             num_slots=args.slots, max_len=args.max_len,
-            kv_quant=args.kv_bits < 32, **sampling), device=dev)
+            kv_quant=args.kv_bits < 32, prefill_a8=args.prefill_a8,
+            lm_head_bits=args.lm_head_bits, **sampling), device=dev)
     rng = np.random.RandomState(0)
     for _ in range(args.requests):
         e.submit(rng.randint(0, cfg.vocab_size,
                              size=args.prompt_len).astype(np.int32),
                  max_new_tokens=args.max_new_tokens)
     t0 = time.time()
-    done = e.run()
+    if args.spec_decode:
+        run = spec.run_spec if args.spec_sync else spec.run_spec_pipelined
+        done = run(e, draft_len=args.draft_len)
+    else:
+        done = e.run()
     dt = time.time() - t0
     total = sum(len(r.generated) for r in done)
     out = {"requests": len(done), "tokens": total,
@@ -120,10 +123,17 @@ def main(argv=None):
     p.add_argument("--top_p", type=float, default=1.0)
     p.add_argument("--paged", action="store_true",
                    help="the paged engine (int8 pool at --kv_bits 8)")
-    # options of mxq_tpu's serve whose kernels are not ported yet
-    p.add_argument("--prefill_a8", action="store_true")
+    p.add_argument("--prefill_a8", action="store_true",
+                   help="int8 activations in prefills of 512+ tokens (K5)")
+    # packed uniform-4b lm_head (EngineConfig.lm_head_bits; 16 = off)
     p.add_argument("--lm_head_bits", type=int, default=16)
-    p.add_argument("--spec_decode", action="store_true")
+    p.add_argument("--spec_decode", action="store_true",
+                   help="prompt-lookup speculative decoding (greedy; "
+                        "pipelined device-side drafting by default)")
+    p.add_argument("--spec_sync", action="store_true",
+                   help="use the synchronous one-verify-per-round-trip "
+                        "loop instead of the pipelined path")
+    p.add_argument("--draft_len", type=int, default=4)
     p.set_defaults(fn=cmd_serve)
 
     args = ap.parse_args(argv)

@@ -1,30 +1,42 @@
-// K4: one-token GQA decode attention over the int8 KV cache of one layer,
-// with the current token folded in out of cache and its K/V code rows
-// written into the cache in place.
+// K4 family: one-token GQA decode attention over the int8 KV cache of one
+// layer of the stacked cache, one kernel with two compile-time flags:
+//   CUR=1, WRITE=1  K4   the current token folded in out of cache and its
+//                        K/V code rows written into the cache in place
+//   CUR=0, WRITE=0  K4a  rows s <= pos only, no current token (K4c: the
+//                        same launch, the layer read out of the stack)
+//   CUR=1, WRITE=0  K4b  rows s < pos plus the current token, no write
+//                        (K4d: the same launch on the stack)
 //
-// Replaces the TPU kernel mxq_tpu/ops/attn_int8.py _kernel_cur_write (:318)
-// via _attn_call_cur_write (:352) and int8_decode_attention_fused_write
-// (:449), dispatched by decode_attend_update (:1149). The TPU's 8-row
-// octet write windows, aliased outputs and g8 = max(8, G) padding were
-// Mosaic devices; here the code rows are stored directly at row pos[b].
+// Replaces the TPU kernels in mxq_tpu/ops/attn_int8.py: _kernel_cur_write
+// (:318) via int8_decode_attention_fused_write (:449), dispatched by
+// decode_attend_update (:1149); _kernel (:97, int8_decode_attention :491)
+// and _stacked_kernel (:232, int8_decode_attention_stacked :287), which the
+// engine's speculative verify runs once per query; _kernel_cur (:154,
+// int8_decode_attention_cur :201) and the kernel of _attn_call_cur_folded
+// (:1045, int8_decode_attention_cur_folded :1123). The TPU's 8-row octet
+// write windows, aliased outputs, g8 = max(8, G) padding and folded-stack
+// reshapes were Mosaic devices; here a layer of the stack is a pointer
+// offset and the code rows are stored directly at row pos[b].
 //
-// Math per (batch b, kv head h), its G query heads, p = pos[b]:
-//   st[g,s] = (q[g] . kc[s]) * (ks[s] * scale)      for cache rows s < p
-//   stc[g]  = (q[g] . kcur)  * (kscur * scale)      the current token
+// Math per (batch b, kv head h), its G query heads, p = pos[b] (_attend,
+// attn_int8.py:50-94):
+//   st[g,s] = (q[g] . kc[s]) * (ks[s] * scale)   rows s < p (CUR) or <= p
+//   stc[g]  = (q[g] . kcur)  * (kscur * scale)   the current token (CUR)
 //   m = max(st, stc); e = exp(st - m); ec = exp(stc - m)
 //   ctx[g] = (sum_s bf16(e*vs[s]) * vc[s] + bf16(ec*vscur) * vcur)
 //            / (sum_s e + ec)
-// q is bf16; p*v_scale is rounded to bf16 before the V sum for cache rows
-// and the current row alike (attn_int8.py:81,91). expf, not fast math.
+// q is bf16; p*v_scale is rounded to bf16 against the global max before
+// the V sum for cache rows and the current row alike (attn_int8.py:81,91).
+// expf, not fast math.
 //
-// Bound on the H100: bytes — every code row below p is read once (2*p*D
-// bytes per (b, h)), with two multiply-adds per byte. One block of 8 warps
-// per (b, h): in the score pass a warp reads one 128-byte code row per
-// step (D/32 bytes a lane, coalesced) and reduces across lanes with
-// shuffles; scores stay in shared memory (G*S f32); in the V pass each
-// warp accumulates its rows into registers and the warps are summed
-// through shared memory. Not yet tuned: no split over S, so a (b, h) pair
-// is one block however long its history is.
+// Bound on the H100: bytes — every attended code row is read once (2*D
+// bytes per row per (b, h)), with two multiply-adds per byte. One block of
+// 8 warps per (b, h): in the score pass a warp reads one code row per step
+// (D/32 bytes a lane, coalesced) and reduces across lanes with shuffles;
+// scores stay in shared memory (G*S f32); in the V pass each warp
+// accumulates its rows into registers and the warps are summed through
+// shared memory. Not yet tuned: no split over S, so a (b, h) pair is one
+// block however long its history is.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,14 +66,14 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <int D>
+template <int D, bool CUR, bool WRITE>
 __global__ void __launch_bounds__(THREADS)
 attn_int8_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
                  int8_t* __restrict__ kc,               // [B, Hkv, S, D]
                  const __nv_bfloat16* __restrict__ ks,  // [B, Hkv, S]
                  int8_t* __restrict__ vc,
                  const __nv_bfloat16* __restrict__ vs,
-                 const int8_t* __restrict__ kcur,       // [B, Hkv, D]
+                 const int8_t* __restrict__ kcur,       // [B, Hkv, D] (CUR)
                  const __nv_bfloat16* __restrict__ kscur,  // [B, Hkv]
                  const int8_t* __restrict__ vcur,
                  const __nv_bfloat16* __restrict__ vscur,
@@ -80,7 +92,8 @@ attn_int8_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
   const int b = bh / Hkv;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int pos = positions[b];
-  const int nrows = min(max(pos, 0), S);    // history rows s < pos
+  // history rows s < pos with the current token, s <= pos without it
+  const int nrows = min(max(CUR ? pos : pos + 1, 0), S);
   const size_t cbase = (size_t)bh * S * D;
   const size_t sbase = (size_t)bh * S;
 
@@ -89,7 +102,7 @@ attn_int8_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
   __syncthreads();
 
   // current token's logits (one warp per query head)
-  if (warp < G) {
+  if (CUR && warp < G) {
     float a = 0.f;
 #pragma unroll
     for (int e = 0; e < E; ++e)
@@ -125,7 +138,7 @@ attn_int8_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
   }
   __syncthreads();
   if (tid < G) {
-    float m = stc[tid];
+    float m = CUR ? stc[tid] : -INFINITY;
     for (int w = 0; w < NW; ++w) m = fmaxf(m, wred[w][tid]);
     mx[tid] = m;
   }
@@ -145,9 +158,13 @@ attn_int8_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
   if (tid < G) {
     float d = 0.f;
     for (int w = 0; w < NW; ++w) d += wred[w][tid];
-    const float ec = expf(stc[tid] - mx[tid]);
-    den[tid] = d + ec;
-    pcv[tid] = bf16_round(ec * __bfloat162float(vscur[bh]));
+    if (CUR) {
+      const float ec = expf(stc[tid] - mx[tid]);
+      den[tid] = d + ec;
+      pcv[tid] = bf16_round(ec * __bfloat162float(vscur[bh]));
+    } else {
+      den[tid] = d;
+    }
   }
   __syncthreads();
 
@@ -182,12 +199,12 @@ attn_int8_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
     const int g = i / D, d = i % D;
     float a = 0.f;
     for (int w = 0; w < NW; ++w) a += red[(w * G + g) * D + d];
-    a += pcv[g] * (float)vcur[(size_t)bh * D + d];
+    if (CUR) a += pcv[g] * (float)vcur[(size_t)bh * D + d];
     out[(size_t)bh * G * D + i] = a / den[g];
   }
 
   // commit the current token's code rows (row pos is never read above)
-  if (pos >= 0 && pos < S) {
+  if (WRITE && pos >= 0 && pos < S) {
     for (int i = tid; i < D; i += THREADS) {
       kc[cbase + (size_t)pos * D + i] = kcur[(size_t)bh * D + i];
       vc[cbase + (size_t)pos * D + i] = vcur[(size_t)bh * D + i];
@@ -195,7 +212,7 @@ attn_int8_kernel(const __nv_bfloat16* __restrict__ q,   // [B, Hkv, G, D]
   }
 }
 
-template <int D>
+template <int D, bool CUR, bool WRITE>
 int launch(const void* q, void* kc, const void* ks, void* vc, const void* vs,
            const void* kcur, const void* kscur, const void* vcur,
            const void* vscur, const void* positions, int B, int Hkv, int G,
@@ -203,10 +220,11 @@ int launch(const void* q, void* kc, const void* ks, void* vc, const void* vs,
   const size_t smem = sizeof(float) * ((size_t)G * D + (size_t)G * S
                                        + (size_t)NW * G * D);
   cudaError_t err = cudaFuncSetAttribute(
-      attn_int8_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      attn_int8_kernel<D, CUR, WRITE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  attn_int8_kernel<D><<<B * Hkv, THREADS, smem, (cudaStream_t)stream>>>(
+  attn_int8_kernel<D, CUR, WRITE>
+      <<<B * Hkv, THREADS, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (int8_t*)kc, (const __nv_bfloat16*)ks,
       (int8_t*)vc, (const __nv_bfloat16*)vs, (const int8_t*)kcur,
       (const __nv_bfloat16*)kscur, (const int8_t*)vcur,
@@ -215,22 +233,46 @@ int launch(const void* q, void* kc, const void* ks, void* vc, const void* vs,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_flags(int cur, int write, const void* q, void* kc, const void* ks,
+                 void* vc, const void* vs, const void* kcur,
+                 const void* kscur, const void* vcur, const void* vscur,
+                 const void* positions, int B, int Hkv, int G, int S,
+                 float scale, void* out, void* stream) {
+  if (cur && write)
+    return launch<D, true, true>(q, kc, ks, vc, vs, kcur, kscur, vcur, vscur,
+                                 positions, B, Hkv, G, S, scale, out, stream);
+  if (cur)
+    return launch<D, true, false>(q, kc, ks, vc, vs, kcur, kscur, vcur,
+                                  vscur, positions, B, Hkv, G, S, scale, out,
+                                  stream);
+  if (!write)
+    return launch<D, false, false>(q, kc, ks, vc, vs, kcur, kscur, vcur,
+                                   vscur, positions, B, Hkv, G, S, scale,
+                                   out, stream);
+  return (int)cudaErrorInvalidValue;           // a write needs the token
+}
+
 }  // namespace
 
-extern "C" int attn_int8_k4(const void* q, void* kc, const void* ks,
-                            void* vc, const void* vs, const void* kcur,
-                            const void* kscur, const void* vcur,
-                            const void* vscur, const void* positions, int B,
-                            int Hkv, int G, int S, int D, float scale,
-                            void* out, void* stream) {
+// cur, write: the flags above (K4: 1, 1; K4a/K4c: 0, 0; K4b/K4d: 1, 0).
+// kcur/kscur/vcur/vscur are not read when cur is 0.
+extern "C" int attn_int8(const void* q, void* kc, const void* ks, void* vc,
+                         const void* vs, const void* kcur, const void* kscur,
+                         const void* vcur, const void* vscur,
+                         const void* positions, int B, int Hkv, int G, int S,
+                         int D, int cur, int write, float scale, void* out,
+                         void* stream) {
   if (G < 1 || G > GMAX) return (int)cudaErrorInvalidValue;
   switch (D) {
     case 64:
-      return launch<64>(q, kc, ks, vc, vs, kcur, kscur, vcur, vscur,
-                        positions, B, Hkv, G, S, scale, out, stream);
+      return launch_flags<64>(cur, write, q, kc, ks, vc, vs, kcur, kscur,
+                              vcur, vscur, positions, B, Hkv, G, S, scale,
+                              out, stream);
     case 128:
-      return launch<128>(q, kc, ks, vc, vs, kcur, kscur, vcur, vscur,
-                         positions, B, Hkv, G, S, scale, out, stream);
+      return launch_flags<128>(cur, write, q, kc, ks, vc, vs, kcur, kscur,
+                               vcur, vscur, positions, B, Hkv, G, S, scale,
+                               out, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

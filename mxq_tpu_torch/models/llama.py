@@ -8,9 +8,12 @@ projections into stacked :class:`PackedMXQLinear`. Layers run in a Python
 loop (the JAX version scans); caches are updated in place.
 
 Packed linears dispatch in :func:`quant_linear`: 512 tokens or more go to
-the prefill path (kernel K3 + two GEMMs), fewer to K1 (B >= 2) or K2
-(B == 1). Decode with the stacked int8 cache goes through K4
-(``ops.attn_int8.decode_attend_update``). Cache-less or position-0 prefill
+the prefill path (kernel K3 + two GEMMs, or with ``prefill_act_bits=8``
+K5 + two int8 GEMMs), fewer to K1 (B >= 2) or K2 (B == 1). A packed
+uniform-4b lm_head goes through K7. Decode with the stacked int8 cache goes
+through K4 (``ops.attn_int8.decode_attend_update``), and a speculative
+verify of T tokens per slot through K4a once per token. Cache-less or
+position-0 prefill
 attention of 128+ tokens on the card uses
 ``torch.nn.functional.scaled_dot_product_attention``, the counterpart of the
 library flash attention the JAX version calls; on the CPU it takes the
@@ -29,7 +32,7 @@ import torch.nn.functional as F
 from mxq_tpu_torch import resolve_device
 from mxq_tpu_torch.config import MXQConfig
 from mxq_tpu_torch.packfmt import PackedMXQLinear, quantize_pack, stack_packed
-from mxq_tpu_torch.ops import attn_int8, mxq_matmul
+from mxq_tpu_torch.ops import attn_int8, mxq_matmul, uniform4
 from mxq_tpu_torch.serving import kvcache
 
 NOT_PORTED = "not ported yet, see ROADMAP.md"
@@ -55,7 +58,7 @@ class LlamaConfig:
     # "auto": SDPA on the card for cache-less / position-0 prefill of 128+
     # tokens, einsum elsewhere; "xla": always einsum; "flash": always SDPA
     attn_impl: str = "auto"
-    # 8 would route prefill through an int8 GEMM (kernel K5): not ported
+    # 8 routes packed linears of 512+ tokens through int8 GEMMs (kernel K5)
     prefill_act_bits: int = 32
 
     @property
@@ -179,10 +182,10 @@ def quant_linear(x: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
     if isinstance(w, PackedMXQLinear):
         tokens = math.prod(x.shape[:-1])
         if tokens >= 512:
-            if cfg.prefill_act_bits == 8:
-                raise NotImplementedError(
-                    f"int8-activation prefill (kernel K5) {NOT_PORTED}")
-            return mxq_matmul.mxq_matmul_prefill(x, w, None, cfg.scheme)
+            pf = (mxq_matmul.mxq_matmul_prefill_a8
+                  if cfg.prefill_act_bits == 8
+                  else mxq_matmul.mxq_matmul_prefill)
+            return pf(x, w, None, cfg.scheme)
         return mxq_matmul.mxq_matmul(x, w, cfg.scheme)
     if cfg.w_bits < 32:
         raise NotImplementedError(f"w_bits<32 fake-quant {NOT_PORTED}")
@@ -347,15 +350,17 @@ def decoder_layer(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
 
 
 def decode_step(params, tokens, cfg: LlamaConfig, positions, attend):
-    """One decode token for every slot: tokens [B, 1] at positions [B].
-    The one T=1 decoder layer loop of the port (norm, q/k/v, RoPE, the
-    attention step, o_proj, MLP); the caller's cache lives in ``attend``:
-    ``attend(layer_idx, q, k, v)`` gets q [B, 1, Hq, D] and k, v
-    [B, 1, Hkv, D] after RoPE, stores k, v where its cache keeps them and
-    returns ctx [B, Hq, D]. Returns logits [B, 1, V] f32."""
-    b = tokens.shape[0]
+    """T decode tokens for every slot: tokens [B, T], token t of slot b at
+    position positions[b] + t. The one decoder layer loop of the port's
+    decode (norm, q/k/v, RoPE, the attention step, o_proj, MLP); the
+    caller's cache lives in ``attend``: ``attend(layer_idx, q, k, v)`` gets
+    q [B, T, Hq, D] and k, v [B, T, Hkv, D] after RoPE, stores k, v where
+    its cache keeps them and returns ctx [B, T, Hq, D] (or [B, Hq, D] for
+    T = 1). Returns logits [B, T, V] f32."""
+    b, t = tokens.shape
     x = params["embed_tokens"][tokens]
-    cos, sin = rope_tables(cfg, positions[:, None].float())
+    posmat = positions[:, None] + torch.arange(t, device=positions.device)
+    cos, sin = rope_tables(cfg, posmat.float())
     cos = cos.to(x.dtype)
     sin = sin.to(x.dtype)
     width = cfg.num_attention_heads * cfg.head_dim
@@ -364,7 +369,7 @@ def decode_step(params, tokens, cfg: LlamaConfig, positions, attend):
         h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
         q, k, v = _qkv(h, layer, cfg)
         q, k = apply_rope(q, k, cos, sin)
-        ctx = attend(idx, q, k, v).reshape(b, 1, width).to(x.dtype)
+        ctx = attend(idx, q, k, v).reshape(b, t, width).to(x.dtype)
         x = x + quant_linear(ctx, layer["o_proj"], cfg)
         h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
         x = x + mlp(h, layer, cfg)
@@ -373,25 +378,46 @@ def decode_step(params, tokens, cfg: LlamaConfig, positions, attend):
 
 
 def decode_slots(params, tokens, cfg: LlamaConfig, caches: dict, positions):
-    """:func:`decode_step` over a stacked slot cache, each slot b writing
-    and attending at its own row positions[b] (tokens [B, 1]). The int8
-    cache goes through K4 (``attn_int8.decode_attend_update``): K4 writes
-    the code rows per layer, and the scale rows of all layers are committed
-    after the layer loop. The bf16 cache is scattered at the rows and
-    attended with :func:`masked_attention` over rows <= positions[b].
-    Updates ``caches`` in place; returns logits [B, 1, V] f32."""
-    rows = torch.arange(tokens.shape[0], device=tokens.device)
-    pos = positions.long()
+    """:func:`decode_step` over a stacked slot cache, token t of slot b
+    written and attended at row positions[b] + t (tokens [B, T]; T > 1 is
+    the speculative verify). Each query attends the rows up to its own.
+
+    * int8 cache, T = 1: K4 (``attn_int8.decode_attend_update``) writes the
+      code rows per layer; the scale rows of all layers are committed after
+      the layer loop.
+    * int8 cache, T > 1: each layer scatters the code and scale rows of all
+      T tokens first, then attends query t with K4a at positions + t (one
+      launch per t), as ``mxq_tpu``'s ``_forward_multipos`` does.
+    * bf16 cache: the rows are scattered and attended with
+      :func:`masked_attention` under the mask ``row <= positions[b] + t``.
+
+    Updates ``caches`` in place; returns logits [B, T, V] f32."""
+    b, t = tokens.shape
+    rows = torch.arange(b, device=tokens.device)[:, None]
+    posmat = positions.long()[:, None] + torch.arange(t, device=tokens.device)
     if "k_codes" not in caches:
         kpos = torch.arange(_cache_len(caches), device=tokens.device)
-        mask = torch.where(kpos[None, :] <= pos[:, None], 0.0,
-                           torch.finfo(torch.float32).min)[:, None, None, :]
+        mask = torch.where(kpos[None, None, :] <= posmat[:, :, None], 0.0,
+                           torch.finfo(torch.float32).min)[:, None]
 
         def attend(idx, q, k, v):
-            caches["k"][idx, rows, pos] = k[:, 0].to(caches["k"].dtype)
-            caches["v"][idx, rows, pos] = v[:, 0].to(caches["v"].dtype)
+            caches["k"][idx][rows, posmat] = k.to(caches["k"].dtype)
+            caches["v"][idx][rows, posmat] = v.to(caches["v"].dtype)
             return masked_attention(q, caches["k"][idx], caches["v"][idx],
-                                    mask)[:, 0]
+                                    mask)
+
+        return decode_step(params, tokens, cfg, positions, attend)
+    if t > 1:
+        def attend(idx, q, k, v):
+            kc, ksc = kvcache.quantize_kv_headmajor(k)    # [B,H,T,D], [B,H,T]
+            vc, vsc = kvcache.quantize_kv_headmajor(v)
+            for name, val in (("k_codes", kc), ("k_scale", ksc),
+                              ("v_codes", vc), ("v_scale", vsc)):
+                caches[name][idx][rows, :, posmat] = val.transpose(1, 2)
+            return torch.stack([attn_int8.int8_decode_attention_stacked(
+                q[:, i], caches["k_codes"], caches["k_scale"],
+                caches["v_codes"], caches["v_scale"], idx, positions + i)
+                for i in range(t)], dim=1)
 
         return decode_step(params, tokens, cfg, positions, attend)
     pend = []
@@ -406,9 +432,10 @@ def decode_slots(params, tokens, cfg: LlamaConfig, caches: dict, positions):
 
     logits = decode_step(params, tokens, cfg, positions, attend)
     # scale rows of every layer at each slot's own row: [B, L, H]
-    caches["k_scale"][:, rows, :, pos] = \
+    pos = positions.long()
+    caches["k_scale"][:, rows[:, 0], :, pos] = \
         torch.stack([p[0][..., 0] for p in pend]).transpose(0, 1)
-    caches["v_scale"][:, rows, :, pos] = \
+    caches["v_scale"][:, rows[:, 0], :, pos] = \
         torch.stack([p[1][..., 0] for p in pend]).transpose(0, 1)
     return logits
 
@@ -430,11 +457,13 @@ def layer_view(params: dict, idx: int) -> dict:
 
 
 def lm_head(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The vocabulary projection: tied embeddings, a dense [hidden, vocab]
+    head, or a packed uniform-4b head (``uniform4.u4_matmul``, K7)."""
     head = params.get("lm_head")
     if head is None:
         return x @ params["embed_tokens"].T
-    if not isinstance(head, torch.Tensor):
-        raise NotImplementedError(f"packed lm_head (kernel K7) {NOT_PORTED}")
+    if isinstance(head, uniform4.PackedU4Linear):
+        return uniform4.u4_matmul(x, head)
     return x @ head
 
 

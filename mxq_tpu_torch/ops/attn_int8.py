@@ -1,21 +1,28 @@
 """One-token decode attention straight off the int8 KV cache: the plain
-PyTorch versions, the wrappers of kernel K4 (``csrc/attn_int8.cu``) and of
-the paged kernels K9-K11 (``csrc/paged_attn_int8.cu``), and the dispatch
-point the model and engine share.
+PyTorch versions, the wrappers of the K4 family (``csrc/attn_int8.cu``,
+one kernel with two flags) and of the paged kernels K9-K11
+(``csrc/paged_attn_int8.cu``), and the dispatch point the model and engine
+share.
 
 Port of ``mxq_tpu/ops/attn_int8.py`` (``_attend`` :50-94,
-``int8_decode_attention_fused_write`` :449, the dequantize-then-attend
-oracle :515, ``decode_attend_update`` :1149). The fused write is the only
-path: the TPU's "folded" and "deferred" write strategies were layout
-workarounds. Per (batch, kv head), with the current token out of cache:
+``int8_decode_attention_fused_write`` :449, ``int8_decode_attention``
+:491, ``_stacked`` :287, ``_cur`` :201, ``_cur_folded`` :1123, the
+dequantize-then-attend oracle :515, ``decode_attend_update`` :1149). The
+fused write (K4) is the only T=1 decode path: the TPU's "folded" and
+"deferred" write strategies were layout workarounds, and their kernels
+(K4b, K4d) are ported as flags but have no serving caller. The
+speculative verify attends each of its T queries with K4a. Per (batch,
+kv head), with the current token out of cache (K4, K4b/K4d):
 
     st  = (q . K_codes^T) * k_scale / sqrt(D)     cache rows s < pos
     p   = softmax over [st, st_cur]
     ctx = (bf16(p * v_scale) . V_codes + bf16(p_cur * v_scale_cur) * v_cur)
 
-The current token's code rows are written into the cache IN PLACE at row
-``positions[b]`` of layer ``layer_idx``; its scale rows are returned for
-the caller to commit after the layer loop. Requires S > max(positions).
+and without it (K4a/K4c) the same over cache rows s <= pos. K4 writes the
+current token's code rows into the cache IN PLACE at row ``positions[b]``
+of layer ``layer_idx``; its scale rows are returned for the caller to
+commit after the layer loop. Requires S > max(positions) where a row is
+written.
 """
 
 from __future__ import annotations
@@ -27,35 +34,41 @@ import torch
 NEG = torch.finfo(torch.float32).min
 
 
-def _attend_plain(q, kc, ks, vc, vs, positions, kcur, kscur, vcur, vscur):
+def _attend_plain(q, kc, ks, vc, vs, positions, cur=None):
     """The ``_attend`` math on one layer. q [B, Hkv, G, D] (bf16 values),
-    kc/vc [B, Hkv, S, D] int8, ks/vs [B, Hkv, S] bf16, kcur/vcur
-    [B, Hkv, 1, D] int8, kscur/vscur [B, Hkv, 1] bf16 -> [B, Hkv, G, D] f32."""
+    kc/vc [B, Hkv, S, D] int8, ks/vs [B, Hkv, S] bf16 -> [B, Hkv, G, D] f32.
+    Without ``cur`` the cache rows s <= positions[b] are attended; with
+    ``cur`` = (kcur/vcur [B, Hkv, 1, D] int8, kscur/vscur [B, Hkv, 1] bf16)
+    the rows s < positions[b] and the current token out of cache."""
     d = q.shape[-1]
     s = kc.shape[2]
     scale = 1.0 / math.sqrt(d)
     qf = q.float()
     st = torch.einsum("bhgd,bhsd->bhgs", qf, kc.float())
     st = st * (ks.float() * scale)[:, :, None, :]
-    kpos = torch.arange(s, device=q.device)
-    st = torch.where(kpos[None, None, None, :] < positions[:, None, None, None],
-                     st, torch.full_like(st, NEG))
-    stc = torch.einsum("bhgd,bhsd->bhgs", qf, kcur.float())   # [B,H,G,1]
-    stc = stc * (kscur.float() * scale)[:, :, None, :]
-    m = torch.maximum(st.amax(dim=-1, keepdim=True), stc)
+    kpos = torch.arange(s, device=q.device)[None, None, None, :]
+    pos = positions[:, None, None, None]
+    st = torch.where(kpos < pos if cur is not None else kpos <= pos, st,
+                     torch.full_like(st, NEG))
+    m = st.amax(dim=-1, keepdim=True)
+    if cur is not None:
+        kcur, kscur, vcur, vscur = cur
+        stc = torch.einsum("bhgd,bhsd->bhgs", qf, kcur.float())  # [B,H,G,1]
+        stc = stc * (kscur.float() * scale)[:, :, None, :]
+        m = torch.maximum(m, stc)
     p = torch.exp(st - m)
     denom = p.sum(dim=-1, keepdim=True)
     pv = (p * vs.float()[:, :, None, :]).to(torch.bfloat16).float()
     ctx = torch.einsum("bhgs,bhsd->bhgd", pv, vc.float())
-    pc = torch.exp(stc - m)
-    denom = denom + pc
-    pcb = (pc * vscur.float()[:, :, None, :]).to(torch.bfloat16).float()
-    ctx = ctx + pcb * vcur.float()
+    if cur is not None:
+        pc = torch.exp(stc - m)
+        denom = denom + pc
+        pcb = (pc * vscur.float()[:, :, None, :]).to(torch.bfloat16).float()
+        ctx = ctx + pcb * vcur.float()
     return ctx / denom
 
 
-def _check_k4(q, k_codes, k_scale, v_codes, v_scale, kcur, kscur, vcur,
-              vscur, positions):
+def _check_k4(what, q, k_codes, k_scale, v_codes, v_scale, cur, positions):
     l, b, hkv, s, d = k_codes.shape
     g = q.shape[1] // hkv
     want = [
@@ -64,40 +77,142 @@ def _check_k4(q, k_codes, k_scale, v_codes, v_scale, kcur, kscur, vcur,
         ("v_codes", v_codes, torch.int8, (l, b, hkv, s, d)),
         ("k_scale", k_scale, torch.bfloat16, (l, b, hkv, s)),
         ("v_scale", v_scale, torch.bfloat16, (l, b, hkv, s)),
-        ("kcur", kcur, torch.int8, (b, hkv, 1, d)),
-        ("vcur", vcur, torch.int8, (b, hkv, 1, d)),
-        ("kscur", kscur, torch.bfloat16, (b, hkv, 1)),
-        ("vscur", vscur, torch.bfloat16, (b, hkv, 1)),
         ("positions", positions, torch.int32, (b,)),
     ]
+    if cur is not None:
+        want += [("kcur", cur[0], torch.int8, (b, hkv, 1, d)),
+                 ("kscur", cur[1], torch.bfloat16, (b, hkv, 1)),
+                 ("vcur", cur[2], torch.int8, (b, hkv, 1, d)),
+                 ("vscur", cur[3], torch.bfloat16, (b, hkv, 1))]
     dev = q.device
     for name, t, dt, shape in want:
         if t.device != dev or t.dtype != dt or tuple(t.shape) != shape \
                 or not t.is_contiguous():
-            raise ValueError(f"K4 {name}: {t.dtype} {tuple(t.shape)} on "
+            raise ValueError(f"{what} {name}: {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, contiguous={t.is_contiguous()}; "
                              f"want {dt} {shape} contiguous on {dev}")
     if q.shape[1] % hkv or not 1 <= g <= 8 or d not in (64, 128):
-        raise ValueError(f"K4 takes D in (64, 128) and 1..8 query heads per "
-                         f"kv head, got D={d}, Hq={q.shape[1]}, Hkv={hkv}")
+        raise ValueError(f"{what} takes D in (64, 128) and 1..8 query heads "
+                         f"per kv head, got D={d}, Hq={q.shape[1]}, "
+                         f"Hkv={hkv}")
     if 4 * (g * d + g * s + 8 * g * d) > 227 * 1024:
-        raise ValueError(f"K4 scores for G={g}, S={s} exceed shared memory")
+        raise ValueError(f"{what} scores for G={g}, S={s} exceed shared "
+                         "memory")
+
+
+def _dense_launch(what, q, k_codes, k_scale, v_codes, v_scale, layer_idx,
+                  positions, cur=None, write=False):
+    """Check the arguments and launch the K4-family kernel over layer
+    ``layer_idx`` of the stacked cache (``cur`` and ``write`` are its
+    compile-time flags). Returns ctx [B, Hq, D] f32."""
+    from mxq_tpu_torch import _build
+    b, hq, d = q.shape
+    l, _, hkv, s, _ = k_codes.shape
+    qb = q.to(torch.bfloat16).contiguous()
+    _check_k4(what, qb, k_codes, k_scale, v_codes, v_scale, cur, positions)
+    if not 0 <= layer_idx < l:
+        raise IndexError(f"layer {layer_idx} of {l}")
+    out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    kcur, kscur, vcur, vscur = cur if cur is not None else (None,) * 4
+    err = _build.load("attn_int8").attn_int8(
+        qb.data_ptr(), k_codes[layer_idx].data_ptr(),
+        k_scale[layer_idx].data_ptr(), v_codes[layer_idx].data_ptr(),
+        v_scale[layer_idx].data_ptr(), ptr(kcur), ptr(kscur), ptr(vcur),
+        ptr(vscur), positions.data_ptr(), b, hkv, hq // hkv, s, d,
+        int(cur is not None), int(write), 1.0 / math.sqrt(d),
+        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, what)
+    return out
+
+
+def _stacked_plain(q, k_codes, k_scale, v_codes, v_scale, layer_idx,
+                   positions, cur=None):
+    b, hq, d = q.shape
+    hkv = k_codes.shape[2]
+    qb = q.to(torch.bfloat16).reshape(b, hkv, hq // hkv, d)
+    ctx = _attend_plain(qb, k_codes[layer_idx], k_scale[layer_idx],
+                        v_codes[layer_idx], v_scale[layer_idx], positions,
+                        cur)
+    return ctx.reshape(b, hq, d)
+
+
+def int8_decode_attention_stacked_plain(q, k_codes, k_scale, v_codes,
+                                        v_scale, layer_idx: int, positions):
+    """Plain version of K4a/K4c."""
+    return _stacked_plain(q, k_codes, k_scale, v_codes, v_scale, layer_idx,
+                          positions)
+
+
+def int8_decode_attention_stacked(q, k_codes, k_scale, v_codes, v_scale,
+                                  layer_idx: int, positions):
+    """K4a/K4c: one-token attention over layer ``layer_idx`` of the stacked
+    cache, rows s <= positions[b], no current token, nothing written.
+
+    q [B, Hq, D]; k/v_codes [L, B, Hkv, S, D] int8; k/v_scale
+    [L, B, Hkv, S] bf16; positions [B] int32. Returns [B, Hq, D] f32."""
+    if q.device.type == "cpu":
+        return int8_decode_attention_stacked_plain(
+            q, k_codes, k_scale, v_codes, v_scale, layer_idx, positions)
+    out = _dense_launch("K4a", q, k_codes, k_scale, v_codes, v_scale,
+                        layer_idx, positions)
+    int8_decode_attention_stacked.launches += 1
+    return out
+
+
+def int8_decode_attention(q, k_codes, k_scale, v_codes, v_scale, positions):
+    """K4a over one layer (k/v_codes [B, Hkv, S, D], k/v_scale
+    [B, Hkv, S]): the K4c launch with the layer as a stack of one."""
+    return int8_decode_attention_stacked(
+        q, k_codes[None], k_scale[None], v_codes[None], v_scale[None], 0,
+        positions)
+
+
+def int8_decode_attention_cur_folded_plain(q, k_codes, k_scale, v_codes,
+                                           v_scale, kcur, kscur, vcur, vscur,
+                                           layer_idx: int, positions):
+    """Plain version of K4b/K4d."""
+    return _stacked_plain(q, k_codes, k_scale, v_codes, v_scale, layer_idx,
+                          positions, (kcur, kscur, vcur, vscur))
+
+
+def int8_decode_attention_cur_folded(q, k_codes, k_scale, v_codes, v_scale,
+                                     kcur, kscur, vcur, vscur,
+                                     layer_idx: int, positions):
+    """K4b/K4d: attention over layer ``layer_idx`` of the stacked cache,
+    rows s < positions[b], plus the current token (kcur/vcur
+    [B, Hkv, 1, D] int8, kscur/vscur [B, Hkv, 1] bf16) out of cache;
+    nothing written. Returns [B, Hq, D] f32."""
+    if q.device.type == "cpu":
+        return int8_decode_attention_cur_folded_plain(
+            q, k_codes, k_scale, v_codes, v_scale, kcur, kscur, vcur, vscur,
+            layer_idx, positions)
+    out = _dense_launch("K4b", q, k_codes, k_scale, v_codes, v_scale,
+                        layer_idx, positions, (kcur, kscur, vcur, vscur))
+    int8_decode_attention_cur_folded.launches += 1
+    return out
+
+
+def int8_decode_attention_cur(q, k_codes, k_scale, v_codes, v_scale, kcur,
+                              kscur, vcur, vscur, positions):
+    """K4b over one layer (k/v_codes [B, Hkv, S, D]): the K4d launch with
+    the layer as a stack of one."""
+    return int8_decode_attention_cur_folded(
+        q, k_codes[None], k_scale[None], v_codes[None], v_scale[None], kcur,
+        kscur, vcur, vscur, 0, positions)
 
 
 def int8_decode_attention_fused_write_plain(q, k_codes, k_scale, v_codes,
                                             v_scale, kcur, kscur, vcur,
                                             vscur, layer_idx: int, positions):
     """Plain version of K4 on any device (same contract, in-place write)."""
-    b, hq, d = q.shape
-    hkv = k_codes.shape[2]
-    qb = q.to(torch.bfloat16).reshape(b, hkv, hq // hkv, d)
-    ctx = _attend_plain(qb, k_codes[layer_idx], k_scale[layer_idx],
-                        v_codes[layer_idx], v_scale[layer_idx], positions,
-                        kcur, kscur, vcur, vscur)
+    b = q.shape[0]
+    ctx = _stacked_plain(q, k_codes, k_scale, v_codes, v_scale, layer_idx,
+                         positions, (kcur, kscur, vcur, vscur))
     rows = torch.arange(b, device=q.device)
     k_codes[layer_idx, rows, :, positions.long()] = kcur[:, :, 0]
     v_codes[layer_idx, rows, :, positions.long()] = vcur[:, :, 0]
-    return ctx.reshape(b, hq, d), k_codes, v_codes
+    return ctx, k_codes, v_codes
 
 
 def int8_decode_attention_fused_write(q, k_codes, k_scale, v_codes, v_scale,
@@ -116,29 +231,16 @@ def int8_decode_attention_fused_write(q, k_codes, k_scale, v_codes, v_scale,
         return int8_decode_attention_fused_write_plain(
             q, k_codes, k_scale, v_codes, v_scale, kcur, kscur, vcur, vscur,
             layer_idx, positions)
-    from mxq_tpu_torch import _build
-    b, hq, d = q.shape
-    l, _, hkv, s, _ = k_codes.shape
-    g = hq // hkv
-    qb = q.to(torch.bfloat16).contiguous()
-    _check_k4(qb, k_codes, k_scale, v_codes, v_scale, kcur, kscur, vcur,
-              vscur, positions)
-    if not 0 <= layer_idx < l:
-        raise IndexError(f"layer {layer_idx} of {l}")
-    out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
-    err = _build.load("attn_int8").attn_int8_k4(
-        qb.data_ptr(), k_codes[layer_idx].data_ptr(),
-        k_scale[layer_idx].data_ptr(), v_codes[layer_idx].data_ptr(),
-        v_scale[layer_idx].data_ptr(), kcur.data_ptr(), kscur.data_ptr(),
-        vcur.data_ptr(), vscur.data_ptr(), positions.data_ptr(), b, hkv, g,
-        s, d, 1.0 / math.sqrt(d), out.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "attn_int8_k4")
+    out = _dense_launch("K4", q, k_codes, k_scale, v_codes, v_scale,
+                        layer_idx, positions, (kcur, kscur, vcur, vscur),
+                        write=True)
     int8_decode_attention_fused_write.launches += 1
     return out, k_codes, v_codes
 
 
 int8_decode_attention_fused_write.launches = 0
+int8_decode_attention_stacked.launches = 0
+int8_decode_attention_cur_folded.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -365,7 +467,12 @@ def int8_paged_decode_attend_update(q, k_pages, k_scales, v_pages, v_scales,
 int8_paged_decode_attention.launches = 0
 int8_paged_decode_attention_cur.launches = 0
 int8_paged_decode_attend_update.launches = 0
+# K4a and K4c are one launch (one counter), as are K4b and K4d
 KERNELS = {"K4": int8_decode_attention_fused_write,
+           "K4a": int8_decode_attention_stacked,
+           "K4b": int8_decode_attention_cur_folded,
+           "K4c": int8_decode_attention_stacked,
+           "K4d": int8_decode_attention_cur_folded,
            "K9": int8_paged_decode_attention,
            "K10": int8_paged_decode_attention_cur,
            "K11": int8_paged_decode_attend_update}

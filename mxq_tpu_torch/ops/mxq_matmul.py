@@ -8,7 +8,11 @@ Port of ``mxq_tpu/ops/mxq_matmul.py``. The function every path computes is
 * decode, B == 1 row   -> K2 (:func:`gemv_single`, same source)
 * prefill, >= 512 rows -> K3 (:func:`dequant_planes`, ``csrc/mxq_dequant.cu``)
   unpacks to bf16 planes, then two ``torch.matmul`` GEMMs (as the TPU left
-  them to XLA); the 512-row switch lives in ``models/llama.quant_linear``.
+  them to XLA); the 512-row switch lives in ``models/llama.quant_linear``;
+* prefill with int8 activations (``prefill_act_bits=8``) -> K5
+  (:func:`dequant_int8_planes`, same source) requantizes the planes to int8
+  per out-channel, then two int8 GEMMs (``torch._int_mm``) and one rescale
+  (:func:`mxq_matmul_prefill_a8`).
 
 Every wrapper runs its plain version for CPU tensors only; for CUDA tensors
 it launches its kernel or raises. ``<wrapper>.launches`` counts launches.
@@ -55,6 +59,49 @@ def dequant_planes_plain(p: PackedMXQLinear,
     sz4 = s4 * p.smeta4[1:2]
     wd4 = s4 * codes4 - sz4
     return wd2.to(torch.bfloat16), wd4.to(torch.bfloat16)
+
+
+def int8_weight_scale(p: PackedMXQLinear) -> torch.Tensor:
+    """Per-out-channel int8 scale bound [1, N] f32 from the metadata alone:
+    max over the channel's groups of |s| * max(z, maxc - z), / 127 (port of
+    ``_int8_weight_scale``, mxq_matmul.py:836)."""
+    qs = p.qscale.float()
+    qm = p.qmin.float()
+    m = None
+    for i in range(3):
+        zc = ((p.meta2 >> (2 * i)) & 0x3).float()
+        sc = ((p.meta2 >> (6 + packfmt.SCALE_CODE_BITS * i))
+              & packfmt.SCALE_CODE_MAX).float()
+        s = qs * sc + qm
+        b = s.abs() * torch.maximum(zc, 3.0 - zc)
+        m = b if m is None else torch.maximum(m, b)
+    m = m.amax(dim=0)                                   # [N]
+    s4 = p.smeta4[0].float()
+    z4 = p.smeta4[1].float()
+    m = torch.maximum(m, s4.abs() * torch.maximum(z4, 15.0 - z4))
+    return torch.clamp_min(m / 127.0, 1e-12)[None, :]
+
+
+def dequant_int8_planes_plain(p: PackedMXQLinear, inv: torch.Tensor,
+                              cfg: MXQConfig = DEFAULT_SCHEME):
+    """Plain version of K5: the planes of :func:`dequant_planes_plain` as
+    int8, each weight ``(s*c - s*z) * inv[n]`` rounded half to even (the
+    TPU kernel's order of operations, mxq_matmul.py:858-875), stored
+    transposed: ``q2t [N, NBP*48]`` and ``q4t [N, NBP*16]``, row n holding
+    output column n's codes in natural plane order, so that ``q2t.t()`` is
+    the column-major operand the card's int8 GEMM takes. ``inv`` [1, N] f32
+    is ``1 / int8_weight_scale(p)``."""
+    s_eff, zc = packfmt.group_params(p, cfg)
+    neg_sz = s_eff * zc
+    codes2 = packfmt._unpack_along_sublanes(p.w2, cfg.bits_lo).float()
+    w2 = (torch.repeat_interleave(s_eff, cfg.group, dim=0) * codes2
+          - torch.repeat_interleave(neg_sz, cfg.group, dim=0)) * inv
+    codes4 = packfmt._unpack_along_sublanes(p.w4, cfg.bits_hi).float()
+    s4 = p.smeta4[0:1]
+    sz4 = s4 * p.smeta4[1:2]
+    w4 = (s4 * codes4 - sz4) * inv
+    return (torch.round(w2).to(torch.int8).T.contiguous(),
+            torch.round(w4).to(torch.int8).T.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -160,10 +207,37 @@ def dequant_planes(p: PackedMXQLinear, cfg: MXQConfig = DEFAULT_SCHEME):
     return wd2, wd4
 
 
+def dequant_int8_planes(p: PackedMXQLinear, inv: torch.Tensor,
+                        cfg: MXQConfig = DEFAULT_SCHEME):
+    """K5: the transposed int8 planes of :func:`dequant_int8_planes_plain`."""
+    dev = p.device
+    if dev.type == "cpu":
+        return dequant_int8_planes_plain(p, inv, cfg)
+    from mxq_tpu_torch import _build
+    _check_packed(p, dev)
+    nbp, n = p.meta2.shape
+    if inv.dtype != torch.float32 or inv.numel() != n or inv.device != dev:
+        raise ValueError(f"inv: {inv.dtype} {tuple(inv.shape)} on "
+                         f"{inv.device}; want float32 [1, {n}] on {dev}")
+    inv = inv.contiguous()
+    q2 = torch.empty((n, nbp * 48), dtype=torch.int8, device=dev)
+    q4 = torch.empty((n, nbp * 16), dtype=torch.int8, device=dev)
+    err = _build.load("mxq_dequant").mxq_dequant_k5(
+        p.w2.data_ptr(), p.w4.data_ptr(), p.meta2.data_ptr(),
+        p.qscale.data_ptr(), p.qmin.data_ptr(), p.smeta4.data_ptr(),
+        inv.data_ptr(), nbp, n, q2.data_ptr(), q4.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "mxq_dequant_k5")
+    dequant_int8_planes.launches += 1
+    return q2, q4
+
+
 gemv_batched.launches = 0
 gemv_single.launches = 0
 dequant_planes.launches = 0
-KERNELS = {"K1": gemv_batched, "K2": gemv_single, "K3": dequant_planes}
+dequant_int8_planes.launches = 0
+KERNELS = {"K1": gemv_batched, "K2": gemv_single, "K3": dequant_planes,
+           "K5": dequant_int8_planes}
 
 
 # ---------------------------------------------------------------------------
@@ -205,5 +279,39 @@ def mxq_matmul_prefill(x: torch.Tensor, p: PackedMXQLinear,
     x2, x4 = packfmt.pad_inputs_split(xb, p, cfg)
     wd2, wd4 = dequant_planes(p, cfg)
     y = (x2.to(torch.bfloat16) @ wd2) + (x4.to(torch.bfloat16) @ wd4)
+    return y[:, : p.out_features].to(x.dtype).reshape(
+        lead + (p.out_features,))
+
+
+def _act_quant_rows(xb: torch.Tensor):
+    """Per-token symmetric int8 scale: xb [T, K] f32 -> (scale [T, 1],
+    1 / scale)."""
+    sx = torch.clamp_min(xb.abs().amax(dim=-1, keepdim=True), 1e-12) / 127.0
+    return sx, 1.0 / sx
+
+
+def mxq_matmul_prefill_a8(x: torch.Tensor, p: PackedMXQLinear,
+                          layer_idx: int | None = None,
+                          cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
+    """y = x @ dequant(p) with int8 activations and weights (W~4A8): K5
+    requantizes the weight per out-channel to int8 against the closed-form
+    bound of :func:`int8_weight_scale`, the activations are quantized per
+    token, two int8 GEMMs (``torch._int_mm``, exact int32 sums; the TPU left
+    them to XLA) give ``acc``, and ``y = acc * sx * sw``. Port of
+    ``mxq_matmul_prefill_a8`` (mxq_matmul.py:924). ``x`` [..., K] with more
+    than 16 rows: the card's int8 GEMM takes M > 16, K and N multiples of
+    8 (the packed planes always are) and a column-major second operand."""
+    if layer_idx is not None:
+        p = p.layer(layer_idx)
+    lead = x.shape[:-1]
+    xb = x.reshape(-1, x.shape[-1]).float()
+    sw = int8_weight_scale(p)                           # [1, N]
+    q2, q4 = dequant_int8_planes(p, 1.0 / sw, cfg)
+    sx, inv_sx = _act_quant_rows(xb)
+    x2, x4 = packfmt.pad_inputs_split(xb, p, cfg)
+    xq2 = torch.clamp(torch.round(x2 * inv_sx), -127, 127).to(torch.int8)
+    xq4 = torch.clamp(torch.round(x4 * inv_sx), -127, 127).to(torch.int8)
+    acc = torch._int_mm(xq2, q2.t()) + torch._int_mm(xq4, q4.t())
+    y = acc.float() * sx * sw
     return y[:, : p.out_features].to(x.dtype).reshape(
         lead + (p.out_features,))

@@ -14,6 +14,8 @@ Tokens reach the host through non-blocking copies into pinned memory,
 each with a CUDA event, so reading chunk k never waits for chunk k+1.
 Sampling draws from a ``torch.Generator`` seeded with ``EngineConfig.seed``.
 The host scheduler is the Python one (the C++ scheduler is not ported).
+Prompt-lookup speculative decoding drives the same engine from
+``serving/spec.py`` through :meth:`Engine._verify`.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 
 from mxq_tpu_torch import resolve_device
 from mxq_tpu_torch.models import llama
+from mxq_tpu_torch.ops import uniform4
 from mxq_tpu_torch.serving import kvcache
 
 NEG = torch.finfo(torch.float32).min
@@ -59,8 +62,8 @@ class EngineConfig:
     top_p: float = 1.0                  # 1.0 = no nucleus filter
     seed: int = 0
     horizon: int = 8                    # decode steps per dispatch
-    prefill_a8: bool = False            # needs kernel K5: not ported
-    lm_head_bits: int = 16              # 4 needs kernel K7: not ported
+    prefill_a8: bool = False            # int8-activation prefill (K5)
+    lm_head_bits: int = 16              # 4: uniform-4b packed lm_head (K7)
 
 
 def filter_logits(logits: torch.Tensor, temperature: float, top_k: int,
@@ -188,13 +191,12 @@ class Engine:
                  device: str | torch.device = "cuda"):
         self.device = dev = resolve_device(device)
         llama.check_params_device(params, dev)
+        head = params.get("lm_head")
+        if ecfg.lm_head_bits == 4 and isinstance(head, torch.Tensor):
+            # the head is stored [hidden, vocab]; the packer takes [O, K]
+            params = dict(params, lm_head=uniform4.quantize_pack_u4(head.T))
         if ecfg.prefill_a8:
-            raise NotImplementedError(
-                f"prefill_a8 (kernel K5) {llama.NOT_PORTED}")
-        if ecfg.lm_head_bits != 16:
-            raise NotImplementedError(
-                f"lm_head_bits={ecfg.lm_head_bits} (kernel K7) "
-                f"{llama.NOT_PORTED}")
+            cfg = dataclasses.replace(cfg, prefill_act_bits=8)
         self.params = params
         self.cfg = cfg
         buckets = tuple(b for b in sorted(ecfg.prefill_buckets)
@@ -219,6 +221,10 @@ class Engine:
         self._pending_first = {}                 # slot -> (device, _HostCopy)
         self._stream_buf = None                  # set by stream()
         self._gen = torch.Generator(device=dev).manual_seed(ecfg.seed)
+        # speculative-decoding accounting (filled by serving/spec.py):
+        # rounds = verify rounds, accepted = tokens emitted, dispatches =
+        # spec chunks (run_spec: verify steps) sent to the device
+        self._spec_stats = {"rounds": 0, "accepted": 0, "dispatches": 0}
 
     # ---- device work ----
 
@@ -273,6 +279,17 @@ class Engine:
                                   mask=mask[None, None], device=self.device)
         return self._pick(logits[0:1, length - 1])[0]
 
+    def _verify(self, toks: torch.Tensor, positions: torch.Tensor,
+                active: torch.Tensor) -> torch.Tensor:
+        """One speculative verify step: tokens [B, T] written at rows
+        positions[b] + t of every slot's cache; returns the greedy
+        predictions [B, T] int32 (0 for inactive slots). Stays on the
+        device."""
+        logits = llama.decode_slots(self.params, toks, self.cfg, self.caches,
+                                    positions)
+        preds = torch.argmax(logits, dim=-1).to(torch.int32)
+        return torch.where(active[:, None], preds, 0).to(torch.int32)
+
     # ---- host-side scheduling + pipelined dispatch ----
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 64,
@@ -309,6 +326,21 @@ class Engine:
                 e2e_p50_s=float(np.percentile(e2e, 50)),
                 e2e_p95_s=float(np.percentile(e2e, 95)),
                 tokens_per_sec=sum(len(r.generated) for r in fin) / span)
+        st = self._spec_stats
+        if st["rounds"]:
+            out.update(
+                spec_verify_rounds=st["rounds"],
+                spec_dispatches=st["dispatches"],
+                # tokens yielded per verify round (1 = no draft accepted;
+                # draft_len + 1 = full acceptance)
+                spec_accept_len_mean=st["accepted"] / st["rounds"],
+                spec_tokens_per_dispatch=(st["accepted"]
+                                          / max(st["dispatches"], 1)))
+        if "accept_ema" in st:
+            # the auto-disable's acceptance EMA and plain-chunk count
+            # (spec.run_spec_pipelined), even before a verify round ran
+            out["spec_accept_ema"] = float(st["accept_ema"])
+            out["spec_plain_chunks"] = int(st.get("plain_chunks", 0))
         return out
 
     def cancel(self, req: "Request | int") -> bool:

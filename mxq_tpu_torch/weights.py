@@ -5,7 +5,9 @@ devices.
 A numpy tree is the parameter dict with numpy arrays for dense leaves and,
 for each packed linear, a dict of its fields (``w2``, ``w4``, ``meta2``,
 ``qscale``, ``qmin``, ``smeta4`` arrays plus the ``in_features`` and
-``out_features`` ints). bf16 arrays are ``ml_dtypes.bfloat16`` (what
+``out_features`` ints); a packed uniform-4b or -2b linear (``w``, ``s``,
+``z`` and the two ints) is told apart by its shapes: ``w`` has 16 rows per
+row of ``s`` at 4 bits, 8 at 2 bits. bf16 arrays are ``ml_dtypes.bfloat16`` (what
 ``np.asarray`` gives for a JAX bf16 array); they cross as their raw 16 bits.
 :func:`pool_from_numpy` carries a paged KV pool across the same way.
 """
@@ -16,7 +18,10 @@ import numpy as np
 import torch
 
 from mxq_tpu_torch import resolve_device
+from mxq_tpu_torch.ops import uniform4
 from mxq_tpu_torch.packfmt import FIELDS, PackedMXQLinear
+
+_UNIFORM = (uniform4.PackedU4Linear, uniform4.PackedU2Linear)
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
@@ -46,14 +51,22 @@ def params_from_numpy(tree, device: str | torch.device = "cuda"):
                 *(tensor_from_numpy(tree[f], dev) for f in FIELDS),
                 in_features=int(tree["in_features"]),
                 out_features=int(tree["out_features"]))
+        if "z" in tree:
+            rows = np.shape(tree["w"])[0] // np.shape(tree["s"])[0]
+            cls = {16: uniform4.PackedU4Linear,
+                   8: uniform4.PackedU2Linear}[rows]
+            return cls(*(tensor_from_numpy(tree[f], dev) for f in "wsz"),
+                       in_features=int(tree["in_features"]),
+                       out_features=int(tree["out_features"]))
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     return tensor_from_numpy(tree, dev)
 
 
 def params_to_numpy(params):
     """Inverse of :func:`params_from_numpy`."""
-    if isinstance(params, PackedMXQLinear):
-        out = {f: tensor_to_numpy(getattr(params, f)) for f in FIELDS}
+    if isinstance(params, (PackedMXQLinear,) + _UNIFORM):
+        fields = FIELDS if isinstance(params, PackedMXQLinear) else "wsz"
+        out = {f: tensor_to_numpy(getattr(params, f)) for f in fields}
         out.update(in_features=params.in_features,
                    out_features=params.out_features)
         return out
@@ -65,7 +78,7 @@ def params_to_numpy(params):
 def params_to(params, device: str | torch.device):
     """The same parameters on another device (a copy)."""
     dev = resolve_device(device)
-    if isinstance(params, (PackedMXQLinear, torch.Tensor)):
+    if isinstance(params, (PackedMXQLinear, torch.Tensor) + _UNIFORM):
         return params.to(dev)
     return {k: params_to(v, dev) for k, v in params.items()}
 

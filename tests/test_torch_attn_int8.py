@@ -2,7 +2,10 @@
 quantization codes and scales exactly, and K4's plain version (what the
 wrapper runs on CPU tensors) against JAX's fused-write kernel in interpret
 mode at ctx rel <= 1e-5, with the written rows equal and every other cache
-byte untouched."""
+byte untouched. The plain versions of K4a-K4d (no current token, or no
+write) against JAX's int8_decode_attention, _stacked, _cur and _cur_folded
+in interpret mode at rel <= 1e-6: the same f32 math with the same bf16
+roundings, summed in another order."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -138,11 +141,100 @@ def test_decode_attend_update_contract():
     assert torch.equal(cache["k_codes"][0, 1, :, 9], t["kcur"][1, :, 0])
 
 
+def _jnp(t):
+    return {k: jnp.asarray(v) for k, v in t.items()}
+
+
+def test_k4a_k4c_plain_match_jax():
+    """K4a (one layer) and K4c (a layer of the stack): rows <= pos, no
+    current token. GQA; one row, and every row."""
+    hq, hkv = HQ, HKV
+    a = _inputs(seed=6, hq=hq, hkv=hkv, positions=(0, 31))
+    j, t = _jnp(a), {k: to_torch(v) for k, v in a.items()}
+    for idx in range(L):
+        want = ja8.int8_decode_attention(
+            j["q"], j["kc"][idx], j["ks"][idx], j["vc"][idx], j["vs"][idx],
+            j["positions"])
+        got = ta8.int8_decode_attention(
+            t["q"], t["kc"][idx], t["ks"][idx], t["vc"][idx], t["vs"][idx],
+            t["positions"])
+        assert got.shape == (B, hq, D) and got.dtype == torch.float32
+        assert rel(got, want) <= 1e-6, idx
+        want_st = ja8.int8_decode_attention_stacked(
+            j["q"], j["kc"], j["ks"], j["vc"], j["vs"], jnp.int32(idx),
+            j["positions"])
+        got_st = ta8.int8_decode_attention_stacked(
+            t["q"], t["kc"], t["ks"], t["vc"], t["vs"], idx, t["positions"])
+        assert rel(got_st, want_st) <= 1e-6, idx
+        assert torch.equal(got_st, got)
+    # against the dequantize-then-attend oracle: the bf16 rounding of
+    # p * v_scale apart, the same attention
+    q = t["q"].to(torch.bfloat16).float()
+    ref = ta8.int8_decode_attention_reference(
+        q, t["kc"][1], t["ks"][1], t["vc"][1], t["vs"][1], t["positions"])
+    assert rel(got, ref) <= 1e-2
+
+
+def test_k4b_k4d_plain_match_jax():
+    """K4b (one layer) and K4d (a layer of the stack): rows < pos plus the
+    current token, nothing written; the same ctx as K4's. MHA."""
+    a = _inputs(seed=7, hq=4, hkv=4, positions=(7, 30))
+    j, t = _jnp(a), {k: to_torch(v) for k, v in a.items()}
+    cur_j = (j["kcur"], j["kscur"], j["vcur"], j["vscur"])
+    cur_t = (t["kcur"], t["kscur"], t["vcur"], t["vscur"])
+    kc0, vc0 = t["kc"].clone(), t["vc"].clone()
+    for idx in range(L):
+        want = ja8.int8_decode_attention_cur(
+            j["q"], j["kc"][idx], j["ks"][idx], j["vc"][idx], j["vs"][idx],
+            *cur_j, j["positions"])
+        got = ta8.int8_decode_attention_cur(
+            t["q"], t["kc"][idx], t["ks"][idx], t["vc"][idx], t["vs"][idx],
+            *cur_t, t["positions"])
+        assert rel(got, want) <= 1e-6, idx
+        want_f = ja8.int8_decode_attention_cur_folded(
+            j["q"], j["kc"], j["ks"], j["vc"], j["vs"], *cur_j,
+            jnp.int32(idx), j["positions"])
+        got_f = ta8.int8_decode_attention_cur_folded(
+            t["q"], t["kc"], t["ks"], t["vc"], t["vs"], *cur_t, idx,
+            t["positions"])
+        assert rel(got_f, want_f) <= 1e-6, idx
+        assert torch.equal(got_f, got)
+        assert torch.equal(t["kc"], kc0) and torch.equal(t["vc"], vc0)
+        k4, _, _ = ta8.int8_decode_attention_fused_write(
+            t["q"], kc0.clone(), t["ks"], vc0.clone(), t["vs"], *cur_t, idx,
+            t["positions"])
+        assert torch.equal(got_f, k4)
+
+
+def test_k4a_after_writing_equals_k4():
+    """Writing the current token's row and scale, then attending rows <=
+    pos with K4a, gives K4's ctx (the int8 codes are exact in bf16): the
+    identity a speculative verify relies on."""
+    a = _inputs(seed=8, positions=(4, 19))
+    t = {k: to_torch(v) for k, v in a.items()}
+    idx, rows, pos = 1, torch.arange(B), t["positions"].long()
+    kc, vc = t["kc"].clone(), t["vc"].clone()
+    ks, vs = t["ks"].clone(), t["vs"].clone()
+    k4, _, _ = ta8.int8_decode_attention_fused_write(
+        t["q"], kc, ks, vc, vs, t["kcur"], t["kscur"], t["vcur"],
+        t["vscur"], idx, t["positions"])
+    ks[idx, rows, :, pos] = t["kscur"][:, :, 0]
+    vs[idx, rows, :, pos] = t["vscur"][:, :, 0]
+    k4a = ta8.int8_decode_attention_stacked(t["q"], kc, ks, vc, vs, idx,
+                                            t["positions"])
+    assert rel(k4a, k4) <= 1e-6
+
+
 def test_cpu_call_launches_nothing():
     a = _inputs(seed=5)
     t = {k: to_torch(v) for k, v in a.items()}
-    before = ta8.int8_decode_attention_fused_write.launches
+    before = {k: f.launches for k, f in ta8.KERNELS.items()}
     ta8.int8_decode_attention_fused_write(
         t["q"], t["kc"], t["ks"], t["vc"], t["vs"], t["kcur"], t["kscur"],
         t["vcur"], t["vscur"], 0, t["positions"])
-    assert ta8.int8_decode_attention_fused_write.launches == before
+    ta8.int8_decode_attention(t["q"], t["kc"][0], t["ks"][0], t["vc"][0],
+                              t["vs"][0], t["positions"])
+    ta8.int8_decode_attention_cur_folded(
+        t["q"], t["kc"], t["ks"], t["vc"], t["vs"], t["kcur"], t["kscur"],
+        t["vcur"], t["vscur"], 1, t["positions"])
+    assert {k: f.launches for k, f in ta8.KERNELS.items()} == before

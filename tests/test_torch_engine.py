@@ -1,8 +1,12 @@
 """The port's slot Engine (device="cpu", the plain kernel versions) against
 mxq_tpu's Engine: greedy tokens equal token for token on the tiny preset,
-packed, with the int8 KV cache, at num_slots 2 and 1 and under continuous
-batching; and the engine's own invariants (near-capacity clamp, chunked
-prefill, cancel, stats, sampling filters, the default device)."""
+packed, with the int8 KV cache, at num_slots 2 and 1, under continuous
+batching and with the packed uniform-4b lm_head; the int8-activation
+prefill's first token against JAX's forward; and the engine's own
+invariants (near-capacity clamp, chunked prefill, cancel, stats, sampling
+filters, the default device, the cli's serve options)."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -14,17 +18,20 @@ from mxq_tpu.models import llama as jl
 from mxq_tpu.serving import engine as jeng
 from mxq_tpu_torch.models import llama as tl
 from mxq_tpu_torch.serving import engine as teng
-from torch_port_helpers import port_params
+from mxq_tpu_torch.ops import uniform4 as tu4
+from torch_port_helpers import port_params, rel
 
 TCFG = tl.LlamaConfig.tiny()
 PROMPTS = [np.arange(5, dtype=np.int32) + 7, np.arange(9, dtype=np.int32) + 40]
 # continuous batching: 5 requests through 2 slots, 3+i new tokens each
 BATCH = [(np.arange(3 + i, dtype=np.int32) * 5 + i, 3 + i) for i in range(5)]
+A8_PROMPT = np.random.RandomState(8).randint(0, 512, 600).astype(np.int32)
 
 
-def _run(engine_mod, params, cfg, slots, reqs, **kw):
+def _run(engine_mod, params, cfg, slots, reqs, lm_head_bits=16, **kw):
     ecfg = engine_mod.EngineConfig(num_slots=slots, max_len=64,
-                                   prefill_buckets=(16,), kv_quant=True)
+                                   prefill_buckets=(16,), kv_quant=True,
+                                   lm_head_bits=lm_head_bits)
     e = (engine_mod.Engine(params, cfg, ecfg, **kw) if kw
          else engine_mod.Engine(params, cfg, ecfg))
     rs = [e.submit(p, max_new_tokens=n) for p, n in reqs]
@@ -43,6 +50,11 @@ def packed_models():
     two = [(p, 6) for p in PROMPTS]
     want = {slots: _run(jeng, jp, cfg, slots, two) for slots in (2, 1)}
     want["batch"] = _run(jeng, jp, cfg, 2, BATCH)
+    want["u4_head"] = _run(jeng, jp, cfg, 2, two, lm_head_bits=4)
+    # the int8-activation prefill of a 600-token prompt: JAX's logits
+    want["a8_logits"] = np.asarray(jl.forward(
+        jp, jnp.asarray(A8_PROMPT[None]),
+        dataclasses.replace(cfg, prefill_act_bits=8))[0][0, -1])
     return port_params(jp), want
 
 
@@ -59,6 +71,35 @@ def test_continuous_batching_equals_jax(packed_models):
     got = _run(teng, tp, TCFG, 2, BATCH, device="cpu")
     assert got == want["batch"]
     assert [len(g) for g in got] == [n for _, n in BATCH]
+
+
+def test_u4_lm_head_tokens_equal_jax(packed_models):
+    """EngineConfig.lm_head_bits=4 packs the head with the port's packer
+    (bit-exact with JAX's) and runs it through u4_matmul (K7's plain
+    version): the greedy tokens equal JAX's Engine with the same option
+    (port of tests/test_serving.py TestPackedLMHead)."""
+    tp, want = packed_models
+    got = _run(teng, tp, TCFG, 2, [(p, 6) for p in PROMPTS], lm_head_bits=4,
+               device="cpu")
+    assert got == want["u4_head"]
+
+
+def test_prefill_a8_first_token_matches_jax_forward(packed_models):
+    """prefill_a8 on a 600-token prompt (the 1024 bucket, past the 512-row
+    switch): the engine's prefill goes through the int8 path, and its
+    first token is the argmax of JAX's forward logits with
+    prefill_act_bits=8 at the last prompt row; those logits agree to
+    5e-2 of max|logit| (test_torch_llama.py explains the int8 gap)."""
+    tp, want = packed_models
+    e = teng.Engine(tp, TCFG, teng.EngineConfig(
+        num_slots=1, max_len=1024, prefill_buckets=(1024,), kv_quant=True,
+        prefill_a8=True), device="cpu")
+    assert e.cfg.prefill_act_bits == 8
+    req = e.submit(A8_PROMPT, max_new_tokens=1)
+    e.run()
+    assert req.generated == [int(want["a8_logits"].argmax())]
+    lt, _ = tl.forward(tp, A8_PROMPT[None], e.cfg, device="cpu")
+    assert rel(lt[0, -1], want["a8_logits"]) <= 5e-2
 
 
 # ---------------------------------------------------------------------------
@@ -249,9 +290,21 @@ def test_sampling_modes(dense):
 
 
 def test_unported_options_raise(dense):
-    for kw in (dict(prefill_a8=True), dict(lm_head_bits=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _engine(dense, **kw)
+    """The engine's serve options are all ported now: prefill_a8 sets the
+    int8-activation prefill on the model config, lm_head_bits=4 packs the
+    head to uniform 4 bits; neither raises, and the tokens stay close to
+    the dense engine's."""
+    e = _engine(dense, prefill_a8=True)
+    assert e.cfg.prefill_act_bits == 8 and dense is e.params
+    e = _engine(dense, lm_head_bits=4)
+    head = e.params["lm_head"]
+    assert isinstance(head, tu4.PackedU4Linear)
+    assert (head.in_features, head.out_features) == (TCFG.hidden_size,
+                                                     TCFG.vocab_size)
+    assert isinstance(dense["lm_head"], torch.Tensor)   # not modified
+    req = e.submit(np.arange(1, 9, dtype=np.int32), max_new_tokens=3)
+    e.run()
+    assert len(req.generated) == 3
 
 
 def test_engine_without_device_raises_on_a_host_without_cuda(dense):
@@ -269,6 +322,48 @@ def test_cli_serve_on_cpu():
     out = cli.main(base)
     assert out["requests"] == 3 and out["tokens"] == 9
     assert out["stats"]["requests_finished"] == 3
-    for flag in ("--spec_decode", "--prefill_a8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli.main(base + [flag])
+    for flags in (["--spec_decode"], ["--spec_decode", "--spec_sync",
+                                      "--draft_len", "3"],
+                  ["--prefill_a8", "--lm_head_bits", "4"]):
+        got = cli.main(base + flags)
+        assert got["requests"] == 3 and got["tokens"] == 9, flags
+        if "--spec_decode" in flags:
+            assert got["stats"]["spec_dispatches"] >= 1
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli.main(base + ["--w_bits", "4"])
+
+
+def test_cli_serve_spec_and_a8_tokens_equal_plain(monkeypatch):
+    """On the CPU, cli serve --spec_decode (pipelined and --spec_sync) gives
+    the greedy tokens of the plain serve; --prefill_a8 --lm_head_bits 4
+    runs a 600-token prompt through the int8 prefill and the packed
+    head."""
+    from mxq_tpu_torch import cli
+    from mxq_tpu_torch.serving import spec
+    seen = {}
+
+    def recording(name, real):
+        def run(*a, **kw):
+            done = real(*a, **kw)
+            seen[name] = [g for _, g in sorted(
+                (r.uid, list(r.generated)) for r in done)]
+            return done
+        return run
+    monkeypatch.setattr(teng.Engine, "run",
+                        recording("plain", teng.Engine.run))
+    for fn in ("run_spec_pipelined", "run_spec"):
+        monkeypatch.setattr(spec, fn, recording(fn, getattr(spec, fn)))
+    base = ["serve", "--device", "cpu", "--preset", "tiny", "--packed",
+            "--slots", "2", "--max_len", "64", "--requests", "3",
+            "--max_new_tokens", "6", "--prompt_len", "12"]
+    cli.main(base)
+    cli.main(base + ["--spec_decode"])
+    cli.main(base + ["--spec_decode", "--spec_sync"])
+    assert seen["run_spec_pipelined"] == seen["plain"]
+    assert seen["run_spec"] == seen["plain"]
+    out = cli.main(["serve", "--device", "cpu", "--preset", "tiny",
+                    "--packed", "--slots", "1", "--max_len", "1024",
+                    "--requests", "1", "--prompt_len", "600",
+                    "--max_new_tokens", "2", "--prefill_a8",
+                    "--lm_head_bits", "4"])
+    assert out["tokens"] == 2

@@ -1,5 +1,5 @@
-"""K1-K4 and K9-K11 on the card against their plain PyTorch versions at
-small shapes. Needs a CUDA device and nvcc (marker ``cuda``); skips
+"""K1-K5, K4a-K4d, K7, K8 and K9-K11 on the card against their plain
+PyTorch versions at small shapes. Needs a CUDA device and nvcc (marker ``cuda``); skips
 elsewhere. Run on the H100 with
 ``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``;
 ``chip_smoke.py`` holds the same kernels at llama2_7b's shapes."""
@@ -12,6 +12,7 @@ import torch
 from mxq_tpu_torch import packfmt
 from mxq_tpu_torch.ops import attn_int8 as a8
 from mxq_tpu_torch.ops import mxq_matmul as mm
+from mxq_tpu_torch.ops import uniform4 as u4
 
 pytestmark = pytest.mark.cuda
 
@@ -73,6 +74,86 @@ def test_attention_kernel_matches_plain(gen, hq, hkv, d):
     torch.cuda.synchronize()
     assert float((ctx - ref).abs().max() / ref.abs().max()) <= 1e-3
     assert torch.equal(kc1, kc) and torch.equal(vc1, vc)
+
+
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128)])
+def test_attention_flag_kernels_match_plain(gen, hq, hkv, d):
+    """K4a/K4c (rows <= pos, no current token) and K4b/K4d (rows < pos plus
+    the current token, no write) against their plain versions; neither
+    changes the cache. Also a verify-shaped call: 5 queries per slot at
+    pos .. pos+4."""
+    L, B, S = 2, 3, 96
+    cat = dict(generator=gen, device="cuda")
+    kc = torch.randint(-127, 128, (L, B, hkv, S, d), dtype=torch.int8, **cat)
+    vc = torch.randint(-127, 128, (L, B, hkv, S, d), dtype=torch.int8, **cat)
+    ks = (torch.rand((L, B, hkv, S), **cat) * 0.02 + 1e-3).to(torch.bfloat16)
+    vs = (torch.rand((L, B, hkv, S), **cat) * 0.02 + 1e-3).to(torch.bfloat16)
+    q = torch.randn((B, hq, d), **cat).to(torch.bfloat16)
+    cur = [torch.randint(-127, 128, (B, hkv, 1, d), dtype=torch.int8, **cat),
+           (torch.rand((B, hkv, 1), **cat) * 0.02 + 1e-3).to(torch.bfloat16),
+           torch.randint(-127, 128, (B, hkv, 1, d), dtype=torch.int8, **cat),
+           (torch.rand((B, hkv, 1), **cat) * 0.02 + 1e-3).to(torch.bfloat16)]
+    pos = torch.tensor([0, 50, S - 1], dtype=torch.int32, device="cuda")
+    kc0, vc0 = kc.clone(), vc.clone()
+    for i in range(5):
+        p = torch.clamp(pos + i, max=S - 1)
+        got = a8.int8_decode_attention_stacked(q, kc, ks, vc, vs, 1, p)
+        ref = a8.int8_decode_attention_stacked_plain(q, kc, ks, vc, vs, 1, p)
+        one = a8.int8_decode_attention(q, kc[0], ks[0], vc[0], vs[0], p)
+        ref1 = a8.int8_decode_attention_stacked_plain(q, kc, ks, vc, vs, 0,
+                                                      p)
+        torch.cuda.synchronize()
+        assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-3
+        assert float((one - ref1).abs().max() / ref1.abs().max()) <= 1e-3
+    got = a8.int8_decode_attention_cur_folded(q, kc, ks, vc, vs, *cur, 1,
+                                              pos)
+    ref = a8.int8_decode_attention_cur_folded_plain(q, kc, ks, vc, vs, *cur,
+                                                    1, pos)
+    one = a8.int8_decode_attention_cur(q, kc[1], ks[1], vc[1], vs[1], *cur,
+                                       pos)
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-3
+    assert torch.equal(one, got)
+    assert torch.equal(kc, kc0) and torch.equal(vc, vc0)
+
+
+@pytest.mark.parametrize("o,k", [(320, 1088), (1024, 4096)])
+def test_dequant_int8_kernel_matches_plain(gen, o, k):
+    """K5's planes equal the plain version's (both round (s*c - s*z) * inv
+    once per operation: --fmad=false), and mxq_matmul_prefill_a8 through
+    K5 equals it through the plain version."""
+    p = _pack(gen, o, k)
+    inv = 1.0 / mm.int8_weight_scale(p)
+    q2, q4 = mm.dequant_int8_planes(p, inv)
+    r2, r4 = mm.dequant_int8_planes_plain(p, inv)
+    torch.cuda.synchronize()
+    assert torch.equal(q2, r2) and torch.equal(q4, r4)
+    x = torch.randn((512, k), generator=gen, device="cuda")
+    y = mm.mxq_matmul_prefill_a8(x, p)
+    saved = mm.dequant_int8_planes
+    mm.dequant_int8_planes = mm.dequant_int8_planes_plain
+    try:
+        ref = mm.mxq_matmul_prefill_a8(x, p)
+    finally:
+        mm.dequant_int8_planes = saved
+    torch.cuda.synchronize()
+    assert float((y - ref).abs().max() / ref.abs().max()) <= 5e-3
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 13, 130])
+@pytest.mark.parametrize("o,k", [(320, 1088), (1024, 4096)])
+@pytest.mark.parametrize("nbits", [4, 2])
+def test_uniform_kernels_match_plain(gen, nbits, b, o, k):
+    """K7 (4-bit) and K8 (2-bit) against bf16(x) @ dequant."""
+    w = torch.randn((o, k), generator=gen, device="cuda") / math.sqrt(k)
+    p = (u4.quantize_pack_u4 if nbits == 4 else u4.quantize_pack_u2)(w)
+    x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
+    fn = u4.u4_gemv if nbits == 4 else u4.u2_gemv
+    y = fn(x, p)
+    ref = u4.uniform_matmul_plain(x, p)
+    torch.cuda.synchronize()
+    assert y.shape == (b, o)
+    assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-4
 
 
 def _paged_inputs(gen, pos, hkv, g, d, pps, lp):

@@ -19,6 +19,7 @@ import dataclasses
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -167,16 +168,126 @@ def test_port_init_and_pack_roundtrip_shapes():
 
 
 def test_unported_features_raise():
+    """Weight fake-quant (w_bits < 32) is still not ported; the int8
+    activation prefill (prefill_act_bits=8, K5) now runs."""
     cfg = tl.LlamaConfig.tiny(num_hidden_layers=1)
     params = tl.init_params(cfg, seed=0, device="cpu")
     packed = tl.quantize_params_packed(params, cfg, device="cpu")
     ids = np.zeros((1, 512), np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.forward(packed, ids, dataclasses.replace(cfg, prefill_act_bits=8),
-                   device="cpu")
+    logits, _ = tl.forward(packed, ids,
+                           dataclasses.replace(cfg, prefill_act_bits=8),
+                           device="cpu")
+    assert logits.shape == (1, 512, 512)
+    assert bool(torch.isfinite(logits).all())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tl.forward(params, ids[:, :4], dataclasses.replace(cfg, w_bits=2),
                    device="cpu")
+
+
+def test_packed_forward_a8_prefill_matches_jax():
+    """512 tokens with prefill_act_bits=8 route every packed linear through
+    the int8 path (K5's plain version + int8 GEMMs) on both sides. One
+    linear on the same input agrees to 5e-3 (test_torch_mxq_matmul.py);
+    through the model, the activations differ by the bf16 gap above, and
+    where a per-token int8 code flips, it moves an activation by
+    max|x|/127, ~2^-7 of the row's largest value against a bf16 flip's
+    2^-8 of the element. Measured over seeds 3-5: port vs JAX 3.3e-2 to
+    3.5e-2 of max|logit|, argmax agreement 0.947-0.957, while the A8 path
+    of either side differs from its own bf16-plane path by 4.7e-2 to
+    5.9e-2. Gates 5e-2 and 0.9."""
+    jcfg, tcfg, jp, tp = _models(4, seed=3)
+    jcfg = dataclasses.replace(jcfg, prefill_act_bits=8)
+    tcfg8 = dataclasses.replace(tcfg, prefill_act_bits=8)
+    ids = np.random.default_rng(2).integers(0, 512, (1, 512)).astype(
+        np.int32)
+    lj, _ = jl.forward(jp, jnp.asarray(ids), jcfg)
+    lt, _ = tl.forward(tp, ids, tcfg8, device="cpu")
+    assert rel(lt, lj) <= 5e-2
+    agree = (lt.argmax(-1).numpy() == np.asarray(lj).argmax(-1)).mean()
+    assert agree >= 0.9
+    # the int8 quantization error against the port's bf16-plane prefill
+    lb, _ = tl.forward(tp, ids, tcfg, device="cpu")
+    assert rel(lt, lb) <= 0.1
+
+
+def test_packed_lm_head_forward_matches_jax():
+    """A uniform-4b lm_head packed by JAX, carried into the port: the
+    forward's logits go through u4_matmul (K7's plain version) on the port
+    side and JAX's interpret-mode kernel on the other."""
+    from mxq_tpu.ops import uniform4 as ju4
+    from mxq_tpu_torch.ops import uniform4 as tu4
+    jcfg, tcfg, jp, _ = _models(2, seed=5)
+    jp = dict(jp, lm_head=ju4.quantize_pack_u4(jp["lm_head"].T))
+    tp = port_params(jp)
+    assert isinstance(tp["lm_head"], tu4.PackedU4Linear)
+    ids = np.random.default_rng(6).integers(0, 512, (2, 9)).astype(np.int32)
+    lj, _ = jl.forward(jp, jnp.asarray(ids), jcfg)
+    lt, _ = tl.forward(tp, ids, tcfg, device="cpu")
+    assert rel(lt, lj) <= TOL
+
+
+def _random_cache(quant: bool, b: int, s: int, kv_heads: int, seed: int):
+    """The same random cache state for both sides: (jax caches, port
+    caches)."""
+    rng = np.random.default_rng(seed)
+    bf = ml_dtypes.bfloat16
+    if quant:
+        shape = (2, b, kv_heads, s, 64)
+        a = {"k_codes": rng.integers(-127, 128, shape).astype(np.int8),
+             "v_codes": rng.integers(-127, 128, shape).astype(np.int8),
+             "k_scale": (rng.random(shape[:-1]) * 0.02 + 1e-3).astype(bf),
+             "v_scale": (rng.random(shape[:-1]) * 0.02 + 1e-3).astype(bf)}
+    else:
+        shape = (2, b, s, kv_heads, 64)
+        a = {k: rng.standard_normal(shape).astype(bf) for k in ("k", "v")}
+    return ({k: jnp.asarray(v) for k, v in a.items()},
+            {k: to_torch(v) for k, v in a.items()})
+
+
+@pytest.mark.parametrize("quant", [True, False])
+def test_verify_step_matches_jax_forward_multipos(quant):
+    """decode_slots with T=5 tokens per slot (the speculative verify: rows
+    positions[b] + t written, each query attending the rows up to its own;
+    K4a's plain version per query on the int8 cache) against JAX's
+    _forward_multipos from the same cache state. Gate 1e-2: the bf16
+    activation gap above."""
+    from mxq_tpu.serving import engine as jeng
+    jcfg, tcfg, jp, tp = _models(2, seed=1)
+    b, s, t = 3, 32, 5
+    jc, tc = _random_cache(quant, b, s, 2, seed=8)
+    ids = np.random.default_rng(9).integers(0, 512, (b, t)).astype(np.int32)
+    pos = np.array([3, 10, 27], np.int32)
+    lj, jc = jeng._forward_multipos(jp, jnp.asarray(ids), jcfg, jc,
+                                    jnp.asarray(pos))
+    lt = tl.decode_slots(tp, torch.from_numpy(ids), tcfg, tc,
+                         torch.from_numpy(pos))
+    assert lt.shape == (b, t, 512)
+    assert rel(lt, lj) <= TOL
+    assert (lt.argmax(-1).numpy() == np.asarray(lj).argmax(-1)).mean() >= 0.9
+    for name in tc:
+        assert rel(tc[name], to_torch(jc[name])) <= 1e-2, name
+
+
+def test_verify_step_equals_sequential_decode():
+    """One T=5 verify step against 5 sequential T=1 steps (K4 with its
+    scale commit) fed the same tokens from the same int8 state: the same
+    logits up to the summation order of 15-row and 3-row products and the
+    bf16 roundings it flips (1.3e-3 of max|logit| at seed 2), the same
+    argmax, the same cache rows."""
+    _, tcfg, _, tp = _models(2, seed=2)
+    b, s, t = 3, 32, 5
+    _, c1 = _random_cache(True, b, s, 2, seed=10)
+    c2 = {k: v.clone() for k, v in c1.items()}
+    ids = torch.from_numpy(np.random.default_rng(11).integers(
+        0, 512, (b, t)).astype(np.int32))
+    pos = torch.tensor([0, 9, 26], dtype=torch.int32)
+    verify = tl.decode_slots(tp, ids, tcfg, c1, pos)
+    steps = torch.cat([tl.decode_slots(tp, ids[:, i:i + 1], tcfg, c2,
+                                       pos + i) for i in range(t)], dim=1)
+    assert rel(verify, steps) <= 1e-2
+    assert torch.equal(verify.argmax(-1), steps.argmax(-1))
+    for name in c1:
+        assert rel(c1[name], c2[name]) <= 1e-2, name
 
 
 def test_entry_points_default_to_cuda():

@@ -118,6 +118,7 @@ def test_cpu_dispatch_never_counts_a_launch(packed):
     tmm.mxq_matmul(torch.ones((1, K)), pt)
     tmm.mxq_matmul(torch.ones((4, K)), pt)
     tmm.mxq_matmul_prefill(torch.ones((512, K)), pt)
+    tmm.mxq_matmul_prefill_a8(torch.ones((512, K)), pt)
     assert {k: f.launches for k, f in tmm.KERNELS.items()} == before
 
 
@@ -143,3 +144,93 @@ def test_wrappers_reject_bad_input(packed):
 def test_split_rows(nbp, n, b, want):
     """K1/K2's K split on a 132-SM H100."""
     assert tmm._split_rows(nbp, n, b, 132) == want
+
+
+# ---------------------------------------------------------------------------
+# int8-activation prefill (K5 and mxq_matmul_prefill_a8)
+# ---------------------------------------------------------------------------
+
+
+def test_int8_weight_scale_equals_jax(packed):
+    pj, pt = packed
+    sw = tmm.int8_weight_scale(pt)
+    assert sw.shape == (1, pt.n_padded) and sw.dtype == torch.float32
+    want = jmm._int8_weight_scale(pj.meta2, pj.qscale, pj.qmin, pj.smeta4)
+    assert torch.equal(sw, to_torch(want))
+    # the bound covers every dequantized weight: requantizing never clips
+    wmax = tpf.unpack_dequant(pt).abs().amax(dim=0)
+    assert bool((wmax <= sw[0, :O] * 127.0 * 1.0001).all())
+
+
+def test_dequant_int8_plain_matches_tpu_kernel(packed):
+    """K5's plain version against the TPU kernel (interpret mode), up to
+    row order (slab order there, natural plane order here). The 2-bit plane
+    is equal. In the 4-bit plane XLA's CPU backend fuses (s4*c - s4*z4) *
+    inv otherwise than the kernel's three roundings, so values within a few
+    f32 ulps of a half-way point (all at 63.5 here) round to the other
+    neighbour: 56 of 524288 codes at seed 0, each off by one; every other
+    code is equal."""
+    pj, pt = packed
+    nbp, n = pt.meta2.shape
+    inv = 1.0 / tmm.int8_weight_scale(pt)
+    q2j, q4j = jmm._dequant_int8_pallas(
+        pj.w2, pj.w4, pj.meta2, pj.qscale, pj.qmin, pj.smeta4,
+        jnp.asarray(inv.numpy()), block_n=1024, interpret=True)
+    q2t, q4t = tmm.dequant_int8_planes_plain(pt, inv)
+    assert q2t.dtype == torch.int8 and q2t.shape == (n, nbp * 48)
+    assert q4t.dtype == torch.int8 and q4t.shape == (n, nbp * 16)
+    assert q2t.is_contiguous() and q4t.is_contiguous()
+    q2t, q4t = q2t.T, q4t.T                         # natural plane order
+    n_kt = nbp // tpf.NB_TILE
+    slab2 = q2t.reshape(n_kt, 48, 16, n).transpose(1, 2).reshape(-1, n)
+    assert torch.equal(slab2, to_torch(q2j))
+    s4 = pt.smeta4[0:1]
+    raw4 = (s4 * tpf._unpack_along_sublanes(pt.w4, 4).float()
+            - s4 * pt.smeta4[1:2]) * inv                # before rounding
+    diff = (q4t.int() - to_torch(q4j).reshape(n_kt, 8, 32, n).transpose(
+        1, 2).reshape(-1, n).int())
+    ties = diff != 0
+    assert int(diff.abs().max()) <= 1
+    assert int(ties.sum()) <= 100, int(ties.sum())
+    frac = raw4[ties] - raw4[ties].floor()
+    assert bool(((frac - 0.5).abs() <= 8 * 2.0**-23 * raw4[ties].abs()).all())
+    # the codes are the rounded dequantized weights, inside [-127, 127]
+    wd2, _ = tmm.dequant_planes_plain(pt)
+    assert int(q2t.abs().max()) <= 127 and int(q4t.abs().max()) <= 127
+    assert rel(q2t.float() / inv, wd2.float()) <= 1e-2
+
+
+def test_prefill_a8_matches_jax(packed):
+    """mxq_matmul_prefill_a8 against JAX's at 512 rows: the int32 sums are
+    exact on both sides, so y differs only where an activation or weight
+    code flips on a half-way tie (<= 5e-3 * max|y|, the tolerance of
+    tests/test_mxq_matmul.py:209); and against the f32 path, the int8
+    quantization error (< 0.03, tests/test_mxq_matmul.py:189)."""
+    pj, pt = packed
+    x = np.random.default_rng(13).standard_normal((512, K)).astype(
+        np.float32)
+    yj = np.asarray(jmm.mxq_matmul_prefill_a8(jnp.asarray(x), pj))
+    yt = tmm.mxq_matmul_prefill_a8(torch.from_numpy(x), pt)
+    assert yt.shape == (512, O) and yt.dtype == torch.float32
+    assert rel(yt, yj) <= 5e-3
+    ref = torch.from_numpy(x) @ tpf.unpack_dequant(pt)
+    assert rel(yt, ref) < 0.03
+    # the int8 GEMM accumulates exactly: equal to an int64 matmul
+    a = torch.randint(-127, 128, (32, 64), dtype=torch.int8)
+    b = torch.randint(-127, 128, (64, 24), dtype=torch.int8)
+    assert torch.equal(torch._int_mm(a, b).long(), a.long() @ b.long())
+
+
+def test_prefill_a8_stacked_and_dtype():
+    rng = np.random.default_rng(17)
+    ps = [tpf.quantize_pack(torch.from_numpy(rng.standard_normal(
+        (256, 1024)).astype(np.float32))) for _ in range(2)]
+    st = tpf.stack_packed(ps)
+    x = torch.from_numpy(rng.standard_normal((2, 40, 1024)).astype(
+        np.float32))
+    for i, p in enumerate(ps):
+        y = tmm.mxq_matmul_prefill_a8(x, st, i)
+        assert y.shape == (2, 40, 256)
+        assert torch.equal(y, tmm.mxq_matmul_prefill_a8(x, p))
+    yb = tmm.mxq_matmul_prefill_a8(x.to(torch.bfloat16), ps[0])
+    assert yb.dtype == torch.bfloat16

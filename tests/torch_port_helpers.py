@@ -7,7 +7,14 @@ import numpy as np
 import torch
 
 from mxq_tpu import packfmt as jpackfmt
+from mxq_tpu.ops import uniform4 as juniform4
 from mxq_tpu_torch import weights
+
+# The suite runs in several worker processes on a few cores; one intra-op
+# thread per process keeps torch's thread pools from spinning against
+# each other (with one pool per core each, a worker's tiny ops ran 50x
+# slower than alone).
+torch.set_num_threads(1)
 
 
 def to_torch(a) -> torch.Tensor:
@@ -23,6 +30,10 @@ def to_numpy_tree(tree):
         out.update(in_features=tree.in_features,
                    out_features=tree.out_features)
         return out
+    if isinstance(tree, (juniform4.PackedU4Linear, juniform4.PackedU2Linear)):
+        return dict(w=np.asarray(tree.w), s=np.asarray(tree.s),
+                    z=np.asarray(tree.z), in_features=tree.in_features,
+                    out_features=tree.out_features)
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
     return np.asarray(tree)
