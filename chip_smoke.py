@@ -6,13 +6,16 @@
 
 Phases, each printing one JSON line:
   build    compile csrc/*.cu with nvcc (one process per source, in parallel)
-  kernels  hold K1-K5, K4a-K4d, K7, K8 and K9-K11 against their plain
+  kernels  hold K1-K6, K4a-K4d, K7, K8 and K9-K11 against their plain
            PyTorch versions at llama2_7b's shapes and time kernel, plain
            version, bound and library call
-  serve    ten runs of llama2_7b at full depth, each with the launch
+  serve    twelve runs of llama2_7b at full depth, each with the launch
            counts set to 0 before it and read after it:
            `mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8`
-           in-process (must launch K1, K4), the Engine at 8 slots with
+           in-process (must launch K1, K4), then the same command in a
+           child process with MXQ_GEMV_LAYOUT=quad and =bfexp (K6 and no
+           K1; quad's tokens equal the first run's for 7 of 8 requests),
+           the Engine at 8 slots with
            prompts in every prefill bucket (K1, K3, K4), a one-slot Engine
            (K2, K4); the same cli serve with --paged (K1, K11), a one-slot
            PagedEngine (K2, K11), and a PagedEngine whose 8 requests share
@@ -24,14 +27,19 @@ Phases, each printing one JSON line:
            --lm_head_bits 4 with 600-token prompts (K1, K4, K5, K7); then
            where a decode step's time goes, slot and paged, and where a
            speculative verify round's does
+  eval     perplexity of llama2_7b at full depth: `cli eval-ppl --w_bits 2`
+           (the fake-quant forward), the packed model at seqlen 128 once
+           per GEMV layout (slab K1, quad and bfexp K6) and at seqlen 2048
+           (K3)
   e2e      at 2 layers of 7B width, one B=8 decode step and one 512-token
            prefill with the kernels, held against the same forward with
            the plain versions on the card and against the CPU; one B=8
            paged decode step (K11) against the same step with the plain
            versions and against the slot engine's step from the same
            int8 state; the int8-activation prefill (K5), a decode step
-           with the uniform-4b head (K7), and a T=5 verify step (K4a)
-           against five decode steps
+           with the uniform-4b head (K7), a T=5 verify step (K4a)
+           against five decode steps, and a decode step and a 128-row
+           forward in each K6 layout
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device, without the package beside it, or when any check fails.
@@ -44,6 +52,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -53,7 +62,12 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor cores (data sheet)
 BOUND_BASIS = "max(bytes / 3.35 TB/s HBM, operations / 989 TFLOP/s bf16)"
 SEED = 0
-PHASES = ("build", "kernels", "serve", "e2e")
+# the README's main-path command
+CLI_SERVE = ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits", "8",
+             "--slots", "8", "--max_len", "2048", "--requests", "8",
+             "--prompt_len", "100", "--max_new_tokens", "32",
+             "--seed", str(SEED)]
+PHASES = ("build", "kernels", "serve", "eval", "e2e")
 
 # llama2_7b packed linears of one layer: name -> (out, in)
 SHAPES_7B = {"qkv": (3 * 4096, 4096), "o": (4096, 4096),
@@ -78,6 +92,10 @@ KERNEL_INFO = {
             "mxq_tpu/ops/attn_int8.py:1101"),
     "K5": ("cuda", "mxq_tpu_torch/csrc/mxq_dequant.cu",
            "mxq_tpu/ops/mxq_matmul.py:856"),
+    "K6-quad": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv.cu",
+                "mxq_tpu/ops/mxq_matmul.py:169"),
+    "K6-bfexp": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv.cu",
+                 "mxq_tpu/ops/mxq_matmul.py:252"),
     "K7": ("cuda", "mxq_tpu_torch/csrc/uniform_gemv.cu",
            "mxq_tpu/ops/uniform4.py:117"),
     "K8": ("cuda", "mxq_tpu_torch/csrc/uniform_gemv.cu",
@@ -244,6 +262,7 @@ def phase_kernels(torch, timer):
     summary["K3"] = summarise([r for r in rows if r["kernel"] == "K3"],
                               "one llama2_7b layer (qkv, o, gate_up, down)")
     failures += a8_kernels(torch, timer, gen, packs, rows, summary)
+    failures += layout_kernels(torch, timer, gen, packs, rows, summary)
     del packs
 
     # K4: B=8, Hq=Hkv=32, D=128, S=2048, positions incl. 0 and 2046
@@ -468,6 +487,69 @@ def a8_kernels(torch, timer, gen, packs, rows, summary):
     return failures
 
 
+def layout_kernels(torch, timer, gen, packs, rows, summary):
+    """K6, the quad and bfexp GEMV layouts, at the four 7B linears and
+    B = 8, 1 (reached through MXQ_GEMV_LAYOUT_B1) and 128 (an eval
+    window). Gates, as rel = max|diff| / max|y|: quad <= 1e-4 against
+    gemv_plain (K1's function; ``equal_to_k1`` reports whether it equals
+    K1's, or at B=1 K2's, output bit for bit, as its code-order sums
+    should); bfexp <= 1e-4 against gemv_bfexp_plain (bit-equal weights,
+    another f32 summation order), and that plain version within 0.05 of
+    gemv_plain (mxq_tpu's own bfexp gate). Bound and library call as
+    K1's."""
+    from mxq_tpu_torch import packfmt
+    from mxq_tpu_torch.ops import mxq_matmul as mm
+    failures = []
+    layouts = {"K6-quad": ("quad", mm.gemv_quad, mm.gemv_plain),
+               "K6-bfexp": ("bfexp", mm.gemv_bfexp, mm.gemv_bfexp_plain)}
+    for b in (8, 1, 128):
+        for name, p in packs.items():
+            x = torch.randn((b, p.in_features), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            exact = mm.gemv_plain(x, p)
+            wbf = packfmt.unpack_dequant(p).to(torch.bfloat16)
+            nbytes = packed_bytes(p) + x.numel() * 2 + b * p.out_features * 4
+            bms, by = bound_ms(nbytes, 2.0 * b * p.in_features
+                               * p.out_features)
+            lib = timer(lambda: x @ wbf)
+            del wbf
+            for key, (layout, fn, plain) in layouts.items():
+                if b == 1:
+                    # the one-row route, as a decode step at one slot takes it
+                    os.environ["MXQ_GEMV_LAYOUT_B1"] = layout
+                    n0 = fn.launches
+                    y = mm.mxq_matmul(x.float(), p)
+                    routed = fn.launches - n0 == 1
+                    del os.environ["MXQ_GEMV_LAYOUT_B1"]
+                else:
+                    y, routed = fn(x, p), True
+                ref = plain(x, p)
+                torch.cuda.synchronize()
+                err = rel_err(y, ref)
+                row = {"kernel": key, "linear": name, "B": b,
+                       "rel_err": err, "routed": routed,
+                       "max_abs_err": float((y - ref).abs().max()),
+                       "kernel_ms": timer(lambda: fn(x, p)),
+                       "plain_ms": timer(lambda: plain(x, p), iters=3),
+                       "bound_ms": bms, "bound_by": by, "library_ms": lib}
+                ok = err <= 1e-4 and routed
+                if layout == "quad":
+                    k1 = mm.gemv_single if b == 1 else mm.gemv_batched
+                    row["equal_to_k1"] = torch.equal(fn(x, p), k1(x, p))
+                if layout == "bfexp":
+                    row["plain_rel_vs_exact"] = rel_err(ref, exact)
+                    ok = ok and row["plain_rel_vs_exact"] < 0.05
+                rows.append(row)
+                emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
+                if not ok:
+                    failures.append(f"{key} {name} B={b}: {row}")
+    for key in layouts:
+        summary[key] = summarise(
+            [r for r in rows if r["kernel"] == key and r["B"] == 8],
+            "one llama2_7b layer (qkv, o, gate_up, down), B=8")
+    return failures
+
+
 def uniform_kernels(torch, timer, gen, rows, summary):
     """K7 at the lm_head shape (4096 -> 32000, N padded to 32768), B = 1, 8,
     128 and a 2048-row prefill bucket; K8 at the four 7B linears packed
@@ -612,42 +694,103 @@ def paged_kernels(torch, timer, gen, rows, summary):
     return failures
 
 
+def all_kernels() -> dict:
+    """Every kernel wrapper of the port, by kernel ID."""
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    from mxq_tpu_torch.ops import mxq_matmul as mm
+    from mxq_tpu_torch.ops import uniform4 as u4
+    return {**mm.KERNELS, **a8.KERNELS, **u4.KERNELS}
+
+
+def count_launches(torch, kernels, drive) -> dict:
+    """Run ``drive`` with every launch count set to 0 just before it and
+    read just after: its result dict with ``seconds`` and ``launches``."""
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.monotonic()
+    res = drive()
+    torch.cuda.synchronize()
+    res["seconds"] = time.monotonic() - t0
+    res["launches"] = {k: fn.launches for k, fn in kernels.items()}
+    return res
+
+
+def serve_with_tokens(argv) -> dict:
+    """``cli.main(argv)`` (slot engine), with its requests' tokens in uid
+    order under ``generated``."""
+    from mxq_tpu_torch import cli
+    from mxq_tpu_torch.serving import engine as eng
+    run, done = eng.Engine.run, []
+
+    def recording(self):
+        out = run(self)
+        done.extend(out)
+        return out
+
+    eng.Engine.run = recording
+    try:
+        res = cli.main(argv)
+    finally:
+        eng.Engine.run = run
+    res["generated"] = [list(map(int, r.generated))
+                        for r in sorted(done, key=lambda r: r.uid)]
+    return res
+
+
+def layout_serve(layout: str) -> dict:
+    """:data:`CLI_SERVE` with its launch counts and tokens, in a child
+    process started with ``MXQ_GEMV_LAYOUT=layout``."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(here, "chip_smoke.py"),
+         "--serve-child"], cwd=here, capture_output=True, text=True,
+        env=dict(os.environ, MXQ_GEMV_LAYOUT=layout), timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cli serve with MXQ_GEMV_LAYOUT={layout} exited "
+                           f"{proc.returncode}: {proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def phase_serve(torch):
     from mxq_tpu_torch import cli
     from mxq_tpu_torch.models import llama
-    from mxq_tpu_torch.ops import attn_int8 as a8
-    from mxq_tpu_torch.ops import mxq_matmul as mm
     from mxq_tpu_torch.serving import engine as eng
-    from mxq_tpu_torch.ops import uniform4 as u4
     from mxq_tpu_torch.serving import paged, spec
     import numpy as np
 
-    kernels = {**mm.KERNELS, **a8.KERNELS, **u4.KERNELS}
+    kernels = all_kernels()
     runs, failures = {}, []
 
     def counted(name, need, drive):
-        """Run ``drive`` with every launch count set to 0 just before it
-        and read just after; fail if a kernel in ``need`` never launched."""
-        for fn in kernels.values():
-            fn.launches = 0
-        t0 = time.monotonic()
-        res = drive()
-        torch.cuda.synchronize()
-        res["seconds"] = time.monotonic() - t0
-        res["launches"] = {k: fn.launches for k, fn in kernels.items()}
-        runs[name] = res
+        """Run ``drive`` with its launch counts; fail if a kernel in
+        ``need`` never launched."""
+        runs[name] = res = count_launches(torch, kernels, drive)
         failures.extend(f"{name}: {k} never launched" for k in need
                         if res["launches"][k] <= 0)
 
     # the README's main-path command, at the cli's default dtype (float32)
-    counted("cli", ("K1", "K4"), lambda: cli.main(
-        ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits", "8",
-         "--slots", "8", "--max_len", "2048", "--requests", "8",
-         "--prompt_len", "100", "--max_new_tokens", "32",
-         "--seed", str(SEED)]))
+    counted("cli", ("K1", "K4"), lambda: serve_with_tokens(CLI_SERVE))
     if runs["cli"]["requests"] != 8 or runs["cli"]["tokens"] != 8 * 32:
         failures.append(f"cli serve finished {runs['cli']['requests']} "
                         f"requests, {runs['cli']['tokens']} tokens")
+    # the same command with the K6 layouts, each in a fresh process
+    # (ops.mxq_matmul reads MXQ_GEMV_LAYOUT when it is imported): K6 and
+    # no K1; quad is K1's function, so its greedy tokens equal the slab
+    # run's for >= 7 of 8 requests; bfexp's agreement is only reported
+    slab_tokens = runs["cli"].pop("generated")
+    torch.cuda.empty_cache()
+    for layout in ("quad", "bfexp"):
+        name = f"cli_{layout}"
+        runs[name] = res = layout_serve(layout)
+        got = res.pop("generated")
+        res["requests_equal_to_slab"] = sum(
+            a == b for a, b in zip(got, slab_tokens))
+        ok = (res["launches"]["K6-" + layout] > 0
+              and res["launches"]["K1"] == 0 and res["tokens"] == 8 * 32)
+        if layout == "quad":
+            ok = ok and res["requests_equal_to_slab"] >= 7
+        if not ok:
+            failures.append(f"{name}: {res}")
 
     cfg = llama.LlamaConfig.llama2_7b()
     params = llama.quantize_params_packed(
@@ -910,15 +1053,90 @@ def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
             "top_kernels_ms_per_step": {k[:80]: v for k, v in top}}
 
 
+def phase_eval(torch):
+    """Perplexity of llama2_7b at full depth on ptq.data's synthetic eval
+    stream, each run with its own launch counts:
+    1. ``cli eval-ppl --preset llama2_7b --dtype bfloat16 --w_bits 2
+       --seqlen 2048 --max_eval_windows 2``: the fake-quant forward of the
+       dense model (no kernel of the repo);
+    2. the packed model (bf16, random weights from the seed, packed on the
+       card), ``eval_ppl`` at seqlen 128, batch 1, 8 windows, once per
+       GEMV layout: 128 rows per linear stay under the 512-row prefill
+       switch, so slab runs K1, quad and bfexp K6. Gates: quad within
+       1e-3 of slab's perplexity (relative: the same function), bfexp
+       within 5e-2 (bf16 weights);
+    3. the same packed model at seqlen 2048, 2 windows (K3).
+    Every perplexity must be finite and above 1. Returns (launches summed
+    over the runs, failures)."""
+    from mxq_tpu_torch import cli
+    from mxq_tpu_torch.eval import ppl
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ops import mxq_matmul as mm
+    from mxq_tpu_torch.ptq import data
+
+    kernels = all_kernels()
+    runs, failures = {}, []
+    runs["cli_w2"] = count_launches(torch, kernels, lambda: cli.main(
+        ["eval-ppl", "--preset", "llama2_7b", "--dtype", "bfloat16",
+         "--w_bits", "2", "--seqlen", "2048", "--max_eval_windows", "2",
+         "--seed", str(SEED)]))
+    torch.cuda.empty_cache()
+    cfg = llama.LlamaConfig.llama2_7b()
+    params = llama.quantize_params_packed(
+        llama.init_params(cfg, SEED, torch.bfloat16, "cuda"), cfg,
+        device="cuda")
+
+    def packed_ppl(seqlen, windows):
+        tokens = data.get_eval_tokens(vocab_size=cfg.vocab_size,
+                                      seqlen=seqlen)
+        return {"seqlen": seqlen, "windows": windows,
+                "ppl": ppl.eval_ppl(params, cfg, tokens, seqlen=seqlen,
+                                    batch=1, max_windows=windows,
+                                    device="cuda")}
+
+    saved = mm.GEMV_LAYOUT
+    try:
+        for layout, key in (("slab", "K1"), ("quad", "K6-quad"),
+                            ("bfexp", "K6-bfexp")):
+            mm.GEMV_LAYOUT = layout
+            runs[f"packed_{layout}"] = res = count_launches(
+                torch, kernels, lambda: packed_ppl(128, 8))
+            if res["launches"][key] <= 0:
+                failures.append(f"eval packed_{layout}: {key} never "
+                                "launched")
+    finally:
+        mm.GEMV_LAYOUT = saved
+    runs["packed_seqlen2048"] = res = count_launches(
+        torch, kernels, lambda: packed_ppl(2048, 2))
+    if res["launches"]["K3"] <= 0:
+        failures.append("eval packed_seqlen2048: K3 never launched")
+    del params
+    slab = runs["packed_slab"]["ppl"]
+    for layout, gate in (("quad", 1e-3), ("bfexp", 5e-2)):
+        r = runs[f"packed_{layout}"]
+        r["rel_vs_slab"] = abs(r["ppl"] - slab) / slab
+        if not r["rel_vs_slab"] <= gate:
+            failures.append(f"eval {layout}: ppl {r['ppl']} against slab's "
+                            f"{slab}, rel {r['rel_vs_slab']:.3g} > {gate}")
+    failures += [f"eval {k}: ppl {r['ppl']}" for k, r in runs.items()
+                 if not (math.isfinite(r["ppl"]) and r["ppl"] > 1)]
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in kernels}
+    emit({"phase": "eval", **runs, "launches_total": launches})
+    return launches, failures
+
+
 @contextlib.contextmanager
 def plain_versions(mm, a8):
-    """Route the packed linears (K1-K3, K5), the K4 family, K11 and the
+    """Route the packed linears (K1-K3, K5, K6), the K4 family, K11 and the
     uniform linears (K7, K8) through their plain PyTorch versions on the
     card, so one forward can be held against the same forward with the
     kernels on the same device (no kernel launches, no counts)."""
     from mxq_tpu_torch.ops import uniform4 as u4
     swaps = [(mm, "gemv_batched", mm.gemv_plain),
              (mm, "gemv_single", mm.gemv_plain),
+             (mm, "gemv_quad", mm.gemv_plain),
+             (mm, "gemv_bfexp", mm.gemv_bfexp_plain),
              (mm, "dequant_planes", mm.dequant_planes_plain),
              (mm, "dequant_int8_planes", mm.dequant_int8_planes_plain),
              (a8, "int8_decode_attention_fused_write",
@@ -960,7 +1178,10 @@ def phase_e2e(torch):
       against the slot engine's K4 step, each <= 1e-2 (K11 rounds
       p * v_scale against the running max of each page, K4 against the
       global max).
-    - the slot engine's options (:func:`e2e_serve_options`)."""
+    - the slot engine's options (:func:`e2e_serve_options`).
+    - the K6 layouts (:func:`e2e_layouts`): a decode step and a 128-row
+      forward, each <= 1e-2 against the card's plain versions and against
+      the CPU."""
     from mxq_tpu_torch import weights
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.ops import attn_int8 as a8
@@ -976,6 +1197,7 @@ def phase_e2e(torch):
     ids = torch.randint(0, cfg.vocab_size, (b, t0 + 1), generator=gen)
     pids = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen)
     vids = torch.randint(0, cfg.vocab_size, (b, 5), generator=gen)
+    rids = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen)
     counts = (mm.gemv_batched, a8.int8_decode_attention_fused_write,
               mm.dequant_planes)
     k11 = a8.KERNELS["K11"]
@@ -1006,6 +1228,7 @@ def phase_e2e(torch):
             cpu_params = weights.params_to(params, "cpu")
             cpu_cache = {k: v.cpu() for k, v in cache.items()}
             plain_cache = {k: v.clone() for k, v in cache.items()}
+            base = {k: v.clone() for k, v in cache.items()}
             opt_res, opt_fail = e2e_serve_options(
                 torch, cfg, sdpa_cfg, params, cache, ids[:, t0:], vids, pids,
                 t0)
@@ -1057,6 +1280,11 @@ def phase_e2e(torch):
                        and bool(torch.isfinite(card_p).all())
                        and bool(torch.isfinite(card_paged).all())),
                    **opt_res}
+            lay_res, lay_fail = e2e_layouts(torch, cfg, sdpa_cfg, params,
+                                            cpu_params, base, ids[:, t0:],
+                                            rids, t0)
+            res.update(lay_res)
+            failures += [f"e2e {name} {f}" for f in lay_fail]
             out[name] = res
             gates = {"decode_rel_vs_card_plain": 1e-2,
                      "prefill_rel_vs_card_plain": 1e-3,
@@ -1072,10 +1300,64 @@ def phase_e2e(torch):
                 failures.append(f"e2e {name}: shapes/launches {res}, "
                                 f"plain run {plain_used}, K11 "
                                 f"{k11_plain_used}")
-            del params, cpu_params, cache, cpu_cache, plain_cache, pool
+            del params, cpu_params, cache, cpu_cache, plain_cache, pool, base
             del plain_pool
     emit(out)
     return failures
+
+
+def e2e_layouts(torch, cfg, sdpa_cfg, params, cpu_params, base, ids, rids,
+                t0):
+    """The K6 layouts at 2 layers of 7B width, with ``mm.GEMV_LAYOUT`` set
+    to quad, then bfexp: one B=8 decode step of ``ids`` from the prefilled
+    int8 state ``base`` (left unchanged) and one 128-row forward of
+    ``rids`` without a cache (under the 512-row prefill switch, so every
+    packed linear is a K6 GEMV), each against the same with the plain
+    versions on the card and against the CPU (which runs the layout's
+    plain version): <= 1e-2 of max|logit|, the decode gates of
+    :func:`phase_e2e`. K6 launches 8 times per layer (4 linears in each
+    of the two calls), K1 never. Returns (results, failures)."""
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    from mxq_tpu_torch.ops import mxq_matmul as mm
+
+    def run(p, dev):
+        state = {k: v.to(dev, copy=True) for k, v in base.items()}
+        dec, _ = llama.forward(p, ids, cfg, caches=state, cache_pos=t0,
+                               device=dev)
+        fwd, _ = llama.forward(p, rids, sdpa_cfg, device=dev)
+        return dec.cpu(), fwd.cpu()
+
+    res, failures = {}, []
+    saved = mm.GEMV_LAYOUT
+    try:
+        for layout in ("quad", "bfexp"):
+            mm.GEMV_LAYOUT = layout
+            k6 = mm.KERNELS["K6-" + layout]
+            before = (k6.launches, mm.gemv_batched.launches)
+            card = run(params, "cuda")
+            used = [k6.launches - before[0],
+                    mm.gemv_batched.launches - before[1]]
+            with plain_versions(mm, a8):
+                plain = run(params, "cuda")
+            host = run(cpu_params, "cpu")
+            r = {"decode_rel_vs_card_plain": rel_err(card[0], plain[0]),
+                 "forward128_rel_vs_card_plain": rel_err(card[1], plain[1]),
+                 "decode_rel_vs_cpu": rel_err(card[0], host[0]),
+                 "forward128_rel_vs_cpu": rel_err(card[1], host[1])}
+            failures += [f"{layout} {k} {v:.3g} > 0.01" for k, v in r.items()
+                         if not v <= 1e-2]
+            finite = all(bool(torch.isfinite(t).all()) for t in card)
+            if not finite or used != [8 * cfg.num_hidden_layers, 0]:
+                failures.append(f"{layout}: finite {finite}, K6 and K1 "
+                                f"launches {used}")
+            r["forward128_argmax_agreement_vs_cpu"] = float(
+                (card[1].argmax(-1) == host[1].argmax(-1)).float().mean())
+            r["k6_k1_launches"] = used
+            res.update({f"{layout}_{k}": v for k, v in r.items()})
+    finally:
+        mm.GEMV_LAYOUT = saved
+    return res, failures
 
 
 def e2e_serve_options(torch, cfg, sdpa_cfg, params, cache, ids, vids, pids,
@@ -1172,7 +1454,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
-    phases = [p for p in ap.parse_args(argv).phases.split(",") if p]
+    # one run of CLI_SERVE printing its launch counts and tokens
+    # (layout_serve's child process)
+    ap.add_argument("--serve-child", action="store_true",
+                    help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    phases = [p for p in args.phases.split(",") if p]
     try:
         import torch
     except ImportError:
@@ -1189,6 +1476,10 @@ def main(argv=None) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.serve_child:
+        emit(count_launches(torch, all_kernels(),
+                            lambda: serve_with_tokens(CLI_SERVE)))
+        return 0
 
     failures, summary, launches = [], {}, {}
     if "build" in phases:
@@ -1198,6 +1489,10 @@ def main(argv=None) -> int:
         failures += f
     if "serve" in phases:
         launches, f = phase_serve(torch)
+        failures += f
+    if "eval" in phases:
+        more, f = phase_eval(torch)
+        launches = {k: launches.get(k, 0) + n for k, n in more.items()}
         failures += f
     if "e2e" in phases:
         failures += phase_e2e(torch)

@@ -39,7 +39,9 @@ F = ctypes.c_float
 SIGNATURES = {
     "mxq_gemv": {
         name: [P, I, I, I, P, P, P, P, P, P, I, I, I, I, I, P, P, P]
-        for name in ("mxq_gemv_k1", "mxq_gemv_k2")},
+        for name in ("mxq_gemv_k1", "mxq_gemv_k2", "mxq_gemv_k6_quad8",
+                     "mxq_gemv_k6_quad1", "mxq_gemv_k6_bfexp8",
+                     "mxq_gemv_k6_bfexp1")},
     "mxq_dequant": {"mxq_dequant_k3": [P, P, P, P, P, P, I, I, P, P, P],
                     "mxq_dequant_k5": [P, P, P, P, P, P, P, I, I, P, P, P]},
     "attn_int8": {

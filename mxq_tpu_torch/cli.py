@@ -1,6 +1,6 @@
-"""Command line of the PyTorch port: the ``serve`` subcommand of the slot
-engine and, with ``--paged``, of the paged engine (port of
-``mxq_tpu/cli.py`` cmd_serve).
+"""Command line of the PyTorch port (port of ``mxq_tpu/cli.py``): ``serve``
+runs the slot engine and, with ``--paged``, the paged engine;
+``eval-ppl`` the stride-seqlen perplexity.
 
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8 \
@@ -9,10 +9,16 @@ engine and, with ``--paged``, of the paged engine (port of
         --spec_decode                 # prompt-lookup speculative decoding
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8 \
         --prefill_a8 --lm_head_bits 4 --prompt_len 600
+    python -m mxq_tpu_torch.cli eval-ppl --preset llama2_7b \
+        --dtype bfloat16 --w_bits 2 --max_eval_windows 2
 
 Weights are random, drawn from ``--seed`` on the device (no checkpoint
-loading yet). Prints one JSON line: requests, tokens, tokens/s and the
-engine's stats.
+loading yet); ``--w_bits`` (and for eval-ppl ``--a_bits``, ``--kv_bits``)
+select the reference's fake-quant forward of the dense model. ``serve``
+prints one JSON line: requests, tokens, tokens/s and the engine's stats;
+``eval-ppl`` prints ``{"dataset": ..., "ppl": ...}``. The GEMV layout of
+packed linears is read from ``MXQ_GEMV_LAYOUT`` / ``MXQ_GEMV_LAYOUT_B1``
+(``ops/mxq_matmul.py``).
 """
 
 from __future__ import annotations
@@ -28,6 +34,47 @@ import torch
 from mxq_tpu_torch import resolve_device
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _model(args, dev, **bits):
+    """The preset's config with the fake-quant ``bits`` and ``--layers``,
+    and random weights from ``--seed`` on ``dev``."""
+    from mxq_tpu_torch.models import llama
+
+    cfg = getattr(llama.LlamaConfig, args.preset)(**bits)
+    if args.layers:
+        # shallow drive of a full-width preset
+        cfg = dataclasses.replace(cfg, num_hidden_layers=args.layers)
+    return cfg, llama.init_params(cfg, args.seed, _DTYPES[args.dtype], dev)
+
+
+def _tokenizer(args):
+    if args.tokenizer:
+        from transformers import AutoTokenizer
+        return AutoTokenizer.from_pretrained(args.tokenizer)
+    return None
+
+
+def cmd_eval_ppl(args) -> dict:
+    from mxq_tpu_torch.eval import ppl
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ptq import data
+
+    if args.model:
+        raise NotImplementedError(f"--model (HF checkpoints) "
+                                  f"{llama.NOT_PORTED}")
+    dev = resolve_device(args.device)
+    cfg, params = _model(args, dev, w_bits=args.w_bits, a_bits=args.a_bits,
+                         kv_bits=args.kv_bits)
+    tokens = data.get_eval_tokens(tokenizer=_tokenizer(args),
+                                  vocab_size=cfg.vocab_size,
+                                  dataset=args.dataset, seqlen=args.seqlen)
+    out = {"dataset": args.dataset,
+           "ppl": ppl.eval_ppl(params, cfg, tokens, seqlen=args.seqlen,
+                               max_windows=args.max_eval_windows,
+                               device=dev)}
+    print(json.dumps(out), flush=True)
+    return out
 
 
 def cmd_serve(args) -> dict:
@@ -48,14 +95,8 @@ def cmd_serve(args) -> dict:
         if args.lm_head_bits != 16:
             print("note: --lm_head_bits applies to the slot engine only",
                   flush=True)
-    if args.w_bits != 32:
-        raise NotImplementedError(f"--w_bits fake-quant {llama.NOT_PORTED}")
     dev = resolve_device(args.device)
-    cfg = getattr(llama.LlamaConfig, args.preset)()
-    if args.layers:
-        # shallow drive of a full-width preset
-        cfg = dataclasses.replace(cfg, num_hidden_layers=args.layers)
-    params = llama.init_params(cfg, args.seed, _DTYPES[args.dtype], dev)
+    cfg, params = _model(args, dev, w_bits=args.w_bits)
     if args.packed:
         params = llama.quantize_params_packed(params, cfg, device=dev)
     sampling = dict(greedy=args.temperature == 0.0,
@@ -96,11 +137,7 @@ def cmd_serve(args) -> dict:
     return out
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(prog="mxq_tpu_torch")
-    sub = ap.add_subparsers(dest="cmd", required=True)
-
-    p = sub.add_parser("serve")
+def _add_model_args(p):
     p.add_argument("--preset", default="tiny",
                    choices=["tiny", "llama2_7b", "llama2_13b", "llama2_70b"])
     p.add_argument("--layers", type=int, default=None,
@@ -109,6 +146,14 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain path")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="mxq_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("serve")
+    _add_model_args(p)
     p.add_argument("--w_bits", type=int, default=32)
     p.add_argument("--kv_bits", type=int, default=8)
     p.add_argument("--packed", action="store_true")
@@ -135,6 +180,22 @@ def main(argv=None):
                         "loop instead of the pipelined path")
     p.add_argument("--draft_len", type=int, default=4)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("eval-ppl")
+    _add_model_args(p)
+    p.add_argument("--model", default=None,
+                   help="HF checkpoint dir (not ported yet: raises)")
+    p.add_argument("--tokenizer", default=None,
+                   help="HF tokenizer for the dataset (else the synthetic "
+                        "corpus)")
+    p.add_argument("--dataset", default="wikitext2",
+                   choices=["wikitext2", "c4", "ptb"])
+    p.add_argument("--w_bits", type=int, default=32)
+    p.add_argument("--a_bits", type=int, default=32)
+    p.add_argument("--kv_bits", type=int, default=32)
+    p.add_argument("--seqlen", type=int, default=2048)
+    p.add_argument("--max_eval_windows", type=int, default=None)
+    p.set_defaults(fn=cmd_eval_ppl)
 
     args = ap.parse_args(argv)
     return args.fn(args)

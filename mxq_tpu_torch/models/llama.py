@@ -9,7 +9,11 @@ loop (the JAX version scans); caches are updated in place.
 
 Packed linears dispatch in :func:`quant_linear`: 512 tokens or more go to
 the prefill path (kernel K3 + two GEMMs, or with ``prefill_act_bits=8``
-K5 + two int8 GEMMs), fewer to K1 (B >= 2) or K2 (B == 1). A packed
+K5 + two int8 GEMMs), fewer to the GEMV of ``ops.mxq_matmul``'s layout
+(K1 at B >= 2, K2 at B == 1, K6 for ``MXQ_GEMV_LAYOUT=quad|bfexp``).
+Dense linears take the reference's fake-quant forward when ``w_bits``
+< 32, activations when 2 < ``a_bits`` < 32, and k/v when ``kv_bits`` < 32
+(``scheme``; the QAT ``train`` branches are not ported yet). A packed
 uniform-4b lm_head goes through K7. Decode with the stacked int8 cache goes
 through K4 (``ops.attn_int8.decode_attend_update``), and a speculative
 verify of T tokens per slot through K4a once per token. Cache-less or
@@ -29,7 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from mxq_tpu_torch import resolve_device
+from mxq_tpu_torch import resolve_device, scheme
 from mxq_tpu_torch.config import MXQConfig
 from mxq_tpu_torch.packfmt import PackedMXQLinear, quantize_pack, stack_packed
 from mxq_tpu_torch.ops import attn_int8, mxq_matmul, uniform4
@@ -176,9 +180,16 @@ def apply_rope(q, k, cos, sin):
 
 def quant_linear(x: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
     """``x @ w`` for a dense [in, out] weight or one layer of a packed
-    linear (the serving path)."""
+    linear (the serving path), with the reference's inference fake-quant
+    (mxq_tpu/models/llama.py:196-226): activations symmetric in groups of
+    128 (or asymmetric in groups of 8, ``a_symmetric=False``) when
+    2 < a_bits < 32; dense weights MXQ (2 <= w_bits < 32) or binary
+    (w_bits == 1)."""
     if 2 < cfg.a_bits < 32:
-        raise NotImplementedError(f"activation fake-quant {NOT_PORTED}")
+        if cfg.a_symmetric:
+            x = scheme.sym_fake_quant_ste(x, cfg.a_bits, groupsize=128)
+        else:
+            x = scheme.asym_fake_quant_ste(x, cfg.a_bits, groupsize=8)
     if isinstance(w, PackedMXQLinear):
         tokens = math.prod(x.shape[:-1])
         if tokens >= 512:
@@ -187,8 +198,10 @@ def quant_linear(x: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
                   else mxq_matmul.mxq_matmul_prefill)
             return pf(x, w, None, cfg.scheme)
         return mxq_matmul.mxq_matmul(x, w, cfg.scheme)
-    if cfg.w_bits < 32:
-        raise NotImplementedError(f"w_bits<32 fake-quant {NOT_PORTED}")
+    if 2 <= cfg.w_bits < 32:
+        w = scheme.mxq_fake_quant_qat(w.T, cfg.scheme).T
+    elif cfg.w_bits == 1:
+        w = scheme.binary_fake_quant(w.T).T
     return x @ w
 
 
@@ -236,11 +249,11 @@ def _sdpa(q, k, v, d):
 
 
 def _qkv(x, layer, cfg: LlamaConfig):
-    """The q, k, v projections of x [B, T, hidden]: [B, T, H, D] each."""
+    """The q, k, v projections of x [B, T, hidden]: [B, T, H, D] each; k
+    and v fake-quantized symmetric in groups of 128 when kv_bits < 32
+    (mxq_tpu/models/llama.py:278-280), with or without a cache."""
     b, t, _ = x.shape
     nh, nkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
-    if cfg.kv_bits < 32:
-        raise NotImplementedError(f"KV fake-quant (kv_bits<32) {NOT_PORTED}")
     if "qkv_proj" in layer:
         qkv = quant_linear(x, layer["qkv_proj"], cfg)
         q = qkv[..., : nh * d]
@@ -250,6 +263,9 @@ def _qkv(x, layer, cfg: LlamaConfig):
         q = quant_linear(x, layer["q_proj"], cfg)
         k = quant_linear(x, layer["k_proj"], cfg)
         v = quant_linear(x, layer["v_proj"], cfg)
+    if cfg.kv_bits < 32:
+        k = scheme.sym_fake_quant_ste(k, cfg.kv_bits, groupsize=128)
+        v = scheme.sym_fake_quant_ste(v, cfg.kv_bits, groupsize=128)
     return q.reshape(b, t, nh, d), k.reshape(b, t, nkv, d), \
         v.reshape(b, t, nkv, d)
 

@@ -1,11 +1,17 @@
 """y = x @ dequant(p) for packed MXQ linears: dispatch, plain PyTorch
-versions, and the wrappers of kernels K1, K2 and K3 (``csrc/``).
+versions, and the wrappers of kernels K1, K2, K3, K5 and K6 (``csrc/``).
 
 Port of ``mxq_tpu/ops/mxq_matmul.py``. The function every path computes is
 ``bf16(x) @ unpack_dequant(p)`` with f32 accumulation:
 
 * decode, B >= 2 rows  -> K1 (:func:`gemv_batched`, ``csrc/mxq_gemv.cu``)
 * decode, B == 1 row   -> K2 (:func:`gemv_single`, same source)
+* the GEMV layouts ``quad`` and ``bfexp`` (``MXQ_GEMV_LAYOUT``, read at
+  import into :data:`GEMV_LAYOUT`; ``MXQ_GEMV_LAYOUT_B1`` for one row,
+  read per call; :func:`gemv_layout`) -> K6 (:func:`gemv_quad`,
+  :func:`gemv_bfexp`, same source) at any row count. ``quad`` computes
+  K1's function; ``bfexp`` a lossy one whose weights are rounded to bf16
+  in two steps (:func:`gemv_bfexp_plain`);
 * prefill, >= 512 rows -> K3 (:func:`dequant_planes`, ``csrc/mxq_dequant.cu``)
   unpacks to bf16 planes, then two ``torch.matmul`` GEMMs (as the TPU left
   them to XLA); the 512-row switch lives in ``models/llama.quant_linear``;
@@ -21,6 +27,8 @@ A stacked [L, ...] weight is only a layer offset (:meth:`PackedMXQLinear.layer`)
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from mxq_tpu_torch import packfmt
@@ -29,6 +37,12 @@ from mxq_tpu_torch.packfmt import PackedMXQLinear
 
 _COLS_PER_BLOCK = 128     # csrc/mxq_gemv.cu THREADS
 _K1_ROWS = 8              # batch rows per thread in K1
+
+# The GEMV layout of more than one row, as mxq_tpu reads it: once, at
+# import. "slab" is K1; "quad" and "bfexp" are K6's two unpack bodies;
+# "bdg" (the B=1 kernel) stands for "slab" at more than one row.
+GEMV_LAYOUT = os.environ.get("MXQ_GEMV_LAYOUT", "slab")
+LAYOUTS = ("slab", "quad", "bfexp", "bdg")
 
 
 # ---------------------------------------------------------------------------
@@ -41,6 +55,38 @@ def gemv_plain(x: torch.Tensor, p: PackedMXQLinear,
     """Plain version of K1 and K2: bf16(x) [B, K] @ dequant(p) -> f32 [B, O]."""
     xb = x.to(torch.bfloat16).float()
     return xb @ packfmt.unpack_dequant(p, cfg)
+
+
+def gemv_bfexp_plain(x: torch.Tensor, p: PackedMXQLinear,
+                     cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
+    """Plain version of K6's ``bfexp`` layout (``_kernel_body_bfexp``,
+    mxq_matmul.py:252-317): bf16(x) [B, K] @ W -> f32 [B, O], where every
+    weight is rounded to bf16 twice. Per 2-bit group, with ``s`` as in
+    K1, ``s4 = bf16(4s)`` and ``b = bf16(4s + s*z)``; code c becomes
+    ``1 + c/4`` (exact in bf16) and ``w = bf16(bf16(s4 * (1 + c/4)) - b)``.
+    The 4-bit plane does the same per channel with ``bf16(16*s4)``,
+    ``bf16(16*s4 + s4*z4)`` and ``1 + c/16``, so there is no separate
+    4-bit epilogue. Both products are exact in f32 (an 8-bit by a 3- or
+    5-bit significand) and both differences too (the operands are within a
+    factor of two), so each ``bf16(...)`` below is one rounding, as in
+    K6's bf16x2 multiply and subtract: the weights are bit-equal, and the
+    products x*w are exact in f32 and summed in f32."""
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+
+    s_eff, zc = packfmt.group_params(p, cfg)               # [NBP*3, N]
+    s4x = s_eff * 4.0
+    s4b = torch.repeat_interleave(bf(s4x), cfg.group, dim=0)
+    b2 = torch.repeat_interleave(bf(s4x + s_eff * zc), cfg.group, dim=0)
+    pb2 = 1.0 + packfmt._unpack_along_sublanes(p.w2, cfg.bits_lo).float() / 4
+    w2 = bf(bf(s4b * pb2) - b2)
+    s16 = p.smeta4[0:1] * 16.0
+    b4 = bf(s16 + p.smeta4[0:1] * p.smeta4[1:2])
+    pb4 = 1.0 + packfmt._unpack_along_sublanes(p.w4, cfg.bits_hi).float() / 16
+    w4 = bf(bf(bf(s16) * pb4) - b4)
+    x2, x4 = packfmt.pad_inputs_split(x.to(torch.bfloat16).float(), p, cfg)
+    y = x2 @ w2 + x4 @ w4
+    return y[:, : p.out_features]
 
 
 def dequant_planes_plain(p: PackedMXQLinear,
@@ -165,6 +211,35 @@ def _gemv_cuda(fn_name: str, rows_per_thread: int, x: torch.Tensor,
     return y
 
 
+def _rows_per_thread(x: torch.Tensor) -> int:
+    return 1 if x.shape[0] == 1 else _K1_ROWS
+
+
+def gemv_quad(x: torch.Tensor, p: PackedMXQLinear,
+              cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
+    """K6, layout ``quad``: K1's function by byte-quad code extraction,
+    bf16(x) [B, K] @ dequant(p) -> f32 [B, O] at any B; its sums run in
+    K1's (at B=1 K2's) order, so the outputs are equal bit for bit."""
+    if x.device.type == "cpu":
+        return gemv_plain(x, p, cfg)
+    rows = _rows_per_thread(x)
+    y = _gemv_cuda(f"mxq_gemv_k6_quad{rows}", rows, x, p)
+    gemv_quad.launches += 1
+    return y
+
+
+def gemv_bfexp(x: torch.Tensor, p: PackedMXQLinear,
+               cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
+    """K6, layout ``bfexp``: bf16(x) [B, K] @ the bf16 weights of
+    :func:`gemv_bfexp_plain` -> f32 [B, O] at any B."""
+    if x.device.type == "cpu":
+        return gemv_bfexp_plain(x, p, cfg)
+    rows = _rows_per_thread(x)
+    y = _gemv_cuda(f"mxq_gemv_k6_bfexp{rows}", rows, x, p)
+    gemv_bfexp.launches += 1
+    return y
+
+
 def gemv_batched(x: torch.Tensor, p: PackedMXQLinear,
                  cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
     """K1: bf16(x) [B, K] @ dequant(p) -> f32 [B, O] for B >= 2."""
@@ -234,10 +309,13 @@ def dequant_int8_planes(p: PackedMXQLinear, inv: torch.Tensor,
 
 gemv_batched.launches = 0
 gemv_single.launches = 0
+gemv_quad.launches = 0
+gemv_bfexp.launches = 0
 dequant_planes.launches = 0
 dequant_int8_planes.launches = 0
 KERNELS = {"K1": gemv_batched, "K2": gemv_single, "K3": dequant_planes,
-           "K5": dequant_int8_planes}
+           "K5": dequant_int8_planes, "K6-quad": gemv_quad,
+           "K6-bfexp": gemv_bfexp}
 
 
 # ---------------------------------------------------------------------------
@@ -245,14 +323,37 @@ KERNELS = {"K1": gemv_batched, "K2": gemv_single, "K3": dequant_planes,
 # ---------------------------------------------------------------------------
 
 
+def gemv_layout(rows: int, layout: str | None = None) -> str:
+    """The layout a GEMV of ``rows`` rows runs, by ``mxq_matmul``'s rules
+    (mxq_matmul.py:653-664): unless named, one row takes
+    ``MXQ_GEMV_LAYOUT_B1`` (default "bdg"), more rows :data:`GEMV_LAYOUT`;
+    "bdg" at more than one row takes :data:`GEMV_LAYOUT`, or "slab" where
+    that is "bdg" too. An unknown name raises."""
+    if layout is None:
+        layout = (os.environ.get("MXQ_GEMV_LAYOUT_B1", "bdg") if rows == 1
+                  else GEMV_LAYOUT)
+    if layout == "bdg" and rows != 1:
+        layout = GEMV_LAYOUT if GEMV_LAYOUT != "bdg" else "slab"
+    if layout not in LAYOUTS:
+        raise ValueError(f"unknown GEMV layout {layout!r}; choose {LAYOUTS}")
+    return layout
+
+
 def mxq_matmul(x: torch.Tensor, p: PackedMXQLinear,
-               cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
+               cfg: MXQConfig = DEFAULT_SCHEME,
+               layout: str | None = None) -> torch.Tensor:
     """y = x @ dequant(p) (decode regime). ``x`` [..., K] any float dtype,
-    rounded to bf16; returns [..., O] in x.dtype. One row goes to K2, more
-    rows to K1."""
+    rounded to bf16; returns [..., O] in x.dtype. The layout
+    (:func:`gemv_layout`) picks the kernel: "quad" and "bfexp" go to K6;
+    "bdg", and "slab" at one row, to K2; "slab" at more rows to K1."""
     lead = x.shape[:-1]
     xb = x.reshape(-1, x.shape[-1])
-    if xb.shape[0] == 1:
+    layout = gemv_layout(xb.shape[0], layout)
+    if layout == "quad":
+        y = gemv_quad(xb, p, cfg)
+    elif layout == "bfexp":
+        y = gemv_bfexp(xb, p, cfg)
+    elif xb.shape[0] == 1:
         y = gemv_single(xb, p, cfg)
     else:
         y = gemv_batched(xb, p, cfg)
@@ -260,9 +361,10 @@ def mxq_matmul(x: torch.Tensor, p: PackedMXQLinear,
 
 
 def mxq_matmul_stacked(x: torch.Tensor, p: PackedMXQLinear, layer_idx: int,
-                       cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
+                       cfg: MXQConfig = DEFAULT_SCHEME,
+                       layout: str | None = None) -> torch.Tensor:
     """y = x @ dequant(p[layer_idx]) for a stacked [L, ...] pack."""
-    return mxq_matmul(x, p.layer(layer_idx), cfg)
+    return mxq_matmul(x, p.layer(layer_idx), cfg, layout)
 
 
 def mxq_matmul_prefill(x: torch.Tensor, p: PackedMXQLinear,

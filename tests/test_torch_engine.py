@@ -329,8 +329,10 @@ def test_cli_serve_on_cpu():
         assert got["requests"] == 3 and got["tokens"] == 9, flags
         if "--spec_decode" in flags:
             assert got["stats"]["spec_dispatches"] >= 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(base + ["--w_bits", "4"])
+    # the fake-quant forward of the dense model (mxq_tpu's cmd_serve)
+    dense = [f for f in base if f != "--packed"]
+    got = cli.main(dense + ["--w_bits", "4"])
+    assert got["requests"] == 3 and got["tokens"] == 9
 
 
 def test_cli_serve_spec_and_a8_tokens_equal_plain(monkeypatch):

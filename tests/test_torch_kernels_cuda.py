@@ -1,4 +1,4 @@
-"""K1-K5, K4a-K4d, K7, K8 and K9-K11 on the card against their plain
+"""K1-K6, K4a-K4d, K7, K8 and K9-K11 on the card against their plain
 PyTorch versions at small shapes. Needs a CUDA device and nvcc (marker ``cuda``); skips
 elsewhere. Run on the H100 with
 ``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``;
@@ -40,6 +40,27 @@ def test_gemv_kernels_match_plain(gen, b, o, k):
     torch.cuda.synchronize()
     assert y.shape == (b, o)
     assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("b", [1, 2, 8, 13, 128])
+@pytest.mark.parametrize("o,k", [(320, 1088), (1024, 4096)])
+def test_gemv_layout_kernels_match_plain(gen, b, o, k):
+    """K6 against its plain versions, <= 1e-4 of max|y|: quad against
+    K1's function (and equal to K1's, at B=1 K2's, output bit for bit:
+    the same sums in the same order), bfexp against gemv_bfexp_plain (the
+    same bf16 weights, bit for bit; only the f32 summation order
+    differs), and bfexp's function within 0.05 of the exact product."""
+    p = _pack(gen, o, k)
+    x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
+    yq, yb = mm.gemv_quad(x, p), mm.gemv_bfexp(x, p)
+    ref, refb = mm.gemv_plain(x, p), mm.gemv_bfexp_plain(x, p)
+    torch.cuda.synchronize()
+    assert yq.shape == yb.shape == (b, o)
+    assert float((yq - ref).abs().max() / ref.abs().max()) <= 1e-4
+    assert torch.equal(yq, (mm.gemv_single if b == 1 else mm.gemv_batched)(
+        x, p))
+    assert float((yb - refb).abs().max() / refb.abs().max()) <= 1e-4
+    assert float((refb - ref).abs().max() / ref.abs().max()) < 0.05
 
 
 @pytest.mark.parametrize("o,k", [(320, 1088), (1024, 4096)])

@@ -168,8 +168,10 @@ def test_port_init_and_pack_roundtrip_shapes():
 
 
 def test_unported_features_raise():
-    """Weight fake-quant (w_bits < 32) is still not ported; the int8
-    activation prefill (prefill_act_bits=8, K5) now runs."""
+    """The int8 activation prefill (prefill_act_bits=8, K5) and weight
+    fake-quant (w_bits < 32) run; HF checkpoints (--model) are still not
+    ported and raise."""
+    from mxq_tpu_torch import cli
     cfg = tl.LlamaConfig.tiny(num_hidden_layers=1)
     params = tl.init_params(cfg, seed=0, device="cpu")
     packed = tl.quantize_params_packed(params, cfg, device="cpu")
@@ -179,9 +181,12 @@ def test_unported_features_raise():
                            device="cpu")
     assert logits.shape == (1, 512, 512)
     assert bool(torch.isfinite(logits).all())
+    fp, _ = tl.forward(params, ids[:, :4], cfg, device="cpu")
+    w2, _ = tl.forward(params, ids[:, :4], dataclasses.replace(cfg, w_bits=2),
+                       device="cpu")
+    assert bool(torch.isfinite(w2).all()) and not torch.equal(w2, fp)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.forward(params, ids[:, :4], dataclasses.replace(cfg, w_bits=2),
-                   device="cpu")
+        cli.main(["eval-ppl", "--device", "cpu", "--model", "/nonexistent"])
 
 
 def test_packed_forward_a8_prefill_matches_jax():

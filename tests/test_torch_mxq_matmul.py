@@ -234,3 +234,155 @@ def test_prefill_a8_stacked_and_dtype():
         assert torch.equal(y, tmm.mxq_matmul_prefill_a8(x, p))
     yb = tmm.mxq_matmul_prefill_a8(x.to(torch.bfloat16), ps[0])
     assert yb.dtype == torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# K6: the quad and bfexp GEMV layouts (MXQ_GEMV_LAYOUT)
+# ---------------------------------------------------------------------------
+
+
+LAYOUT_SHAPES = [(8, 256, 1024), (5, 100, 2112)]
+
+
+@pytest.fixture(scope="module", params=LAYOUT_SHAPES,
+                ids=lambda s: "b%d_o%d_k%d" % s)
+def layout_case(request):
+    return _layout_case(*request.param)
+
+
+def _layout_case(b, o, k):
+    """JAX's test sizes (tests/test_mxq_matmul.py:15-21, :102): x, the pack
+    on both sides, and JAX's interpret-mode quad and bfexp outputs."""
+    rng = np.random.default_rng(o)
+    w = rng.standard_normal((o, k)).astype(np.float32)
+    x = rng.standard_normal((b, k)).astype(np.float32)
+    pj = jpf.quantize_pack(jnp.asarray(w))
+    ys = {lay: np.asarray(jmm.mxq_matmul(jnp.asarray(x), pj, layout=lay))
+          for lay in ("quad", "bfexp")}
+    return torch.from_numpy(x), port_params({"p": pj})["p"], ys
+
+
+def test_quad_layout_matches_jax(layout_case):
+    """The port's quad route (K6's plain version: K1's function) against
+    JAX's interpret-mode quad body: <= 1e-4 of max|y| (measured 7.8e-7 and
+    4.6e-7)."""
+    x, pt, ys = layout_case
+    y = tmm.mxq_matmul(x, pt, layout="quad")
+    assert y.shape == ys["quad"].shape
+    assert rel(y, ys["quad"]) <= 1e-4
+
+
+def test_bfexp_plain_matches_jax(layout_case):
+    """gemv_bfexp_plain against JAX's interpret-mode bfexp body. Measured
+    1.3e-7 and 1.9e-7 of max|y|: XLA's CPU backend rounds the bf16
+    multiply and subtract as the TPU body reads them, so only the f32
+    summation order differs. Gate 1e-4. Against the exact product both
+    sit at the bf16 weight error (1.8e-2 and 1.5e-2), under JAX's own 0.05
+    (tests/test_mxq_matmul.py:107-117)."""
+    x, pt, ys = layout_case
+    y = tmm.mxq_matmul(x, pt, layout="bfexp")
+    assert torch.equal(y, tmm.gemv_bfexp_plain(x, pt))
+    assert rel(y, ys["bfexp"]) <= 1e-4
+    exact = tmm.gemv_plain(x, pt)
+    assert 1e-3 < rel(y, exact) < 0.05
+
+
+def test_bfexp_weights_are_bf16_rounded_twice(packed):
+    """Each bfexp weight is bf16(bf16(4s * (1 + c/4)) - bf16(4s + s*z)):
+    one-hot rows of x read the weights out, which must be bf16 values
+    within 2.5 % of the exact dequantized weights' largest magnitude."""
+    _, pt = packed
+    eye = torch.eye(K)[:64]
+    w = tmm.gemv_bfexp_plain(eye, pt)
+    exact = tpf.unpack_dequant(pt)[:64]
+    assert torch.equal(w, w.to(torch.bfloat16).float())
+    assert rel(w, exact) < 0.05
+    assert not torch.equal(w, exact)
+
+
+@pytest.mark.parametrize("env,b1,rows,given,want", [
+    ("slab", "bdg", 1, None, "bdg"),
+    ("slab", "bdg", 4, None, "slab"),
+    ("quad", "bdg", 1, None, "bdg"),
+    ("quad", "bdg", 4, None, "quad"),
+    ("bfexp", "quad", 1, None, "quad"),
+    ("bfexp", "slab", 1, None, "slab"),
+    ("bfexp", "bdg", 7, "bdg", "bfexp"),     # bdg at B>1 -> GEMV_LAYOUT
+    ("bdg", "bdg", 7, None, "slab"),         # ... or slab where that is bdg
+    ("slab", "bdg", 7, "bfexp", "bfexp"),    # an explicit layout wins
+])
+def test_gemv_layout_rules(monkeypatch, env, b1, rows, given, want):
+    """mxq_matmul's layout rules (mxq_matmul.py:653-664, :1158-1165)."""
+    monkeypatch.setattr(tmm, "GEMV_LAYOUT", env)
+    monkeypatch.setenv("MXQ_GEMV_LAYOUT_B1", b1)
+    assert tmm.gemv_layout(rows, given) == want
+
+
+def test_gemv_layout_unknown_name_raises(monkeypatch, packed):
+    _, pt = packed
+    with pytest.raises(ValueError, match="layout"):
+        tmm.mxq_matmul(torch.ones((2, K)), pt, layout="slabz")
+    monkeypatch.setenv("MXQ_GEMV_LAYOUT_B1", "nope")
+    with pytest.raises(ValueError, match="layout"):
+        tmm.mxq_matmul(torch.ones((1, K)), pt)
+    monkeypatch.setattr(tmm, "GEMV_LAYOUT", "nope")
+    with pytest.raises(ValueError, match="layout"):
+        tmm.mxq_matmul(torch.ones((3, K)), pt)
+
+
+@pytest.mark.parametrize("env,rows,want", [
+    ("slab", 1, "gemv_single"), ("slab", 6, "gemv_batched"),
+    ("quad", 6, "gemv_quad"), ("bfexp", 6, "gemv_bfexp"),
+    ("bdg", 6, "gemv_batched")])
+def test_layout_routes_to_its_kernel(monkeypatch, env, rows, want):
+    """Each layout reaches its wrapper, for one pack and for a layer of a
+    stacked pack; the stacked path follows the same rules. MXQ_GEMV_LAYOUT_B1
+    picks the one-row route: quad and bfexp run K6 at B=1 too."""
+    rng = np.random.default_rng(3)
+    ps = [tpf.quantize_pack(torch.from_numpy(rng.standard_normal(
+        (128, 1024)).astype(np.float32))) for _ in range(2)]
+    st = tpf.stack_packed(ps)
+    monkeypatch.delenv("MXQ_GEMV_LAYOUT_B1", raising=False)
+    called = []
+    for name in ("gemv_single", "gemv_batched", "gemv_quad", "gemv_bfexp"):
+        real = getattr(tmm, name)
+        monkeypatch.setattr(tmm, name, lambda x, p, cfg, _n=name, _f=real:
+                            called.append(_n) or _f(x, p, cfg))
+    monkeypatch.setattr(tmm, "GEMV_LAYOUT", env)
+    x = torch.from_numpy(rng.standard_normal((rows, 1024)).astype(
+        np.float32))
+    y = tmm.mxq_matmul(x, ps[1])
+    ys = tmm.mxq_matmul_stacked(x, st, 1)
+    assert called == [want, want] and torch.equal(y, ys)
+    for b1 in ("quad", "bfexp"):
+        monkeypatch.setenv("MXQ_GEMV_LAYOUT_B1", b1)
+        called.clear()
+        tmm.mxq_matmul(x[:1], ps[0])
+        assert called == ["gemv_" + b1]
+
+
+def test_gemv_layout_is_read_at_import():
+    """MXQ_GEMV_LAYOUT is read once, when the module is imported, as in
+    mxq_tpu; MXQ_GEMV_LAYOUT_B1 on every call."""
+    import os
+    import subprocess
+    import sys
+    code = ("from mxq_tpu_torch.ops import mxq_matmul as m; import os; "
+            "os.environ['MXQ_GEMV_LAYOUT'] = 'slab'; "
+            "os.environ['MXQ_GEMV_LAYOUT_B1'] = 'quad'; "
+            "print(m.GEMV_LAYOUT, m.gemv_layout(3), m.gemv_layout(1))")
+    env = dict(os.environ, MXQ_GEMV_LAYOUT="bfexp")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.split() == ["bfexp", "bfexp", "quad"], out.stderr
+
+
+if __name__ == "__main__":
+    # the gaps quoted in ROADMAP.md (queue 3), as rel = max|diff| / max|y|
+    for shape in LAYOUT_SHAPES:
+        x, pt, ys = _layout_case(*shape)
+        bfexp = tmm.gemv_bfexp_plain(x, pt)
+        print(shape, "quad vs JAX", rel(tmm.gemv_plain(x, pt), ys["quad"]),
+              "bfexp vs JAX", rel(bfexp, ys["bfexp"]),
+              "bfexp vs exact", rel(bfexp, tmm.gemv_plain(x, pt)))
