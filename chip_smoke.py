@@ -6,7 +6,8 @@
 
 Phases, each printing one JSON line:
   build    compile csrc/*.cu with nvcc (one process per source, in parallel)
-  kernels  hold K1-K6, K4a-K4d, K7, K8 and K9-K11 against their plain
+  kernels  hold K1-K6, K4a-K4d (K4a also with a verify's 5 query tokens
+           in one launch), K7, K8 and K9-K11 against their plain
            PyTorch versions at llama2_7b's shapes and time kernel, plain
            version, bound and library call
   serve    twelve runs of llama2_7b at full depth, each with the launch
@@ -90,6 +91,10 @@ KERNEL_INFO = {
             "mxq_tpu/ops/attn_int8.py:232"),
     "K4d": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
             "mxq_tpu/ops/attn_int8.py:1101"),
+    # K4a with the T query tokens of a speculative verify in one launch
+    # (mxq_tpu calls _kernel once per query)
+    "K4a-verify": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
+                   "mxq_tpu/ops/attn_int8.py:97"),
     "K5": ("cuda", "mxq_tpu_torch/csrc/mxq_dequant.cu",
            "mxq_tpu/ops/mxq_matmul.py:856"),
     "K6-quad": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv.cu",
@@ -107,6 +112,10 @@ KERNEL_INFO = {
     "K11": ("cuda", "mxq_tpu_torch/csrc/paged_attn_int8.cu",
             "mxq_tpu/ops/attn_int8.py:773"),
 }
+
+
+# summary rows counted by another kernel's wrapper
+COUNTER = {"K4a-verify": "K4a"}
 
 
 def emit(obj) -> None:
@@ -342,9 +351,11 @@ def attention_flag_kernels(torch, timer, rows, summary, q, kc, ks, vc, vs,
     """K4a/K4c (rows <= pos, no current token) and K4b/K4d (rows < pos plus
     the current token, no write) at K4's shapes and positions: the K4a
     call on a layer view, the K4c call on the stack (one launch, one
-    counter), likewise K4b and K4d. Plus a verify-shaped K4a call: 5
-    queries per slot at pos .. pos+4 (capped at S-1). Gate ctx rel <= 1e-3;
-    the cache must be left byte for byte."""
+    counter), likewise K4b and K4d. Plus the verify-shaped K4a call
+    (``K4a-verify``): 5 query tokens per slot in one launch, token t over
+    rows <= pos + t (pos capped at S - 5), against its plain version and
+    against five single-query launches. Gate ctx rel <= 1e-3; the cache
+    must be left byte for byte."""
     from mxq_tpu_torch.ops import attn_int8 as a8
     B, H, S, D = q.shape[0], q.shape[1], kc.shape[3], q.shape[2]
     kscur, vscur = cur[1], cur[3]
@@ -408,21 +419,6 @@ def attention_flag_kernels(torch, timer, rows, summary, q, kc, ks, vc, vs,
                "bound_ms": bms, "bound_by": by,
                "library_ms": timer(lambda: sdpa(qs, kd, vd,
                                                 attn_mask=amask))}
-        if key == "K4c":
-            # a speculative verify's 5 queries per slot, one launch each
-            vpos = [torch.clamp(positions + i, max=S - 1) for i in range(5)]
-            verr = 0.0
-            for vp in vpos:
-                o = a8.int8_decode_attention_stacked(q, *stacked, idx, vp)
-                r = a8.int8_decode_attention_stacked_plain(q, *stacked, idx,
-                                                           vp)
-                torch.cuda.synchronize()
-                verr = max(verr, rel_err(o, r))
-            row["verify_5_queries_rel_err"] = verr
-            row["verify_5_queries_ms"] = timer(lambda: [
-                a8.int8_decode_attention_stacked(q, *stacked, idx, vp)
-                for vp in vpos])
-            err = max(err, verr)
         untouched = torch.equal(kc, kc0) and torch.equal(vc, vc0)
         row["cache_untouched"] = untouched
         rows.append(row)
@@ -433,7 +429,71 @@ def attention_flag_kernels(torch, timer, rows, summary, q, kc, ks, vc, vs,
         summary[key] = summarise(
             [row], "B=8 Hq=Hkv=32 D=128 S=2048, mixed positions, "
             + ("rows < pos + current token" if has_cur else "rows <= pos"))
+    failures += verify_kernel(torch, timer, rows, summary, stacked, idx,
+                              positions, lib_a, kc0, vc0)
     return failures
+
+
+def verify_kernel(torch, timer, rows, summary, stacked, idx, positions,
+                  lib, kc0, vc0, t=5):
+    """K4a with a speculative verify's ``t`` query tokens per slot in one
+    launch (q [B, t, Hq, D], token i over rows <= pos + i), against its
+    plain version (t single-query plain calls) and against t single-query
+    launches; SDPA over the dequantized layer with the same per-token
+    masks as the library yardstick."""
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    kc, ks, vc, vs = stacked
+    B, H, S, D = kc.shape[1], kc.shape[2], kc.shape[3], kc.shape[4]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    qv = torch.randn((B, t, H, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    vpos = positions.clamp(max=S - t)
+    fn = lambda: a8.int8_decode_attention_stacked(  # noqa: E731
+        qv, *stacked, idx, vpos)
+    before = a8.int8_decode_attention_stacked.launches
+    out = fn()
+    one_launch = a8.int8_decode_attention_stacked.launches == before + 1
+    ref = a8.int8_decode_attention_stacked_plain(qv, *stacked, idx, vpos)
+    singles = lambda: [a8.int8_decode_attention_stacked(  # noqa: E731
+        qv[:, i].contiguous(), *stacked, idx, vpos + i) for i in range(t)]
+    single = torch.stack(singles(), dim=1)
+    torch.cuda.synchronize()
+    err = rel_err(out, ref)
+    err_single = rel_err(out, single)
+    # rows read once: <= pos + t - 1; token i's scores over pos + i + 1
+    nrows = int((vpos + t).sum())
+    nscored = sum(int((vpos + i + 1).sum()) for i in range(t))
+    nbytes = (nrows * H * (2 * D + 2 * 2) + B * t * H * D * (2 + 4)
+              + B * 4)
+    bms, by = bound_ms(nbytes, 4.0 * nscored * H * D)
+    amask = (torch.arange(S, device="cuda")[None, None, None, :]
+             <= (vpos[:, None] + torch.arange(t, device="cuda"))[
+                 :, None, :, None])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = qv.transpose(1, 2)
+    kd, vd = lib
+    untouched = torch.equal(kc, kc0) and torch.equal(vc, vc0)
+    row = {"kernel": "K4a-verify", "B": B, "T": t, "H": H, "S": S, "D": D,
+           "rel_err": err, "rel_err_vs_single_query_launches": err_single,
+           "max_abs_err": float((out - ref).abs().max()),
+           "one_launch": one_launch, "cache_untouched": untouched,
+           "kernel_ms": timer(fn),
+           "single_query_launches_ms": timer(singles),
+           "plain_ms": timer(lambda: a8.int8_decode_attention_stacked_plain(
+               qv, *stacked, idx, vpos), iters=3),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(lambda: sdpa(qs, kd, vd, attn_mask=amask))}
+    rows.append(row)
+    emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
+    summary["K4a-verify"] = summarise(
+        [row], f"B=8 T={t} Hq=Hkv=32 D=128 S=2048, mixed positions, token "
+        "t over rows <= pos + t, one launch")
+    if not (err <= 1e-3 and err_single <= 1e-3 and one_launch
+            and untouched):
+        return [f"K4a-verify: rel {err:.3g}, vs single launches "
+                f"{err_single:.3g}, one launch {one_launch}, cache "
+                f"untouched {untouched}"]
+    return []
 
 
 def a8_kernels(torch, timer, gen, packs, rows, summary):
@@ -978,8 +1038,8 @@ def slot_step(torch, params, cfg, b=8, pos=1000):
 def verify_step(torch, params, cfg, b=8, pos=1000, t=5):
     """One speculative verify round of the slot engine
     (``llama.decode_slots`` with T=5 tokens per slot: K1 at 40 rows, K4a
-    five times per layer) for ``b`` slots at cache rows ``pos + t*i ..``,
-    int8 cache."""
+    once per layer for all 5 tokens) for ``b`` slots at cache rows
+    ``pos + t*i ..``, int8 cache."""
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.serving import kvcache
 
@@ -1502,7 +1562,7 @@ def main(argv=None) -> int:
         emit({"kernels": [
             {"name": k, "route": KERNEL_INFO[k][0],
              "source": KERNEL_INFO[k][1], "replaces": KERNEL_INFO[k][2],
-             "launches": launches.get(k), **summary[k]}
+             "launches": launches.get(COUNTER.get(k, k)), **summary[k]}
             for k in sorted(summary)]})
     print(smi(), flush=True)
     if failures:

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes
 ``_build/lib<name>.so``, compiled for ``sm_90a`` the first time a kernel of
-it is launched, and again whenever the source is newer than the library.
+it is launched, and again whenever the source or a header under ``csrc/``
+is newer than the library.
 Nothing is imported from PyTorch's headers, so a build takes seconds.
 A failed build raises; there is no fallback.
 
@@ -45,9 +46,9 @@ SIGNATURES = {
     "mxq_dequant": {"mxq_dequant_k3": [P, P, P, P, P, P, I, I, P, P, P],
                     "mxq_dequant_k5": [P, P, P, P, P, P, P, I, I, P, P, P]},
     "attn_int8": {
-        "attn_int8": [P] * 10 + [I] * 7 + [F, P, P]},
+        "attn_int8": [P] * 10 + [I] * 8 + [F] + [P] * 4},
     "paged_attn_int8": {
-        "paged_attn_int8": [P] * 11 + [I] * 8 + [F, P, P]},
+        "paged_attn_int8": [P] * 11 + [I] * 8 + [F] + [P] * 4},
     "uniform_gemv": {
         "uniform_gemv": [I, P, I, I, P, P, P, I, I, I, I, I, P, P, P]},
 }
@@ -80,9 +81,12 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or any header."""
     lib = _lib_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime)
+    if not lib.exists():
+        return True
+    srcs = [CSRC / f"{name}.cu", *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in srcs)
 
 
 def build(names=SOURCES, verbose: bool = False, force: bool = False) -> dict:

@@ -402,8 +402,9 @@ def decode_slots(params, tokens, cfg: LlamaConfig, caches: dict, positions):
       code rows per layer; the scale rows of all layers are committed after
       the layer loop.
     * int8 cache, T > 1: each layer scatters the code and scale rows of all
-      T tokens first, then attends query t with K4a at positions + t (one
-      launch per t), as ``mxq_tpu``'s ``_forward_multipos`` does.
+      T tokens first, then attends every query with one K4a launch, query t
+      over the rows up to positions + t: the function of ``mxq_tpu``'s
+      ``_forward_multipos``, which makes one call per query.
     * bf16 cache: the rows are scattered and attended with
       :func:`masked_attention` under the mask ``row <= positions[b] + t``.
 
@@ -430,10 +431,9 @@ def decode_slots(params, tokens, cfg: LlamaConfig, caches: dict, positions):
             for name, val in (("k_codes", kc), ("k_scale", ksc),
                               ("v_codes", vc), ("v_scale", vsc)):
                 caches[name][idx][rows, :, posmat] = val.transpose(1, 2)
-            return torch.stack([attn_int8.int8_decode_attention_stacked(
-                q[:, i], caches["k_codes"], caches["k_scale"],
-                caches["v_codes"], caches["v_scale"], idx, positions + i)
-                for i in range(t)], dim=1)
+            return attn_int8.int8_decode_attention_stacked(
+                q, caches["k_codes"], caches["k_scale"], caches["v_codes"],
+                caches["v_scale"], idx, positions)
 
         return decode_step(params, tokens, cfg, positions, attend)
     pend = []

@@ -11,8 +11,10 @@ dequantize-then-attend oracle :515, ``decode_attend_update`` :1149). The
 fused write (K4) is the only T=1 decode path: the TPU's "folded" and
 "deferred" write strategies were layout workarounds, and their kernels
 (K4b, K4d) are ported as flags but have no serving caller. The
-speculative verify attends each of its T queries with K4a. Per (batch,
-kv head), with the current token out of cache (K4, K4b/K4d):
+speculative verify attends all of its T queries in one K4a launch (query t
+over rows s <= positions[b] + t), where ``mxq_tpu`` makes one call per
+query. Per (batch, kv head), with the current token out of cache (K4,
+K4b/K4d):
 
     st  = (q . K_codes^T) * k_scale / sqrt(D)     cache rows s < pos
     p   = softmax over [st, st_cur]
@@ -23,6 +25,12 @@ current token's code rows into the cache IN PLACE at row ``positions[b]``
 of layer ``layer_idx``; its scale rows are returned for the caller to
 commit after the layer loop. Requires S > max(positions) where a row is
 written.
+
+On the card each wrapper runs two kernels (``csrc/attn_split.cuh``): the
+history is split over blocks of ``CHUNK`` rows, pass A scores every row,
+pass B rounds bf16(p * v_scale) against the max the plain version rounds
+against and sums its split, and the last block of each (batch, kv head)
+adds the splits in order.
 """
 
 from __future__ import annotations
@@ -32,6 +40,31 @@ import math
 import torch
 
 NEG = torch.finfo(torch.float32).min
+CHUNK = 128      # history rows per block of the kernels (attn_split.cuh)
+QMAX = 64        # query rows per (batch, kv head) the kernels take
+_TICKETS: dict = {}
+
+
+def _split_scratch(b, hkv, nq, nsplit, d, device):
+    """The kernels' f32 scratch (scores, split maxima, current-token
+    logits, partial contexts and denominators of ``nq`` query rows per
+    (batch, kv head) over ``nsplit`` splits, as ``attn_split::carve`` cuts
+    it) and the int32 tickets the last block of each (batch, kv head)
+    counts with and leaves at 0: one zeroed buffer per device, shared by
+    every call on it (the calls of one stream run in order)."""
+    ws = torch.empty(b * hkv * nq * (nsplit * (CHUNK + d + 2) + 1),
+                     dtype=torch.float32, device=device)
+    tickets = _TICKETS.get(device)
+    if tickets is None or tickets.numel() < b * hkv:
+        tickets = _TICKETS[device] = torch.zeros(
+            b * hkv, dtype=torch.int32, device=device)
+    return ws, tickets
+
+
+def _check_aligned(what, tensors):
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: code tensors must start 16-byte aligned "
+                         "(the kernels load 16 codes at once)")
 
 
 def _attend_plain(q, kc, ks, vc, vs, positions, cur=None):
@@ -70,9 +103,12 @@ def _attend_plain(q, kc, ks, vc, vs, positions, cur=None):
 
 def _check_k4(what, q, k_codes, k_scale, v_codes, v_scale, cur, positions):
     l, b, hkv, s, d = k_codes.shape
-    g = q.shape[1] // hkv
+    nt = q.shape[1] if q.dim() == 4 else 1
+    hq = q.shape[-2]
+    g = hq // hkv
     want = [
-        ("q", q, torch.bfloat16, (b, hkv * g, d)),
+        ("q", q, torch.bfloat16,
+         (b, nt, hq, d) if q.dim() == 4 else (b, hq, d)),
         ("k_codes", k_codes, torch.int8, (l, b, hkv, s, d)),
         ("v_codes", v_codes, torch.int8, (l, b, hkv, s, d)),
         ("k_scale", k_scale, torch.bfloat16, (l, b, hkv, s)),
@@ -91,43 +127,53 @@ def _check_k4(what, q, k_codes, k_scale, v_codes, v_scale, cur, positions):
             raise ValueError(f"{what} {name}: {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, contiguous={t.is_contiguous()}; "
                              f"want {dt} {shape} contiguous on {dev}")
-    if q.shape[1] % hkv or not 1 <= g <= 8 or d not in (64, 128):
-        raise ValueError(f"{what} takes D in (64, 128) and 1..8 query heads "
-                         f"per kv head, got D={d}, Hq={q.shape[1]}, "
-                         f"Hkv={hkv}")
-    if 4 * (g * d + g * s + 8 * g * d) > 227 * 1024:
-        raise ValueError(f"{what} scores for G={g}, S={s} exceed shared "
-                         "memory")
+    if hq % hkv or not 1 <= g * nt <= QMAX or d not in (64, 128):
+        raise ValueError(f"{what} takes D in (64, 128) and 1..{QMAX} query "
+                         f"rows (heads x tokens) per kv head, got D={d}, "
+                         f"Hq={hq}, Hkv={hkv}, T={nt}")
+    if cur is not None and nt != 1:
+        raise ValueError(f"{what}: the current token takes one query token")
 
 
 def _dense_launch(what, q, k_codes, k_scale, v_codes, v_scale, layer_idx,
                   positions, cur=None, write=False):
     """Check the arguments and launch the K4-family kernel over layer
     ``layer_idx`` of the stacked cache (``cur`` and ``write`` are its
-    compile-time flags). Returns ctx [B, Hq, D] f32."""
+    compile-time flags). q [B, Hq, D] or [B, T, Hq, D]; returns ctx of
+    q's shape, f32."""
     from mxq_tpu_torch import _build
-    b, hq, d = q.shape
+    b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
+    t = q.shape[1] if q.dim() == 4 else 1
     l, _, hkv, s, _ = k_codes.shape
     qb = q.to(torch.bfloat16).contiguous()
     _check_k4(what, qb, k_codes, k_scale, v_codes, v_scale, cur, positions)
     if not 0 <= layer_idx < l:
         raise IndexError(f"layer {layer_idx} of {l}")
-    out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     kcur, kscur, vcur, vscur = cur if cur is not None else (None,) * 4
+    _check_aligned(what, [k_codes[layer_idx], v_codes[layer_idx]]
+                   + ([kcur, vcur] if cur is not None else []))
+    out = torch.empty(qb.shape, dtype=torch.float32, device=q.device)
+    ws, tickets = _split_scratch(b, hkv, hq // hkv * t, -(-s // CHUNK), d,
+                                 q.device)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     err = _build.load("attn_int8").attn_int8(
         qb.data_ptr(), k_codes[layer_idx].data_ptr(),
         k_scale[layer_idx].data_ptr(), v_codes[layer_idx].data_ptr(),
         v_scale[layer_idx].data_ptr(), ptr(kcur), ptr(kscur), ptr(vcur),
-        ptr(vscur), positions.data_ptr(), b, hkv, hq // hkv, s, d,
-        int(cur is not None), int(write), 1.0 / math.sqrt(d),
-        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+        ptr(vscur), positions.data_ptr(), b, hkv, hq // hkv, t, s, d,
+        int(cur is not None), int(write), 1.0 / math.sqrt(d), ws.data_ptr(),
+        tickets.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, what)
     return out
 
 
 def _stacked_plain(q, k_codes, k_scale, v_codes, v_scale, layer_idx,
                    positions, cur=None):
+    if q.dim() == 4:          # T query tokens, token t at positions + t
+        return torch.stack([_stacked_plain(
+            q[:, i], k_codes, k_scale, v_codes, v_scale, layer_idx,
+            positions + i, cur) for i in range(q.shape[1])], dim=1)
     b, hq, d = q.shape
     hkv = k_codes.shape[2]
     qb = q.to(torch.bfloat16).reshape(b, hkv, hq // hkv, d)
@@ -139,18 +185,21 @@ def _stacked_plain(q, k_codes, k_scale, v_codes, v_scale, layer_idx,
 
 def int8_decode_attention_stacked_plain(q, k_codes, k_scale, v_codes,
                                         v_scale, layer_idx: int, positions):
-    """Plain version of K4a/K4c."""
+    """Plain version of K4a/K4c: with q [B, T, Hq, D], exactly the T
+    single-query calls at positions + t, stacked."""
     return _stacked_plain(q, k_codes, k_scale, v_codes, v_scale, layer_idx,
                           positions)
 
 
 def int8_decode_attention_stacked(q, k_codes, k_scale, v_codes, v_scale,
                                   layer_idx: int, positions):
-    """K4a/K4c: one-token attention over layer ``layer_idx`` of the stacked
+    """K4a/K4c: decode attention over layer ``layer_idx`` of the stacked
     cache, rows s <= positions[b], no current token, nothing written.
 
-    q [B, Hq, D]; k/v_codes [L, B, Hkv, S, D] int8; k/v_scale
-    [L, B, Hkv, S] bf16; positions [B] int32. Returns [B, Hq, D] f32."""
+    q [B, Hq, D], or [B, T, Hq, D]: T query tokens of each sequence in one
+    launch, token t over rows s <= positions[b] + t (the speculative
+    verify); k/v_codes [L, B, Hkv, S, D] int8; k/v_scale [L, B, Hkv, S]
+    bf16; positions [B] int32. Returns f32 of q's shape."""
     if q.device.type == "cpu":
         return int8_decode_attention_stacked_plain(
             q, k_codes, k_scale, v_codes, v_scale, layer_idx, positions)
@@ -162,7 +211,8 @@ def int8_decode_attention_stacked(q, k_codes, k_scale, v_codes, v_scale,
 
 def int8_decode_attention(q, k_codes, k_scale, v_codes, v_scale, positions):
     """K4a over one layer (k/v_codes [B, Hkv, S, D], k/v_scale
-    [B, Hkv, S]): the K4c launch with the layer as a stack of one."""
+    [B, Hkv, S]; q [B, Hq, D] or [B, T, Hq, D]): the K4c launch with the
+    layer as a stack of one."""
     return int8_decode_attention_stacked(
         q, k_codes[None], k_scale[None], v_codes[None], v_scale[None], 0,
         positions)
@@ -376,14 +426,13 @@ def _check_paged(what, q, k_pages, k_scales, v_pages, v_scales, bound,
             raise ValueError(f"{what} {name}: {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, contiguous={t.is_contiguous()}; "
                              f"want {dt} {shape} contiguous on {dev}")
-    if hq % hkv or not 1 <= g <= 8 or d not in (64, 128) or ps != PAGE_INT8:
-        raise ValueError(f"{what} takes D in (64, 128), 1..8 query heads per "
-                         f"kv head and pages of {PAGE_INT8} rows, got D={d}, "
-                         f"Hq={hq}, Hkv={hkv}, page={ps}")
-    codes = [k_pages, v_pages] + ([cur[0], cur[2]] if cur is not None else [])
-    if any(t.data_ptr() % 4 for t in codes):
-        raise ValueError(f"{what}: code tensors must start 4-byte aligned "
-                         "(the kernel loads D/32 codes at once)")
+    if hq % hkv or not 1 <= g <= QMAX or d not in (64, 128) \
+            or ps != PAGE_INT8:
+        raise ValueError(f"{what} takes D in (64, 128), 1..{QMAX} query "
+                         f"heads per kv head and pages of {PAGE_INT8} rows, "
+                         f"got D={d}, Hq={hq}, Hkv={hkv}, page={ps}")
+    _check_aligned(what, [k_pages, v_pages]
+                   + ([cur[0], cur[2]] if cur is not None else []))
 
 
 def _paged_launch(what, q, k_pages, k_scales, v_pages, v_scales, bound,
@@ -397,6 +446,8 @@ def _paged_launch(what, q, k_pages, k_scales, v_pages, v_scales, bound,
     b, hq, d = q.shape
     hkv, lp = k_pages.shape[:2]
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    ws, tickets = _split_scratch(b, hkv, hq // hkv, tables.shape[1], d,
+                                 q.device)
     kcur, kscur, vcur, vscur = cur if cur is not None else (None,) * 4
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = _build.load("paged_attn_int8").paged_attn_int8(
@@ -404,8 +455,8 @@ def _paged_launch(what, q, k_pages, k_scales, v_pages, v_scales, bound,
         v_pages.data_ptr(), v_scales.data_ptr(), ptr(kcur), ptr(kscur),
         ptr(vcur), ptr(vscur), bound.data_ptr(), tables.data_ptr(), b, hkv,
         hq // hkv, d, lp, tables.shape[1], int(cur is not None), int(write),
-        1.0 / math.sqrt(d), out.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        1.0 / math.sqrt(d), ws.data_ptr(), tickets.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, what)
     return out
 

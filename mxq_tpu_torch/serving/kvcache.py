@@ -11,11 +11,15 @@ from __future__ import annotations
 
 import torch
 
+from mxq_tpu_torch import resolve_device
+
 
 def init_quant_cache(num_layers: int, batch: int, max_len: int, kv_heads: int,
                      head_dim: int, group: int | None = None,
-                     device: str | torch.device = "cpu") -> dict:
-    """Zeroed stacked cache dict. ``group`` must equal ``head_dim``."""
+                     device: str | torch.device = "cuda") -> dict:
+    """Zeroed stacked cache dict on ``device`` (the card unless the caller
+    names the CPU). ``group`` must equal ``head_dim``."""
+    device = resolve_device(device)
     g = group or head_dim
     if g != head_dim:
         raise ValueError(f"serving cache requires group == head_dim "

@@ -5,7 +5,10 @@ mode at ctx rel <= 1e-5, with the written rows equal and every other cache
 byte untouched. The plain versions of K4a-K4d (no current token, or no
 write) against JAX's int8_decode_attention, _stacked, _cur and _cur_folded
 in interpret mode at rel <= 1e-6: the same f32 math with the same bf16
-roundings, summed in another order."""
+roundings, summed in another order. K4a with T query tokens per sequence
+(the speculative verify in one call) against T single-query calls, and
+``llama.decode_slots``' verify through it against the per-query loop it
+replaces."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +17,7 @@ import torch
 
 from mxq_tpu.ops import attn_int8 as ja8
 from mxq_tpu.serving import kvcache as jkv
+from mxq_tpu_torch.models import llama as tl
 from mxq_tpu_torch.ops import attn_int8 as ta8
 from mxq_tpu_torch.serving import kvcache as tkv
 from torch_port_helpers import bits, rel, to_torch
@@ -57,7 +61,8 @@ def test_cache_update_and_read_layer_match_jax():
     k = rng.standard_normal((2, 4, 3, 64)).astype(np.float32)
     v = rng.standard_normal((2, 4, 3, 64)).astype(np.float32)
     jc = {n: c[0] for n, c in jkv.init_quant_cache(1, 2, 16, 3, 64).items()}
-    tc = {n: c[0] for n, c in tkv.init_quant_cache(1, 2, 16, 3, 64).items()}
+    tc = {n: c[0] for n, c in tkv.init_quant_cache(
+        1, 2, 16, 3, 64, device="cpu").items()}
     jc = jkv.cache_update_layer(jc, jnp.asarray(k), jnp.asarray(v), 5)
     tkv.cache_update_layer(tc, torch.from_numpy(k), torch.from_numpy(v), 5)
     for n in tc:
@@ -237,4 +242,90 @@ def test_cpu_call_launches_nothing():
     ta8.int8_decode_attention_cur_folded(
         t["q"], t["kc"], t["ks"], t["vc"], t["vs"], t["kcur"], t["kscur"],
         t["vcur"], t["vscur"], 1, t["positions"])
+    ta8.int8_decode_attention_stacked(
+        torch.stack([t["q"]] * 3, dim=1), t["kc"], t["ks"], t["vc"],
+        t["vs"], 0, t["positions"])
     assert {k: f.launches for k, f in ta8.KERNELS.items()} == before
+
+
+@pytest.mark.parametrize("hq,hkv,positions", [
+    (HQ, HKV, (0, 26)),            # GQA; the first row, and the last
+    (4, 4, (13, 3)),               # MHA
+])
+def test_k4a_multi_query_equals_single_queries(hq, hkv, positions):
+    """K4a with q [B, T, Hq, D] (query t over rows <= pos + t) equals T
+    single-query calls at positions + t bit for bit, and JAX's
+    int8_decode_attention_stacked per query (interpret mode) to 1e-6."""
+    t_q = 5
+    a = _inputs(seed=9, hq=hq, hkv=hkv, positions=positions)
+    qm = np.random.default_rng(10).standard_normal(
+        (B, t_q, hq, D)).astype(np.float32)
+    t = {k: to_torch(v) for k, v in a.items()}
+    j = _jnp(a)
+    q = torch.from_numpy(qm)
+    got = ta8.int8_decode_attention_stacked(q, t["kc"], t["ks"], t["vc"],
+                                            t["vs"], 1, t["positions"])
+    assert got.shape == (B, t_q, hq, D) and got.dtype == torch.float32
+    one = ta8.int8_decode_attention(q, t["kc"][1], t["ks"][1], t["vc"][1],
+                                    t["vs"][1], t["positions"])
+    assert torch.equal(one, got)
+    for i in range(t_q):
+        single = ta8.int8_decode_attention_stacked(
+            q[:, i].contiguous(), t["kc"], t["ks"], t["vc"], t["vs"], 1,
+            t["positions"] + i)
+        assert torch.equal(got[:, i], single), i
+        want = ja8.int8_decode_attention_stacked(
+            jnp.asarray(qm[:, i]), j["kc"], j["ks"], j["vc"], j["vs"],
+            jnp.int32(1), j["positions"] + i)
+        assert rel(got[:, i], want) <= 1e-6, i
+
+
+def test_decode_slots_verify_is_one_k4a_call_per_layer(monkeypatch):
+    """The T=5 verify of ``llama.decode_slots`` on the tiny packed model with
+    an int8 cache: one K4a call per layer, and logits and cache equal bit
+    for bit to the loop it replaced (one K4a call per query token)."""
+    cfg = tl.LlamaConfig.tiny(num_key_value_heads=2)
+    params = tl.quantize_params_packed(
+        tl.init_params(cfg, 0, device="cpu"), cfg, device="cpu")
+    b, s, t_q = 3, 32, 5
+    rng = np.random.default_rng(11)
+    shape = (cfg.num_hidden_layers, b, 2, s, cfg.head_dim)
+    cache = {"k_codes": rng.integers(-127, 128, shape).astype(np.int8),
+             "v_codes": rng.integers(-127, 128, shape).astype(np.int8),
+             "k_scale": (rng.random(shape[:-1]) * 0.02 + 1e-3).astype(
+                 ml_dtypes.bfloat16),
+             "v_scale": (rng.random(shape[:-1]) * 0.02 + 1e-3).astype(
+                 ml_dtypes.bfloat16)}
+    c1 = {k: to_torch(v) for k, v in cache.items()}
+    c2 = {k: v.clone() for k, v in c1.items()}
+    ids = torch.from_numpy(rng.integers(0, 512, (b, t_q)).astype(np.int32))
+    pos = torch.tensor([0, 9, s - t_q], dtype=torch.int32)
+
+    def per_query(idx, q, k, v):
+        """decode_slots' T > 1 step before one call took every query."""
+        rows = torch.arange(b)[:, None]
+        posmat = pos.long()[:, None] + torch.arange(t_q)
+        kc, ksc = tkv.quantize_kv_headmajor(k)
+        vc, vsc = tkv.quantize_kv_headmajor(v)
+        for name, val in (("k_codes", kc), ("k_scale", ksc),
+                          ("v_codes", vc), ("v_scale", vsc)):
+            c2[name][idx][rows, :, posmat] = val.transpose(1, 2)
+        return torch.stack([ta8.int8_decode_attention_stacked(
+            q[:, i], c2["k_codes"], c2["k_scale"], c2["v_codes"],
+            c2["v_scale"], idx, pos + i) for i in range(t_q)], dim=1)
+
+    before = tl.decode_step(params, ids, cfg, pos, per_query)
+    calls = []
+    k4a = ta8.int8_decode_attention_stacked
+
+    def counting(q, *args):
+        calls.append(tuple(q.shape))
+        return k4a(q, *args)
+
+    monkeypatch.setattr(ta8, "int8_decode_attention_stacked", counting)
+    now = tl.decode_slots(params, ids, cfg, c1, pos)
+    assert calls == [(b, t_q, cfg.num_attention_heads, cfg.head_dim)] \
+        * cfg.num_hidden_layers
+    assert torch.equal(now, before)
+    for name in c1:
+        assert torch.equal(bits(c1[name]), bits(c2[name])), name

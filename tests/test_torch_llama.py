@@ -80,7 +80,8 @@ def test_packed_forward_int8_cache_prefill_then_decode(kv_heads):
     ids = np.random.default_rng(4).integers(0, 512, (b, t0 + steps)).astype(
         np.int32)
     jc = jkv.init_quant_cache(2, b, s, kv_heads, jcfg.head_dim)
-    tc = tkv.init_quant_cache(2, b, s, kv_heads, tcfg.head_dim)
+    tc = tkv.init_quant_cache(2, b, s, kv_heads, tcfg.head_dim,
+                              device="cpu")
     lj, jc = jl.forward(jp, jnp.asarray(ids[:, :t0]), jcfg, caches=jc,
                         cache_pos=0)
     lt, tc2 = tl.forward(tp, ids[:, :t0], tcfg, caches=tc, cache_pos=0,
@@ -308,3 +309,5 @@ def test_entry_points_default_to_cuda():
         tl.forward(params, np.zeros((1, 2), np.int32), cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         tl.quantize_params_packed(params, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tkv.init_quant_cache(1, 1, 8, 1, 64)
