@@ -7,9 +7,12 @@
 Phases, each printing one JSON line:
   build    compile csrc/*.cu with nvcc (one process per source, in parallel)
   kernels  hold K1-K6, K4a-K4d (K4a also with a verify's 5 query tokens
-           in one launch), K7, K8 and K9-K11 against their plain
-           PyTorch versions at llama2_7b's shapes and time kernel, plain
-           version, bound and library call
+           in one launch, and with llama2_70b's G = 8 at 9 tokens: two
+           launches of at most 64 query rows), K7, K8 and K9-K11 against
+           their plain PyTorch versions at llama2_7b's shapes and time
+           kernel, plain version, bound and library call; K7 at 1, 8, 40,
+           128 and 2048 rows, K8 at 8 and 128; and trace K4's gap to its
+           plain version to pass A's scores (``K4-gap``)
   serve    twelve runs of llama2_7b at full depth, each with the launch
            counts set to 0 before it and read after it:
            `mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8`
@@ -27,7 +30,8 @@ Phases, each printing one JSON line:
            7 of 8 requests' tokens equal; cli serve --prefill_a8
            --lm_head_bits 4 with 600-token prompts (K1, K4, K5, K7); then
            where a decode step's time goes, slot and paged, and where a
-           speculative verify round's does
+           speculative verify round's does, and the device time of one
+           2048-token prefill as cli_a8_u4 runs it
   eval     perplexity of llama2_7b at full depth: `cli eval-ppl --w_bits 2`
            (the fake-quant forward), the packed model at seqlen 128 once
            per GEMV layout (slab K1, quad and bfexp K6) and at seqlen 2048
@@ -95,6 +99,10 @@ KERNEL_INFO = {
     # (mxq_tpu calls _kernel once per query)
     "K4a-verify": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
                    "mxq_tpu/ops/attn_int8.py:97"),
+    # K4a at llama2_70b's G = 8 with a verify of 9 tokens: 72 query rows
+    # per kv head, two launches
+    "K4a-verify-g8": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
+                      "mxq_tpu/ops/attn_int8.py:97"),
     "K5": ("cuda", "mxq_tpu_torch/csrc/mxq_dequant.cu",
            "mxq_tpu/ops/mxq_matmul.py:856"),
     "K6-quad": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv.cu",
@@ -115,7 +123,7 @@ KERNEL_INFO = {
 
 
 # summary rows counted by another kernel's wrapper
-COUNTER = {"K4a-verify": "K4a"}
+COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a"}
 
 
 def emit(obj) -> None:
@@ -301,6 +309,8 @@ def phase_kernels(torch, timer):
         q, kc2, ks, vc2, vs, kcur, kscur, vcur, vscur, idx, positions)
     torch.cuda.synchronize()
     err = rel_err(ctx, ref)
+    k4_gap(torch, q, kc, ks, vc, vs, (kcur, kscur, vcur, vscur), idx,
+           positions, ref)
     written_ok = torch.equal(kc1, kc2) and torch.equal(vc1, vc2)
     rws = torch.arange(B, device="cuda")
     kc[idx, rws, :, positions.long()] = kcur[:, :, 0]
@@ -431,6 +441,7 @@ def attention_flag_kernels(torch, timer, rows, summary, q, kc, ks, vc, vs,
             + ("rows < pos + current token" if has_cur else "rows <= pos"))
     failures += verify_kernel(torch, timer, rows, summary, stacked, idx,
                               positions, lib_a, kc0, vc0)
+    failures += verify_g8_kernel(torch, timer, rows, summary)
     return failures
 
 
@@ -494,6 +505,149 @@ def verify_kernel(torch, timer, rows, summary, stacked, idx, positions,
                 f"{err_single:.3g}, one launch {one_launch}, cache "
                 f"untouched {untouched}"]
     return []
+
+
+def verify_g8_kernel(torch, timer, rows, summary, t=9):
+    """K4a at llama2_70b's GQA (Hq=64, Hkv=8: G=8) with a verify of
+    ``t`` = 9 tokens per slot: 72 query rows per kv head, more than one
+    launch takes (64), so the wrapper makes one launch per 8 tokens.
+    Against its plain version (gate 1e-5, the K4 family's), the launch
+    count, the cache left byte for byte; SDPA over the dequantized layer
+    as the library yardstick."""
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    B, Hq, Hkv, S, D = 8, 64, 8, 2048, 128
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cat = dict(generator=gen, device="cuda")
+    kc = torch.randint(-127, 128, (1, B, Hkv, S, D), dtype=torch.int8, **cat)
+    vc = torch.randint(-127, 128, (1, B, Hkv, S, D), dtype=torch.int8, **cat)
+    ks = (torch.rand((1, B, Hkv, S), **cat) * 0.02 + 0.001).to(torch.bfloat16)
+    vs = (torch.rand((1, B, Hkv, S), **cat) * 0.02 + 0.001).to(torch.bfloat16)
+    q = torch.randn((B, t, Hq, D), **cat).to(torch.bfloat16)
+    pos = torch.tensor([0, 1, 17, 300, 1024, 1500, 2000, 2046],
+                       dtype=torch.int32, device="cuda").clamp(max=S - t)
+    kc0, vc0 = kc.clone(), vc.clone()
+    fn = lambda: a8.int8_decode_attention_stacked(  # noqa: E731
+        q, kc, ks, vc, vs, 0, pos)
+    before = a8.int8_decode_attention_stacked.launches
+    out = fn()
+    launched = a8.int8_decode_attention_stacked.launches - before
+    ref = a8.int8_decode_attention_stacked_plain(q, kc, ks, vc, vs, 0, pos)
+    torch.cuda.synchronize()
+    err = rel_err(out, ref)
+    untouched = torch.equal(kc, kc0) and torch.equal(vc, vc0)
+    want = len(a8.token_chunks(Hq // Hkv, t))
+    # the function reads each (b, kv head)'s rows <= pos + t - 1 once
+    # (the launches' re-reads are the kernel's cost, not the bound's);
+    # token i's scores over pos + i + 1
+    nrows = int((pos + t).sum())
+    nscored = sum(int((pos + i + 1).sum()) for i in range(t)) * Hq // Hkv
+    nbytes = (nrows * Hkv * (2 * D + 2 * 2) + B * t * Hq * D * (2 + 4)
+              + B * 4)
+    bms, by = bound_ms(nbytes, 4.0 * nscored * Hkv * D)
+    kd = (kc[0].float() * ks[0].float()[..., None]).to(torch.bfloat16)
+    vd = (vc[0].float() * vs[0].float()[..., None]).to(torch.bfloat16)
+    kd, vd = (a.repeat_interleave(Hq // Hkv, dim=1) for a in (kd, vd))
+    amask = (torch.arange(S, device="cuda")[None, None, None, :]
+             <= (pos[:, None] + torch.arange(t, device="cuda"))[
+                 :, None, :, None])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = q.transpose(1, 2)
+    row = {"kernel": "K4a-verify-g8", "B": B, "T": t, "Hq": Hq, "Hkv": Hkv,
+           "S": S, "D": D, "rel_err": err,
+           "max_abs_err": float((out - ref).abs().max()),
+           "launches_per_call": launched, "cache_untouched": untouched,
+           "kernel_ms": timer(fn),
+           "plain_ms": timer(lambda: a8.int8_decode_attention_stacked_plain(
+               q, kc, ks, vc, vs, 0, pos), iters=3),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(lambda: sdpa(qs, kd, vd, attn_mask=amask))}
+    rows.append(row)
+    emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
+    summary["K4a-verify-g8"] = summarise(
+        [row], f"B=8 T={t} Hq=64 Hkv=8 D=128 S=2048, mixed positions, "
+        f"{want} launches of at most 64 query rows per kv head")
+    if not (err <= 1e-5 and launched == want == 2 and untouched):
+        return [f"K4a-verify-g8: rel {err:.3g}, {launched} launches (want "
+                f"{want}), cache untouched {untouched}"]
+    return []
+
+
+def k4_gap(torch, q, kc, ks, vc, vs, cur, idx, positions, ref):
+    """Where K4's gap to its plain version comes from. Runs K4's kernel
+    once more (outside the wrapper: not counted) and reads pass A's stored
+    scores from its scratch. For the worst output element (b, head,
+    d) it reports the history rows whose score differs from the plain
+    version's (and by how many f32 ulps), which side's scores equal the
+    correctly rounded one (the dot product in f64, rounded to f32, times
+    the same f32 k_scale * scale), and the bf16(p * v_scale) values that
+    the differing scores flip. Then it recomputes the plain version with
+    the kernel's scores: if that equals the kernel's output (~1e-7) and
+    not the plain one, the scores explain the whole gap."""
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    kcur, kscur, vcur, vscur = cur
+    B, H, D = q.shape
+    S = kc.shape[3]
+    scale = 1.0 / math.sqrt(D)
+    kept = []
+    out, _ = a8._dense_launch("K4 (gap diagnostic)", q, kc.clone(), ks,
+                              vc.clone(), vs, idx, positions, cur,
+                              write=True, scratch=kept)
+    torch.cuda.synchronize()
+    sc_k, stc_k = a8.scratch_scores(kept[0], B, H, 1, -(-S // a8.CHUNK))
+    sc_k, stc_k = sc_k[:, :, 0, :S], stc_k[:, :, 0]
+    # the plain version's scores, op for op (_attend_plain, G = 1)
+    ksf = ks[idx].float() * scale
+    qf = q.float()[:, :, None, :]
+    st_p = (torch.einsum("bhgd,bhsd->bhgs", qf, kc[idx].float())
+            * ksf[:, :, None, :])[:, :, 0]
+    st_x = (torch.einsum("bhd,bhsd->bhs", q.double(), kc[idx].double())
+            .float() * ksf)
+    stc_p = (torch.einsum("bhgd,bhsd->bhgs", qf, kcur.float())
+             * (kscur.float() * scale)[:, :, None, :])[:, :, 0, 0]
+    valid = (torch.arange(S, device=q.device)[None, None, :]
+             < positions[:, None, None]).expand(B, H, S)
+
+    def finish(st, stc):
+        """The plain version's tail (_attend_plain) from given scores."""
+        st = torch.where(valid, st, torch.full_like(st, a8.NEG))
+        m = torch.maximum(st.amax(-1), stc)
+        e = torch.exp(st - m[..., None])
+        pv = (e * vs[idx].float()).to(torch.bfloat16).float()
+        ec = torch.exp(stc - m)
+        ctx = torch.einsum("bhgs,bhsd->bhgd", pv[:, :, None],
+                           vc[idx].float())[:, :, 0]
+        ctx = ctx + ((ec * vscur[:, :, 0].float()).to(torch.bfloat16)
+                     .float()[..., None] * vcur[:, :, 0].float())
+        return ctx / (e.sum(-1) + ec)[..., None], pv
+
+    swap, pv_k = finish(sc_k, stc_k)
+    plain, pv_p = finish(st_p, stc_p)
+    diff = (out - ref).abs()
+    b, h, d = (int(i) for i in torch.unravel_index(diff.argmax(), diff.shape))
+    n = int(positions[b])
+    dk, dp = sc_k[b, h, :n], st_p[b, h, :n]
+    differ = dk != dp
+    ulp = (torch.nextafter(dp, torch.full_like(dp, math.inf)) - dp).abs()
+    flips = (pv_k[b, h, :n] != pv_p[b, h, :n])
+    row = {"kernel": "K4-gap", "worst_b_head_d": [b, h, d], "rows": n,
+           "rel_err": rel_err(out, ref),
+           "plain_recomputed_rel_vs_plain": rel_err(plain, ref),
+           "score_rows_differing": int(differ.sum()),
+           "score_max_ulps": float(((dk - dp).abs() / ulp).max())
+           if n else 0.0,
+           "kernel_scores_correctly_rounded": int(
+               (dk == st_x[b, h, :n])[differ].sum()),
+           "plain_scores_correctly_rounded": int(
+               (dp == st_x[b, h, :n])[differ].sum()),
+           "current_logit_differs": bool(stc_k[b, h] != stc_p[b, h]),
+           "pv_flips_worst_head": int(flips.sum()),
+           "pv_flips_all_heads": int((pv_k != pv_p)[valid].sum()),
+           "score_rows_differing_all_heads": int(
+               (sc_k != st_p)[valid].sum()),
+           "rows_all_heads": int(valid.sum()),
+           "plain_with_kernel_scores_rel_vs_kernel": rel_err(swap, out),
+           "plain_with_kernel_scores_rel_vs_plain": rel_err(swap, ref)}
+    emit({"phase": "kernels", **row})
 
 
 def a8_kernels(torch, timer, gen, packs, rows, summary):
@@ -612,9 +766,10 @@ def layout_kernels(torch, timer, gen, packs, rows, summary):
 
 def uniform_kernels(torch, timer, gen, rows, summary):
     """K7 at the lm_head shape (4096 -> 32000, N padded to 32768), B = 1, 8,
-    128 and a 2048-row prefill bucket; K8 at the four 7B linears packed
-    uniform-2b, B=8. Gate rel <= 1e-4 of max|y| against bf16(x) @
-    dequant. Library: x_bf16 @ W_bf16 of the dequantized weight."""
+    40 (a verify round: 8 slots x 5 tokens), 128 and a 2048-row prefill
+    bucket; K8 at the four 7B linears packed uniform-2b, B = 8 and 128.
+    Gate rel <= 1e-4 of max|y| against bf16(x) @ dequant. Library: x_bf16
+    @ W_bf16 of the dequantized weight."""
     from mxq_tpu_torch.ops import uniform4 as u4
     failures = []
 
@@ -645,7 +800,7 @@ def uniform_kernels(torch, timer, gen, rows, summary):
     w = torch.randn((32000, 4096), generator=gen, device="cuda") * 0.02
     head = u4.quantize_pack_u4(w)
     del w
-    for b in (1, 8, 128, 2048):
+    for b in (1, 8, 40, 128, 2048):
         one("K7", u4.u4_gemv, head, b, "lm_head", iters=10 if b < 2048 else 3)
     summary["K7"] = summarise(
         [r for r in rows if r["kernel"] == "K7" and r["B"] == 8],
@@ -655,8 +810,10 @@ def uniform_kernels(torch, timer, gen, rows, summary):
         w = torch.randn((o, k), generator=gen, device="cuda") / math.sqrt(k)
         p = u4.quantize_pack_u2(w)
         del w
-        one("K8", u4.u2_gemv, p, 8, name)
-    summary["K8"] = summarise([r for r in rows if r["kernel"] == "K8"],
+        for b in (8, 128):
+            one("K8", u4.u2_gemv, p, b, name)
+    summary["K8"] = summarise([r for r in rows if r["kernel"] == "K8"
+                               and r["B"] == 8],
                               "one llama2_7b layer (qkv, o, gate_up, down) "
                               "packed uniform-2b, B=8")
     return failures
@@ -1015,9 +1172,10 @@ def phase_serve(torch):
     profile = {k: decode_step_profile(torch, fn, walls[k])
                for k, fn in step_fns.items()}
     del step_fns
+    prefill = prefill_profile(torch, params, cfg)
     del params
     emit({"phase": "serve", **runs, "launches_total": launches,
-          "decode_step_profile": profile})
+          "decode_step_profile": profile, "prefill_profile": prefill})
     return launches, failures
 
 
@@ -1066,6 +1224,46 @@ def paged_step(torch, params, cfg, b=8, pos=1000):
     start = torch.full((b,), pos, dtype=torch.int32, device="cuda")
     return lambda i: paged.paged_decode_step(
         params, pool.k_pages, pool.v_pages, toks, start + i, tables, cfg)
+
+
+def prefill_profile(torch, params, cfg, t=2048, rounds=3) -> dict:
+    """One prefill of a 2048-token bucket of llama2_7b at full depth as
+    `cli_a8_u4` runs it (int8 activations, K5; the packed uniform-4b head
+    at the bucket's 2048 rows, K7), without a cache: the CUDA-event span of
+    one call (the device timeline, gaps where the host lags included),
+    median of ``rounds`` after a warm-up, with the K7 launches of one call
+    and K7's own span at those rows."""
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ops import uniform4 as u4
+    p = dict(params, lm_head=u4.quantize_pack_u4(params["lm_head"].T))
+    cfg8 = dataclasses.replace(cfg, prefill_act_bits=8)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ids = torch.randint(0, cfg.vocab_size, (1, t), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    fn = lambda: llama.forward(p, ids, cfg8, device="cuda")  # noqa: E731
+    fn()
+    n0 = u4.u4_gemv.launches
+    ts = []
+    for _ in range(rounds):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        ts.append(e0.elapsed_time(e1))
+    x = torch.randn((t, cfg.hidden_size), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    u4.u4_matmul(x, p["lm_head"])
+    e1.record()
+    e1.synchronize()
+    return {"rows": t, "event_ms": statistics.median(ts),
+            "event_ms_rounds": ts,
+            "K7_launches_per_call": (u4.u4_gemv.launches - n0) // rounds,
+            "K7_ms_at_these_rows": e0.elapsed_time(e1)}
 
 
 def wall_ms(torch, step, steps=8) -> float:

@@ -50,7 +50,8 @@ SIGNATURES = {
     "paged_attn_int8": {
         "paged_attn_int8": [P] * 11 + [I] * 8 + [F] + [P] * 4},
     "uniform_gemv": {
-        "uniform_gemv": [I, P, I, I, P, P, P, I, I, I, I, I, P, P, P]},
+        "uniform_gemv": [I, I, P, I, I, P, P, P, I, I, I, I, I, P, P, P],
+        "uniform_gemv_tiles": [P, I]},
 }
 
 

@@ -39,7 +39,9 @@
 // partial contexts [.., nsplit, D] are no larger than the codes they
 // replace. Query rows are accumulated QT = 8 at a time (registers), so Q
 // is bounded only by shared memory (QMAX = 64; llama2_70b's G = 8 with
-// five verify tokens is 40).
+// five verify tokens is 40). A call of more query rows is cut by its
+// wrapper into launches of floor(64 / G) tokens (ops/attn_int8.py
+// token_chunks), each at positions + its first token.
 //
 // Bound on the H100: bytes (two multiply-adds per code byte, one query
 // row per head: no tensor-core work). Two launches per call. What bounds

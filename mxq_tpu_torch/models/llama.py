@@ -402,8 +402,9 @@ def decode_slots(params, tokens, cfg: LlamaConfig, caches: dict, positions):
       code rows per layer; the scale rows of all layers are committed after
       the layer loop.
     * int8 cache, T > 1: each layer scatters the code and scale rows of all
-      T tokens first, then attends every query with one K4a launch, query t
-      over the rows up to positions + t: the function of ``mxq_tpu``'s
+      T tokens first, then attends every query with one K4a call (one
+      launch while G * T <= 64), query t over the rows up to positions + t:
+      the function of ``mxq_tpu``'s
       ``_forward_multipos``, which makes one call per query.
     * bf16 cache: the rows are scattered and attended with
       :func:`masked_attention` under the mask ``row <= positions[b] + t``.

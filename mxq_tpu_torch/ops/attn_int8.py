@@ -12,9 +12,10 @@ fused write (K4) is the only T=1 decode path: the TPU's "folded" and
 "deferred" write strategies were layout workarounds, and their kernels
 (K4b, K4d) are ported as flags but have no serving caller. The
 speculative verify attends all of its T queries in one K4a launch (query t
-over rows s <= positions[b] + t), where ``mxq_tpu`` makes one call per
-query. Per (batch, kv head), with the current token out of cache (K4,
-K4b/K4d):
+over rows s <= positions[b] + t) while G * T <= QMAX = 64, and in one
+launch per floor(64 / G) tokens beyond (``token_chunks``), where
+``mxq_tpu`` makes one call per query. Per (batch, kv head), with the
+current token out of cache (K4, K4b/K4d):
 
     st  = (q . K_codes^T) * k_scale / sqrt(D)     cache rows s < pos
     p   = softmax over [st, st_cur]
@@ -59,6 +60,16 @@ def _split_scratch(b, hkv, nq, nsplit, d, device):
         tickets = _TICKETS[device] = torch.zeros(
             b * hkv, dtype=torch.int32, device=device)
     return ws, tickets
+
+
+def scratch_scores(ws, b, hkv, nq, nsplit):
+    """Views of pass A's f32 scores [B, Hkv, nq, nsplit * CHUNK] and
+    current-token logits [B, Hkv, nq] in a scratch of ``_split_scratch``
+    after a launch (``attn_split::carve``'s sc and stc)."""
+    bhq = b * hkv * nq
+    sc = ws[:bhq * nsplit * CHUNK].view(b, hkv, nq, nsplit * CHUNK)
+    at = bhq * nsplit * (CHUNK + 1)
+    return sc, ws[at:at + bhq].view(b, hkv, nq)
 
 
 def _check_aligned(what, tensors):
@@ -127,20 +138,36 @@ def _check_k4(what, q, k_codes, k_scale, v_codes, v_scale, cur, positions):
             raise ValueError(f"{what} {name}: {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, contiguous={t.is_contiguous()}; "
                              f"want {dt} {shape} contiguous on {dev}")
-    if hq % hkv or not 1 <= g * nt <= QMAX or d not in (64, 128):
+    if hq % hkv or not 1 <= g <= QMAX or d not in (64, 128):
         raise ValueError(f"{what} takes D in (64, 128) and 1..{QMAX} query "
-                         f"rows (heads x tokens) per kv head, got D={d}, "
-                         f"Hq={hq}, Hkv={hkv}, T={nt}")
+                         f"heads per kv head, got D={d}, Hq={hq}, "
+                         f"Hkv={hkv}")
     if cur is not None and nt != 1:
         raise ValueError(f"{what}: the current token takes one query token")
 
 
+def token_chunks(g: int, t: int) -> list[tuple[int, int]]:
+    """(first token, tokens) of each launch that a call of ``t`` query
+    tokens at ``g`` query heads per kv head makes: floor(QMAX / g) tokens a
+    launch, so that no launch holds more than QMAX query rows per kv head
+    (a verify of draft_len + 1 tokens at llama2_70b's G = 8 takes two
+    launches from 9 tokens on)."""
+    if not 1 <= g <= QMAX or t < 1:
+        raise ValueError(f"G={g} (1..{QMAX}), T={t} (>= 1)")
+    per = QMAX // g
+    return [(i, min(per, t - i)) for i in range(0, t, per)]
+
+
 def _dense_launch(what, q, k_codes, k_scale, v_codes, v_scale, layer_idx,
-                  positions, cur=None, write=False):
+                  positions, cur=None, write=False, scratch=None):
     """Check the arguments and launch the K4-family kernel over layer
     ``layer_idx`` of the stacked cache (``cur`` and ``write`` are its
-    compile-time flags). q [B, Hq, D] or [B, T, Hq, D]; returns ctx of
-    q's shape, f32."""
+    compile-time flags), once per chunk of ``token_chunks``: the chunk of
+    tokens t0.. is a call at positions + t0, which is what token t0 + i
+    attends (rows <= pos + t0 + i), so no rounding point moves. q
+    [B, Hq, D] or [B, T, Hq, D]; returns (ctx of q's shape, f32; the
+    number of launches). A list given as ``scratch`` receives each
+    launch's scratch (read it with ``scratch_scores``)."""
     from mxq_tpu_torch import _build
     b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
     t = q.shape[1] if q.dim() == 4 else 1
@@ -152,20 +179,30 @@ def _dense_launch(what, q, k_codes, k_scale, v_codes, v_scale, layer_idx,
     kcur, kscur, vcur, vscur = cur if cur is not None else (None,) * 4
     _check_aligned(what, [k_codes[layer_idx], v_codes[layer_idx]]
                    + ([kcur, vcur] if cur is not None else []))
-    out = torch.empty(qb.shape, dtype=torch.float32, device=q.device)
-    ws, tickets = _split_scratch(b, hkv, hq // hkv * t, -(-s // CHUNK), d,
-                                 q.device)
+    chunks = token_chunks(hq // hkv, t)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    err = _build.load("attn_int8").attn_int8(
-        qb.data_ptr(), k_codes[layer_idx].data_ptr(),
-        k_scale[layer_idx].data_ptr(), v_codes[layer_idx].data_ptr(),
-        v_scale[layer_idx].data_ptr(), ptr(kcur), ptr(kscur), ptr(vcur),
-        ptr(vscur), positions.data_ptr(), b, hkv, hq // hkv, t, s, d,
-        int(cur is not None), int(write), 1.0 / math.sqrt(d), ws.data_ptr(),
-        tickets.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, what)
-    return out
+    lib = _build.load("attn_int8")
+    outs = []
+    for t0, nt in chunks:
+        qc = qb if len(chunks) == 1 else qb[:, t0:t0 + nt].contiguous()
+        pc = positions if t0 == 0 else positions + t0
+        out = torch.empty(qc.shape, dtype=torch.float32, device=q.device)
+        ws, tickets = _split_scratch(b, hkv, hq // hkv * nt, -(-s // CHUNK),
+                                     d, q.device)
+        err = lib.attn_int8(
+            qc.data_ptr(), k_codes[layer_idx].data_ptr(),
+            k_scale[layer_idx].data_ptr(), v_codes[layer_idx].data_ptr(),
+            v_scale[layer_idx].data_ptr(), ptr(kcur), ptr(kscur), ptr(vcur),
+            ptr(vscur), pc.data_ptr(), b, hkv, hq // hkv, nt, s, d,
+            int(cur is not None), int(write), 1.0 / math.sqrt(d),
+            ws.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, what)
+        if scratch is not None:
+            scratch.append(ws)
+        outs.append(out)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out, len(chunks)
 
 
 def _stacked_plain(q, k_codes, k_scale, v_codes, v_scale, layer_idx,
@@ -203,9 +240,9 @@ def int8_decode_attention_stacked(q, k_codes, k_scale, v_codes, v_scale,
     if q.device.type == "cpu":
         return int8_decode_attention_stacked_plain(
             q, k_codes, k_scale, v_codes, v_scale, layer_idx, positions)
-    out = _dense_launch("K4a", q, k_codes, k_scale, v_codes, v_scale,
-                        layer_idx, positions)
-    int8_decode_attention_stacked.launches += 1
+    out, n = _dense_launch("K4a", q, k_codes, k_scale, v_codes, v_scale,
+                           layer_idx, positions)
+    int8_decode_attention_stacked.launches += n
     return out
 
 
@@ -237,9 +274,9 @@ def int8_decode_attention_cur_folded(q, k_codes, k_scale, v_codes, v_scale,
         return int8_decode_attention_cur_folded_plain(
             q, k_codes, k_scale, v_codes, v_scale, kcur, kscur, vcur, vscur,
             layer_idx, positions)
-    out = _dense_launch("K4b", q, k_codes, k_scale, v_codes, v_scale,
-                        layer_idx, positions, (kcur, kscur, vcur, vscur))
-    int8_decode_attention_cur_folded.launches += 1
+    out, n = _dense_launch("K4b", q, k_codes, k_scale, v_codes, v_scale,
+                           layer_idx, positions, (kcur, kscur, vcur, vscur))
+    int8_decode_attention_cur_folded.launches += n
     return out
 
 
@@ -281,10 +318,10 @@ def int8_decode_attention_fused_write(q, k_codes, k_scale, v_codes, v_scale,
         return int8_decode_attention_fused_write_plain(
             q, k_codes, k_scale, v_codes, v_scale, kcur, kscur, vcur, vscur,
             layer_idx, positions)
-    out = _dense_launch("K4", q, k_codes, k_scale, v_codes, v_scale,
-                        layer_idx, positions, (kcur, kscur, vcur, vscur),
-                        write=True)
-    int8_decode_attention_fused_write.launches += 1
+    out, n = _dense_launch("K4", q, k_codes, k_scale, v_codes, v_scale,
+                           layer_idx, positions, (kcur, kscur, vcur, vscur),
+                           write=True)
+    int8_decode_attention_fused_write.launches += n
     return out, k_codes, v_codes
 
 

@@ -21,7 +21,9 @@ for a packed lm_head (``EngineConfig.lm_head_bits=4``).
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -31,8 +33,6 @@ from mxq_tpu_torch import scheme
 GROUP = 128            # quant group along K
 KT = 1024              # input columns per k-tile
 N_LANE = 1024          # out-feature padding
-_COLS_PER_BLOCK = 128  # csrc/uniform_gemv.cu THREADS
-_ROWS_PER_THREAD = 8   # batch rows per thread for B >= 2
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -160,10 +160,31 @@ def uniform_matmul_plain(x: torch.Tensor, p: _PackedUniform) -> torch.Tensor:
     return x.to(torch.bfloat16).float() @ unpack_dequant(p)
 
 
-def _split_tiles(n_kt: int, n_padded: int, b_tiles: int, sms: int) -> int:
-    """k-tiles per K split: enough splits that about two blocks per SM are
-    in flight."""
-    want = _cdiv(2 * sms, (n_padded // _COLS_PER_BLOCK) * b_tiles)
+def _tile(b: int) -> int:
+    """The kernel's tile id for ``b`` batch rows (csrc/uniform_gemv.cu
+    by_tile): codes-major blocks of 8 or 32 rows up to 64 rows (the weight
+    read once, or twice from L2 above 32), then 128-row group-major tiles
+    (the weight re-read b/128 times)."""
+    return 0 if b <= 8 else 1 if b <= 64 else 2
+
+
+@functools.cache
+def _tiles() -> tuple[tuple[int, int], ...]:
+    """(batch rows, columns) of each tile id, as the built kernel
+    instantiates them. One block per SM fits (shared memory)."""
+    from mxq_tpu_torch import _build
+    buf = (ctypes.c_int * 16)()
+    n = _build.load("uniform_gemv").uniform_gemv_tiles(buf, 8)
+    return tuple((buf[2 * i], buf[2 * i + 1]) for i in range(n))
+
+
+def _split_tiles(n_kt: int, n_padded: int, b: int, sms: int,
+                 tiles) -> int:
+    """k-tiles per K split: enough splits that the blocks of the tile
+    that ``b`` picks from ``tiles`` (``_tiles()``) fill every SM."""
+    bm, bn = tiles[_tile(b)]
+    blocks = (n_padded // bn) * _cdiv(b, bm)
+    want = _cdiv(sms, blocks)
     return _cdiv(n_kt, max(1, min(n_kt, want)))
 
 
@@ -190,13 +211,17 @@ def _uniform_cuda(x: torch.Tensor, p: _PackedUniform) -> torch.Tensor:
         raise ValueError(f"x must be [B, {p.in_features}], got "
                          f"{tuple(x.shape)}")
     _check_uniform(p, x.device)
-    xb = x.to(torch.bfloat16).contiguous()
+    xb = x.to(torch.bfloat16)
     b, k = xb.shape
+    if k % 8:     # the kernel copies x in 16-byte rows of 8 columns
+        xb = F.pad(xb, (0, 8 - k % 8))
+    xb = xb.contiguous()
+    if xb.data_ptr() % 16:
+        xb = xb.clone()
     n = p.n_padded
-    bt = 1 if b == 1 else _ROWS_PER_THREAD
     n_kt = p.kp // KT
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    per_split = _split_tiles(n_kt, n, _cdiv(b, bt), sms)
+    per_split = _split_tiles(n_kt, n, b, sms, _tiles())
     ksplit = _cdiv(n_kt, per_split)
     y = torch.empty((b, p.out_features), dtype=torch.float32,
                     device=x.device)
@@ -204,9 +229,9 @@ def _uniform_cuda(x: torch.Tensor, p: _PackedUniform) -> torch.Tensor:
     part = (torch.empty((ksplit, b, n), dtype=torch.float32, device=x.device)
             if ksplit > 1 else y)
     err = _build.load("uniform_gemv").uniform_gemv(
-        p.BITS, xb.data_ptr(), b, k, p.w.data_ptr(), p.s.data_ptr(),
-        p.z.data_ptr(), n_kt, n, p.out_features, per_split, ksplit,
-        part.data_ptr(), y.data_ptr(),
+        p.BITS, _tile(b), xb.data_ptr(), b, xb.shape[1], p.w.data_ptr(),
+        p.s.data_ptr(), p.z.data_ptr(), n_kt, n, p.out_features, per_split,
+        ksplit, part.data_ptr(), y.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, f"uniform_gemv (u{p.BITS})")
     return y

@@ -11,7 +11,7 @@ continuation. Greedy outputs equal plain decode's; a draft only changes how
 many tokens one verify yields (1 + the longest matching prefix). Rows
 written for rejected inputs sit above the accepted frontier: the position
 mask hides them and the next verify overwrites them before the frontier
-reaches them. On the int8 cache each verify query is one K4a launch per
+reaches them. On the int8 cache a verify's queries are one K4a call per
 layer.
 
 Two loops: :func:`run_spec_pipelined` drafts, verifies and accepts

@@ -280,6 +280,41 @@ def test_k4a_multi_query_equals_single_queries(hq, hkv, positions):
         assert rel(got[:, i], want) <= 1e-6, i
 
 
+@pytest.mark.parametrize("g", [1, 8, 64])
+@pytest.mark.parametrize("t_q", [1, 9, 65])
+def test_k4a_token_chunks_cover_t_once(g, t_q):
+    """K4a's launches for G * T > QMAX = 64 query rows per kv head:
+    floor(64 / G) tokens a launch, the chunks covering the T tokens once,
+    in order; the plain version applied per chunk at positions + its first
+    token equals the whole call bit for bit. G > 64 is refused."""
+    chunks = ta8.token_chunks(g, t_q)
+    assert [i for t0, n in chunks for i in range(t0, t0 + n)] \
+        == list(range(t_q))
+    assert all(1 <= n and g * n <= ta8.QMAX for _, n in chunks)
+    assert len(chunks) == -(-t_q // (ta8.QMAX // g))
+    rng = np.random.default_rng(g + t_q)
+    s, b, hkv = 96, 2, 1
+    kc = torch.from_numpy(rng.integers(-127, 128, (1, b, hkv, s, D))
+                          .astype(np.int8))
+    vc = torch.from_numpy(rng.integers(-127, 128, (1, b, hkv, s, D))
+                          .astype(np.int8))
+    ks = torch.from_numpy(rng.random((1, b, hkv, s)) * 0.02 + 1e-3).to(
+        torch.bfloat16)
+    vs = torch.from_numpy(rng.random((1, b, hkv, s)) * 0.02 + 1e-3).to(
+        torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((b, t_q, g * hkv, D)).astype(
+        np.float32))
+    pos = torch.tensor([0, s - t_q], dtype=torch.int32)
+    whole = ta8.int8_decode_attention_stacked_plain(q, kc, ks, vc, vs, 0,
+                                                    pos)
+    parts = torch.cat([ta8.int8_decode_attention_stacked_plain(
+        q[:, t0:t0 + n], kc, ks, vc, vs, 0, pos + t0) for t0, n in chunks],
+        dim=1)
+    assert torch.equal(parts, whole)
+    with pytest.raises(ValueError):
+        ta8.token_chunks(ta8.QMAX + 1, 1)
+
+
 def test_decode_slots_verify_is_one_k4a_call_per_layer(monkeypatch):
     """The T=5 verify of ``llama.decode_slots`` on the tiny packed model with
     an int8 cache: one K4a call per layer, and logits and cache equal bit

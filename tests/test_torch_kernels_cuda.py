@@ -195,11 +195,13 @@ def test_dequant_int8_kernel_matches_plain(gen, o, k):
     assert float((y - ref).abs().max() / ref.abs().max()) <= 5e-3
 
 
-@pytest.mark.parametrize("b", [1, 2, 8, 13, 130])
+@pytest.mark.parametrize("b", [1, 2, 8, 13, 16, 17, 64, 130, 2048])
 @pytest.mark.parametrize("o,k", [(320, 1088), (1024, 4096)])
 @pytest.mark.parametrize("nbits", [4, 2])
 def test_uniform_kernels_match_plain(gen, nbits, b, o, k):
-    """K7 (4-bit) and K8 (2-bit) against bf16(x) @ dequant."""
+    """K7 (4-bit) and K8 (2-bit) against bf16(x) @ dequant, at the edges of
+    the kernel's row tiles (16, 64, 128 rows) and the 2048-row prefill
+    bucket."""
     w = torch.randn((o, k), generator=gen, device="cuda") / math.sqrt(k)
     p = (u4.quantize_pack_u4 if nbits == 4 else u4.quantize_pack_u2)(w)
     x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
@@ -209,6 +211,45 @@ def test_uniform_kernels_match_plain(gen, nbits, b, o, k):
     torch.cuda.synchronize()
     assert y.shape == (b, o)
     assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-4
+
+
+def test_uniform_tiles_as_built(gen):
+    """The tiles the built K7/K8 library reports are the table the CPU
+    tests of the tile rule and the K split use
+    (tests/test_torch_uniform4.py UNIFORM_TILES), and every B up to the
+    last tile takes at most two row blocks of its tile."""
+    tiles = u4._tiles()
+    assert tiles == ((8, 128), (32, 64), (128, 128))
+    for b in range(1, 257):
+        t = u4._tile(b)
+        assert b <= 2 * tiles[t][0] or t == len(tiles) - 1
+
+
+@pytest.mark.parametrize("g,t", [(8, 9), (1, 65), (64, 2)])
+def test_k4a_verify_beyond_64_query_rows(gen, g, t):
+    """K4a with G * T > 64 query rows per kv head (llama2_70b's G = 8 at a
+    verify of 9 tokens): one launch per chunk of floor(64 / G) tokens,
+    within the K4 family's 1e-5 of the plain version, cache untouched."""
+    L, S, hkv, d = 2, 300, 2, 128
+    plist = _edge_positions(S, t)
+    B = len(plist)
+    cat = dict(generator=gen, device="cuda")
+    kc = torch.randint(-127, 128, (L, B, hkv, S, d), dtype=torch.int8, **cat)
+    vc = torch.randint(-127, 128, (L, B, hkv, S, d), dtype=torch.int8, **cat)
+    ks = (torch.rand((L, B, hkv, S), **cat) * 0.02 + 1e-3).to(torch.bfloat16)
+    vs = (torch.rand((L, B, hkv, S), **cat) * 0.02 + 1e-3).to(torch.bfloat16)
+    pos = torch.tensor(plist, dtype=torch.int32, device="cuda")
+    q = torch.randn((B, t, g * hkv, d), **cat).to(torch.bfloat16)
+    kc0, vc0 = kc.clone(), vc.clone()
+    before = a8.int8_decode_attention_stacked.launches
+    got = a8.int8_decode_attention_stacked(q, kc, ks, vc, vs, 1, pos)
+    launched = a8.int8_decode_attention_stacked.launches - before
+    ref = a8.int8_decode_attention_stacked_plain(q, kc, ks, vc, vs, 1, pos)
+    torch.cuda.synchronize()
+    assert launched == len(a8.token_chunks(g, t)) == -(-t // (64 // g))
+    assert got.shape == (B, t, g * hkv, d)
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
+    assert torch.equal(kc, kc0) and torch.equal(vc, vc0)
 
 
 def _paged_inputs(gen, pos, hkv, g, d, pps, lp):

@@ -19,6 +19,10 @@ from mxq_tpu_torch import weights
 from mxq_tpu_torch.ops import uniform4 as tu4
 from torch_port_helpers import bits, port_params, rel, to_numpy_tree, to_torch
 
+# (batch rows, columns) of K7/K8's tile ids as csrc/uniform_gemv.cu builds
+# them (ops/uniform4._tiles reads them from the library on the card;
+# tests/test_torch_kernels_cuda.py holds the build to this table)
+UNIFORM_TILES = ((8, 128), (32, 64), (128, 128))
 PACKERS = {4: (ju4.quantize_pack_u4, tu4.quantize_pack_u4,
                ju4.unpack_dequant_u4),
            2: (ju4.quantize_pack_u2, tu4.quantize_pack_u2,
@@ -158,11 +162,121 @@ def test_weights_bridge_round_trip():
                                               300), torch.device("cpu"))
 
 
-@pytest.mark.parametrize("n_kt,n,b_tiles,want", [
-    (4, 32768, 1, 2),        # lm_head at B=8: 256 column blocks, 2 splits
-    (4, 32768, 256, 4),      # at B=2048 the batch tiles fill the card
-    (11, 4096, 1, 2),        # down (K 11008): 32 column blocks, 6 splits
+@pytest.mark.parametrize("n_kt,n,b,want", [
+    (4, 32768, 8, 4),        # lm_head at B=8: 256 column blocks, no split
+    (4, 32768, 2048, 4),     # at B=2048 the row tiles fill the card
+    (11, 4096, 8, 3),        # down (K 11008): 32 column blocks, 4 splits
+    (4, 4096, 128, 1),       # o at 128 rows: 32 blocks, 4 splits
+    (4, 32768, 40, 4),       # a verify round's 40 rows: 2 row blocks
 ])
-def test_split_tiles(n_kt, n, b_tiles, want):
-    """K7/K8's K split on a 132-SM H100: k-tiles per split."""
-    assert tu4._split_tiles(n_kt, n, b_tiles, 132) == want
+def test_split_tiles(n_kt, n, b, want):
+    """K7/K8's K split on a 132-SM H100: k-tiles per split, from the
+    tile that B picks (enough blocks for one per SM's residency)."""
+    assert tu4._split_tiles(n_kt, n, b, 132, UNIFORM_TILES) == want
+
+
+@pytest.mark.parametrize("b,tile", [(1, 0), (8, 0), (9, 1), (16, 1),
+                                    (17, 1), (32, 1), (33, 1), (64, 1),
+                                    (65, 2), (2048, 2)])
+def test_tile_rule(b, tile):
+    """Rows up to 64 take a codes-major block of 8 or 32 rows (two row
+    blocks above 32), then 128-row group-major tiles."""
+    assert tu4._tile(b) == tile
+    assert b <= 2 * UNIFORM_TILES[tile][0] or tile == len(UNIFORM_TILES) - 1
+
+
+def _bf16_bits_to_f32(h):
+    """uint32 array of bf16 bit patterns (low 16 bits) -> float32."""
+    return (h.astype(np.uint32) << 16).view(np.float32)
+
+
+def _codes_minus_zero(wa, wb, pos, z, nbits):
+    """numpy emulation of csrc/uniform_gemv.cu pair_halves and
+    codes_minus_zero: the 16-bit halves of word rows k (wa) and k + 1 (wb)
+    that hold bit ``pos`` side by side (prmt 0x5410 / 0x7632), the code
+    shifted into the low mantissa of bf16 128.0 (0x4300), minus bf16(128 +
+    z) in f32 and rounded to bf16 (sub.bf16x2). Returns (k, k + 1) as
+    float32."""
+    wa = wa.astype(np.uint32)
+    wb = wb.astype(np.uint32)
+    if pos < 16:
+        p = (wa & 0xFFFF) | ((wb & 0xFFFF) << 16)
+    else:
+        p = (wa >> 16) | (wb & 0xFFFF0000)
+    mask2 = ((1 << nbits) - 1) * 0x00010001
+    c = ((p >> np.uint32(pos & 15)) & np.uint32(mask2)) | np.uint32(0x43004300)
+    zz = torch.tensor(128.0 + z, dtype=torch.float32).to(torch.bfloat16)
+    out = []
+    for half in (c & 0xFFFF, c >> 16):
+        v = torch.from_numpy(_bf16_bits_to_f32(half))
+        out.append((v.to(torch.bfloat16) - zz).float().numpy())
+    return out
+
+
+@pytest.mark.parametrize("nbits", [4, 2])
+def test_magic_number_unpack_is_exact(nbits):
+    """Every code value at every position of the word, with every zero,
+    in words whose other bits are random and in words with the top bit set
+    (negative int32): the kernel's unpack gives c - z exactly, for word
+    row k in the low half and k + 1 in the high half."""
+    rng = np.random.default_rng(nbits)
+    per, maxq = 32 // nbits, (1 << nbits) - 1
+    n = 64
+    for j in range(per):
+        pos = nbits * j
+        for z in range(maxq + 1):
+            ca = rng.integers(0, maxq + 1, n).astype(np.uint32)
+            cb = rng.integers(0, maxq + 1, n).astype(np.uint32)
+            ca[: maxq + 1] = np.arange(maxq + 1)     # every value
+            cb[: maxq + 1] = np.arange(maxq + 1)[::-1]
+            fill = rng.integers(0, 2**32, (2, n), dtype=np.uint64).astype(
+                np.uint32)
+            fill[:, ::2] |= np.uint32(0x80000000)    # negative as int32
+            field = np.uint32(maxq << pos)
+            wa = (fill[0] & ~field) | (ca << np.uint32(pos))
+            wb = (fill[1] & ~field) | (cb << np.uint32(pos))
+            assert (wa.view(np.int32) < 0).any()
+            lo, hi = _codes_minus_zero(wa, wb, pos, float(z), nbits)
+            np.testing.assert_array_equal(lo, ca.astype(np.float32) - z)
+            np.testing.assert_array_equal(hi, cb.astype(np.float32) - z)
+
+
+def _codes(p):
+    """Integer codes [KP, N] of a packed weight, row k = input column k."""
+    per = p.per_word
+    wv = p.w.reshape(p.kp // tu4.KT, 1, tu4.KT // per, p.n_padded)
+    shifts = (torch.arange(per, dtype=torch.int32) * p.BITS)[
+        None, :, None, None]
+    return ((wv >> shifts) & ((1 << p.BITS) - 1)).reshape(p.kp, p.n_padded)
+
+
+def _group_folded(x, p):
+    """The kernel's algebra: per quant group g, acc += s_g * (bf16(x)_g .
+    (c_g - z_g)), with f32 sums (the products are exact)."""
+    xb = x.to(torch.bfloat16).float()
+    xb = torch.nn.functional.pad(xb, (0, p.kp - p.in_features))
+    c = _codes(p).float()
+    acc = torch.zeros((x.shape[0], p.n_padded), dtype=torch.float32)
+    for g in range(p.kp // tu4.GROUP):
+        k = slice(g * tu4.GROUP, (g + 1) * tu4.GROUP)
+        part = xb[:, k] @ (c[k] - p.z[g].float())
+        acc += p.s[g].float() * part
+    return acc[:, : p.out_features]
+
+
+@pytest.mark.parametrize("nbits", [4, 2])
+@pytest.mark.parametrize("b,o,k", [(1, 300, 640), (17, 1024, 1088),
+                                   (130, 320, 2048)])
+def test_group_folded_algebra_matches_plain(nbits, b, o, k):
+    """s_g * (x_g . (c_g - z_g)) summed group by group in f32 (what K7/K8
+    compute on the tensor cores) equals the plain version bf16(x) @
+    dequant within 1e-6 of max|y|: only the f32 summation order and the
+    rounding of s * (c - z) differ."""
+    _, tpack, _ = PACKERS[nbits]
+    p = tpack(torch.from_numpy(_weight(o, k, seed=b + nbits)))
+    x = torch.from_numpy(np.random.default_rng(b).standard_normal(
+        (b, k)).astype(np.float32))
+    got = _group_folded(x, p)
+    want = tu4.uniform_matmul_plain(x, p)
+    assert got.shape == want.shape == (b, o)
+    assert rel(got, want) <= 1e-6
