@@ -10,7 +10,8 @@ Phases, each printing one JSON line:
            in one launch, and with llama2_70b's G = 8 at 9 tokens: two
            launches of at most 64 query rows), K7, K8 and K9-K11 against
            their plain PyTorch versions at llama2_7b's shapes and time
-           kernel, plain version, bound and library call; K7 at 1, 8, 40,
+           kernel, plain version, bound and library call; K1 at 8, 40
+           and 128 rows, K6 at 8, 1, 40 and 128; K7 at 1, 8, 40,
            128 and 2048 rows, K8 at 8 and 128; and trace K4's gap to its
            plain version to pass A's scores (``K4-gap``)
   serve    twelve runs of llama2_7b at full depth, each with the launch
@@ -79,7 +80,7 @@ SHAPES_7B = {"qkv": (3 * 4096, 4096), "o": (4096, 4096),
              "gate_up": (2 * 11008, 4096), "down": (4096, 11008)}
 
 KERNEL_INFO = {
-    "K1": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv.cu",
+    "K1": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv_tc.cu",
            "mxq_tpu/ops/mxq_matmul.py:66"),
     "K2": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv.cu",
            "mxq_tpu/ops/mxq_matmul.py:360"),
@@ -105,9 +106,11 @@ KERNEL_INFO = {
                       "mxq_tpu/ops/attn_int8.py:97"),
     "K5": ("cuda", "mxq_tpu_torch/csrc/mxq_dequant.cu",
            "mxq_tpu/ops/mxq_matmul.py:856"),
-    "K6-quad": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv.cu",
+    # K6's summary rows are at B=8: the tensor-core template (at one row
+    # K6 runs mxq_gemv.cu's loop)
+    "K6-quad": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv_tc.cu",
                 "mxq_tpu/ops/mxq_matmul.py:169"),
-    "K6-bfexp": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv.cu",
+    "K6-bfexp": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv_tc.cu",
                  "mxq_tpu/ops/mxq_matmul.py:252"),
     "K7": ("cuda", "mxq_tpu_torch/csrc/uniform_gemv.cu",
            "mxq_tpu/ops/uniform4.py:117"),
@@ -121,6 +124,12 @@ KERNEL_INFO = {
             "mxq_tpu/ops/attn_int8.py:773"),
 }
 
+
+# K1's kernels by name (csrc/mxq_gemv_tc.cu: x's slot-order pass, the two
+# mainloops, the split sum); in the profiled decode steps no other wrapper
+# launches a kernel of these names
+K1_KERNEL_NAMES = ("permute_x_kernel", "gemv_small_kernel",
+                   "gemv_large_kernel", "reduce_splits_kernel")
 
 # summary rows counted by another kernel's wrapper
 COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a"}
@@ -222,8 +231,10 @@ def phase_kernels(torch, timer):
         packs[name] = packfmt.quantize_pack(w)
         del w
 
-    # K1 (B=8, B=128) and K2 (B=1): fp32 FMA on CUDA cores, gate 1e-4
-    for key, batches in (("K2", (1,)), ("K1", (8, 128))):
+    # K1 at B=8 (decode), 40 (a verify round) and 128 (a prefill bucket,
+    # an eval window): tensor cores; K2 (B=1): f32 FMA on CUDA cores.
+    # Gate 1e-4 of max|y|.
+    for key, batches in (("K2", (1,)), ("K1", (8, 40, 128))):
         for b in batches:
             for name, p in packs.items():
                 x = torch.randn((b, p.in_features), generator=gen,
@@ -703,20 +714,20 @@ def a8_kernels(torch, timer, gen, packs, rows, summary):
 
 def layout_kernels(torch, timer, gen, packs, rows, summary):
     """K6, the quad and bfexp GEMV layouts, at the four 7B linears and
-    B = 8, 1 (reached through MXQ_GEMV_LAYOUT_B1) and 128 (an eval
-    window). Gates, as rel = max|diff| / max|y|: quad <= 1e-4 against
-    gemv_plain (K1's function; ``equal_to_k1`` reports whether it equals
-    K1's, or at B=1 K2's, output bit for bit, as its code-order sums
-    should); bfexp <= 1e-4 against gemv_bfexp_plain (bit-equal weights,
-    another f32 summation order), and that plain version within 0.05 of
-    gemv_plain (mxq_tpu's own bfexp gate). Bound and library call as
-    K1's."""
+    B = 8, 1 (reached through MXQ_GEMV_LAYOUT_B1), 40 (a verify round)
+    and 128 (an eval window). Gates, as rel = max|diff| / max|y|: quad
+    <= 1e-4 against gemv_plain (K1's function) and equal to K1's, or at
+    B=1 K2's, output bit for bit (``equal_to_k1``: the same operands and
+    sums in the same order); bfexp <= 1e-4 against gemv_bfexp_plain
+    (bit-equal weights, another f32 summation order), and that plain
+    version within 0.05 of gemv_plain (mxq_tpu's own bfexp gate). Bound
+    and library call as K1's."""
     from mxq_tpu_torch import packfmt
     from mxq_tpu_torch.ops import mxq_matmul as mm
     failures = []
     layouts = {"K6-quad": ("quad", mm.gemv_quad, mm.gemv_plain),
                "K6-bfexp": ("bfexp", mm.gemv_bfexp, mm.gemv_bfexp_plain)}
-    for b in (8, 1, 128):
+    for b in (8, 1, 40, 128):
         for name, p in packs.items():
             x = torch.randn((b, p.in_features), generator=gen,
                             device="cuda").to(torch.bfloat16)
@@ -750,6 +761,7 @@ def layout_kernels(torch, timer, gen, packs, rows, summary):
                 if layout == "quad":
                     k1 = mm.gemv_single if b == 1 else mm.gemv_batched
                     row["equal_to_k1"] = torch.equal(fn(x, p), k1(x, p))
+                    ok = ok and row["equal_to_k1"]
                 if layout == "bfexp":
                     row["plain_rel_vs_exact"] = rel_err(ref, exact)
                     ok = ok and row["plain_rel_vs_exact"] < 0.05
@@ -1304,10 +1316,13 @@ def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
     busy = sum(per_kernel.values())
     wall = statistics.median(walls)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    k1 = sum(v for k, v in per_kernel.items()
+             if any(name in k for name in K1_KERNEL_NAMES))
     return {"slots": b, "position": pos, "wall_ms_per_step": wall,
             "wall_ms_per_step_rounds": walls,
             "device_busy_ms_per_step": busy,
             "idle_share": 1.0 - busy / wall if wall else None,
+            "k1_ms_per_step": k1, "k1_share_of_busy": k1 / busy,
             "top_kernels_ms_per_step": {k[:80]: v for k, v in top}}
 
 

@@ -24,8 +24,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("mxq_gemv", "mxq_dequant", "attn_int8", "paged_attn_int8",
-           "uniform_gemv")
+SOURCES = ("mxq_gemv", "mxq_gemv_tc", "mxq_dequant", "attn_int8",
+           "paged_attn_int8", "uniform_gemv")
 _EXTRA_FLAGS = {
     # K3 and K5 must equal their plain PyTorch versions bit for bit: no
     # FMA fusion.
@@ -40,9 +40,12 @@ F = ctypes.c_float
 SIGNATURES = {
     "mxq_gemv": {
         name: [P, I, I, I, P, P, P, P, P, P, I, I, I, I, I, P, P, P]
-        for name in ("mxq_gemv_k1", "mxq_gemv_k2", "mxq_gemv_k6_quad8",
-                     "mxq_gemv_k6_quad1", "mxq_gemv_k6_bfexp8",
+        for name in ("mxq_gemv_k2", "mxq_gemv_k6_quad1",
                      "mxq_gemv_k6_bfexp1")},
+    "mxq_gemv_tc": {
+        "mxq_gemv_tc": [I, I, P, I, I, I, I, P, P, P, P, P, P, I, I, I, I, I,
+                        P, P, P, P],
+        "mxq_gemv_tc_tiles": [P, I]},
     "mxq_dequant": {"mxq_dequant_k3": [P, P, P, P, P, P, I, I, P, P, P],
                     "mxq_dequant_k5": [P, P, P, P, P, P, P, I, I, P, P, P]},
     "attn_int8": {

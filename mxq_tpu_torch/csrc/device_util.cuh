@@ -1,0 +1,60 @@
+// Device helpers shared by the kernels of this directory: cp.async
+// copies, ldmatrix, and bf16x2 arithmetic with one rounding per step.
+// Each source includes it inside its anonymous namespace, after
+// <cuda_bf16.h> and <stdint.h>.
+
+#pragma once
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, zero-filled when !valid (src is not read)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
+                   "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// all but the newest group of copies complete
+__device__ __forceinline__ void cp_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void ldmatrix(uint32_t (&a)[N], const void* p) {
+  static_assert(N == 2 || N == 4, "ldmatrix .x2 or .x4");
+  if constexpr (N == 4)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+        : "r"(smem_addr(p)));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(a[0]), "=r"(a[1])
+                 : "r"(smem_addr(p)));
+}
+
+// bf16x2 a*b and a-b, each rounded once, in PTX so that ptxas cannot
+// contract the pair into one fma (bfexp's arithmetic)
+__device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d)
+      : "r"(a), "r"(b), "r"(0x80008000u));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d)
+      : "r"(b), "r"(0xBF80BF80u), "r"(a));
+  return d;
+}
+
+// one bf16 value repeated in both halves
+__device__ __forceinline__ uint32_t bf2_splat(float v) {
+  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  return h | (h << 16);
+}

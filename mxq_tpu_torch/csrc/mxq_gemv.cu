@@ -1,29 +1,29 @@
-// K1, K2 and K6: y = x @ dequant(p) for the packed MXQ format (packfmt.py),
-// x rounded to bf16, f32 accumulation.
+// K2 and K6 at one row: y = x @ dequant(p) for the packed MXQ format
+// (packfmt.py), x rounded to bf16, f32 accumulation. The B >= 2 kernels
+// (K1, K6) are the tensor-core template in mxq_gemv_tc.cu.
 //
 // Replaces the TPU kernels
-//   K1  mxq_tpu/ops/mxq_matmul.py _kernel_body (:66) via _mxq_matmul_padded
-//       (:554) and _stacked_kernel (:1033) — the B>=2 GEMV/GEMM;
 //   K2  mxq_tpu/ops/mxq_matmul.py _bdg_kernel (:360) via
 //       _mxq_matmul_bdg_padded (:429) and _stacked_bdg_kernel (:1096) —
 //       the exact B=1 GEMV;
-//   K6  _kernel_body_quad (:169) and _kernel_body_bfexp (:252), the two
-//       other unpack bodies of K1's pallas_call, picked by MXQ_GEMV_LAYOUT.
+//   K6  _kernel_body_quad (:169) and _kernel_body_bfexp (:252) at one row
+//       (MXQ_GEMV_LAYOUT_B1=quad|bfexp).
 // A stacked weight is only a layer offset: the wrapper passes the layer's
 // base pointers.
 //
-// Bound on the H100: bytes. At decode batch sizes every packed weight is
-// read once (~2.9 bits/weight) and each weight feeds B multiply-adds, far
+// Bound on the H100: bytes. At one row every packed weight is read once
+// (~3.5 bits/weight with the metadata) and feeds one multiply-add, far
 // below the ~295 operations per byte the card needs before arithmetic
-// limits. The design therefore aims at coalesced weight reads and enough
+// limits; the kernel runs at or below the one library call for the same
+// function (PERF.md). The design aims at coalesced weight reads and enough
 // blocks in flight:
 //  * one thread per output column n; a warp reads 32 neighbouring int32
 //    words of one packed row (128 contiguous bytes);
 //  * the per-group algebra of the reference kernel: for every 16-code
 //    group, dot the raw codes with x, then apply s*dot - s*z*sum(x) once,
-//    so the per-weight work is shift, mask, convert and one FMA per batch
-//    row; the 4-bit plane accumulates raw-code dots and applies its
-//    per-channel scale and zero once at the end;
+//    so the per-weight work is shift, mask, convert and one FMA; the 4-bit
+//    plane accumulates raw-code dots and applies its per-channel scale and
+//    zero once at the end;
 //  * x of one 1024-column k-tile is staged in shared memory as f32 (all
 //    threads of a warp read the same element: a broadcast), together with
 //    its per-group sums;
@@ -31,15 +31,14 @@
 //    (64 input columns each) so that N/128 column blocks still fill the
 //    132 SMs; a second pass adds the partial sums in a fixed order
 //    (deterministic, no atomics).
-// BT batch rows are held in registers per thread: BT=8 for K1, BT=1 for K2.
 // LAYOUT picks how the codes leave their words (K6 is the same loop):
-//  * SLAB (K1, K2): one shift, mask and int-to-float convert per code;
+//  * SLAB (K2): one shift, mask and int-to-float convert per code;
 //  * QUAD (K6): (word >> 2j) & 0x03030303 yields four codes per shift and
 //    mask (byte b holds code j + 4b; 4-bit plane & 0x0F0F0F0F, code
 //    j + 2b), and each byte becomes a float by one byte permute into the
 //    f32 pattern 0x4B0000cc (= 2^23 + c) and one subtract of 2^23, both
-//    exact. The dot then runs in code order, as K1's does, so quad gives
-//    K1's sums bit for bit (and the same greedy tokens);
+//    exact. The dot then runs in code order, as K2's does, so quad gives
+//    K2's sums bit for bit (and the same greedy tokens);
 //  * BFEXP (K6): exponent injection, the reference CUDA kernel's LOP3
 //    magic-number conversion. ((word >> (2j-5)) & 0x00600060) | 0x3F803F80
 //    read as two bf16 is 1 + c/4 for codes j and j+8 (4-bit plane: mask
@@ -52,7 +51,6 @@
 //    f32 summation order differs. The TPU's activation permutes
 //    (permute_x2_quad/_pair) served Mosaic's sublane bitcasts; here x is
 //    read by code position from shared memory instead.
-// Not yet tuned: no cp.async/TMA pipelining, no tensor cores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,8 +58,11 @@
 
 namespace {
 
+#include "device_util.cuh"
+
 constexpr int KT = 1024;        // input columns per k-tile (16 blocks of 64)
 constexpr int THREADS = 128;    // columns per block
+constexpr int BT = 1;           // batch rows: one
 constexpr int SLAB = 0, QUAD = 1, BFEXP = 2;
 
 // byte b of t (a code 0..255) as an exact float: 0x4B0000cc is 2^23 + c
@@ -70,28 +71,7 @@ __device__ __forceinline__ float byte_code(uint32_t t, int b) {
          - 8388608.f;
 }
 
-// bf16x2 a*b and a-b, each rounded once (as __hmul2_rn/__hsub2_rn), in
-// PTX so that ptxas cannot contract the pair into one fma
-__device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d)
-      : "r"(a), "r"(b), "r"(0x80008000u));
-  return d;
-}
-__device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;" : "=r"(d)
-      : "r"(b), "r"(0xBF80BF80u), "r"(a));
-  return d;
-}
-
-// one bf16 value repeated in both halves
-__device__ __forceinline__ uint32_t bf2_splat(float v) {
-  const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-  return h | (h << 16);
-}
-
-template <int BT, int LAYOUT>
+template <int LAYOUT>
 __global__ void __launch_bounds__(THREADS)
 mxq_gemv_kernel(const __nv_bfloat16* __restrict__ x, int B, int K, int ldx,
                 const uint32_t* __restrict__ w2,
@@ -274,15 +254,15 @@ __global__ void reduce_splits_kernel(const float* __restrict__ part,
   y[i] = s;
 }
 
-template <int BT, int LAYOUT>
+template <int LAYOUT>
 int launch(const void* x, int B, int K, int ldx, const void* w2,
            const void* w4, const void* meta2, const void* qscale,
            const void* qmin, const void* smeta4, int nbp, int npad, int O,
            int rows_per_split, int ksplit, void* part, void* y,
            void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid(npad / THREADS, (B + BT - 1) / BT, ksplit);
-  mxq_gemv_kernel<BT, LAYOUT><<<grid, THREADS, 0, st>>>(
+  dim3 grid(npad / THREADS, B, ksplit);
+  mxq_gemv_kernel<LAYOUT><<<grid, THREADS, 0, st>>>(
       (const __nv_bfloat16*)x, B, K, ldx, (const uint32_t*)w2,
       (const uint32_t*)w4, (const uint32_t*)meta2,
       (const __nv_bfloat16*)qscale, (const __nv_bfloat16*)qmin,
@@ -297,26 +277,22 @@ int launch(const void* x, int B, int K, int ldx, const void* w2,
 
 }  // namespace
 
-#define MXQ_GEMV_ENTRY(NAME, BT, LAYOUT)                                     \
+#define MXQ_GEMV_ENTRY(NAME, LAYOUT)                                         \
   int NAME(const void* x, int B, int K, int ldx, const void* w2,           \
            const void* w4, const void* meta2, const void* qscale,          \
            const void* qmin, const void* smeta4, int nbp, int npad, int O, \
            int rows_per_split, int ksplit, void* part, void* y,            \
            void* stream) {                                                 \
-    return launch<BT, LAYOUT>(x, B, K, ldx, w2, w4, meta2, qscale, qmin,   \
-                              smeta4, nbp, npad, O, rows_per_split,        \
-                              ksplit, part, y, stream);                    \
+    return launch<LAYOUT>(x, B, K, ldx, w2, w4, meta2, qscale, qmin,       \
+                          smeta4, nbp, npad, O, rows_per_split, ksplit,    \
+                          part, y, stream);                                \
   }
 
 extern "C" {
 
-// K1: batch rows in tiles of 8 per thread; K2: one batch row.
-MXQ_GEMV_ENTRY(mxq_gemv_k1, 8, SLAB)
-MXQ_GEMV_ENTRY(mxq_gemv_k2, 1, SLAB)
-// K6: the quad and bfexp layouts, in tiles of 8 rows and for one row.
-MXQ_GEMV_ENTRY(mxq_gemv_k6_quad8, 8, QUAD)
-MXQ_GEMV_ENTRY(mxq_gemv_k6_quad1, 1, QUAD)
-MXQ_GEMV_ENTRY(mxq_gemv_k6_bfexp8, 8, BFEXP)
-MXQ_GEMV_ENTRY(mxq_gemv_k6_bfexp1, 1, BFEXP)
+// K2 and K6's one-row entries: one block row per batch row.
+MXQ_GEMV_ENTRY(mxq_gemv_k2, SLAB)
+MXQ_GEMV_ENTRY(mxq_gemv_k6_quad1, QUAD)
+MXQ_GEMV_ENTRY(mxq_gemv_k6_bfexp1, BFEXP)
 
 }  // extern "C"

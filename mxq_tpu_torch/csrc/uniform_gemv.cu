@@ -56,42 +56,11 @@
 
 namespace {
 
+#include "device_util.cuh"
+
 constexpr int KT = 1024;          // input columns per k-tile
 constexpr int GROUP = 128;        // quant group along K
 constexpr int GPT = KT / GROUP;   // groups per k-tile
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, zero-filled when !valid (src is not read)
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::
-                   "r"(smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// all but the newest group of copies complete
-__device__ __forceinline__ void cp_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void ldmatrix(uint32_t (&a)[N], const void* p) {
-  static_assert(N == 2 || N == 4, "ldmatrix .x2 or .x4");
-  if constexpr (N == 4)
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-        : "r"(smem_addr(p)));
-  else
-    asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-                 : "=r"(a[0]), "=r"(a[1])
-                 : "r"(smem_addr(p)));
-}
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2,

@@ -4,14 +4,16 @@ versions, and the wrappers of kernels K1, K2, K3, K5 and K6 (``csrc/``).
 Port of ``mxq_tpu/ops/mxq_matmul.py``. The function every path computes is
 ``bf16(x) @ unpack_dequant(p)`` with f32 accumulation:
 
-* decode, B >= 2 rows  -> K1 (:func:`gemv_batched`, ``csrc/mxq_gemv.cu``)
-* decode, B == 1 row   -> K2 (:func:`gemv_single`, same source)
+* decode and prefill under 512 rows, B >= 2 -> K1 (:func:`gemv_batched`,
+  ``csrc/mxq_gemv_tc.cu``: tensor cores, tiles picked by :func:`_k1_tile`)
+* decode, B == 1 row   -> K2 (:func:`gemv_single`, ``csrc/mxq_gemv.cu``)
 * the GEMV layouts ``quad`` and ``bfexp`` (``MXQ_GEMV_LAYOUT``, read at
   import into :data:`GEMV_LAYOUT`; ``MXQ_GEMV_LAYOUT_B1`` for one row,
   read per call; :func:`gemv_layout`) -> K6 (:func:`gemv_quad`,
-  :func:`gemv_bfexp`, same source) at any row count. ``quad`` computes
-  K1's function; ``bfexp`` a lossy one whose weights are rounded to bf16
-  in two steps (:func:`gemv_bfexp_plain`);
+  :func:`gemv_bfexp`; K1's template at B >= 2, K2's loop at one row) at
+  any row count. ``quad`` computes K1's function; ``bfexp`` a lossy one
+  whose weights are rounded to bf16 in two steps
+  (:func:`gemv_bfexp_plain`);
 * prefill, >= 512 rows -> K3 (:func:`dequant_planes`, ``csrc/mxq_dequant.cu``)
   unpacks to bf16 planes, then two ``torch.matmul`` GEMMs (as the TPU left
   them to XLA); the 512-row switch lives in ``models/llama.quant_linear``;
@@ -27,6 +29,8 @@ A stacked [L, ...] weight is only a layer offset (:meth:`PackedMXQLinear.layer`)
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 
 import torch
@@ -35,8 +39,9 @@ from mxq_tpu_torch import packfmt
 from mxq_tpu_torch.config import DEFAULT_SCHEME, MXQConfig
 from mxq_tpu_torch.packfmt import PackedMXQLinear
 
-_COLS_PER_BLOCK = 128     # csrc/mxq_gemv.cu THREADS
-_K1_ROWS = 8              # batch rows per thread in K1
+_COLS_PER_BLOCK = 128     # csrc/mxq_gemv.cu THREADS (the one-row kernels)
+# layout ids of csrc/mxq_gemv_tc.cu
+_TC_LAYOUT = {"slab": 0, "quad": 1, "bfexp": 2}
 
 # The GEMV layout of more than one row, as mxq_tpu reads it: once, at
 # import. "slab" is K1; "quad" and "bfexp" are K6's two unpack bodies;
@@ -176,27 +181,29 @@ def _check_packed(p: PackedMXQLinear, dev: torch.device) -> None:
 
 
 def _split_rows(nbp: int, n_padded: int, b_tiles: int, sms: int) -> int:
-    """Meta rows (64 input columns each) per K split: enough splits that
-    about two blocks per SM are in flight. A split never straddles a
-    k-tile: it is a divisor of 16 rows or a multiple of 16."""
+    """Meta rows (64 input columns each) per K split of the one-row
+    kernels (K2, K6 at B=1): enough splits that about two blocks per SM
+    are in flight. A split never straddles a k-tile: it is a divisor of
+    16 rows or a multiple of 16."""
     want = -(-2 * sms // ((n_padded // _COLS_PER_BLOCK) * b_tiles))
     cands = [1, 2, 4, 8] + list(range(16, nbp + 1, 16))
     fits = [c for c in cands if -(-nbp // c) >= want]
     return max(fits) if fits else 1
 
 
-def _gemv_cuda(fn_name: str, rows_per_thread: int, x: torch.Tensor,
+def _gemv_cuda(fn_name: str, x: torch.Tensor,
                p: PackedMXQLinear) -> torch.Tensor:
+    """Launch a one-row kernel of ``csrc/mxq_gemv.cu``."""
     from mxq_tpu_torch import _build
-    if x.dim() != 2 or x.shape[1] != p.in_features:
-        raise ValueError(f"x must be [B, {p.in_features}], got "
+    if x.dim() != 2 or x.shape != (1, p.in_features):
+        raise ValueError(f"x must be [1, {p.in_features}], got "
                          f"{tuple(x.shape)}")
     _check_packed(p, x.device)
     xb = x.to(torch.bfloat16).contiguous()
     b, k = xb.shape
     nbp, n = p.meta2.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows = _split_rows(nbp, n, -(-b // rows_per_thread), sms)
+    rows = _split_rows(nbp, n, 1, sms)
     ksplit = -(-nbp // rows)
     part = torch.empty((ksplit, b, n), dtype=torch.float32, device=x.device)
     y = torch.empty((b, p.out_features), dtype=torch.float32,
@@ -211,19 +218,92 @@ def _gemv_cuda(fn_name: str, rows_per_thread: int, x: torch.Tensor,
     return y
 
 
-def _rows_per_thread(x: torch.Tensor) -> int:
-    return 1 if x.shape[0] == 1 else _K1_ROWS
+def _k1_tile(b: int) -> int:
+    """The tensor-core template's tile id for ``b`` batch rows
+    (csrc/mxq_gemv_tc.cu by_tile): codes-major blocks of 8 or 32 rows up
+    to 64 rows (the weight read once, or twice from L2 above 32), then
+    128-row group-major tiles (the weight re-read b/128 times)."""
+    return 0 if b <= 8 else 1 if b <= 64 else 2
+
+
+@functools.cache
+def _k1_tiles() -> tuple[tuple[int, int, int], ...]:
+    """(batch rows, columns, blocks per SM) of each tile id, as the built
+    kernel instantiates them and the card's occupancy rules place them."""
+    from mxq_tpu_torch import _build
+    buf = (ctypes.c_int * 24)()
+    n = _build.load("mxq_gemv_tc").mxq_gemv_tc_tiles(buf, 8)
+    tiles = tuple(tuple(buf[3 * i: 3 * i + 3]) for i in range(n))
+    if any(t[2] < 1 for t in tiles):
+        raise RuntimeError(f"mxq_gemv_tc: a tile does not fit an SM: {tiles}")
+    return tiles
+
+
+def _k1_split_tiles(n_kt: int, n_padded: int, b: int, sms: int,
+                    tiles) -> int:
+    """k-tiles per K split for the tile that ``b`` picks from ``tiles``
+    (``_k1_tiles()``): the one that finishes first when the blocks run in
+    waves of ``sms`` times the tile's blocks per SM and a block costs its
+    k-tiles plus one k-tile's worth of pipeline fill; of equal costs, the
+    fewest splits."""
+    bm, bn, per_sm = tiles[_k1_tile(b)]
+    blocks = (n_padded // bn) * -(-b // bm)
+    slots = sms * per_sm
+
+    def cost(p):
+        waves = -(-blocks * -(-n_kt // p) // slots)
+        return waves * (p + 1), -p
+
+    return min(range(1, n_kt + 1), key=cost)
+
+
+def _gemv_tc(layout: str, x: torch.Tensor,
+             p: PackedMXQLinear) -> torch.Tensor:
+    """Launch K1 (``layout`` "slab") or K6 ("quad", "bfexp") on the tensor
+    cores: a first pass writes bf16(x) in the MMA's slot order, then the
+    tile's mainloop, then (with a K split) the fixed-order sum of the
+    splits."""
+    from mxq_tpu_torch import _build
+    if x.dim() != 2 or x.shape[1] != p.in_features:
+        raise ValueError(f"x must be [B, {p.in_features}], got "
+                         f"{tuple(x.shape)}")
+    _check_packed(p, x.device)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        x = x.float()
+    x = x.contiguous()
+    b, k = x.shape
+    nbp, n = p.meta2.shape
+    n_kt = nbp // packfmt.NB_TILE
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    per_split = _k1_split_tiles(n_kt, n, b, sms, _k1_tiles())
+    ksplit = -(-n_kt // per_split)
+    xp = torch.empty((b, nbp * 64), dtype=torch.bfloat16, device=x.device)
+    y = torch.empty((b, p.out_features), dtype=torch.float32,
+                    device=x.device)
+    # one split writes y directly; more go through partial sums
+    part = (torch.empty((ksplit, b, n), dtype=torch.float32, device=x.device)
+            if ksplit > 1 else y)
+    err = _build.load("mxq_gemv_tc").mxq_gemv_tc(
+        _TC_LAYOUT[layout], _k1_tile(b), x.data_ptr(),
+        int(x.dtype == torch.float32), b, k, k, p.w2.data_ptr(),
+        p.w4.data_ptr(), p.meta2.data_ptr(), p.qscale.data_ptr(),
+        p.qmin.data_ptr(), p.smeta4.data_ptr(), nbp, n, p.out_features,
+        per_split, ksplit, xp.data_ptr(), part.data_ptr(), y.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, f"mxq_gemv_tc ({layout})")
+    return y
 
 
 def gemv_quad(x: torch.Tensor, p: PackedMXQLinear,
               cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
     """K6, layout ``quad``: K1's function by byte-quad code extraction,
-    bf16(x) [B, K] @ dequant(p) -> f32 [B, O] at any B; its sums run in
-    K1's (at B=1 K2's) order, so the outputs are equal bit for bit."""
+    bf16(x) [B, K] @ dequant(p) -> f32 [B, O] at any B; its MMA operands
+    and sums equal K1's (at B=1 K2's), so the outputs are equal bit for
+    bit."""
     if x.device.type == "cpu":
         return gemv_plain(x, p, cfg)
-    rows = _rows_per_thread(x)
-    y = _gemv_cuda(f"mxq_gemv_k6_quad{rows}", rows, x, p)
+    y = (_gemv_cuda("mxq_gemv_k6_quad1", x, p) if x.shape[0] == 1
+         else _gemv_tc("quad", x, p))
     gemv_quad.launches += 1
     return y
 
@@ -234,18 +314,19 @@ def gemv_bfexp(x: torch.Tensor, p: PackedMXQLinear,
     :func:`gemv_bfexp_plain` -> f32 [B, O] at any B."""
     if x.device.type == "cpu":
         return gemv_bfexp_plain(x, p, cfg)
-    rows = _rows_per_thread(x)
-    y = _gemv_cuda(f"mxq_gemv_k6_bfexp{rows}", rows, x, p)
+    y = (_gemv_cuda("mxq_gemv_k6_bfexp1", x, p) if x.shape[0] == 1
+         else _gemv_tc("bfexp", x, p))
     gemv_bfexp.launches += 1
     return y
 
 
 def gemv_batched(x: torch.Tensor, p: PackedMXQLinear,
                  cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
-    """K1: bf16(x) [B, K] @ dequant(p) -> f32 [B, O] for B >= 2."""
+    """K1: bf16(x) [B, K] @ dequant(p) -> f32 [B, O] for B >= 2 (the
+    tensor-core template takes B = 1 too)."""
     if x.device.type == "cpu":
         return gemv_plain(x, p, cfg)
-    y = _gemv_cuda("mxq_gemv_k1", _K1_ROWS, x, p)
+    y = _gemv_tc("slab", x, p)
     gemv_batched.launches += 1
     return y
 
@@ -257,7 +338,7 @@ def gemv_single(x: torch.Tensor, p: PackedMXQLinear,
         return gemv_plain(x, p, cfg)
     if x.shape[0] != 1:
         raise ValueError(f"K2 takes one row, got {x.shape[0]}")
-    y = _gemv_cuda("mxq_gemv_k2", 1, x, p)
+    y = _gemv_cuda("mxq_gemv_k2", x, p)
     gemv_single.launches += 1
     return y
 

@@ -30,7 +30,13 @@ def _pack(gen, o, k):
     return packfmt.quantize_pack(w)
 
 
-@pytest.mark.parametrize("b", [1, 2, 8, 13, 128])
+# every tile of K1/K6's template and its edges: codes-major 8-row (2-8)
+# and 32-row blocks (13-64, two row blocks above 32), group-major 128-row
+# tiles (65-511)
+GEMV_ROWS = [1, 2, 8, 13, 40, 64, 65, 128, 200, 511]
+
+
+@pytest.mark.parametrize("b", GEMV_ROWS)
 @pytest.mark.parametrize("o,k", [(320, 1088), (1024, 4096)])
 def test_gemv_kernels_match_plain(gen, b, o, k):
     p = _pack(gen, o, k)
@@ -43,14 +49,15 @@ def test_gemv_kernels_match_plain(gen, b, o, k):
     assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-4
 
 
-@pytest.mark.parametrize("b", [1, 2, 8, 13, 128])
+@pytest.mark.parametrize("b", GEMV_ROWS)
 @pytest.mark.parametrize("o,k", [(320, 1088), (1024, 4096)])
 def test_gemv_layout_kernels_match_plain(gen, b, o, k):
     """K6 against its plain versions, <= 1e-4 of max|y|: quad against
     K1's function (and equal to K1's, at B=1 K2's, output bit for bit:
-    the same sums in the same order), bfexp against gemv_bfexp_plain (the
-    same bf16 weights, bit for bit; only the f32 summation order
-    differs), and bfexp's function within 0.05 of the exact product."""
+    the same operands and sums in the same order), bfexp against
+    gemv_bfexp_plain (the same bf16 weights, bit for bit; only the f32
+    summation order differs), and bfexp's function within 0.05 of the
+    exact product."""
     p = _pack(gen, o, k)
     x = torch.randn((b, k), generator=gen, device="cuda").to(torch.bfloat16)
     yq, yb = mm.gemv_quad(x, p), mm.gemv_bfexp(x, p)
@@ -62,6 +69,32 @@ def test_gemv_layout_kernels_match_plain(gen, b, o, k):
         x, p))
     assert float((yb - refb).abs().max() / refb.abs().max()) <= 1e-4
     assert float((refb - ref).abs().max() / ref.abs().max()) < 0.05
+
+
+@pytest.mark.parametrize("b", [8, 40, 128])
+def test_gemv_kernels_on_stacked_layer(gen, b):
+    """K1 and K6 on layer 1 of a stacked pack (views at a layer offset)
+    from f32 x, as the model's layer loop calls them: equal to the same
+    kernel on that layer's own pack, and within 1e-4 of the plain
+    version."""
+    ps = [_pack(gen, 512, 2112) for _ in range(3)]
+    st = packfmt.stack_packed(ps)
+    x = torch.randn((b, 2112), generator=gen, device="cuda")
+    for fn, plain in ((mm.gemv_batched, mm.gemv_plain),
+                      (mm.gemv_quad, mm.gemv_plain),
+                      (mm.gemv_bfexp, mm.gemv_bfexp_plain)):
+        y = fn(x, st.layer(1))
+        ref = plain(x, ps[1])
+        torch.cuda.synchronize()
+        assert torch.equal(y, fn(x, ps[1]))
+        assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-4
+
+
+def test_k1_tiles_as_built(gen):
+    """The tiles the built K1/K6 library reports, with the blocks per SM
+    the card places, are the table the CPU tests hold the tile rule and K
+    split to (tests/test_torch_mxq_matmul.py K1_TILES)."""
+    assert mm._k1_tiles() == ((8, 128, 2), (32, 64, 2), (128, 128, 1))
 
 
 @pytest.mark.parametrize("o,k", [(320, 1088), (1024, 4096)])

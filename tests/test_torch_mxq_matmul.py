@@ -378,6 +378,340 @@ def test_gemv_layout_is_read_at_import():
     assert out.stdout.split() == ["bfexp", "bfexp", "quad"], out.stderr
 
 
+# ---------------------------------------------------------------------------
+# K1/K6 at B >= 2 on the tensor cores (csrc/mxq_gemv_tc.cu): numpy
+# emulations of the kernel's operand build, x's slot order and its
+# group-folded sums, and the wrapper's tile and K-split rule
+# ---------------------------------------------------------------------------
+
+MAGIC = np.uint32(0x43004300)       # bf16 128.0 in both halves
+
+
+def _u32(a):
+    return np.asarray(a).astype(np.int64).astype(np.uint32)
+
+
+def _byte_perm(x, y, sel):
+    """PTX prmt (CUDA __byte_perm): result byte n is byte
+    (sel >> 4n) & 7 of the pair (y:x)."""
+    x, y = _u32(x), _u32(y)
+    out = np.zeros(np.broadcast(x, y).shape, np.uint32)
+    for n in range(4):
+        k = (sel >> (4 * n)) & 7
+        src = x if k < 4 else y
+        byte = (src >> np.uint32(8 * (k % 4))) & np.uint32(0xFF)
+        out |= byte << np.uint32(8 * n)
+    return out
+
+
+def _rotl(w, n):
+    n %= 32
+    w = _u32(w)
+    if n == 0:
+        return w
+    return (w << np.uint32(n)) | (w >> np.uint32(32 - n))
+
+
+def _operand2(w, tq, layout):
+    """Registers r0 (codes tq, tq+8) and r1 (tq+4, tq+12) of lane tq from
+    2-bit words, before the zero is subtracted (operand2)."""
+    w = _u32(w)
+    if layout == "slab":
+        return tuple((w >> np.uint32(s)) & np.uint32(0x00030003) | MAGIC
+                     for s in (2 * tq, 2 * tq + 8))
+    t = (w >> np.uint32(2 * tq)) & np.uint32(0x03030303)
+    return (_byte_perm(t, 0x43434343, 0x4240),
+            _byte_perm(t, 0x43434343, 0x4341))
+
+
+def _operand4(w0, w1, tq, layout):
+    """Registers r0 (codes tq, tq+4 of w0) and r1 (8+tq, 12+tq: the same
+    of w1) of lane tq from 4-bit words (operand4)."""
+    if layout == "slab":
+        return tuple((_u32(w) >> np.uint32(4 * tq)) & np.uint32(0x000F000F)
+                     | MAGIC for w in (w0, w1))
+    sel = 0x4240 + 0x0101 * (tq >> 1)
+    return tuple(_byte_perm((_u32(w) >> np.uint32(4 * (tq & 1)))
+                            & np.uint32(0x0F0F0F0F), 0x43434343, sel)
+                 for w in (w0, w1))
+
+
+def _halves(r):
+    """bf16 halves (low, high) of 32-bit registers as bf16 tensors."""
+    r = _u32(r)
+    return [torch.from_numpy(((h & np.uint32(0xFFFF)) << np.uint32(16))
+                             .view(np.float32)).to(torch.bfloat16)
+            for h in (r, r >> np.uint32(16))]
+
+
+def _minus_zero(r, z):
+    """sub.bf16x2 of bf16x2(128 + z): the zero operand built as the kernel
+    builds it (entry_ops: prmt of the zero byte), both halves, f32."""
+    zz = _halves(_byte_perm(_u32(z), 0x43, 0x4040))
+    return [(h - zh).float() for h, zh in zip(_halves(r), zz)]
+
+
+def _words_with(codes_at, bits, rng, n):
+    """n random words whose every field is random, except those that
+    codes_at {position: codes} sets; every other word negative as int32."""
+    w = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    w[::2] |= np.uint32(0x80000000)
+    for j, c in codes_at.items():
+        field = np.uint32(((1 << bits) - 1) << (bits * j))
+        w = (w & ~field) | (_u32(c) << np.uint32(bits * j))
+    return w
+
+
+@pytest.mark.parametrize("layout", ["slab", "quad"])
+def test_tc_operand_build_is_exact(layout):
+    """Every code value at every position, with every zero, in words whose
+    other bits are random and half of them negative as int32: lane tq's
+    registers hold c - z exactly, 2-bit r0 codes (tq, tq+8) and r1 (tq+4,
+    tq+12), 4-bit r0 codes (tq, tq+4) of the first word and r1 (tq, tq+4)
+    of the second; and quad's byte-quad extraction gives the very 32-bit
+    registers of slab's shift and lop3."""
+    rng = np.random.default_rng(7)
+    n = 64
+    for tq in range(4):
+        js = (tq, tq + 8, tq + 4, tq + 12)
+        for z in range(4):
+            cs = [rng.integers(0, 4, n) for _ in js]
+            for c in cs:
+                c[:4] = np.arange(4)[rng.permutation(4)]     # every value
+            w = _words_with(dict(zip(js, cs)), 2, rng, n)
+            regs = _operand2(w, tq, layout)
+            for r, (ca, cb) in zip(regs, (cs[:2], cs[2:])):
+                lo, hi = _minus_zero(r, np.full(n, z))
+                np.testing.assert_array_equal(lo.numpy(), ca - z)
+                np.testing.assert_array_equal(hi.numpy(), cb - z)
+            for r, rs in zip(regs, _operand2(w, tq, "slab")):
+                np.testing.assert_array_equal(r, rs)
+        for z in range(16):
+            cs = [rng.integers(0, 16, n) for _ in range(4)]
+            for c in cs:
+                c[:16] = rng.permutation(16)
+            w0 = _words_with({tq: cs[0], tq + 4: cs[1]}, 4, rng, n)
+            w1 = _words_with({tq: cs[2], tq + 4: cs[3]}, 4, rng, n)
+            regs = _operand4(w0, w1, tq, layout)
+            for r, (ca, cb) in zip(regs, (cs[:2], cs[2:])):
+                lo, hi = _minus_zero(r, np.full(n, z))
+                np.testing.assert_array_equal(lo.numpy(), ca - z)
+                np.testing.assert_array_equal(hi.numpy(), cb - z)
+            for r, rs in zip(regs, _operand4(w0, w1, tq, "slab")):
+                np.testing.assert_array_equal(r, rs)
+
+
+# the MMA k-slot of each column of a 16-column chunk (permute_x_kernel):
+# slot 2i + h holds column i + 8h of a 2-bit group, i + 4h + 4*(i >= 4) of
+# a block's 4-bit chunk
+SLOT_COL2 = [i + 8 * h for i in range(8) for h in range(2)]
+SLOT_COL4 = [i + 4 * h + 4 * (i >= 4) for i in range(8) for h in range(2)]
+
+
+def _permuted_x(x, p):
+    """bf16(x) padded to the packed K and permuted as the kernel's first
+    pass writes it: [B, NBP*3, 16] (row t*48 + g: 2-bit group g of k-tile
+    t, the row order of w2) and [B, NBP, 16] (block's 4-bit chunk)."""
+    nbp = p.meta2.shape[0]
+    xb = torch.nn.functional.pad(x.to(torch.bfloat16).float(),
+                                 (0, nbp * 64 - x.shape[1]))
+    xc = xb.reshape(x.shape[0], nbp, 4, 16)
+    x2 = xc[:, :, :3][..., SLOT_COL2].reshape(x.shape[0], nbp * 3, 16)
+    return x2, xc[:, :, 3][..., SLOT_COL4]
+
+
+def _group_meta(p):
+    """Each 2-bit group's scale code, zero and second-order scale/min as
+    the kernel's group table reads them: meta word (t, g % 16), field
+    g // 16, for w2's row order t*48 + g."""
+    nbp, n = p.meta2.shape
+    rows = np.arange(nbp * 3)
+    t, g = rows // 48, rows % 48
+    r = t * 16 + g % 16
+    f = (g // 16)[:, None]
+    m = _u32(p.meta2.numpy())[r]
+    z = (m >> _u32(2 * f)) & np.uint32(3)
+    sc = ((m >> _u32(6 + 8 * f)) & np.uint32(255)).astype(np.float32)
+    qs = p.qscale.float().numpy()[r]
+    qm = p.qmin.float().numpy()[r]
+    return z, sc, qs, qm
+
+
+def _slot_weights(p, layout, entry):
+    """The A (or B) operand of every 2-bit group and 4-bit chunk as the
+    kernel builds it from the packed words, by k-slot: [NBP*3, 16, N] and
+    [NBP, 16, N] f32. ``entry(regs, group_params)`` finishes a lane's
+    registers (c - z, or bfexp's weights)."""
+    nbp, n = p.meta2.shape
+    w2 = _u32(p.w2.numpy())
+    w4 = _u32(p.w4.numpy())
+    a2 = torch.empty((nbp * 3, 16, n))
+    a4 = torch.empty((nbp, 16, n))
+    for tq in range(4):
+        for k, r in enumerate(_operand2(w2, tq, layout)):
+            lo, hi = entry(r, 2)
+            a2[:, 2 * tq + 8 * k], a2[:, 2 * tq + 8 * k + 1] = lo, hi
+        regs = _operand4(w4[0::2], w4[1::2], tq, layout)
+        for k, r in enumerate(regs):
+            lo, hi = entry(r, 4)
+            a4[:, 2 * tq + 8 * k], a4[:, 2 * tq + 8 * k + 1] = lo, hi
+    return a2, a4
+
+
+def _tc_folded(x, p, layout="slab"):
+    """The kernel's sums: per 2-bit group acc += s * (x_g . (c_g - z_g)),
+    s = qscale * code + qmin rounded twice in f32; the 4-bit plane's
+    x . (c4 - z4) over all of K, y = acc + s4 * acc4; every product over
+    the k-slots of the permuted x."""
+    z, sc, qs, qm = _group_meta(p)
+    s = torch.from_numpy((qs * sc).astype(np.float32) + qm)      # [R, N]
+    z4 = p.smeta4[1].numpy()
+
+    def entry(r, bits):
+        return _minus_zero(r, z if bits == 2 else
+                           np.broadcast_to(z4.astype(np.int64), r.shape))
+
+    a2, a4 = _slot_weights(p, layout, entry)
+    x2, x4 = _permuted_x(x, p)
+    part = torch.einsum("bgs,gsn->bgn", x2, a2)
+    acc = (s[None] * part).sum(dim=1)
+    acc4 = torch.einsum("bks,ksn->bn", x4, a4)
+    return (acc + p.smeta4[0] * acc4)[:, : p.out_features]
+
+
+@pytest.mark.parametrize("b,o,k", [(2, 320, 1088), (40, 1024, 4096),
+                                   (130, 320, 2048)])
+def test_tc_group_folded_algebra_matches_plain_and_jax(b, o, k):
+    """The kernel's algebra (operands from the packed words, x in its slot
+    order, the per-group fold) against gemv_plain within 1e-6 of max|y|
+    (only the f32 summation order and the rounding of s * sum against the
+    sum of s*(c - z) differ), and against mxq_tpu's mxq_matmul (Pallas in
+    interpret mode) within 1e-4; slab and quad give the same sums."""
+    rng = np.random.default_rng(b)
+    w = rng.standard_normal((o, k)).astype(np.float32)
+    x = rng.standard_normal((b, k)).astype(np.float32)
+    pj = jpf.quantize_pack(jnp.asarray(w))
+    pt = port_params({"p": pj})["p"]
+    xt = torch.from_numpy(x)
+    got = _tc_folded(xt, pt)
+    assert got.shape == (b, o)
+    assert rel(got, tmm.gemv_plain(xt, pt)) <= 1e-6
+    assert rel(got, np.asarray(jmm.mxq_matmul(jnp.asarray(x), pj))) <= 1e-4
+    assert torch.equal(_tc_folded(xt, pt, "quad"), got)
+
+
+def test_tc_bfexp_registers_match_plain():
+    """bfexp's registers: the code pair rotated into bf16 1.0's mantissa
+    (1 + c/4; 4-bit 1 + c/16), times bf16(4s) and less bf16(4s + s*z) in
+    bf16 (4-bit: bf16(16*s4), bf16(16*s4 + s4*z4)), with the table's
+    operands packed in one word and split by prmt, give gemv_bfexp_plain's
+    weights bit for bit, and with x in the same slots its output within
+    1e-4 of max|y| (the f32 summation order differs)."""
+    rng = np.random.default_rng(21)
+    o, k = 256, 2112
+    p = tpf.quantize_pack(torch.from_numpy(
+        rng.standard_normal((o, k)).astype(np.float32)))
+    z, sc, qs, qm = _group_meta(p)
+    s = (qs * sc).astype(np.float32) + qm
+    s4x = (4 * s).astype(np.float32)
+
+    def packed_entry(a, b):
+        """bf16(a) | bf16(b) << 16, split back as entry_ops does"""
+        ha = _u32(torch.from_numpy(a).to(torch.bfloat16).view(
+            torch.int16).numpy()) & np.uint32(0xFFFF)
+        hb = _u32(torch.from_numpy(b).to(torch.bfloat16).view(
+            torch.int16).numpy()) & np.uint32(0xFFFF)
+        e = ha | (hb << np.uint32(16))
+        return (_halves(_byte_perm(e, 0, 0x1010))[0],
+                _halves(_byte_perm(e, 0, 0x3232))[0])
+
+    e2 = packed_entry(s4x, (s4x + s * z.astype(np.float32)).astype(
+        np.float32))
+    s4, z4 = p.smeta4[0].numpy(), p.smeta4[1].numpy()
+    s16 = (16 * s4).astype(np.float32)
+    e4 = packed_entry(s16, (s16 + s4 * z4).astype(np.float32))
+
+    def entry(r, bits):
+        # the code pair sits at bits 0-1 (2-bit) or 0-3 (4-bit) of each
+        # half of a slab register: rotate it to bits 5-6 or 3-6
+        c = _u32(r) & np.uint32(0x000F000F)
+        pb = c << np.uint32(5 if bits == 2 else 3) | np.uint32(0x3F803F80)
+        sb, zb = e2 if bits == 2 else (
+            e4[0].expand(c.shape[0], -1), e4[1].expand(c.shape[0], -1))
+        return [((sb * h) - zb).float() for h in _halves(pb)]
+
+    a2, a4 = _slot_weights(p, "slab", entry)
+    x = torch.from_numpy(rng.standard_normal((5, k)).astype(np.float32))
+    x2, x4 = _permuted_x(x, p)
+    y = (torch.einsum("bgs,gsn->bn", x2, a2)
+         + torch.einsum("bks,ksn->bn", x4, a4))[:, :o]
+    assert rel(y, tmm.gemv_bfexp_plain(x, p)) <= 1e-4
+    # the weights in natural column order against the plain version's,
+    # read out by one-hot rows of x
+    nat2 = a2.reshape(-1, 3, 16, a2.shape[-1])[:, :, np.argsort(SLOT_COL2)]
+    nat4 = a4[:, np.argsort(SLOT_COL4)]
+    wk = torch.cat([nat2.reshape(nat2.shape[0], 48, -1),
+                    nat4.reshape(nat4.shape[0], 16, -1)], dim=1)
+    wk = wk.reshape(-1, a2.shape[-1])[:k, :o]
+    assert torch.equal(wk, tmm.gemv_bfexp_plain(torch.eye(k), p))
+
+
+def test_tc_bfexp_rotation_is_the_kernels_shift():
+    """The kernel takes bfexp's code pair by one rotation of the word
+    (rotl(w, 5 - 2j) & 0x00600060; 4-bit rotl(w, 3 - 4j) & 0x00780078),
+    which must put codes j and j+8 (4-bit j and j+4) where the slab
+    register's mask, shifted, puts them, for every position and word."""
+    rng = np.random.default_rng(3)
+    w = rng.integers(0, 2**32, 4096, dtype=np.uint64).astype(np.uint32)
+    for j in range(8):
+        slab = (w >> np.uint32(2 * j)) & np.uint32(0x00030003)
+        np.testing.assert_array_equal(
+            _rotl(w, 5 - 2 * j) & np.uint32(0x00600060),
+            slab << np.uint32(5))
+    for j in range(4):
+        slab = (w >> np.uint32(4 * j)) & np.uint32(0x000F000F)
+        np.testing.assert_array_equal(
+            _rotl(w, 3 - 4 * j) & np.uint32(0x00780078),
+            slab << np.uint32(3))
+
+
+# (batch rows, columns, blocks per SM) of K1/K6's tile ids as
+# csrc/mxq_gemv_tc.cu builds them on the H100 (ops/mxq_matmul._k1_tiles
+# reads them from the library on the card; a cuda test holds them to this)
+K1_TILES = ((8, 128, 2), (32, 64, 2), (128, 128, 1))
+K1_SPLIT_ROWS = (2, 8, 40, 64, 65, 128, 511)
+
+
+@pytest.mark.parametrize("b,tile", [(1, 0), (2, 0), (8, 0), (9, 1), (40, 1),
+                                    (64, 1), (65, 2), (128, 2), (511, 2)])
+def test_k1_tile_rule(b, tile):
+    """Codes-major blocks of 8 rows up to 8, of 32 up to 64 (two row blocks
+    above 32), then 128-row group-major tiles, up to the 511 rows under
+    the prefill switch."""
+    assert tmm._k1_tile(b) == tile
+    assert b <= 2 * K1_TILES[tile][0] or tile == len(K1_TILES) - 1
+
+
+@pytest.mark.parametrize("name,n_kt,n,want", [
+    ("qkv", 4, 12288, (2, 2, 2, 2, 4, 4, 4)),
+    ("o", 4, 4096, (1, 1, 2, 2, 1, 1, 4)),
+    ("gate_up", 4, 22528, (4, 4, 4, 4, 2, 2, 4)),
+    ("down", 11, 4096, (2, 2, 6, 6, 3, 3, 11)),
+])
+@pytest.mark.parametrize("i", range(len(K1_SPLIT_ROWS)),
+                         ids=[f"b{b}" for b in K1_SPLIT_ROWS])
+def test_k1_split_tiles(name, n_kt, n, want, i):
+    """K1/K6's K split at llama2_7b's four packed linears on a 132-SM
+    H100, k-tiles per split: the fewest waves times (k-tiles + 1 of
+    fill), ties to fewer splits. E.g. o at B=8: 32 column blocks, four
+    splits of one k-tile fill 128 of the 264 slots in one wave."""
+    b = K1_SPLIT_ROWS[i]
+    per = tmm._k1_split_tiles(n_kt, n, b, 132, K1_TILES)
+    assert per == want[i]
+    assert 1 <= per <= n_kt
+
+
+
 if __name__ == "__main__":
     # the gaps quoted in ROADMAP.md (queue 3), as rel = max|diff| / max|y|
     for shape in LAYOUT_SHAPES:
