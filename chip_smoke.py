@@ -30,8 +30,8 @@ Phases, each printing one JSON line:
            speculative decoding always on (K1, K4a) and plain (K1, K4),
            7 of 8 requests' tokens equal; cli serve --prefill_a8
            --lm_head_bits 4 with 600-token prompts (K1, K4, K5, K7); then
-           where a decode step's time goes, slot and paged, and where a
-           speculative verify round's does, and the device time of one
+           where a decode step's time goes, slot (8 slots and one) and
+           paged, and where a speculative verify round's does, and the device time of one
            2048-token prefill as cli_a8_u4 runs it
   eval     perplexity of llama2_7b at full depth: `cli eval-ppl --w_bits 2`
            (the fake-quant forward), the packed model at seqlen 128 once
@@ -107,7 +107,7 @@ KERNEL_INFO = {
     "K5": ("cuda", "mxq_tpu_torch/csrc/mxq_dequant.cu",
            "mxq_tpu/ops/mxq_matmul.py:856"),
     # K6's summary rows are at B=8: the tensor-core template (at one row
-    # K6 runs mxq_gemv.cu's loop)
+    # quad runs K2's kernel and bfexp its own loop, both in mxq_gemv.cu)
     "K6-quad": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv_tc.cu",
                 "mxq_tpu/ops/mxq_matmul.py:169"),
     "K6-bfexp": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv_tc.cu",
@@ -130,6 +130,9 @@ KERNEL_INFO = {
 # launches a kernel of these names
 K1_KERNEL_NAMES = ("permute_x_kernel", "gemv_small_kernel",
                    "gemv_large_kernel", "reduce_splits_kernel")
+# K2's (csrc/mxq_gemv.cu: the one-row kernel and its split sum); in the
+# profiled one-slot step no other wrapper launches a kernel of these names
+K2_KERNEL_NAMES = ("gemv_row_kernel", "gemv_row_sum_kernel")
 
 # summary rows counted by another kernel's wrapper
 COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a"}
@@ -1174,14 +1177,16 @@ def phase_serve(torch):
     # the two engines' decode steps and one speculative verify round,
     # wall-clocked in turns (the host's speed drifts between seconds),
     # then profiled
+    slots = {"slot": 8, "slot1": 1, "paged": 8, "spec": 8}
     step_fns = {"slot": slot_step(torch, params, cfg),
+                "slot1": slot_step(torch, params, cfg, b=1),
                 "paged": paged_step(torch, params, cfg),
                 "spec": verify_step(torch, params, cfg)}
     walls = {k: [] for k in step_fns}
     for _ in range(3):
         for k, fn in step_fns.items():
             walls[k].append(wall_ms(torch, fn))
-    profile = {k: decode_step_profile(torch, fn, walls[k])
+    profile = {k: decode_step_profile(torch, fn, walls[k], b=slots[k])
                for k, fn in step_fns.items()}
     del step_fns
     prefill = prefill_profile(torch, params, cfg)
@@ -1296,8 +1301,8 @@ def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
     """Where a decode step's time goes: ``step(i)`` is one full-model decode
     step for ``b`` slots at row ``pos + i``; ``walls`` its host-clock ms
     per step from :func:`wall_ms`, without the profiler. Device time per
-    kernel from torch.profiler; idle share = 1 - device busy / median
-    wall."""
+    kernel from torch.profiler, K1's and K2's kernels summed by name;
+    idle share = 1 - device busy / median wall."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1316,13 +1321,15 @@ def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
     busy = sum(per_kernel.values())
     wall = statistics.median(walls)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    k1 = sum(v for k, v in per_kernel.items()
-             if any(name in k for name in K1_KERNEL_NAMES))
+    k1, k2 = (sum(v for k, v in per_kernel.items()
+                  if any(name in k for name in names))
+              for names in (K1_KERNEL_NAMES, K2_KERNEL_NAMES))
     return {"slots": b, "position": pos, "wall_ms_per_step": wall,
             "wall_ms_per_step_rounds": walls,
             "device_busy_ms_per_step": busy,
             "idle_share": 1.0 - busy / wall if wall else None,
             "k1_ms_per_step": k1, "k1_share_of_busy": k1 / busy,
+            "k2_ms_per_step": k2, "k2_share_of_busy": k2 / busy,
             "top_kernels_ms_per_step": {k[:80]: v for k, v in top}}
 
 

@@ -41,7 +41,7 @@ SIGNATURES = {
     "mxq_gemv": {
         name: [P, I, I, I, P, P, P, P, P, P, I, I, I, I, I, P, P, P]
         for name in ("mxq_gemv_k2", "mxq_gemv_k6_quad1",
-                     "mxq_gemv_k6_bfexp1")},
+                     "mxq_gemv_k6_bfexp1")} | {"mxq_gemv_tiles": [P, I]},
     "mxq_gemv_tc": {
         "mxq_gemv_tc": [I, I, P, I, I, I, I, P, P, P, P, P, P, I, I, I, I, I,
                         P, P, P, P],

@@ -6,11 +6,13 @@ Port of ``mxq_tpu/ops/mxq_matmul.py``. The function every path computes is
 
 * decode and prefill under 512 rows, B >= 2 -> K1 (:func:`gemv_batched`,
   ``csrc/mxq_gemv_tc.cu``: tensor cores, tiles picked by :func:`_k1_tile`)
-* decode, B == 1 row   -> K2 (:func:`gemv_single`, ``csrc/mxq_gemv.cu``)
+* decode, B == 1 row   -> K2 (:func:`gemv_single`, ``csrc/mxq_gemv.cu``:
+  4 columns a lane, warps splitting K, splits sized by :func:`_split_rows`)
 * the GEMV layouts ``quad`` and ``bfexp`` (``MXQ_GEMV_LAYOUT``, read at
   import into :data:`GEMV_LAYOUT`; ``MXQ_GEMV_LAYOUT_B1`` for one row,
   read per call; :func:`gemv_layout`) -> K6 (:func:`gemv_quad`,
-  :func:`gemv_bfexp`; K1's template at B >= 2, K2's loop at one row) at
+  :func:`gemv_bfexp`; K1's template at B >= 2; at one row quad is K2's
+  kernel and bfexp its own one-thread-per-column loop) at
   any row count. ``quad`` computes K1's function; ``bfexp`` a lossy one
   whose weights are rounded to bf16 in two steps
   (:func:`gemv_bfexp_plain`);
@@ -39,7 +41,6 @@ from mxq_tpu_torch import packfmt
 from mxq_tpu_torch.config import DEFAULT_SCHEME, MXQConfig
 from mxq_tpu_torch.packfmt import PackedMXQLinear
 
-_COLS_PER_BLOCK = 128     # csrc/mxq_gemv.cu THREADS (the one-row kernels)
 # layout ids of csrc/mxq_gemv_tc.cu
 _TC_LAYOUT = {"slab": 0, "quad": 1, "bfexp": 2}
 
@@ -180,20 +181,44 @@ def _check_packed(p: PackedMXQLinear, dev: torch.device) -> None:
         raise ValueError(f"packed shape {(nbp, n)} is not padded to the format")
 
 
-def _split_rows(nbp: int, n_padded: int, b_tiles: int, sms: int) -> int:
-    """Meta rows (64 input columns each) per K split of the one-row
-    kernels (K2, K6 at B=1): enough splits that about two blocks per SM
-    are in flight. A split never straddles a k-tile: it is a divisor of
-    16 rows or a multiple of 16."""
-    want = -(-2 * sms // ((n_padded // _COLS_PER_BLOCK) * b_tiles))
-    cands = [1, 2, 4, 8] + list(range(16, nbp + 1, 16))
-    fits = [c for c in cands if -(-nbp // c) >= want]
-    return max(fits) if fits else 1
+@functools.cache
+def _row_tiles() -> tuple[tuple[int, int, int], ...]:
+    """(columns per block, warps per block that split its meta rows,
+    blocks per SM) of the one-row kernels of ``csrc/mxq_gemv.cu``, as the
+    built library reports them: K2/K6-quad's ``gemv_row_kernel`` (blocks
+    per SM by the card's occupancy rules), then bfexp's loop."""
+    from mxq_tpu_torch import _build
+    buf = (ctypes.c_int * 6)()
+    n = _build.load("mxq_gemv").mxq_gemv_tiles(buf, 2)
+    tiles = tuple(tuple(buf[3 * i: 3 * i + 3]) for i in range(n))
+    if any(t[2] < 1 for t in tiles):
+        raise RuntimeError(f"mxq_gemv: a kernel does not fit an SM: {tiles}")
+    return tiles
+
+
+def _split_rows(nbp: int, n_padded: int, sms: int, tile) -> int:
+    """Meta rows (64 input columns each) per K split of a one-row kernel
+    with geometry ``tile`` (a row of :func:`_row_tiles`): the fewest splits
+    whose blocks fill every SM with the tile's blocks per SM, and of those
+    the shortest split (splits of equal length). A split never straddles a
+    k-tile (a divisor of 16 rows or a multiple of 16) and gives each warp
+    that splits a block's rows at least one row; when no split fills the
+    card, the shortest such split."""
+    cols, warps, per_sm = tile
+    blocks = n_padded // cols
+    cands = [c for c in [1, 2, 4, 8] + list(range(16, nbp + 1, 16))
+             if c >= warps]
+    fits = [c for c in cands if blocks * -(-nbp // c) >= per_sm * sms]
+    if not fits:
+        return min(cands)
+    fewest = min(-(-nbp // c) for c in fits)
+    return min(c for c in fits if -(-nbp // c) == fewest)
 
 
 def _gemv_cuda(fn_name: str, x: torch.Tensor,
                p: PackedMXQLinear) -> torch.Tensor:
-    """Launch a one-row kernel of ``csrc/mxq_gemv.cu``."""
+    """Launch a one-row kernel of ``csrc/mxq_gemv.cu``: the kernel, then
+    the fixed-order sum of its K splits."""
     from mxq_tpu_torch import _build
     if x.dim() != 2 or x.shape != (1, p.in_features):
         raise ValueError(f"x must be [1, {p.in_features}], got "
@@ -203,7 +228,8 @@ def _gemv_cuda(fn_name: str, x: torch.Tensor,
     b, k = xb.shape
     nbp, n = p.meta2.shape
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    rows = _split_rows(nbp, n, 1, sms)
+    tile = _row_tiles()[1 if fn_name == "mxq_gemv_k6_bfexp1" else 0]
+    rows = _split_rows(nbp, n, sms, tile)
     ksplit = -(-nbp // rows)
     part = torch.empty((ksplit, b, n), dtype=torch.float32, device=x.device)
     y = torch.empty((b, p.out_features), dtype=torch.float32,

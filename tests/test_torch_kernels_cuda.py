@@ -1,5 +1,6 @@
 """K1-K6, K4a-K4d, K7, K8 and K9-K11 on the card against their plain
-PyTorch versions at small shapes (the attention kernels also at histories
+PyTorch versions at small shapes (the one-row kernels also at
+llama2_7b down's K of 11008, the attention kernels at histories
 of up to 4096 rows, cut at their 128-row split edges). Needs a CUDA device and nvcc (marker ``cuda``); skips
 elsewhere. Run on the H100 with
 ``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``;
@@ -71,16 +72,17 @@ def test_gemv_layout_kernels_match_plain(gen, b, o, k):
     assert float((refb - ref).abs().max() / ref.abs().max()) < 0.05
 
 
-@pytest.mark.parametrize("b", [8, 40, 128])
+@pytest.mark.parametrize("b", [1, 8, 40, 128])
 def test_gemv_kernels_on_stacked_layer(gen, b):
-    """K1 and K6 on layer 1 of a stacked pack (views at a layer offset)
-    from f32 x, as the model's layer loop calls them: equal to the same
-    kernel on that layer's own pack, and within 1e-4 of the plain
-    version."""
+    """K1 (K2 at one row) and K6 on layer 1 of a stacked pack (views at a
+    layer offset) from f32 x, as the model's layer loop calls them: equal
+    to the same kernel on that layer's own pack, and within 1e-4 of the
+    plain version."""
     ps = [_pack(gen, 512, 2112) for _ in range(3)]
     st = packfmt.stack_packed(ps)
     x = torch.randn((b, 2112), generator=gen, device="cuda")
-    for fn, plain in ((mm.gemv_batched, mm.gemv_plain),
+    k1 = mm.gemv_single if b == 1 else mm.gemv_batched
+    for fn, plain in ((k1, mm.gemv_plain),
                       (mm.gemv_quad, mm.gemv_plain),
                       (mm.gemv_bfexp, mm.gemv_bfexp_plain)):
         y = fn(x, st.layer(1))
@@ -88,6 +90,45 @@ def test_gemv_kernels_on_stacked_layer(gen, b):
         torch.cuda.synchronize()
         assert torch.equal(y, fn(x, ps[1]))
         assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("o,k", [(512, 11008), (4096, 11008)])
+def test_one_row_kernels_at_down_width(gen, o, k):
+    """The one-row kernels at K = 11008 (llama2_7b down's 176 meta rows,
+    11 k-tiles): K2 within 1e-4 of gemv_plain, gemv_quad at one row equal
+    to it bit for bit, gemv_bfexp at one row within 1e-4 of
+    gemv_bfexp_plain."""
+    p = _pack(gen, o, k)
+    x = torch.randn((1, k), generator=gen, device="cuda").to(torch.bfloat16)
+    y = mm.gemv_single(x, p)
+    yq, yb = mm.gemv_quad(x, p), mm.gemv_bfexp(x, p)
+    ref, refb = mm.gemv_plain(x, p), mm.gemv_bfexp_plain(x, p)
+    torch.cuda.synchronize()
+    assert y.shape == yq.shape == yb.shape == (1, o)
+    assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-4
+    assert torch.equal(yq, y)
+    assert float((yb - refb).abs().max() / refb.abs().max()) <= 1e-4
+
+
+def test_k2_x_at_any_offset(gen):
+    """K2 stages x by 16-byte loads where x is 16-byte aligned and K a
+    multiple of 8, else element by element: a bf16 x at an odd element
+    offset gives the aligned copy's output bit for bit."""
+    p = _pack(gen, 320, 1088)
+    buf = torch.randn((1, 1089), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    x = buf[:, 1:]
+    assert x.is_contiguous() and x.data_ptr() % 16
+    y = mm.gemv_single(x, p)
+    torch.cuda.synchronize()
+    assert torch.equal(y, mm.gemv_single(x.clone(), p))
+
+
+def test_row_tiles_as_built(gen):
+    """The one-row kernels' geometry the built library reports, with the
+    blocks per SM the card places gemv_row_kernel at, is the table the CPU
+    tests hold the K split to (tests/test_torch_mxq_matmul.py ROW_TILES)."""
+    assert mm._row_tiles() == ((128, 8, 2), (128, 1, 2))
 
 
 def test_k1_tiles_as_built(gen):

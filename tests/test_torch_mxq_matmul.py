@@ -135,15 +135,43 @@ def test_wrappers_reject_bad_input(packed):
         tmm._check_packed(stacked, torch.device("cpu"))
 
 
-@pytest.mark.parametrize("nbp,n,b,want", [
-    (64, 4096, 1, 4),        # o_proj at B=1: 32 column blocks -> 16 splits
-    (64, 12288, 1, 16),      # qkv at B=1: 96 column blocks -> 4 splits
-    (176, 4096, 1, 16),      # down at B=1: 11 splits of a whole k-tile
-    (64, 4096, 16, 64),      # 16 batch tiles fill the card alone: 1 split
+# (columns per block, warps per block that split its meta rows, blocks per
+# SM) of the one-row kernels as csrc/mxq_gemv.cu builds them on the H100:
+# K2/K6-quad's gemv_row_kernel, then bfexp's loop (ops/mxq_matmul._row_tiles
+# reads them from the library on the card; a cuda test holds them to this)
+ROW_TILES = ((128, 8, 2), (128, 1, 2))
+ROW_WARP_BYTES = 32 * (6 * 16 + 2 * 8)   # a warp's loads of one meta row
+
+
+@pytest.mark.parametrize("nbp,n,want", [
+    (64, 4096, 8),       # o_proj: 32 column blocks -> 8 splits of one row
+                         # per warp, 256 blocks (no split of >= 8 fills 264)
+    (64, 12288, 16),     # qkv: 96 column blocks -> 4 splits, 384 blocks
+    (176, 4096, 16),     # down: 11 splits of a whole k-tile, 352 blocks
+    (64, 33792, 64),     # 264 column blocks fill the card alone: 1 split
+    (64, 22528, 32),     # gate_up: 2 equal splits (not 48 + 16 rows)
 ])
-def test_split_rows(nbp, n, b, want):
-    """K1/K2's K split on a 132-SM H100."""
-    assert tmm._split_rows(nbp, n, b, 132) == want
+def test_split_rows(nbp, n, want):
+    """K2/K6-quad's K split on a 132-SM H100: the fewest splits whose
+    blocks fill two blocks of 8 warps on every SM, of equal length, one
+    meta row or more per warp. At each 7B linear every SM then has >= 32
+    KB of weight loads requested (a warp keeps one meta row's 3.5 KB in
+    flight)."""
+    cols, warps, per_sm = ROW_TILES[0]
+    rows = tmm._split_rows(nbp, n, 132, ROW_TILES[0])
+    assert rows == want and rows >= warps
+    blocks = (n // cols) * -(-nbp // rows)
+    resident = min(per_sm, blocks / 132) * min(warps, rows)
+    assert resident * ROW_WARP_BYTES >= 32 * 1024
+
+
+@pytest.mark.parametrize("nbp,n,want", [
+    (64, 4096, 4), (64, 12288, 16), (176, 4096, 16), (64, 22528, 32)])
+def test_split_rows_bfexp_loop(nbp, n, want):
+    """bfexp's one-row loop (one K slice per block, two blocks per SM) at
+    the four 7B linears: the splits it had before the one-row kernel's
+    redesign, except gate_up's two equal splits (was 48 + 16 rows)."""
+    assert tmm._split_rows(nbp, n, 132, ROW_TILES[1]) == want
 
 
 # ---------------------------------------------------------------------------
@@ -711,6 +739,193 @@ def test_k1_split_tiles(name, n_kt, n, want, i):
     assert 1 <= per <= n_kt
 
 
+
+
+# ---------------------------------------------------------------------------
+# K2 and K6-quad at one row (csrc/mxq_gemv.cu gemv_row_kernel): numpy
+# emulations of the kernel's code floats, its lane <-> column map, the
+# warps' K partition and its fixed-order sums
+# ---------------------------------------------------------------------------
+
+F32_2_23 = np.float32(2.0**23)
+
+
+def _code_floats(words, bits, layout):
+    """Every code of ``words`` as the kernel's float: [32 // bits, *shape]
+    f32, code j first. slab shifts field j down and mask-ors it into
+    0x4B000000 (2^23 + c); quad masks four codes per shift (2-bit &
+    0x03030303: byte b of shift k is code k + 4b; 4-bit & 0x0F0F0F0F: code
+    k + 2b) and byte-permutes each byte into the same pattern; both then
+    subtract 2^23."""
+    w = _u32(words)
+    per = 32 // bits
+    out = np.empty((per,) + w.shape, np.uint32)
+    if layout == "slab":
+        for j in range(per):
+            out[j] = ((w >> np.uint32(bits * j)) & np.uint32((1 << bits) - 1)
+                      | np.uint32(0x4B000000))
+    else:
+        shifts = per // 4
+        mask = np.uint32(0x03030303 if bits == 2 else 0x0F0F0F0F)
+        for k in range(shifts):
+            t = (w >> np.uint32(bits * k)) & mask
+            for b in range(4):
+                out[k + shifts * b] = _byte_perm(t, 0x4B000000, 0x7540 | b)
+    return out.view(np.float32) - F32_2_23
+
+
+def _field_float(word, shift, bits):
+    """A meta field (zero or scale code) as the kernel's float."""
+    f = (_u32(word) >> np.uint32(shift)) & np.uint32((1 << bits) - 1)
+    return (f | np.uint32(0x4B000000)).view(np.float32) - F32_2_23
+
+
+def _warp_rows(nbp, rows, warps):
+    """[(split, warp, meta rows)] of the kernel's K partition: split s
+    holds rows [s*rows, min(nbp, (s+1)*rows)), cut into ``warps`` runs of
+    ceil(rows / warps)."""
+    per = -(-rows // warps)
+    out = []
+    for s in range(-(-nbp // rows)):
+        m0, m1 = s * rows, min(nbp, (s + 1) * rows)
+        for w in range(warps):
+            out.append((s, w, range(min(m1, m0 + w * per),
+                                    min(m1, m0 + (w + 1) * per))))
+    return out
+
+
+def _row_emulated(x, p, rows, layout="slab", tile=ROW_TILES[0]):
+    """y [1, O] as gemv_row_kernel computes it, in f32, in its order: x
+    staged as f32 with every 16-column chunk summed as (x0 + .. + x7) +
+    (x8 + .. + x15); lane l of column block nb owns columns nb*128 + 4l ..
+    +3 (its 16-byte loads); per warp and meta row, per 2-bit group dot =
+    sum_j x_j * c_j in code order, acc += s*dot - s*z*chunk sum, the 4-bit
+    codes into acc4, the block's 4-bit chunk sums into xsum4; the warps'
+    sums added in warp order (thread t reads slot t of the lanes' float4
+    stores: column nb*128 + t); part = acc + s4*acc4 - s4*z4*xsum4; the
+    splits added in order."""
+    cols, warps, _ = tile
+    nbp, n = p.meta2.shape
+    nb = n // cols
+    xs = np.zeros(nbp * 64, np.float32)
+    xs[: x.shape[1]] = x.to(torch.bfloat16).float().numpy()[0]
+    half = xs.reshape(-1, 8)
+    h = half[:, 0].copy()
+    for e in range(1, 8):
+        h = h + half[:, e]
+    csum = h[0::2] + h[1::2]                        # [nbp * 4] chunks
+
+    def lanes(a):                                   # [rows, nb, 32, 4]
+        return np.asarray(a).reshape(a.shape[0], nb, 32, cols // 32)
+
+    w2, w4, meta = (lanes(_u32(t.numpy())) for t in (p.w2, p.w4, p.meta2))
+    qs, qm = (lanes(t.float().numpy()) for t in (p.qscale, p.qmin))
+    col_of_slot = lanes(np.arange(n)[None])[0].reshape(nb, cols)
+    assert (col_of_slot == np.arange(n).reshape(nb, cols)).all()
+    s4 = p.smeta4[0].numpy().reshape(nb, cols)
+    z4 = p.smeta4[1].numpy().reshape(nb, cols)
+    parts = {}
+    for s, w, run in _warp_rows(nbp, rows, warps):
+        acc = np.zeros((nb, 32, cols // 32), np.float32)
+        acc4 = np.zeros_like(acc)
+        xsum4 = np.float32(0)
+        for mm in run:
+            t, r = divmod(mm, 16)
+            for i in range(3):
+                g = 16 * i + r
+                chunk = t * 64 + 4 * (g // 3) + g % 3
+                v = _code_floats(w2[t * 48 + g], 2, layout)
+                dot = np.zeros_like(acc)
+                for j in range(16):
+                    dot = dot + xs[16 * chunk + j] * v[j]
+                zc = _field_float(meta[mm], 2 * i, 2)
+                sc = _field_float(meta[mm], 6 + 8 * i, 8)
+                sg = qs[mm] * sc + qm[mm]
+                acc = acc + (sg * dot - sg * zc * csum[chunk])
+            for hh in range(2):
+                v = _code_floats(w4[2 * mm + hh], 4, layout)
+                base = t * 1024 + 64 * r + 48 + 8 * hh
+                for j in range(8):
+                    acc4 = acc4 + xs[base + j] * v[j]
+            xsum4 = xsum4 + csum[t * 64 + 4 * r + 3]
+        parts.setdefault(s, []).append((acc.reshape(nb, cols),
+                                        acc4.reshape(nb, cols), xsum4))
+    y = np.zeros((nb, cols), np.float32)
+    for s in sorted(parts):
+        a, a4, x4 = parts[s][0]
+        for b, b4, bx in parts[s][1:]:
+            a, a4, x4 = a + b, a4 + b4, x4 + bx
+        y = y + (a + s4 * a4 - s4 * z4 * x4)
+    return torch.from_numpy(y.reshape(1, n)[:, : p.out_features].copy())
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_row_code_floats_are_exact(bits):
+    """Every code value at every position of words whose other bits are
+    random (half of them negative as int32): slab's and quad's floats are
+    the code exactly, and quad's equal slab's; every zero and scale code of
+    a meta word at each of its three fields, likewise."""
+    rng = np.random.default_rng(11)
+    per, top = 32 // bits, 1 << bits
+    n = 4 * top
+    for j in range(per):
+        c = np.tile(np.arange(top), 4)
+        w = _words_with({j: c}, bits, rng, n)
+        slab = _code_floats(w, bits, "slab")
+        np.testing.assert_array_equal(slab[j], c.astype(np.float32))
+        np.testing.assert_array_equal(_code_floats(w, bits, "quad"), slab)
+    for i in range(3):
+        z = np.tile(np.arange(4), 256)
+        sc = np.repeat(np.arange(256), 4)
+        m = _u32(rng.integers(0, 2**32, z.size, dtype=np.uint64))
+        m &= ~_u32((3 << (2 * i)) | (255 << (6 + 8 * i)))
+        m |= _u32(z << (2 * i)) | _u32(sc << (6 + 8 * i))
+        np.testing.assert_array_equal(_field_float(m, 2 * i, 2), z)
+        np.testing.assert_array_equal(_field_float(m, 6 + 8 * i, 8), sc)
+
+
+@pytest.mark.parametrize("nbp,rows,warps", [
+    (64, 8, 8), (64, 16, 8), (64, 32, 8), (176, 16, 8), (176, 32, 8),
+    (176, 4, 1), (32, 8, 8), (48, 64, 8)])
+def test_row_warp_partition(nbp, rows, warps):
+    """The warps' runs of meta rows cover [0, nbp) once, in order, each
+    within one split, and a split's rows lie in the k-tiles of x the block
+    stages (row_tiles: rows / 16 k-tiles, or the one k-tile of a shorter
+    split)."""
+    runs = _warp_rows(nbp, rows, warps)
+    seen = [m for _, _, run in runs for m in run]
+    assert seen == list(range(nbp))
+    staged = rows // 16 if rows >= 16 else 1
+    for s, _, run in runs:
+        if len(run):
+            assert s * rows <= run[0] and run[-1] < (s + 1) * rows
+            assert run[-1] // 16 - s * rows // 16 < staged
+
+
+@pytest.mark.parametrize("o,k", [(320, 1088), (1024, 4096), (384, 2880)])
+def test_row_kernel_algebra_matches_plain_and_jax(o, k):
+    """The one-row kernel's decomposition at the rule's split and at splits
+    of one and two k-tiles (and the whole K): against gemv_plain within
+    1e-6 of max|y| (the f32 summation order and the per-group fold differ)
+    and against mxq_tpu's one-row mxq_matmul (bdg, Pallas in interpret
+    mode) within 1e-4; quad's sums equal slab's bit for bit."""
+    rng = np.random.default_rng(o + k)
+    w = rng.standard_normal((o, k)).astype(np.float32)
+    x = rng.standard_normal((1, k)).astype(np.float32)
+    pj = jpf.quantize_pack(jnp.asarray(w))
+    pt = port_params({"p": pj})["p"]
+    xt = torch.from_numpy(x)
+    nbp, n = pt.meta2.shape
+    plain = tmm.gemv_plain(xt, pt)
+    yj = np.asarray(jmm.mxq_matmul(jnp.asarray(x), pj))
+    rule = tmm._split_rows(nbp, n, 132, ROW_TILES[0])
+    for rows in sorted({rule, 16, 32, nbp}):
+        got = _row_emulated(xt, pt, rows)
+        assert got.shape == (1, o)
+        assert rel(got, plain) <= 1e-6, rows
+        assert rel(got, yj) <= 1e-4, rows
+    assert torch.equal(_row_emulated(xt, pt, rule, "quad"),
+                       _row_emulated(xt, pt, rule))
 
 if __name__ == "__main__":
     # the gaps quoted in ROADMAP.md (queue 3), as rel = max|diff| / max|y|
