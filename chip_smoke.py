@@ -31,8 +31,8 @@ Phases, each printing one JSON line:
            7 of 8 requests' tokens equal; cli serve --prefill_a8
            --lm_head_bits 4 with 600-token prompts (K1, K4, K5, K7); then
            where a decode step's time goes, slot (8 slots and one) and
-           paged, and where a speculative verify round's does, and the device time of one
-           2048-token prefill as cli_a8_u4 runs it
+           paged, and where a speculative verify round's does, and the
+           device time of one 2048-token prefill as cli_a8_u4 runs it
   eval     perplexity of llama2_7b at full depth: `cli eval-ppl --w_bits 2`
            (the fake-quant forward), the packed model at seqlen 128 once
            per GEMV layout (slab K1, quad and bfexp K6) and at seqlen 2048

@@ -11,13 +11,14 @@
 // A stacked weight is only a layer offset: the wrapper passes the layer's
 // base pointers.
 //
-// Bound on the H100: bytes. At one row every packed weight is read once
-// (~3.5 bits/weight with the metadata) and feeds one multiply-add, far
-// below the ~295 operations per byte the card needs before the tensor
-// cores limit. At ~4 instructions per weight (unpack, convert, FMA) the
-// CUDA cores' issue rate is close behind: a llama2_7b layer's 204.5 M
-// weights are ~26 M warp instructions, ~28 us at 132 SMs x 4 schedulers,
-// against the 27 us byte bound.
+// Bound on the H100: bytes, by the roofline. At one row every packed
+// weight is read once (~3.5 bits/weight with the metadata) and feeds one
+// multiply-add, far below the ~295 operations per byte the card needs
+// before the tensor cores limit. On the CUDA cores, though, each weight
+// costs an unpack, a convert and an FMA: gemv_row_kernel's loop is ~5.5
+// (quad) to ~6.4 (slab) SASS instructions per weight, ~38 M warp
+// instructions for a llama2_7b layer's 204.5 M weights, so instruction
+// issue, not the 27 us byte bound, sets its time (PERF.md).
 //
 // gemv_row_kernel (K2 = SLAB, K6-quad = QUAD) is laid out for the card's
 // memory pipeline:
@@ -88,8 +89,9 @@ constexpr int ROW_COLS = 128;                // columns per block: 4 a lane
 constexpr int ROW_MIN_BLOCKS = 2;            // launch bound: blocks per SM
 
 // mxq_gemv_kernel's (bfexp) geometry: one thread per column, sized for
-// two blocks per SM
+// two blocks per SM, one batch row per block row
 constexpr int THREADS = 128;
+constexpr int BT = 1;
 constexpr int BFEXP_BLOCKS_PER_SM = 2;
 
 // k-tiles of x a split of rows_per_split meta rows stages
@@ -104,15 +106,21 @@ size_t row_smem(int rows_per_split) {
          + (size_t)ROW_WARPS * (2 * ROW_COLS + 1) * 4;
 }
 
+// The codes' floats are built on magic = 0x4B000000 (2^23) held in a
+// register. A literal would let ptxas put it in the permute's immediate
+// slot, with the selector in a register that it then rematerialises for
+// every permute (~230 moves per meta row), and split each slab mask-or
+// into two LOP3s: gemv_row_kernel computes magic from an argument.
+
 // byte b of t (a code 0..255) as an exact float: 0x4B0000cc is 2^23 + c
-__device__ __forceinline__ float byte_code(uint32_t t, int b) {
-  return __uint_as_float(__byte_perm(t, 0x4B000000u, 0x7540u | b))
-         - 8388608.f;
+__device__ __forceinline__ float byte_code(uint32_t t, int b,
+                                           uint32_t magic) {
+  return __uint_as_float(__byte_perm(t, magic, 0x7540u | b)) - 8388608.f;
 }
 
 // a small field f (0 <= f < 2^23) as an exact float, the same pattern
-__device__ __forceinline__ float field_code(uint32_t f) {
-  return __uint_as_float(f | 0x4B000000u) - 8388608.f;
+__device__ __forceinline__ float field_code(uint32_t f, uint32_t magic) {
+  return __uint_as_float(f | magic) - 8388608.f;
 }
 
 // one meta row's packed words for a lane's 4 columns
@@ -155,30 +163,34 @@ __device__ __forceinline__ float bf16_of(const uint2& v, int c) {
 
 // the 16 codes of a 2-bit word, code j at bits 2j, as exact floats
 template <int LAYOUT>
-__device__ __forceinline__ void codes2(uint32_t w, float (&v)[16]) {
+__device__ __forceinline__ void codes2(uint32_t w, uint32_t magic,
+                                       float (&v)[16]) {
   if constexpr (LAYOUT == QUAD) {
     uint32_t tq[4];               // code j in byte j / 4 of tq[j % 4]
 #pragma unroll
     for (int k = 0; k < 4; ++k) tq[k] = (w >> (2 * k)) & 0x03030303u;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) v[j] = byte_code(tq[j % 4], j / 4);
+    for (int j = 0; j < 16; ++j) v[j] = byte_code(tq[j % 4], j / 4, magic);
   } else {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) v[j] = field_code((w >> (2 * j)) & 3u);
+    for (int j = 0; j < 16; ++j)
+      v[j] = field_code((w >> (2 * j)) & 3u, magic);
   }
 }
 
 // the 8 codes of a 4-bit word, code j at bits 4j, as exact floats
 template <int LAYOUT>
-__device__ __forceinline__ void codes4(uint32_t w, float (&v)[8]) {
+__device__ __forceinline__ void codes4(uint32_t w, uint32_t magic,
+                                       float (&v)[8]) {
   if constexpr (LAYOUT == QUAD) {
     // code j in byte j / 2 of tq[j % 2]
     const uint32_t tq[2] = {w & 0x0F0F0F0Fu, (w >> 4) & 0x0F0F0F0Fu};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = byte_code(tq[j % 2], j / 2);
+    for (int j = 0; j < 8; ++j) v[j] = byte_code(tq[j % 2], j / 2, magic);
   } else {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = field_code((w >> (4 * j)) & 15u);
+    for (int j = 0; j < 8; ++j)
+      v[j] = field_code((w >> (4 * j)) & 15u, magic);
   }
 }
 
@@ -197,7 +209,8 @@ __device__ __forceinline__ void load_x(const float* p, float (&v)[N]) {
 template <int LAYOUT>
 __device__ __forceinline__ void row_sums(const Row& w, int r, const float* xt,
                                          const float* ct, float (&acc)[4],
-                                         float (&acc4)[4], float& xsum4) {
+                                         float (&acc4)[4], float& xsum4,
+                                         uint32_t magic) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const int g = 16 * i + r;                        // group within tile
@@ -208,13 +221,13 @@ __device__ __forceinline__ void row_sums(const Row& w, int r, const float* xt,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       float v[16];
-      codes2<LAYOUT>(word_of(w.w2[i], c), v);
+      codes2<LAYOUT>(word_of(w.w2[i], c), magic, v);
       float dot = 0.f;
 #pragma unroll
       for (int j = 0; j < 16; ++j) dot += xv[j] * v[j];
       const uint32_t m = word_of(w.meta, c);
-      const float zc = field_code((m >> (2 * i)) & 3u);
-      const float sc = field_code((m >> (6 + 8 * i)) & 255u);
+      const float zc = field_code((m >> (2 * i)) & 3u, magic);
+      const float sc = field_code((m >> (6 + 8 * i)) & 255u, magic);
       const float s = bf16_of(w.qs, c) * sc + bf16_of(w.qm, c);
       acc[c] += s * dot - s * zc * gs;
     }
@@ -226,7 +239,7 @@ __device__ __forceinline__ void row_sums(const Row& w, int r, const float* xt,
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
       float v[8];
-      codes4<LAYOUT>(word_of(w.w4[h], c), v);
+      codes4<LAYOUT>(word_of(w.w4[h], c), magic, v);
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc4[c] += xv[j] * v[j];
     }
@@ -261,6 +274,7 @@ gemv_row_kernel(const __nv_bfloat16* __restrict__ x, int K, int ldx,
   const int per_warp = (rows_per_split + ROW_WARPS - 1) / ROW_WARPS;
   const int mb = min(m1, m0 + warp * per_warp);
   const int me = min(m1, m0 + (warp + 1) * per_warp);
+  const uint32_t magic = 0x4B000000u | ((uint32_t)npad >> 31);  // npad >= 0
 
   Row cur;
   if (mb < me) cur = load_row(w2, w4, meta2, qscale, qmin, mb, npad, n0);
@@ -308,7 +322,7 @@ gemv_row_kernel(const __nv_bfloat16* __restrict__ x, int K, int ldx,
       nxt = load_row(w2, w4, meta2, qscale, qmin, mm + 1, npad, n0);
     const int tt = mm / NB_TILE - t0;
     row_sums<LAYOUT>(cur, mm % NB_TILE, xs + tt * KT, csum + tt * 64, acc,
-                     acc4, xsum4);
+                     acc4, xsum4, magic);
     cur = nxt;
   }
 
@@ -335,7 +349,8 @@ gemv_row_kernel(const __nv_bfloat16* __restrict__ x, int K, int ldx,
   }
 }
 
-// K6's bfexp layout at one row: one thread per column n
+// K6's bfexp layout at one row: one thread per column n (the loop K2 and
+// K6 shared before gemv_row_kernel, kept as it was)
 __global__ void __launch_bounds__(THREADS)
 mxq_gemv_kernel(const __nv_bfloat16* __restrict__ x, int B, int K, int ldx,
                 const uint32_t* __restrict__ w2,
@@ -346,15 +361,17 @@ mxq_gemv_kernel(const __nv_bfloat16* __restrict__ x, int B, int K, int ldx,
                 const float* __restrict__ smeta4,
                 int nbp, int npad, int rows_per_split,
                 float* __restrict__ part) {
-  __shared__ float xs[KT];
+  __shared__ float xs[BT][KT];
 
   const int n = blockIdx.x * THREADS + threadIdx.x;   // npad % 128 == 0
-  const int row = blockIdx.y;
+  const int b0 = blockIdx.y * BT;
   const int split = blockIdx.z;
   const int m0 = split * rows_per_split;
   const int m1 = min(nbp, m0 + rows_per_split);
 
-  float acc = 0.f;
+  float acc[BT];
+#pragma unroll
+  for (int bb = 0; bb < BT; ++bb) acc[bb] = 0.f;
   const float s4 = smeta4[n], z4 = smeta4[npad + n];
   // the 4-bit plane: bf16(16*s4) and bf16(16*s4 + s4*z4), per channel
   const float s16 = 16.f * s4;
@@ -365,10 +382,11 @@ mxq_gemv_kernel(const __nv_bfloat16* __restrict__ x, int B, int K, int ldx,
     const int t = m / 16;
     const int mend = min(m1, (t + 1) * 16);
     __syncthreads();
-    for (int c = threadIdx.x; c < KT; c += THREADS) {
-      const int col = t * KT + c;
-      xs[c] = (row < B && col < K)
-                  ? __bfloat162float(x[(size_t)row * ldx + col]) : 0.f;
+    for (int i = threadIdx.x; i < BT * KT; i += THREADS) {
+      const int bb = i / KT, c = i % KT;
+      const int row = b0 + bb, col = t * KT + c;
+      xs[bb][c] = (row < B && col < K)
+                      ? __bfloat162float(x[(size_t)row * ldx + col]) : 0.f;
     }
     __syncthreads();
 
@@ -398,7 +416,9 @@ mxq_gemv_kernel(const __nv_bfloat16* __restrict__ x, int B, int K, int ldx,
           const uint32_t w = bf2_sub(bf2_mul(s2, pb), z2);
           const float wlo = __uint_as_float(w << 16);      // code j
           const float whi = __uint_as_float(w & 0xFFFF0000u);  // j + 8
-          acc += xs[off + j] * wlo + xs[off + j + 8] * whi;
+#pragma unroll
+          for (int bb = 0; bb < BT; ++bb)
+            acc[bb] += xs[bb][off + j] * wlo + xs[bb][off + j + 8] * whi;
         }
       }
 #pragma unroll
@@ -413,14 +433,20 @@ mxq_gemv_kernel(const __nv_bfloat16* __restrict__ x, int B, int K, int ldx,
           const uint32_t w = bf2_sub(bf2_mul(s16b, pb), b16);
           const float wlo = __uint_as_float(w << 16);      // code j
           const float whi = __uint_as_float(w & 0xFFFF0000u);  // j + 4
-          acc += xs[off + j] * wlo + xs[off + j + 4] * whi;
+#pragma unroll
+          for (int bb = 0; bb < BT; ++bb)
+            acc[bb] += xs[bb][off + j] * wlo + xs[bb][off + j + 4] * whi;
         }
       }
     }
     m = mend;
   }
 
-  if (row < B) part[((size_t)split * B + row) * npad + n] = acc;
+#pragma unroll
+  for (int bb = 0; bb < BT; ++bb) {
+    const int row = b0 + bb;
+    if (row < B) part[((size_t)split * B + row) * npad + n] = acc[bb];
+  }
 }
 
 // y[b, n] = sum over splits of part[split, b, n], in split order.

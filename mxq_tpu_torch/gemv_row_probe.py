@@ -1,7 +1,7 @@
 """Time the one-row GEMV (K2, ``csrc/mxq_gemv.cu`` ``gemv_row_kernel``)
 and variants of it at llama2_7b's four packed linears on the card.
 
-    python -m mxq_tpu_torch.gemv_row_probe                 # the kernel as built
+    python -m mxq_tpu_torch.gemv_row_probe             # the kernel as built
     python -m mxq_tpu_torch.gemv_row_probe --variants base,warps4
 
 A variant is the source with some of its ``constexpr`` lines replaced
@@ -34,7 +34,8 @@ from mxq_tpu_torch.ops import mxq_matmul as mm
 # llama2_7b packed linears of one layer: name -> (out, in)
 SHAPES_7B = {"qkv": (3 * 4096, 4096), "o": (4096, 4096),
              "gate_up": (2 * 11008, 4096), "down": (4096, 11008)}
-# name -> {constexpr name: value} replaced in csrc/mxq_gemv.cu
+# name -> {constexpr name: value} replaced in csrc/mxq_gemv.cu: blocks of
+# 4 or 16 warps in place of 8 (both measured, neither kept: PERF.md)
 VARIANTS = {
     "base": {},
     "warps4": {"ROW_WARPS": "4", "ROW_MIN_BLOCKS": "4"},
