@@ -32,7 +32,8 @@ Phases, each printing one JSON line:
            --lm_head_bits 4 with 600-token prompts (K1, K4, K5, K7); then
            where a decode step's time goes, slot (8 slots and one) and
            paged, and where a speculative verify round's does, and the
-           device time of one 2048-token prefill as cli_a8_u4 runs it
+           device time of one 2048-token prefill as cli_a8_u4 runs it,
+           with its top device ops and idle share
   eval     perplexity of llama2_7b at full depth: `cli eval-ppl --w_bits 2`
            (the fake-quant forward), the packed model at seqlen 128 once
            per GEMV layout (slab K1, quad and bfexp K6) and at seqlen 2048
@@ -67,6 +68,10 @@ import time
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 BF16_FLOP_PER_S = 989e12      # H100 SXM dense bf16 tensor cores (data sheet)
 BOUND_BASIS = "max(bytes / 3.35 TB/s HBM, operations / 989 TFLOP/s bf16)"
+INT8_OP_PER_S = 1979e12       # H100 SXM dense int8 tensor cores (data sheet)
+A8_BOUND_BASIS = ("max(bytes / 3.35 TB/s HBM, 2*T*K*O operations / 1979 "
+                  "TOP/s int8); bytes: x (f32) and the packed weight read, "
+                  "y (f32) written")
 SEED = 0
 # the README's main-path command
 CLI_SERVE = ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits", "8",
@@ -133,6 +138,14 @@ K1_KERNEL_NAMES = ("permute_x_kernel", "gemv_small_kernel",
 # K2's (csrc/mxq_gemv.cu: the one-row kernel and its split sum); in the
 # profiled one-slot step no other wrapper launches a kernel of these names
 K2_KERNEL_NAMES = ("gemv_row_kernel", "gemv_row_sum_kernel")
+# K5's (csrc/mxq_dequant.cu: the bound, then the codes)
+K5_KERNEL_NAMES = ("k5_scale_kernel", "k5_codes_kernel")
+# the A8 prefill's device time by kind, first match by name; the rest is
+# "other": PyTorch's elementwise ops, copies and reductions
+PREFILL_GROUPS = (("K5", K5_KERNEL_NAMES),
+                  ("K7", ("uniform_small_kernel", "uniform_large_kernel")),
+                  ("attention (library)", ("flash", "fmha", "attention")),
+                  ("GEMM (library)", ("gemm", "cutlass", "xmma")))
 
 # summary rows counted by another kernel's wrapper
 COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a"}
@@ -665,51 +678,59 @@ def k4_gap(torch, q, kc, ks, vc, vs, cur, idx, positions, ref):
 
 
 def a8_kernels(torch, timer, gen, packs, rows, summary):
-    """K5 at the four 7B linears: its transposed int8 planes against the
-    plain version's (equal but for half-way ties, each off by one code:
-    both round (s*c - s*z) * inv once per operation), and
-    mxq_matmul_prefill_a8 at 512 rows through K5 against the same through
-    the plain version (<= 5e-3 * max|y|), with the bf16-plane K3 path's
-    time beside it."""
+    """K5 at the four 7B linears: its bound sw and codes q against the plain
+    version's (equal bit for bit: each operation rounded once, IEEE
+    division), and mxq_matmul_prefill_a8 through K5 against the same
+    through the plain version at 512 rows (<= 5e-3 * max|y|), timed at 512
+    and 2048 rows beside the bf16-plane K3 path and the A8 linear's own
+    bound (A8_BOUND_BASIS)."""
     from mxq_tpu_torch.ops import attn_int8 as a8
     from mxq_tpu_torch.ops import mxq_matmul as mm
     failures = []
     for name, p in packs.items():
-        inv = 1.0 / mm.int8_weight_scale(p)
-        q2, q4 = mm.dequant_int8_planes(p, inv)
-        r2, r4 = mm.dequant_int8_planes_plain(p, inv)
+        sw, q = mm.dequant_int8_planes(p)
+        rsw, rq = mm.dequant_int8_planes_plain(p)
         torch.cuda.synchronize()
-        diffs = [(a.int() - b.int()).abs() for a, b in ((q2, r2), (q4, r4))]
-        ties = sum(int((d > 0).sum()) for d in diffs)
-        maxd = max(int(d.max()) for d in diffs)
-        nbytes = (packed_bytes(p) + inv.numel() * 4 + q2.numel()
-                  + q4.numel())
+        same = torch.equal(sw, rsw) and torch.equal(q, rq)
+        ndiff = int((q != rq).sum())
+        maxd = max(float((sw - rsw).abs().max()),
+                   float((q.int() - rq.int()).abs().max()))
+        # the packed weight and its meta read once, sw and q written once
+        nbytes = packed_bytes(p) + sw.numel() * 4 + q.numel()
         bms, by = bound_ms(nbytes, 0.0)
-        del diffs, r2, r4
-        x = torch.randn((512, p.in_features), generator=gen, device="cuda")
-        y = mm.mxq_matmul_prefill_a8(x, p)
-        with plain_versions(mm, a8):
-            ref = mm.mxq_matmul_prefill_a8(x, p)
-        torch.cuda.synchronize()
-        yerr = rel_err(y, ref)
-        row = {"kernel": "K5", "linear": name, "codes": q2.numel()
-               + q4.numel(), "codes_differing": ties, "max_code_diff": maxd,
-               "max_abs_err": float(maxd),
-               "kernel_ms": timer(lambda: mm.dequant_int8_planes(p, inv)),
-               "plain_ms": timer(lambda: mm.dequant_int8_planes_plain(
-                   p, inv), iters=3),
+        del sw, q, rsw, rq
+        row = {"kernel": "K5", "linear": name, "bit_equal": same,
+               "codes_differing": ndiff, "max_abs_err": maxd,
+               "kernel_ms": timer(lambda: mm.dequant_int8_planes(p)),
+               "plain_ms": timer(lambda: mm.dequant_int8_planes_plain(p),
+                                 iters=3),
                "bound_ms": bms, "bound_by": by, "library_ms": None,
-               "a8_linear_512_rel_err": yerr,
-               "a8_linear_512_ms": timer(
-                   lambda: mm.mxq_matmul_prefill_a8(x, p)),
-               "k3_linear_512_ms": timer(
-                   lambda: mm.mxq_matmul_prefill(x, p))}
-        del q2, q4, x, y, ref
+               "a8_linear_bound_basis": A8_BOUND_BASIS}
+        for t in (512, 2048):
+            x = torch.randn((t, p.in_features), generator=gen, device="cuda")
+            if t == 512:
+                y = mm.mxq_matmul_prefill_a8(x, p)
+                with plain_versions(mm, a8):
+                    ref = mm.mxq_matmul_prefill_a8(x, p)
+                torch.cuda.synchronize()
+                row["a8_linear_512_rel_err"] = yerr = rel_err(y, ref)
+                del y, ref
+            lbytes = (x.numel() * 4 + packed_bytes(p)
+                      + t * p.out_features * 4)
+            lops = 2.0 * t * p.in_features * p.out_features
+            row[f"a8_linear_{t}_bound_ms"] = max(
+                lbytes / HBM_BYTES_PER_S, lops / INT8_OP_PER_S) * 1e3
+            row[f"a8_linear_{t}_ms"] = timer(
+                lambda: mm.mxq_matmul_prefill_a8(x, p))
+            row[f"k3_linear_{t}_ms"] = timer(
+                lambda: mm.mxq_matmul_prefill(x, p))
+            del x
         rows.append(row)
         emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
-        if not (maxd <= 1 and ties <= 64 and yerr <= 5e-3):
-            failures.append(f"K5 {name}: {ties} codes differ (max "
-                            f"{maxd}), a8 linear rel {yerr:.3g}")
+        if not (same and yerr <= 5e-3):
+            failures.append(f"K5 {name}: bit_equal {same} ({ndiff} codes "
+                            f"differ, max {maxd:.3g}), a8 linear rel "
+                            f"{yerr:.3g}")
     summary["K5"] = summarise([r for r in rows if r["kernel"] == "K5"],
                               "one llama2_7b layer (qkv, o, gate_up, down)")
     return failures
@@ -1249,7 +1270,11 @@ def prefill_profile(torch, params, cfg, t=2048, rounds=3) -> dict:
     at the bucket's 2048 rows, K7), without a cache: the CUDA-event span of
     one call (the device timeline, gaps where the host lags included),
     median of ``rounds`` after a warm-up, with the K7 launches of one call
-    and K7's own span at those rows."""
+    and K7's own span at those rows; then one profiled call: device time
+    per kernel (torch.profiler), K5's two kernels summed, and the idle
+    share = 1 - device busy / the median event span."""
+    from torch.profiler import ProfilerActivity, profile
+
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.ops import uniform4 as u4
     p = dict(params, lm_head=u4.quantize_pack_u4(params["lm_head"].T))
@@ -1269,6 +1294,19 @@ def prefill_profile(torch, params, cfg, t=2048, rounds=3) -> dict:
         e1.record()
         e1.synchronize()
         ts.append(e0.elapsed_time(e1))
+    k7_calls = (u4.u4_gemv.launches - n0) // rounds
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_kernel = device_ms_by_name(torch, prof, 1)
+    busy = sum(per_kernel.values())
+    span = statistics.median(ts)
+    groups = {}
+    for k, v in per_kernel.items():
+        g = next((g for g, names in PREFILL_GROUPS
+                  if any(n in k for n in names)), "other")
+        groups[g] = groups.get(g, 0.0) + v
     x = torch.randn((t, cfg.hidden_size), generator=gen, device="cuda").to(
         torch.bfloat16)
     e0 = torch.cuda.Event(enable_timing=True)
@@ -1277,10 +1315,40 @@ def prefill_profile(torch, params, cfg, t=2048, rounds=3) -> dict:
     u4.u4_matmul(x, p["lm_head"])
     e1.record()
     e1.synchronize()
-    return {"rows": t, "event_ms": statistics.median(ts),
-            "event_ms_rounds": ts,
-            "K7_launches_per_call": (u4.u4_gemv.launches - n0) // rounds,
-            "K7_ms_at_these_rows": e0.elapsed_time(e1)}
+    return {"rows": t, "event_ms": span, "event_ms_rounds": ts,
+            "K7_launches_per_call": k7_calls,
+            "K7_ms_at_these_rows": e0.elapsed_time(e1),
+            "device_busy_ms": busy, "idle_share": 1.0 - busy / span,
+            "k5_ms": {k[:80]: v for k, v in per_kernel.items()
+                      if any(n in k for n in K5_KERNEL_NAMES)},
+            "device_kernels": len(per_kernel), "device_ms_by_group": groups,
+            "top_device_ops_ms": top_ms(per_kernel, 16)}
+
+
+def top_ms(per_kernel: dict, n: int) -> dict:
+    """The ``n`` largest entries of ``per_kernel`` under short labels: the
+    name without ``void`` and its namespaces, cut to 100 characters (where
+    two kernels share a label their times are added)."""
+    out = {}
+    for k, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])[:n]:
+        for junk in ("void ", "at::native::", "(anonymous namespace)::"):
+            k = k.replace(junk, "")
+        out[k[:100]] = out.get(k[:100], 0.0) + v
+    return out
+
+
+def device_ms_by_name(torch, prof, calls: int) -> dict:
+    """Device ms per kernel name and per call from a torch.profiler run of
+    ``calls`` calls."""
+    per_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3 / calls
+    return per_kernel
 
 
 def wall_ms(torch, step, steps=8) -> float:
@@ -1310,17 +1378,9 @@ def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
         for i in range(steps):
             step(i)
         torch.cuda.synchronize()
-    per_kernel = {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = e.self_cuda_time_total
-        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3 / steps
+    per_kernel = device_ms_by_name(torch, prof, steps)
     busy = sum(per_kernel.values())
     wall = statistics.median(walls)
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     k1, k2 = (sum(v for k, v in per_kernel.items()
                   if any(name in k for name in names))
               for names in (K1_KERNEL_NAMES, K2_KERNEL_NAMES))
@@ -1330,7 +1390,7 @@ def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
             "idle_share": 1.0 - busy / wall if wall else None,
             "k1_ms_per_step": k1, "k1_share_of_busy": k1 / busy,
             "k2_ms_per_step": k2, "k2_share_of_busy": k2 / busy,
-            "top_kernels_ms_per_step": {k[:80]: v for k, v in top}}
+            "top_kernels_ms_per_step": top_ms(per_kernel, 8)}
 
 
 def phase_eval(torch):

@@ -47,7 +47,7 @@ SIGNATURES = {
                         P, P, P, P],
         "mxq_gemv_tc_tiles": [P, I]},
     "mxq_dequant": {"mxq_dequant_k3": [P, P, P, P, P, P, I, I, P, P, P],
-                    "mxq_dequant_k5": [P, P, P, P, P, P, P, I, I, P, P, P]},
+                    "mxq_dequant_k5": [P, P, P, P, P, P, I, I, P, P, P]},
     "attn_int8": {
         "attn_int8": [P] * 10 + [I] * 8 + [F] + [P] * 4},
     "paged_attn_int8": {

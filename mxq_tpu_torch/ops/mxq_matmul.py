@@ -20,8 +20,9 @@ Port of ``mxq_tpu/ops/mxq_matmul.py``. The function every path computes is
   unpacks to bf16 planes, then two ``torch.matmul`` GEMMs (as the TPU left
   them to XLA); the 512-row switch lives in ``models/llama.quant_linear``;
 * prefill with int8 activations (``prefill_act_bits=8``) -> K5
-  (:func:`dequant_int8_planes`, same source) requantizes the planes to int8
-  per out-channel, then two int8 GEMMs (``torch._int_mm``) and one rescale
+  (:func:`dequant_int8_planes`, same source) finds each out-channel's int8
+  bound and requantizes the weight against it in x's padded order, then
+  one int8 GEMM (``torch._int_mm``) and one rescale
   (:func:`mxq_matmul_prefill_a8`).
 
 Every wrapper runs its plain version for CPU tensors only; for CUDA tensors
@@ -36,6 +37,7 @@ import functools
 import os
 
 import torch
+import torch.nn.functional as F
 
 from mxq_tpu_torch import packfmt
 from mxq_tpu_torch.config import DEFAULT_SCHEME, MXQConfig
@@ -116,7 +118,9 @@ def dequant_planes_plain(p: PackedMXQLinear,
 def int8_weight_scale(p: PackedMXQLinear) -> torch.Tensor:
     """Per-out-channel int8 scale bound [1, N] f32 from the metadata alone:
     max over the channel's groups of |s| * max(z, maxc - z), / 127 (port of
-    ``_int8_weight_scale``, mxq_matmul.py:836)."""
+    ``_int8_weight_scale``, mxq_matmul.py:836). The division is IEEE on
+    every device: a Python scalar divisor would make CUDA multiply by its
+    reciprocal instead."""
     qs = p.qscale.float()
     qm = p.qmin.float()
     m = None
@@ -131,18 +135,21 @@ def int8_weight_scale(p: PackedMXQLinear) -> torch.Tensor:
     s4 = p.smeta4[0].float()
     z4 = p.smeta4[1].float()
     m = torch.maximum(m, s4.abs() * torch.maximum(z4, 15.0 - z4))
-    return torch.clamp_min(m / 127.0, 1e-12)[None, :]
+    return torch.clamp_min(m / m.new_full((), 127.0), 1e-12)[None, :]
 
 
-def dequant_int8_planes_plain(p: PackedMXQLinear, inv: torch.Tensor,
+def dequant_int8_planes_plain(p: PackedMXQLinear,
                               cfg: MXQConfig = DEFAULT_SCHEME):
-    """Plain version of K5: the planes of :func:`dequant_planes_plain` as
-    int8, each weight ``(s*c - s*z) * inv[n]`` rounded half to even (the
-    TPU kernel's order of operations, mxq_matmul.py:858-875), stored
-    transposed: ``q2t [N, NBP*48]`` and ``q4t [N, NBP*16]``, row n holding
-    output column n's codes in natural plane order, so that ``q2t.t()`` is
-    the column-major operand the card's int8 GEMM takes. ``inv`` [1, N] f32
-    is ``1 / int8_weight_scale(p)``."""
+    """Plain version of K5: ``(sw, q)``. ``sw`` [1, N] f32 is
+    :func:`int8_weight_scale`; ``q`` [N, NBP*64] int8 holds each weight
+    ``(s*c - s*z) * (1 / sw[n])`` rounded half to even (the TPU kernel's
+    order of operations, mxq_matmul.py:858-875), row n in x's padded order
+    (``pad_inputs_split``): block b's 48 2-bit codes (``w2`` words 3b..3b+2,
+    16 codes each), then its 16 4-bit codes (``w4`` rows 2b, 2b+1), so that
+    ``q.t()`` is the column-major operand of one int8 GEMM against the
+    padded x."""
+    sw = int8_weight_scale(p)
+    inv = 1.0 / sw
     s_eff, zc = packfmt.group_params(p, cfg)
     neg_sz = s_eff * zc
     codes2 = packfmt._unpack_along_sublanes(p.w2, cfg.bits_lo).float()
@@ -152,8 +159,11 @@ def dequant_int8_planes_plain(p: PackedMXQLinear, inv: torch.Tensor,
     s4 = p.smeta4[0:1]
     sz4 = s4 * p.smeta4[1:2]
     w4 = (s4 * codes4 - sz4) * inv
-    return (torch.round(w2).to(torch.int8).T.contiguous(),
-            torch.round(w4).to(torch.int8).T.contiguous())
+    nbp, n = p.meta2.shape
+    q = torch.cat([torch.round(w2).to(torch.int8).reshape(nbp, cfg.num_2b, n),
+                   torch.round(w4).to(torch.int8).reshape(nbp, cfg.num_4b, n)],
+                  dim=1)
+    return sw, q.reshape(nbp * cfg.block, n).T.contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -389,29 +399,25 @@ def dequant_planes(p: PackedMXQLinear, cfg: MXQConfig = DEFAULT_SCHEME):
     return wd2, wd4
 
 
-def dequant_int8_planes(p: PackedMXQLinear, inv: torch.Tensor,
-                        cfg: MXQConfig = DEFAULT_SCHEME):
-    """K5: the transposed int8 planes of :func:`dequant_int8_planes_plain`."""
+def dequant_int8_planes(p: PackedMXQLinear, cfg: MXQConfig = DEFAULT_SCHEME):
+    """K5: ``(sw, q)`` of :func:`dequant_int8_planes_plain`, one call (the
+    bound's kernel, then the codes' kernel)."""
     dev = p.device
     if dev.type == "cpu":
-        return dequant_int8_planes_plain(p, inv, cfg)
+        return dequant_int8_planes_plain(p, cfg)
     from mxq_tpu_torch import _build
     _check_packed(p, dev)
     nbp, n = p.meta2.shape
-    if inv.dtype != torch.float32 or inv.numel() != n or inv.device != dev:
-        raise ValueError(f"inv: {inv.dtype} {tuple(inv.shape)} on "
-                         f"{inv.device}; want float32 [1, {n}] on {dev}")
-    inv = inv.contiguous()
-    q2 = torch.empty((n, nbp * 48), dtype=torch.int8, device=dev)
-    q4 = torch.empty((n, nbp * 16), dtype=torch.int8, device=dev)
+    sw = torch.empty((1, n), dtype=torch.float32, device=dev)
+    q = torch.empty((n, nbp * 64), dtype=torch.int8, device=dev)
     err = _build.load("mxq_dequant").mxq_dequant_k5(
         p.w2.data_ptr(), p.w4.data_ptr(), p.meta2.data_ptr(),
-        p.qscale.data_ptr(), p.qmin.data_ptr(), p.smeta4.data_ptr(),
-        inv.data_ptr(), nbp, n, q2.data_ptr(), q4.data_ptr(),
+        p.qscale.data_ptr(), p.qmin.data_ptr(), p.smeta4.data_ptr(), nbp, n,
+        sw.data_ptr(), q.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mxq_dequant_k5")
     dequant_int8_planes.launches += 1
-    return q2, q4
+    return sw, q
 
 
 gemv_batched.launches = 0
@@ -494,8 +500,9 @@ def mxq_matmul_prefill(x: torch.Tensor, p: PackedMXQLinear,
 
 def _act_quant_rows(xb: torch.Tensor):
     """Per-token symmetric int8 scale: xb [T, K] f32 -> (scale [T, 1],
-    1 / scale)."""
-    sx = torch.clamp_min(xb.abs().amax(dim=-1, keepdim=True), 1e-12) / 127.0
+    1 / scale). max|x| is taken as max(max x, -min x), one read of x."""
+    lo, hi = torch.aminmax(xb, dim=-1, keepdim=True)
+    sx = torch.clamp_min(torch.maximum(hi, -lo), 1e-12) / 127.0
     return sx, 1.0 / sx
 
 
@@ -503,24 +510,25 @@ def mxq_matmul_prefill_a8(x: torch.Tensor, p: PackedMXQLinear,
                           layer_idx: int | None = None,
                           cfg: MXQConfig = DEFAULT_SCHEME) -> torch.Tensor:
     """y = x @ dequant(p) with int8 activations and weights (W~4A8): K5
-    requantizes the weight per out-channel to int8 against the closed-form
-    bound of :func:`int8_weight_scale`, the activations are quantized per
-    token, two int8 GEMMs (``torch._int_mm``, exact int32 sums; the TPU left
-    them to XLA) give ``acc``, and ``y = acc * sx * sw``. Port of
-    ``mxq_matmul_prefill_a8`` (mxq_matmul.py:924). ``x`` [..., K] with more
-    than 16 rows: the card's int8 GEMM takes M > 16, K and N multiples of
-    8 (the packed planes always are) and a column-major second operand."""
+    gives the per-out-channel bound ``sw`` of :func:`int8_weight_scale` and
+    the weight requantized against it in x's padded order, the activations
+    are quantized once per token, one int8 GEMM (``torch._int_mm``, exact
+    int32 sums; the TPU left its two to XLA) gives ``acc``, and
+    ``y = acc * sx * sw``. Port of ``mxq_matmul_prefill_a8``
+    (mxq_matmul.py:924): the int32 sums are exact, so ``acc`` equals its
+    two planes' sum. ``x`` [..., K] with more than 16 rows: the card's
+    int8 GEMM takes M > 16, K and N multiples of 8 (the packed weight
+    always is) and a column-major second operand."""
     if layer_idx is not None:
         p = p.layer(layer_idx)
     lead = x.shape[:-1]
     xb = x.reshape(-1, x.shape[-1]).float()
-    sw = int8_weight_scale(p)                           # [1, N]
-    q2, q4 = dequant_int8_planes(p, 1.0 / sw, cfg)
+    sw, q = dequant_int8_planes(p, cfg)                 # [1, N], [N, NBP*64]
     sx, inv_sx = _act_quant_rows(xb)
-    x2, x4 = packfmt.pad_inputs_split(xb, p, cfg)
-    xq2 = torch.clamp(torch.round(x2 * inv_sx), -127, 127).to(torch.int8)
-    xq4 = torch.clamp(torch.round(x4 * inv_sx), -127, 127).to(torch.int8)
-    acc = torch._int_mm(xq2, q2.t()) + torch._int_mm(xq4, q4.t())
-    y = acc.float() * sx * sw
+    pad = q.shape[1] - xb.shape[1]
+    xp = F.pad(xb, (0, pad)) if pad else xb
+    xq = torch.clamp(torch.round(xp * inv_sx), -127, 127).to(torch.int8)
+    acc = torch._int_mm(xq, q.t())
+    y = acc * sx * sw               # acc rounded to f32 first, as .float()
     return y[:, : p.out_features].to(x.dtype).reshape(
         lead + (p.out_features,))

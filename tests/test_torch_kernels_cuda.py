@@ -246,17 +246,21 @@ def test_attention_flag_kernels_match_plain(gen, hq, hkv, d, s):
     assert torch.equal(kc, kc0) and torch.equal(vc, vc0)
 
 
-@pytest.mark.parametrize("o,k", [(320, 1088), (1024, 4096)])
+# the test shapes, llama2_7b o_proj (N = 4096) and down_proj (K = 11008,
+# NBP 176: 11 k-tiles)
+@pytest.mark.parametrize("o,k", [(320, 1088), (1024, 4096), (4096, 4096),
+                                 (4096, 11008)])
 def test_dequant_int8_kernel_matches_plain(gen, o, k):
-    """K5's planes equal the plain version's (both round (s*c - s*z) * inv
-    once per operation: --fmad=false), and mxq_matmul_prefill_a8 through
-    K5 equals it through the plain version."""
+    """K5's bound and codes equal the plain version's bit for bit (each
+    operation rounded once: --fmad=false, IEEE division), and
+    mxq_matmul_prefill_a8 through K5 equals it through the plain version."""
     p = _pack(gen, o, k)
-    inv = 1.0 / mm.int8_weight_scale(p)
-    q2, q4 = mm.dequant_int8_planes(p, inv)
-    r2, r4 = mm.dequant_int8_planes_plain(p, inv)
+    before = mm.dequant_int8_planes.launches
+    sw, q = mm.dequant_int8_planes(p)
+    assert mm.dequant_int8_planes.launches == before + 1
+    rsw, rq = mm.dequant_int8_planes_plain(p)
     torch.cuda.synchronize()
-    assert torch.equal(q2, r2) and torch.equal(q4, r4)
+    assert torch.equal(sw, rsw) and torch.equal(q, rq)
     x = torch.randn((512, k), generator=gen, device="cuda")
     y = mm.mxq_matmul_prefill_a8(x, p)
     saved = mm.dequant_int8_planes

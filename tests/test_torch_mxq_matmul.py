@@ -192,23 +192,24 @@ def test_int8_weight_scale_equals_jax(packed):
 
 def test_dequant_int8_plain_matches_tpu_kernel(packed):
     """K5's plain version against the TPU kernel (interpret mode), up to
-    row order (slab order there, natural plane order here). The 2-bit plane
-    is equal. In the 4-bit plane XLA's CPU backend fuses (s4*c - s4*z4) *
-    inv otherwise than the kernel's three roundings, so values within a few
-    f32 ulps of a half-way point (all at 63.5 here) round to the other
-    neighbour: 56 of 524288 codes at seed 0, each off by one; every other
-    code is equal."""
+    row order (slab order there; x's padded order here, the planes
+    interleaved per 64-input block). The 2-bit plane is equal. In the 4-bit
+    plane XLA's CPU backend fuses (s4*c - s4*z4) * inv otherwise than the
+    kernel's three roundings, so values within a few f32 ulps of a
+    half-way point (all at 63.5 here) round to the other neighbour: 56 of
+    524288 codes at seed 0, each off by one; every other code is equal."""
     pj, pt = packed
     nbp, n = pt.meta2.shape
-    inv = 1.0 / tmm.int8_weight_scale(pt)
+    sw, q = tmm.dequant_int8_planes_plain(pt)
+    inv = 1.0 / sw
     q2j, q4j = jmm._dequant_int8_pallas(
         pj.w2, pj.w4, pj.meta2, pj.qscale, pj.qmin, pj.smeta4,
         jnp.asarray(inv.numpy()), block_n=1024, interpret=True)
-    q2t, q4t = tmm.dequant_int8_planes_plain(pt, inv)
-    assert q2t.dtype == torch.int8 and q2t.shape == (n, nbp * 48)
-    assert q4t.dtype == torch.int8 and q4t.shape == (n, nbp * 16)
-    assert q2t.is_contiguous() and q4t.is_contiguous()
-    q2t, q4t = q2t.T, q4t.T                         # natural plane order
+    assert q.dtype == torch.int8 and q.shape == (n, nbp * 64)
+    assert q.is_contiguous()
+    blocks = q.T.reshape(nbp, 64, n)
+    q2t = blocks[:, :48].reshape(nbp * 48, n)       # natural plane order
+    q4t = blocks[:, 48:].reshape(nbp * 16, n)
     n_kt = nbp // tpf.NB_TILE
     slab2 = q2t.reshape(n_kt, 48, 16, n).transpose(1, 2).reshape(-1, n)
     assert torch.equal(slab2, to_torch(q2j))
@@ -226,6 +227,155 @@ def test_dequant_int8_plain_matches_tpu_kernel(packed):
     wd2, _ = tmm.dequant_planes_plain(pt)
     assert int(q2t.abs().max()) <= 127 and int(q4t.abs().max()) <= 127
     assert rel(q2t.float() / inv, wd2.float()) <= 1e-2
+
+
+def test_dequant_int8_plain_sw_equals_weight_scale(packed):
+    """The plain K5's bound is int8_weight_scale's and JAX's
+    _int8_weight_scale's, bit for bit; q's rows are that bound's codes of
+    the weights of unpack_dequant, in x's padded order."""
+    pj, pt = packed
+    sw, q = tmm.dequant_int8_planes_plain(pt)
+    assert sw.dtype == torch.float32 and sw.shape == (1, pt.n_padded)
+    assert torch.equal(sw, tmm.int8_weight_scale(pt))
+    want = jmm._int8_weight_scale(pj.meta2, pj.qscale, pj.qmin, pj.smeta4)
+    assert torch.equal(sw, to_torch(want))
+    w = tpf.unpack_dequant(pt)                          # [K, O]
+    deq = (q[:O, :K].float() * sw[0, :O, None]).T
+    assert float((deq - w).abs().max()) <= float(sw.max()) * 0.5 * 1.0001
+
+
+@pytest.mark.parametrize("seed", [3, 4, 5])
+def test_prefill_a8_one_gemm_equals_two_gemms(seed):
+    """The one int8 GEMM over x's padded order gives y equal bit for bit to
+    the two-plane formula (x split by pad_inputs_split, each plane
+    quantized, two int8 GEMMs and an int32 add) on the same codes: the
+    int32 sums are exact in any order."""
+    rng = np.random.default_rng(seed)
+    p = tpf.quantize_pack(torch.from_numpy(
+        rng.standard_normal((O, K)).astype(np.float32)))
+    x = torch.from_numpy(rng.standard_normal((512, K)).astype(np.float32))
+    y = tmm.mxq_matmul_prefill_a8(x, p)
+    nbp, n = p.meta2.shape
+    sw, q = tmm.dequant_int8_planes_plain(p)
+    blocks = q.T.reshape(nbp, 64, n)
+    q2t = blocks[:, :48].reshape(nbp * 48, n).T.contiguous()
+    q4t = blocks[:, 48:].reshape(nbp * 16, n).T.contiguous()
+    sx, inv_sx = tmm._act_quant_rows(x)
+    x2, x4 = tpf.pad_inputs_split(x, p)
+    xq2 = torch.clamp(torch.round(x2 * inv_sx), -127, 127).to(torch.int8)
+    xq4 = torch.clamp(torch.round(x4 * inv_sx), -127, 127).to(torch.int8)
+    acc = torch._int_mm(xq2, q2t.t()) + torch._int_mm(xq4, q4t.t())
+    want = (acc.float() * sx * sw)[:, :O]
+    assert torch.equal(y, want)
+
+
+def _byte_perm_lanes(x, y, s):
+    """CUDA's __byte_perm lane by lane: x, y and the selector s are uint32
+    arrays, byte k of the result is byte (s >> 4k) & 7 of {y, x}."""
+    src = [(x >> (8 * b)) & 0xFF for b in range(4)] + \
+          [(y >> (8 * b)) & 0xFF for b in range(4)]
+    out = np.zeros_like(x)
+    for k in range(4):
+        sel = (s >> (4 * k)) & 7
+        out = out | (np.choose(sel, src) << (8 * k))
+    return out
+
+
+def _k5_emulated(p):
+    """numpy emulation of csrc/mxq_dequant.cu's K5: k5_scale_kernel's bound
+    (16 warps over the meta rows, then one max), and k5_codes_kernel's
+    codes as it makes them: each 2-bit group's four codes and each
+    column's sixteen 4-bit codes computed once, the packed codes looked up
+    by byte permutes, staged per column as 32-bit words at the block's
+    offsets and read out as x's padded order. f32 arithmetic one rounding
+    per operation, as --fmad=false compiles it."""
+    f32, u32 = np.float32, np.uint32
+    w2, w4, meta2 = (getattr(p, f).numpy().view(u32) for f in
+                     ("w2", "w4", "meta2"))
+    qs_all = p.qscale.float().numpy()
+    qm_all = p.qmin.float().numpy()
+    s4, z4 = p.smeta4[0].numpy(), p.smeta4[1].numpy()
+    nbp, n = meta2.shape
+
+    part = np.zeros((16, n), f32)
+    for warp in range(16):
+        for r in range(warp, nbp, 16):
+            for i in range(3):
+                zc = ((meta2[r] >> u32(2 * i)) & u32(3)).astype(f32)
+                sc = ((meta2[r] >> u32(6 + 8 * i)) & u32(255)).astype(f32)
+                s = qs_all[r] * sc + qm_all[r]
+                part[warp] = np.fmax(part[warp],
+                                     np.abs(s) * np.fmax(zc, f32(3) - zc))
+    m = np.fmax(part.max(axis=0), np.abs(s4) * np.fmax(z4, f32(15) - z4))
+    sw = np.fmax(m / f32(127), f32(1e-12))
+    iv = f32(1) / sw
+
+    def code_byte(v):
+        return np.rint(v).astype(np.int64).astype(u32) & u32(0xFF)
+
+    def pack4(a, b, c, d):
+        return _byte_perm_lanes(_byte_perm_lanes(a, b, 0x0040),
+                                _byte_perm_lanes(c, d, 0x0040), 0x5410)
+
+    sz4 = s4 * z4
+    t4 = [pack4(*(code_byte((s4 * f32(c + j) - sz4) * iv) for j in range(4)))
+          for c in range(0, 16, 4)]
+    tile = np.zeros((nbp // 16, n, 256), u32)
+    for kt in range(nbp // 16):
+        for warp in range(8):
+            for h in range(2):
+                r = warp + 8 * h
+                mo = kt * 16 + r
+                for i in range(3):
+                    zc = ((meta2[mo] >> u32(2 * i)) & u32(3)).astype(f32)
+                    sc = ((meta2[mo] >> u32(6 + 8 * i)) & u32(255)).astype(f32)
+                    s = qs_all[mo] * sc + qm_all[mo]
+                    sz = s * zc
+                    t = pack4(*(code_byte((s * f32(c) - sz) * iv)
+                                for c in range(4)))
+                    g = 16 * i + r
+                    w = w2[kt * 48 + g]
+                    words = []
+                    for hh in range(2):
+                        ws = w >> u32(16 * hh)
+                        ev = _byte_perm_lanes(t, np.zeros_like(t),
+                                              ws & u32(0x3333))
+                        od = _byte_perm_lanes(t, np.zeros_like(t),
+                                              (ws >> u32(2)) & u32(0x3333))
+                        words += [_byte_perm_lanes(ev, od, 0x5140),
+                                  _byte_perm_lanes(ev, od, 0x7362)]
+                    off = (g // 3) * 16 + (g % 3) * 4
+                    tile[kt, :, off:off + 4] = np.stack(words, axis=1)
+                blk = r
+                words = []
+                for j in range(2):
+                    w = w4[kt * 32 + 2 * blk + j]
+                    for hh in range(2):
+                        ws = w >> u32(16 * hh)
+                        lo = _byte_perm_lanes(t4[0], t4[1], ws & u32(0x7777))
+                        hi = _byte_perm_lanes(t4[2], t4[3], ws & u32(0x7777))
+                        top = _byte_perm_lanes(np.zeros_like(ws),
+                                               np.full_like(ws, 0xFFFFFFFF),
+                                               (ws >> u32(1)) & u32(0x4444))
+                        words.append((lo & ~top) | (hi & top))
+                tile[kt, :, blk * 16 + 12: blk * 16 + 16] = np.stack(
+                    words, axis=1)
+    q = tile.transpose(1, 0, 2).reshape(n, nbp * 16).view(np.int8)
+    return torch.from_numpy(sw[None, :]), torch.from_numpy(q.copy())
+
+
+@pytest.mark.parametrize("o,k", [(320, 1088), (64, 11008)])
+def test_k5_kernel_emulation_equals_plain(o, k):
+    """K5's table lookups, byte permutes and shared-memory offsets, emulated
+    in numpy, give the plain version's sw and q bit for bit, at the test
+    shape and at llama2_7b down_proj's K (NBP 176, 11 k-tiles)."""
+    rng = np.random.default_rng(o + k)
+    p = tpf.quantize_pack(torch.from_numpy(
+        rng.standard_normal((o, k)).astype(np.float32)))
+    sw, q = _k5_emulated(p)
+    rsw, rq = tmm.dequant_int8_planes_plain(p)
+    assert torch.equal(sw, rsw)
+    assert torch.equal(q, rq)
 
 
 def test_prefill_a8_matches_jax(packed):
