@@ -14,7 +14,7 @@ Phases, each printing one JSON line:
            and 128 rows, K6 at 8, 1, 40 and 128; K7 at 1, 8, 40,
            128 and 2048 rows, K8 at 8 and 128; and trace K4's gap to its
            plain version to pass A's scores (``K4-gap``)
-  serve    twelve runs of llama2_7b at full depth, each with the launch
+  serve    thirteen runs of llama2_7b at full depth, each with the launch
            counts set to 0 before it and read after it:
            `mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8`
            in-process (must launch K1, K4), then the same command in a
@@ -22,7 +22,9 @@ Phases, each printing one JSON line:
            K1; quad's tokens equal the first run's for 7 of 8 requests),
            the Engine at 8 slots with
            prompts in every prefill bucket (K1, K3, K4), a one-slot Engine
-           (K2, K4); the same cli serve with --paged (K1, K11), a one-slot
+           (K2, K4), the same with MXQ_GEMV_LAYOUT_B1=bfexp (K6-bfexp at
+           one row, no K2; its greedy tokens' agreement with the K2 run
+           reported); the same cli serve with --paged (K1, K11), a one-slot
            PagedEngine (K2, K11), and a PagedEngine whose 8 requests share
            a 512-token prefix (prefix-cache hits, a repeated request's
            tokens equal to its first run's); cli serve --spec_decode (K1,
@@ -111,12 +113,16 @@ KERNEL_INFO = {
                       "mxq_tpu/ops/attn_int8.py:97"),
     "K5": ("cuda", "mxq_tpu_torch/csrc/mxq_dequant.cu",
            "mxq_tpu/ops/mxq_matmul.py:856"),
-    # K6's summary rows are at B=8: the tensor-core template (at one row
-    # quad runs K2's kernel and bfexp its own loop, both in mxq_gemv.cu)
+    # K6's summary rows are at B=8: the tensor-core template. At one row
+    # quad runs K2's kernel and bfexp its own (bfexp_row_kernel), both in
+    # mxq_gemv.cu: K6-bfexp-1 is bfexp's B=1 row, counted by K6-bfexp's
+    # wrapper
     "K6-quad": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv_tc.cu",
                 "mxq_tpu/ops/mxq_matmul.py:169"),
     "K6-bfexp": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv_tc.cu",
                  "mxq_tpu/ops/mxq_matmul.py:252"),
+    "K6-bfexp-1": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv.cu",
+                   "mxq_tpu/ops/mxq_matmul.py:252"),
     "K7": ("cuda", "mxq_tpu_torch/csrc/uniform_gemv.cu",
            "mxq_tpu/ops/uniform4.py:117"),
     "K8": ("cuda", "mxq_tpu_torch/csrc/uniform_gemv.cu",
@@ -148,7 +154,8 @@ PREFILL_GROUPS = (("K5", K5_KERNEL_NAMES),
                   ("GEMM (library)", ("gemm", "cutlass", "xmma")))
 
 # summary rows counted by another kernel's wrapper
-COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a"}
+COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a",
+           "K6-bfexp-1": "K6-bfexp"}
 
 
 def emit(obj) -> None:
@@ -164,9 +171,11 @@ def smi() -> str:
 
 class Timer:
     """Median of CUDA-event timings of device work. Before every timed call
-    the L2 cache (50 MB) is flushed, as the decode path finds weights cold,
-    and the card spins for about a millisecond so that the host has queued
-    the whole call before the first event: the events then bracket device
+    the L2 cache (50 MB) is flushed, as the decode path finds weights cold:
+    256 MB are written, then read, so that the write-back of the written
+    lines falls before the first event and L2 holds no dirty line. Then
+    the card spins for about a millisecond so that the host has queued the
+    whole call before the first event: the events then bracket device
     time, not the wrapper's Python overhead."""
 
     def __init__(self, torch):
@@ -181,6 +190,7 @@ class Timer:
         ts = []
         for _ in range(iters):
             self.flush.zero_()
+            self.flush.view(torch.float32).sum()
             torch.cuda._sleep(2_000_000)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -797,6 +807,9 @@ def layout_kernels(torch, timer, gen, packs, rows, summary):
         summary[key] = summarise(
             [r for r in rows if r["kernel"] == key and r["B"] == 8],
             "one llama2_7b layer (qkv, o, gate_up, down), B=8")
+    summary["K6-bfexp-1"] = summarise(
+        [r for r in rows if r["kernel"] == "K6-bfexp" and r["B"] == 1],
+        "one llama2_7b layer (qkv, o, gate_up, down), B=1")
     return failures
 
 
@@ -1051,11 +1064,14 @@ def phase_serve(torch):
         device="cuda")
     rng = np.random.default_rng(SEED)
 
-    def engine_run(slots, plens):
+    def prompts_of(plens):
+        return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                for n in plens]
+
+    def engine_run(slots, prompts):
         e = eng.Engine(params, cfg, eng.EngineConfig(
             num_slots=slots, max_len=2048, seed=SEED), device="cuda")
-        reqs = [e.submit(rng.integers(0, cfg.vocab_size, n).astype(np.int32),
-                         max_new_tokens=16) for n in plens]
+        reqs = [e.submit(p, max_new_tokens=16) for p in prompts]
         t1 = time.monotonic()
         done = e.run()
         torch.cuda.synchronize()
@@ -1065,15 +1081,41 @@ def phase_serve(torch):
                 not 0 <= t < cfg.vocab_size for r in reqs
                 for t in r.generated):
             failures.append(f"engine slots={slots}: tokens {toks}")
-        return {"prompt_lens": list(plens), "requests_finished": len(done),
-                "tokens": sum(toks), "tokens_per_sec": sum(toks) / dt,
-                "stats": e.stats()}
+        return {"prompt_lens": [len(p) for p in prompts],
+                "requests_finished": len(done), "tokens": sum(toks),
+                "tokens_per_sec": sum(toks) / dt, "stats": e.stats(),
+                "generated": [list(map(int, r.generated)) for r in reqs]}
 
     # prompts in the 128 (K1), 512 and 2048 (K3) prefill buckets; decode
-    # at 8 slots (K1, K4) and at 1 slot (K2, K4)
-    counted("engine_slots8", ("K1", "K3", "K4"),
-            lambda: engine_run(8, (100, 400, 1500, 100, 400, 1500)))
-    counted("engine_slots1", ("K2", "K4"), lambda: engine_run(1, (100,)))
+    # at 8 slots (K1, K4) and at 1 slot (K2, K4), then the one slot again
+    # with bfexp at one row: its decode steps launch K6-bfexp 128 times
+    # each (32 layers x 4 linears) and K2 never; bfexp is a lossy
+    # function, so its greedy tokens' agreement with K2's is only reported
+    counted("engine_slots8", ("K1", "K3", "K4"), lambda: engine_run(
+        8, prompts_of((100, 400, 1500, 100, 400, 1500))))
+    runs["engine_slots8"].pop("generated")
+    one = prompts_of((100,))
+    counted("engine_slots1", ("K2", "K4"), lambda: engine_run(1, one))
+    b1 = os.environ.get("MXQ_GEMV_LAYOUT_B1")
+    os.environ["MXQ_GEMV_LAYOUT_B1"] = "bfexp"
+    try:
+        counted("engine_slots1_bfexp", ("K6-bfexp", "K4"),
+                lambda: engine_run(1, one))
+    finally:
+        if b1 is None:
+            del os.environ["MXQ_GEMV_LAYOUT_B1"]
+        else:
+            os.environ["MXQ_GEMV_LAYOUT_B1"] = b1
+    res = runs["engine_slots1_bfexp"]
+    got = res.pop("generated")[0]
+    want = runs["engine_slots1"].pop("generated")[0]
+    res["tokens_equal_to_k2_run"] = sum(a == b for a, b in zip(got, want))
+    res["first_token_differing"] = next(
+        (i for i, (a, b) in enumerate(zip(got, want)) if a != b), None)
+    n6, n2 = res["launches"]["K6-bfexp"], res["launches"]["K2"]
+    if not (n6 > 0 and n6 % 128 == 0 and n2 == 0):
+        failures.append(f"engine_slots1_bfexp: K6-bfexp {n6} launches (a "
+                        f"multiple of 128 > 0 wanted), K2 {n2} (0 wanted)")
 
     # paged serving: the README's paged command, then the PagedEngine
     counted("cli_paged", ("K1", "K11"), lambda: cli.main(

@@ -56,19 +56,53 @@
 //    floats, and the order they are summed in, are slab's, so quad gives
 //    K2's sums bit for bit (and the same greedy tokens).
 //
-// mxq_gemv_kernel is K6's bfexp layout at one row (BFEXP), one thread per
-// column: exponent injection, the reference CUDA kernel's LOP3
-// magic-number conversion. ((word >> (2j-5)) & 0x00600060) | 0x3F803F80
-// read as two bf16 is 1 + c/4 for codes j and j+8 (4-bit plane: mask
-// 0x00780078, 1 + c/16, codes j and j+4), and each weight is
-// bf16(bf16(4s * (1 + c/4)) - bf16(4s + s*z)): two bf16 roundings, a
-// multiply then a subtract, with no zero-correction term and the 4-bit
-// plane's scale applied per weight. This is a different, lossy function
-// (~2.4% max rel weight error); gemv_bfexp_plain in ops/mxq_matmul.py
-// gives the same weights bit for bit, so only the f32 summation order
-// differs. The TPU's activation permutes (permute_x2_quad/_pair) served
-// Mosaic's sublane bitcasts; here x is read by code position from shared
-// memory instead.
+// bfexp_row_kernel is K6's bfexp layout at one row (BFEXP), on the tensor
+// cores. bfexp is a different, lossy function (~2.4% max rel weight
+// error): each weight is bf16(bf16(4s * (1 + c/4)) - bf16(4s + s*z)), two
+// bf16 roundings, a multiply then a subtract (4-bit plane: bf16(16*s4),
+// bf16(16*s4 + s4*z4) and 1 + c/16), with the group's scale inside the
+// weight and no separate 4-bit epilogue; gemv_bfexp_plain in
+// ops/mxq_matmul.py gives the same weights bit for bit, so only the f32
+// summation order differs. The weights are bf16 by definition, so a lane
+// builds them as mma.sync m16n8k16's A operand (bfexp_pair, device_util.cuh:
+// a rotate, a mask-or that reads as 1 + c/4 in bf16, a bf16x2 multiply and
+// subtract: 2 instructions a weight) and the tensor cores multiply them by
+// x, the B operand, in f32: ~4.4 SASS instructions a weight in all, where
+// the CUDA-core design (FFMA, gemv_row_kernel's lanes) took 5.6. The map:
+//  * the lanes (gid, tq) of a quad share 4 adjacent output columns n0 ..
+//    n0 + 3 (n0 = block's first + 4 gid), each read as 16 bytes; MMA tile
+//    A's rows gid, gid + 8 are columns n0, n0 + 1, tile B's n0 + 2, n0 + 3,
+//    so a lane multiplies only words it read;
+//  * a meta row's four 16-code k-chunks go to the quad's four lanes: lane
+//    tq < 3 takes 2-bit group 16 tq + r of the row's k-tile (one w2 word a
+//    column), lane 3 the row's 4-bit chunk (two w4 words a column);
+//  * a lane's eight registers of a column hold, low half first, codes
+//    (2i+1, 2i+9) for i < 4 and (2i-8, 2i) for i >= 4 of its 2-bit word
+//    (the word, then the word rotated by 2, each rotated by 3 - 4(i % 4));
+//    4-bit: codes (i, i+4) of the first word, then (i-4, i) of the second,
+//    by the same rotations with the 4-bit mask, so that every lane runs
+//    the same instructions; register i is k-slot pair (2tq, 2tq+1) of MMA
+//    i / 2 for even i, (2tq+8, 2tq+9) for odd i;
+//  * x of the block's split is staged once in shared memory as bf16 pairs
+//    in that order (bf_stage_pairs: a 16-column chunk read as 16 bytes
+//    twice and byte-permuted in registers), 128 bytes a meta row, lane tq's
+//    32 (register i's pair at 4i), read by two 16-byte broadcast loads per
+//    row; B's eight columns all hold x, and C's column 0 is kept;
+//  * the memory pipeline: warps split the block's meta rows in contiguous
+//    runs; each warp keeps the next BF_STAGES - 1 of its rows in flight,
+//    copied by cp.async into its own ring in shared memory (a row of the
+//    block's 32 columns is 896 bytes, 2 chunks of 16 a lane), and reads a
+//    row's words from there; blocks split K (blockIdx.z) in whole meta rows
+//    that never straddle a k-tile, sized from mxq_gemv_tiles' geometry; the
+//    warps' sums are added in warp order, a second pass adds the splits in
+//    split order (deterministic, no atomics).
+// The group's entry (s, then bf16(4s) and bf16(4s + s*z), packed in one
+// word whose halves the bf16x2 multiply and subtract read as operand
+// selectors) is decoded once per column and group by the lane that uses
+// it; lane 3 takes the column's 4-bit entry from registers. At one row the
+// kernel is bound by instruction issue and per-call latency, not bytes
+// (PERF.md). The TPU's activation permutes (permute_x2_quad/_pair) served
+// Mosaic's sublane bitcasts; here x's slot order is the staging's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,11 +122,15 @@ constexpr int ROW_THREADS = 32 * ROW_WARPS;
 constexpr int ROW_COLS = 128;                // columns per block: 4 a lane
 constexpr int ROW_MIN_BLOCKS = 2;            // launch bound: blocks per SM
 
-// mxq_gemv_kernel's (bfexp) geometry: one thread per column, sized for
-// two blocks per SM, one batch row per block row
-constexpr int THREADS = 128;
-constexpr int BT = 1;
-constexpr int BFEXP_BLOCKS_PER_SM = 2;
+// bfexp_row_kernel's geometry (reported by mxq_gemv_tiles)
+constexpr int BF_WARPS = 4;                  // warps per block, splitting K
+constexpr int BF_THREADS = 32 * BF_WARPS;
+constexpr int BF_COLS = 32;                  // columns per block: 4 a quad
+constexpr int BF_STAGES = 4;                 // a warp's ring of meta rows
+constexpr int BF_MIN_BLOCKS = 8;             // launch bound: blocks per SM
+// a warp's meta row in its ring: w2's 3 word rows, w4's 2, meta2 (128
+// bytes each), qscale, qmin (64 each)
+constexpr int BF_ROW_BYTES = 7 * 128;
 
 // k-tiles of x a split of rows_per_split meta rows stages
 __host__ __device__ constexpr int row_tiles(int rows_per_split) {
@@ -349,103 +387,267 @@ gemv_row_kernel(const __nv_bfloat16* __restrict__ x, int K, int ldx,
   }
 }
 
-// K6's bfexp layout at one row: one thread per column n (the loop K2 and
-// K6 shared before gemv_row_kernel, kept as it was)
-__global__ void __launch_bounds__(THREADS)
-mxq_gemv_kernel(const __nv_bfloat16* __restrict__ x, int B, int K, int ldx,
-                const uint32_t* __restrict__ w2,
-                const uint32_t* __restrict__ w4,
-                const uint32_t* __restrict__ meta2,
-                const __nv_bfloat16* __restrict__ qscale,
-                const __nv_bfloat16* __restrict__ qmin,
-                const float* __restrict__ smeta4,
-                int nbp, int npad, int rows_per_split,
-                float* __restrict__ part) {
-  __shared__ float xs[BT][KT];
+// dynamic shared memory of bfexp_row_kernel: x of the split as bf16 pairs
+// in slot order (128 bytes a meta row), the warps' rings of meta rows,
+// then the warps' partial sums
+size_t bf_smem(int rows_per_split) {
+  return (size_t)rows_per_split * 128
+         + (size_t)BF_WARPS * BF_STAGES * BF_ROW_BYTES
+         + (size_t)BF_WARPS * BF_COLS * 4;
+}
 
-  const int n = blockIdx.x * THREADS + threadIdx.x;   // npad % 128 == 0
-  const int b0 = blockIdx.y * BT;
+// one meta row's packed words for lane (gid, tq) of bfexp_row_kernel, for
+// its 4 columns: wa and wb the same w2 word row (group 16 tq + r; tq < 3)
+// or the 4-bit plane's two w4 rows (tq == 3), then the meta row
+struct BfRow {
+  uint4 wa, wb, meta;
+  uint2 qs, qm;   // 4 bf16 each
+};
+
+// Lane l's part of copying a warp's meta rows into its ring: chunk ch = l,
+// then l + 32 (< 56), of each row, 16 bytes at byte 16 ch of the slot:
+// ch / 8 < 3 w2 row 16 (ch / 8) + r of k-tile t, then w4 rows 2 mm, 2 mm
+// + 1, meta2 row mm (8 chunks each), qscale, qmin row mm (4 each); chunk c
+// of a row holds the block's columns 4c .. 4c + 3 (words) or 8c .. 8c + 7
+// (bf16). A cursor points at its chunk of the next row to fetch.
+struct BfCursor {
+  const char* p;
+  int step, extra;   // bytes to the next row; more after a k-tile's last
+};
+
+__device__ __forceinline__ BfCursor bf_cursor(
+    int ch, const uint32_t* w2, const uint32_t* w4, const uint32_t* meta2,
+    const __nv_bfloat16* qscale, const __nv_bfloat16* qmin, int npad,
+    int nblk, int mm) {
+  const int t = mm / NB_TILE, r = mm % NB_TILE, c = ch % 8;
+  const int wp = 4 * npad;
+  if (ch < 24)
+    return {reinterpret_cast<const char*>(
+                w2 + (size_t)(48 * t + r + 16 * (ch / 8)) * npad + nblk
+                + 4 * c), wp, 32 * wp};
+  if (ch < 40)
+    return {reinterpret_cast<const char*>(
+                w4 + (size_t)(2 * mm + (ch - 24) / 8) * npad + nblk + 4 * c),
+            2 * wp, 0};
+  if (ch < 48)
+    return {reinterpret_cast<const char*>(meta2 + (size_t)mm * npad + nblk
+                                          + 4 * c), wp, 0};
+  const __nv_bfloat16* q = ch < 52 ? qscale : qmin;
+  return {reinterpret_cast<const char*>(q + (size_t)mm * npad + nblk
+                                        + 8 * (ch % 4)), 2 * npad, 0};
+}
+
+// cp.async of this lane's chunks of meta row mm (the cursors' next) into a
+// ring slot; the cursors move to row mm + 1
+__device__ __forceinline__ void bf_fetch(char* slot, BfCursor (&cu)[2],
+                                         int nck, int lane, int mm) {
+  const bool tile_end = (mm + 1) % NB_TILE == 0;
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    if (k < nck) {
+      cp16(slot + 16 * (lane + 32 * k), cu[k].p, true);
+      cu[k].p += cu[k].step + (tile_end ? cu[k].extra : 0);
+    }
+}
+
+// lane (gid, tq)'s words of a ring slot
+__device__ __forceinline__ BfRow bf_read(const char* slot, int gid, int tq) {
+  const int oa = tq < 3 ? 128 * tq : 384, ob = tq < 3 ? oa : 512;
+  BfRow w;
+  w.wa = *reinterpret_cast<const uint4*>(slot + oa + 16 * gid);
+  w.wb = *reinterpret_cast<const uint4*>(slot + ob + 16 * gid);
+  w.meta = *reinterpret_cast<const uint4*>(slot + 640 + 16 * gid);
+  w.qs = *reinterpret_cast<const uint2*>(slot + 768 + 8 * gid);
+  w.qm = *reinterpret_cast<const uint2*>(slot + 832 + 8 * gid);
+  return w;
+}
+
+// c += a . b: m16n8k16, bf16 in, f32 out
+__device__ __forceinline__ void mma_acc(float (&c)[4], uint32_t a0,
+                                        uint32_t a1, uint32_t a2, uint32_t a3,
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// Lane tq's x pairs of meta row mm (its 8 registers' slots): a 16-column
+// chunk of x, 2-bit group g = 16 tq + r's (tq < 3) or the block's 4-bit
+// chunk (tq == 3), loaded as 8 words of column pairs (2c, 2c + 1) and
+// permuted into the registers' code pairs: 2-bit (2i+1, 2i+9) for i < 4,
+// (2i-8, 2i) for i >= 4; 4-bit (i, i+4), then (i+4, i+8). Columns >= K are
+// zero.
+__device__ __forceinline__ void bf_stage_pairs(const __nv_bfloat16* xr,
+                                               int K, bool vec, int mm,
+                                               int tq, uint32_t* dst) {
+  const int t = mm / NB_TILE, r = mm % NB_TILE, g = 16 * tq + r;
+  const int col = t * KT + (tq == 3 ? 64 * r + 48
+                                    : 64 * (g / 3) + 16 * (g % 3));
+  uint32_t w[8];
+  if (vec) {
+    const uint4 lo = col < K ? *reinterpret_cast<const uint4*>(xr + col)
+                             : make_uint4(0u, 0u, 0u, 0u);
+    const uint4 hi = col + 8 < K
+                         ? *reinterpret_cast<const uint4*>(xr + col + 8)
+                         : make_uint4(0u, 0u, 0u, 0u);
+    w[0] = lo.x, w[1] = lo.y, w[2] = lo.z, w[3] = lo.w;
+    w[4] = hi.x, w[5] = hi.y, w[6] = hi.z, w[7] = hi.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int c = col + 2 * k;
+      w[k] = (c < K ? (uint32_t)__bfloat16_as_ushort(xr[c]) : 0u)
+             | (c + 1 < K ? (uint32_t)__bfloat16_as_ushort(xr[c + 1]) << 16
+                          : 0u);
+    }
+  }
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t two_hi = __byte_perm(w[i], w[i + 4], 0x7632u);
+    const uint32_t two_lo = __byte_perm(w[i], w[i + 4], 0x5410u);
+    const uint32_t four_x = __byte_perm(w[i >> 1], w[(i >> 1) + 2],
+                                        i & 1 ? 0x7632u : 0x5410u);
+    const uint32_t four_y = __byte_perm(w[4 + (i >> 1)], w[6 + (i >> 1)],
+                                        i & 1 ? 0x7632u : 0x5410u);
+    o[i] = tq == 3 ? four_x : two_hi;
+    o[i + 4] = tq == 3 ? four_y : two_lo;
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+__global__ void __launch_bounds__(BF_THREADS, BF_MIN_BLOCKS)
+bfexp_row_kernel(const __nv_bfloat16* __restrict__ x, int K, int ldx,
+                 const uint32_t* __restrict__ w2,
+                 const uint32_t* __restrict__ w4,
+                 const uint32_t* __restrict__ meta2,
+                 const __nv_bfloat16* __restrict__ qscale,
+                 const __nv_bfloat16* __restrict__ qmin,
+                 const float* __restrict__ smeta4, int nbp, int npad,
+                 int rows_per_split, float* __restrict__ part) {
+  extern __shared__ uint4 smem_bf[];
+  uint32_t* xs = reinterpret_cast<uint32_t*>(smem_bf);  // [rows][4][8]
+  char* rings = reinterpret_cast<char*>(
+      smem_bf + rows_per_split * 8);                    // [warps][stages]
+  float* red = reinterpret_cast<float*>(
+      rings + BF_WARPS * BF_STAGES * BF_ROW_BYTES);     // [warps][BF_COLS]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tq = lane & 3;
+  const int n0 = blockIdx.x * BF_COLS + 4 * gid;
   const int split = blockIdx.z;
   const int m0 = split * rows_per_split;
   const int m1 = min(nbp, m0 + rows_per_split);
+  const int per_warp = (rows_per_split + BF_WARPS - 1) / BF_WARPS;
+  const int mb = min(m1, m0 + warp * per_warp);
+  const int me = min(m1, m0 + (warp + 1) * per_warp);
 
-  float acc[BT];
+  // the lane's part of the mapping: lane 3 the 4-bit chunk, the others a
+  // 2-bit group's fields of the meta word; a 2-bit lane keeps its decoded
+  // entries (keep), lane 3 takes its columns' 4-bit entries (pq)
+  const bool four = tq == 3;
+  const uint32_t mask = four ? 0x00780078u : 0x00600060u;
+  const uint32_t keep = four ? 0u : ~0u;
+  const int rot_b = four ? 0 : 2;
+  const int zsh = 2 * tq, ssh = 6 + 8 * tq;
+  uint32_t pq[4];
 #pragma unroll
-  for (int bb = 0; bb < BT; ++bb) acc[bb] = 0.f;
-  const float s4 = smeta4[n], z4 = smeta4[npad + n];
-  // the 4-bit plane: bf16(16*s4) and bf16(16*s4 + s4*z4), per channel
-  const float s16 = 16.f * s4;
-  const uint32_t s16b = bf2_splat(s16);
-  const uint32_t b16 = bf2_splat(__fadd_rn(s16, __fmul_rn(s4, z4)));
-
-  for (int m = m0; m < m1;) {
-    const int t = m / 16;
-    const int mend = min(m1, (t + 1) * 16);
-    __syncthreads();
-    for (int i = threadIdx.x; i < BT * KT; i += THREADS) {
-      const int bb = i / KT, c = i % KT;
-      const int row = b0 + bb, col = t * KT + c;
-      xs[bb][c] = (row < B && col < K)
-                      ? __bfloat162float(x[(size_t)row * ldx + col]) : 0.f;
-    }
-    __syncthreads();
-
-    for (int mm = m; mm < mend; ++mm) {
-      const int r = mm - t * 16;
-      const size_t mo = (size_t)mm * npad + n;
-      const uint32_t meta = meta2[mo];
-      const float qs = __bfloat162float(qscale[mo]);
-      const float qm = __bfloat162float(qmin[mo]);
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const int g = 16 * i + r;                     // group within tile
-        const float zc = (float)((meta >> (2 * i)) & 3u);
-        const float sc = (float)((meta >> (6 + 8 * i)) & 255u);
-        const uint32_t word = w2[(size_t)(t * 48 + g) * npad + n];
-        const int off = 64 * (g / 3) + 16 * (g % 3);  // x column in tile
-        // s, 4s and 4s + s*z rounded as the plain version rounds them
-        const float s = __fadd_rn(__fmul_rn(qs, sc), qm);
-        const float s4x = 4.f * s;
-        const uint32_t s2 = bf2_splat(s4x);
-        const uint32_t z2 = bf2_splat(__fadd_rn(s4x, __fmul_rn(s, zc)));
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const uint32_t tj = 2 * j >= 5 ? word >> (2 * j - 5)
-                                         : word << (5 - 2 * j);
-          const uint32_t pb = (tj & 0x00600060u) | 0x3F803F80u;
-          const uint32_t w = bf2_sub(bf2_mul(s2, pb), z2);
-          const float wlo = __uint_as_float(w << 16);      // code j
-          const float whi = __uint_as_float(w & 0xFFFF0000u);  // j + 8
-#pragma unroll
-          for (int bb = 0; bb < BT; ++bb)
-            acc[bb] += xs[bb][off + j] * wlo + xs[bb][off + j + 8] * whi;
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint32_t word = w4[(size_t)(2 * mm + h) * npad + n];
-        const int off = 64 * r + 48 + 8 * h;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const uint32_t tj = 4 * j >= 3 ? word >> (4 * j - 3)
-                                         : word << (3 - 4 * j);
-          const uint32_t pb = (tj & 0x00780078u) | 0x3F803F80u;
-          const uint32_t w = bf2_sub(bf2_mul(s16b, pb), b16);
-          const float wlo = __uint_as_float(w << 16);      // code j
-          const float whi = __uint_as_float(w & 0xFFFF0000u);  // j + 4
-#pragma unroll
-          for (int bb = 0; bb < BT; ++bb)
-            acc[bb] += xs[bb][off + j] * wlo + xs[bb][off + j + 4] * whi;
-        }
-      }
-    }
-    m = mend;
+  for (int c = 0; c < 4; ++c) {
+    const float s4 = smeta4[n0 + c], z4 = smeta4[npad + n0 + c];
+    pq[c] = four ? bfexp_entry(16.f * s4, __fmul_rn(s4, z4)) : 0u;
   }
 
+  // the warp's ring: row mm in slot (mm - mb) % BF_STAGES, the first
+  // BF_STAGES - 1 rows in flight while the block stages x; one copy group
+  // per row
+  char* ring = rings + warp * BF_STAGES * BF_ROW_BYTES;
+  const int nck = lane + 32 < 56 ? 2 : 1;
+  BfCursor cu[2] = {
+      bf_cursor(lane, w2, w4, meta2, qscale, qmin, npad,
+                blockIdx.x * BF_COLS, mb),
+      bf_cursor(nck == 2 ? lane + 32 : 55, w2, w4, meta2, qscale, qmin, npad,
+                blockIdx.x * BF_COLS, mb)};
 #pragma unroll
-  for (int bb = 0; bb < BT; ++bb) {
-    const int row = b0 + bb;
-    if (row < B) part[((size_t)split * B + row) * npad + n] = acc[bb];
+  for (int d = 0; d < BF_STAGES - 1; ++d) {
+    if (mb + d < me) bf_fetch(ring + d * BF_ROW_BYTES, cu, nck, lane, mb + d);
+    cp_commit();
+  }
+
+  // x of the split's meta rows as bf16 pairs in slot order, a lane's 8
+  // pairs of a row a thread per round
+  const __nv_bfloat16* xr = x + (size_t)blockIdx.y * ldx;
+  const bool vec = (K % 8) == 0 && ((uintptr_t)xr % 16) == 0;
+  for (int i = threadIdx.x; i < (m1 - m0) * 4; i += BF_THREADS)
+    bf_stage_pairs(xr, K, vec, m0 + i / 4, i % 4, xs + 8 * i);
+  __syncthreads();
+
+  // tile A: rows gid, gid + 8 = columns n0, n0 + 1; tile B: n0 + 2, n0 + 3
+  float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 1
+  for (int mm = mb; mm < me; ++mm) {
+    const int j = mm - mb;
+    if (mm + BF_STAGES - 1 < me)
+      bf_fetch(ring + (j + BF_STAGES - 1) % BF_STAGES * BF_ROW_BYTES, cu,
+               nck, lane, mm + BF_STAGES - 1);
+    cp_commit();
+    cp_wait<BF_STAGES - 1>();
+    __syncwarp();
+    const BfRow cur = bf_read(ring + j % BF_STAGES * BF_ROW_BYTES, gid, tq);
+    const uint4* xp = reinterpret_cast<const uint4*>(xs + (mm - m0) * 32
+                                                     + tq * 8);
+    const uint4 xa = xp[0], xb = xp[1];
+    const uint32_t xv[8] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+    uint32_t a[4][8];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t m = word_of(cur.meta, c);
+      const float z = field_code((m >> zsh) & 3u, 0x4B000000u);
+      const float sc = field_code((m >> ssh) & 255u, 0x4B000000u);
+      const float s = __fadd_rn(__fmul_rn(bf16_of(cur.qs, c), sc),
+                                bf16_of(cur.qm, c));
+      const uint32_t pe =
+          (bfexp_entry(4.f * s, __fmul_rn(s, z)) & keep) | pq[c];
+      // its halves, each in both halves (ptxas folds these moves into the
+      // bf16x2 multiply's and subtract's operand selectors)
+      const __nv_bfloat162 pb = *reinterpret_cast<const __nv_bfloat162*>(&pe);
+      const __nv_bfloat162 e0b = __low2bfloat162(pb);
+      const __nv_bfloat162 e1b = __high2bfloat162(pb);
+      const uint32_t e0 = *reinterpret_cast<const uint32_t*>(&e0b);
+      const uint32_t e1 = *reinterpret_cast<const uint32_t*>(&e1b);
+      const uint32_t wa = word_of(cur.wa, c);
+      const uint32_t wb = rotl(word_of(cur.wb, c), rot_b);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        a[c][i] = bfexp_pair(wa, 3 - 4 * i, mask, e0, e1);
+        a[c][i + 4] = bfexp_pair(wb, 3 - 4 * i, mask, e0, e1);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        mma_acc(acc[h], a[2 * h][2 * q], a[2 * h + 1][2 * q],
+                a[2 * h][2 * q + 1], a[2 * h + 1][2 * q + 1], xv[2 * q],
+                xv[2 * q + 1]);
+    __syncwarp();   // the slot is read before a later copy refills it
+  }
+
+  // the warps' sums, added in warp order; thread n < 32 takes column n.
+  // C's row gid is acc[.][0], row gid + 8 acc[.][2] (x in every column)
+  if (tq == 0)
+    reinterpret_cast<float4*>(red + warp * BF_COLS)[gid] =
+        make_float4(acc[0][0], acc[0][2], acc[1][0], acc[1][2]);
+  __syncthreads();
+  if (threadIdx.x < BF_COLS) {
+    float v = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < BF_WARPS; ++ww)
+      v += red[ww * BF_COLS + threadIdx.x];
+    part[((size_t)split * gridDim.y + blockIdx.y) * npad
+         + blockIdx.x * BF_COLS + threadIdx.x] = v;
   }
 }
 
@@ -481,25 +683,26 @@ int sum_splits(const void* part, int ksplit, int B, int npad, int O,
   return (int)cudaGetLastError();
 }
 
-template <int LAYOUT>
-int launch_row(const void* x, int B, int K, int ldx, const void* w2,
-               const void* w4, const void* meta2, const void* qscale,
-               const void* qmin, const void* smeta4, int nbp, int npad,
-               int O, int rows_per_split, int ksplit, void* part, void* y,
-               void* stream) {
-  if (B < 1 || B > 65535 || npad % ROW_COLS || K > nbp * 64
+// a one-row kernel of cols columns and threads threads a block, then the
+// split sum
+template <class Kern>
+int launch_one_row(Kern kernel, int cols, int threads, size_t smem,
+                   const void* x, int B, int K, int ldx, const void* w2,
+                   const void* w4, const void* meta2, const void* qscale,
+                   const void* qmin, const void* smeta4, int nbp, int npad,
+                   int O, int rows_per_split, int ksplit, void* part,
+                   void* y, void* stream) {
+  if (B < 1 || B > 65535 || npad % cols || K > nbp * 64
       || !valid_split(nbp, rows_per_split, ksplit) || !aligned16(w2)
-      || !aligned16(w4) || !aligned16(meta2) || (uintptr_t)qscale % 8
-      || (uintptr_t)qmin % 8)
+      || !aligned16(w4) || !aligned16(meta2) || !aligned16(qscale)
+      || !aligned16(qmin))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = row_smem(rows_per_split);
   cudaError_t err = cudaFuncSetAttribute(
-      gemv_row_kernel<LAYOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(npad / ROW_COLS, B, ksplit);
-  gemv_row_kernel<LAYOUT><<<grid, ROW_THREADS, smem, st>>>(
+  dim3 grid(npad / cols, B, ksplit);
+  kernel<<<grid, threads, smem, st>>>(
       (const __nv_bfloat16*)x, K, ldx, (const uint32_t*)w2,
       (const uint32_t*)w4, (const uint32_t*)meta2,
       (const __nv_bfloat16*)qscale, (const __nv_bfloat16*)qmin,
@@ -509,37 +712,43 @@ int launch_row(const void* x, int B, int K, int ldx, const void* w2,
   return sum_splits(part, ksplit, B, npad, O, y, st);
 }
 
-int launch_bfexp(const void* x, int B, int K, int ldx, const void* w2,
-                 const void* w4, const void* meta2, const void* qscale,
-                 const void* qmin, const void* smeta4, int nbp, int npad,
-                 int O, int rows_per_split, int ksplit, void* part, void* y,
-                 void* stream) {
-  if (B < 1 || B > 65535 || npad % THREADS || K > nbp * 64
-      || !valid_split(nbp, rows_per_split, ksplit))
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  dim3 grid(npad / THREADS, B, ksplit);
-  mxq_gemv_kernel<<<grid, THREADS, 0, st>>>(
-      (const __nv_bfloat16*)x, B, K, ldx, (const uint32_t*)w2,
-      (const uint32_t*)w4, (const uint32_t*)meta2,
-      (const __nv_bfloat16*)qscale, (const __nv_bfloat16*)qmin,
-      (const float*)smeta4, nbp, npad, rows_per_split, (float*)part);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return sum_splits(part, ksplit, B, npad, O, y, st);
+#define ONE_ROW_ARGS                                                       \
+  x, B, K, ldx, w2, w4, meta2, qscale, qmin, smeta4, nbp, npad, O,        \
+      rows_per_split, ksplit, part, y, stream
+#define ONE_ROW_PARAMS                                                     \
+  const void *x, int B, int K, int ldx, const void *w2, const void *w4,   \
+      const void *meta2, const void *qscale, const void *qmin,            \
+      const void *smeta4, int nbp, int npad, int O, int rows_per_split,   \
+      int ksplit, void *part, void *y, void *stream
+
+template <int LAYOUT>
+int launch_row(ONE_ROW_PARAMS) {
+  return launch_one_row(gemv_row_kernel<LAYOUT>, ROW_COLS, ROW_THREADS,
+                        row_smem(rows_per_split), ONE_ROW_ARGS);
+}
+
+int launch_bfexp(ONE_ROW_PARAMS) {
+  return launch_one_row(bfexp_row_kernel, BF_COLS, BF_THREADS,
+                        bf_smem(rows_per_split), ONE_ROW_ARGS);
+}
+
+// blocks of a kernel resident on one SM at its shared memory, 0 on error
+template <class Kern>
+int per_sm(Kern kernel, int threads, size_t smem) {
+  int n = 0;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess
+      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads,
+                                                       smem) != cudaSuccess)
+    return 0;
+  return n;
 }
 
 }  // namespace
 
-#define MXQ_GEMV_ENTRY(NAME, LAUNCH)                                         \
-  int NAME(const void* x, int B, int K, int ldx, const void* w2,           \
-           const void* w4, const void* meta2, const void* qscale,          \
-           const void* qmin, const void* smeta4, int nbp, int npad, int O, \
-           int rows_per_split, int ksplit, void* part, void* y,            \
-           void* stream) {                                                 \
-    return LAUNCH(x, B, K, ldx, w2, w4, meta2, qscale, qmin, smeta4, nbp,  \
-                  npad, O, rows_per_split, ksplit, part, y, stream);       \
-  }
+#define MXQ_GEMV_ENTRY(NAME, LAUNCH) \
+  int NAME(ONE_ROW_PARAMS) { return LAUNCH(ONE_ROW_ARGS); }
 
 extern "C" {
 
@@ -552,21 +761,15 @@ MXQ_GEMV_ENTRY(mxq_gemv_k6_quad1, launch_row<QUAD>)
 MXQ_GEMV_ENTRY(mxq_gemv_k6_bfexp1, launch_bfexp)
 
 // (columns per block, warps per block that split its meta rows, blocks
-// per SM) of gemv_row_kernel (K2, K6-quad; the card's occupancy at one
-// k-tile of x, 0 on error) and of mxq_gemv_kernel (bfexp: one K slice per
-// block, sized for two blocks per SM), in that order. Returns the count.
+// per SM) of gemv_row_kernel (K2, K6-quad) and of bfexp_row_kernel
+// (K6-bfexp), in that order: blocks per SM by the card's occupancy at one
+// k-tile of x, 0 on error. Returns the count.
 int mxq_gemv_tiles(int* out, int n) {
-  int per_sm = 0;
-  const size_t smem = row_smem(NB_TILE);
-  if (cudaFuncSetAttribute(gemv_row_kernel<SLAB>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem) != cudaSuccess
-      || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, gemv_row_kernel<SLAB>, ROW_THREADS, smem)
-             != cudaSuccess)
-    per_sm = 0;
-  const int tiles[2][3] = {{ROW_COLS, ROW_WARPS, per_sm},
-                           {THREADS, 1, BFEXP_BLOCKS_PER_SM}};
+  const int tiles[2][3] = {
+      {ROW_COLS, ROW_WARPS,
+       per_sm(gemv_row_kernel<SLAB>, ROW_THREADS, row_smem(NB_TILE))},
+      {BF_COLS, BF_WARPS,
+       per_sm(bfexp_row_kernel, BF_THREADS, bf_smem(NB_TILE))}};
   for (int i = 0; i < 2 && i < n; ++i)
     for (int j = 0; j < 3; ++j) out[3 * i + j] = tiles[i][j];
   return 2;

@@ -114,10 +114,6 @@ __device__ __forceinline__ uint32_t sub_zero(uint32_t c, uint32_t zz) {
   return *reinterpret_cast<const uint32_t*>(&d);
 }
 
-__device__ __forceinline__ uint32_t rotl(uint32_t w, int n) {
-  return __funnelshift_l(w, w, n);
-}
-
 // The group operands of a table entry (group_table): for slab and quad
 // e0 = bf16x2(128 + z) from the zero byte zb; for bfexp e0 = bf16x2(4s)
 // and e1 = bf16x2(4s + s*z) from the packed entry ts.
@@ -149,10 +145,8 @@ __device__ __forceinline__ void operand2(uint32_t w, int tq, uint32_t e0,
     r1 = sub_zero(__byte_perm(t, 0x43434343u, 0x4341u), e0);
   } else {
     // 1 + c/4 in bf16: the code at bits 5-6 of bf16 1.0 (0x3F80)
-    const uint32_t p0 = (rotl(w, 5 - 2 * tq) & 0x00600060u) | 0x3F803F80u;
-    const uint32_t p1 = (rotl(w, 29 - 2 * tq) & 0x00600060u) | 0x3F803F80u;
-    r0 = bf2_sub(bf2_mul(e0, p0), e1);
-    r1 = bf2_sub(bf2_mul(e0, p1), e1);
+    r0 = bfexp_pair(w, 5 - 2 * tq, 0x00600060u, e0, e1);
+    r1 = bfexp_pair(w, 29 - 2 * tq, 0x00600060u, e0, e1);
   }
 }
 
@@ -174,10 +168,8 @@ __device__ __forceinline__ void operand4(uint32_t w0, uint32_t w1, int tq,
     r1 = sub_zero(__byte_perm((w1 >> sh) & 0x0F0F0F0Fu, 0x43434343u, sel), p);
   } else {
     // 1 + c/16: the code at bits 3-6 of bf16 1.0
-    const uint32_t p0 = (rotl(w0, 3 - 4 * tq) & 0x00780078u) | 0x3F803F80u;
-    const uint32_t p1 = (rotl(w1, 3 - 4 * tq) & 0x00780078u) | 0x3F803F80u;
-    r0 = bf2_sub(bf2_mul(p, p0), q);
-    r1 = bf2_sub(bf2_mul(p, p1), q);
+    r0 = bfexp_pair(w0, 3 - 4 * tq, 0x00780078u, p, q);
+    r1 = bfexp_pair(w1, 3 - 4 * tq, 0x00780078u, p, q);
   }
 }
 
@@ -231,9 +223,7 @@ __device__ __forceinline__ void group_table(const unsigned char* meta_sm,
     const float s = __fadd_rn(__fmul_rn(__bfloat162float(qs[r * BN + c]), sc),
                               __bfloat162float(qm[r * BN + c]));
     if constexpr (LAYOUT == BFEXP) {
-      const float s4x = 4.f * s;
-      ts[i] = (bf2_splat(s4x) & 0xFFFFu)
-              | (bf2_splat(__fadd_rn(s4x, __fmul_rn(s, (float)z))) << 16);
+      ts[i] = bfexp_entry(4.f * s, __fmul_rn(s, (float)z));
     } else {
       ts[i] = __float_as_uint(s);
       zb[i] = (uint8_t)z;

@@ -1,20 +1,25 @@
-"""Time the one-row GEMV (K2, ``csrc/mxq_gemv.cu`` ``gemv_row_kernel``)
-and variants of it at llama2_7b's four packed linears on the card.
+"""Time the one-row GEMVs of ``csrc/mxq_gemv.cu`` (K2's
+``gemv_row_kernel``, K6-bfexp's ``bfexp_row_kernel``) and variants of them
+at llama2_7b's four packed linears on the card.
 
-    python -m mxq_tpu_torch.gemv_row_probe             # the kernel as built
+    python -m mxq_tpu_torch.gemv_row_probe             # K2 as built
     python -m mxq_tpu_torch.gemv_row_probe --variants base,warps4
+    python -m mxq_tpu_torch.gemv_row_probe --kernel bfexp --variants base,fma
 
-A variant is the source with some of its ``constexpr`` lines replaced
-(:data:`VARIANTS`), built with nvcc into ``_build/probe/`` and called
-through the same C entry, with the K split that its own
-``mxq_gemv_tiles`` geometry gives (``ops.mxq_matmul._split_rows``).
-Each (variant, linear) prints one JSON line: the CUDA-event median of
-device time with the L2 flushed by a write before each call (as
-``chip_smoke.py``'s kernels phase times it: ``cold_ms``) and without a
-flush (``warm_ms``: the weight is read from L2 where it fits), the rel
-error against ``gemv_plain`` and whether the output equals the built
-kernel's. ``floor`` lines time one small copy kernel under the same two
-clocks: what the timing method itself costs. Needs a CUDA device."""
+A variant is the library source with some of its ``constexpr`` lines
+replaced, or a probe source of its own under ``csrc/probe/`` (bfexp's
+``fma``: the same weights multiplied on the CUDA cores in K2's lane
+layout) (:data:`VARIANTS`), built with nvcc into ``_build/probe/`` and
+called through its C entry, with the K split that its geometry gives
+(``mxq_gemv_tiles``, ``ops.mxq_matmul._split_rows``). Each (variant,
+linear) prints one JSON line: the CUDA-event median of device time with
+the L2 flushed before each call (256 MB written, then read, so that no
+dirty line is left to write back: as ``chip_smoke.py``'s kernels phase
+times it, ``cold_ms``) and without a flush (``warm_ms``: the weight is
+read from L2 where it fits), the rel error against the kernel's plain
+version and whether the output equals the built kernel's. ``floor`` lines
+time one small copy kernel under the same two clocks: what the timing
+method itself costs. Needs a CUDA device."""
 
 from __future__ import annotations
 
@@ -34,17 +39,57 @@ from mxq_tpu_torch.ops import mxq_matmul as mm
 # llama2_7b packed linears of one layer: name -> (out, in)
 SHAPES_7B = {"qkv": (3 * 4096, 4096), "o": (4096, 4096),
              "gate_up": (2 * 11008, 4096), "down": (4096, 11008)}
-# name -> {constexpr name: value} replaced in csrc/mxq_gemv.cu: blocks of
-# 4 or 16 warps in place of 8 (both measured, neither kept: PERF.md)
+# per kernel: its C entry, its row of mxq_gemv_tiles, its kernel's name in
+# ptxas' report, the built wrapper and the plain version
+KERNELS = {
+    "k2": ("mxq_gemv_k2", 0, "gemv_row_kernelILi0E", "gemv_single",
+           "gemv_plain"),
+    "bfexp": ("mxq_gemv_k6_bfexp1", 1, "bfexp_row_kernel", "gemv_bfexp",
+              "gemv_bfexp_plain"),
+}
+# per kernel, variant -> {constexpr name: value} replaced in
+# csrc/mxq_gemv.cu, or (probe source, its C entry, its tiles row, its
+# kernel's name); measured ones are in PERF.md
 VARIANTS = {
-    "base": {},
-    "warps4": {"ROW_WARPS": "4", "ROW_MIN_BLOCKS": "4"},
-    "warps16": {"ROW_WARPS": "16", "ROW_MIN_BLOCKS": "1"},
+    "k2": {
+        "base": {},
+        "warps4": {"ROW_WARPS": "4", "ROW_MIN_BLOCKS": "4"},
+        "warps16": {"ROW_WARPS": "16", "ROW_MIN_BLOCKS": "1"},
+    },
+    "bfexp": {
+        "base": {},
+        "stages3": {"BF_STAGES": "3"},
+        "warps2": {"BF_WARPS": "2", "BF_MIN_BLOCKS": "16"},
+        "warps8": {"BF_WARPS": "8", "BF_MIN_BLOCKS": "4"},
+        "fma": ("probe/bfexp_fma.cu", "mxq_gemv_k6_bfexp1_fma", 0,
+                "bfexp_fma_kernel"),
+        # ablations (wrong outputs, timed only): the MMAs replaced by an
+        # xor of their operands into the sum; the group entry's decode
+        # replaced by the 4-bit entry
+        "nomma": [("mma_acc(acc[h], ", "fake_mma(acc[h], "),
+                  ("// c += a . b: m16n8k16",
+                   "__device__ __forceinline__ void fake_mma(float (&c)[4], "
+                   "uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, "
+                   "uint32_t b0, uint32_t b1) { c[0] += __uint_as_float("
+                   "a0 ^ a1 ^ a2 ^ a3 ^ b0 ^ b1); }\n"
+                   "// c += a . b: m16n8k16")],
+        "noentry": [("(bfexp_entry(4.f * s, __fmul_rn(s, z)) & keep)",
+                     "(m & 1u)")],
+    },
 }
 
 
-def variant_source(changes: dict) -> str:
+def variant_source(changes) -> str:
+    """mxq_gemv.cu with ``changes``: {constexpr name: value}, or a list of
+    (text, replacement) pairs, each text found once."""
     src = (_build.CSRC / "mxq_gemv.cu").read_text()
+    if isinstance(changes, list):
+        for old, new in changes:
+            if src.count(old) != 1:
+                raise ValueError(f"{old!r}: {src.count(old)} times in "
+                                 "mxq_gemv.cu")
+            src = src.replace(old, new)
+        return src
     for name, value in changes.items():
         src, n = re.subn(rf"(constexpr int {name} = )[^;]+;",
                          rf"\g<1>{value};", src)
@@ -53,35 +98,50 @@ def variant_source(changes: dict) -> str:
     return src
 
 
-def build_variants(names) -> dict:
-    """{variant: loaded library}, built in parallel."""
+def build_variants(kernel: str, names) -> dict:
+    """{variant: (loaded library, C entry, tiles row)}, built in
+    parallel."""
     out_dir = _build.BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
+    entry, row, kname = KERNELS[kernel][:3]
     procs = {}
     for v in names:
-        src = out_dir / f"mxq_gemv_{v}.cu"
-        src.write_text(variant_source(VARIANTS[v]))
-        lib = out_dir / f"libmxq_gemv_{v}.so"
+        spec = VARIANTS[kernel][v]
+        if isinstance(spec, tuple):
+            src = _build.CSRC / spec[0]
+            how = spec[1:]
+        else:
+            src = out_dir / f"mxq_gemv_{kernel}_{v}.cu"
+            src.write_text(variant_source(spec))
+            how = (entry, row, kname)
+        lib = out_dir / f"libmxq_gemv_{kernel}_{v}.so"
         cmd = [_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                "-I", str(_build.CSRC), "-Xptxas", "-v", "-o", str(lib),
                str(src)]
-        procs[v] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True))
+        procs[v] = (lib, how, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
     libs = {}
-    for v, (lib, proc) in procs.items():
+    for v, (lib, (fn, tiles_row, kname_v), proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {v}:\n{log}")
-        regs = re.findall(r"gemv_row_kernelILi0E.*?Used (\d+) registers",
-                          log, re.S)
-        print(json.dumps({"variant": v, "registers": regs}), flush=True)
+        report = re.findall(rf"Compiling entry function '\w*{kname_v}\w*'.*?"
+                            r"(Used \d+ registers[^\n]*)", log, re.S)
+        spills = re.findall(rf"Compiling entry function '\w*{kname_v}\w*'.*?"
+                            r"(\d+ bytes spill stores)", log, re.S)
+        print(json.dumps({"variant": v, "ptxas": report, "spills": spills}),
+              flush=True)
         dll = ctypes.CDLL(str(lib))
-        for fn, argtypes in _build.SIGNATURES["mxq_gemv"].items():
-            getattr(dll, fn).argtypes = argtypes
+        for f, argtypes in _build.SIGNATURES["mxq_gemv"].items():
+            getattr(dll, f).argtypes = argtypes
+            getattr(dll, f).restype = ctypes.c_int
+        if fn not in _build.SIGNATURES["mxq_gemv"]:
+            getattr(dll, fn).argtypes = \
+                _build.SIGNATURES["mxq_gemv"]["mxq_gemv_k2"]
             getattr(dll, fn).restype = ctypes.c_int
-        libs[v] = dll
+        libs[v] = (dll, fn, tiles_row)
     return libs
 
 
@@ -91,32 +151,34 @@ def tiles_of(dll) -> tuple:
     return tuple(tuple(buf[3 * i: 3 * i + 3]) for i in range(n))
 
 
-def call(dll, x, p, rows):
-    """mxq_gemv_k2 of ``dll`` with ``rows`` meta rows per split."""
+def call(dll, fn, x, p, rows):
+    """Entry ``fn`` of ``dll`` with ``rows`` meta rows per split."""
     nbp, n = p.meta2.shape
     ksplit = -(-nbp // rows)
     part = torch.empty((ksplit, 1, n), dtype=torch.float32, device="cuda")
     y = torch.empty((1, p.out_features), dtype=torch.float32, device="cuda")
-    err = dll.mxq_gemv_k2(
+    err = getattr(dll, fn)(
         x.data_ptr(), 1, x.shape[1], x.shape[1], p.w2.data_ptr(),
         p.w4.data_ptr(), p.meta2.data_ptr(), p.qscale.data_ptr(),
         p.qmin.data_ptr(), p.smeta4.data_ptr(), nbp, n, p.out_features,
         rows, ksplit, part.data_ptr(), y.data_ptr(),
         torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "mxq_gemv_k2")
+    _build.check(err, fn)
     return y
 
 
 def time_ms(fn, flush, iters=20) -> float:
     """Median CUDA-event ms of ``fn``; before each call the L2 is flushed
-    by writing ``flush`` (when given) and the card spins ~1 ms so that
-    the events bracket device time only."""
+    (when ``flush`` is given: written, then read, leaving no dirty line)
+    and the card spins ~1 ms so that the events bracket device time
+    only."""
     for _ in range(3):
         fn()
     ts = []
     for _ in range(iters):
         if flush is not None:
             flush.zero_()
+            flush.view(torch.float32).sum()
         torch.cuda._sleep(2_000_000)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
@@ -130,10 +192,13 @@ def time_ms(fn, flush, iters=20) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", default="k2", choices=sorted(KERNELS))
     ap.add_argument("--variants", default="base")
     args = ap.parse_args(argv)
     names = args.variants.split(",")
-    libs = build_variants(names)
+    libs = build_variants(args.kernel, names)
+    built = getattr(mm, KERNELS[args.kernel][3])
+    plain = getattr(mm, KERNELS[args.kernel][4])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     small = torch.empty(4096, dtype=torch.float32, device="cuda")
@@ -148,26 +213,27 @@ def main(argv=None) -> int:
         del w
         x = torch.randn((1, k), generator=gen, device="cuda").to(
             torch.bfloat16)
-        ref = mm.gemv_plain(x, p)
-        base = mm.gemv_single(x, p)
+        ref = plain(x, p)
+        base = built(x, p)
         nbp, n = p.meta2.shape
-        for v, dll in libs.items():
-            tile = tiles_of(dll)[0]
+        for v, (dll, fn, tiles_row) in libs.items():
+            tile = tiles_of(dll)[tiles_row]
             rows = mm._split_rows(nbp, n, sms, tile)
-            y = call(dll, x, p, rows)
+            y = call(dll, fn, x, p, rows)
             torch.cuda.synchronize()
-            row = {"variant": v, "linear": name, "tile": tile,
-                   "rows_per_split": rows,
+            row = {"kernel": args.kernel, "variant": v, "linear": name,
+                   "tile": tile, "rows_per_split": rows,
                    "rel_err": float((y - ref).abs().max()
                                     / ref.abs().max()),
                    "equal_to_built": torch.equal(y, base)}
             for clock, fl in (("cold_ms", flush), ("warm_ms", None)):
-                row[clock] = time_ms(lambda: call(dll, x, p, rows), fl)
+                row[clock] = time_ms(lambda: call(dll, fn, x, p, rows), fl)
                 sums[v][clock] += row[clock]
             print(json.dumps(row), flush=True)
         del p
     for v in names:
-        print(json.dumps({"variant": v, "layer": sums[v]}), flush=True)
+        print(json.dumps({"kernel": args.kernel, "variant": v,
+                          "layer": sums[v]}), flush=True)
     return 0
 
 

@@ -12,8 +12,8 @@ Port of ``mxq_tpu/ops/mxq_matmul.py``. The function every path computes is
   import into :data:`GEMV_LAYOUT`; ``MXQ_GEMV_LAYOUT_B1`` for one row,
   read per call; :func:`gemv_layout`) -> K6 (:func:`gemv_quad`,
   :func:`gemv_bfexp`; K1's template at B >= 2; at one row quad is K2's
-  kernel and bfexp its own one-thread-per-column loop) at
-  any row count. ``quad`` computes K1's function; ``bfexp`` a lossy one
+  kernel and bfexp its own tensor-core kernel beside it) at any row
+  count. ``quad`` computes K1's function; ``bfexp`` a lossy one
   whose weights are rounded to bf16 in two steps
   (:func:`gemv_bfexp_plain`);
 * prefill, >= 512 rows -> K3 (:func:`dequant_planes`, ``csrc/mxq_dequant.cu``)
@@ -76,9 +76,22 @@ def gemv_bfexp_plain(x: torch.Tensor, p: PackedMXQLinear,
     ``bf16(16*s4 + s4*z4)`` and ``1 + c/16``, so there is no separate
     4-bit epilogue. Both products are exact in f32 (an 8-bit by a 3- or
     5-bit significand) and both differences too (the operands are within a
-    factor of two), so each ``bf16(...)`` below is one rounding, as in
-    K6's bf16x2 multiply and subtract: the weights are bit-equal, and the
-    products x*w are exact in f32 and summed in f32."""
+    factor of two), so each ``bf16(...)`` of :func:`bfexp_weights_plain`
+    is one rounding, as in K6's bf16x2 multiply and subtract: the weights
+    are bit-equal, and the products x*w are exact in f32 and summed in
+    f32."""
+    w2, w4 = bfexp_weights_plain(p, cfg)
+    x2, x4 = packfmt.pad_inputs_split(x.to(torch.bfloat16).float(), p, cfg)
+    y = x2 @ w2 + x4 @ w4
+    return y[:, : p.out_features]
+
+
+def bfexp_weights_plain(p: PackedMXQLinear, cfg: MXQConfig = DEFAULT_SCHEME):
+    """The weights of :func:`gemv_bfexp_plain`, bf16 values in f32: the
+    2-bit plane ``[NBP*48, N]`` and the 4-bit plane ``[NBP*16, N]`` in
+    natural plane order (row ``word*16 + j`` of the 2-bit plane holds code
+    j of ``w2`` row ``word``; ``word*8 + j`` of the 4-bit one, of ``w4``),
+    the rows of :func:`packfmt.pad_inputs_split`'s x2 and x4."""
     def bf(t):
         return t.to(torch.bfloat16).float()
 
@@ -92,9 +105,7 @@ def gemv_bfexp_plain(x: torch.Tensor, p: PackedMXQLinear,
     b4 = bf(s16 + p.smeta4[0:1] * p.smeta4[1:2])
     pb4 = 1.0 + packfmt._unpack_along_sublanes(p.w4, cfg.bits_hi).float() / 16
     w4 = bf(bf(bf(s16) * pb4) - b4)
-    x2, x4 = packfmt.pad_inputs_split(x.to(torch.bfloat16).float(), p, cfg)
-    y = x2 @ w2 + x4 @ w4
-    return y[:, : p.out_features]
+    return w2, w4
 
 
 def dequant_planes_plain(p: PackedMXQLinear,
@@ -195,8 +206,9 @@ def _check_packed(p: PackedMXQLinear, dev: torch.device) -> None:
 def _row_tiles() -> tuple[tuple[int, int, int], ...]:
     """(columns per block, warps per block that split its meta rows,
     blocks per SM) of the one-row kernels of ``csrc/mxq_gemv.cu``, as the
-    built library reports them: K2/K6-quad's ``gemv_row_kernel`` (blocks
-    per SM by the card's occupancy rules), then bfexp's loop."""
+    built library reports them, blocks per SM by the card's occupancy
+    rules: K2/K6-quad's ``gemv_row_kernel``, then K6-bfexp's
+    ``bfexp_row_kernel``."""
     from mxq_tpu_torch import _build
     buf = (ctypes.c_int * 6)()
     n = _build.load("mxq_gemv").mxq_gemv_tiles(buf, 2)

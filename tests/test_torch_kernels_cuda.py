@@ -96,8 +96,8 @@ def test_gemv_kernels_on_stacked_layer(gen, b):
 def test_one_row_kernels_at_down_width(gen, o, k):
     """The one-row kernels at K = 11008 (llama2_7b down's 176 meta rows,
     11 k-tiles): K2 within 1e-4 of gemv_plain, gemv_quad at one row equal
-    to it bit for bit, gemv_bfexp at one row within 1e-4 of
-    gemv_bfexp_plain."""
+    to it bit for bit, gemv_bfexp at one row (bfexp_row_kernel) within
+    1e-4 of gemv_bfexp_plain."""
     p = _pack(gen, o, k)
     x = torch.randn((1, k), generator=gen, device="cuda").to(torch.bfloat16)
     y = mm.gemv_single(x, p)
@@ -124,11 +124,47 @@ def test_k2_x_at_any_offset(gen):
     assert torch.equal(y, mm.gemv_single(x.clone(), p))
 
 
+@pytest.mark.parametrize("o,k", [(12288, 4096), (4096, 4096),
+                                 (22016, 4096), (4096, 11008)],
+                         ids=["qkv", "o", "gate_up", "down"])
+def test_bfexp_one_row_at_7b_linears(gen, o, k):
+    """K6-bfexp's one-row kernel (bfexp_row_kernel) at llama2_7b's four
+    packed linears: one launch a call, within 1e-4 of max|y| of
+    gemv_bfexp_plain (the same bf16 weights; only the f32 summation order
+    differs), and the same output again on a second call (fixed-order
+    sums)."""
+    p = _pack(gen, o, k)
+    x = torch.randn((1, k), generator=gen, device="cuda").to(torch.bfloat16)
+    n0 = mm.gemv_bfexp.launches
+    y = mm.gemv_bfexp(x, p)
+    ref = mm.gemv_bfexp_plain(x, p)
+    torch.cuda.synchronize()
+    assert mm.gemv_bfexp.launches - n0 == 1
+    assert y.shape == (1, o)
+    assert float((y - ref).abs().max() / ref.abs().max()) <= 1e-4
+    assert torch.equal(y, mm.gemv_bfexp(x, p))
+
+
+def test_bfexp_x_at_any_offset(gen):
+    """bfexp_row_kernel gathers x element by element into its slot order:
+    a bf16 x at an odd element offset gives the aligned copy's output bit
+    for bit."""
+    p = _pack(gen, 320, 1088)
+    buf = torch.randn((1, 1089), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    x = buf[:, 1:]
+    assert x.is_contiguous() and x.data_ptr() % 16
+    y = mm.gemv_bfexp(x, p)
+    torch.cuda.synchronize()
+    assert torch.equal(y, mm.gemv_bfexp(x.clone(), p))
+
+
 def test_row_tiles_as_built(gen):
     """The one-row kernels' geometry the built library reports, with the
-    blocks per SM the card places gemv_row_kernel at, is the table the CPU
-    tests hold the K split to (tests/test_torch_mxq_matmul.py ROW_TILES)."""
-    assert mm._row_tiles() == ((128, 8, 2), (128, 1, 2))
+    blocks per SM the card places gemv_row_kernel and bfexp_row_kernel at,
+    is the table the CPU tests hold the K split to
+    (tests/test_torch_mxq_matmul.py ROW_TILES)."""
+    assert mm._row_tiles() == ((128, 8, 2), (32, 4, 9))
 
 
 def test_k1_tiles_as_built(gen):

@@ -137,9 +137,10 @@ def test_wrappers_reject_bad_input(packed):
 
 # (columns per block, warps per block that split its meta rows, blocks per
 # SM) of the one-row kernels as csrc/mxq_gemv.cu builds them on the H100:
-# K2/K6-quad's gemv_row_kernel, then bfexp's loop (ops/mxq_matmul._row_tiles
-# reads them from the library on the card; a cuda test holds them to this)
-ROW_TILES = ((128, 8, 2), (128, 1, 2))
+# K2/K6-quad's gemv_row_kernel, then K6-bfexp's bfexp_row_kernel
+# (ops/mxq_matmul._row_tiles reads them from the library on the card; a
+# cuda test holds them to this)
+ROW_TILES = ((128, 8, 2), (32, 4, 9))
 ROW_WARP_BYTES = 32 * (6 * 16 + 2 * 8)   # a warp's loads of one meta row
 
 
@@ -168,10 +169,15 @@ def test_split_rows(nbp, n, want):
 @pytest.mark.parametrize("nbp,n,want", [
     (64, 4096, 4), (64, 12288, 16), (176, 4096, 16), (64, 22528, 32)])
 def test_split_rows_bfexp_loop(nbp, n, want):
-    """bfexp's one-row loop (one K slice per block, two blocks per SM) at
-    the four 7B linears: the splits it had before the one-row kernel's
-    redesign, except gate_up's two equal splits (was 48 + 16 rows)."""
-    assert tmm._split_rows(nbp, n, 132, ROW_TILES[1]) == want
+    """K6-bfexp's one-row kernel (32 columns a block, 4 warps splitting its
+    meta rows, nine blocks per SM) at the four 7B linears: the fewest
+    splits whose blocks fill the 1188 slots, of equal length, one meta row
+    or more per warp. o_proj's 128 column blocks take 16 splits of 4 rows
+    (one per warp); qkv 4 of 16, down 11 of 16, gate_up 2 of 32."""
+    cols, warps, per_sm = ROW_TILES[1]
+    rows = tmm._split_rows(nbp, n, 132, ROW_TILES[1])
+    assert rows == want and rows >= warps
+    assert (n // cols) * -(-nbp // rows) >= per_sm * 132
 
 
 # ---------------------------------------------------------------------------
@@ -1076,6 +1082,150 @@ def test_row_kernel_algebra_matches_plain_and_jax(o, k):
         assert rel(got, yj) <= 1e-4, rows
     assert torch.equal(_row_emulated(xt, pt, rule, "quad"),
                        _row_emulated(xt, pt, rule))
+
+
+# ---------------------------------------------------------------------------
+# K6-bfexp at one row (csrc/mxq_gemv.cu bfexp_row_kernel): numpy emulation
+# of the kernel's lane map (columns onto MMA rows, codes onto k-slots, x's
+# slot order in shared memory) and of its fixed-order sums
+# ---------------------------------------------------------------------------
+
+BF_ROT = (3, 31, 27, 23)            # register i's rotation: 3 - 4 (i % 4)
+
+
+def _bf_stage_pairs(x16, mm, tq):
+    """Lane tq's 8 x pair words of meta row mm as the kernel stages them
+    (bf_stage_pairs): the 16-column chunk of 2-bit group 16 tq + r (tq <
+    3) or the 4-bit chunk (tq == 3), read as 8 words of column pairs and
+    byte-permuted into the registers' code pairs. ``x16`` holds x's 16-bit
+    values, zero beyond K and padded to the packed K. Returns [8] uint32."""
+    t, r = divmod(mm, 16)
+    g = 16 * tq + r
+    col = t * 1024 + (64 * r + 48 if tq == 3 else 64 * (g // 3) + 16 * (g % 3))
+    v = _u32(x16[col:col + 16])
+    w = v[0::2] | (v[1::2] << np.uint32(16))
+    out = np.empty(8, np.uint32)
+    for i in range(4):
+        if tq == 3:
+            sel = 0x7632 if i & 1 else 0x5410
+            out[i] = _byte_perm(w[i >> 1], w[(i >> 1) + 2], sel)
+            out[i + 4] = _byte_perm(w[4 + (i >> 1)], w[6 + (i >> 1)], sel)
+        else:
+            out[i] = _byte_perm(w[i], w[i + 4], 0x7632)
+            out[i + 4] = _byte_perm(w[i], w[i + 4], 0x5410)
+    return out
+
+
+def _bf16(a):
+    """f32 array rounded to bf16 (nearest even), as f32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _bf_registers(p, mm, tq):
+    """Lane tq's eight registers of meta row mm for every column, as the
+    kernel builds them: [8, 2, N] f32 (low half, high half)."""
+    f32, u32 = np.float32, np.uint32
+    t, r = divmod(mm, 16)
+    w2, w4, meta = (_u32(getattr(p, f).numpy()) for f in ("w2", "w4",
+                                                         "meta2"))
+    m = meta[mm]
+    if tq == 3:
+        wa, wb = w4[2 * mm], w4[2 * mm + 1]
+        mask = u32(0x00780078)
+        s4, z4 = p.smeta4[0].numpy(), p.smeta4[1].numpy()
+        s16 = (f32(16) * s4).astype(f32)
+        e0, e1 = _bf16(s16), _bf16(s16 + (s4 * z4).astype(f32))
+    else:
+        wa = w2[t * 48 + 16 * tq + r]
+        wb = _rotl(wa, 2)
+        mask = u32(0x00600060)
+        z = _field_float(m, 2 * tq, 2)
+        sc = _field_float(m, 6 + 8 * tq, 8)
+        s = ((p.qscale[mm].float().numpy() * sc).astype(f32)
+             + p.qmin[mm].float().numpy()).astype(f32)
+        s4x = (f32(4) * s).astype(f32)
+        e0, e1 = _bf16(s4x), _bf16(s4x + (s * z).astype(f32))
+    out = np.empty((8, 2) + wa.shape, f32)
+    for i in range(8):
+        pb = (_rotl(wa if i < 4 else wb, BF_ROT[i % 4]) & mask) \
+            | u32(0x3F803F80)
+        for h, half in enumerate(_halves(pb)):
+            out[i, h] = _bf16(_bf16(e0 * half.float().numpy()) - e1)
+    return out
+
+
+def _bfexp_row_emulated(x, p, rows, warps):
+    """bfexp_row_kernel in numpy: (y [1, O], the weights it multiplies
+    [NBP*64, N] in x's column order). Per meta row and lane tq the
+    registers (_bf_registers) and the x pairs the kernel stages for the
+    same slots (_bf_stage_pairs, zero at columns >= K; staging column
+    indices in place of x tells where each weight sits); each MMA's 16
+    products of a column summed in slot order, accumulated over the warp's
+    rows; the warps' sums added in warp order, the splits in split
+    order."""
+    nbp, n = p.meta2.shape
+    k = x.shape[1]
+    xbits = np.zeros(nbp * 64, np.int64)
+    xbits[:k] = x.to(torch.bfloat16).view(torch.int16).numpy()[0].view(
+        np.uint16)
+    cols = np.arange(nbp * 64)                # where each staged half came from
+    wk = np.full((nbp * 64, n), np.nan, np.float32)
+    per_row = []
+    for mm in range(nbp):
+        acc = np.zeros(n, np.float32)
+        regs = [_bf_registers(p, mm, tq) for tq in range(4)]
+        xw = [_bf_stage_pairs(xbits, mm, tq) for tq in range(4)]
+        cw = [_bf_stage_pairs(cols, mm, tq) for tq in range(4)]
+        for q in range(4):                    # MMA q: registers 2q, 2q + 1
+            dot = np.zeros(n, np.float32)
+            for i in (2 * q, 2 * q + 1):
+                for tq in range(4):
+                    for h in range(2):
+                        sh = np.uint32(16 * h)
+                        col = int((cw[tq][i] >> sh) & np.uint32(0xFFFF))
+                        wk[col] = regs[tq][i, h]
+                        xv = (((xw[tq][i] >> sh) & np.uint32(0xFFFF))
+                              << np.uint32(16)).view(np.float32)
+                        dot = dot + xv * regs[tq][i, h]
+            acc = acc + dot
+        per_row.append(acc)
+    y = np.zeros(n, np.float32)
+    parts = {}
+    for s, _, run in _warp_rows(nbp, rows, warps):
+        a = np.zeros(n, np.float32)
+        for mm in run:
+            a = a + per_row[mm]
+        parts[s] = a if s not in parts else parts[s] + a
+    for s in sorted(parts):
+        y = y + parts[s]
+    return (torch.from_numpy(y[None, : p.out_features].copy()),
+            torch.from_numpy(wk))
+
+
+@pytest.mark.parametrize("o,k", [(320, 1088), (64, 11008)])
+def test_bfexp_row_kernel_emulation_equals_plain(o, k):
+    """The one-row bfexp kernel's lane map, emulated in numpy: every weight
+    it multiplies (code onto k-slot, rotation, mask, entry) equals
+    gemv_bfexp_plain's bit for bit at the position its x pair holds, every
+    position once; and its sums (split by the rule's K split and 4 warps)
+    within 1e-6 of max|y| of gemv_bfexp_plain (only the f32 order
+    differs), at the test shape and at llama2_7b down_proj's K (NBP 176,
+    11 k-tiles)."""
+    rng = np.random.default_rng(o + k + 1)
+    p = tpf.quantize_pack(torch.from_numpy(
+        rng.standard_normal((o, k)).astype(np.float32)))
+    x = torch.from_numpy(rng.standard_normal((1, k)).astype(np.float32))
+    nbp, n = p.meta2.shape
+    rows = tmm._split_rows(nbp, n, 132, ROW_TILES[1])
+    y, wk = _bfexp_row_emulated(x, p, rows, ROW_TILES[1][1])
+    w2, w4 = tmm.bfexp_weights_plain(p)
+    want = torch.cat([w2.reshape(nbp, 48, n), w4.reshape(nbp, 16, n)],
+                     dim=1).reshape(nbp * 64, n)
+    assert not bool(wk.isnan().any())
+    assert torch.equal(wk, want)
+    assert rel(y, tmm.gemv_bfexp_plain(x, p)) <= 1e-6
+
 
 if __name__ == "__main__":
     # the gaps quoted in ROADMAP.md (queue 3), as rel = max|diff| / max|y|
