@@ -115,8 +115,8 @@ KERNEL_INFO = {
            "mxq_tpu/ops/mxq_matmul.py:856"),
     # K6's summary rows are at B=8: the tensor-core template. At one row
     # quad runs K2's kernel and bfexp its own (bfexp_row_kernel), both in
-    # mxq_gemv.cu: K6-bfexp-1 is bfexp's B=1 row, counted by K6-bfexp's
-    # wrapper
+    # mxq_gemv.cu: K6-bfexp-1 is bfexp's B=1 row. K6-bfexp's wrapper
+    # counts both kernels; the serve phase gives each row its own launches
     "K6-quad": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv_tc.cu",
                 "mxq_tpu/ops/mxq_matmul.py:169"),
     "K6-bfexp": ("cuda", "mxq_tpu_torch/csrc/mxq_gemv_tc.cu",
@@ -154,8 +154,7 @@ PREFILL_GROUPS = (("K5", K5_KERNEL_NAMES),
                   ("GEMM (library)", ("gemm", "cutlass", "xmma")))
 
 # summary rows counted by another kernel's wrapper
-COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a",
-           "K6-bfexp-1": "K6-bfexp"}
+COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a"}
 
 
 def emit(obj) -> None:
@@ -1237,6 +1236,10 @@ def phase_serve(torch):
                         f"{runs['cli_a8_u4']['tokens']} tokens")
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in kernels}
+    # K6-bfexp's wrapper launches bfexp_row_kernel at one row, which only
+    # engine_slots1_bfexp runs, and the tensor-core template at B >= 2
+    launches["K6-bfexp-1"] = n6
+    launches["K6-bfexp"] -= n6
     # the two engines' decode steps and one speculative verify round,
     # wall-clocked in turns (the host's speed drifts between seconds),
     # then profiled
@@ -1874,7 +1877,8 @@ def main(argv=None) -> int:
         failures += f
     if "eval" in phases:
         more, f = phase_eval(torch)
-        launches = {k: launches.get(k, 0) + n for k, n in more.items()}
+        for k, n in more.items():
+            launches[k] = launches.get(k, 0) + n
         failures += f
     if "e2e" in phases:
         failures += phase_e2e(torch)

@@ -4,14 +4,12 @@ at llama2_7b's four packed linears on the card.
 
     python -m mxq_tpu_torch.gemv_row_probe             # K2 as built
     python -m mxq_tpu_torch.gemv_row_probe --variants base,warps4
-    python -m mxq_tpu_torch.gemv_row_probe --kernel bfexp --variants base,fma
+    python -m mxq_tpu_torch.gemv_row_probe --kernel bfexp  # bfexp_row_kernel
 
-A variant is the library source with some of its ``constexpr`` lines
-replaced, or a probe source of its own under ``csrc/probe/`` (bfexp's
-``fma``: the same weights multiplied on the CUDA cores in K2's lane
-layout) (:data:`VARIANTS`), built with nvcc into ``_build/probe/`` and
-called through its C entry, with the K split that its geometry gives
-(``mxq_gemv_tiles``, ``ops.mxq_matmul._split_rows``). Each (variant,
+A variant is ``csrc/mxq_gemv.cu`` with some of its ``constexpr`` lines
+replaced (:data:`VARIANTS`), built with nvcc into ``_build/probe/`` and
+called through the kernel's C entry, with the K split that its geometry
+gives (``mxq_gemv_tiles``, ``ops.mxq_matmul._split_rows``). Each (variant,
 linear) prints one JSON line: the CUDA-event median of device time with
 the L2 flushed before each call (256 MB written, then read, so that no
 dirty line is left to write back: as ``chip_smoke.py``'s kernels phase
@@ -48,8 +46,7 @@ KERNELS = {
               "gemv_bfexp_plain"),
 }
 # per kernel, variant -> {constexpr name: value} replaced in
-# csrc/mxq_gemv.cu, or (probe source, its C entry, its tiles row, its
-# kernel's name); measured ones are in PERF.md
+# csrc/mxq_gemv.cu; measured ones are in PERF.md
 VARIANTS = {
     "k2": {
         "base": {},
@@ -61,35 +58,12 @@ VARIANTS = {
         "stages3": {"BF_STAGES": "3"},
         "warps2": {"BF_WARPS": "2", "BF_MIN_BLOCKS": "16"},
         "warps8": {"BF_WARPS": "8", "BF_MIN_BLOCKS": "4"},
-        "fma": ("probe/bfexp_fma.cu", "mxq_gemv_k6_bfexp1_fma", 0,
-                "bfexp_fma_kernel"),
-        # ablations (wrong outputs, timed only): the MMAs replaced by an
-        # xor of their operands into the sum; the group entry's decode
-        # replaced by the 4-bit entry
-        "nomma": [("mma_acc(acc[h], ", "fake_mma(acc[h], "),
-                  ("// c += a . b: m16n8k16",
-                   "__device__ __forceinline__ void fake_mma(float (&c)[4], "
-                   "uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3, "
-                   "uint32_t b0, uint32_t b1) { c[0] += __uint_as_float("
-                   "a0 ^ a1 ^ a2 ^ a3 ^ b0 ^ b1); }\n"
-                   "// c += a . b: m16n8k16")],
-        "noentry": [("(bfexp_entry(4.f * s, __fmul_rn(s, z)) & keep)",
-                     "(m & 1u)")],
     },
 }
 
 
-def variant_source(changes) -> str:
-    """mxq_gemv.cu with ``changes``: {constexpr name: value}, or a list of
-    (text, replacement) pairs, each text found once."""
+def variant_source(changes: dict) -> str:
     src = (_build.CSRC / "mxq_gemv.cu").read_text()
-    if isinstance(changes, list):
-        for old, new in changes:
-            if src.count(old) != 1:
-                raise ValueError(f"{old!r}: {src.count(old)} times in "
-                                 "mxq_gemv.cu")
-            src = src.replace(old, new)
-        return src
     for name, value in changes.items():
         src, n = re.subn(rf"(constexpr int {name} = )[^;]+;",
                          rf"\g<1>{value};", src)
@@ -99,49 +73,38 @@ def variant_source(changes) -> str:
 
 
 def build_variants(kernel: str, names) -> dict:
-    """{variant: (loaded library, C entry, tiles row)}, built in
-    parallel."""
+    """{variant: loaded library}, built in parallel."""
     out_dir = _build.BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
-    entry, row, kname = KERNELS[kernel][:3]
+    kname = KERNELS[kernel][2]
     procs = {}
     for v in names:
-        spec = VARIANTS[kernel][v]
-        if isinstance(spec, tuple):
-            src = _build.CSRC / spec[0]
-            how = spec[1:]
-        else:
-            src = out_dir / f"mxq_gemv_{kernel}_{v}.cu"
-            src.write_text(variant_source(spec))
-            how = (entry, row, kname)
+        src = out_dir / f"mxq_gemv_{kernel}_{v}.cu"
+        src.write_text(variant_source(VARIANTS[kernel][v]))
         lib = out_dir / f"libmxq_gemv_{kernel}_{v}.so"
         cmd = [_build.nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
                "-I", str(_build.CSRC), "-Xptxas", "-v", "-o", str(lib),
                str(src)]
-        procs[v] = (lib, how, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True))
+        procs[v] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
     libs = {}
-    for v, (lib, (fn, tiles_row, kname_v), proc) in procs.items():
+    for v, (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {v}:\n{log}")
-        report = re.findall(rf"Compiling entry function '\w*{kname_v}\w*'.*?"
+        report = re.findall(rf"Compiling entry function '\w*{kname}\w*'.*?"
                             r"(Used \d+ registers[^\n]*)", log, re.S)
-        spills = re.findall(rf"Compiling entry function '\w*{kname_v}\w*'.*?"
+        spills = re.findall(rf"Compiling entry function '\w*{kname}\w*'.*?"
                             r"(\d+ bytes spill stores)", log, re.S)
         print(json.dumps({"variant": v, "ptxas": report, "spills": spills}),
               flush=True)
         dll = ctypes.CDLL(str(lib))
-        for f, argtypes in _build.SIGNATURES["mxq_gemv"].items():
-            getattr(dll, f).argtypes = argtypes
-            getattr(dll, f).restype = ctypes.c_int
-        if fn not in _build.SIGNATURES["mxq_gemv"]:
-            getattr(dll, fn).argtypes = \
-                _build.SIGNATURES["mxq_gemv"]["mxq_gemv_k2"]
+        for fn, argtypes in _build.SIGNATURES["mxq_gemv"].items():
+            getattr(dll, fn).argtypes = argtypes
             getattr(dll, fn).restype = ctypes.c_int
-        libs[v] = (dll, fn, tiles_row)
+        libs[v] = dll
     return libs
 
 
@@ -197,6 +160,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     names = args.variants.split(",")
     libs = build_variants(args.kernel, names)
+    fn, tiles_row = KERNELS[args.kernel][:2]
     built = getattr(mm, KERNELS[args.kernel][3])
     plain = getattr(mm, KERNELS[args.kernel][4])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -216,7 +180,7 @@ def main(argv=None) -> int:
         ref = plain(x, p)
         base = built(x, p)
         nbp, n = p.meta2.shape
-        for v, (dll, fn, tiles_row) in libs.items():
+        for v, dll in libs.items():
             tile = tiles_of(dll)[tiles_row]
             rows = mm._split_rows(nbp, n, sms, tile)
             y = call(dll, fn, x, p, rows)
