@@ -30,7 +30,9 @@ Phases, each printing one JSON line:
            tokens equal to its first run's); cli serve --spec_decode (K1,
            K4a); the Engine at float32 on repetitive prompts with
            speculative decoding always on (K1, K4a) and plain (K1, K4),
-           7 of 8 requests' tokens equal; cli serve --prefill_a8
+           every spec token plain decode's greedy choice but where that
+           leads it by less than the verify round's limit against decode
+           (teacher-forced along the spec tokens); cli serve --prefill_a8
            --lm_head_bits 4 with 600-token prompts (K1, K4, K5, K7); then
            where a decode step's time goes, slot (8 slots and one) and
            paged, and where a speculative verify round's does, and the
@@ -40,6 +42,16 @@ Phases, each printing one JSON line:
            (the fake-quant forward), the packed model at seqlen 128 once
            per GEMV layout (slab K1, quad and bfexp K6) and at seqlen 2048
            (K3)
+  ptq      the PTQ pipeline at llama2_7b's widths: `cli ptq --mode
+           packed` at full depth (16 x 2048 calibration tokens in chunks
+           of 4, the checkpoint saved), the artifact bit-equal to the
+           dequantized weights, the packer on the card bit-equal to the
+           CPU's, the checkpoint reloaded bit for bit, the reloaded model's
+           perplexity at 2048-token windows (K3), an 8-slot Engine run (K1,
+           K4) and a 100-token prefill (K1) against the dense quantized
+           model; `cli prune` with SparseGPT at 50% on 2 layers and Wanda
+           2:4 at full depth; `cli ptq --model` on a one-layer llama2_7b
+           HF checkpoint written by the port's safetensors writer
   e2e      at 2 layers of 7B width, one B=8 decode step and one 512-token
            prefill with the kernels, held against the same forward with
            the plain versions on the card and against the CPU; one B=8
@@ -65,6 +77,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
@@ -80,7 +93,21 @@ CLI_SERVE = ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits", "8",
              "--slots", "8", "--max_len", "2048", "--requests", "8",
              "--prompt_len", "100", "--max_new_tokens", "32",
              "--seed", str(SEED)]
-PHASES = ("build", "kernels", "serve", "eval", "e2e")
+PHASES = ("build", "kernels", "serve", "eval", "ptq", "e2e")
+
+# the ptq phase's cli ptq run (its --save_model is added at run time)
+PTQ_ARGV = ["ptq", "--preset", "llama2_7b", "--dtype", "bfloat16", "--mode",
+            "packed", "--nsamples", "16", "--seqlen", "2048", "--chunk", "4",
+            "--max_eval_windows", "2", "--seed", str(SEED)]
+# the ptq phase's gates on the reloaded packed model: its perplexity (K3)
+# against the dense quant-dequantized params' (relative), and a 100-token
+# prefill's logits (K1) against theirs (over max|logit|), phase_e2e's
+# limit for a bf16 prefill computed by other GEMMs
+PTQ_PPL_GATE = 1e-2
+PTQ_PREFILL_GATE = 3e-2
+# the verify round's logits against decode's, over max|logit|
+# (phase_e2e's limit)
+SPEC_GATE = 1e-2
 
 # llama2_7b packed linears of one layer: name -> (out, in)
 SHAPES_7B = {"qkv": (3 * 4096, 4096), "o": (4096, 4096),
@@ -1218,11 +1245,12 @@ def phase_serve(torch):
             lambda: repetitive_run(False))
     got = runs["engine_spec_repetitive"].pop("generated")
     want = runs["engine_plain_repetitive"].pop("generated")
-    same = sum(a == b for a, b in zip(got, want))
-    runs["engine_spec_repetitive"]["requests_equal_to_plain"] = same
-    if same < 7 or runs["engine_spec_repetitive"]["tokens"] != 8 * 32:
-        failures.append(f"spec on repetitive prompts: {same} of 8 requests "
-                        "equal to plain decode")
+    res = runs["engine_spec_repetitive"]
+    res["requests_equal_to_plain"] = sum(a == b for a, b in zip(got, want))
+    res.update(spec_against_decode(torch, params32, cfg, rep_prompts, got))
+    if (res["tokens"] != 8 * 32 or res["off_greedy_steps"]
+            or not res["verify_rel_vs_decode"] <= SPEC_GATE):
+        failures.append(f"spec on repetitive prompts: {res}")
     del params32
 
     # ... and the int8-activation prefill with the packed uniform-4b head:
@@ -1260,6 +1288,62 @@ def phase_serve(torch):
     emit({"phase": "serve", **runs, "launches_total": launches,
           "decode_step_profile": profile, "prefill_profile": prefill})
     return launches, failures
+
+
+def spec_against_decode(torch, params, cfg, prompts, tokens) -> dict:
+    """Speculative decoding's tokens against plain decode, teacher-forced
+    along the spec run's own tokens (``tokens`` [B][n]) from the prompts'
+    prefilled int8 cache: plain decode's logits D (T = 1: K1 at B rows,
+    K4) and the verify path's V (rounds of T = 5: K1 at 5B rows, K4a) at
+    every step after the first. Greedy decoding through two numerically
+    different paths parts where the logits' top two lie closer than the
+    paths' gap, so a spec token that is not D's argmax is an error only
+    where D's lead over it exceeds SPEC_GATE of max|D|, the repo's limit
+    for the verify round against decode (``phase_e2e``). Returns the
+    steps, the tokens off D's argmax, those beyond the gate
+    (``off_greedy_steps``), D's largest lead over a spec token, and
+    max|V - D| / max|D| over the steps."""
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.serving import kvcache
+    b, n = len(tokens), len(tokens[0])
+    seq = torch.as_tensor(tokens, device="cuda")
+    ids = torch.stack([torch.as_tensor(p) for p in prompts]).to("cuda")
+    t0 = ids.shape[1]
+
+    def prefilled():
+        cache = kvcache.init_quant_cache(
+            cfg.num_hidden_layers, b, t0 + n, cfg.num_key_value_heads,
+            cfg.head_dim, device="cuda")
+        for r in range(b):       # one request at a time, as the Engine does
+            one = {k: v[:, r:r + 1] for k, v in cache.items()}
+            llama.forward(params, ids[r:r + 1], cfg, caches=one,
+                          cache_pos=0, device="cuda")
+            for k in cache:
+                cache[k][:, r:r + 1] = one[k]
+        return cache
+
+    def at(j):
+        return torch.full((b,), t0 + j - 1, dtype=torch.int32,
+                          device="cuda")
+
+    with torch.inference_mode():
+        cache = prefilled()
+        d = [llama.decode_slots(params, seq[:, j - 1:j], cfg, cache,
+                                at(j))[:, 0] for j in range(1, n)]
+        cache, v = prefilled(), []
+        for j in range(1, n, 5):
+            t = min(5, n - j)
+            lg = llama.decode_slots(params, seq[:, j - 1:j - 1 + t], cfg,
+                                    cache, at(j))
+            v += [lg[:, i] for i in range(t)]
+        d, v = torch.stack(d, 1), torch.stack(v, 1)       # [B, n-1, V]
+        scale = d.abs().amax(-1)
+        lead = (d.amax(-1) - d.gather(-1, seq[:, 1:, None])[..., 0]) / scale
+        gap = float(((v - d).abs().amax(-1) / scale).max())
+    return {"steps": b * (n - 1), "off_argmax_steps": int((lead > 0).sum()),
+            "off_greedy_steps": int((lead > SPEC_GATE).sum()),
+            "max_lead_over_spec_token": float(lead.max()),
+            "verify_rel_vs_decode": gap}
 
 
 def slot_step(torch, params, cfg, b=8, pos=1000):
@@ -1508,6 +1592,305 @@ def phase_eval(torch):
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in kernels}
     emit({"phase": "eval", **runs, "launches_total": launches})
+    return launches, failures
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal type, shape and bytes (``b`` may live on another device)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    def raw(t):
+        return t.to(a.device).contiguous().reshape(-1).view(torch.uint8)
+    return torch.equal(raw(a), raw(b))
+
+
+def tree_diff(torch, a, b, path: str = "") -> list:
+    """The paths at which two parameter trees differ in structure, type,
+    shape or bytes."""
+    from mxq_tpu_torch.packfmt import FIELDS, PackedMXQLinear
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or set(a) != set(b):
+            return [path or "/"]
+        return [d for k in sorted(a) for d in tree_diff(
+            torch, a[k], b[k], f"{path}.{k}" if path else k)]
+    if isinstance(a, PackedMXQLinear):
+        if not isinstance(b, PackedMXQLinear) or (
+                (a.in_features, a.out_features)
+                != (b.in_features, b.out_features)):
+            return [path]
+        return [f"{path}.{f}" for f in FIELDS
+                if not same_bits(torch, getattr(a, f), getattr(b, f))]
+    ok = isinstance(b, torch.Tensor) and same_bits(torch, a, b)
+    return [] if ok else [path]
+
+
+@contextlib.contextmanager
+def captured_ptq(calibrate):
+    """Record the params, config and results of every
+    ``calibrate.ptq_quantize`` call made inside the block."""
+    calls, real = [], calibrate.ptq_quantize
+
+    def record(params, cfg, *args, **kw):
+        qparams, packed = real(params, cfg, *args, **kw)
+        calls.append(dict(params=params, cfg=cfg, qparams=qparams,
+                          packed=packed))
+        return qparams, packed
+
+    calibrate.ptq_quantize = record
+    try:
+        yield calls
+    finally:
+        calibrate.ptq_quantize = real
+
+
+def write_hf_checkpoint(torch, path: str, cfg) -> dict:
+    """A random HF Llama checkpoint of ``cfg`` in bf16 (``config.json`` and
+    one ``model.safetensors`` written by the port's writer): linears
+    N(0, 1/fan_in), embeddings and head N(0, 0.02^2), norms 1 + N(0,
+    0.1^2), drawn on the card from SEED. Returns the tensors by name."""
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.utils import safetensors_io
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def normal(shape, std, mean=0.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * std
+                + mean).to(torch.bfloat16)
+
+    h, v = cfg.hidden_size, cfg.vocab_size
+    tensors = {"model.embed_tokens.weight": normal((v, h), 0.02)}
+    for i in range(cfg.num_hidden_layers):
+        pre = f"model.layers.{i}."
+        for name, (fan_in, fan_out) in llama._linear_shapes(cfg).items():
+            part = "mlp" if name in ("gate_proj", "up_proj",
+                                     "down_proj") else "self_attn"
+            tensors[f"{pre}{part}.{name}.weight"] = normal(
+                (fan_out, fan_in), fan_in ** -0.5)
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            tensors[f"{pre}{name}.weight"] = normal((h,), 0.1, 1.0)
+    tensors["model.norm.weight"] = normal((h,), 0.1, 1.0)
+    tensors["lm_head.weight"] = normal((v, h), 0.02)
+    os.makedirs(path, exist_ok=True)
+    safetensors_io.save_file(tensors, os.path.join(path,
+                                                   "model.safetensors"))
+    keys = ("vocab_size", "hidden_size", "intermediate_size",
+            "num_hidden_layers", "num_attention_heads",
+            "num_key_value_heads", "max_position_embeddings",
+            "rms_norm_eps", "rope_theta", "tie_word_embeddings")
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({k: getattr(cfg, k) for k in keys}, f)
+    return tensors
+
+
+def loaded_as_written(torch, params, written: dict) -> list:
+    """The HF tensor names whose loaded counterpart in ``params`` (linears
+    transposed to [in, out] and stacked per layer) differs from what was
+    written."""
+    bad = []
+    for name, t in written.items():
+        parts = name.split(".")
+        if name == "model.embed_tokens.weight":
+            got = params["embed_tokens"]
+        elif name == "model.norm.weight":
+            got = params["norm"]
+        elif name == "lm_head.weight":
+            got = params["lm_head"].T
+        elif parts[3] in ("self_attn", "mlp"):
+            got = params["layers"][parts[4]][int(parts[2])].T
+        else:
+            got = params["layers"][parts[3]][int(parts[2])]
+        if not same_bits(torch, got, t):
+            bad.append(name)
+    return bad
+
+
+def phase_ptq(torch):
+    """The PTQ pipeline at llama2_7b's widths, each step a hard check:
+    1. ``cli ptq`` (PTQ_ARGV, ``--save_model`` into a temporary directory)
+       at full depth: seconds per layer, peak device memory, the quantized
+       perplexity on the synthetic stream;
+    2. for every layer and linear, ``unpack_dequant`` of the packed
+       artifact equals qparams' weight bit for bit (one pass makes both);
+    3. ``quantize_pack`` of layer 0's gate_proj (4096 -> 11008) on the card
+       equals the same call on a CPU copy, every field bit for bit;
+    4. ``checkpoint.load_params`` of the saved directory equals the
+       in-memory packed params, bit for bit, config included;
+    5. the reloaded packed model: perplexity at 2048-token windows (K3)
+       within PTQ_PPL_GATE of the dense qparams' (the cli's), an 8-slot
+       Engine run of 8 100-token prompts and 16 new tokens with the int8
+       cache (K1, K4), and a 100-token prefill (K1) within
+       PTQ_PREFILL_GATE of ``forward(qparams)``;
+    6. ``cli prune``: SparseGPT at 50% on 2 layers (actual sparsity within
+       0.5 +- 0.01) and Wanda 2:4 at full depth (exactly 0.5);
+    7. the HF loader: a one-layer llama2_7b-width bf16 checkpoint written
+       with ``utils.safetensors_io``, then ``cli ptq --model`` on it: the
+       loaded config has llama2_7b's widths and the loaded tensors equal
+       those written.
+    Returns (launches summed over the runs, failures)."""
+    import numpy as np
+    from mxq_tpu_torch import cli, packfmt
+    from mxq_tpu_torch.eval import ppl
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ptq import calibrate, data
+    from mxq_tpu_torch.serving import engine as eng
+    from mxq_tpu_torch.utils import checkpoint
+
+    kernels = all_kernels()
+    runs, failures, counted = {}, [], []
+
+    def count(name, drive, need=()):
+        runs[name] = res = count_launches(torch, kernels, drive)
+        counted.append(res.pop("launches"))
+        failures.extend(f"ptq {name}: {k} never launched" for k in need
+                        if counted[-1][k] <= 0)
+        return res
+
+    with tempfile.TemporaryDirectory(prefix="mxq_ptq_") as tmp:
+        # 1. calibration, packing, perplexity and the checkpoint
+        ckpt = os.path.join(tmp, "llama2_7b_mxq")
+        torch.cuda.reset_peak_memory_stats()
+        with captured_ptq(calibrate) as calls:
+            res = count("cli_ptq", lambda: cli.main(
+                PTQ_ARGV + ["--save_model", ckpt]))
+        res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        secs = res["layer_seconds"]
+        res.update(layers=len(secs), calibration_seconds=sum(secs),
+                   seconds_per_layer=statistics.median(secs),
+                   checkpoint_bytes=sum(
+                       os.path.getsize(os.path.join(ckpt, f))
+                       for f in os.listdir(ckpt)))
+        call = calls.pop()
+        cfg, params = call["cfg"], call["params"]
+        qparams, packed = call["qparams"], call["packed"]
+        del calls, call
+        if cfg.num_hidden_layers != 32 or not math.isfinite(res["ppl"]):
+            failures.append(f"ptq cli_ptq: {cfg.num_hidden_layers} layers, "
+                            f"ppl {res['ppl']}")
+
+        # 2. one pass: the artifact dequantizes to qparams' weights
+        bad = [f"{n}[{i}]" for n in llama.LAYER_LINEARS
+               for i in range(cfg.num_hidden_layers)
+               if not same_bits(torch, packfmt.unpack_dequant(
+                   packed["layers"][n].layer(i), cfg.scheme).to(
+                       qparams["layers"][n].dtype),
+                   qparams["layers"][n][i])]
+        runs["one_pass_bit_equal"] = not bad
+        if bad:
+            failures.append(f"ptq: unpack_dequant differs from qparams at "
+                            f"{len(bad)} layer linears, e.g. {bad[:4]}")
+
+        # 3. the packer on the card against the packer on the CPU
+        w = params["layers"]["gate_proj"][0].T
+        card = packfmt.quantize_pack(w, cfg.scheme)
+        host = packfmt.quantize_pack(w.cpu(), cfg.scheme)
+        differ = {f: int((getattr(card, f).cpu() != getattr(host, f)).sum())
+                  for f in packfmt.FIELDS
+                  if not same_bits(torch, getattr(card, f),
+                                   getattr(host, f))}
+        runs["card_vs_cpu_pack"] = {
+            "weight": "layers.0.gate_proj", "shape": list(w.shape),
+            "elements_differing": differ,
+            "artifact_equal": not tree_diff(
+                torch, card, packed["layers"]["gate_proj"].layer(0))}
+        if differ:
+            failures.append(f"ptq: quantize_pack on the card differs from "
+                            f"the CPU's: {differ}")
+        del w, card, host, params
+
+        # 4. the checkpoint reloads bit for bit
+        t0 = time.monotonic()
+        cfg2, params2 = checkpoint.load_params(ckpt, device="cuda")
+        torch.cuda.synchronize()
+        diff = tree_diff(torch, packed, params2)
+        runs["reload"] = {"seconds": time.monotonic() - t0,
+                          "paths_differing": diff,
+                          "config_equal": cfg2 == cfg}
+        if diff or cfg2 != cfg:
+            failures.append(f"ptq: the reloaded checkpoint differs at "
+                            f"{diff[:8]}, config equal {cfg2 == cfg}")
+        del packed
+
+    # 5. the reloaded model: perplexity (K3), serving (K1, K4), prefill (K1)
+    tokens = data.get_eval_tokens(vocab_size=cfg.vocab_size,
+                                  dataset="wikitext2", seqlen=2048)
+    ev = count("packed_ppl", lambda: {"ppl": ppl.eval_ppl(
+        params2, cfg2, tokens, seqlen=2048, max_windows=2, device="cuda")},
+        need=("K3",))
+    ev["rel_vs_qparams"] = abs(ev["ppl"] - res["ppl"]) / res["ppl"]
+    if not ev["rel_vs_qparams"] <= PTQ_PPL_GATE:
+        failures.append(f"ptq: packed ppl {ev['ppl']} against qparams' "
+                        f"{res['ppl']}, rel {ev['rel_vs_qparams']:.3g} > "
+                        f"{PTQ_PPL_GATE}")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, 100).astype(np.int32)
+               for _ in range(8)]
+
+    def engine_run():
+        e = eng.Engine(params2, cfg2, eng.EngineConfig(
+            num_slots=8, max_len=256, seed=SEED), device="cuda")
+        reqs = [e.submit(p, max_new_tokens=16) for p in prompts]
+        done = e.run()
+        return {"requests_finished": len(done),
+                "tokens": sum(len(r.generated) for r in reqs)}
+
+    en = count("engine_slots8", engine_run, need=("K1", "K4"))
+    if en["requests_finished"] != 8 or en["tokens"] != 8 * 16:
+        failures.append(f"ptq engine_slots8: {en}")
+    ids = torch.as_tensor(prompts[0][None], device="cuda")
+    with torch.inference_mode():
+        pre = count("prefill_100", lambda: {"logits": llama.forward(
+            params2, ids, cfg2, device="cuda")[0]}, need=("K1",))
+        ref = llama.forward(qparams, ids, cfg, device="cuda")[0]
+    logits = pre.pop("logits")
+    pre["rel_vs_qparams"] = rel_err(logits, ref)
+    pre["argmax_agreement"] = float(
+        (logits.argmax(-1) == ref.argmax(-1)).float().mean())
+    if not pre["rel_vs_qparams"] <= PTQ_PREFILL_GATE:
+        failures.append(f"ptq: 100-token prefill rel "
+                        f"{pre['rel_vs_qparams']:.3g} > {PTQ_PREFILL_GATE}")
+    del qparams, params2, ref, logits
+    torch.cuda.empty_cache()
+
+    # 6. pruning
+    for name, argv, layers, ok in (
+            ("prune_sparsegpt", ["--layers", "2", "--prune_method",
+                                 "sparsegpt", "--sparsity", "0.5"], 2,
+             lambda s: abs(s - 0.5) <= 0.01),
+            ("prune_wanda_2_4", ["--prune_method", "wanda",
+                                 "--sparsity_type", "2:4"], 32,
+             lambda s: s == 0.5)):
+        r = count(name, lambda: cli.main(
+            ["prune", "--preset", "llama2_7b", "--dtype", "bfloat16",
+             "--nsamples", "8", "--seqlen", "2048", "--max_eval_windows",
+             "1", "--seed", str(SEED)] + argv))
+        r["seconds_per_layer"] = r["prune_seconds"] / layers
+        if not (ok(r["sparsity"]) and math.isfinite(r["ppl"])):
+            failures.append(f"ptq {name}: sparsity {r['sparsity']}, "
+                            f"ppl {r['ppl']}")
+        torch.cuda.empty_cache()
+
+    # 7. the HF loader on a checkpoint written here
+    with tempfile.TemporaryDirectory(prefix="mxq_hf_") as hf:
+        want = llama.LlamaConfig.llama2_7b(num_hidden_layers=1)
+        written = write_hf_checkpoint(torch, hf, want)
+        with captured_ptq(calibrate) as calls:
+            h = count("hf_ptq", lambda: cli.main(
+                ["ptq", "--model", hf, "--dtype", "bfloat16", "--mode",
+                 "packed", "--nsamples", "4", "--seqlen", "512",
+                 "--max_eval_windows", "1", "--seed", str(SEED)]))
+        call = calls.pop()
+        h["config_equal"] = call["cfg"] == want
+        h["tensors_differing"] = loaded_as_written(torch, call["params"],
+                                                   written)
+        if not h["config_equal"] or h["tensors_differing"] or not (
+                math.isfinite(h["ppl"])):
+            failures.append(f"ptq hf_ptq: config {call['cfg']}, differing "
+                            f"{h['tensors_differing']}, ppl {h['ppl']}")
+        del call, calls, written
+    torch.cuda.empty_cache()
+
+    launches = {k: sum(c[k] for c in counted) for k in kernels}
+    emit({"phase": "ptq", **runs, "launches_total": launches,
+          "card": smi()})
     return launches, failures
 
 
@@ -1802,7 +2185,7 @@ def e2e_serve_options(torch, cfg, sdpa_cfg, params, cache, ids, vids, pids,
     gates = {"a8_prefill_rel_vs_card_plain": 1e-3,
              "a8_prefill_rel_vs_k3_prefill": 0.1,
              "u4_head_decode_rel_vs_card_plain": 1e-2,
-             "verify_rel_vs_sequential_decode": 1e-2}
+             "verify_rel_vs_sequential_decode": SPEC_GATE}
     failures = [f"{k} {res[k]:.3g} > {g}" for k, g in gates.items()
                 if not res[k] <= g]
     finite = all(bool(torch.isfinite(t).all())
@@ -1877,6 +2260,11 @@ def main(argv=None) -> int:
         failures += f
     if "eval" in phases:
         more, f = phase_eval(torch)
+        for k, n in more.items():
+            launches[k] = launches.get(k, 0) + n
+        failures += f
+    if "ptq" in phases:
+        more, f = phase_ptq(torch)
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
         failures += f

@@ -1,7 +1,17 @@
-"""Command line of the PyTorch port (port of ``mxq_tpu/cli.py``): ``serve``
-runs the slot engine and, with ``--paged``, the paged engine;
-``eval-ppl`` the stride-seqlen perplexity.
+"""Command line of the PyTorch port (port of ``mxq_tpu/cli.py``): ``ptq``
+quantizes a model layer by layer against calibration data, ``prune``
+prunes it, ``eval-ppl`` measures the stride-seqlen perplexity, and
+``serve`` runs the slot engine or, with ``--paged``, the paged engine.
 
+    python -m mxq_tpu_torch.cli ptq --preset llama2_7b --dtype bfloat16 \
+        --mode packed --nsamples 16 --chunk 4 --save_model out/7b_mxq
+    python -m mxq_tpu_torch.cli ptq --model /path/to/hf_llama --mode packed
+    python -m mxq_tpu_torch.cli prune --preset llama2_7b --layers 2 \
+        --prune_method sparsegpt --sparsity 0.5 --nsamples 8
+    python -m mxq_tpu_torch.cli prune --preset llama2_7b \
+        --prune_method wanda --sparsity_type 2:4
+    python -m mxq_tpu_torch.cli eval-ppl --preset llama2_7b \
+        --dtype bfloat16 --w_bits 2 --max_eval_windows 2
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8 \
         --paged
@@ -9,16 +19,22 @@ runs the slot engine and, with ``--paged``, the paged engine;
         --spec_decode                 # prompt-lookup speculative decoding
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8 \
         --prefill_a8 --lm_head_bits 4 --prompt_len 600
-    python -m mxq_tpu_torch.cli eval-ppl --preset llama2_7b \
-        --dtype bfloat16 --w_bits 2 --max_eval_windows 2
 
-Weights are random, drawn from ``--seed`` on the device (no checkpoint
-loading yet); ``--w_bits`` (and for eval-ppl ``--a_bits``, ``--kv_bits``)
-select the reference's fake-quant forward of the dense model. ``serve``
-prints one JSON line: requests, tokens, tokens/s and the engine's stats;
+Weights come from ``--model`` (a local HF Llama directory, read by
+``models.hf_loader``) or are random, drawn from ``--seed`` on the device
+for ``--preset`` (``--layers`` cuts its depth). Everything runs on
+``--device`` (the card unless ``cpu`` is named). ``ptq`` prints the lines
+of ``mxq_tpu``'s: ``calibrating ...``, ``  layer i done``, ``<dataset> ppl
+(quantized): x``, and with ``--save_model`` writes the packed (``--mode
+packed``) or quant-dequantized params with ``utils.checkpoint``; ``prune``
+prints ``actual sparsity x`` and ``<dataset> ppl (pruned): x``.
+``--w_bits`` (and for eval-ppl ``--a_bits``, ``--kv_bits``) select the
+reference's fake-quant forward of the dense model. ``serve`` prints one
+JSON line: requests, tokens, tokens/s and the engine's stats;
 ``eval-ppl`` prints ``{"dataset": ..., "ppl": ...}``. The GEMV layout of
 packed linears is read from ``MXQ_GEMV_LAYOUT`` / ``MXQ_GEMV_LAYOUT_B1``
-(``ops/mxq_matmul.py``).
+(``ops/mxq_matmul.py``). Calibration sharded over devices (``ptq
+--shard``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -37,15 +53,21 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _model(args, dev, **bits):
-    """The preset's config with the fake-quant ``bits`` and ``--layers``,
-    and random weights from ``--seed`` on ``dev``."""
-    from mxq_tpu_torch.models import llama
+    """The model's config with the fake-quant ``bits`` and its weights on
+    ``dev``: the HF checkpoint of ``--model``, or the preset's config
+    (``--layers`` deep) with random weights from ``--seed``."""
+    from mxq_tpu_torch.models import hf_loader, llama
 
+    dtype = _DTYPES[args.dtype]
+    if args.model:
+        cfg, params = hf_loader.load_params(args.model, dtype=dtype,
+                                            device=dev)
+        return dataclasses.replace(cfg, **bits), params
     cfg = getattr(llama.LlamaConfig, args.preset)(**bits)
     if args.layers:
         # shallow drive of a full-width preset
         cfg = dataclasses.replace(cfg, num_hidden_layers=args.layers)
-    return cfg, llama.init_params(cfg, args.seed, _DTYPES[args.dtype], dev)
+    return cfg, llama.init_params(cfg, args.seed, dtype, dev)
 
 
 def _tokenizer(args):
@@ -55,24 +77,107 @@ def _tokenizer(args):
     return None
 
 
-def cmd_eval_ppl(args) -> dict:
-    from mxq_tpu_torch.eval import ppl
-    from mxq_tpu_torch.models import llama
-    from mxq_tpu_torch.ptq import data
+def _synchronized_clock(dev):
+    """A clock that first waits for ``dev``'s queued work."""
+    def now():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return time.monotonic()
+    return now
 
-    if args.model:
-        raise NotImplementedError(f"--model (HF checkpoints) "
+
+def _calibration_ids(args, cfg, tok):
+    from mxq_tpu_torch.ptq import data
+    return data.get_calibration_batch(
+        args.nsamples, args.seqlen, tokenizer=tok,
+        vocab_size=cfg.vocab_size, seed=args.seed, dataset=args.dataset)
+
+
+def _eval(args, params, cfg, tok, dev) -> float:
+    from mxq_tpu_torch.eval import ppl
+    from mxq_tpu_torch.ptq import data
+    tokens = data.get_eval_tokens(tokenizer=tok, vocab_size=cfg.vocab_size,
+                                  dataset=args.dataset, seqlen=args.seqlen)
+    return ppl.eval_ppl(params, cfg, tokens, seqlen=args.seqlen,
+                        max_windows=args.max_eval_windows, device=dev)
+
+
+def cmd_ptq(args) -> dict:
+    """Layer-sequential PTQ of the model, its perplexity, and with
+    ``--save_model`` its checkpoint. Returns the dataset, the perplexity
+    and each layer's calibration seconds."""
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ptq import calibrate
+    from mxq_tpu_torch.utils import checkpoint
+
+    if args.shard:
+        raise NotImplementedError(f"--shard (sharded calibration) "
                                   f"{llama.NOT_PORTED}")
+    dev = resolve_device(args.device)
+    cfg, params = _model(args, dev)
+    tok = _tokenizer(args)
+    ids = _calibration_ids(args, cfg, tok)
+    print(f"calibrating {cfg.num_hidden_layers} layers on "
+          f"{args.nsamples}x{args.seqlen} {args.dataset} tokens "
+          f"(mode={args.mode})", flush=True)
+    clock = _synchronized_clock(dev)
+    marks = [clock()]
+
+    def progress(i):
+        marks.append(clock())
+        print(f"  layer {i} done", flush=True)
+
+    qparams, packed = calibrate.ptq_quantize(
+        params, cfg, ids,
+        calibrate.PTQConfig(mode=args.mode, chunk=args.chunk),
+        progress=progress, device=dev)
+    p = _eval(args, qparams, cfg, tok, dev)
+    print(f"{args.dataset} ppl (quantized): {p:.4f}", flush=True)
+    if args.save_model:
+        checkpoint.save_params(args.save_model,
+                               qparams if packed is None else packed, cfg)
+        print(f"saved to {args.save_model}", flush=True)
+    return {"dataset": args.dataset, "ppl": p,
+            "layer_seconds": [b - a for a, b in zip(marks, marks[1:])]}
+
+
+def cmd_prune(args) -> dict:
+    """Prune the model layer by layer (``--prune_method``, ``--sparsity``
+    or n:m ``--sparsity_type``), then its perplexity, and with
+    ``--save_model`` its checkpoint. Returns the dataset, the actual
+    sparsity, the perplexity and the pruning's seconds."""
+    from mxq_tpu_torch.ptq import prune
+    from mxq_tpu_torch.utils import checkpoint
+
+    dev = resolve_device(args.device)
+    cfg, params = _model(args, dev)
+    tok = _tokenizer(args)
+    n = m = 0
+    if args.sparsity_type and ":" in args.sparsity_type:
+        n, m = (int(v) for v in args.sparsity_type.split(":"))
+    ids = _calibration_ids(args, cfg, tok)
+    clock = _synchronized_clock(dev)
+    t0 = clock()
+    pruned = prune.prune_model(params, cfg, ids, method=args.prune_method,
+                               sparsity=args.sparsity, n=n, m=m, device=dev)
+    seconds = clock() - t0
+    sparsity = prune.check_sparsity(pruned)
+    print(f"actual sparsity {sparsity:.4f}", flush=True)
+    p = _eval(args, pruned, cfg, tok, dev)
+    print(f"{args.dataset} ppl (pruned): {p:.4f}", flush=True)
+    if args.save_model:
+        checkpoint.save_params(args.save_model, pruned, cfg)
+        print(f"saved to {args.save_model}", flush=True)
+    return {"dataset": args.dataset, "sparsity": sparsity, "ppl": p,
+            "prune_seconds": seconds}
+
+
+def cmd_eval_ppl(args) -> dict:
     dev = resolve_device(args.device)
     cfg, params = _model(args, dev, w_bits=args.w_bits, a_bits=args.a_bits,
                          kv_bits=args.kv_bits)
-    tokens = data.get_eval_tokens(tokenizer=_tokenizer(args),
-                                  vocab_size=cfg.vocab_size,
-                                  dataset=args.dataset, seqlen=args.seqlen)
     out = {"dataset": args.dataset,
-           "ppl": ppl.eval_ppl(params, cfg, tokens, seqlen=args.seqlen,
-                               max_windows=args.max_eval_windows,
-                               device=dev)}
+           "ppl": _eval(args, params, cfg, _tokenizer(args), dev)}
     print(json.dumps(out), flush=True)
     return out
 
@@ -138,8 +243,14 @@ def cmd_serve(args) -> dict:
 
 
 def _add_model_args(p):
+    p.add_argument("--model", default=None,
+                   help="local HF Llama checkpoint directory (else "
+                        "--preset with random weights)")
     p.add_argument("--preset", default="tiny",
                    choices=["tiny", "llama2_7b", "llama2_13b", "llama2_70b"])
+    p.add_argument("--tokenizer", default=None,
+                   help="HF tokenizer for the dataset (else the synthetic "
+                        "corpus)")
     p.add_argument("--layers", type=int, default=None,
                    help="override the preset's depth")
     p.add_argument("--dtype", default="float32", choices=sorted(_DTYPES))
@@ -151,6 +262,38 @@ def _add_model_args(p):
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="mxq_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("ptq")
+    _add_model_args(p)
+    p.add_argument("--dataset", default="wikitext2",
+                   choices=["wikitext2", "c4", "ptb"])
+    p.add_argument("--nsamples", type=int, default=128)
+    p.add_argument("--seqlen", type=int, default=2048)
+    p.add_argument("--mode", default="reference",
+                   choices=["reference", "packed"])
+    p.add_argument("--chunk", type=int, default=None,
+                   help="calibration samples per pass (bounds activation "
+                        "memory; default: all at once)")
+    p.add_argument("--shard", default=None, metavar="[DCN,]DP,FSDP,TP",
+                   help="sharded calibration (not ported yet: raises)")
+    p.add_argument("--save_model", default=None)
+    p.add_argument("--max_eval_windows", type=int, default=None)
+    p.set_defaults(fn=cmd_ptq)
+
+    p = sub.add_parser("prune")
+    _add_model_args(p)
+    p.add_argument("--dataset", default="wikitext2",
+                   choices=["wikitext2", "c4", "ptb"])
+    p.add_argument("--prune_method", default="wanda",
+                   choices=["wanda", "magnitude", "sparsegpt"])
+    p.add_argument("--sparsity", type=float, default=0.5)
+    p.add_argument("--sparsity_type", default=None,
+                   help="structured n:m, e.g. 2:4")
+    p.add_argument("--nsamples", type=int, default=16)
+    p.add_argument("--seqlen", type=int, default=2048)
+    p.add_argument("--save_model", default=None)
+    p.add_argument("--max_eval_windows", type=int, default=None)
+    p.set_defaults(fn=cmd_prune)
 
     p = sub.add_parser("serve")
     _add_model_args(p)
@@ -183,11 +326,6 @@ def main(argv=None):
 
     p = sub.add_parser("eval-ppl")
     _add_model_args(p)
-    p.add_argument("--model", default=None,
-                   help="HF checkpoint dir (not ported yet: raises)")
-    p.add_argument("--tokenizer", default=None,
-                   help="HF tokenizer for the dataset (else the synthetic "
-                        "corpus)")
     p.add_argument("--dataset", default="wikitext2",
                    choices=["wikitext2", "c4", "ptb"])
     p.add_argument("--w_bits", type=int, default=32)

@@ -39,7 +39,7 @@ import os
 import torch
 import torch.nn.functional as F
 
-from mxq_tpu_torch import packfmt
+from mxq_tpu_torch import packfmt, scheme
 from mxq_tpu_torch.config import DEFAULT_SCHEME, MXQConfig
 from mxq_tpu_torch.packfmt import PackedMXQLinear
 
@@ -130,8 +130,7 @@ def int8_weight_scale(p: PackedMXQLinear) -> torch.Tensor:
     """Per-out-channel int8 scale bound [1, N] f32 from the metadata alone:
     max over the channel's groups of |s| * max(z, maxc - z), / 127 (port of
     ``_int8_weight_scale``, mxq_matmul.py:836). The division is IEEE on
-    every device: a Python scalar divisor would make CUDA multiply by its
-    reciprocal instead."""
+    every device (``scheme.div_const``)."""
     qs = p.qscale.float()
     qm = p.qmin.float()
     m = None
@@ -146,7 +145,7 @@ def int8_weight_scale(p: PackedMXQLinear) -> torch.Tensor:
     s4 = p.smeta4[0].float()
     z4 = p.smeta4[1].float()
     m = torch.maximum(m, s4.abs() * torch.maximum(z4, 15.0 - z4))
-    return torch.clamp_min(m / m.new_full((), 127.0), 1e-12)[None, :]
+    return torch.clamp_min(scheme.div_const(m, 127.0), 1e-12)[None, :]
 
 
 def dequant_int8_planes_plain(p: PackedMXQLinear,

@@ -149,7 +149,8 @@ def quantize_pack(w: torch.Tensor,
     sv = s_pad.reshape(n, n_kt, QQ_GROUPS, NB_TILE)   # [.., i, r]
     qq_min = sv.amin(dim=2)                           # [N, n_kt, 16]
     qq_rng = sv.amax(dim=2) - qq_min
-    qq_scale = torch.where(qq_rng > 0, qq_rng / SCALE_CODE_MAX,
+    qq_scale = torch.where(qq_rng > 0,
+                           scheme.div_const(qq_rng, SCALE_CODE_MAX),
                            torch.ones_like(qq_rng))
     s_codes = torch.clamp(
         torch.round((sv - qq_min[:, :, None, :]) / qq_scale[:, :, None, :]),

@@ -1,8 +1,9 @@
 """K1-K6, K4a-K4d, K7, K8 and K9-K11 on the card against their plain
 PyTorch versions at small shapes (the one-row kernels also at
-llama2_7b down's K of 11008, the attention kernels at histories
-of up to 4096 rows, cut at their 128-row split edges). Needs a CUDA device and nvcc (marker ``cuda``); skips
-elsewhere. Run on the H100 with
+llama2_7b down's K of 11008, the attention kernels at histories of up to
+4096 rows, cut at their 128-row split edges), and the quantizers on the
+card against the CPU. Needs a CUDA device and nvcc (marker ``cuda``);
+skips elsewhere. Run on the H100 with
 ``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``;
 ``chip_smoke.py`` holds the same kernels at llama2_7b's shapes."""
 
@@ -172,6 +173,24 @@ def test_k1_tiles_as_built(gen):
     the card places, are the table the CPU tests hold the tile rule and K
     split to (tests/test_torch_mxq_matmul.py K1_TILES)."""
     assert mm._k1_tiles() == ((8, 128, 2), (32, 64, 2), (128, 128, 1))
+
+
+@pytest.mark.parametrize("o,k", [(320, 1088), (11008, 4096)])
+def test_quantizers_on_the_card_equal_the_cpu(gen, o, k):
+    """quantize_pack and mxq_quantize_ptq (both zero variants) on the card
+    give the CPU's fields bit for bit: every division by a constant is
+    IEEE (a Python divisor made the card multiply by its reciprocal)."""
+    from mxq_tpu_torch import scheme
+    w = (torch.randn((o, k), generator=gen, device="cuda")
+         / math.sqrt(k)).to(torch.bfloat16)
+    card, host = packfmt.quantize_pack(w), packfmt.quantize_pack(w.cpu())
+    for f in packfmt.FIELDS:
+        assert torch.equal(getattr(card, f).cpu(), getattr(host, f)), f
+    for round_zero in (False, True):
+        card = scheme.mxq_quantize_ptq(w, round_zero=round_zero)
+        host = scheme.mxq_quantize_ptq(w.cpu(), round_zero=round_zero)
+        for f in card._fields:
+            assert torch.equal(getattr(card, f).cpu(), getattr(host, f)), f
 
 
 @pytest.mark.parametrize("o,k", [(320, 1088), (1024, 4096)])

@@ -170,8 +170,8 @@ def test_port_init_and_pack_roundtrip_shapes():
 
 def test_unported_features_raise():
     """The int8 activation prefill (prefill_act_bits=8, K5) and weight
-    fake-quant (w_bits < 32) run; HF checkpoints (--model) are still not
-    ported and raise."""
+    fake-quant (w_bits < 32) run; sharded calibration (ptq --shard) is
+    still not ported and raises."""
     from mxq_tpu_torch import cli
     cfg = tl.LlamaConfig.tiny(num_hidden_layers=1)
     params = tl.init_params(cfg, seed=0, device="cpu")
@@ -187,7 +187,7 @@ def test_unported_features_raise():
                        device="cpu")
     assert bool(torch.isfinite(w2).all()) and not torch.equal(w2, fp)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["eval-ppl", "--device", "cpu", "--model", "/nonexistent"])
+        cli.main(["ptq", "--device", "cpu", "--shard", "1,2,4"])
 
 
 def test_packed_forward_a8_prefill_matches_jax():

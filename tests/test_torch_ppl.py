@@ -160,7 +160,8 @@ def test_cli_eval_ppl_prints_jax_keys(capsys):
                   ["--kv_bits", "8"]):
         q = cli.main(args + ["--device", "cpu", "--layers", "1"] + flags)
         assert np.isfinite(q["ppl"]) and q["ppl"] > 1, flags
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # --model reads an HF checkpoint directory (test_torch_hf_loader.py)
+    with pytest.raises(FileNotFoundError, match="config.json"):
         cli.main(args + ["--device", "cpu", "--model", "/nonexistent"])
 
 
