@@ -52,6 +52,19 @@ Phases, each printing one JSON line:
            model; `cli prune` with SparseGPT at 50% on 2 layers and Wanda
            2:4 at full depth; `cli ptq --model` on a one-layer llama2_7b
            HF checkpoint written by the port's safetensors writer
+  train    QAT at llama2_7b's widths: the fake-quants on the card bit-equal
+           to the CPU's; `cli train --layers 4 --w_bits 2 --use_kd` (KD
+           from the full-precision weights, 2 x 2048 tokens a step, 8
+           steps, checkpoints every 4): each step's loss and gradient
+           norm, the median seconds per step after the first, the peak
+           device memory; the same command to 12 steps resumes from step
+           8; CE training of 2 layers on one repeated 256-token batch at
+           lr 1e-3 cuts the loss below 0.9 x its first in 15 steps; one KD
+           step at 1 layer and 128 tokens on the card against the CPU;
+           `cli generate-data --layers 4`: every greedy-prefix token the
+           argmax of a no-cache recompute; where a train step's device
+           time goes. No repo kernel runs on this path (training holds
+           dense weights)
   e2e      at 2 layers of 7B width, one B=8 decode step and one 512-token
            prefill with the kernels, held against the same forward with
            the plain versions on the card and against the CPU; one B=8
@@ -93,7 +106,7 @@ CLI_SERVE = ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits", "8",
              "--slots", "8", "--max_len", "2048", "--requests", "8",
              "--prompt_len", "100", "--max_new_tokens", "32",
              "--seed", str(SEED)]
-PHASES = ("build", "kernels", "serve", "eval", "ptq", "e2e")
+PHASES = ("build", "kernels", "serve", "eval", "ptq", "train", "e2e")
 
 # the ptq phase's cli ptq run (its --save_model is added at run time)
 PTQ_ARGV = ["ptq", "--preset", "llama2_7b", "--dtype", "bfloat16", "--mode",
@@ -108,6 +121,19 @@ PTQ_PREFILL_GATE = 3e-2
 # the verify round's logits against decode's, over max|logit|
 # (phase_e2e's limit)
 SPEC_GATE = 1e-2
+
+# the train phase's cli train run: llama2_7b's widths at 4 layers (its
+# f32 weights, gradients and AdamW moments at full depth, 108 GB, outgrow
+# one card); --output_dir is added at run time, and the resumed run takes
+# --max_steps 12
+TRAIN_ARGV = ["train", "--preset", "llama2_7b", "--layers", "4", "--w_bits",
+              "2", "--use_kd", "--batch_size", "2", "--block_size", "2048",
+              "--save_steps", "4", "--log_steps", "1", "--seed", str(SEED)]
+# one KD step on the card against the same step on the CPU: the loss and
+# the gradient norm (relative), the gradients over each leaf's max|g|, the
+# updated params over max|p| (train_step_card_vs_cpu)
+TRAIN_CPU_GATES = {"loss": 1e-4, "grad_norm": 1e-3, "grads": 1e-4,
+                   "params": 1e-5}
 
 # llama2_7b packed linears of one layer: name -> (out, in)
 SHAPES_7B = {"qkv": (3 * 4096, 4096), "o": (4096, 4096),
@@ -1468,10 +1494,13 @@ def top_ms(per_kernel: dict, n: int) -> dict:
 
 def device_ms_by_name(torch, prof, calls: int) -> dict:
     """Device ms per kernel name and per call from a torch.profiler run of
-    ``calls`` calls."""
+    ``calls`` calls. Spans of user annotations on the device's timeline
+    (``Optimizer.step#AdamW.step``) cover kernels counted by name, so they
+    are left out."""
     per_kernel = {}
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1894,6 +1923,309 @@ def phase_ptq(torch):
     return launches, failures
 
 
+class Tee:
+    """A text stream that writes to ``sys.stdout`` and keeps a copy."""
+
+    def __init__(self):
+        self.parts, self.out = [], sys.stdout
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def cli_with_output(argv) -> tuple[dict, str]:
+    """``cli.main(argv)``'s result and what it printed."""
+    from mxq_tpu_torch import cli
+    tee = Tee()
+    with contextlib.redirect_stdout(tee):
+        res = cli.main(argv)
+    return res, tee.text()
+
+
+def train_metrics(logdir: str, first: int) -> dict:
+    """The loop's per-step records from ``first`` on (metrics.jsonl)."""
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    recs = [r for r in recs if "train/loss" in r and r["step"] >= first]
+    return {"steps": [r["step"] for r in recs],
+            "loss": [r["train/loss"] for r in recs],
+            "grad_norm": [r["train/grad_norm"] for r in recs],
+            "seconds": [r["train/seconds_per_step"] for r in recs]}
+
+
+def train_step_card_vs_cpu(torch) -> dict:
+    """One KD train step (w_bits 2, the default TrainConfig) of llama2_7b's
+    widths at 1 layer on 128 tokens, from the same params, teacher and
+    batch on the card and on the CPU (the body of
+    ``train.make_train_step``, with the gradients kept): the loss and
+    grad_norm apart (relative), the gradients apart over each leaf's
+    max|g| (the worst leaf), and the updated params: max|card - cpu| over
+    all leaves against max|p| over all leaves, and (reported, not gated)
+    the worst leaf against its own max|p| and the largest difference in
+    units of the learning rate."""
+    import dataclasses as dc
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.qat import train
+
+    def copy(tree, dev):
+        return {k: copy(v, dev) if isinstance(v, dict)
+                else v.detach().to(dev, copy=True) for k, v in tree.items()}
+
+    cfg = llama.LlamaConfig.llama2_7b(num_hidden_layers=1, w_bits=2)
+    full = dc.replace(cfg, w_bits=32, a_bits=32, kv_bits=32)
+    tc = train.TrainConfig()
+    init = llama.init_params(cfg, SEED, torch.float32, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    ids = torch.randint(0, cfg.vocab_size, (1, 128), generator=gen,
+                        device="cuda")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params, teacher = copy(init, dev), copy(init, dev)
+        named = train.leaves(params)
+        for p in named.values():
+            p.requires_grad_(True)
+        opt = train.make_optimizer(tc, params)
+        t0 = time.monotonic()
+        loss = train.loss_fn(params, teacher, {"input_ids": ids.to(dev)},
+                             cfg, full, tc)
+        loss.backward()
+        grads = {k: p.grad.detach().clone() for k, p in named.items()}
+        norm = opt.step()
+        out[dev] = dict(loss=float(loss), grad_norm=float(norm),
+                        seconds=time.monotonic() - t0, grads=grads,
+                        params={k: p.detach() for k, p in named.items()})
+        del params, teacher, named, opt
+    card, host = out["cuda"], out["cpu"]
+    res = {k: abs(card[k] - host[k]) / abs(host[k])
+           for k in ("loss", "grad_norm")}
+    res["grads"] = max(
+        float((card["grads"][k].cpu() - g).abs().max() / g.abs().max())
+        for k, g in host["grads"].items())
+    diff = {k: float((card["params"][k].cpu() - p).abs().max())
+            for k, p in host["params"].items()}
+    peak = {k: float(p.abs().max()) for k, p in host["params"].items()}
+    res["params"] = max(diff.values()) / max(peak.values())
+    worst = max(diff, key=lambda k: diff[k] / peak[k])
+    res.update(params_worst_leaf=[worst, diff[worst] / peak[worst]],
+               params_max_diff_over_lr=max(diff.values())
+               / tc.learning_rate,
+               loss_card=card["loss"], grad_norm_card=card["grad_norm"],
+               seconds_card=card["seconds"], seconds_cpu=host["seconds"])
+    return res
+
+
+# a train step's device time by kind, first match by name; the rest is
+# PyTorch's elementwise ops, copies and reductions (the fake-quant, the
+# losses, the clip)
+TRAIN_GROUPS = (("attention (library)", ("fmha", "flash", "attention")),
+                ("GEMM (library)", ("gemm", "cutlass", "xmma")),
+                ("AdamW (foreach)", ("multi_tensor", "foreach")))
+
+
+def train_step_profile(torch, steps=3) -> dict:
+    """One KD train step as ``cli train`` runs it (TRAIN_ARGV's model and
+    batch: 4 layers of llama2_7b, w_bits 2, remat, [2, 2048]): the
+    CUDA-event span of a step, median of ``steps`` after a warm-up step,
+    then one profiled step: device time per kernel (torch.profiler) by
+    TRAIN_GROUPS, its top ops and the idle share = 1 - device busy / the
+    median span."""
+    import dataclasses as dc
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.qat import train
+
+    cfg = llama.LlamaConfig.llama2_7b(num_hidden_layers=4, w_bits=2)
+    params = llama.init_params(cfg, SEED, torch.float32, "cuda")
+    teacher = llama.init_params(dc.replace(cfg, w_bits=32), SEED,
+                                torch.float32, "cuda")
+    for p in train.leaves(params).values():
+        p.requires_grad_(True)
+    tc = train.TrainConfig(total_steps=100)
+    step = train.make_train_step(cfg, tc, train.make_optimizer(tc, params))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (2, 2048),
+                                        generator=gen, device="cuda")}
+    step(params, teacher, batch)
+    ts = []
+    for _ in range(steps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        step(params, teacher, batch)
+        e1.record()
+        e1.synchronize()
+        ts.append(e0.elapsed_time(e1))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, teacher, batch)
+        torch.cuda.synchronize()
+    per_kernel = device_ms_by_name(torch, prof, 1)
+    busy = sum(per_kernel.values())
+    span = statistics.median(ts)
+    groups = {}
+    for k, v in per_kernel.items():
+        g = next((g for g, names in TRAIN_GROUPS
+                  if any(n in k.lower() for n in names)),
+                 "elementwise, copies, reductions")
+        groups[g] = groups.get(g, 0.0) + v
+    return {"event_ms": span, "event_ms_rounds": ts,
+            "device_busy_ms": busy, "idle_share": 1.0 - busy / span,
+            "device_ms_by_group": groups,
+            "top_device_ops_ms": top_ms(per_kernel, 12)}
+
+
+def phase_train(torch):
+    """QAT at llama2_7b's widths, each step a hard check:
+    1. the QAT fake-quants of a (256, 4096) normal on the card equal the
+       CPU's bit for bit (``spec_probe.fake_quants_differing``);
+    2. ``cli train`` (TRAIN_ARGV, ``--max_steps 8``, checkpoints into a
+       temporary directory): every step's loss finite, 8 steps,
+       checkpoint 8 the only one kept; each step's loss and gradient
+       norm, the median seconds per step after the first, the peak
+       device memory, the seconds of the whole command;
+    3. the same command with ``--max_steps 12``: "resumed from step 8",
+       trained to step 12, checkpoint 12 kept;
+    4. CE training (no KD, w_bits 2, lr 1e-3, no remat) of 2 layers on
+       one repeated [2, 256] batch for 15 steps: the last loss below 0.9
+       x the first (the criterion of tests/test_qat.py's
+       test_training_reduces_ce_loss);
+    5. ``train_step_card_vs_cpu`` within TRAIN_CPU_GATES;
+    6. ``cli generate-data --layers 4 --num_seeds 8 --length 128``: every
+       token of each row's greedy prefix (``qat.data.greedy_lengths``,
+       the generator's first draw) equals the argmax of a no-cache
+       forward of the tokens before it;
+    then where a train step's time goes (``train_step_profile``).
+    No kernel of the repo runs here; the launches are read all the same.
+    Returns the failures."""
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.qat import data as qdata
+    from mxq_tpu_torch.qat import train
+    from mxq_tpu_torch.spec_probe import fake_quants_differing
+
+    kernels = all_kernels()
+    runs, failures, counted = {}, [], []
+    torch.cuda.empty_cache()
+
+    # 1. the fake-quants
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    runs["fake_quants_differing"] = diff = fake_quants_differing(
+        torch.randn((256, 4096), generator=gen, device="cuda"))
+    if any(diff.values()):
+        failures.append(f"train: fake-quants on the card differ from the "
+                        f"CPU's: {diff}")
+
+    with tempfile.TemporaryDirectory(prefix="mxq_qat_") as tmp:
+        out = os.path.join(tmp, "qat")
+        argv = TRAIN_ARGV + ["--output_dir", out]
+        # 2. 8 steps
+        torch.cuda.reset_peak_memory_stats()
+        res = count_launches(torch, kernels, lambda: dict(zip(
+            ("result", "printed"), cli_with_output(argv + ["--max_steps",
+                                                           "8"]))))
+        counted.append(res.pop("launches"))
+        m = train_metrics(os.path.join(out, "logs"), 1)
+        run = {"command_seconds": res["seconds"], **m,
+               "median_seconds_per_step_after_first": statistics.median(
+                   m["seconds"][1:]) if len(m["seconds"]) > 1 else None,
+               "peak_memory_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "eval_ppl": res["result"].get("eval_ppl"),
+               "checkpoints": sorted(os.listdir(out))}
+        runs["cli_train"] = run
+        if (res["result"]["last_step"] != 8 or m["steps"] != list(
+                range(1, 9)) or not all(map(math.isfinite, m["loss"]))
+                or run["checkpoints"] != ["8", "logs"]):
+            failures.append(f"train cli_train: {run}")
+        # 3. resumed to 12
+        res = count_launches(torch, kernels, lambda: dict(zip(
+            ("result", "printed"), cli_with_output(argv + ["--max_steps",
+                                                           "12"]))))
+        counted.append(res.pop("launches"))
+        m = train_metrics(os.path.join(out, "logs"), 9)
+        run = {"command_seconds": res["seconds"], **m,
+               "resumed": "resumed from step 8" in res["printed"],
+               "checkpoints": sorted(os.listdir(out))}
+        runs["cli_train_resume"] = run
+        if (not run["resumed"] or res["result"]["last_step"] != 12
+                or m["steps"] != list(range(9, 13))
+                or not all(map(math.isfinite, m["loss"]))
+                or run["checkpoints"] != ["12", "logs"]):
+            failures.append(f"train cli_train_resume: {run}")
+    torch.cuda.empty_cache()
+
+    # 4. CE training on one repeated batch
+    cfg = llama.LlamaConfig.llama2_7b(num_hidden_layers=2, w_bits=2)
+    params = llama.init_params(cfg, SEED, torch.float32, "cuda")
+    for p in train.leaves(params).values():
+        p.requires_grad_(True)
+    tc = train.TrainConfig(learning_rate=1e-3, use_kd=False, total_steps=30,
+                           remat=False)
+    step = train.make_train_step(cfg, tc, train.make_optimizer(tc, params))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {"input_ids": torch.randint(0, cfg.vocab_size, (2, 256),
+                                        generator=gen, device="cuda")}
+    losses = [float(step(params, None, batch)["loss"]) for _ in range(15)]
+    runs["ce_overfit"] = {"loss": losses,
+                          "last_over_first": losses[-1] / losses[0]}
+    if not losses[-1] < 0.9 * losses[0]:
+        failures.append(f"train ce_overfit: losses {losses}")
+    del params, step, batch
+    torch.cuda.empty_cache()
+
+    # 5. card against CPU
+    runs["card_vs_cpu_step"] = r = train_step_card_vs_cpu(torch)
+    bad = {k: r[k] for k, gate in TRAIN_CPU_GATES.items() if not r[k] <= gate}
+    if bad:
+        failures.append(f"train card_vs_cpu_step: {bad} beyond "
+                        f"{TRAIN_CPU_GATES}")
+    torch.cuda.empty_cache()
+
+    # 6. generate-data
+    with tempfile.TemporaryDirectory(prefix="mxq_gen_") as tmp:
+        res = count_launches(torch, kernels, lambda: cli_with_output(
+            ["generate-data", "--preset", "llama2_7b", "--layers", "4",
+             "--num_seeds", "8", "--length", "128", "--seed", str(SEED),
+             "--out_dir", tmp])[0])
+        counted.append(res.pop("launches"))
+        rows = len(qdata.read_jsonl_texts(res["path"]))
+    tokens = torch.as_tensor(res.pop("tokens"), device="cuda")
+    cfg = llama.LlamaConfig.llama2_7b(num_hidden_layers=4)
+    params = llama.init_params(cfg, SEED, torch.float32, "cuda")
+    with torch.no_grad():
+        argmax = llama.forward(params, tokens, cfg, device="cuda")[0].argmax(
+            -1)
+    glen = qdata.greedy_lengths(8, 3, 5, torch.Generator(
+        device="cuda").manual_seed(0)).tolist()
+    checked = sum(g - 1 for g in glen)
+    equal = sum(int((tokens[b, 1:g] == argmax[b, :g - 1]).sum())
+                for b, g in enumerate(glen))
+    runs["generate_data"] = {"seconds": res["seconds"], "rows": rows,
+                             "greedy_tokens_checked": checked,
+                             "greedy_tokens_equal": equal,
+                             "in_vocab": bool(0 <= int(tokens.min())
+                                              and int(tokens.max())
+                                              < cfg.vocab_size)}
+    if (equal != checked or rows != 8 or tuple(tokens.shape) != (8, 128)
+            or not runs["generate_data"]["in_vocab"]):
+        failures.append(f"train generate_data: {runs['generate_data']}")
+    del params, tokens, argmax
+    torch.cuda.empty_cache()
+    runs["train_step_profile"] = train_step_profile(torch)
+    torch.cuda.empty_cache()
+
+    launches = {k: sum(c[k] for c in counted) for k in kernels}
+    emit({"phase": "train", **runs, "launches_total": launches,
+          "card": smi()})
+    return failures
+
+
 @contextlib.contextmanager
 def plain_versions(mm, a8):
     """Route the packed linears (K1-K3, K5, K6), the K4 family, K11 and the
@@ -2268,6 +2600,8 @@ def main(argv=None) -> int:
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
         failures += f
+    if "train" in phases:
+        failures += phase_train(torch)
     if "e2e" in phases:
         failures += phase_e2e(torch)
     torch.cuda.synchronize()

@@ -1,6 +1,8 @@
 """Command line of the PyTorch port (port of ``mxq_tpu/cli.py``): ``ptq``
 quantizes a model layer by layer against calibration data, ``prune``
-prunes it, ``eval-ppl`` measures the stride-seqlen perplexity, and
+prunes it, ``train`` fine-tunes it with quantization-aware training and
+knowledge distillation, ``generate-data`` makes training data with the
+model itself, ``eval-ppl`` measures the stride-seqlen perplexity, and
 ``serve`` runs the slot engine or, with ``--paged``, the paged engine.
 
     python -m mxq_tpu_torch.cli ptq --preset llama2_7b --dtype bfloat16 \
@@ -10,6 +12,10 @@ prunes it, ``eval-ppl`` measures the stride-seqlen perplexity, and
         --prune_method sparsegpt --sparsity 0.5 --nsamples 8
     python -m mxq_tpu_torch.cli prune --preset llama2_7b \
         --prune_method wanda --sparsity_type 2:4
+    python -m mxq_tpu_torch.cli train --preset llama2_7b --layers 4 \
+        --w_bits 2 --use_kd --batch_size 2 --block_size 2048 --max_steps 8
+    python -m mxq_tpu_torch.cli generate-data --preset llama2_7b \
+        --num_seeds 8 --length 128 --merge
     python -m mxq_tpu_torch.cli eval-ppl --preset llama2_7b \
         --dtype bfloat16 --w_bits 2 --max_eval_windows 2
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8
@@ -28,13 +34,20 @@ of ``mxq_tpu``'s: ``calibrating ...``, ``  layer i done``, ``<dataset> ppl
 (quantized): x``, and with ``--save_model`` writes the packed (``--mode
 packed``) or quant-dequantized params with ``utils.checkpoint``; ``prune``
 prints ``actual sparsity x`` and ``<dataset> ppl (pruned): x``.
+``train`` (``qat/loop.py``) trains on ``--train_data`` (a JSONL of texts,
+tokenized with ``--tokenizer``) or on the synthetic corpus, holds out the
+first chunks for validation, resumes from the newest checkpoint in
+``--output_dir``, logs every ``--log_steps`` steps and prints ``trained to
+step N, eval_ppl=x``; ``generate-data`` writes ``gen.chunk.NN.jsonl``
+(``qat/data.py``) and with ``--merge`` joins the shards.
 ``--w_bits`` (and for eval-ppl ``--a_bits``, ``--kv_bits``) select the
 reference's fake-quant forward of the dense model. ``serve`` prints one
 JSON line: requests, tokens, tokens/s and the engine's stats;
 ``eval-ppl`` prints ``{"dataset": ..., "ppl": ...}``. The GEMV layout of
 packed linears is read from ``MXQ_GEMV_LAYOUT`` / ``MXQ_GEMV_LAYOUT_B1``
-(``ops/mxq_matmul.py``). Calibration sharded over devices (``ptq
---shard``) is not ported yet.
+(``ops/mxq_matmul.py``). Calibration and training sharded over devices
+(``ptq --shard``; ``mxq_tpu``'s ``train`` shards over every device it
+finds) are not ported yet: ``train`` runs on one device.
 """
 
 from __future__ import annotations
@@ -42,6 +55,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -182,6 +196,78 @@ def cmd_eval_ppl(args) -> dict:
     return out
 
 
+def cmd_train(args) -> dict:
+    """QAT of the model (``--w_bits``, ``--a_bits``, ``--kv_bits``), with
+    ``--use_kd`` against the same weights at full precision. Returns the
+    loop's ``last_step``, ``losses`` and ``eval_ppl``."""
+    from mxq_tpu_torch.ptq import data as ptq_data
+    from mxq_tpu_torch.qat import data as qdata
+    from mxq_tpu_torch.qat import loop, train
+
+    dev = resolve_device(args.device)
+    cfg, params = _model(args, dev, w_bits=args.w_bits, a_bits=args.a_bits,
+                         kv_bits=args.kv_bits)
+    teacher = _model(args, dev)[1] if args.use_kd else None
+    if args.train_data and os.path.exists(args.train_data):
+        tok = _tokenizer(args)
+        streams = [np.asarray(tok(t)["input_ids"])
+                   for t in qdata.read_jsonl_texts(args.train_data)]
+    else:
+        streams = [ptq_data.synthetic_corpus(cfg.vocab_size,
+                                             args.block_size * 64)]
+    data = qdata.chunked_dataset(streams, args.block_size)
+    # the first chunks validate (eval ppl = exp of the mean loss), unless
+    # the corpus is too small to spare them
+    val_batches = []
+    if len(data) >= 3 * args.batch_size:
+        n_val = min(4 * args.batch_size, len(data) // 3)
+        data, val = qdata.train_valid_split(list(data), n_val)
+        data, val = np.stack(data), np.stack(val)
+        val_batches = [
+            {"input_ids": torch.from_numpy(
+                val[i:i + args.batch_size].astype(np.int64)).to(dev)}
+            for i in range(0, len(val) - args.batch_size + 1,
+                           args.batch_size)][:4]
+    it = qdata.batches(data, args.batch_size, epochs=args.epochs, device=dev)
+    tc = train.TrainConfig(learning_rate=args.lr, use_kd=args.use_kd,
+                           kd_loss_scale=args.kd_loss_scale,
+                           total_steps=args.max_steps or len(data))
+    lc = loop.LoopConfig(output_dir=args.output_dir,
+                         save_steps=args.save_steps,
+                         log_steps=args.log_steps, max_steps=args.max_steps)
+    res = loop.run_training(params, teacher, cfg, tc, lc, it,
+                            val_batches=val_batches, device=dev)
+    print(f"trained to step {res['last_step']}"
+          + (f", eval_ppl={res['eval_ppl']:.4f}" if "eval_ppl" in res
+             else ""), flush=True)
+    return {k: res[k] for k in ("last_step", "losses", "eval_ppl")
+            if k in res}
+
+
+def cmd_generate_data(args) -> dict:
+    """``--num_seeds`` sequences of ``--length`` tokens from the model,
+    seed tokens and sampling seeded by ``--chunk_id``, written as
+    ``<out_dir>/gen.chunk.NN.jsonl``. Returns the path and the tokens."""
+    from mxq_tpu_torch.qat import data as qdata
+
+    dev = resolve_device(args.device)
+    cfg, params = _model(args, dev)
+    rng = np.random.RandomState(args.chunk_id)
+    seeds = rng.randint(0, cfg.vocab_size,
+                        size=args.num_seeds).astype(np.int32)
+    out = qdata.synthesize_corpus(params, cfg, seeds, length=args.length,
+                                  seed=args.chunk_id, device=dev)
+    os.makedirs(args.out_dir, exist_ok=True)
+    path = os.path.join(args.out_dir, f"gen.chunk.{args.chunk_id:02d}.jsonl")
+    qdata.write_jsonl_chunk(path, out)
+    print(f"wrote {path}", flush=True)
+    if args.merge:
+        n = qdata.merge_chunks(args.out_dir,
+                               os.path.join(args.out_dir, "all_gen.jsonl"))
+        print(f"merged {n} sequences", flush=True)
+    return {"path": path, "tokens": out}
+
+
 def cmd_serve(args) -> dict:
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.serving import engine as eng
@@ -294,6 +380,33 @@ def main(argv=None):
     p.add_argument("--save_model", default=None)
     p.add_argument("--max_eval_windows", type=int, default=None)
     p.set_defaults(fn=cmd_prune)
+
+    p = sub.add_parser("train")
+    _add_model_args(p)
+    p.add_argument("--w_bits", type=int, default=2)
+    p.add_argument("--a_bits", type=int, default=32)
+    p.add_argument("--kv_bits", type=int, default=32)
+    p.add_argument("--use_kd", action="store_true", default=False)
+    p.add_argument("--kd_loss_scale", type=float, default=1.0)
+    p.add_argument("--lr", type=float, default=2e-5)
+    p.add_argument("--batch_size", type=int, default=2)
+    p.add_argument("--block_size", type=int, default=2048)
+    p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--max_steps", type=int, default=None)
+    p.add_argument("--save_steps", type=int, default=1000)
+    p.add_argument("--log_steps", type=int, default=10)
+    p.add_argument("--train_data", default=None)
+    p.add_argument("--output_dir", default="out/qat")
+    p.set_defaults(fn=cmd_train)
+
+    p = sub.add_parser("generate-data")
+    _add_model_args(p)
+    p.add_argument("--chunk_id", type=int, default=0)
+    p.add_argument("--num_seeds", type=int, default=16)
+    p.add_argument("--length", type=int, default=128)
+    p.add_argument("--out_dir", default="out/gen_data")
+    p.add_argument("--merge", action="store_true")
+    p.set_defaults(fn=cmd_generate_data)
 
     p = sub.add_parser("serve")
     _add_model_args(p)

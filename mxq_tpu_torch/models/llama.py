@@ -13,7 +13,11 @@ K5 + two int8 GEMMs), fewer to the GEMV of ``ops.mxq_matmul``'s layout
 (K1 at B >= 2, K2 at B == 1, K6 for ``MXQ_GEMV_LAYOUT=quad|bfexp``).
 Dense linears take the reference's fake-quant forward when ``w_bits``
 < 32, activations when 2 < ``a_bits`` < 32, and k/v when ``kv_bits`` < 32
-(``scheme``; the QAT ``train`` branches are not ported yet). A packed
+(``scheme``); ``forward(train=True)`` takes the straight-through
+estimators of QAT and ``remat=True`` recomputes each decoder layer in the
+backward (``torch.utils.checkpoint``, the counterpart of
+``jax.checkpoint``). The parameters train as leaf tensors: each layer is a
+view into the stacks, so its gradients land there. A packed
 uniform-4b lm_head goes through K7. Decode with the stacked int8 cache goes
 through K4 (``ops.attn_int8.decode_attend_update``), and a speculative
 verify of T tokens per slot through K4a once per token. Cache-less or
@@ -32,6 +36,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from mxq_tpu_torch import resolve_device, scheme
 from mxq_tpu_torch.config import MXQConfig
@@ -156,9 +161,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 def rope_tables(cfg: LlamaConfig, positions: torch.Tensor):
     """cos/sin tables [..., T, D] for positions [..., T]."""
     d = cfg.head_dim
-    inv_freq = 1.0 / (cfg.rope_theta ** (
-        torch.arange(0, d, 2, dtype=torch.float32,
-                     device=positions.device) / d))
+    inv_freq = 1.0 / (cfg.rope_theta ** scheme.div_const(
+        torch.arange(0, d, 2, dtype=torch.float32, device=positions.device),
+        d))
     freqs = positions[..., None].float() * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
@@ -178,13 +183,17 @@ def apply_rope(q, k, cos, sin):
     return q2.to(q.dtype), k2.to(k.dtype)
 
 
-def quant_linear(x: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
+def quant_linear(x: torch.Tensor, w, cfg: LlamaConfig,
+                 train: bool = False) -> torch.Tensor:
     """``x @ w`` for a dense [in, out] weight or one layer of a packed
-    linear (the serving path), with the reference's inference fake-quant
-    (mxq_tpu/models/llama.py:196-226): activations symmetric in groups of
+    linear (the serving path), with the reference's fake-quant
+    (mxq_tpu/models/llama.py:190-226): activations symmetric in groups of
     128 (or asymmetric in groups of 8, ``a_symmetric=False``) when
-    2 < a_bits < 32; dense weights MXQ (2 <= w_bits < 32) or binary
-    (w_bits == 1)."""
+    2 < a_bits < 32, with the clipped straight-through backward; dense
+    weights MXQ (2 <= w_bits < 32) or binary (w_bits == 1). ``train``
+    gives the weights their straight-through backward: clipped at
+    ``cfg.scheme.ste_clip`` for MXQ, unclipped for binary. A packed weight
+    under ``train`` never takes the int8-activation prefill."""
     if 2 < cfg.a_bits < 32:
         if cfg.a_symmetric:
             x = scheme.sym_fake_quant_ste(x, cfg.a_bits, groupsize=128)
@@ -194,14 +203,16 @@ def quant_linear(x: torch.Tensor, w, cfg: LlamaConfig) -> torch.Tensor:
         tokens = math.prod(x.shape[:-1])
         if tokens >= 512:
             pf = (mxq_matmul.mxq_matmul_prefill_a8
-                  if cfg.prefill_act_bits == 8
+                  if cfg.prefill_act_bits == 8 and not train
                   else mxq_matmul.mxq_matmul_prefill)
             return pf(x, w, None, cfg.scheme)
         return mxq_matmul.mxq_matmul(x, w, cfg.scheme)
     if 2 <= cfg.w_bits < 32:
-        w = scheme.mxq_fake_quant_qat(w.T, cfg.scheme).T
+        fq = scheme.mxq_fake_quant_ste if train else scheme.mxq_fake_quant_qat
+        w = fq(w.T, cfg.scheme).T
     elif cfg.w_bits == 1:
-        w = scheme.binary_fake_quant(w.T).T
+        wq = scheme.binary_fake_quant(w.T).T
+        w = (wq - w).detach() + w if train else wq
     return x @ w
 
 
@@ -248,21 +259,21 @@ def _sdpa(q, k, v, d):
     return ctx.transpose(1, 2)
 
 
-def _qkv(x, layer, cfg: LlamaConfig):
+def _qkv(x, layer, cfg: LlamaConfig, train: bool = False):
     """The q, k, v projections of x [B, T, hidden]: [B, T, H, D] each; k
     and v fake-quantized symmetric in groups of 128 when kv_bits < 32
     (mxq_tpu/models/llama.py:278-280), with or without a cache."""
     b, t, _ = x.shape
     nh, nkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     if "qkv_proj" in layer:
-        qkv = quant_linear(x, layer["qkv_proj"], cfg)
+        qkv = quant_linear(x, layer["qkv_proj"], cfg, train)
         q = qkv[..., : nh * d]
         k = qkv[..., nh * d: (nh + nkv) * d]
         v = qkv[..., (nh + nkv) * d:]
     else:
-        q = quant_linear(x, layer["q_proj"], cfg)
-        k = quant_linear(x, layer["k_proj"], cfg)
-        v = quant_linear(x, layer["v_proj"], cfg)
+        q = quant_linear(x, layer["q_proj"], cfg, train)
+        k = quant_linear(x, layer["k_proj"], cfg, train)
+        v = quant_linear(x, layer["v_proj"], cfg, train)
     if cfg.kv_bits < 32:
         k = scheme.sym_fake_quant_ste(k, cfg.kv_bits, groupsize=128)
         v = scheme.sym_fake_quant_ste(v, cfg.kv_bits, groupsize=128)
@@ -281,13 +292,15 @@ def masked_attention(q, k, v, mask):
     qf = q.transpose(1, 2).float()
     kf = k.transpose(1, 2).float()
     vf = v.transpose(1, 2)
-    scores = torch.einsum("bhtd,bhsd->bhts", qf, kf) / math.sqrt(d)
+    scores = scheme.div_const(torch.einsum("bhtd,bhsd->bhts", qf, kf),
+                              math.sqrt(d))
     probs = torch.softmax(scores + mask, dim=-1).to(vf.dtype)
     return torch.einsum("bhts,bhsd->bhtd", probs, vf).transpose(1, 2)
 
 
 def attention(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
-              cache_pos: Optional[int] = None, layer_idx: Optional[int] = None):
+              cache_pos: Optional[int] = None, layer_idx: Optional[int] = None,
+              train: bool = False):
     """LlamaAttention, GQA-ready (a T=1 decode step over a cache goes
     through :func:`decode_slots` instead). ``cache`` is the stacked
     cache dict (int8: codes [L,B,H,S,D] + scales [L,B,H,S]; bf16: k/v
@@ -295,7 +308,7 @@ def attention(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
     ``layer_idx``."""
     b, t, _ = x.shape
     nh, d = cfg.num_attention_heads, cfg.head_dim
-    q, k, v = _qkv(x, layer, cfg)
+    q, k, v = _qkv(x, layer, cfg, train)
     q, k = apply_rope(q, k, cos, sin)
 
     on_card = x.device.type == "cuda"
@@ -342,27 +355,27 @@ def attention(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
     else:
         ctx = masked_attention(q, k, v, mask)
     ctx = ctx.reshape(b, t, nh * d).to(x.dtype)
-    return quant_linear(ctx, layer["o_proj"], cfg)
+    return quant_linear(ctx, layer["o_proj"], cfg, train)
 
 
-def mlp(x, layer, cfg: LlamaConfig):
+def mlp(x, layer, cfg: LlamaConfig, train: bool = False):
     """SiLU(gate) * up -> down."""
     if "gate_up_proj" in layer:
-        gu = quant_linear(x, layer["gate_up_proj"], cfg)
+        gu = quant_linear(x, layer["gate_up_proj"], cfg, train)
         g, u = gu.chunk(2, dim=-1)
     else:
-        g = quant_linear(x, layer["gate_proj"], cfg)
-        u = quant_linear(x, layer["up_proj"], cfg)
-    return quant_linear(F.silu(g) * u, layer["down_proj"], cfg)
+        g = quant_linear(x, layer["gate_proj"], cfg, train)
+        u = quant_linear(x, layer["up_proj"], cfg, train)
+    return quant_linear(F.silu(g) * u, layer["down_proj"], cfg, train)
 
 
 def decoder_layer(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
-                  cache_pos=None, layer_idx=None):
+                  cache_pos=None, layer_idx=None, train: bool = False):
     h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
     x = x + attention(h, layer, cfg, cos, sin, mask, cache, cache_pos,
-                      layer_idx)
+                      layer_idx, train)
     h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
-    return x + mlp(h, layer, cfg)
+    return x + mlp(h, layer, cfg, train)
 
 
 def decode_step(params, tokens, cfg: LlamaConfig, positions, attend):
@@ -492,11 +505,15 @@ def check_params_device(params: dict, dev: torch.device) -> None:
 
 def forward(params, input_ids, cfg: LlamaConfig, *, positions=None,
             caches=None, cache_pos=None, mask=None,
-            device: str | torch.device = "cuda"):
+            device: str | torch.device = "cuda", train: bool = False,
+            remat: bool = False):
     """Full model forward -> (logits [B, T, V] f32, caches). ``caches`` (a
     stacked cache dict or None) is updated in place and returned. One
     token with a cache and neither ``positions`` nor ``mask`` is a decode
-    step of every slot at row ``cache_pos`` (:func:`decode_slots`)."""
+    step of every slot at row ``cache_pos`` (:func:`decode_slots`).
+    ``train`` takes the straight-through estimators (:func:`quant_linear`);
+    ``remat`` keeps only each decoder layer's input for the backward and
+    recomputes the rest there."""
     dev = resolve_device(device)
     check_params_device(params, dev)
     input_ids = torch.as_tensor(input_ids, device=dev)
@@ -521,9 +538,16 @@ def forward(params, input_ids, cfg: LlamaConfig, *, positions=None,
         else:
             mask = causal_mask(t, device=dev)
 
+    def layer_fn(x, idx):
+        return decoder_layer(x, layer_view(params, idx), cfg, cos, sin, mask,
+                             caches, cache_pos, idx, train)
+
     for idx in range(cfg.num_hidden_layers):
-        x = decoder_layer(x, layer_view(params, idx), cfg, cos, sin, mask,
-                          caches, cache_pos, idx)
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(layer_fn, x, idx,
+                                                  use_reentrant=False)
+        else:
+            x = layer_fn(x, idx)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
     return lm_head(params, x).float(), caches
 
@@ -536,3 +560,40 @@ def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
              cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_index: int = -100) -> torch.Tensor:
+    """The shifted CE loss (mxq_tpu/models/llama.py:567): token t's logits
+    predict label t + 1; labels equal to ``ignore_index`` are left out."""
+    logits = logits[:, :-1]
+    labels = labels[:, 1:]
+    valid = labels != ignore_index
+    labels = torch.where(valid, labels, 0)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    return (nll * valid).sum() / valid.sum().clamp_min(1)
+
+
+def sequence_classification_forward(params, input_ids, cfg: LlamaConfig,
+                                    num_labels: int, pad_token_id: int = 0,
+                                    device: str | torch.device = "cuda"
+                                    ) -> torch.Tensor:
+    """LlamaForSequenceClassification (mxq_tpu/models/llama.py:578): the
+    score head ``params["score"]`` [hidden, num_labels] on the hidden state
+    of each row's last non-pad token. Returns [B, num_labels]."""
+    dev = resolve_device(device)
+    check_params_device(params, dev)
+    input_ids = torch.as_tensor(input_ids, device=dev)
+    b, t = input_ids.shape
+    x = params["embed_tokens"][input_ids]
+    positions = torch.arange(t, device=dev)[None].expand(b, t)
+    cos, sin = rope_tables(cfg, positions)
+    cos, sin = cos.to(x.dtype), sin.to(x.dtype)
+    mask = causal_mask(t, device=dev)
+    for idx in range(cfg.num_hidden_layers):
+        x = decoder_layer(x, layer_view(params, idx), cfg, cos, sin, mask)
+    x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
+    logits = x @ params["score"]                       # [B, T, num_labels]
+    last = ((input_ids != pad_token_id).sum(-1) - 1).clamp_min(0)
+    return logits[torch.arange(b, device=dev), last]

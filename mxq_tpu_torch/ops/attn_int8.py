@@ -40,6 +40,8 @@ import math
 
 import torch
 
+from mxq_tpu_torch.scheme import div_const
+
 NEG = torch.finfo(torch.float32).min
 CHUNK = 128      # history rows per block of the kernels (attn_split.cuh)
 QMAX = 64        # query rows per (batch, kv head) the kernels take
@@ -577,7 +579,7 @@ def int8_decode_attention_reference(q, k_codes, k_scale, v_codes, v_scale,
     if hkv != hq:
         k = torch.repeat_interleave(k, hq // hkv, dim=1)
         v = torch.repeat_interleave(v, hq // hkv, dim=1)
-    st = torch.einsum("bhd,bhsd->bhs", q.float(), k) / math.sqrt(d)
+    st = div_const(torch.einsum("bhd,bhsd->bhs", q.float(), k), math.sqrt(d))
     s = k.shape[2]
     mask = torch.arange(s, device=q.device)[None, None, :] \
         <= positions[:, None, None]

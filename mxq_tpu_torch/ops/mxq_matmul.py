@@ -513,7 +513,8 @@ def _act_quant_rows(xb: torch.Tensor):
     """Per-token symmetric int8 scale: xb [T, K] f32 -> (scale [T, 1],
     1 / scale). max|x| is taken as max(max x, -min x), one read of x."""
     lo, hi = torch.aminmax(xb, dim=-1, keepdim=True)
-    sx = torch.clamp_min(torch.maximum(hi, -lo), 1e-12) / 127.0
+    sx = scheme.div_const(torch.clamp_min(torch.maximum(hi, -lo), 1e-12),
+                          127.0)
     return sx, 1.0 / sx
 
 

@@ -5,9 +5,10 @@ variants; and the QAT fake-quant forward with its straight-through
 estimators.
 
 Weight orientation matches the reference: ``w`` is ``[out, in]`` = ``[O, K]``.
-``torch.round`` rounds half to even, as ``jnp.round`` does. The PTQ
-functions divide by constants through :func:`div_const`, so that the card
-divides as the CPU and JAX do.
+``torch.round`` rounds half to even, as ``jnp.round`` does. Every
+division by a constant goes through :func:`div_const` (or, for a constant
+over a tensor, a 0-dim tensor numerator), so that the card divides as the
+CPU and JAX do.
 """
 
 from __future__ import annotations
@@ -89,7 +90,7 @@ def _qat_affine_qdq(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
     """q = round((x-beta)/(alpha+eps) * levels)/levels; q*(alpha+eps)+beta
     (utils_quant.py:456-460)."""
     a = alpha + eps
-    q = torch.round((x - beta) / a * levels) / levels
+    q = div_const(torch.round((x - beta) / a * levels), levels)
     return q * a + beta
 
 
@@ -148,6 +149,13 @@ def _groups(x: torch.Tensor, groupsize: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (x.shape[-1] // groupsize, groupsize))
 
 
+def _sym_scale(m: torch.Tensor, bits: int) -> torch.Tensor:
+    """``(2^(b-1)-1) / (m + 1e-6)`` as an IEEE division: a Python number
+    over a tensor is ``reciprocal() * number`` in PyTorch, on every
+    device."""
+    return m.new_full((), 2 ** (bits - 1) - 1) / (m + 1e-6)
+
+
 def sym_fake_quant(x: torch.Tensor, bits: int, groupsize: int = 128,
                    layerwise: bool = False) -> torch.Tensor:
     """SymQuantizer.forward (utils_quant.py:31-89): groupwise max-abs
@@ -161,7 +169,7 @@ def sym_fake_quant(x: torch.Tensor, bits: int, groupsize: int = 128,
         g = _groups(x, groupsize)
         m = g.abs().amax(dim=-1, keepdim=True).expand(g.shape).reshape(
             x.shape)
-    s = (2 ** (bits - 1) - 1) / (m + 1e-6)
+    s = _sym_scale(m, bits)
     return torch.round(x * s) / (s + 1e-6)
 
 
@@ -180,7 +188,7 @@ def sym_fake_quant_ref3d(x: torch.Tensor, bits: int,
     rowmax = x.abs().amax(dim=-1, keepdim=True)                # [B, T, 1]
     mask = (torch.arange(t, device=x.device) < covered)[None, :, None]
     m = torch.where(mask, rowmax, torch.zeros_like(rowmax))
-    s = (2 ** (bits - 1) - 1) / (m + 1e-6)
+    s = _sym_scale(m, bits)
     return torch.round(x * s) / (s + 1e-6)
 
 

@@ -30,6 +30,7 @@ import torch
 from mxq_tpu_torch import resolve_device
 from mxq_tpu_torch.models import llama
 from mxq_tpu_torch.ops import uniform4
+from mxq_tpu_torch.scheme import div_const
 from mxq_tpu_torch.serving import kvcache
 
 NEG = torch.finfo(torch.float32).min
@@ -70,7 +71,7 @@ def filter_logits(logits: torch.Tensor, temperature: float, top_k: int,
                   top_p: float) -> torch.Tensor:
     """[B, V] logits scaled by the temperature, with the tokens outside the
     top-k / nucleus set to the most negative float."""
-    lg = logits.float() / max(temperature, 1e-6)
+    lg = div_const(logits.float(), max(temperature, 1e-6))
     if top_k > 0:
         kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
         lg = torch.where(lg < kth, NEG, lg)

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from mxq_tpu_torch import resolve_device
+from mxq_tpu_torch.scheme import div_const
 
 
 def init_quant_cache(num_layers: int, batch: int, max_len: int, kv_heads: int,
@@ -41,7 +42,7 @@ def quantize_kv(x: torch.Tensor, group: int):
     shape = x.shape
     g = x.reshape(shape[:-1] + (shape[-1] // group, group)).float()
     m = g.abs().amax(dim=-1, keepdim=True)
-    s = m / 127.0
+    s = div_const(m, 127.0)
     codes = torch.round(g / torch.clamp(s, min=1e-8)).to(torch.int8)
     return codes.reshape(shape), s[..., 0].to(torch.bfloat16)
 

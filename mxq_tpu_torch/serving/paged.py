@@ -37,6 +37,7 @@ import torch
 from mxq_tpu_torch import resolve_device
 from mxq_tpu_torch.models import llama
 from mxq_tpu_torch.ops import attn_int8
+from mxq_tpu_torch.scheme import div_const
 from mxq_tpu_torch.serving import kvcache
 from mxq_tpu_torch.serving.engine import (NEG, Request, _HostCopy,
                                           sample_token, to_device)
@@ -256,7 +257,8 @@ def _paged_attend_reference(q, k_pages_l, v_pages_l, lengths, page_indices):
     rep = nh // kvh
     k = torch.repeat_interleave(k, rep, dim=1).float()
     v = torch.repeat_interleave(v, rep, dim=1).float()
-    scores = torch.einsum("bhd,bhsd->bhs", q.float(), k) / math.sqrt(d)
+    scores = div_const(torch.einsum("bhd,bhsd->bhs", q.float(), k),
+                       math.sqrt(d))
     pos = torch.arange(pps * ps, device=q.device)[None, None, :]
     scores = torch.where(pos < lengths[:, None, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)

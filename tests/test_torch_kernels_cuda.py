@@ -2,8 +2,9 @@
 PyTorch versions at small shapes (the one-row kernels also at
 llama2_7b down's K of 11008, the attention kernels at histories of up to
 4096 rows, cut at their 128-row split edges), and the quantizers on the
-card against the CPU. Needs a CUDA device and nvcc (marker ``cuda``);
-skips elsewhere. Run on the H100 with
+card against the CPU (the PTQ packer, the QAT fake-quants, the int8 KV
+and activation quantizers). Needs a CUDA device and nvcc (marker
+``cuda``); skips elsewhere. Run on the H100 with
 ``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``;
 ``chip_smoke.py`` holds the same kernels at llama2_7b's shapes."""
 
@@ -449,3 +450,34 @@ def test_paged_kernels_match_plain(gen, g, d, pps):
     changed = sum(int((a.view(torch.uint8) != b.view(torch.uint8)).sum())
                   for a, b in zip(mine, pool))
     assert changed <= 2 * len(plist) * hkv * (d + 2)   # the written rows
+
+
+@pytest.mark.parametrize("name", ["sym8", "sym4", "sym8_layerwise",
+                                  "sym8_ref3d", "asym4", "mxq_qat", "mx1",
+                                  "kv_int8", "act_int8"])
+def test_fake_quants_on_the_card_equal_the_cpu(gen, name):
+    """The QAT fake-quants (the training and eval-ppl forward's
+    ``w_bits``, ``a_bits`` and ``kv_bits``) and the int8 KV and activation
+    quantizers on the card give the CPU's outputs bit for bit at (256,
+    4096): every division by a constant is IEEE (a Python divisor made the
+    card multiply by its reciprocal)."""
+    from mxq_tpu_torch import scheme
+    from mxq_tpu_torch.serving import kvcache
+
+    fns = {"sym8": lambda x: scheme.sym_fake_quant(x, 8),
+           "sym4": lambda x: scheme.sym_fake_quant(x, 4),
+           "sym8_layerwise": lambda x: scheme.sym_fake_quant(
+               x, 8, layerwise=True),
+           "sym8_ref3d": lambda x: scheme.sym_fake_quant_ref3d(
+               x.reshape(2, 128, 4096), 8),
+           "asym4": lambda x: scheme.asym_fake_quant(x, 4),
+           "mxq_qat": scheme.mxq_fake_quant_qat,
+           "mx1": scheme.mx1_fake_quant_qat,
+           "kv_int8": lambda x: kvcache.quantize_kv(x, 128),
+           "act_int8": mm._act_quant_rows}
+    x = torch.randn((256, 4096), generator=gen, device="cuda")
+    card, host = fns[name](x), fns[name](x.cpu())
+    if not isinstance(card, tuple):
+        card, host = (card,), (host,)
+    for c, h in zip(card, host):
+        assert torch.equal(c.cpu(), h)

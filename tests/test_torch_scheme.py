@@ -149,3 +149,34 @@ def test_ste_gradient_matches_jax_grad(name):
     clipped = np.abs(x) >= 2.0
     assert clipped.any() and (xt.grad.numpy()[clipped] == 0).all()
     assert np.array_equal(xt.grad.numpy()[~clipped], coeff[~clipped])
+
+
+# every QAT fake-quant at llama2_7b's hidden width, as the training and
+# eval-ppl forward call them (ref3d on [2, 128, 4096])
+EAGER_CASES = {
+    "sym8": lambda m, x: m.sym_fake_quant(x, 8),
+    "sym4": lambda m, x: m.sym_fake_quant(x, 4),
+    "sym8_layerwise": lambda m, x: m.sym_fake_quant(x, 8, layerwise=True),
+    "sym4_layerwise": lambda m, x: m.sym_fake_quant(x, 4, layerwise=True),
+    "sym8_ref3d": lambda m, x: m.sym_fake_quant_ref3d(
+        x.reshape(2, 128, 4096), 8),
+    "asym4": lambda m, x: m.asym_fake_quant(x, 4),
+    "mxq_qat": lambda m, x: m.mxq_fake_quant_qat(x),
+    "mx1": lambda m, x: m.mx1_fake_quant_qat(x),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EAGER_CASES))
+def test_bit_equal_to_jax_eager(name):
+    """Each fake-quant equals JAX's, run op by op (``jax.disable_jit``), bit
+    for bit on a (256, 4096) seed-0 standard normal: every division by a
+    constant is an IEEE division. Dividing a Python number by a tensor
+    (``reciprocal() * number`` in PyTorch) left 237,769 outputs of sym8,
+    192,422 of sym4 and 275,032 of ref3d one ulp off."""
+    fn = EAGER_CASES[name]
+    x = np.random.default_rng(0).standard_normal((256, 4096)).astype(
+        np.float32)
+    with jax.disable_jit():
+        want = np.asarray(fn(js, jnp.asarray(x)))
+    got = fn(ts, torch.from_numpy(x))
+    assert torch.equal(got, torch.from_numpy(want.copy()))
