@@ -65,6 +65,20 @@ Phases, each printing one JSON line:
            argmax of a no-cache recompute; where a train step's device
            time goes. No repo kernel runs on this path (training holds
            dense weights)
+  tasks    task evaluation (eval/harness.py) of llama2_7b at full depth:
+           the packed model scores a synthetic multiple-choice task of
+           random-token documents (no task data or tokenizer is in the
+           repository) through MXQLM(batch_size=8), in batches of 256
+           rows a linear (K1), 512 and 1024 (K3): acc, acc_norm, the ms
+           per batch and idle share of each length, tokens scored per
+           second; the same scores with the plain versions on the card
+           (within 1e-2 nats a continuation token, picks equal where the
+           top two choices lie further apart); a short request alone (K1)
+           and beside a long one (K3); generate_batch (the Engine: K1, or
+           K2 at one live slot) teacher-forced against greedy_generate's
+           argmax; `cli eval-tasks --tasks list` (291 names) and `cli
+           eval-tasks --w_bits 2` on the dense model (no repo kernel).
+           Alone: `python3 chip_smoke.py --phases build,tasks`
   e2e      at 2 layers of 7B width, one B=8 decode step and one 512-token
            prefill with the kernels, held against the same forward with
            the plain versions on the card and against the CPU; one B=8
@@ -106,7 +120,8 @@ CLI_SERVE = ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits", "8",
              "--slots", "8", "--max_len", "2048", "--requests", "8",
              "--prompt_len", "100", "--max_new_tokens", "32",
              "--seed", str(SEED)]
-PHASES = ("build", "kernels", "serve", "eval", "ptq", "train", "e2e")
+PHASES = ("build", "kernels", "serve", "eval", "ptq", "train", "tasks",
+          "e2e")
 
 # the ptq phase's cli ptq run (its --save_model is added at run time)
 PTQ_ARGV = ["ptq", "--preset", "llama2_7b", "--dtype", "bfloat16", "--mode",
@@ -134,6 +149,25 @@ TRAIN_ARGV = ["train", "--preset", "llama2_7b", "--layers", "4", "--w_bits",
 # updated params over max|p| (train_step_card_vs_cpu)
 TRAIN_CPU_GATES = {"loss": 1e-4, "grad_norm": 1e-3, "grads": 1e-4,
                    "params": 1e-5}
+
+# the tasks phase's synthetic task: per class (lo, hi], TASK_DOCS documents
+# of TASK_CHOICES choices whose bos-prefixed requests are lo+1 to hi tokens:
+# batches of 8 rows padded to 32, 64 and 128 tokens, 256 rows a linear
+# (K1), 512 and 1024 (K3)
+TASK_CLASSES = ((16, 32), (32, 64), (64, 128))
+TASK_DOCS = 8
+TASK_CHOICES = 4
+# a score against the same score with the plain versions, or batched
+# against alone: nats per continuation token, or FLOOR_FACTOR x the most
+# a reordered f32 sum in the plain GEMV moves a score (reordered_gemv)
+TASK_GATE = 1e-2
+FLOOR_FACTOR = 2.0
+# a generate_batch token against greedy's argmax, over max|logit| (the
+# spec gate's form)
+GEN_GATE = 1e-2
+# the task registry (harness.TASKS + tasks_ext.TASKS_EXT): 291 names with
+# sacrebleu installed (it lists wmt20's 22 pairs), 269 without
+REGISTRY_TASKS_AT_LEAST = 269
 
 # llama2_7b packed linears of one layer: name -> (out, in)
 SHAPES_7B = {"qkv": (3 * 4096, 4096), "o": (4096, 4096),
@@ -205,6 +239,12 @@ PREFILL_GROUPS = (("K5", K5_KERNEL_NAMES),
                   ("K7", ("uniform_small_kernel", "uniform_large_kernel")),
                   ("attention (library)", ("flash", "fmha", "attention")),
                   ("GEMM (library)", ("gemm", "cutlass", "xmma")))
+
+# a loglikelihood batch's device time by kind (the tasks phase), first
+# match by name
+TASK_GROUPS = (("K1", K1_KERNEL_NAMES), ("K3", ("mxq_dequant_kernel",)),
+               ("attention (library)", ("flash", "fmha", "attention")),
+               ("GEMM (library)", ("gemm", "cutlass", "xmma", "nvjet")))
 
 # summary rows counted by another kernel's wrapper
 COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a"}
@@ -2259,6 +2299,389 @@ def plain_versions(mm, a8):
             setattr(mod, name, fn)
 
 
+class WordIds:
+    """The synthetic task's tokenizer: each word is a token id; ``bos``
+    leads the ids unless ``add_special_tokens=False``."""
+    bos_token_id = 1
+
+    def __call__(self, text, add_special_tokens=True):
+        ids = [int(w) for w in text.split()]
+        head = [self.bos_token_id] if add_special_tokens else []
+        return {"input_ids": head + ids}
+
+
+def word_ids(text):
+    """``WordIds`` without special tokens, as cli eval-tasks encodes."""
+    import numpy as np
+    return np.asarray(WordIds()(text, add_special_tokens=False)["input_ids"],
+                      np.int32)
+
+
+def synthetic_task(harness, vocab: int):
+    """A multiple-choice task of random-token documents drawn from SEED:
+    for each (lo, hi] of TASK_CLASSES, TASK_DOCS documents of
+    TASK_CHOICES choices whose bos-prefixed requests are lo+1 to hi
+    tokens long, so each class fills its own power-of-two length."""
+    import numpy as np
+
+    class Synthetic(harness.MultipleChoiceTask):
+        name = "synthetic_random_tokens"
+
+        def docs(self):
+            rng = np.random.RandomState(SEED)
+            words = lambda n: " ".join(  # noqa: E731
+                map(str, rng.randint(3, vocab, size=n)))
+            out = []
+            for lo, hi in TASK_CLASSES:
+                for _ in range(TASK_DOCS):
+                    # 1 + ctx + choice in (lo, hi]: choices of 2-8 tokens
+                    ctx = words(rng.randint(lo, hi - 8))
+                    out.append(harness.MCDoc(
+                        ctx, [words(rng.randint(2, 9))
+                              for _ in range(TASK_CHOICES)],
+                        int(rng.randint(TASK_CHOICES))))
+            return out
+
+    return Synthetic()
+
+
+@contextlib.contextmanager
+def recorded_scores(harness):
+    """Record every ``MXQLM.loglikelihood`` call as (requests, results)."""
+    calls, orig = [], harness.MXQLM.loglikelihood
+
+    def recording(self, requests):
+        out = orig(self, requests)
+        calls.append((list(requests), out))
+        return out
+
+    harness.MXQLM.loglikelihood = recording
+    try:
+        yield calls
+    finally:
+        harness.MXQLM.loglikelihood = orig
+
+
+def score_gaps(reqs, got, want) -> list:
+    """|score - reference| per continuation token, per request (nats)."""
+    return [abs(g[0] - w[0]) / len(r[1]) for r, g, w in zip(reqs, got, want)]
+
+
+@contextlib.contextmanager
+def reordered_gemv(torch, mm):
+    """The GEMV's plain version with its K sum in another f32 order (two
+    halves, added last): the same function, rounded as differently as a
+    kernel's own order rounds it. Scores through it against the plain
+    version's measure how far the model carries such rounding."""
+    def halves(x, p, cfg=mm.DEFAULT_SCHEME):
+        from mxq_tpu_torch import packfmt
+        xb = x.to(torch.bfloat16).float()
+        w = packfmt.unpack_dequant(p, cfg)
+        h = w.shape[0] // 2
+        return xb[:, :h] @ w[:h] + xb[:, h:] @ w[h:]
+
+    names = ("gemv_batched", "gemv_single", "gemv_quad")
+    saved = [getattr(mm, n) for n in names]
+    for n in names:
+        setattr(mm, n, halves)
+    try:
+        yield
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(mm, n, fn)
+
+
+def task_batches(torch, lm, reqs, kernels, rounds=3) -> dict:
+    """Per padded length of ``lm.loglikelihood(reqs)``: the rows each
+    linear sees, the route (the kernels launched by one batch), and the
+    CUDA-event ms of each batch's forward and scoring over ``rounds`` runs
+    (after the caller's warm-up); then one profiled batch of each length:
+    device busy ms, the idle share = 1 - busy / median event ms, and the
+    device ms by kind (TASK_GROUPS; "other" is PyTorch's elementwise ops,
+    copies and reductions)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    orig, per = lm._score, {}
+
+    def timed(ids, mask):
+        before = {k: fn.launches for k, fn in kernels.items()}
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = orig(ids, mask)
+        e1.record()
+        e1.synchronize()
+        b = per.setdefault(int(ids.shape[1]), {
+            "rows_per_linear": int(ids.numel()), "ms": [],
+            "route": sorted(k for k, fn in kernels.items()
+                            if fn.launches > before[k]),
+            "batch": (ids, mask)})
+        b["ms"].append(e0.elapsed_time(e1))
+        return out
+
+    lm._score = timed
+    try:
+        for _ in range(rounds):
+            lm.loglikelihood(reqs)
+    finally:
+        lm._score = orig
+    for b in per.values():
+        ids, mask = b.pop("batch")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            lm._score(ids, mask)
+            torch.cuda.synchronize()
+        per_kernel = device_ms_by_name(torch, prof, 1)
+        busy = sum(per_kernel.values())
+        groups = {}
+        for k, v in per_kernel.items():
+            g = next((g for g, names in TASK_GROUPS
+                      if any(n in k for n in names)), "other")
+            groups[g] = groups.get(g, 0.0) + v
+        b.update(batches_per_run=len(b["ms"]) // rounds,
+                 device_ms_by_group=groups,
+                 top_device_ops_ms=top_ms(per_kernel, 6),
+                 ms_per_batch=statistics.median(b["ms"]),
+                 device_busy_ms=busy,
+                 idle_share=1.0 - busy / statistics.median(b["ms"]))
+    return per
+
+
+def generate_against_greedy(torch, lm, ctxs, tokens) -> dict:
+    """``tokens`` (generate_batch's) teacher-forced through the forward
+    ``greedy_generate`` runs for the last of them (bos + context + the
+    tokens before it, right-padded to a power of two): at each position
+    how far the token's logit trails the argmax's, over max|logit|."""
+    from mxq_tpu_torch.eval import harness
+    from mxq_tpu_torch.models import llama
+    worst, off_argmax = 0.0, 0
+    for ctx, gen in zip(ctxs, tokens):
+        seq = [lm.bos_id, *map(int, ctx), *map(int, gen[:-1])]
+        t_pad = min(harness._round_pow2(len(seq)), lm.max_len)
+        ids = torch.zeros((1, t_pad), dtype=torch.int32, device="cuda")
+        ids[0, :len(seq)] = torch.tensor(seq, dtype=torch.int32)
+        with torch.no_grad():
+            logits, _ = llama.forward(lm.params, ids, lm.cfg, device="cuda")
+        start = len(ctx)                  # bos + ctx - 1: the first pick
+        for j, tok in enumerate(map(int, gen)):
+            row = logits[0, start + j]
+            trail = float(row.max() - row[tok]) / float(row.abs().max())
+            off_argmax += int(tok != int(row.argmax()))
+            worst = max(worst, trail)
+    return {"worst_trail_over_max_logit": worst,
+            "tokens_off_argmax": off_argmax}
+
+
+def task_gates(torch, lm, task, reqs, got, kernels, tag) -> tuple:
+    """Checks b-d of :func:`phase_tasks` on ``lm``'s model, whose kernel
+    scores of ``reqs`` are ``got``: (results by check, failures)."""
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    from mxq_tpu_torch.ops import mxq_matmul as mm
+    runs, failures = {}, []
+
+    # b. kernels against their plain versions on the card; the gate per
+    # continuation token: TASK_GATE, or FLOOR_FACTOR x the floor where
+    # the model carries a reordered f32 sum further
+    with plain_versions(mm, a8):
+        plain = lm.loglikelihood(reqs)
+        with reordered_gemv(torch, mm):
+            reordered = lm.loglikelihood(reqs)
+    floor = max(score_gaps(reqs, reordered, plain))
+    gate = max(TASK_GATE, FLOOR_FACTOR * floor)
+    gaps = score_gaps(reqs, got, plain)
+    picks_equal = picks_gated = 0
+    for d in range(0, len(reqs), TASK_CHOICES):
+        doc = range(d, d + TASK_CHOICES)
+        top = sorted(doc, key=lambda i: -got[i][0])
+        apart = gate * (len(reqs[top[0]][1]) + len(reqs[top[1]][1]))
+        same = (max(doc, key=lambda i: got[i][0])
+                == max(doc, key=lambda i: plain[i][0]))
+        picks_equal += same
+        if got[top[0]][0] - got[top[1]][0] > apart:
+            picks_gated += 1
+            if not same:
+                failures.append(f"tasks {tag} plain: document "
+                                f"{d // TASK_CHOICES} picks another choice")
+    runs["plain_versions"] = {
+        "worst_gap_nats_per_token": max(gaps),
+        "max_abs_gap_nats": max(abs(g[0] - w[0]) for g, w in zip(got, plain)),
+        "floor_nats_per_token": floor, "gate_nats_per_token": gate,
+        "picks_equal": picks_equal, "picks_gated": picks_gated,
+        "documents": len(reqs) // TASK_CHOICES,
+        "exact_flags_equal": sum(g[1] == w[1] for g, w in zip(got, plain))}
+    if max(gaps) > gate:
+        failures.append(f"tasks {tag} plain: a score off its plain version "
+                        f"by {max(gaps):.3g} nats a token (gate "
+                        f"{gate:.3g})")
+
+    # c. right padding: alone (K1) and beside a long request (K3)
+    short = min(reqs, key=lambda r: len(r[0]) + len(r[1]))
+    long_ = max(reqs, key=lambda r: len(r[0]) + len(r[1]))
+    alone = count_launches(torch, kernels, lambda: {
+        "score": lm.loglikelihood([short])[0]})
+    batched = count_launches(torch, kernels, lambda: {
+        "score": lm.loglikelihood([short, long_])[0]})
+    (gap,) = score_gaps([short], [alone["score"]], [batched["score"]])
+    runs["right_padding"] = routes = {
+        "alone": alone["score"][0], "batched": batched["score"][0],
+        "gap_nats_per_token": gap, "gate_nats_per_token": gate,
+        "continuation_tokens": len(short[1]),
+        "alone_K1_K3": [alone["launches"]["K1"], alone["launches"]["K3"]],
+        "batched_K1_K3": [batched["launches"]["K1"],
+                          batched["launches"]["K3"]]}
+    if (routes["alone_K1_K3"][0] == 0 or routes["alone_K1_K3"][1] > 0
+            or routes["batched_K1_K3"][0] > 0
+            or routes["batched_K1_K3"][1] == 0):
+        failures.append(f"tasks {tag} right padding: routes {routes}")
+    if gap > gate:
+        failures.append(f"tasks {tag} right padding: {gap:.3g} nats a "
+                        f"token (gate {gate:.3g})")
+
+    # d. generate_batch against greedy_generate
+    ctxs = [word_ids(doc.context)[:40] for doc in task.docs()[8:16]]
+    runs["generate_batch"] = gen = count_launches(
+        torch, kernels, lambda: {"tokens": [
+            g.tolist() for g in lm.generate_batch(ctxs, max_new_tokens=16)]})
+    if gen["launches"]["K1"] + gen["launches"]["K2"] <= 0:
+        failures.append(f"tasks {tag} generate_batch: neither K1 nor K2 "
+                        "launched")
+    greedy = [lm.greedy_generate(c, 16).tolist() for c in ctxs]
+    gen.update(generate_against_greedy(torch, lm, ctxs, gen["tokens"]),
+               sequences_equal_greedy=sum(a == b for a, b in
+                                          zip(gen["tokens"], greedy)),
+               sequences=len(ctxs))
+    if not all(len(t) == 16 for t in gen["tokens"]):
+        failures.append(f"tasks {tag} generate_batch: a sequence is short")
+    return runs, failures
+
+
+def phase_tasks(torch):
+    """Task evaluation (eval/harness.py) of llama2_7b at full depth, each
+    run with its own launch counts:
+    a. the packed model (bf16, random weights from the seed, packed on the
+       card) scores a synthetic multiple-choice task (``synthetic_task``)
+       through ``MXQLM(batch_size=8)``: batches of 8 rows padded to 32
+       (256 rows a linear, K1), 64 and 128 tokens (512 and 1024 rows, K3);
+       acc, acc_norm, the ms per batch of each length (CUDA events, after
+       the scoring run as warm-up), its idle share (torch.profiler) and
+       the tokens scored per second;
+    b. the same requests with the plain versions on the card, and with
+       the plain GEMV summing K in another f32 order (``reordered_gemv``:
+       the floor, how far the model carries a rounding difference of the
+       kind a kernel's order makes): each score within max(TASK_GATE,
+       FLOOR_FACTOR x the floor) nats per continuation token of its
+       plain version, and each document's pick equal where its top two
+       choices lie further apart than their two gates;
+    c. right padding: a short request alone (256 rows, K1) and batched
+       beside a long one (1024 rows, K3), under the same gate;
+    d. ``generate_batch`` (the Engine, bf16 cache: K1, or K2 at one live
+       slot) on 8 contexts, 16 new tokens: teacher-forced through
+       ``greedy_generate``'s forward, how far each token trails its
+       argmax, over max|logit|; the sequences equal to
+       ``greedy_generate``'s are counted;
+    then b-d again with the same weights in float32 (only the linears'
+    inputs rounded to bf16, as the kernels take them), where d's tokens
+    must trail by at most GEN_GATE (the spec check's model and gate: at
+    bf16 the two paths' own bf16 roundings part them further);
+    e. ``cli eval-tasks --tasks list`` prints the registry; ``cli
+       eval-tasks`` on the dense model with ``--w_bits 2`` (the fake-quant
+       forward) scores the synthetic task through the ``WordIds``
+       tokenizer: finite scores, no launch of a repo kernel.
+    Returns (launches summed over the runs, failures)."""
+    import io
+
+    from mxq_tpu_torch import cli
+    from mxq_tpu_torch.eval import harness
+    from mxq_tpu_torch.models import llama
+
+    kernels = all_kernels()
+    runs, failures = {}, []
+    t_phase = time.monotonic()
+    cfg = llama.LlamaConfig.llama2_7b()
+    task = synthetic_task(harness, cfg.vocab_size)
+    for dtype in ("bfloat16", "float32"):
+        params = llama.quantize_params_packed(
+            llama.init_params(cfg, SEED, getattr(torch, dtype), "cuda"), cfg,
+            device="cuda")
+        lm = harness.MXQLM(params, cfg, batch_size=8,
+                           bos_id=WordIds.bos_token_id, device="cuda")
+        tag = f"packed_{dtype}"
+
+        # a. the packed model's scores
+        with recorded_scores(harness) as calls:
+            runs[tag] = res = count_launches(
+                torch, kernels, lambda: task.evaluate(lm, word_ids))
+        (reqs, got), = calls
+        for k in ("K1", "K3"):
+            if res["launches"][k] <= 0:
+                failures.append(f"tasks {tag}: {k} never launched")
+        tokens = sum(len(c) + len(g) + 1 for c, g in reqs)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        again = lm.loglikelihood(reqs)
+        torch.cuda.synchronize()
+        seconds = time.monotonic() - t0
+        res.update(requests=len(reqs), tokens=tokens,
+                   tokens_scored_per_s=tokens / seconds,
+                   repeat_max_abs_gap=max(abs(a[0] - g[0])
+                                          for a, g in zip(again, got)))
+        if dtype == "bfloat16":
+            res["batches"] = task_batches(torch, lm, reqs, kernels)
+            for b in res["batches"].values():
+                want = "K1" if b["rows_per_linear"] < 512 else "K3"
+                if want not in b["route"]:
+                    failures.append(f"tasks {tag}: {b['rows_per_linear']} "
+                                    f"rows took {b['route']}, not {want}")
+        more, f = task_gates(torch, lm, task, reqs, got, kernels, tag)
+        runs.update({f"{tag}_{k}": v for k, v in more.items()})
+        failures += f
+        trail = more["generate_batch"]["worst_trail_over_max_logit"]
+        if dtype == "float32" and trail > GEN_GATE:
+            failures.append(f"tasks {tag} generate_batch: a token trails "
+                            f"greedy's argmax by {trail:.3g} of max|logit| "
+                            f"(gate {GEN_GATE})")
+        del lm, params
+        torch.cuda.empty_cache()
+
+    # e. the registry, and cli eval-tasks on the fake-quant dense model
+    listing = io.StringIO()
+    with contextlib.redirect_stdout(listing):
+        names = cli.main(["eval-tasks", "--tasks", "list"])
+    printed = listing.getvalue().split()
+    # wmt20's language pairs join the registry where sacrebleu is
+    # installed (tasks_ext._translation_pairs), as in mxq_tpu
+    runs["cli_list"] = {"names": len(printed), "sacrebleu": any(
+        n.startswith("wmt20-") for n in printed)}
+    if printed != sorted(harness.all_tasks()) or printed != names or \
+            len(set(printed)) < REGISTRY_TASKS_AT_LEAST:
+        failures.append(f"tasks cli list: {len(printed)} names printed")
+    registry, tokenizer = harness.all_tasks, cli._tokenizer
+    harness.all_tasks = lambda: {**registry(), task.name: task}
+    cli._tokenizer = lambda args: WordIds()
+    try:
+        with recorded_scores(harness) as calls:
+            runs["cli_w2"] = res = count_launches(torch, kernels, lambda: {
+                "results": cli.main(
+                    ["eval-tasks", "--preset", "llama2_7b", "--dtype",
+                     "bfloat16", "--w_bits", "2", "--tasks", task.name,
+                     "--limit", "4", "--seed", str(SEED)])})
+    finally:
+        harness.all_tasks, cli._tokenizer = registry, tokenizer
+    scores = [s for _, out in calls for s, _ in out]
+    res["scores"] = len(scores)
+    if not (scores and all(math.isfinite(s) for s in scores)):
+        failures.append("tasks cli_w2: a score is not finite")
+    if any(res["launches"].values()):
+        failures.append(f"tasks cli_w2: repo kernels launched "
+                        f"{res['launches']}")
+    torch.cuda.empty_cache()
+    launches = {k: sum(r["launches"][k] for r in runs.values()
+                       if "launches" in r) for k in kernels}
+    emit({"phase": "tasks", **runs, "launches_total": launches,
+          "seconds": time.monotonic() - t_phase, "card": smi()})
+    return launches, failures
+
+
 def phase_e2e(torch):
     """2 layers of 7B width, for two weight seeds and f32 and bf16
     activations: one B=8 decode step from a prefilled int8 cache (K1 + K4)
@@ -2602,6 +3025,11 @@ def main(argv=None) -> int:
         failures += f
     if "train" in phases:
         failures += phase_train(torch)
+    if "tasks" in phases:
+        more, f = phase_tasks(torch)
+        for k, n in more.items():
+            launches[k] = launches.get(k, 0) + n
+        failures += f
     if "e2e" in phases:
         failures += phase_e2e(torch)
     torch.cuda.synchronize()

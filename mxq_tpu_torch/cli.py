@@ -2,8 +2,10 @@
 quantizes a model layer by layer against calibration data, ``prune``
 prunes it, ``train`` fine-tunes it with quantization-aware training and
 knowledge distillation, ``generate-data`` makes training data with the
-model itself, ``eval-ppl`` measures the stride-seqlen perplexity, and
-``serve`` runs the slot engine or, with ``--paged``, the paged engine.
+model itself, ``eval-ppl`` measures the stride-seqlen perplexity,
+``eval-tasks`` task accuracy (``eval/harness.py``: it needs ``--tokenizer``
+and the tasks' datasets), and ``serve`` runs the slot engine or, with
+``--paged``, the paged engine.
 
     python -m mxq_tpu_torch.cli ptq --preset llama2_7b --dtype bfloat16 \
         --mode packed --nsamples 16 --chunk 4 --save_model out/7b_mxq
@@ -18,6 +20,9 @@ model itself, ``eval-ppl`` measures the stride-seqlen perplexity, and
         --num_seeds 8 --length 128 --merge
     python -m mxq_tpu_torch.cli eval-ppl --preset llama2_7b \
         --dtype bfloat16 --w_bits 2 --max_eval_windows 2
+    python -m mxq_tpu_torch.cli eval-tasks --tasks list
+    python -m mxq_tpu_torch.cli eval-tasks --model /path/to/hf_llama \
+        --tokenizer /path/to/hf_llama --tasks piqa,arc_easy --limit 100
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8 \
         --paged
@@ -56,6 +61,7 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -194,6 +200,50 @@ def cmd_eval_ppl(args) -> dict:
            "ppl": _eval(args, params, cfg, _tokenizer(args), dev)}
     print(json.dumps(out), flush=True)
     return out
+
+
+def cmd_eval_tasks(args) -> list:
+    """Zero- or few-shot task accuracy of the dense model with the
+    fake-quant ``--w_bits`` (``eval/harness.py``); ``--tasks list`` prints
+    the registry. Prints one JSON line per task, and with ``--table`` the
+    task | metric | value rows. Returns the results (the names for
+    ``list``)."""
+    from mxq_tpu_torch.eval import harness
+
+    if args.tasks == "list":        # `--tasks list` prints the registry
+        names = sorted(harness.all_tasks())
+        for name in names:
+            print(name)
+        return names
+    tok = _tokenizer(args)
+    if tok is None:
+        print("eval-tasks requires --tokenizer", file=sys.stderr)
+        sys.exit(2)
+    dev = resolve_device(args.device)
+    cfg, params = _model(args, dev, w_bits=args.w_bits)
+    # reference protocol: pieces are encoded WITHOUT special tokens and
+    # the scorer prefixes bos to the context only (continuations never
+    # carry one; empty contexts become [bos] — lm-eval base.py:195-201)
+    lm = harness.MXQLM(params, cfg, batch_size=args.batch_size,
+                       bos_id=tok.bos_token_id, device=dev)
+    tokenize = lambda s: np.asarray(  # noqa: E731
+        tok(s, add_special_tokens=False)["input_ids"], np.int32)
+    results = harness.evaluate(lm, tokenize, args.tasks.split(","),
+                               limit=args.limit, tok=tok,
+                               num_fewshot=args.num_fewshot)
+    for r in results:
+        print(json.dumps(r), flush=True)
+    if args.table:
+        # evaluator.make_table analogue (lmeval.py:153): task | metric |
+        # value rows, markdown-ish
+        print(f"|{'task':<28}|{'metric':<18}|{'value':>10}|")
+        print(f"|{'-'*28}|{'-'*18}|{'-'*10}|")
+        for r in results:
+            for k, v in r.items():
+                if k in ("task", "n") or not isinstance(v, (int, float)):
+                    continue
+                print(f"|{r['task']:<28}|{k:<18}|{v:>10.4f}|")
+    return results
 
 
 def cmd_train(args) -> dict:
@@ -447,6 +497,19 @@ def main(argv=None):
     p.add_argument("--seqlen", type=int, default=2048)
     p.add_argument("--max_eval_windows", type=int, default=None)
     p.set_defaults(fn=cmd_eval_ppl)
+
+    p = sub.add_parser("eval-tasks")
+    _add_model_args(p)
+    p.add_argument("--w_bits", type=int, default=32)
+    p.add_argument("--tasks", default="piqa,winogrande,hellaswag,arc_easy",
+                   help="comma-separated task names, or 'list'")
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--limit", type=int, default=None)
+    # lmeval.py:52 --num_fewshot analogue (0 = the reference default)
+    p.add_argument("--num_fewshot", type=int, default=0)
+    # evaluator.make_table analogue (lmeval.py:153)
+    p.add_argument("--table", action="store_true")
+    p.set_defaults(fn=cmd_eval_tasks)
 
     args = ap.parse_args(argv)
     return args.fn(args)
