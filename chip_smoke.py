@@ -88,6 +88,13 @@ Phases, each printing one JSON line:
            with the uniform-4b head (K7), a T=5 verify step (K4a)
            against five decode steps, and a decode step and a 128-row
            forward in each K6 layout
+  parallel `cli train` (3 steps) unsharded and, under torchrun at world
+           size 1 (NCCL), on FSDP2 shards, both with deterministic
+           algorithms: each step's loss within PAR_LOSS_GATE; `cli ptq
+           --shard 1,1,1` byte-equal to the unsharded checkpoint; the TP
+           decode layer at 8 slots (K1) and one (K2) and the TP prefill
+           layer at 512 rows (K3), and each rank's ring products at tp 2
+           and 4 in one process
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device, without the package beside it, or when any check fails.
@@ -121,7 +128,7 @@ CLI_SERVE = ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits", "8",
              "--prompt_len", "100", "--max_new_tokens", "32",
              "--seed", str(SEED)]
 PHASES = ("build", "kernels", "serve", "eval", "ptq", "train", "tasks",
-          "e2e")
+          "parallel", "e2e")
 
 # the ptq phase's cli ptq run (its --save_model is added at run time)
 PTQ_ARGV = ["ptq", "--preset", "llama2_7b", "--dtype", "bfloat16", "--mode",
@@ -2951,6 +2958,342 @@ def e2e_serve_options(torch, cfg, sdpa_cfg, params, cache, ids, vids, pids,
     return res, failures
 
 
+# ---------------------------------------------------------------------------
+# parallel: FSDP2 training, sharded calibration and the TP rings on one card
+# ---------------------------------------------------------------------------
+
+# the parallel phase's runs, each unsharded here and sharded in a child
+# process under torchrun (NCCL, world size 1): cli train at TRAIN_ARGV's
+# model for 3 steps, cli ptq at PTQ_ARGV's for 2 layers
+PAR_TRAIN_ARGV = TRAIN_ARGV + ["--max_steps", "3"]
+PAR_PTQ_ARGV = PTQ_ARGV + ["--layers", "2"]
+# the FSDP2 run's loss of each step against the unsharded run's (relative:
+# at world size 1 FSDP2 all-gathers and reduce-scatters over one rank)
+PAR_LOSS_GATE = 1e-5
+# over max|y|: the TP layers with the kernels against the same layers
+# with the plain versions (SPEC_GATE's form); against the unsharded
+# decoder layer with the bf16 cache, which rounds the attention's
+# probabilities to bf16 where the TP layer keeps f32 (phase_e2e's limit
+# for a prefill computed by other GEMMs); the one-process tp 2 and tp 4
+# ring products against the unsharded packed product (phase_e2e's limit)
+TP_PLAIN_GATE = 1e-2
+TP_UNSHARDED_GATE = 3e-2
+RING_GATE = 1e-2
+
+
+def unsharded_decode_layer(torch, llama, x, layer, cache, positions, cfg):
+    """One decode step of one layer of the slot engine with a bf16 cache
+    (``llama.decode_step``'s layer body and ``decode_slots``' bf16
+    attend): x [B, H], cache {"k", "v"} [B, S, Hkv, D] written in place at
+    row positions[b]. Returns [B, H]."""
+    b = x.shape[0]
+    h = llama.rms_norm(x[:, None], layer["input_layernorm"],
+                       cfg.rms_norm_eps)
+    q, k, v = llama._qkv(h, layer, cfg)
+    cos, sin = llama.rope_tables(cfg, positions[:, None].float())
+    q, k = llama.apply_rope(q, k, cos.to(q.dtype), sin.to(q.dtype))
+    rows, pos = torch.arange(b, device=x.device), positions.long()
+    cache["k"][rows, pos] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][rows, pos] = v[:, 0].to(cache["v"].dtype)
+    kpos = torch.arange(cache["k"].shape[1], device=x.device)
+    mask = torch.where(kpos[None, None, :] <= pos[:, None, None], 0.0,
+                       torch.finfo(torch.float32).min)[:, None]
+    ctx = llama.masked_attention(q, cache["k"], cache["v"], mask)
+    x = x[:, None] + llama.quant_linear(
+        ctx.reshape(b, 1, -1).to(x.dtype), layer["o_proj"], cfg)
+    h = llama.rms_norm(x, layer["post_attention_layernorm"],
+                       cfg.rms_norm_eps)
+    return (x + llama.mlp(h, layer, cfg))[:, 0]
+
+
+def tp_layers(torch, dev="cuda"):
+    """tp_decode_layer at 8 slots (K1) and at one (K2), tp_prefill_layer
+    at 512 rows (K3), on one random llama2_7b layer packed on ``dev``
+    (unfused) over the tp group of the world (size 1 on one card): each
+    against itself with the plain versions and against the unsharded
+    decoder layer with the bf16 cache (decode: ``unsharded_decode_layer``
+    from the same history; prefill: ``llama.decoder_layer`` writing an
+    empty cache). Returns (results, failures, launches of the kernel
+    runs)."""
+    import functools
+    from mxq_tpu_torch import packfmt
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    from mxq_tpu_torch.ops import mxq_matmul as mm
+    from mxq_tpu_torch.parallel import sharding, tp_layer
+
+    cfg = llama.LlamaConfig.llama2_7b(num_hidden_layers=1)
+    dense = llama.layer_view(llama.init_params(cfg, SEED, torch.float32,
+                                               dev), 0)
+    whole = {k: (packfmt.quantize_pack(v.T.contiguous())
+                 if k in llama.LAYER_LINEARS else v)
+             for k, v in dense.items()}
+    del dense
+    mesh = sharding.make_mesh(1, 1, 1)
+    tp = torch.distributed.get_world_size()
+    layer = tp_layer.shard_layer(whole, torch.distributed.get_rank(), tp)
+    matmul = functools.partial(llama.quant_linear, cfg=cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    nkv, d, s = cfg.num_key_value_heads, cfg.head_dim, 1024
+    kernels = mm.KERNELS
+    res, failures, used = {}, [], {k: 0 for k in ("K1", "K2", "K3")}
+
+    def counted(fn):
+        before = {k: kernels[k].launches for k in used}
+        out = fn()
+        for k in used:
+            used[k] += kernels[k].launches - before[k]
+        return out, {k: kernels[k].launches - before[k] for k in used}
+
+    for name, b in (("decode_8", 8), ("decode_1", 1)):
+        x = torch.randn((b, cfg.hidden_size), generator=gen, device=dev)
+        hist = torch.randn((2, b, s, nkv, d), generator=gen,
+                           device=dev).to(torch.bfloat16)
+        pos = torch.randint(64, s, (b,), generator=gen, device=dev)
+
+        def cache():
+            return {"k": hist[0].clone(), "v": hist[1].clone()}
+
+        def run():
+            return tp_layer.tp_decode_layer(mesh, x, layer, cache(), pos,
+                                            cfg, matmul)[0]
+
+        card, n = counted(run)
+        with plain_versions(mm, a8):
+            plain = run()
+        ref = unsharded_decode_layer(torch, llama, x, whole, cache(), pos,
+                                     cfg)
+        res[name] = {"rel_vs_plain": rel_err(card, plain),
+                     "rel_vs_unsharded": rel_err(card, ref),
+                     "launches": n}
+        want = {"K1": b > 1, "K2": b == 1, "K3": False}
+        if any((n[k] > 0) != w for k, w in want.items()):
+            failures.append(f"parallel {name}: launches {n}")
+    t = 512
+    x = torch.randn((1, t, cfg.hidden_size), generator=gen, device=dev)
+    cache = {"k": torch.zeros((1, s, nkv, d), dtype=torch.bfloat16,
+                              device=dev)}
+    cache["v"] = torch.zeros_like(cache["k"])
+
+    def run():
+        c = {k: v.clone() for k, v in cache.items()}
+        return tp_layer.tp_prefill_layer(mesh, x, layer, c, cfg, matmul)[0]
+
+    card, n = counted(run)
+    with plain_versions(mm, a8):
+        plain = run()
+    stacked = {k: v[None].clone() for k, v in cache.items()}
+    cos, sin = llama.rope_tables(cfg, torch.arange(t, device=dev)[None])
+    ref = llama.decoder_layer(x, whole, cfg, cos.to(x.dtype),
+                              sin.to(x.dtype), llama.causal_mask(
+                                  t, s, device=dev), stacked, 0, 0)
+    res["prefill_512"] = {"rel_vs_plain": rel_err(card, plain),
+                          "rel_vs_unsharded": rel_err(card, ref),
+                          "launches": n}
+    if n["K3"] <= 0 or n["K1"] or n["K2"]:
+        failures.append(f"parallel prefill_512: launches {n}")
+    for name, r in res.items():
+        finite = bool(torch.isfinite(torch.tensor(
+            [r["rel_vs_plain"], r["rel_vs_unsharded"]])).all())
+        if not (finite and r["rel_vs_plain"] <= TP_PLAIN_GATE
+                and r["rel_vs_unsharded"] <= TP_UNSHARDED_GATE):
+            failures.append(f"parallel {name}: {r}")
+    res["rings"], f = ring_ranks(torch, whole, matmul, dev)
+    failures += f
+    return res, failures, used
+
+
+def ring_ranks(torch, whole, matmul, dev):
+    """Every rank's compute at tp 2 and tp 4 in this one process: the
+    shards of the packed llama2_7b layer ``whole`` made on ``dev``
+    (``overlap.shard_weight``: gate/up re-padded from 5632 and 2816
+    columns to the format), each rank's ring partial products through
+    the kernels in the order of ``overlap.allgather_matmul`` (q, gate,
+    up) and ``overlap.matmul_reducescatter`` (o) and added in ring order,
+    at 8 rows (K1) and one (K2), against the unsharded packed product
+    (RING_GATE of max|y|). down_proj's K-shard (176 meta rows over tp)
+    must be refused, as mxq_tpu refuses it. Returns (results,
+    failures)."""
+    from mxq_tpu_torch.parallel import overlap
+
+    res, failures = {}, []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    hidden = whole["q_proj"].in_features
+    for tp in (2, 4):
+        n_ktl = hidden // overlap.KT_COLS // tp
+        for rows in (8, 1):
+            x = torch.randn((rows, hidden), generator=gen, device=dev)
+            xs = x.chunk(tp, dim=-1)
+            gaps = {}
+            for name in ("q_proj", "gate_proj", "up_proj"):
+                shards = [overlap.shard_weight(whole[name], "n", r, tp)
+                          for r in range(tp)]
+                outs = []
+                for r in range(tp):
+                    acc = None
+                    for s in range(tp):
+                        o = (r + s) % tp
+                        part = matmul(xs[o], overlap.slice_ktiles(
+                            shards[r], o * n_ktl, n_ktl))
+                        acc = part if acc is None else acc + part
+                    outs.append(acc)
+                y = torch.cat(outs, -1)[:, :whole[name].out_features]
+                gaps[name] = rel_err(y, matmul(x, whole[name]))
+            chunks = [overlap.row_chunks(overlap.shard_weight(
+                whole["o_proj"], "k", r, tp), tp, hidden // tp)
+                for r in range(tp)]
+            outs = []
+            for j in range(tp):
+                acc = None
+                for s in range(tp):
+                    r = (j + 1 + s) % tp
+                    part = matmul(xs[r], chunks[r][j])
+                    acc = part if acc is None else acc + part
+                outs.append(acc)
+            gaps["o_proj"] = rel_err(torch.cat(outs, -1),
+                                     matmul(x, whole["o_proj"]))
+            res[f"tp{tp}_rows{rows}"] = gaps
+            bad = {k: v for k, v in gaps.items() if not v <= RING_GATE}
+            if bad:
+                failures.append(f"parallel ring tp{tp} rows{rows}: {bad}")
+        try:
+            overlap.shard_weight(whole["down_proj"], "k", 0, tp)
+            failures.append(f"parallel: down_proj's K-shard at tp {tp} "
+                            "was not refused")
+        except ValueError as e:
+            res[f"tp{tp}_down_refused"] = str(e)
+    return res, failures
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """Deterministic algorithms on for the block. By default the
+    backward of SDPA's memory-efficient attention (f32 training) is not
+    deterministic, and three AdamW steps on random weights grow its
+    last-bit noise to 1.8e-5 of step 3's loss between the FSDP2 run and the
+    unsharded one, which deterministic algorithms make equal: the noise
+    would hide what FSDP2 itself changes. cuBLAS needs
+    CUBLAS_WORKSPACE_CONFIG (set in :func:`main`)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def parallel_child(torch, tmp: str) -> dict:
+    """The sharded half of the parallel phase, in a rank of torchrun
+    (NCCL, world size 1): cli train (FSDP2) and cli ptq --shard 1,1,1
+    into ``tmp``, then :func:`tp_layers`. Returns their results, the
+    failures and the kernel launches of the TP layers."""
+    from mxq_tpu_torch.parallel import multihost
+    made = multihost.initialize("cuda")
+    kernels = all_kernels()
+    try:
+        out = {"world_size": torch.distributed.get_world_size(),
+               "backend": torch.distributed.get_backend()}
+        torch.cuda.reset_peak_memory_stats()
+        with deterministic(torch):
+            res = count_launches(torch, kernels, lambda: dict(zip(
+                ("result", "printed"), cli_with_output(PAR_TRAIN_ARGV + [
+                    "--output_dir", os.path.join(tmp, "fsdp_train")]))))
+        out["train"] = {"command_seconds": res["seconds"],
+                        "peak_memory_gib":
+                            torch.cuda.max_memory_allocated() / 2**30,
+                        "launches": res["launches"],
+                        **train_metrics(os.path.join(tmp, "fsdp_train",
+                                                     "logs"), 1)}
+        torch.cuda.empty_cache()
+        res = count_launches(torch, kernels, lambda: dict(zip(
+            ("result", "printed"), cli_with_output(PAR_PTQ_ARGV + [
+                "--shard", "1,1,1", "--save_model",
+                os.path.join(tmp, "sharded_ptq")]))))
+        out["ptq"] = {"command_seconds": res["seconds"],
+                      "ppl": res["result"]["ppl"],
+                      "printed_mesh": "sharding calibration over mesh "
+                                      "(dp=1, fsdp=1, tp=1)" in
+                                      res["printed"]}
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        out["tp"], out["failures"], out["launches"] = tp_layers(torch)
+        out["tp_seconds"] = time.monotonic() - t0
+    finally:
+        if made:
+            torch.distributed.destroy_process_group()
+    return out
+
+
+def phase_parallel(torch):
+    """The port's parallel/ on the card, each step a hard check. The card
+    is one: NCCL across cards is not checked here.
+    1. ``cli train`` (PAR_TRAIN_ARGV) here, unsharded, and under ``python
+       -m torch.distributed.run --standalone --nproc_per_node 1`` (NCCL,
+       world size 1), where it trains FSDP2 shards, both under
+       :func:`deterministic`: each step's loss within PAR_LOSS_GATE of
+       the unsharded run's; the seconds per step
+       and the peak device memory of both;
+    2. ``cli ptq`` (PAR_PTQ_ARGV) here and with ``--shard 1,1,1`` there:
+       the saved packed checkpoints equal byte for byte;
+    3. there, :func:`tp_layers`: the TP decode layer at 8 slots and one,
+       the TP prefill layer at 512 rows, the tp 2 and tp 4 rings in one
+       process (:func:`ring_ranks`).
+    Returns (the TP layers' launches, failures)."""
+    from mxq_tpu_torch.utils import checkpoint
+
+    kernels = all_kernels()
+    runs, failures = {}, []
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(prefix="mxq_par_") as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        with deterministic(torch):
+            res = count_launches(torch, kernels, lambda: dict(zip(
+                ("result", "printed"), cli_with_output(PAR_TRAIN_ARGV + [
+                    "--output_dir", os.path.join(tmp, "train")]))))
+        ref_train = {"command_seconds": res["seconds"],
+                     "peak_memory_gib":
+                         torch.cuda.max_memory_allocated() / 2**30,
+                     **train_metrics(os.path.join(tmp, "train", "logs"), 1)}
+        torch.cuda.empty_cache()
+        cli_with_output(PAR_PTQ_ARGV + ["--save_model",
+                                        os.path.join(tmp, "ptq")])
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", os.path.join(here, "chip_smoke.py"),
+             "--parallel-child", tmp], cwd=here, capture_output=True,
+            text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the parallel child exited "
+                               f"{proc.returncode}: {proc.stderr[-4000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        child["process_seconds"] = time.monotonic() - t0
+        _, ref = checkpoint.load_params(os.path.join(tmp, "ptq"), "cuda")
+        _, got = checkpoint.load_params(os.path.join(tmp, "sharded_ptq"),
+                                        "cuda")
+        ptq_diff = tree_diff(torch, got, ref)
+    fsdp_train = child.pop("train")
+    runs["train_unsharded"] = ref_train
+    runs["train_fsdp"] = fsdp_train
+    gaps = [abs(a - b) / abs(b) for a, b in zip(fsdp_train["loss"],
+                                                 ref_train["loss"])]
+    runs["train_loss_rel_gap"] = gaps
+    if (len(gaps) != 3 or not all(g <= PAR_LOSS_GATE for g in gaps)
+            or any(fsdp_train["launches"].values())):
+        failures.append(f"parallel train: FSDP2 losses {fsdp_train['loss']}"
+                        f" against {ref_train['loss']}")
+    runs["ptq_sharded"] = dict(child.pop("ptq"), differing=ptq_diff)
+    if ptq_diff or not runs["ptq_sharded"]["printed_mesh"]:
+        failures.append(f"parallel ptq --shard: {runs['ptq_sharded']}")
+    failures += child.pop("failures")
+    launches = child.pop("launches")
+    runs.update(child)
+    emit({"phase": "parallel", **runs, "launches_total": launches,
+          "card": smi()})
+    return launches, failures
+
+
 def pool_from_slot_cache(torch, paged, cfg, cache):
     """A PagedPool holding the rows of the stacked int8 slot cache (codes
     [L, B, H, S, D], S a multiple of 128): slot b's rows in logical pages
@@ -2981,8 +3324,15 @@ def main(argv=None) -> int:
     # (layout_serve's child process)
     ap.add_argument("--serve-child", action="store_true",
                     help=argparse.SUPPRESS)
+    # the sharded half of the parallel phase, in a rank of torchrun, its
+    # files in the directory named (parallel_child)
+    ap.add_argument("--parallel-child", default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.phases.split(",") if p]
+    # cuBLAS's workspace as deterministic algorithms require it (8 x 4
+    # MiB), set before any handle is made; the torchrun child inherits it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -3002,6 +3352,9 @@ def main(argv=None) -> int:
     if args.serve_child:
         emit(count_launches(torch, all_kernels(),
                             lambda: serve_with_tokens(CLI_SERVE)))
+        return 0
+    if args.parallel_child:
+        emit(parallel_child(torch, args.parallel_child))
         return 0
 
     failures, summary, launches = [], {}, {}
@@ -3027,6 +3380,11 @@ def main(argv=None) -> int:
         failures += phase_train(torch)
     if "tasks" in phases:
         more, f = phase_tasks(torch)
+        for k, n in more.items():
+            launches[k] = launches.get(k, 0) + n
+        failures += f
+    if "parallel" in phases:
+        more, f = phase_parallel(torch)
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
         failures += f

@@ -50,9 +50,20 @@ reference's fake-quant forward of the dense model. ``serve`` prints one
 JSON line: requests, tokens, tokens/s and the engine's stats;
 ``eval-ppl`` prints ``{"dataset": ..., "ppl": ...}``. The GEMV layout of
 packed linears is read from ``MXQ_GEMV_LAYOUT`` / ``MXQ_GEMV_LAYOUT_B1``
-(``ops/mxq_matmul.py``). Calibration and training sharded over devices
-(``ptq --shard``; ``mxq_tpu``'s ``train`` shards over every device it
-finds) are not ported yet: ``train`` runs on one device.
+(``ops/mxq_matmul.py``).
+
+Under ``torchrun`` (one rank per card; NCCL, or gloo with ``--device
+cpu``), ``ptq --shard [DCN,]DP,FSDP,TP`` calibrates on a mesh of every
+rank (``ptq/calibrate.py``), and ``train`` shards over every rank
+(``parallel/fsdp.py``): ``mxq_tpu``'s rule, fsdp = gcd(ranks,
+batch_size) ranks split each batch, and the remaining ranks join the
+weight shards on the tp axis, reading the same rows. The coordinator
+(rank 0) prints and writes the files:
+
+    torchrun --nproc_per_node 8 -m mxq_tpu_torch.cli ptq \
+        --preset llama2_70b --layers 1 --mode packed --shard 1,2,4
+    torchrun --nproc_per_node 8 -m mxq_tpu_torch.cli train \
+        --preset llama2_7b --use_kd --batch_size 8
 """
 
 from __future__ import annotations
@@ -60,6 +71,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import sys
 import time
@@ -126,39 +138,71 @@ def cmd_ptq(args) -> dict:
     """Layer-sequential PTQ of the model, its perplexity, and with
     ``--save_model`` its checkpoint. Returns the dataset, the perplexity
     and each layer's calibration seconds."""
-    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.parallel import multihost, sharding
     from mxq_tpu_torch.ptq import calibrate
     from mxq_tpu_torch.utils import checkpoint
 
-    if args.shard:
-        raise NotImplementedError(f"--shard (sharded calibration) "
-                                  f"{llama.NOT_PORTED}")
     dev = resolve_device(args.device)
-    cfg, params = _model(args, dev)
-    tok = _tokenizer(args)
-    ids = _calibration_ids(args, cfg, tok)
-    print(f"calibrating {cfg.num_hidden_layers} layers on "
-          f"{args.nsamples}x{args.seqlen} {args.dataset} tokens "
-          f"(mode={args.mode})", flush=True)
-    clock = _synchronized_clock(dev)
-    marks = [clock()]
+    made = multihost.initialize(dev) if args.shard else False
+    try:
+        say = _say()
+        cfg, params = _model(args, dev)
+        tok = _tokenizer(args)
+        ids = _calibration_ids(args, cfg, tok)
+        say(f"calibrating {cfg.num_hidden_layers} layers on "
+            f"{args.nsamples}x{args.seqlen} {args.dataset} tokens "
+            f"(mode={args.mode})")
+        mesh = None
+        if args.shard:
+            parts = [int(v) for v in args.shard.split(",")]
+            if len(parts) == 4:
+                dcn, dp, fsdp, tp = parts
+                mesh = multihost.make_hybrid_mesh(dcn, dp, fsdp, tp)
+                say(f"sharding calibration over hybrid mesh (dcn={dcn}, "
+                    f"dp={dp}, fsdp={fsdp}, tp={tp})")
+            else:
+                dp, fsdp, tp = parts
+                mesh = sharding.make_mesh(dp, fsdp, tp)
+                say(f"sharding calibration over mesh (dp={dp}, "
+                    f"fsdp={fsdp}, tp={tp})")
+            # each rank keeps its shard of the weights
+            params = sharding.shard_params(params, mesh)
+        clock = _synchronized_clock(dev)
+        marks = [clock()]
 
-    def progress(i):
-        marks.append(clock())
-        print(f"  layer {i} done", flush=True)
+        def progress(i):
+            marks.append(clock())
+            say(f"  layer {i} done")
 
-    qparams, packed = calibrate.ptq_quantize(
-        params, cfg, ids,
-        calibrate.PTQConfig(mode=args.mode, chunk=args.chunk),
-        progress=progress, device=dev)
-    p = _eval(args, qparams, cfg, tok, dev)
-    print(f"{args.dataset} ppl (quantized): {p:.4f}", flush=True)
-    if args.save_model:
-        checkpoint.save_params(args.save_model,
-                               qparams if packed is None else packed, cfg)
-        print(f"saved to {args.save_model}", flush=True)
+        qparams, packed = calibrate.ptq_quantize(
+            params, cfg, ids,
+            calibrate.PTQConfig(mode=args.mode, chunk=args.chunk),
+            progress=progress, device=dev, mesh=mesh)
+        del params
+        if mesh is not None:
+            qparams = sharding.gather_params(qparams)
+            packed = packed and sharding.gather_params(packed)
+        p = _eval(args, qparams, cfg, tok, dev)
+        say(f"{args.dataset} ppl (quantized): {p:.4f}")
+        if args.save_model and multihost.is_coordinator():
+            checkpoint.save_params(args.save_model,
+                                   qparams if packed is None else packed,
+                                   cfg)
+            say(f"saved to {args.save_model}")
+        multihost.sync_global_devices("ptq")
+    finally:
+        if made:
+            torch.distributed.destroy_process_group()
     return {"dataset": args.dataset, "ppl": p,
             "layer_seconds": [b - a for a, b in zip(marks, marks[1:])]}
+
+
+def _say():
+    """``print`` (flushed) on the coordinator, nothing on other ranks."""
+    from mxq_tpu_torch.parallel import multihost
+    if multihost.is_coordinator():
+        return lambda msg: print(msg, flush=True)
+    return lambda msg: None
 
 
 def cmd_prune(args) -> dict:
@@ -248,13 +292,25 @@ def cmd_eval_tasks(args) -> list:
 
 def cmd_train(args) -> dict:
     """QAT of the model (``--w_bits``, ``--a_bits``, ``--kv_bits``), with
-    ``--use_kd`` against the same weights at full precision. Returns the
-    loop's ``last_step``, ``losses`` and ``eval_ppl``."""
+    ``--use_kd`` against the same weights at full precision; under
+    torchrun FSDP2 shards over every rank. Returns the loop's
+    ``last_step``, ``losses`` and ``eval_ppl``."""
+    from mxq_tpu_torch.parallel import multihost
+    dev = resolve_device(args.device)
+    made = multihost.initialize(dev)
+    try:
+        return _train(args, dev)
+    finally:
+        if made:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, dev) -> dict:
+    from mxq_tpu_torch.parallel import multihost, sharding
     from mxq_tpu_torch.ptq import data as ptq_data
     from mxq_tpu_torch.qat import data as qdata
     from mxq_tpu_torch.qat import loop, train
 
-    dev = resolve_device(args.device)
     cfg, params = _model(args, dev, w_bits=args.w_bits, a_bits=args.a_bits,
                          kv_bits=args.kv_bits)
     teacher = _model(args, dev)[1] if args.use_kd else None
@@ -279,17 +335,28 @@ def cmd_train(args) -> dict:
             for i in range(0, len(val) - args.batch_size + 1,
                            args.batch_size)][:4]
     it = qdata.batches(data, args.batch_size, epochs=args.epochs, device=dev)
+    mesh = None
+    if torch.distributed.is_initialized():
+        # every rank: fsdp = gcd(ranks, batch_size) split the batch, the
+        # rest shard the weights beside them on tp
+        world = multihost.world_size()
+        fsdp = math.gcd(world, args.batch_size)
+        mesh = sharding.make_mesh(dp=1, fsdp=fsdp, tp=world // fsdp)
     tc = train.TrainConfig(learning_rate=args.lr, use_kd=args.use_kd,
                            kd_loss_scale=args.kd_loss_scale,
                            total_steps=args.max_steps or len(data))
     lc = loop.LoopConfig(output_dir=args.output_dir,
                          save_steps=args.save_steps,
                          log_steps=args.log_steps, max_steps=args.max_steps)
-    res = loop.run_training(params, teacher, cfg, tc, lc, it,
-                            val_batches=val_batches, device=dev)
-    print(f"trained to step {res['last_step']}"
-          + (f", eval_ppl={res['eval_ppl']:.4f}" if "eval_ppl" in res
-             else ""), flush=True)
+    # sharded, the loop keeps only its shards of the whole weights made
+    # here: no reference is left in this frame
+    models = [params, teacher]
+    del params, teacher
+    res = loop.run_training(models.pop(0), models.pop(0), cfg, tc, lc, it,
+                            mesh=mesh, val_batches=val_batches, device=dev)
+    _say()(f"trained to step {res['last_step']}"
+           + (f", eval_ppl={res['eval_ppl']:.4f}" if "eval_ppl" in res
+              else ""))
     return {k: res[k] for k in ("last_step", "losses", "eval_ppl")
             if k in res}
 
@@ -411,7 +478,8 @@ def main(argv=None):
                    help="calibration samples per pass (bounds activation "
                         "memory; default: all at once)")
     p.add_argument("--shard", default=None, metavar="[DCN,]DP,FSDP,TP",
-                   help="sharded calibration (not ported yet: raises)")
+                   help="calibrate on a mesh of every rank (under "
+                        "torchrun)")
     p.add_argument("--save_model", default=None)
     p.add_argument("--max_eval_windows", type=int, default=None)
     p.set_defaults(fn=cmd_ptq)

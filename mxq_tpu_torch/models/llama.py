@@ -44,8 +44,6 @@ from mxq_tpu_torch.packfmt import PackedMXQLinear, quantize_pack, stack_packed
 from mxq_tpu_torch.ops import attn_int8, mxq_matmul, uniform4
 from mxq_tpu_torch.serving import kvcache
 
-NOT_PORTED = "not ported yet, see ROADMAP.md"
-
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:

@@ -11,8 +11,16 @@ column statistics accumulate over the chunks before the weights are
 quantized, then the quantized layer runs chunk by chunk.
 
 The results fill output stacks allocated once, layer by layer, so the peak
-holds the input params, the outputs and one layer's activations. Sharded
-calibration (``mesh``) waits for the port of ``parallel/``.
+holds the input params, the outputs and one layer's activations.
+
+Sharded (``mesh``, every rank under torchrun): a rank holds its rows of
+the calibration batch and, between layers, only its (fsdp, tp) shard of
+each weight, input (``sharding.shard_params``'s DTensors) and output alike.
+Each layer is gathered whole, quantized whole on every rank and re-run on
+the rank's rows, as GSPMD replicates an op it cannot split; the column
+statistics of every rank's chunks are gathered and added in the order of
+the rows. So the result equals, bit for bit, the unsharded run whose
+``chunk`` is the sharded run's chunk.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import torch.nn.functional as F
 from mxq_tpu_torch import packfmt, resolve_device, scheme
 from mxq_tpu_torch.config import MXQConfig
 from mxq_tpu_torch.models import llama
+from mxq_tpu_torch.parallel import multihost, sharding
 
 MODES = ("reference", "packed")
 
@@ -94,18 +103,32 @@ def _col_sq(acts: torch.Tensor) -> torch.Tensor:
     return (flat * flat).sum(dim=0)
 
 
-def layer_col_sq(x, layer, cfg, cos, sin, mask, chunk: int) -> dict:
+def layer_col_sq(x, layer, cfg, cos, sin, mask, chunk: int,
+                 mesh=None) -> dict:
     """Each linear's column sum of squares over the samples of ``x``,
-    accumulated ``chunk`` samples at a time."""
-    total = None
+    accumulated ``chunk`` samples at a time. On ``mesh`` ``x`` is this
+    rank's rows: every rank's chunk sums are gathered and added in the
+    order of the rows (one rank per slice of the batch), not in an order
+    a reduction picks."""
+    parts = []
     for c0 in range(0, x.shape[0], chunk):
         inputs = _layer_linear_inputs(x[c0:c0 + chunk], layer, cfg,
                                       cos[c0:c0 + chunk],
                                       sin[c0:c0 + chunk], mask)
-        cs = {name: _col_sq(inputs[name]) for name in llama.LAYER_LINEARS}
+        parts.append(torch.cat([_col_sq(inputs[name])
+                                for name in llama.LAYER_LINEARS]))
         del inputs
-        total = cs if total is None else {k: total[k] + cs[k] for k in cs}
-    return total
+    if mesh is not None:
+        mine = torch.stack(parts)
+        every = [torch.empty_like(mine)
+                 for _ in range(multihost.world_size())]
+        torch.distributed.all_gather(every, mine)
+        parts = [c for r in multihost.data_ranks(mesh) for c in every[r]]
+    total = parts[0]
+    for cs in parts[1:]:
+        total = total + cs
+    widths = [layer[name].shape[0] for name in llama.LAYER_LINEARS]
+    return dict(zip(llama.LAYER_LINEARS, total.split(widths)))
 
 
 def layer_forward(x, layer, cfg, cos, sin, mask, chunk: int):
@@ -143,7 +166,7 @@ def _empty_stack(p: packfmt.PackedMXQLinear,
 def ptq_quantize(params: dict, cfg: llama.LlamaConfig, input_ids,
                  ptq: PTQConfig = PTQConfig(),
                  progress: Optional[Callable[[int], None]] = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
     """Layer-sequential PTQ of ``params`` (on ``device``) against the
     calibration batch ``input_ids`` [nsamples, seqlen].
 
@@ -152,38 +175,83 @@ def ptq_quantize(params: dict, cfg: llama.LlamaConfig, input_ids,
     every projection a stacked :class:`PackedMXQLinear` (unfused, one per
     linear) whose dequantized weight is ``qparams``' before the cast; None
     in reference mode. Both share the embeddings, norms and head with
-    ``params``. ``progress(i)`` is called after layer ``i``."""
+    ``params``. ``progress(i)`` is called after layer ``i``.
+
+    ``mesh`` (``sharding.make_mesh`` or ``multihost.make_hybrid_mesh``;
+    every rank calls with the same arguments): each rank calibrates on its
+    rows of ``input_ids`` (``nsamples`` splits over the data axes, and
+    ``ptq.chunk``, by default a rank's rows, must divide them), ``params``
+    may be whole or ``sharding.shard_params``' DTensors, and the returned
+    projections are DTensors sharded by ``sharding.param_specs`` (dense
+    and packed); ``sharding.gather_params`` makes them whole."""
     if ptq.mode not in MODES:
         raise ValueError(f"PTQ mode must be one of {MODES}, not {ptq.mode!r}")
     dev = resolve_device(device)
     llama.check_params_device(params, dev)
-    x, cos, sin, mask = calibration_inputs(params, cfg, input_ids, dev)
+    ids = input_ids
+    if mesh is not None:
+        ids = ids[multihost.host_local_slice(len(ids), mesh)]
+    x, cos, sin, mask = calibration_inputs(
+        {"embed_tokens": sharding.whole(params["embed_tokens"])}, cfg, ids,
+        dev)
     s = x.shape[0]
     chunk = min(ptq.chunk or s, s)
+    if mesh is not None and s % chunk:
+        raise ValueError(f"chunk {chunk} does not divide the {s} rows of a "
+                         "data rank")
 
+    def mine(t, spec):
+        return t if mesh is None else sharding.local_of(t, spec[1:], mesh)
+
+    def wrap(local, spec, shape):
+        return local if mesh is None else sharding.from_local(
+            local, spec, mesh, shape)
+
+    nl = cfg.num_hidden_layers
     stacked = params["layers"]
-    out_layers = {k: (torch.empty_like(v) if k in llama.LAYER_LINEARS
-                      else v) for k, v in stacked.items()}
-    packed_layers = {}
-    for i in range(cfg.num_hidden_layers):
-        layer = {k: v[i] for k, v in stacked.items()}
-        colsq = layer_col_sq(x, layer, cfg, cos, sin, mask, chunk)
+    dense_spec = {k: sharding.spec_for(["layers", k], 3)
+                  for k in llama.LAYER_LINEARS}
+    packed_spec = {k: sharding.spec_for(["layers", k], 3, packed=True)
+                   for k in llama.LAYER_LINEARS}
+    out_layers = dict(stacked)
+    packed_layers, shapes = {}, {}
+    for i in range(nl):
+        layer = {k: sharding.whole(v[i]) for k, v in stacked.items()}
+        colsq = layer_col_sq(x, layer, cfg, cos, sin, mask, chunk, mesh)
         for name in llama.LAYER_LINEARS:
             wdq, packed = _quant_weight(layer[name], colsq[name], cfg.scheme,
                                         ptq.mode)
-            out_layers[name][i] = wdq
-            layer[name] = out_layers[name][i]
+            local = mine(wdq, dense_spec[name])
+            if i == 0:
+                out_layers[name] = local.new_empty((nl,) + local.shape)
+                shapes[name] = (nl,) + tuple(wdq.shape)
+            out_layers[name][i] = local
+            layer[name] = wdq
             if packed is not None:
-                if name not in packed_layers:
+                fields = {f: mine(getattr(packed, f), packed_spec[name])
+                          for f in packfmt.FIELDS}
+                if i == 0:
                     packed_layers[name] = _empty_stack(
-                        packed, cfg.num_hidden_layers)
-                for f in packfmt.FIELDS:
-                    getattr(packed_layers[name], f)[i] = getattr(packed, f)
+                        dataclasses.replace(packed, **fields), nl)
+                    shapes[name, "packed"] = {
+                        f: (nl,) + tuple(getattr(packed, f).shape)
+                        for f in packfmt.FIELDS}
+                for f, t in fields.items():
+                    getattr(packed_layers[name], f)[i] = t
             del wdq, packed
         x = layer_forward(x, layer, cfg, cos, sin, mask, chunk)
         if progress is not None:
             progress(i)
 
+    for name in llama.LAYER_LINEARS:
+        out_layers[name] = wrap(out_layers[name], dense_spec[name],
+                                shapes[name])
+        if name in packed_layers:
+            p = packed_layers[name]
+            packed_layers[name] = dataclasses.replace(p, **{
+                f: wrap(getattr(p, f), packed_spec[name],
+                        shapes[name, "packed"][f])
+                for f in packfmt.FIELDS})
     qparams = dict(params)
     qparams["layers"] = out_layers
     if ptq.mode == "reference":

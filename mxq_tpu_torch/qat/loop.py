@@ -7,7 +7,15 @@ in ``optimizer.safetensors`` (both AdamW moments of every parameter and
 the update count, which also sets the schedule). It is written under a
 temporary name and renamed when whole. The teacher is never saved.
 ``mxq_tpu`` writes orbax checkpoints instead, so neither package resumes
-from the other's. Training on a device mesh is not ported yet.
+from the other's.
+
+On a mesh (``run_training(mesh=)``, every rank under torchrun) the student
+and the KD teacher train as ``parallel.fsdp.ShardedLlama`` (FSDP2): each
+rank takes its rows of every batch, logs and metrics come from the
+coordinator (rank 0), and a checkpoint holds whole tensors in the same
+files, gathered from the shards and written by the coordinator, so that a
+sharded run resumes from an unsharded run's checkpoint and the other way
+round.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch
 
 from mxq_tpu_torch import resolve_device
 from mxq_tpu_torch.models import llama
+from mxq_tpu_torch.parallel import fsdp, multihost
 from mxq_tpu_torch.qat import train as train_mod
 from mxq_tpu_torch.utils import checkpoint, profiling, safetensors_io
 from mxq_tpu_torch.utils.metrics import MetricsWriter
@@ -49,37 +58,58 @@ def saved_steps(output_dir: str) -> list[int]:
     return sorted(int(n) for n in os.listdir(output_dir) if n.isdigit())
 
 
-def save_checkpoint(lc: LoopConfig, step: int, params: dict,
+def save_checkpoint(lc: LoopConfig, step: int, params,
                     cfg: llama.LlamaConfig,
                     opt: train_mod.Optimizer) -> None:
-    """Write checkpoint ``step``, then drop the oldest beyond
-    ``lc.save_total_limit``."""
-    final = os.path.join(lc.output_dir, str(step))
-    tmp = final + ".tmp"
-    shutil.rmtree(tmp, ignore_errors=True)
-    checkpoint.save_params(tmp, params, cfg)
-    safetensors_io.save_file(opt.state_tensors(),
-                             os.path.join(tmp, OPTIMIZER))
-    shutil.rmtree(final, ignore_errors=True)
-    os.replace(tmp, final)
-    for old in saved_steps(lc.output_dir)[:-lc.save_total_limit]:
-        shutil.rmtree(os.path.join(lc.output_dir, str(old)))
+    """Write checkpoint ``step`` of ``params`` (a params dict or a
+    ``ShardedLlama``), then drop the oldest beyond
+    ``lc.save_total_limit``. Sharded, the tensors are gathered whole (a
+    collective) and the coordinator writes them."""
+    tensors, state = opt.state_tensors(), {}
+    if isinstance(params, torch.nn.Module):
+        params = fsdp.params_dict(fsdp.stack_full(params.named_leaves()))
+        state = fsdp.stack_full({k: v for k, v in tensors.items()
+                                 if k != "count"})
+        state["count"] = tensors["count"]
+        tensors = state
+    if multihost.is_coordinator():
+        final = os.path.join(lc.output_dir, str(step))
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        checkpoint.save_params(tmp, params, cfg)
+        safetensors_io.save_file(tensors, os.path.join(tmp, OPTIMIZER))
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        for old in saved_steps(lc.output_dir)[:-lc.save_total_limit]:
+            shutil.rmtree(os.path.join(lc.output_dir, str(old)))
+    multihost.sync_global_devices("save_checkpoint")
 
 
 @torch.no_grad()
-def restore_checkpoint(output_dir: str, params: dict,
+def restore_checkpoint(output_dir: str, params,
                        opt: train_mod.Optimizer) -> int:
-    """Load the newest checkpoint of ``output_dir`` into ``params`` (in
-    place) and ``opt``; returns its label, the steps completed (0 when there
-    is none)."""
+    """Load the newest checkpoint of ``output_dir`` into ``params`` (a
+    params dict or a ``ShardedLlama``, in place: a rank keeps its shards)
+    and ``opt``; returns its label, the steps completed (0 when there is
+    none)."""
     steps = saved_steps(output_dir)
     if not steps:
         return 0
     d = os.path.join(output_dir, str(steps[-1]))
+    tensors = safetensors_io.iter_tensors(os.path.join(d, checkpoint.TENSORS))
+    state = dict(safetensors_io.iter_tensors(os.path.join(d, OPTIMIZER)))
+    if isinstance(params, torch.nn.Module):
+        named = params.named_leaves()
+        fsdp.load_full(named, dict(tensors))
+        state = {"count": state["count"], **fsdp.shards_of(
+            {k: v for k, v in state.items() if k != "count"},
+            {f"{m}.{n}": t for n, t in named.items()
+             for m in ("exp_avg", "exp_avg_sq")})}
+        opt.load_state_tensors(state)
+        return steps[-1]
     named = train_mod.leaves(params)
     seen = set()
-    for name, t in safetensors_io.iter_tensors(
-            os.path.join(d, checkpoint.TENSORS)):
+    for name, t in tensors:
         if name not in named or named[name].shape != t.shape:
             raise ValueError(f"{d}: tensor {name!r} {tuple(t.shape)} does "
                              "not fit the parameters")
@@ -87,8 +117,7 @@ def restore_checkpoint(output_dir: str, params: dict,
         seen.add(name)
     if seen != set(named):
         raise ValueError(f"{d}: no tensor for {sorted(set(named) - seen)}")
-    opt.load_state_tensors(dict(safetensors_io.iter_tensors(
-        os.path.join(d, OPTIMIZER))))
+    opt.load_state_tensors(state)
     return steps[-1]
 
 
@@ -106,25 +135,46 @@ def run_training(params, teacher_params, cfg: llama.LlamaConfig,
     and written to the metrics backends; with ``val_batches`` the end
     reports ``eval_ppl``, exp of the mean validation loss. Returns
     ``params``, ``opt_state`` (the :class:`train.Optimizer`),
-    ``last_step``, the logged ``losses`` and ``eval_ppl``."""
-    if mesh is not None:
-        raise NotImplementedError(f"mesh (sharded training) "
-                                  f"{llama.NOT_PORTED}")
+    ``last_step``, the logged ``losses`` and ``eval_ppl``.
+
+    ``mesh`` (from ``parallel.sharding.make_mesh`` or
+    ``multihost.make_hybrid_mesh``; every rank calls this with the same
+    arguments and whole batches) trains FSDP2 shards of the student and
+    the teacher instead: each rank takes its rows of every batch
+    (``multihost.local_batch``), the loss logged is the mean over the
+    ranks, and ``params`` is left as it was: the trained params come back
+    whole in the result (a collective gathers them)."""
     dev = resolve_device(device)
     llama.check_params_device(params, dev)
     if teacher_params is not None:
         llama.check_params_device(teacher_params, dev)
-    for p in train_mod.leaves(params).values():
-        p.requires_grad_(True)
+    coordinator = multihost.is_coordinator()
+    if not coordinator:
+        log = lambda *_a, **_k: None  # noqa: E731 -- log once, on rank 0
     logdir = lc.logdir
     if logdir == "auto":
         logdir = os.path.join(lc.output_dir, "logs")
-    writer = MetricsWriter(logdir)
-    opt = train_mod.make_optimizer(tc, params)
+    writer = MetricsWriter(logdir if coordinator else None)
+    if mesh is not None:
+        student = fsdp.ShardedLlama(params, cfg, mesh)
+        params = None     # the shards hold the weights now
+        if teacher_params is not None:
+            teacher_params = fsdp.ShardedLlama(
+                teacher_params, dataclasses.replace(
+                    cfg, w_bits=32, a_bits=32, kv_bits=32), mesh,
+                requires_grad=False)
+        rows = lambda b: multihost.local_batch(b, mesh)  # noqa: E731
+        mean = fsdp.all_mean
+    else:
+        student = params
+        for p in train_mod.leaves(params).values():
+            p.requires_grad_(True)
+        rows = mean = lambda x: x  # noqa: E731
+    opt = train_mod.make_optimizer(tc, student)
 
     start_step = 0
     if resume:
-        start_step = restore_checkpoint(lc.output_dir, params, opt)
+        start_step = restore_checkpoint(lc.output_dir, student, opt)
         if start_step:
             # the same shuffle on restart: skip the batches already trained
             for _ in range(start_step):
@@ -140,10 +190,10 @@ def run_training(params, teacher_params, cfg: llama.LlamaConfig,
         if lc.max_steps is not None and step >= lc.max_steps:
             break
         with profiling.annotate("train_step"):
-            metrics = step_fn(params, teacher_params, batch)
+            metrics = step_fn(student, teacher_params, rows(batch))
         step += 1
         if step % lc.log_steps == 0:
-            loss = float(metrics["loss"])          # waits for the step
+            loss = float(mean(metrics["loss"]))    # waits for the step
             gnorm = float(metrics["grad_norm"])
             losses.append(loss)
             s_per_step = (time.time() - t0) / lc.log_steps
@@ -154,14 +204,17 @@ def run_training(params, teacher_params, cfg: llama.LlamaConfig,
                                 "train/seconds_per_step": s_per_step})
             t0 = time.time()
         if step % lc.save_steps == 0:
-            save_checkpoint(lc, step, params, cfg, opt)
+            save_checkpoint(lc, step, student, cfg, opt)
 
     if step == 0 or step % lc.save_steps != 0:
-        save_checkpoint(lc, step, params, cfg, opt)
+        save_checkpoint(lc, step, student, cfg, opt)
+    if mesh is not None:
+        params = fsdp.params_dict(fsdp.stack_full(student.named_leaves()))
     out = {"params": params, "opt_state": opt, "last_step": step,
            "losses": losses}
     if val_batches:
-        tot = sum(float(train_mod.eval_ppl_step(params, vb, cfg))
+        tot = sum(float(mean(train_mod.eval_ppl_step(student, rows(vb),
+                                                     cfg)))
                   for vb in val_batches)
         out["eval_ppl"] = float(np.exp(tot / len(val_batches)))
         log(f"eval ppl (exp of mean val loss): {out['eval_ppl']:.4f}")

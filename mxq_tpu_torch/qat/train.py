@@ -10,7 +10,8 @@
   schedule))`` step for step: :class:`Optimizer`.
 
 The parameters are the model's dict with every tensor a leaf that requires
-grad; a train step updates them in place.
+grad, or a ``parallel.fsdp.ShardedLlama`` (FSDP2 shards); a train step
+updates them in place.
 """
 
 from __future__ import annotations
@@ -78,9 +79,13 @@ class Optimizer:
     0.999, eps 1e-8 outside the square root, bias correction, decoupled
     decay) steps at the schedule's rate for update ``count``."""
 
-    def __init__(self, tc: TrainConfig, params: dict):
+    def __init__(self, tc: TrainConfig, params):
         self.tc = tc
-        self.named = leaves(params)
+        sharded = isinstance(params, torch.nn.Module)
+        # a ShardedLlama's parameters are this rank's DTensor shards: the
+        # global norm adds up the shards' squares over its shard group
+        self.named = params.named_leaves() if sharded else leaves(params)
+        self.norm_group = params.shard_group() if sharded else None
         self.multiplier = lr_multiplier(tc)
         self.count = 0                   # updates made so far
         self.adamw = torch.optim.AdamW(
@@ -91,8 +96,11 @@ class Optimizer:
         """Clip the gradients the backward left in ``.grad``, update the
         parameters and clear the gradients. Returns the global norm of the
         unclipped gradients (a 0-dim tensor on their device)."""
-        grads = [p.grad for p in self.named.values()]
-        norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+        grads = [_local(p.grad) for p in self.named.values()]
+        norm = torch.stack([g.square().sum() for g in grads]).sum()
+        if self.norm_group is not None:
+            torch.distributed.all_reduce(norm, group=self.norm_group)
+        norm = norm.sqrt()
         keep, clip = norm < self.tc.grad_clip, self.tc.grad_clip
         for g in grads:
             g.copy_(torch.where(keep, g, (g / norm) * clip))
@@ -104,7 +112,8 @@ class Optimizer:
         return norm
 
     def state_tensors(self) -> dict[str, torch.Tensor]:
-        """Both moments of every leaf by path, and the update count."""
+        """Both moments of every leaf by path, and the update count (a
+        sharded leaf's moments are DTensor shards)."""
         out = {"count": torch.tensor(self.count, dtype=torch.int64)}
         for name, p in self.named.items():
             st = self.adamw.state.get(p)
@@ -114,7 +123,8 @@ class Optimizer:
         return out
 
     def load_state_tensors(self, tensors: dict[str, torch.Tensor]) -> None:
-        """Restore what :meth:`state_tensors` gave."""
+        """Restore what :meth:`state_tensors` gave (shaped like each
+        leaf: DTensor shards for a sharded leaf)."""
         self.count = int(tensors["count"])
         for name, p in self.named.items():
             if f"exp_avg.{name}" in tensors:
@@ -124,7 +134,15 @@ class Optimizer:
                     "exp_avg_sq": tensors[f"exp_avg_sq.{name}"].to(p.device)}
 
 
-def make_optimizer(tc: TrainConfig, params: dict) -> Optimizer:
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of a DTensor (a view), or ``t``."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def make_optimizer(tc: TrainConfig, params) -> Optimizer:
+    """The optimizer of a params dict or of a ``parallel.fsdp.ShardedLlama``
+    (its parameters' shards)."""
     return Optimizer(tc, params)
 
 
@@ -145,18 +163,27 @@ def loss_fn(params, teacher_params, batch, cfg: llama.LlamaConfig,
     """The student's training loss on ``batch`` (``input_ids`` and
     optionally ``labels`` [B, T]): the KD loss against the teacher's logits
     with ``tc.use_kd`` and a teacher, else the shifted CE."""
-    dev = params["embed_tokens"].device
+    dev = params.embed_tokens.device if isinstance(
+        params, torch.nn.Module) else params["embed_tokens"].device
     ids = torch.as_tensor(batch["input_ids"], device=dev)
     labels = torch.as_tensor(batch.get("labels", ids), device=dev)
-    logits, _ = llama.forward(params, ids, cfg, device=dev, train=True,
-                              remat=tc.remat)
+    logits = _logits(params, ids, cfg, train=True, remat=tc.remat)
     if tc.use_kd and teacher_params is not None:
         with torch.no_grad():
-            t_logits, _ = llama.forward(teacher_params, ids, teacher_cfg,
-                                        device=dev)
+            t_logits = _logits(teacher_params, ids, teacher_cfg)
         return kd_loss_fn(logits, t_logits, labels != -100,
                           tc.kd_loss_scale)
     return llama.cross_entropy_loss(logits, labels)
+
+
+def _logits(params, ids, cfg: llama.LlamaConfig, train: bool = False,
+            remat: bool = False) -> torch.Tensor:
+    """The model's logits of ``ids``: ``llama.forward`` of a params dict,
+    or a ``parallel.fsdp.ShardedLlama`` on this rank's rows."""
+    if isinstance(params, torch.nn.Module):
+        return params(ids, train=train, remat=remat)
+    return llama.forward(params, ids, cfg, device=ids.device, train=train,
+                         remat=remat)[0]
 
 
 def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig,
@@ -181,8 +208,9 @@ def make_train_step(cfg: llama.LlamaConfig, tc: TrainConfig,
 @torch.no_grad()
 def eval_ppl_step(params, batch, cfg: llama.LlamaConfig) -> torch.Tensor:
     """The CE loss of ``batch``; the loop's perplexity is exp of its mean."""
-    dev = params["embed_tokens"].device
-    logits, _ = llama.forward(params, batch["input_ids"], cfg, device=dev)
+    dev = params.embed_tokens.device if isinstance(
+        params, torch.nn.Module) else params["embed_tokens"].device
+    ids = torch.as_tensor(batch["input_ids"], device=dev)
     return llama.cross_entropy_loss(
-        logits, torch.as_tensor(batch.get("labels", batch["input_ids"]),
-                                device=dev))
+        _logits(params, ids, cfg),
+        torch.as_tensor(batch.get("labels", ids), device=dev))

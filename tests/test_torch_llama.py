@@ -170,9 +170,7 @@ def test_port_init_and_pack_roundtrip_shapes():
 
 def test_unported_features_raise():
     """The int8 activation prefill (prefill_act_bits=8, K5) and weight
-    fake-quant (w_bits < 32) run; sharded calibration (ptq --shard) is
-    still not ported and raises."""
-    from mxq_tpu_torch import cli
+    fake-quant (w_bits < 32) run."""
     cfg = tl.LlamaConfig.tiny(num_hidden_layers=1)
     params = tl.init_params(cfg, seed=0, device="cpu")
     packed = tl.quantize_params_packed(params, cfg, device="cpu")
@@ -186,8 +184,6 @@ def test_unported_features_raise():
     w2, _ = tl.forward(params, ids[:, :4], dataclasses.replace(cfg, w_bits=2),
                        device="cpu")
     assert bool(torch.isfinite(w2).all()) and not torch.equal(w2, fp)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["ptq", "--device", "cpu", "--shard", "1,2,4"])
 
 
 def test_packed_forward_a8_prefill_matches_jax():

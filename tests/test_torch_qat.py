@@ -407,7 +407,7 @@ def test_run_training_resume_equals_straight_run(jparams, tmp_path,
 def test_run_training_eval_ppl_matches_jax(jparams, tmp_path):
     """The end-of-run validation, exp of the mean loss of the validation
     batches, against JAX's loop on the same params (no step), within 1e-5
-    relative; a run with no step still saves checkpoint 0; mesh raises."""
+    relative; a run with no step still saves checkpoint 0."""
     jcfg, tcfg = _cfgs(w_bits=2)
     val = [IDS, _batch(20)]
     with jax.disable_jit():
@@ -427,10 +427,6 @@ def test_run_training_eval_ppl_matches_jax(jparams, tmp_path):
     assert got["last_step"] == 0 and tloop.saved_steps(
         str(tmp_path / "port")) == [0]
     assert abs(got["eval_ppl"] - want["eval_ppl"]) <= 1e-5 * want["eval_ppl"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tloop.run_training(port_params(jparams[0]), None, tcfg,
-                           ttrain.TrainConfig(), tloop.LoopConfig(),
-                           iter([]), mesh=object(), device="cpu")
 
 
 def test_metrics_writer_writes_jsonl(tmp_path, no_tensorboard):
