@@ -6,6 +6,7 @@
 
 Phases, each printing one JSON line:
   build    compile csrc/*.cu with nvcc (one process per source, in parallel)
+           and runtime/csrc/mxq_runtime.cc with g++ beside them
   kernels  hold K1-K6, K4a-K4d (K4a also with a verify's 5 query tokens
            in one launch, and with llama2_70b's G = 8 at 9 tokens: two
            launches of at most 64 query rows), K7, K8 and K9-K11 against
@@ -37,7 +38,9 @@ Phases, each printing one JSON line:
            where a decode step's time goes, slot (8 slots and one) and
            paged, and where a speculative verify round's does, and the
            device time of one 2048-token prefill as cli_a8_u4 runs it,
-           with its top device ops and idle share
+           with its top device ops and idle share; every Engine of the
+           phase schedules through the C++ scheduler, which decides as
+           its plain Python version on 20,000 random operations
   eval     perplexity of llama2_7b at full depth: `cli eval-ppl --w_bits 2`
            (the fake-quant forward), the packed model at seqlen 128 once
            per GEMV layout (slab K1, quad and bfexp K6) and at seqlen 2048
@@ -95,6 +98,20 @@ Phases, each printing one JSON line:
            decode layer at 8 slots (K1) and one (K2) and the TP prefill
            layer at 512 rows (K3), and each rank's ring products at tp 2
            and 4 in one process
+  multihost in the same torchrun child: MultiHostEngine over llama2_7b at
+           full depth, packed, bf16 cache, 8 slots (seven 100-token
+           prompts and one of 600: K1, K3) and one slot (K2), 32 tokens
+           each, greedy tokens equal to the plain Engine's; the idle
+           share of its decode step; each rank of fsdp 2 x tp 2 and dcn 2
+           x tp 2 (dcn_role="tp") in one process, decode at 8 slots and
+           one and a 512-token prefill against the unsharded step
+           (MH_GATE at MH_LAYOUT_DEPTH layers; full depth reported, also
+           through the plain versions)
+  vision   ViT-B/16, DeiT-B, ConvNeXt-T, Swin-T and Mixer-B/16 at 224 px,
+           f32: card against CPU (VISION_GATE), images/s; Wanda and
+           magnitude pruning of ViT-B and ConvNeXt-T on 16 images, card
+           against CPU teacher-forced (ties only, none for magnitude);
+           quantize_vit/convnext bit-equal; cli prune-vision per model
 Then the kernel summary line, the card's name and power limit, and as the
 last line {"ok": true, "device": {...}}. Exits non-zero without a CUDA
 device, without the package beside it, or when any check fails.
@@ -103,6 +120,7 @@ device, without the package beside it, or when any check fails.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import json
@@ -128,7 +146,7 @@ CLI_SERVE = ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits", "8",
              "--prompt_len", "100", "--max_new_tokens", "32",
              "--seed", str(SEED)]
 PHASES = ("build", "kernels", "serve", "eval", "ptq", "train", "tasks",
-          "parallel", "e2e")
+          "parallel", "multihost", "vision", "e2e")
 
 # the ptq phase's cli ptq run (its --save_model is added at run time)
 PTQ_ARGV = ["ptq", "--preset", "llama2_7b", "--dtype", "bfloat16", "--mode",
@@ -268,39 +286,6 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-class Timer:
-    """Median of CUDA-event timings of device work. Before every timed call
-    the L2 cache (50 MB) is flushed, as the decode path finds weights cold:
-    256 MB are written, then read, so that the write-back of the written
-    lines falls before the first event and L2 holds no dirty line. Then
-    the card spins for about a millisecond so that the host has queued the
-    whole call before the first event: the events then bracket device
-    time, not the wrapper's Python overhead."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush = torch.empty(256 * 2**20, dtype=torch.uint8,
-                                 device="cuda")
-
-    def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
-        torch = self.torch
-        for _ in range(warmup):
-            fn()
-        ts = []
-        for _ in range(iters):
-            self.flush.zero_()
-            self.flush.view(torch.float32).sum()
-            torch.cuda._sleep(2_000_000)
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            e1.synchronize()
-            ts.append(e0.elapsed_time(e1))
-        return statistics.median(ts)
-
-
 def rel_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max()
                  / b.float().abs().max().clamp_min(1e-30))
@@ -336,12 +321,23 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 def phase_build():
+    """Every CUDA source with nvcc, in parallel, and the C++ runtime with
+    g++ beside them; a failed build raises."""
     from mxq_tpu_torch import _build
+    from mxq_tpu_torch.runtime import native
+    def runtime():
+        t = time.monotonic()
+        return native.build(force=True), time.monotonic() - t
+
     t0 = time.monotonic()
-    took = _build.build(verbose=True, force=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        gxx = pool.submit(runtime)
+        took = _build.build(verbose=True, force=True)
+        lib, took["mxq_runtime (g++)"] = gxx.result()
+    print(f"built {lib}", flush=True)
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 2),
           "per_source_s": {k: round(v, 2) for k, v in took.items()},
-          "card": smi()})
+          "runtime_library": str(lib), "card": smi()})
 
 
 def phase_kernels(torch, timer):
@@ -1116,7 +1112,60 @@ def layout_serve(layout: str) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+@contextlib.contextmanager
+def engines_recorded(eng, schedulers: list):
+    """Every ``eng.Engine`` made in the block appends the class name of its
+    scheduler to ``schedulers``."""
+    init = eng.Engine.__init__
+
+    def recording(self, *args, **kw):
+        init(self, *args, **kw)
+        schedulers.append(type(self._sched).__name__)
+
+    eng.Engine.__init__ = recording
+    try:
+        yield schedulers
+    finally:
+        eng.Engine.__init__ = init
+
+
+def scheduler_replay(n_ops: int = 20000) -> dict:
+    """One seeded random stream of submits, admissions, tokens and cancels
+    (``native.random_ops``) at 8 slots and max_len 2048, replayed through
+    the C++ scheduler and its plain Python version: the decisions of both
+    (admissions, retirements, cancel results, pending and completed
+    counts after every operation) must be equal."""
+    import numpy as np
+    from mxq_tpu_torch.runtime import native
+    from mxq_tpu_torch.serving import engine as eng
+
+    ops = native.random_ops(np.random.default_rng(SEED), n_ops, 2048)
+    t0 = time.monotonic()
+    got = native.replay(native.NativeScheduler(8, 2048), ops)
+    t1 = time.monotonic()
+    want = native.replay(eng._PyScheduler(8, 2048), ops)
+    t2 = time.monotonic()
+    return {"operations": len(got), "equal": got == want,
+            "admitted": sum(len(r[1]) for r in got if r[0] == "admit"),
+            "retired": sum(1 for r in got if r[0] == "token" and r[1]),
+            "cancels": sum(1 for r in got if r[0] == "cancel"),
+            "completed": got[-1][3], "native_s": t1 - t0,
+            "plain_s": t2 - t1}
+
+
 def phase_serve(torch):
+    """:func:`serve_runs`, with every Engine made recording its
+    scheduler."""
+    from mxq_tpu_torch.serving import engine as eng
+    schedulers = []
+    with engines_recorded(eng, schedulers):
+        return serve_runs(torch, schedulers)
+
+
+def serve_runs(torch, schedulers: list):
+    """The serve phase (module docstring); ``schedulers`` holds the
+    scheduler class of every Engine made meanwhile, and must hold only the
+    C++ one."""
     from mxq_tpu_torch import cli
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.serving import engine as eng
@@ -1147,6 +1196,7 @@ def phase_serve(torch):
     for layout in ("quad", "bfexp"):
         name = f"cli_{layout}"
         runs[name] = res = layout_serve(layout)
+        schedulers.extend(res.pop("schedulers"))
         got = res.pop("generated")
         res["requests_equal_to_slab"] = sum(
             a == b for a, b in zip(got, slab_tokens))
@@ -1358,8 +1408,18 @@ def phase_serve(torch):
     del step_fns
     prefill = prefill_profile(torch, params, cfg)
     del params
+    # every Engine of the phase (the cli runs, the children's included)
+    # schedules through the C++ scheduler, which decides as its plain
+    # version does on a random stream
+    replay = scheduler_replay()
+    engines = {"engines": len(schedulers),
+               "schedulers": sorted(set(schedulers)), "replay": replay}
+    if (not schedulers or set(schedulers) != {"NativeScheduler"}
+            or not replay["equal"]):
+        failures.append(f"serve scheduler: {engines}")
     emit({"phase": "serve", **runs, "launches_total": launches,
-          "decode_step_profile": profile, "prefill_profile": prefill})
+          "decode_step_profile": profile, "prefill_profile": prefill,
+          "scheduler": engines})
     return launches, failures
 
 
@@ -1689,6 +1749,11 @@ def tree_diff(torch, a, b, path: str = "") -> list:
             return [path or "/"]
         return [d for k in sorted(a) for d in tree_diff(
             torch, a[k], b[k], f"{path}.{k}" if path else k)]
+    if isinstance(a, list):
+        if not isinstance(b, list) or len(a) != len(b):
+            return [path or "/"]
+        return [d for i, (x, y) in enumerate(zip(a, b))
+                for d in tree_diff(torch, x, y, f"{path}[{i}]")]
     if isinstance(a, PackedMXQLinear):
         if not isinstance(b, PackedMXQLinear) or (
                 (a.in_features, a.out_features)
@@ -2689,6 +2754,183 @@ def phase_tasks(torch):
     return launches, failures
 
 
+# ---------------------------------------------------------------------------
+# vision: the five models at their published widths
+# ---------------------------------------------------------------------------
+
+# name -> (module of mxq_tpu_torch.vision, config class, config kwargs):
+# ViT-B/16, DeiT-B, ConvNeXt-T, Swin-T and Mixer-B/16 at 224 px, 1000
+# classes (the configs' defaults)
+VISION_MODELS = {"vit_b16": ("vit", "ViTConfig", {}),
+                 "deit_b": ("vit", "ViTConfig", {"distilled": True}),
+                 "convnext_t": ("convnext", "ConvNeXtConfig", {}),
+                 "swin_t": ("swin", "SwinConfig", {}),
+                 "mixer_b16": ("mixer", "MixerConfig", {})}
+VISION_PRUNED = ("vit_b16", "convnext_t")
+# over max|logit|: the f32 forward on the card (TF32 off) against the CPU
+VISION_GATE = 1e-4
+# a pruning metric within this share of its channel's threshold is a tie:
+# card and CPU may keep different entries there (their activations differ
+# in the last bits)
+VISION_TIE = 1e-3
+VISION_CLI = ("vit", "deit", "convnext", "mixer", "swin")
+
+
+def keeps_recorded(prune_vision, log: list):
+    """``prune_vision._keep`` recording each call's weight, input and
+    keep-mask (on the host) into ``log``."""
+    keep = prune_vision._keep
+
+    def recording(w, inp, method, sparsity, n, m):
+        k = keep(w, inp, method, sparsity, n, m)
+        log.append((w.cpu(), inp.cpu(), k.cpu()))
+        return k
+
+    return recording
+
+
+def tie_gaps(prune_vision, w, inp, method, sparsity, keep_a, keep_b):
+    """The entries where two keep-masks of ``w`` differ, and how far the
+    metric (from ``inp``, on the host) lies from its channel's threshold
+    there, relative to the threshold: (count, largest gap)."""
+    from mxq_tpu_torch.ptq import prune as prune_lib
+    diff = keep_a != keep_b
+    n = int(diff.sum())
+    if not n:
+        return 0, 0.0
+    metric = w.abs()
+    if method != "magnitude":
+        col_sq = (inp.reshape(-1, w.shape[0]).float() ** 2).sum(dim=0)
+        metric = metric * col_sq.sqrt()[:, None]
+    thr = prune_lib.quantile(metric, sparsity, 0)
+    gap = ((metric - thr).abs() / thr.abs().clamp_min(1e-30))[diff]
+    return n, float(gap.max())
+
+
+def vision_prune(torch, prune_vision, fn, params, cpu, images, method,
+                 sparsity) -> dict:
+    """``fn`` (a pruner of prune_vision) on the card and on the CPU: the
+    seconds of each and the kept entries that differ. A block's input
+    depends on how the blocks before it were pruned, so the masks are also
+    compared teacher-forced: each of the CPU run's linears masked on the
+    card from the CPU's weight and input; there every differing entry must
+    be a tie (its metric within VISION_TIE of the channel's threshold)."""
+    runs = {}
+    orig = prune_vision._keep
+    for where, p in (("card", params), ("cpu", cpu)):
+        log = []
+        prune_vision._keep = keeps_recorded(prune_vision, log)
+        try:
+            t0 = time.monotonic()
+            fn(p, images)
+            if where == "card":
+                torch.cuda.synchronize()
+            runs[where] = (time.monotonic() - t0, log)
+        finally:
+            prune_vision._keep = orig
+    (card_s, card), (cpu_s, ref) = runs["card"], runs["cpu"]
+    free = forced = 0
+    worst = 0.0
+    for (_, _, k1), (w, inp, k2) in zip(card, ref):
+        free += int((k1 != k2).sum())
+        k3 = orig(w.cuda(), inp.cuda(), method, sparsity, 0, 0).cpu()
+        n, gap = tie_gaps(prune_vision, w, inp, method, sparsity, k3, k2)
+        forced += n
+        worst = max(worst, gap)
+    kept = sum(int(k.sum()) for _, _, k in ref)
+    total = sum(k.numel() for _, _, k in ref)
+    return {"card_seconds": card_s, "cpu_seconds": cpu_s,
+            "linears": len(ref), "linears_card": len(card),
+            "kept_share": kept / total,
+            "differing_entries_free_running": free,
+            "differing_entries_teacher_forced": forced,
+            "teacher_forced_max_rel_to_threshold": worst}
+
+
+def phase_vision(torch):
+    """The vision models on the card (``mxq_tpu_torch/vision``), random f32
+    weights from SEED, one synthetic batch of 16 images at 224 px (the
+    class-conditional set of ``vision/eval.py``):
+    1. each model's logits for 4 images within VISION_GATE of max|logit| of
+       the same forward on the CPU; images/s of a batch of 16
+       (:class:`Timer`);
+    2. Wanda and magnitude pruning of ViT-B/16 and ConvNeXt-T at 0.5 on the
+       16 images, on the card and on the CPU: the entries whose keep
+       differs, each a tie (within VISION_TIE of its channel's threshold),
+       none for magnitude; the seconds of each prune;
+    3. quantize_vit and quantize_convnext bit-equal on the card and the
+       CPU;
+    4. ``cli prune-vision --model M`` on the card for each of the five
+       models: it returns and prints its accuracy lines.
+    Returns failures."""
+    import importlib
+    from mxq_tpu_torch import weights
+    from mxq_tpu_torch.utils.benchlib import Timer
+    from mxq_tpu_torch.vision import eval as veval
+    from mxq_tpu_torch.vision import prune_vision
+
+    failures, res = [], {}
+    images = next(veval.synthetic_batches(1000, 224, n=16, batch=16,
+                                          seed=SEED))[0]
+    timer = Timer()
+    for name, (modname, cls, kw) in VISION_MODELS.items():
+        mod = importlib.import_module(f"mxq_tpu_torch.vision.{modname}")
+        cfg = getattr(mod, cls)(**kw)
+        params = mod.init_params(cfg, SEED, device="cuda")
+        cpu = weights.params_to(params, "cpu")
+        x16 = torch.from_numpy(images).to("cuda")
+        with torch.inference_mode():
+            card = mod.forward(params, images[:4], cfg)
+            ref = mod.forward(cpu, images[:4], cfg)
+            ms = timer(lambda: mod.forward(params, x16, cfg), iters=5)
+        r = {"logits_shape": list(card.shape),
+             "rel_vs_cpu": rel_err(card.cpu(), ref),
+             "ms_per_batch_16": ms, "images_per_sec": 16 / (ms / 1e3)}
+        if (list(card.shape) != [4, 1000]
+                or not bool(torch.isfinite(card).all())
+                or not r["rel_vs_cpu"] <= VISION_GATE):
+            failures.append(f"vision {name} forward: {r}")
+        if name in VISION_PRUNED:
+            pruner = (prune_vision.prune_vit if modname == "vit"
+                      else prune_vision.prune_convnext)
+            for method in ("wanda", "magnitude"):
+                p = vision_prune(torch, prune_vision, lambda prm, im: pruner(
+                    prm, cfg, im, method=method, sparsity=0.5), params, cpu,
+                    images, method, 0.5)
+                r[f"prune_{method}"] = p
+                tie = p["teacher_forced_max_rel_to_threshold"] <= VISION_TIE
+                if (p["linears"] != p["linears_card"] or not p["linears"]
+                        or (method == "magnitude" and (
+                            p["differing_entries_free_running"]
+                            or p["differing_entries_teacher_forced"]))
+                        or not tie):
+                    failures.append(f"vision {name} prune {method}: {p}")
+            quant = (prune_vision.quantize_vit if modname == "vit"
+                     else prune_vision.quantize_convnext)
+            qc, qr = quant(params, cfg), quant(cpu, cfg)
+            diff = tree_diff(torch, qc, qr)
+            r["quantize_bit_equal_to_cpu"] = not diff
+            if diff:
+                failures.append(f"vision {name} quantize: {diff[:4]}")
+            del qc, qr
+        res[name] = r
+        del params, cpu
+        torch.cuda.empty_cache()
+    cli_runs = {}
+    for m in VISION_CLI:
+        t0 = time.monotonic()
+        out, printed = cli_with_output(["prune-vision", "--model", m])
+        lines = printed.strip().splitlines()
+        cli_runs[m] = {"seconds": time.monotonic() - t0, "printed": lines}
+        want = ("dense: acc1=", "actual sparsity", "pruned: acc1=") \
+            if m in ("vit", "deit", "convnext") else ("dense: acc1=",)
+        if not all(any(ln.startswith(w) for ln in lines) for w in want):
+            failures.append(f"vision cli prune-vision --model {m}: {lines}")
+    emit({"phase": "vision", **res, "cli_prune_vision": cli_runs,
+          "card": smi()})
+    return failures
+
+
 def phase_e2e(torch):
     """2 layers of 7B width, for two weight seeds and f32 and bf16
     activations: one B=8 decode step from a prefilled int8 cache (K1 + K4)
@@ -3182,51 +3424,370 @@ def deterministic(torch):
         torch.use_deterministic_algorithms(was)
 
 
-def parallel_child(torch, tmp: str) -> dict:
-    """The sharded half of the parallel phase, in a rank of torchrun
-    (NCCL, world size 1): cli train (FSDP2) and cli ptq --shard 1,1,1
-    into ``tmp``, then :func:`tp_layers`. Returns their results, the
-    failures and the kernel launches of the TP layers."""
+# ---------------------------------------------------------------------------
+# multihost: MultiHostEngine on the card, and every rank of two layouts
+# ---------------------------------------------------------------------------
+
+# over max|logit|: each layout's ranks, joined by the collectives'
+# arithmetic, against the unsharded step (the TP layers' gate)
+MH_GATE = TP_PLAIN_GATE
+# the layouts each rank's step is run for in one process: mesh sizes and
+# what the node axis carries
+MH_LAYOUTS = {"fsdp2_tp2": ({"dp": 1, "fsdp": 2, "tp": 2}, None),
+              "dcn2_tp2_dcn_tp": ({"dcn": 2, "dp": 1, "fsdp": 1, "tp": 2},
+                                  "tp")}
+MH_CACHE_ROWS = 1024
+# the layers of llama2_7b at which the layouts meet MH_GATE, one TP
+# layer's gate: at 32 layers of random weights bf16 activations compound
+# the N-dependent K-split order of the kernels and of their plain
+# versions alike, so there each case's gap through the kernels must stay
+# within MH_DRIFT times the same case's gap through the plain versions
+# (or within MH_GATE)
+MH_LAYOUT_DEPTH = 2
+MH_DRIFT = 1.5
+# a rank's card bytes while its MultiHostEngine is built from the host's
+# params, over what held_bytes counts: the allocator's rounding and the
+# Engine's small tensors
+MH_PEAK_SLACK = 64 << 20
+
+
+def mh_serve(torch, make, prompts, new=32) -> dict:
+    """Submit ``prompts`` to the engine ``make()`` builds and run it: the
+    tokens, tokens/s (host clock, synchronized), its stats and
+    scheduler."""
+    e = make()
+    reqs = [e.submit(p, max_new_tokens=new) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    done = e.run()
+    torch.cuda.synchronize()
+    dt = time.monotonic() - t0
+    inner = getattr(e, "engine", e)
+    return {"requests_finished": len(done),
+            "tokens": sum(len(r.generated) for r in reqs),
+            "tokens_per_sec": sum(len(r.generated) for r in reqs) / dt,
+            "generated": [list(map(int, r.generated)) for r in reqs],
+            "scheduler": type(inner._sched).__name__,
+            "stats": e.stats()}
+
+
+def mh_layout_ranks(torch, params, cfg, limit=None,
+                    plain: bool = False) -> tuple[dict, list, dict]:
+    """Every rank's step of each layout of MH_LAYOUTS in this process
+    (``multihost.run_ranks``: a thread per rank, the collectives'
+    arithmetic, concatenation for a gather and addition in rank order for
+    a sum): a decode step at 8 slots (K1) and at one (K2) over a random
+    bf16 history of MH_CACHE_ROWS rows, and a 512-token prefill (K3),
+    each against the unsharded step's logits, every rank's logits the
+    same bits. ``limit(layout, case)``: the gap each case must stay
+    within, over max|logit| (None: not gated); ``plain``: the ranks and
+    the unsharded step through the plain versions of the kernels. Each
+    layout's launches are counted from 0 (``count_launches``). Returns
+    (results, failures, launches)."""
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    from mxq_tpu_torch.ops import mxq_matmul as mm
+    from mxq_tpu_torch.serving import multihost as mh
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    nkv, d, s = cfg.num_key_value_heads, cfg.head_dim, MH_CACHE_ROWS
+    shape = (cfg.num_hidden_layers, 8, s, nkv, d)
+    hist = {k: torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for k in ("k", "v")}
+    cases = {}
+    for b in (8, 1):
+        cases[f"decode_{b}"] = dict(
+            toks=torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                               device="cuda", dtype=torch.int32),
+            pos=torch.randint(64, s, (b,), generator=gen, device="cuda",
+                              dtype=torch.int32), b=b)
+    ids = torch.randint(0, cfg.vocab_size, (1, 512), generator=gen,
+                        device="cuda")
+    mask = llama.causal_mask(512, 512, device="cuda")
+
+    def empty():
+        return {k: torch.zeros_like(v[:, :1, :512]) for k, v in hist.items()}
+
+    res, failures = {}, []
+    kernels = all_kernels()
+    used = {k: 0 for k in ("K1", "K2", "K3")}
+    swap = plain_versions(mm, a8) if plain else contextlib.nullcontext()
+    with swap, torch.inference_mode():
+        refs = {name: llama.decode_slots(
+            params, c["toks"], cfg,
+            {k: v[:, :c["b"]].clone() for k, v in hist.items()}, c["pos"])
+            for name, c in cases.items()}
+        refs["prefill_512"] = llama.forward(
+            params, ids, cfg, caches=empty(), cache_pos=0, mask=mask,
+            device="cuda")[0]
+        for layout, (sizes, role) in MH_LAYOUTS.items():
+            def rank(comm):
+                local, step = mh.sharded_step(params, cfg, comm, role)
+                out = {"held": mh.held_bytes(local, {})}
+                for name, c in cases.items():
+                    out[name] = step.decode_slots(
+                        local, c["toks"], cfg, mh.local_caches(
+                            {k: v[:, :c["b"]] for k, v in hist.items()},
+                            comm, role), c["pos"])
+                out["prefill_512"] = step.forward(
+                    local, ids, cfg, caches=mh.local_caches(empty(), comm,
+                                                            role),
+                    cache_pos=0, mask=mask, device="cuda")[0]
+                return out
+
+            run = count_launches(torch, kernels, lambda: {
+                "outs": mh.run_ranks(rank, sizes)})
+            outs = run["outs"]
+            n = {k: run["launches"][k] for k in used}
+            others = {k: v for k, v in run["launches"].items()
+                      if v and k not in used}
+            for k in used:
+                used[k] += n[k]
+            heads = 1
+            for a in ("dcn", "tp") if role == "tp" else ("tp",):
+                heads *= sizes.get(a, 1)
+            whole_cache = 2 * cfg.num_hidden_layers * 8 * 2048 * nkv * d * 2
+            r = {"ranks": len(outs), "seconds": run["seconds"],
+                 "launches": n,
+                 "held_bytes_per_rank": dict(outs[0]["held"],
+                                             cache=whole_cache // heads)}
+            for name, ref in refs.items():
+                r[name] = {"rel_vs_unsharded": rel_err(outs[0][name], ref),
+                           "ranks_same_bits": all(
+                               same_bits(torch, o[name], outs[0][name])
+                               for o in outs[1:])}
+                lim = limit(layout, name) if limit else None
+                if lim is not None:
+                    r[name]["limit"] = lim
+                ok = r[name]["ranks_same_bits"] and (
+                    lim is None or r[name]["rel_vs_unsharded"] <= lim)
+                if not ok:
+                    failures.append(f"multihost {layout} {name} "
+                                    f"({cfg.num_hidden_layers} layers"
+                                    f"{', plain' if plain else ''}): "
+                                    f"{r[name]}")
+            if others or (not plain and not all(n[k] > 0 for k in used)):
+                failures.append(f"multihost {layout}: launches {n}, "
+                                f"others {others}")
+            res[layout] = r
+            del outs, run
+            torch.cuda.empty_cache()
+    return res, failures, used
+
+
+def mh_rank_memory(torch, params, cfg) -> tuple[dict, list]:
+    """The card bytes one rank takes for its MultiHostEngine (8 slots,
+    max_len 2048) built from the whole packed model on the host, for one
+    rank alone and for rank 0 of each layout of MH_LAYOUTS: the peak of
+    ``torch.cuda.max_memory_allocated`` over the build beside what
+    ``multihost.held_bytes`` counts of its shards and cache. The peak must
+    stay within MH_PEAK_SLACK of that count: no rank holds the whole model
+    or cache. Returns (results, failures)."""
+    from mxq_tpu_torch import weights
+    from mxq_tpu_torch.serving import engine as eng
+    from mxq_tpu_torch.serving import multihost as mh
+
+    host = weights.params_to(params, "cpu")
+    ecfg = eng.EngineConfig(num_slots=8, max_len=2048, kv_quant=False,
+                            seed=SEED)
+    res, failures = {}, []
+    for layout, (sizes, role) in {"one_rank": ({}, None),
+                                  **MH_LAYOUTS}.items():
+        comm = mh.Comm(sizes, {a: 0 for a in sizes})
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        e = mh.MultiHostEngine(host, cfg, None, ecfg, dcn_role=role,
+                               comm=comm).engine
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        held = mh.held_bytes(e.params, e.caches)
+        res[layout] = {"held_bytes": held, "peak_bytes": peak}
+        if peak > sum(held.values()) + MH_PEAK_SLACK:
+            failures.append(f"multihost {layout}: a rank's build peaks at "
+                            f"{peak} card bytes, its shards and cache "
+                            f"{held}")
+        del e
+    del host
+    torch.cuda.empty_cache()
+    return res, failures
+
+
+def first_layers(params, n: int) -> dict:
+    """The first ``n`` layers of a stacked (packed) model, as views."""
+    from mxq_tpu_torch.packfmt import FIELDS, PackedMXQLinear
+
+    def cut(v):
+        if isinstance(v, PackedMXQLinear):
+            return PackedMXQLinear(*(getattr(v, f)[:n] for f in FIELDS),
+                                   in_features=v.in_features,
+                                   out_features=v.out_features)
+        return v[:n]
+
+    return dict(params, layers={k: cut(v) for k, v in
+                                params["layers"].items()})
+
+
+def multihost_runs(torch) -> tuple[dict, list, dict]:
+    """serving/multihost.py on the card, in a rank of torchrun (NCCL):
+    1. MultiHostEngine over llama2_7b at full depth, packed, bf16 KV cache,
+       8 slots, max_len 2048, on the one-rank mesh: seven requests of 100
+       prompt tokens and one of 600 (a 2048-row prefill: K3), 32 new
+       tokens each (K1); then one request at one slot (K2); each run's
+       greedy tokens equal to the plain Engine's with the same
+       EngineConfig, here; the launches of each sharded run counted;
+    2. the bytes one rank holds, and the idle share of one sharded decode
+       step at 8 slots (:func:`decode_step_profile`);
+    3. :func:`mh_layout_ranks`.
+    Returns (results, failures, launches)."""
+    import numpy as np
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.parallel import sharding
+    from mxq_tpu_torch.serving import engine as eng
+    from mxq_tpu_torch.serving import multihost as mh
+
+    kernels = all_kernels()
+    cfg = llama.LlamaConfig.llama2_7b()
+    params = llama.quantize_params_packed(
+        llama.init_params(cfg, SEED, torch.bfloat16, "cuda"), cfg,
+        device="cuda")
+    mesh = sharding.make_mesh(1, 1, 1)
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (100,) * 7 + (600,)]
+    runs, failures = {}, []
+    launches = {k: 0 for k in kernels}
+    for name, slots, ps, need in (("slots8", 8, prompts, ("K1", "K3")),
+                                  ("slots1", 1, prompts[:1], ("K1", "K2"))):
+        ecfg = eng.EngineConfig(num_slots=slots, max_len=2048,
+                                kv_quant=False, seed=SEED)
+
+        def plain_run():
+            out = mh_serve(torch, lambda: eng.Engine(params, cfg, ecfg,
+                                                     device="cuda"), ps)
+            torch.cuda.empty_cache()
+            return out
+
+        # plain, sharded, plain: the host's speed drifts between runs
+        plain = plain_run()
+        res = count_launches(torch, kernels, lambda: mh_serve(
+            torch, lambda: mh.MultiHostEngine(params, cfg, mesh, ecfg),
+            ps))
+        torch.cuda.empty_cache()
+        again = plain_run()
+        for k, n in res["launches"].items():
+            launches[k] += n
+        equal = sum(a == b for a, b in zip(res.pop("generated"),
+                                           plain.pop("generated")))
+        again.pop("generated")
+        runs[name] = {"multihost": res, "plain_engine": plain,
+                      "plain_engine_after": again,
+                      "requests_equal_to_plain": equal}
+        if (equal != len(ps) or res["tokens"] != 32 * len(ps)
+                or res["scheduler"] != "NativeScheduler"
+                or any(res["launches"][k] <= 0 for k in need)
+                or any(res["launches"][k] for k in ("K4", "K4a", "K11"))):
+            failures.append(f"multihost {name}: {runs[name]}")
+    # one sharded decode step at 8 slots, row 1000: its host-clock time
+    # and, profiled, its device time and idle share
+    e = mh.MultiHostEngine(params, cfg, mesh, eng.EngineConfig(
+        num_slots=8, max_len=2048, kv_quant=False, seed=SEED)).engine
+    runs["held_bytes_one_rank"] = mh.held_bytes(e.params, e.caches)
+    toks = torch.zeros((8, 1), dtype=torch.int32, device="cuda")
+    start = torch.full((8,), 1000, dtype=torch.int32, device="cuda")
+
+    def step(i):
+        return e._decode_fn(e.params, toks, cfg, e.caches, start + i)
+
+    with torch.inference_mode():
+        walls = [wall_ms(torch, step) for _ in range(3)]
+        runs["decode_step_profile"] = decode_step_profile(torch, step,
+                                                          walls)
+    del e, step
+    torch.cuda.empty_cache()
+    runs["rank_memory"], f = mh_rank_memory(torch, params, cfg)
+    failures += f
+    # the layouts: at MH_LAYOUT_DEPTH layers within MH_GATE; at full
+    # depth through the plain versions, then through the kernels within
+    # MH_DRIFT times each case's plain gap
+    cut = dataclasses.replace(cfg, num_hidden_layers=MH_LAYOUT_DEPTH)
+    runs["layouts"], f, used = mh_layout_ranks(
+        torch, first_layers(params, MH_LAYOUT_DEPTH), cut,
+        limit=lambda layout, case: MH_GATE)
+    failures += f
+    for k, n in used.items():
+        launches[k] += n
+    plain, f, _ = mh_layout_ranks(torch, params, cfg, plain=True)
+    runs["layouts_full_depth_plain"] = plain
+    failures += f
+    runs["layouts_full_depth"], f, used = mh_layout_ranks(
+        torch, params, cfg, limit=lambda layout, case: max(
+            MH_GATE, MH_DRIFT * plain[layout][case]["rel_vs_unsharded"]))
+    failures += f
+    for k, n in used.items():
+        launches[k] += n
+    return runs, failures, launches
+
+
+def parallel_child(torch, tmp: str, parts=("parallel", "multihost")
+                   ) -> dict:
+    """The sharded half of the parallel and multihost phases, in a rank of
+    torchrun (NCCL, world size 1). ``parallel``: cli train (FSDP2) and cli
+    ptq --shard 1,1,1 into ``tmp``, then :func:`tp_layers`; ``multihost``:
+    :func:`multihost_runs`. Returns their results, the failures and the
+    kernel launches of each part."""
     from mxq_tpu_torch.parallel import multihost
     made = multihost.initialize("cuda")
     kernels = all_kernels()
+    out = {"world_size": torch.distributed.get_world_size(),
+           "backend": torch.distributed.get_backend(), "failures": []}
     try:
-        out = {"world_size": torch.distributed.get_world_size(),
-               "backend": torch.distributed.get_backend()}
-        torch.cuda.reset_peak_memory_stats()
-        with deterministic(torch):
+        if "parallel" in parts:
+            torch.cuda.reset_peak_memory_stats()
+            with deterministic(torch):
+                res = count_launches(torch, kernels, lambda: dict(zip(
+                    ("result", "printed"), cli_with_output(
+                        PAR_TRAIN_ARGV + ["--output_dir", os.path.join(
+                            tmp, "fsdp_train")]))))
+            out["train"] = {"command_seconds": res["seconds"],
+                            "peak_memory_gib":
+                                torch.cuda.max_memory_allocated() / 2**30,
+                            "launches": res["launches"],
+                            **train_metrics(os.path.join(tmp, "fsdp_train",
+                                                         "logs"), 1)}
+            torch.cuda.empty_cache()
             res = count_launches(torch, kernels, lambda: dict(zip(
-                ("result", "printed"), cli_with_output(PAR_TRAIN_ARGV + [
-                    "--output_dir", os.path.join(tmp, "fsdp_train")]))))
-        out["train"] = {"command_seconds": res["seconds"],
-                        "peak_memory_gib":
-                            torch.cuda.max_memory_allocated() / 2**30,
-                        "launches": res["launches"],
-                        **train_metrics(os.path.join(tmp, "fsdp_train",
-                                                     "logs"), 1)}
-        torch.cuda.empty_cache()
-        res = count_launches(torch, kernels, lambda: dict(zip(
-            ("result", "printed"), cli_with_output(PAR_PTQ_ARGV + [
-                "--shard", "1,1,1", "--save_model",
-                os.path.join(tmp, "sharded_ptq")]))))
-        out["ptq"] = {"command_seconds": res["seconds"],
-                      "ppl": res["result"]["ppl"],
-                      "printed_mesh": "sharding calibration over mesh "
-                                      "(dp=1, fsdp=1, tp=1)" in
-                                      res["printed"]}
-        torch.cuda.empty_cache()
-        t0 = time.monotonic()
-        out["tp"], out["failures"], out["launches"] = tp_layers(torch)
-        out["tp_seconds"] = time.monotonic() - t0
+                ("result", "printed"), cli_with_output(PAR_PTQ_ARGV + [
+                    "--shard", "1,1,1", "--save_model",
+                    os.path.join(tmp, "sharded_ptq")]))))
+            out["ptq"] = {"command_seconds": res["seconds"],
+                          "ppl": res["result"]["ppl"],
+                          "printed_mesh": "sharding calibration over mesh "
+                                          "(dp=1, fsdp=1, tp=1)" in
+                                          res["printed"]}
+            torch.cuda.empty_cache()
+            t0 = time.monotonic()
+            out["tp"], out["failures"], out["launches"] = tp_layers(torch)
+            out["tp_seconds"] = time.monotonic() - t0
+            torch.cuda.empty_cache()
+        if "multihost" in parts:
+            t0 = time.monotonic()
+            mh_res, f, mh_launches = multihost_runs(torch)
+            out["multihost"] = dict(mh_res, seconds=time.monotonic() - t0,
+                                    launches_total=mh_launches)
+            out["failures"] += f
     finally:
         if made:
             torch.distributed.destroy_process_group()
     return out
 
 
-def phase_parallel(torch):
-    """The port's parallel/ on the card, each step a hard check. The card
-    is one: NCCL across cards is not checked here.
+def phase_parallel(torch, parts=("parallel", "multihost")):
+    """The port's parallel/ and serving/multihost.py on the card, each step
+    a hard check. The card is one: NCCL across cards is not checked here.
+    ``parts`` names the phases to run; both share one torchrun child.
+    parallel:
     1. ``cli train`` (PAR_TRAIN_ARGV) here, unsharded, and under ``python
        -m torch.distributed.run --standalone --nproc_per_node 1`` (NCCL,
        world size 1), where it trains FSDP2 shards, both under
@@ -3238,59 +3799,77 @@ def phase_parallel(torch):
     3. there, :func:`tp_layers`: the TP decode layer at 8 slots and one,
        the TP prefill layer at 512 rows, the tp 2 and tp 4 rings in one
        process (:func:`ring_ranks`).
-    Returns (the TP layers' launches, failures)."""
+    multihost: there, :func:`multihost_runs`.
+    Returns (the launches of the TP layers and the multihost runs,
+    failures)."""
     from mxq_tpu_torch.utils import checkpoint
 
     kernels = all_kernels()
     runs, failures = {}, []
     here = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(prefix="mxq_par_") as tmp:
-        torch.cuda.reset_peak_memory_stats()
-        with deterministic(torch):
-            res = count_launches(torch, kernels, lambda: dict(zip(
-                ("result", "printed"), cli_with_output(PAR_TRAIN_ARGV + [
-                    "--output_dir", os.path.join(tmp, "train")]))))
-        ref_train = {"command_seconds": res["seconds"],
-                     "peak_memory_gib":
-                         torch.cuda.max_memory_allocated() / 2**30,
-                     **train_metrics(os.path.join(tmp, "train", "logs"), 1)}
-        torch.cuda.empty_cache()
-        cli_with_output(PAR_PTQ_ARGV + ["--save_model",
-                                        os.path.join(tmp, "ptq")])
-        torch.cuda.empty_cache()
+        if "parallel" in parts:
+            torch.cuda.reset_peak_memory_stats()
+            with deterministic(torch):
+                res = count_launches(torch, kernels, lambda: dict(zip(
+                    ("result", "printed"), cli_with_output(
+                        PAR_TRAIN_ARGV + ["--output_dir",
+                                          os.path.join(tmp, "train")]))))
+            ref_train = {"command_seconds": res["seconds"],
+                         "peak_memory_gib":
+                             torch.cuda.max_memory_allocated() / 2**30,
+                         **train_metrics(os.path.join(tmp, "train", "logs"),
+                                         1)}
+            torch.cuda.empty_cache()
+            cli_with_output(PAR_PTQ_ARGV + ["--save_model",
+                                            os.path.join(tmp, "ptq")])
+            torch.cuda.empty_cache()
         t0 = time.monotonic()
         proc = subprocess.run(
             [sys.executable, "-m", "torch.distributed.run", "--standalone",
              "--nproc_per_node", "1", os.path.join(here, "chip_smoke.py"),
-             "--parallel-child", tmp], cwd=here, capture_output=True,
-            text=True, timeout=900)
+             "--parallel-child", tmp, "--phases", ",".join(parts)],
+            cwd=here, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             raise RuntimeError(f"the parallel child exited "
                                f"{proc.returncode}: {proc.stderr[-4000:]}")
         child = json.loads(proc.stdout.strip().splitlines()[-1])
         child["process_seconds"] = time.monotonic() - t0
-        _, ref = checkpoint.load_params(os.path.join(tmp, "ptq"), "cuda")
-        _, got = checkpoint.load_params(os.path.join(tmp, "sharded_ptq"),
-                                        "cuda")
-        ptq_diff = tree_diff(torch, got, ref)
-    fsdp_train = child.pop("train")
-    runs["train_unsharded"] = ref_train
-    runs["train_fsdp"] = fsdp_train
-    gaps = [abs(a - b) / abs(b) for a, b in zip(fsdp_train["loss"],
-                                                 ref_train["loss"])]
-    runs["train_loss_rel_gap"] = gaps
-    if (len(gaps) != 3 or not all(g <= PAR_LOSS_GATE for g in gaps)
-            or any(fsdp_train["launches"].values())):
-        failures.append(f"parallel train: FSDP2 losses {fsdp_train['loss']}"
-                        f" against {ref_train['loss']}")
-    runs["ptq_sharded"] = dict(child.pop("ptq"), differing=ptq_diff)
-    if ptq_diff or not runs["ptq_sharded"]["printed_mesh"]:
-        failures.append(f"parallel ptq --shard: {runs['ptq_sharded']}")
+        if "parallel" in parts:
+            _, ref = checkpoint.load_params(os.path.join(tmp, "ptq"),
+                                            "cuda")
+            _, got = checkpoint.load_params(os.path.join(tmp,
+                                                         "sharded_ptq"),
+                                            "cuda")
+            ptq_diff = tree_diff(torch, got, ref)
+            del ref, got
     failures += child.pop("failures")
-    launches = child.pop("launches")
-    runs.update(child)
-    emit({"phase": "parallel", **runs, "launches_total": launches,
-          "card": smi()})
+    launches = {}
+    mh_res = child.pop("multihost", None)
+    if "parallel" in parts:
+        fsdp_train = child.pop("train")
+        runs["train_unsharded"] = ref_train
+        runs["train_fsdp"] = fsdp_train
+        gaps = [abs(a - b) / abs(b) for a, b in zip(fsdp_train["loss"],
+                                                     ref_train["loss"])]
+        runs["train_loss_rel_gap"] = gaps
+        if (len(gaps) != 3 or not all(g <= PAR_LOSS_GATE for g in gaps)
+                or any(fsdp_train["launches"].values())):
+            failures.append(f"parallel train: FSDP2 losses "
+                            f"{fsdp_train['loss']} against "
+                            f"{ref_train['loss']}")
+        runs["ptq_sharded"] = dict(child.pop("ptq"), differing=ptq_diff)
+        if ptq_diff or not runs["ptq_sharded"]["printed_mesh"]:
+            failures.append(f"parallel ptq --shard: {runs['ptq_sharded']}")
+        launches = child.pop("launches")
+        runs.update(child)
+        emit({"phase": "parallel", **runs, "launches_total": launches,
+              "card": smi()})
+    if mh_res is not None:
+        for k, n in mh_res["launches_total"].items():
+            launches[k] = launches.get(k, 0) + n
+        emit({"phase": "multihost", "world_size": child["world_size"],
+              "backend": child["backend"], **mh_res, "card": smi()})
     return launches, failures
 
 
@@ -3350,18 +3929,22 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if args.serve_child:
-        emit(count_launches(torch, all_kernels(),
-                            lambda: serve_with_tokens(CLI_SERVE)))
+        from mxq_tpu_torch.serving import engine as eng
+        with engines_recorded(eng, []) as schedulers:
+            res = count_launches(torch, all_kernels(),
+                                 lambda: serve_with_tokens(CLI_SERVE))
+        emit(dict(res, schedulers=schedulers))
         return 0
     if args.parallel_child:
-        emit(parallel_child(torch, args.parallel_child))
+        emit(parallel_child(torch, args.parallel_child, phases))
         return 0
 
     failures, summary, launches = [], {}, {}
     if "build" in phases:
         phase_build()
     if "kernels" in phases:
-        summary, f = phase_kernels(torch, Timer(torch))
+        from mxq_tpu_torch.utils.benchlib import Timer
+        summary, f = phase_kernels(torch, Timer())
         failures += f
     if "serve" in phases:
         launches, f = phase_serve(torch)
@@ -3383,11 +3966,14 @@ def main(argv=None) -> int:
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
         failures += f
-    if "parallel" in phases:
-        more, f = phase_parallel(torch)
+    parts = [p for p in ("parallel", "multihost") if p in phases]
+    if parts:
+        more, f = phase_parallel(torch, parts)
         for k, n in more.items():
             launches[k] = launches.get(k, 0) + n
         failures += f
+    if "vision" in phases:
+        failures += phase_vision(torch)
     if "e2e" in phases:
         failures += phase_e2e(torch)
     torch.cuda.synchronize()

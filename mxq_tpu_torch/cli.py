@@ -4,8 +4,9 @@ prunes it, ``train`` fine-tunes it with quantization-aware training and
 knowledge distillation, ``generate-data`` makes training data with the
 model itself, ``eval-ppl`` measures the stride-seqlen perplexity,
 ``eval-tasks`` task accuracy (``eval/harness.py``: it needs ``--tokenizer``
-and the tasks' datasets), and ``serve`` runs the slot engine or, with
-``--paged``, the paged engine.
+and the tasks' datasets), ``prune-vision`` prunes a vision model
+(``vision/``) and reports its accuracy before and after, and ``serve``
+runs the slot engine or, with ``--paged``, the paged engine.
 
     python -m mxq_tpu_torch.cli ptq --preset llama2_7b --dtype bfloat16 \
         --mode packed --nsamples 16 --chunk 4 --save_model out/7b_mxq
@@ -23,6 +24,8 @@ and the tasks' datasets), and ``serve`` runs the slot engine or, with
     python -m mxq_tpu_torch.cli eval-tasks --tasks list
     python -m mxq_tpu_torch.cli eval-tasks --model /path/to/hf_llama \
         --tokenizer /path/to/hf_llama --tasks piqa,arc_easy --limit 100
+    python -m mxq_tpu_torch.cli prune-vision --model convnext \
+        --prune_metric wanda --sparsity 0.5
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8
     python -m mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8 \
         --paged
@@ -385,6 +388,61 @@ def cmd_generate_data(args) -> dict:
     return {"path": path, "tokens": out}
 
 
+def cmd_prune_vision(args) -> dict:
+    """Prune a vision model with one calibration batch and report its
+    accuracy before and after: the tiny preset of ``--model`` with random
+    weights from ``--seed``, on the synthetic class-conditional set
+    (``vision/eval.py``). Mixer and Swin are evaluated only, as in
+    ``mxq_tpu``. Returns the accuracies and the sparsity."""
+    from mxq_tpu_torch.vision import convnext, mixer, prune_vision, swin, vit
+    from mxq_tpu_torch.vision import eval as veval
+
+    dev = resolve_device(args.device)
+    prune = sparsity_of = None
+    if args.model in ("vit", "deit"):
+        cfg = vit.ViTConfig.tiny(distilled=(args.model == "deit"))
+        params, fwd = vit.init_params(cfg, args.seed, device=dev), vit.forward
+        prune = lambda p, imgs: prune_vision.prune_vit(  # noqa: E731
+            p, cfg, imgs, method=args.prune_metric, sparsity=args.sparsity,
+            n=args.prune_n, m=args.prune_m)
+        sparsity_of = prune_vision.check_sparsity
+    elif args.model == "convnext":
+        cfg = convnext.ConvNeXtConfig.tiny()
+        params = convnext.init_params(cfg, args.seed, device=dev)
+        fwd = convnext.forward
+        prune = lambda p, imgs: prune_vision.prune_convnext(  # noqa: E731
+            p, cfg, imgs, method=args.prune_metric, sparsity=args.sparsity,
+            n=args.prune_n, m=args.prune_m)
+        sparsity_of = prune_vision.check_sparsity_convnext
+    elif args.model == "mixer":
+        cfg = mixer.MixerConfig.tiny()
+        params, fwd = mixer.init_params(cfg, args.seed, device=dev), \
+            mixer.forward
+    else:
+        cfg = swin.SwinConfig.tiny()
+        params, fwd = swin.init_params(cfg, args.seed, device=dev), \
+            swin.forward
+
+    img_size = getattr(cfg, "image_size", 32)
+    batches = list(veval.synthetic_batches(cfg.num_classes, img_size,
+                                           n=args.nsamples * 2))
+    dense = veval.evaluate(fwd, params, cfg, batches)
+    print(f"dense: acc1={dense['acc1']:.4f} acc5={dense['acc5']:.4f} "
+          f"n={dense['n']}", flush=True)
+    out = {"dense": dense}
+    if prune is None:
+        print(f"{args.model}: eval-only (reference prunes convnext/vit/deit)",
+              flush=True)
+        return out
+    pruned = prune(params, batches[0][0])
+    out["sparsity"] = sparsity_of(pruned)
+    print(f"actual sparsity {out['sparsity']:.4f}", flush=True)
+    out["pruned"] = stats = veval.evaluate(fwd, pruned, cfg, batches)
+    print(f"pruned: acc1={stats['acc1']:.4f} acc5={stats['acc5']:.4f}",
+          flush=True)
+    return out
+
+
 def cmd_serve(args) -> dict:
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.serving import engine as eng
@@ -525,6 +583,20 @@ def main(argv=None):
     p.add_argument("--out_dir", default="out/gen_data")
     p.add_argument("--merge", action="store_true")
     p.set_defaults(fn=cmd_generate_data)
+
+    p = sub.add_parser("prune-vision")
+    p.add_argument("--model", default="vit",
+                   choices=("vit", "deit", "convnext", "mixer", "swin"))
+    p.add_argument("--prune_metric", default="wanda",
+                   choices=("wanda", "magnitude"))
+    p.add_argument("--sparsity", type=float, default=0.5)
+    p.add_argument("--nsamples", type=int, default=16)
+    p.add_argument("--prune_n", type=int, default=0)
+    p.add_argument("--prune_m", type=int, default=0)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default) or 'cpu' for the plain path")
+    p.set_defaults(fn=cmd_prune_vision)
 
     p = sub.add_parser("serve")
     _add_model_args(p)

@@ -31,6 +31,7 @@ einsum path, as JAX does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -257,21 +258,60 @@ def _sdpa(q, k, v, d):
     return ctx.transpose(1, 2)
 
 
-def _qkv(x, layer, cfg: LlamaConfig, train: bool = False):
+class Ops:
+    """Where the decoder's weights and its cache are used: the embedding,
+    every linear of a layer, the head, the attention step and the cache
+    an engine allocates. These are the whole model's on one device;
+    ``serving/multihost.py``'s sharded step overrides them with a rank's
+    shards and the collectives that join them, and every function below
+    that takes ``ops`` runs unchanged over either."""
+
+    def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed_tokens"][tokens]
+
+    def linear(self, x, layer: dict, name: str, cfg: LlamaConfig,
+               train: bool = False) -> torch.Tensor:
+        """``x @ layer[name]`` (:func:`quant_linear`)."""
+        return quant_linear(x, layer[name], cfg, train)
+
+    def head(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        return lm_head(params, x)
+
+    def attend(self, attend, idx, q, k, v):
+        """``attend(idx, q, k, v)`` over the heads of q, k, v [B, T, H, D]
+        after RoPE: it writes k, v to the cache and returns the context
+        (see :func:`decode_step`)."""
+        return attend(idx, q, k, v)
+
+    def init_cache(self, cfg: LlamaConfig, batch: int, max_len: int,
+                   device, quant: bool = False) -> dict:
+        """The stacked cache the attention step reads: int8 codes and
+        scales (``quant``) or bf16."""
+        if quant:
+            return kvcache.init_quant_cache(
+                cfg.num_hidden_layers, batch, max_len,
+                cfg.num_key_value_heads, cfg.head_dim, device=device)
+        return init_cache(cfg, batch, max_len, device=device)
+
+
+WHOLE = Ops()
+
+
+def _qkv(x, layer, cfg: LlamaConfig, train: bool = False, ops: Ops = WHOLE):
     """The q, k, v projections of x [B, T, hidden]: [B, T, H, D] each; k
     and v fake-quantized symmetric in groups of 128 when kv_bits < 32
     (mxq_tpu/models/llama.py:278-280), with or without a cache."""
     b, t, _ = x.shape
     nh, nkv, d = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
     if "qkv_proj" in layer:
-        qkv = quant_linear(x, layer["qkv_proj"], cfg, train)
+        qkv = ops.linear(x, layer, "qkv_proj", cfg, train)
         q = qkv[..., : nh * d]
         k = qkv[..., nh * d: (nh + nkv) * d]
         v = qkv[..., (nh + nkv) * d:]
     else:
-        q = quant_linear(x, layer["q_proj"], cfg, train)
-        k = quant_linear(x, layer["k_proj"], cfg, train)
-        v = quant_linear(x, layer["v_proj"], cfg, train)
+        q = ops.linear(x, layer, "q_proj", cfg, train)
+        k = ops.linear(x, layer, "k_proj", cfg, train)
+        v = ops.linear(x, layer, "v_proj", cfg, train)
     if cfg.kv_bits < 32:
         k = scheme.sym_fake_quant_ste(k, cfg.kv_bits, groupsize=128)
         v = scheme.sym_fake_quant_ste(v, cfg.kv_bits, groupsize=128)
@@ -298,7 +338,7 @@ def masked_attention(q, k, v, mask):
 
 def attention(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
               cache_pos: Optional[int] = None, layer_idx: Optional[int] = None,
-              train: bool = False):
+              train: bool = False, ops: Ops = WHOLE):
     """LlamaAttention, GQA-ready (a T=1 decode step over a cache goes
     through :func:`decode_slots` instead). ``cache`` is the stacked
     cache dict (int8: codes [L,B,H,S,D] + scales [L,B,H,S]; bf16: k/v
@@ -306,15 +346,27 @@ def attention(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
     ``layer_idx``."""
     b, t, _ = x.shape
     nh, d = cfg.num_attention_heads, cfg.head_dim
-    q, k, v = _qkv(x, layer, cfg, train)
+    q, k, v = _qkv(x, layer, cfg, train, ops)
     q, k = apply_rope(q, k, cos, sin)
+    step = functools.partial(_attend_step, cfg, mask, cache, cache_pos,
+                             x.dtype)
+    ctx = ops.attend(step, layer_idx, q, k, v)
+    ctx = ctx.reshape(b, t, nh * d).to(x.dtype)
+    return ops.linear(ctx, layer, "o_proj", cfg, train)
 
-    on_card = x.device.type == "cuda"
+
+def _attend_step(cfg: LlamaConfig, mask, cache, cache_pos, dtype, idx, q,
+                    k, v):
+    """:func:`attention`'s step after RoPE: k, v written to rows
+    ``cache_pos..`` of layer ``idx`` of ``cache`` (if any), read back in
+    ``dtype``; the context [B, T, H, D] of q's heads."""
+    t = q.shape[1]
+    nh, d = q.shape[2], cfg.head_dim
+    on_card = q.device.type == "cuda"
     prefill_flash = (cache is not None and t >= 128 and cache_pos == 0
                      and (cfg.attn_impl == "flash"
                           or (cfg.attn_impl == "auto" and on_card)))
     if cache is not None:
-        idx = layer_idx
         if "k_codes" in cache:
             layer_cache = {n: cache[n][idx] for n in
                            ("k_codes", "k_scale", "v_codes", "v_scale")}
@@ -325,11 +377,11 @@ def attention(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
                 kc, ksc = kvcache.quantize_kv_headmajor(k)
                 vc, vsc = kvcache.quantize_kv_headmajor(v)
                 k = (kc.float() * ksc.float()[..., None]).transpose(1, 2) \
-                    .to(x.dtype)
+                    .to(dtype)
                 v = (vc.float() * vsc.float()[..., None]).transpose(1, 2) \
-                    .to(x.dtype)
+                    .to(dtype)
             else:
-                k, v = kvcache.cache_read_layer(layer_cache, dtype=x.dtype)
+                k, v = kvcache.cache_read_layer(layer_cache, dtype=dtype)
         else:
             s = cache["k"].shape[2]
             if not 0 <= cache_pos <= s - t:
@@ -338,8 +390,8 @@ def attention(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
             cache["k"][idx, :, cache_pos:cache_pos + t] = k
             cache["v"][idx, :, cache_pos:cache_pos + t] = v
             if not prefill_flash:
-                k = cache["k"][idx].to(x.dtype)
-                v = cache["v"][idx].to(x.dtype)
+                k = cache["k"][idx].to(dtype)
+                v = cache["v"][idx].to(dtype)
 
     use_flash = (cfg.attn_impl == "flash"
                  or (cfg.attn_impl == "auto" and on_card and t >= 128
@@ -349,34 +401,33 @@ def attention(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
         if nkv != nh:
             k = torch.repeat_interleave(k, nh // nkv, dim=2)
             v = torch.repeat_interleave(v, nh // nkv, dim=2)
-        ctx = _sdpa(q, k, v, d)
-    else:
-        ctx = masked_attention(q, k, v, mask)
-    ctx = ctx.reshape(b, t, nh * d).to(x.dtype)
-    return quant_linear(ctx, layer["o_proj"], cfg, train)
+        return _sdpa(q, k, v, d)
+    return masked_attention(q, k, v, mask)
 
 
-def mlp(x, layer, cfg: LlamaConfig, train: bool = False):
+def mlp(x, layer, cfg: LlamaConfig, train: bool = False, ops: Ops = WHOLE):
     """SiLU(gate) * up -> down."""
     if "gate_up_proj" in layer:
-        gu = quant_linear(x, layer["gate_up_proj"], cfg, train)
+        gu = ops.linear(x, layer, "gate_up_proj", cfg, train)
         g, u = gu.chunk(2, dim=-1)
     else:
-        g = quant_linear(x, layer["gate_proj"], cfg, train)
-        u = quant_linear(x, layer["up_proj"], cfg, train)
-    return quant_linear(F.silu(g) * u, layer["down_proj"], cfg, train)
+        g = ops.linear(x, layer, "gate_proj", cfg, train)
+        u = ops.linear(x, layer, "up_proj", cfg, train)
+    return ops.linear(F.silu(g) * u, layer, "down_proj", cfg, train)
 
 
 def decoder_layer(x, layer, cfg: LlamaConfig, cos, sin, mask, cache=None,
-                  cache_pos=None, layer_idx=None, train: bool = False):
+                  cache_pos=None, layer_idx=None, train: bool = False,
+                  ops: Ops = WHOLE):
     h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
     x = x + attention(h, layer, cfg, cos, sin, mask, cache, cache_pos,
-                      layer_idx, train)
+                      layer_idx, train, ops)
     h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
-    return x + mlp(h, layer, cfg, train)
+    return x + mlp(h, layer, cfg, train, ops)
 
 
-def decode_step(params, tokens, cfg: LlamaConfig, positions, attend):
+def decode_step(params, tokens, cfg: LlamaConfig, positions, attend,
+                ops: Ops = WHOLE):
     """T decode tokens for every slot: tokens [B, T], token t of slot b at
     position positions[b] + t. The one decoder layer loop of the port's
     decode (norm, q/k/v, RoPE, the attention step, o_proj, MLP); the
@@ -385,7 +436,7 @@ def decode_step(params, tokens, cfg: LlamaConfig, positions, attend):
     its cache keeps them and returns ctx [B, T, Hq, D] (or [B, Hq, D] for
     T = 1). Returns logits [B, T, V] f32."""
     b, t = tokens.shape
-    x = params["embed_tokens"][tokens]
+    x = ops.embed(params, tokens)
     posmat = positions[:, None] + torch.arange(t, device=positions.device)
     cos, sin = rope_tables(cfg, posmat.float())
     cos = cos.to(x.dtype)
@@ -394,17 +445,18 @@ def decode_step(params, tokens, cfg: LlamaConfig, positions, attend):
     for idx in range(cfg.num_hidden_layers):
         layer = layer_view(params, idx)
         h = rms_norm(x, layer["input_layernorm"], cfg.rms_norm_eps)
-        q, k, v = _qkv(h, layer, cfg)
+        q, k, v = _qkv(h, layer, cfg, ops=ops)
         q, k = apply_rope(q, k, cos, sin)
-        ctx = attend(idx, q, k, v).reshape(b, t, width).to(x.dtype)
-        x = x + quant_linear(ctx, layer["o_proj"], cfg)
+        ctx = ops.attend(attend, idx, q, k, v).reshape(b, t, width)
+        x = x + ops.linear(ctx.to(x.dtype), layer, "o_proj", cfg)
         h = rms_norm(x, layer["post_attention_layernorm"], cfg.rms_norm_eps)
-        x = x + mlp(h, layer, cfg)
+        x = x + mlp(h, layer, cfg, ops=ops)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    return lm_head(params, x).float()
+    return ops.head(params, x).float()
 
 
-def decode_slots(params, tokens, cfg: LlamaConfig, caches: dict, positions):
+def decode_slots(params, tokens, cfg: LlamaConfig, caches: dict, positions,
+                 ops: Ops = WHOLE):
     """:func:`decode_step` over a stacked slot cache, token t of slot b
     written and attended at row positions[b] + t (tokens [B, T]; T > 1 is
     the speculative verify). Each query attends the rows up to its own.
@@ -435,7 +487,7 @@ def decode_slots(params, tokens, cfg: LlamaConfig, caches: dict, positions):
             return masked_attention(q, caches["k"][idx], caches["v"][idx],
                                     mask)
 
-        return decode_step(params, tokens, cfg, positions, attend)
+        return decode_step(params, tokens, cfg, positions, attend, ops)
     if t > 1:
         def attend(idx, q, k, v):
             kc, ksc = kvcache.quantize_kv_headmajor(k)    # [B,H,T,D], [B,H,T]
@@ -447,7 +499,7 @@ def decode_slots(params, tokens, cfg: LlamaConfig, caches: dict, positions):
                 q, caches["k_codes"], caches["k_scale"], caches["v_codes"],
                 caches["v_scale"], idx, positions)
 
-        return decode_step(params, tokens, cfg, positions, attend)
+        return decode_step(params, tokens, cfg, positions, attend, ops)
     pend = []
 
     def attend(idx, q, k, v):
@@ -458,7 +510,7 @@ def decode_slots(params, tokens, cfg: LlamaConfig, caches: dict, positions):
         pend.append(p)
         return ctx
 
-    logits = decode_step(params, tokens, cfg, positions, attend)
+    logits = decode_step(params, tokens, cfg, positions, attend, ops)
     # scale rows of every layer at each slot's own row: [B, L, H]
     pos = positions.long()
     caches["k_scale"][:, rows[:, 0], :, pos] = \
@@ -504,22 +556,23 @@ def check_params_device(params: dict, dev: torch.device) -> None:
 def forward(params, input_ids, cfg: LlamaConfig, *, positions=None,
             caches=None, cache_pos=None, mask=None,
             device: str | torch.device = "cuda", train: bool = False,
-            remat: bool = False):
+            remat: bool = False, ops: Ops = WHOLE):
     """Full model forward -> (logits [B, T, V] f32, caches). ``caches`` (a
     stacked cache dict or None) is updated in place and returned. One
     token with a cache and neither ``positions`` nor ``mask`` is a decode
     step of every slot at row ``cache_pos`` (:func:`decode_slots`).
     ``train`` takes the straight-through estimators (:func:`quant_linear`);
     ``remat`` keeps only each decoder layer's input for the backward and
-    recomputes the rest there."""
+    recomputes the rest there. ``ops`` places the weights and the cache
+    (:class:`Ops`)."""
     dev = resolve_device(device)
     check_params_device(params, dev)
     input_ids = torch.as_tensor(input_ids, device=dev)
     b, t = input_ids.shape
     if t == 1 and caches is not None and positions is None and mask is None:
         pos = torch.full((b,), cache_pos, dtype=torch.int32, device=dev)
-        return decode_slots(params, input_ids, cfg, caches, pos), caches
-    x = params["embed_tokens"][input_ids]
+        return decode_slots(params, input_ids, cfg, caches, pos, ops), caches
+    x = ops.embed(params, input_ids)
     if positions is None:
         start = 0 if cache_pos is None else cache_pos
         positions = torch.arange(t, device=dev)[None, :] + start
@@ -538,7 +591,7 @@ def forward(params, input_ids, cfg: LlamaConfig, *, positions=None,
 
     def layer_fn(x, idx):
         return decoder_layer(x, layer_view(params, idx), cfg, cos, sin, mask,
-                             caches, cache_pos, idx, train)
+                             caches, cache_pos, idx, train, ops)
 
     for idx in range(cfg.num_hidden_layers):
         if remat:
@@ -547,7 +600,7 @@ def forward(params, input_ids, cfg: LlamaConfig, *, positions=None,
         else:
             x = layer_fn(x, idx)
     x = rms_norm(x, params["norm"], cfg.rms_norm_eps)
-    return lm_head(params, x).float(), caches
+    return ops.head(params, x).float(), caches
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,

@@ -40,6 +40,7 @@ import math
 
 import torch
 
+from mxq_tpu_torch.ops import count_launch
 from mxq_tpu_torch.scheme import div_const
 
 NEG = torch.finfo(torch.float32).min
@@ -244,7 +245,7 @@ def int8_decode_attention_stacked(q, k_codes, k_scale, v_codes, v_scale,
             q, k_codes, k_scale, v_codes, v_scale, layer_idx, positions)
     out, n = _dense_launch("K4a", q, k_codes, k_scale, v_codes, v_scale,
                            layer_idx, positions)
-    int8_decode_attention_stacked.launches += n
+    count_launch(int8_decode_attention_stacked, n)
     return out
 
 
@@ -278,7 +279,7 @@ def int8_decode_attention_cur_folded(q, k_codes, k_scale, v_codes, v_scale,
             layer_idx, positions)
     out, n = _dense_launch("K4b", q, k_codes, k_scale, v_codes, v_scale,
                            layer_idx, positions, (kcur, kscur, vcur, vscur))
-    int8_decode_attention_cur_folded.launches += n
+    count_launch(int8_decode_attention_cur_folded, n)
     return out
 
 
@@ -323,7 +324,7 @@ def int8_decode_attention_fused_write(q, k_codes, k_scale, v_codes, v_scale,
     out, n = _dense_launch("K4", q, k_codes, k_scale, v_codes, v_scale,
                            layer_idx, positions, (kcur, kscur, vcur, vscur),
                            write=True)
-    int8_decode_attention_fused_write.launches += n
+    count_launch(int8_decode_attention_fused_write, n)
     return out, k_codes, v_codes
 
 
@@ -513,7 +514,7 @@ def int8_paged_decode_attention(q, k_pages, k_scales, v_pages, v_scales,
             q, k_pages, k_scales, v_pages, v_scales, lengths, page_tables)
     out = _paged_launch("K9", q, k_pages, k_scales, v_pages, v_scales,
                         lengths, page_tables)
-    int8_paged_decode_attention.launches += 1
+    count_launch(int8_paged_decode_attention)
     return out
 
 
@@ -529,7 +530,7 @@ def int8_paged_decode_attention_cur(q, k_pages, k_scales, v_pages, v_scales,
             positions, page_tables)
     out = _paged_launch("K10", q, k_pages, k_scales, v_pages, v_scales,
                         positions, page_tables, (kcur, kscur, vcur, vscur))
-    int8_paged_decode_attention_cur.launches += 1
+    count_launch(int8_paged_decode_attention_cur)
     return out
 
 
@@ -550,7 +551,7 @@ def int8_paged_decode_attend_update(q, k_pages, k_scales, v_pages, v_scales,
     out = _paged_launch("K11", q, k_pages, k_scales, v_pages, v_scales,
                         positions, page_tables, (kcur, kscur, vcur, vscur),
                         write=True)
-    int8_paged_decode_attend_update.launches += 1
+    count_launch(int8_paged_decode_attend_update)
     return out, k_pages, k_scales, v_pages, v_scales
 
 

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from mxq_tpu_torch import packfmt, scheme
 from mxq_tpu_torch.config import DEFAULT_SCHEME, MXQConfig
 from mxq_tpu_torch.packfmt import PackedMXQLinear
+from mxq_tpu_torch.ops import count_launch
 
 # layout ids of csrc/mxq_gemv_tc.cu
 _TC_LAYOUT = {"slab": 0, "quad": 1, "bfexp": 2}
@@ -351,7 +352,7 @@ def gemv_quad(x: torch.Tensor, p: PackedMXQLinear,
         return gemv_plain(x, p, cfg)
     y = (_gemv_cuda("mxq_gemv_k6_quad1", x, p) if x.shape[0] == 1
          else _gemv_tc("quad", x, p))
-    gemv_quad.launches += 1
+    count_launch(gemv_quad)
     return y
 
 
@@ -363,7 +364,7 @@ def gemv_bfexp(x: torch.Tensor, p: PackedMXQLinear,
         return gemv_bfexp_plain(x, p, cfg)
     y = (_gemv_cuda("mxq_gemv_k6_bfexp1", x, p) if x.shape[0] == 1
          else _gemv_tc("bfexp", x, p))
-    gemv_bfexp.launches += 1
+    count_launch(gemv_bfexp)
     return y
 
 
@@ -374,7 +375,7 @@ def gemv_batched(x: torch.Tensor, p: PackedMXQLinear,
     if x.device.type == "cpu":
         return gemv_plain(x, p, cfg)
     y = _gemv_tc("slab", x, p)
-    gemv_batched.launches += 1
+    count_launch(gemv_batched)
     return y
 
 
@@ -386,7 +387,7 @@ def gemv_single(x: torch.Tensor, p: PackedMXQLinear,
     if x.shape[0] != 1:
         raise ValueError(f"K2 takes one row, got {x.shape[0]}")
     y = _gemv_cuda("mxq_gemv_k2", x, p)
-    gemv_single.launches += 1
+    count_launch(gemv_single)
     return y
 
 
@@ -406,7 +407,7 @@ def dequant_planes(p: PackedMXQLinear, cfg: MXQConfig = DEFAULT_SCHEME):
         wd2.data_ptr(), wd4.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mxq_dequant_k3")
-    dequant_planes.launches += 1
+    count_launch(dequant_planes)
     return wd2, wd4
 
 
@@ -427,7 +428,7 @@ def dequant_int8_planes(p: PackedMXQLinear, cfg: MXQConfig = DEFAULT_SCHEME):
         sw.data_ptr(), q.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "mxq_dequant_k5")
-    dequant_int8_planes.launches += 1
+    count_launch(dequant_int8_planes)
     return sw, q
 
 

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from mxq_tpu_torch import scheme
+from mxq_tpu_torch.ops import count_launch
 
 GROUP = 128            # quant group along K
 KT = 1024              # input columns per k-tile
@@ -242,7 +243,7 @@ def u4_gemv(x: torch.Tensor, p: PackedU4Linear) -> torch.Tensor:
     if x.device.type == "cpu":
         return uniform_matmul_plain(x, p)
     y = _uniform_cuda(x, p)
-    u4_gemv.launches += 1
+    count_launch(u4_gemv)
     return y
 
 
@@ -251,7 +252,7 @@ def u2_gemv(x: torch.Tensor, p: PackedU2Linear) -> torch.Tensor:
     if x.device.type == "cpu":
         return uniform_matmul_plain(x, p)
     y = _uniform_cuda(x, p)
-    u2_gemv.launches += 1
+    count_launch(u2_gemv)
     return y
 
 

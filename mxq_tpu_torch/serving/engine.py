@@ -13,7 +13,10 @@ are read, its input tokens chained on the device from chunk k's output.
 Tokens reach the host through non-blocking copies into pinned memory,
 each with a CUDA event, so reading chunk k never waits for chunk k+1.
 Sampling draws from a ``torch.Generator`` seeded with ``EngineConfig.seed``.
-The host scheduler is the Python one (the C++ scheduler is not ported).
+Slots are admitted and retired by the C++ scheduler
+(``runtime/native.py``, built with g++ on first use; a failed build
+raises, there is no fallback); :class:`_PyScheduler` is its plain
+version, which the tests hold it against.
 Prompt-lookup speculative decoding drives the same engine from
 ``serving/spec.py`` through :meth:`Engine._verify`.
 """
@@ -21,6 +24,7 @@ Prompt-lookup speculative decoding drives the same engine from
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Optional
 
@@ -30,8 +34,8 @@ import torch
 from mxq_tpu_torch import resolve_device
 from mxq_tpu_torch.models import llama
 from mxq_tpu_torch.ops import uniform4
+from mxq_tpu_torch.runtime import native
 from mxq_tpu_torch.scheme import div_const
-from mxq_tpu_torch.serving import kvcache
 
 NEG = torch.finfo(torch.float32).min
 
@@ -99,8 +103,10 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator,
 
 
 class _PyScheduler:
-    """Slot admission and per-token retirement on EOS / max_new_tokens /
-    cache-full (the semantics of ``mxq_tpu``'s C++ scheduler)."""
+    """The plain version of ``runtime.native.NativeScheduler``, which the
+    Engine schedules through: slot admission and per-token retirement on
+    EOS / max_new_tokens / cache-full, in Python. The Engine does not fall
+    back to it; the tests hold the native scheduler's decisions to its."""
 
     def __init__(self, num_slots: int, max_len: int):
         self.num_slots, self.max_len = num_slots, max_len
@@ -189,7 +195,10 @@ class Engine:
 
     def __init__(self, params, cfg: llama.LlamaConfig,
                  ecfg: EngineConfig = EngineConfig(),
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda",
+                 ops: llama.Ops = llama.WHOLE):
+        """``ops`` places the weights and the cache (``llama.Ops``; a
+        rank's shards under ``serving/multihost.py``)."""
         self.device = dev = resolve_device(device)
         llama.check_params_device(params, dev)
         head = params.get("lm_head")
@@ -204,14 +213,11 @@ class Engine:
                         if b <= ecfg.max_len) or (ecfg.max_len,)
         ecfg = dataclasses.replace(ecfg, prefill_buckets=buckets)
         self.ecfg = ecfg
-        nl, b = cfg.num_hidden_layers, ecfg.num_slots
-        if ecfg.kv_quant:
-            self.caches = kvcache.init_quant_cache(
-                nl, b, ecfg.max_len, cfg.num_key_value_heads, cfg.head_dim,
-                device=dev)
-        else:
-            self.caches = llama.init_cache(cfg, b, ecfg.max_len, device=dev)
-        self._sched = _PyScheduler(b, ecfg.max_len)
+        b = ecfg.num_slots
+        self.caches = ops.init_cache(cfg, b, ecfg.max_len, dev,
+                                     quant=ecfg.kv_quant)
+        self._sched = native.NativeScheduler(b, ecfg.max_len)
+        self.use_ops(ops)
         self._reqs: dict[int, Request] = {}
         self._slot_uid: list[Optional[int]] = [None] * b
         self._pos = np.zeros(b, np.int32)        # dispatch-time write position
@@ -226,6 +232,12 @@ class Engine:
         # rounds = verify rounds, accepted = tokens emitted, dispatches =
         # spec chunks (run_spec: verify steps) sent to the device
         self._spec_stats = {"rounds": 0, "accepted": 0, "dispatches": 0}
+
+    def use_ops(self, ops: llama.Ops) -> None:
+        """Run the model's decode step and forward over ``ops``."""
+        self.ops = ops
+        self._decode_fn = functools.partial(llama.decode_slots, ops=ops)
+        self._forward_fn = functools.partial(llama.forward, ops=ops)
 
     # ---- device work ----
 
@@ -254,8 +266,8 @@ class Engine:
             in_range = positions + i < max_len
             pos_i = torch.where(in_range, positions + i,
                                 max_len - 1).to(torch.int32)
-            logits = llama.decode_slots(self.params, toks, self.cfg,
-                                        self.caches, pos_i)
+            logits = self._decode_fn(self.params, toks, self.cfg,
+                                     self.caches, pos_i)
             nxt = self._pick(logits[:, -1])
             nxt = torch.where(active & in_range, nxt, 0).to(torch.int32)
             out.append(nxt)
@@ -275,9 +287,9 @@ class Engine:
         kpos = torch.arange(s, device=self.device)[None, :]
         mask = torch.where((kpos <= qpos) & (kpos < offset + length), 0.0,
                            NEG)
-        logits, _ = llama.forward(self.params, to_device(ids, self.device),
-                                  self.cfg, caches=sl, cache_pos=offset,
-                                  mask=mask[None, None], device=self.device)
+        logits, _ = self._forward_fn(
+            self.params, to_device(ids, self.device), self.cfg, caches=sl,
+            cache_pos=offset, mask=mask[None, None], device=self.device)
         return self._pick(logits[0:1, length - 1])[0]
 
     def _verify(self, toks: torch.Tensor, positions: torch.Tensor,
@@ -286,8 +298,8 @@ class Engine:
         positions[b] + t of every slot's cache; returns the greedy
         predictions [B, T] int32 (0 for inactive slots). Stays on the
         device."""
-        logits = llama.decode_slots(self.params, toks, self.cfg, self.caches,
-                                    positions)
+        logits = self._decode_fn(self.params, toks, self.cfg, self.caches,
+                                 positions)
         preds = torch.argmax(logits, dim=-1).to(torch.int32)
         return torch.where(active[:, None], preds, 0).to(torch.int32)
 

@@ -5,7 +5,8 @@ devices.
 A numpy tree is the parameter dict with numpy arrays for dense leaves and,
 for each packed linear, a dict of its fields (``w2``, ``w4``, ``meta2``,
 ``qscale``, ``qmin``, ``smeta4`` arrays plus the ``in_features`` and
-``out_features`` ints); a packed uniform-4b or -2b linear (``w``, ``s``,
+``out_features`` ints), and a list for a list of subtrees (the vision
+models' ``stages``); a packed uniform-4b or -2b linear (``w``, ``s``,
 ``z`` and the two ints) is told apart by its shapes: ``w`` has 16 rows per
 row of ``s`` at 4 bits, 8 at 2 bits. bf16 arrays are ``ml_dtypes.bfloat16`` (what
 ``np.asarray`` gives for a JAX bf16 array); they cross as their raw 16 bits.
@@ -59,6 +60,8 @@ def params_from_numpy(tree, device: str | torch.device = "cuda"):
                        in_features=int(tree["in_features"]),
                        out_features=int(tree["out_features"]))
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, dev) for v in tree]
     return tensor_from_numpy(tree, dev)
 
 
@@ -72,6 +75,8 @@ def params_to_numpy(params):
         return out
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
     return tensor_to_numpy(params)
 
 
@@ -80,6 +85,8 @@ def params_to(params, device: str | torch.device):
     dev = resolve_device(device)
     if isinstance(params, (PackedMXQLinear, torch.Tensor) + _UNIFORM):
         return params.to(dev)
+    if isinstance(params, (list, tuple)):
+        return [params_to(v, dev) for v in params]
     return {k: params_to(v, dev) for k, v in params.items()}
 
 

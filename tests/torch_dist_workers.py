@@ -345,3 +345,64 @@ def ptq_sharded(rank, world, p):
     return {"local": local, "q": q["layers"],
             "packed": {k: v for k, v in packed["layers"].items()
                        if k in llama.LAYER_LINEARS}}
+
+
+# the serving runs of test_torch_multihost_serving.py: the tiny preset at 2
+# layers, packed and fused, served with this config
+SERVE_ECFG = dict(num_slots=2, max_len=32, prefill_buckets=(8,),
+                  kv_quant=False, horizon=4)
+SERVE_PROMPT = np.arange(6, dtype=np.int32) + 3
+SPEC_PROMPT = np.array([3, 4, 5] * 4, np.int32)
+
+
+def sharded_serving(rank, world, p):
+    """The tiny packed model served over every rank: the Engine sharded by
+    ``shard_engine`` on ``make_mesh(*p["mesh"])``, speculative decoding
+    (``spec.run_spec``, draft 3) on another such Engine, and
+    ``MultiHostEngine`` on ``make_hybrid_mesh(*p["hybrid"])`` with
+    ``dcn_role="tp"``, submitted with rank 0's prompt only. Each run's
+    greedy tokens, the uid and stats of the MultiHostEngine's request, and
+    the logits of one more decode step of each sharded engine."""
+    from mxq_tpu_torch import weights
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.parallel import multihost, sharding
+    from mxq_tpu_torch.serving import engine as eng
+    from mxq_tpu_torch.serving import multihost as mh
+    from mxq_tpu_torch.serving import spec
+    cfg = _tiny(num_hidden_layers=2)
+    packed = weights.params_from_numpy(p["packed"], "cpu")
+    ecfg = eng.EngineConfig(**SERVE_ECFG)
+    mesh = sharding.make_mesh(*p["mesh"])
+
+    def probe(e):
+        toks = torch.tensor([[7], [11]], dtype=torch.int32)
+        return _np(e._decode_fn(e.params, toks, cfg, e.caches,
+                                torch.tensor([20, 9], dtype=torch.int32)))
+
+    out = {}
+    e = mh.shard_engine(eng.Engine(packed, cfg, ecfg, device="cpu"), mesh)
+    r = e.submit(SERVE_PROMPT, max_new_tokens=5)
+    e.run()
+    out["engine"] = list(r.generated)
+    out["engine_logits"] = probe(e)
+    out["local_qkv_cols"] = e.params["layers"]["qkv_proj"].out_features
+    out["local_cache_heads"] = e.caches["k"].shape[3]
+    e = mh.shard_engine(eng.Engine(packed, cfg, eng.EngineConfig(
+        **dict(SERVE_ECFG, horizon=8)), device="cpu"), mesh)
+    r = e.submit(SPEC_PROMPT, max_new_tokens=5)
+    spec.run_spec(e, draft_len=3)
+    out["spec"] = list(r.generated)
+    out["spec_rounds"] = e.stats().get("spec_verify_rounds", 0)
+    hybrid = multihost.make_hybrid_mesh(*p["hybrid"])
+    m = mh.MultiHostEngine(packed, cfg, hybrid, ecfg, dcn_role="tp",
+                           device="cpu")
+    r = m.submit(SERVE_PROMPT if rank == 0 else None, max_new_tokens=5)
+    m.run()
+    out["multihost"] = list(r.generated)
+    out["multihost_uid"] = r.uid
+    out["multihost_prompt"] = r.prompt.tolist()
+    out["multihost_finished"] = m.stats()["requests_finished"]
+    out["multihost_logits"] = probe(m.engine)
+    out["multihost_local_o_cols"] = \
+        m.engine.params["layers"]["o_proj"].out_features
+    return out

@@ -36,6 +36,8 @@ def to_numpy_tree(tree):
                     out_features=tree.out_features)
     if isinstance(tree, dict):
         return {k: to_numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [to_numpy_tree(v) for v in tree]
     return np.asarray(tree)
 
 
