@@ -16,7 +16,11 @@ Phases, each printing one JSON line:
            128 and 2048 rows, K8 at 8 and 128; and trace K4's gap to its
            plain version to pass A's scores (``K4-gap``)
   serve    thirteen runs of llama2_7b at full depth, each with the launch
-           counts set to 0 before it and read after it:
+           counts set to 0 before it and read after it, and each made
+           twice: with every decode chunk, verify step and spec chunk
+           replayed from its CUDA graph (serving/graphs.py), and op by op
+           (the eager function the graphs are captured from): greedy
+           tokens and launch counts equal, every graph key replayed:
            `mxq_tpu_torch.cli serve --preset llama2_7b --packed --kv_bits 8`
            in-process (must launch K1, K4), then the same command in a
            child process with MXQ_GEMV_LAYOUT=quad and =bfexp (K6 and no
@@ -34,9 +38,12 @@ Phases, each printing one JSON line:
            every spec token plain decode's greedy choice but where that
            leads it by less than the verify round's limit against decode
            (teacher-forced along the spec tokens); cli serve --prefill_a8
-           --lm_head_bits 4 with 600-token prompts (K1, K4, K5, K7); then
+           --lm_head_bits 4 with 600-token prompts (K1, K4, K5, K7); the
+           8-slot Engine's graph pool bytes; a sampled Engine (temperature
+           0.8, top_k 40) from a fixed seed twice, equal tokens; then
            where a decode step's time goes, slot (8 slots and one) and
-           paged, and where a speculative verify round's does, and the
+           paged, and where a speculative verify round's does, each op by
+           op and replayed, and the
            device time of one 2048-token prefill as cli_a8_u4 runs it,
            with its top device ops and idle share; every Engine of the
            phase schedules through the C++ scheduler, which decides as
@@ -1076,6 +1083,109 @@ def count_launches(torch, kernels, drive) -> dict:
     return res
 
 
+class EngineRuns:
+    """What the Engines and PagedEngines made in a block did: every request
+    submitted, in order, and every decode-chunk runner made."""
+
+    def __init__(self):
+        self.requests, self.runners = [], []
+
+    def tokens(self) -> list:
+        return [list(map(int, r.generated)) for r in self.requests]
+
+    def graph_counts(self) -> list:
+        """Captures, the host seconds of the capture (the warm-up
+        included) and replays per chunk key, one dict per runner."""
+        return [{repr(k): {"captures": r.captures.get(k, 0),
+                           "capture_s": r.capture_s.get(k),
+                           "replays": r.replays.get(k, 0)}
+                 for k in r._chunks} for r in self.runners]
+
+
+@contextlib.contextmanager
+def engine_runs():
+    """An :class:`EngineRuns` filled while the block runs."""
+    from mxq_tpu_torch.serving import engine as eng
+    from mxq_tpu_torch.serving import graphs, paged
+    runs = EngineRuns()
+    saved = (eng.Engine.submit, paged.PagedEngine.submit,
+             graphs.ChunkRunner.__init__)
+
+    def submitting(fn):
+        def submit(self, *args, **kw):
+            req = fn(self, *args, **kw)
+            runs.requests.append(req)
+            return req
+        return submit
+
+    def making(self, *args, **kw):
+        saved[2](self, *args, **kw)
+        runs.runners.append(self)
+
+    eng.Engine.submit = submitting(saved[0])
+    paged.PagedEngine.submit = submitting(saved[1])
+    graphs.ChunkRunner.__init__ = making
+    try:
+        yield runs
+    finally:
+        (eng.Engine.submit, paged.PagedEngine.submit,
+         graphs.ChunkRunner.__init__) = saved
+
+
+@contextlib.contextmanager
+def eager_chunks():
+    """Every decode chunk, verify step and spec chunk in the block runs op
+    by op (the eager function its graph is captured from) on the staged
+    inputs."""
+    from mxq_tpu_torch.serving import graphs
+    run = graphs.ChunkRunner.run
+    graphs.ChunkRunner.run = graphs.ChunkRunner.eager
+    try:
+        yield
+    finally:
+        graphs.ChunkRunner.run = run
+
+
+def graph_and_eager(torch, kernels, drive) -> dict:
+    """:func:`count_launches` of ``drive``, then of ``drive`` again with
+    every chunk run op by op: the first run's result with ``graphs`` (its
+    runners' captures and replays per key) and ``eager`` (the second run's
+    seconds, and whether its greedy tokens and launch counts equal the
+    first run's)."""
+    with engine_runs() as first:
+        res = count_launches(torch, kernels, drive)
+    with eager_chunks(), engine_runs() as second:
+        again = count_launches(torch, kernels, drive)
+    res["graphs"] = first.graph_counts()
+    res["eager"] = {"seconds": again["seconds"],
+                    "requests": len(second.requests),
+                    "tokens_equal": (first.tokens() == second.tokens()
+                                     and bool(first.requests)),
+                    "launches_equal": again["launches"] == res["launches"]}
+    return res
+
+
+def graph_failures(name, res) -> list:
+    """A run's faults against :func:`graph_and_eager`: tokens or launches
+    unequal to the eager run's, or a runner key never replayed."""
+    counts = [v for r in res["graphs"] for v in r.values()]
+    out = []
+    if not (res["eager"]["tokens_equal"] and res["eager"]["launches_equal"]):
+        out.append(f"{name}: graphs against eager {res['eager']}")
+    if not counts or any(v["replays"] < 1 for v in counts):
+        out.append(f"{name}: chunks not replayed {res['graphs']}")
+    return out
+
+
+def pool_bytes(torch, runner) -> dict:
+    """Bytes of the segments that the CUDA caching allocator holds in
+    ``runner``'s graph pool (``torch.cuda.memory_snapshot``)."""
+    segs = [s for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id", ())) == tuple(runner.pool)]
+    return {"bytes": sum(s["total_size"] for s in segs),
+            "segments": len(segs), "pool": list(runner.pool)}
+
+
 def serve_with_tokens(argv) -> dict:
     """``cli.main(argv)`` (slot engine), with its requests' tokens in uid
     order under ``generated``."""
@@ -1099,7 +1209,8 @@ def serve_with_tokens(argv) -> dict:
 
 
 def layout_serve(layout: str) -> dict:
-    """:data:`CLI_SERVE` with its launch counts and tokens, in a child
+    """:data:`CLI_SERVE` with its launch counts and tokens, and the same
+    run with its chunks op by op (:func:`graph_and_eager`), in a child
     process started with ``MXQ_GEMV_LAYOUT=layout``."""
     here = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run(
@@ -1176,11 +1287,13 @@ def serve_runs(torch, schedulers: list):
     runs, failures = {}, []
 
     def counted(name, need, drive):
-        """Run ``drive`` with its launch counts; fail if a kernel in
-        ``need`` never launched."""
-        runs[name] = res = count_launches(torch, kernels, drive)
+        """Run ``drive`` with its launch counts and again with its chunks
+        op by op (:func:`graph_and_eager`); fail if a kernel in ``need``
+        never launched, or the graphs' run is not the eager run's."""
+        runs[name] = res = graph_and_eager(torch, kernels, drive)
         failures.extend(f"{name}: {k} never launched" for k in need
                         if res["launches"][k] <= 0)
+        failures.extend(graph_failures(name, res))
 
     # the README's main-path command, at the cli's default dtype (float32)
     counted("cli", ("K1", "K4"), lambda: serve_with_tokens(CLI_SERVE))
@@ -1206,6 +1319,7 @@ def serve_runs(torch, schedulers: list):
             ok = ok and res["requests_equal_to_slab"] >= 7
         if not ok:
             failures.append(f"{name}: {res}")
+        failures.extend(graph_failures(name, res))
 
     cfg = llama.LlamaConfig.llama2_7b()
     params = llama.quantize_params_packed(
@@ -1217,9 +1331,10 @@ def serve_runs(torch, schedulers: list):
         return [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                 for n in plens]
 
-    def engine_run(slots, prompts):
+    def engine_run(slots, prompts, **sampling):
         e = eng.Engine(params, cfg, eng.EngineConfig(
-            num_slots=slots, max_len=2048, seed=SEED), device="cuda")
+            num_slots=slots, max_len=2048, seed=SEED, **sampling),
+            device="cuda")
         reqs = [e.submit(p, max_new_tokens=16) for p in prompts]
         t1 = time.monotonic()
         done = e.run()
@@ -1233,6 +1348,7 @@ def serve_runs(torch, schedulers: list):
         return {"prompt_lens": [len(p) for p in prompts],
                 "requests_finished": len(done), "tokens": sum(toks),
                 "tokens_per_sec": sum(toks) / dt, "stats": e.stats(),
+                "graph_pool": pool_bytes(torch, e._graphs),
                 "generated": [list(map(int, r.generated)) for r in reqs]}
 
     # prompts in the 128 (K1), 512 and 2048 (K3) prefill buckets; decode
@@ -1240,8 +1356,9 @@ def serve_runs(torch, schedulers: list):
     # with bfexp at one row: its decode steps launch K6-bfexp 128 times
     # each (32 layers x 4 linears) and K2 never; bfexp is a lossy
     # function, so its greedy tokens' agreement with K2's is only reported
+    eight = prompts_of((100, 400, 1500, 100, 400, 1500))
     counted("engine_slots8", ("K1", "K3", "K4"), lambda: engine_run(
-        8, prompts_of((100, 400, 1500, 100, 400, 1500))))
+        8, eight))
     runs["engine_slots8"].pop("generated")
     one = prompts_of((100,))
     counted("engine_slots1", ("K2", "K4"), lambda: engine_run(1, one))
@@ -1298,20 +1415,20 @@ def serve_runs(torch, schedulers: list):
                       "requests_finished": len(done), "tokens": sum(toks),
                       "tokens_per_sec": sum(toks) / dt, "stats": e.stats()}
 
+    paged_one = [rng.integers(0, cfg.vocab_size, 100).astype(np.int32)]
     counted("paged_slots1", ("K2", "K11"), lambda: paged_run(
-        paged_engine(1), [rng.integers(0, cfg.vocab_size, 100)
-                          .astype(np.int32)])[1])
+        paged_engine(1), paged_one)[1])
+    prefix = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+    prefixed = [np.concatenate([prefix, rng.integers(
+        0, cfg.vocab_size, 32).astype(np.int32)]) for _ in range(8)]
 
     def prefix_run():
         """8 requests sharing a 512-token prefix with distinct 32-token
         tails, then request 0's prompt again on the same engine."""
         e = paged_engine(8)
-        prefix = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
-        prompts = [np.concatenate([prefix, rng.integers(
-            0, cfg.vocab_size, 32).astype(np.int32)]) for _ in range(8)]
-        reqs, res = paged_run(e, prompts)
+        reqs, res = paged_run(e, prefixed)
         hits = e.prefix_hits
-        again, _ = paged_run(e, prompts[:1])
+        again, _ = paged_run(e, prefixed[:1])
         res.update(prefix_pages_hit=hits,
                    pages_saved=hits,
                    prefill_tokens_skipped=hits * e.pool.page_size,
@@ -1385,20 +1502,43 @@ def serve_runs(torch, schedulers: list):
     if runs["cli_a8_u4"]["tokens"] != 8 * 16:
         failures.append(f"cli serve --prefill_a8 --lm_head_bits 4 gave "
                         f"{runs['cli_a8_u4']['tokens']} tokens")
+    # sampling (temperature 0.8, top_k 40) from a fixed seed: the replayed
+    # chunks draw the same tokens in two runs (gated) and, the warm-up
+    # having left the generator where it was, the tokens of the same run
+    # made op by op (reported)
+    sampled_prompts = prompts_of((100,) * 8)
+
+    def sampled_tokens():
+        return engine_run(8, sampled_prompts, greedy=False, temperature=0.8,
+                          top_k=40)["generated"]
+    first = sampled_tokens()
+    second = sampled_tokens()
+    with eager_chunks():
+        eager = sampled_tokens()
+    sampling = {"temperature": 0.8, "top_k": 40, "seed": SEED,
+                "tokens": sum(map(len, first)),
+                "same_tokens_twice": first == second,
+                "requests_equal_to_eager": sum(
+                    a == b for a, b in zip(first, eager))}
+    if not sampling["same_tokens_twice"]:
+        failures.append(f"sampled engine: {sampling}")
     launches = {k: sum(r["launches"][k] for r in runs.values())
                 for k in kernels}
     # K6-bfexp's wrapper launches bfexp_row_kernel at one row, which only
     # engine_slots1_bfexp runs, and the tensor-core template at B >= 2
     launches["K6-bfexp-1"] = n6
     launches["K6-bfexp"] -= n6
-    # the two engines' decode steps and one speculative verify round,
-    # wall-clocked in turns (the host's speed drifts between seconds),
-    # then profiled
+    # the two engines' decode steps and one speculative verify round, each
+    # op by op and replayed from a CUDA graph, wall-clocked in turns (the
+    # host's speed drifts between seconds), then profiled
     slots = {"slot": 8, "slot1": 1, "paged": 8, "spec": 8}
-    step_fns = {"slot": slot_step(torch, params, cfg),
-                "slot1": slot_step(torch, params, cfg, b=1),
-                "paged": paged_step(torch, params, cfg),
-                "spec": verify_step(torch, params, cfg)}
+    step_fns = {}
+    for k, fns in (("slot", slot_step(torch, params, cfg)),
+                   ("slot1", slot_step(torch, params, cfg, b=1)),
+                   ("paged", paged_step(torch, params, cfg)),
+                   ("spec", slot_step(torch, params, cfg, t=5))):
+        step_fns[k], step_fns[k + "_graph"] = fns
+        slots[k + "_graph"] = slots[k]
     walls = {k: [] for k in step_fns}
     for _ in range(3):
         for k, fn in step_fns.items():
@@ -1418,8 +1558,8 @@ def serve_runs(torch, schedulers: list):
             or not replay["equal"]):
         failures.append(f"serve scheduler: {engines}")
     emit({"phase": "serve", **runs, "launches_total": launches,
-          "decode_step_profile": profile, "prefill_profile": prefill,
-          "scheduler": engines})
+          "sampling": sampling, "decode_step_profile": profile,
+          "prefill_profile": prefill, "scheduler": engines})
     return launches, failures
 
 
@@ -1479,51 +1619,59 @@ def spec_against_decode(torch, params, cfg, prompts, tokens) -> dict:
             "verify_rel_vs_decode": gap}
 
 
-def slot_step(torch, params, cfg, b=8, pos=1000):
+def step_pair(torch, body, b, pos, t=1):
+    """``body(positions)`` as a step ``step(i)`` at rows ``pos + t*i``,
+    twice: op by op, and replayed from a CUDA graph captured on its first
+    call, its positions staged from the host as the engines stage theirs
+    (``serving/graphs.py``)."""
+    import numpy as np
+    from mxq_tpu_torch.serving import graphs
+
+    start = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+    runner = graphs.ChunkRunner(torch.device("cuda"))
+
+    def replayed(i):
+        runner.stage("step", positions=np.full(b, pos + t * i, np.int32))
+        return runner.run("step", body)
+
+    return (lambda i: body(start + t * i)), replayed
+
+
+def slot_step(torch, params, cfg, b=8, pos=1000, t=1):
     """One decode step of the slot engine (``llama.decode_slots``) for
-    ``b`` slots at cache row ``pos + i``, int8 cache."""
+    ``b`` slots at cache row ``pos + i``, int8 cache; with ``t`` > 1 one
+    speculative verify round (T = 5: K1 at 40 rows, K4a once per layer for
+    all 5 tokens) at rows ``pos + t*i ..``. (op by op, replayed):
+    :func:`step_pair`."""
     from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ops import attn_int8
     from mxq_tpu_torch.serving import kvcache
 
     cache = kvcache.init_quant_cache(cfg.num_hidden_layers, b, 2048,
                                      cfg.num_key_value_heads, cfg.head_dim,
                                      device="cuda")
-    toks = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
-    start = torch.full((b,), pos, dtype=torch.int32, device="cuda")
-    return lambda i: llama.decode_slots(params, toks, cfg, cache, start + i)
-
-
-def verify_step(torch, params, cfg, b=8, pos=1000, t=5):
-    """One speculative verify round of the slot engine
-    (``llama.decode_slots`` with T=5 tokens per slot: K1 at 40 rows, K4a
-    once per layer for all 5 tokens) for ``b`` slots at cache rows
-    ``pos + t*i ..``, int8 cache."""
-    from mxq_tpu_torch.models import llama
-    from mxq_tpu_torch.serving import kvcache
-
-    cache = kvcache.init_quant_cache(cfg.num_hidden_layers, b, 2048,
-                                     cfg.num_key_value_heads, cfg.head_dim,
-                                     device="cuda")
+    attn_int8.reserve_tickets(b * cfg.num_key_value_heads, "cuda")
     toks = torch.zeros((b, t), dtype=torch.int32, device="cuda")
-    start = torch.full((b,), pos, dtype=torch.int32, device="cuda")
-    return lambda i: llama.decode_slots(params, toks, cfg, cache,
-                                        start + t * i)
+    return step_pair(torch, lambda positions: llama.decode_slots(
+        params, toks, cfg, cache, positions), b, pos, t)
 
 
 def paged_step(torch, params, cfg, b=8, pos=1000):
     """One decode step of the paged engine (``paged.paged_decode_step``,
     K11 per layer) for ``b`` slots at row ``pos + i``, int8 pool, each slot
-    holding 16 pages of 128 rows."""
+    holding 16 pages of 128 rows. (op by op, replayed): :func:`step_pair`."""
+    from mxq_tpu_torch.ops import attn_int8
     from mxq_tpu_torch.serving import paged
 
     pool = paged.PagedPool.create(cfg, b, 1 + 16 * b, page_size=128,
                                   max_len=2048, kv_bits=8, device="cuda")
+    attn_int8.reserve_tickets(b * cfg.num_key_value_heads, "cuda")
     tables = (1 + torch.arange(16 * b, dtype=torch.int32,
                                device="cuda")).reshape(b, 16)
     toks = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
-    start = torch.full((b,), pos, dtype=torch.int32, device="cuda")
-    return lambda i: paged.paged_decode_step(
-        params, pool.k_pages, pool.v_pages, toks, start + i, tables, cfg)
+    return step_pair(torch, lambda positions: paged.paged_decode_step(
+        params, pool.k_pages, pool.v_pages, toks, positions, tables,
+        cfg)[0], b, pos)
 
 
 def prefill_profile(torch, params, cfg, t=2048, rounds=3) -> dict:
@@ -1633,11 +1781,20 @@ def wall_ms(torch, step, steps=8) -> float:
 def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
     """Where a decode step's time goes: ``step(i)`` is one full-model decode
     step for ``b`` slots at row ``pos + i``; ``walls`` its host-clock ms
-    per step from :func:`wall_ms`, without the profiler. Device time per
-    kernel from torch.profiler, K1's and K2's kernels summed by name;
-    idle share = 1 - device busy / median wall."""
+    per step from :func:`wall_ms`, without the profiler. The CUDA-event
+    span per step over ``steps`` steps (the device timeline, gaps where
+    the host lags included); device time per kernel from torch.profiler,
+    K1's and K2's kernels summed by name; idle share = 1 - device busy /
+    median wall."""
     from torch.profiler import ProfilerActivity, profile
 
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(steps):
+        step(i)
+    e1.record()
+    e1.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(steps):
@@ -1651,6 +1808,7 @@ def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
               for names in (K1_KERNEL_NAMES, K2_KERNEL_NAMES))
     return {"slots": b, "position": pos, "wall_ms_per_step": wall,
             "wall_ms_per_step_rounds": walls,
+            "event_ms_per_step": e0.elapsed_time(e1) / steps,
             "device_busy_ms_per_step": busy,
             "idle_share": 1.0 - busy / wall if wall else None,
             "k1_ms_per_step": k1, "k1_share_of_busy": k1 / busy,
@@ -3931,8 +4089,8 @@ def main(argv=None) -> int:
     if args.serve_child:
         from mxq_tpu_torch.serving import engine as eng
         with engines_recorded(eng, []) as schedulers:
-            res = count_launches(torch, all_kernels(),
-                                 lambda: serve_with_tokens(CLI_SERVE))
+            res = graph_and_eager(torch, all_kernels(),
+                                  lambda: serve_with_tokens(CLI_SERVE))
         emit(dict(res, schedulers=schedulers))
         return 0
     if args.parallel_child:

@@ -47,21 +47,49 @@ NEG = torch.finfo(torch.float32).min
 CHUNK = 128      # history rows per block of the kernels (attn_split.cuh)
 QMAX = 64        # query rows per (batch, kv head) the kernels take
 _TICKETS: dict = {}
+_RETIRED: list = []
+
+
+def _capturing(device: torch.device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def reserve_tickets(n: int, device) -> torch.Tensor:
+    """The int32 tickets that the last block of each (batch, kv head)
+    counts with and leaves at 0: one zeroed buffer per device, shared by
+    every call on it (the calls of one stream run in order, and a graph's
+    replays too, since the kernels leave it at 0), holding at least ``n``
+    pairs. An engine reserves its slots x kv heads before it captures a
+    graph: a captured call must not grow the buffer, and raises if it
+    would. A buffer outgrown outside a capture stays allocated, since a
+    graph may hold it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    tickets = _TICKETS.get(device)
+    if tickets is not None and tickets.numel() >= n:
+        return tickets
+    if _capturing(device):
+        raise RuntimeError(
+            f"attention tickets: a call of {n} (batch, kv head) pairs while "
+            f"a CUDA graph is captured would outgrow the "
+            f"{0 if tickets is None else tickets.numel()} reserved; reserve "
+            "them before the capture (reserve_tickets)")
+    if tickets is not None:
+        _RETIRED.append(tickets)
+    tickets = _TICKETS[device] = torch.zeros(n, dtype=torch.int32,
+                                             device=device)
+    return tickets
 
 
 def _split_scratch(b, hkv, nq, nsplit, d, device):
     """The kernels' f32 scratch (scores, split maxima, current-token
     logits, partial contexts and denominators of ``nq`` query rows per
     (batch, kv head) over ``nsplit`` splits, as ``attn_split::carve`` cuts
-    it) and the int32 tickets the last block of each (batch, kv head)
-    counts with and leaves at 0: one zeroed buffer per device, shared by
-    every call on it (the calls of one stream run in order)."""
+    it) and the tickets of :func:`reserve_tickets`."""
+    tickets = reserve_tickets(b * hkv, device)
     ws = torch.empty(b * hkv * nq * (nsplit * (CHUNK + d + 2) + 1),
                      dtype=torch.float32, device=device)
-    tickets = _TICKETS.get(device)
-    if tickets is None or tickets.numel() < b * hkv:
-        tickets = _TICKETS[device] = torch.zeros(
-            b * hkv, dtype=torch.int32, device=device)
     return ws, tickets
 
 

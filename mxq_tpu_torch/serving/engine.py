@@ -8,11 +8,15 @@ the others keep decoding. Device work:
   * decode chunks of ``horizon`` steps for every slot at once, each slot
     writing its KV at its own position.
 
-The run loop is pipelined: chunk k+1 is dispatched before chunk k's tokens
-are read, its input tokens chained on the device from chunk k's output.
-Tokens reach the host through non-blocking copies into pinned memory,
-each with a CUDA event, so reading chunk k never waits for chunk k+1.
-Sampling draws from a ``torch.Generator`` seeded with ``EngineConfig.seed``.
+On the card each decode chunk is a CUDA graph, captured once per horizon
+and replayed (``serving/graphs.py``; ``mxq_tpu`` jits it), its host inputs
+staged through pinned buffers; :meth:`Engine._decode_chunk` is the eager
+chunk it is captured from, and what runs on the CPU. The run loop is
+pipelined: chunk k+1 is dispatched before chunk k's tokens are read, its
+input tokens chained on the device from chunk k's output. Tokens reach the
+host through non-blocking copies into pinned memory, each with a CUDA
+event, so reading chunk k never waits for chunk k+1. Sampling draws from a
+``torch.Generator`` seeded with ``EngineConfig.seed``.
 Slots are admitted and retired by the C++ scheduler
 (``runtime/native.py``, built with g++ on first use; a failed build
 raises, there is no fallback); :class:`_PyScheduler` is its plain
@@ -33,9 +37,10 @@ import torch
 
 from mxq_tpu_torch import resolve_device
 from mxq_tpu_torch.models import llama
-from mxq_tpu_torch.ops import uniform4
+from mxq_tpu_torch.ops import attn_int8, uniform4
 from mxq_tpu_torch.runtime import native
 from mxq_tpu_torch.scheme import div_const
+from mxq_tpu_torch.serving import graphs
 
 NEG = torch.finfo(torch.float32).min
 
@@ -93,13 +98,17 @@ def sample_token(logits: torch.Tensor, generator: torch.Generator,
                  greedy: bool, temperature: float, top_k: int,
                  top_p: float) -> torch.Tensor:
     """Next token [B] int32 from [B, V] logits: argmax when greedy (or
-    top_k == 1), else a draw from the filtered distribution."""
+    top_k == 1), else a draw from the filtered distribution: the argmax of
+    probs / E with E ~ Exp(1), which is how ``torch.multinomial`` draws one
+    sample (the same numbers from the same generator), without its check
+    of the probabilities on the host, which a captured graph cannot
+    make."""
     if greedy or top_k == 1:
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(filter_logits(logits, temperature, top_k, top_p),
                           dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    e = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / e, dim=-1).to(torch.int32)
 
 
 class _PyScheduler:
@@ -173,7 +182,9 @@ def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 
 class _HostCopy:
     """A device tensor on its way to the host: a non-blocking copy into
-    pinned memory and an event, so reading it waits for this copy only."""
+    pinned memory and an event, so reading it waits for this copy only. It
+    is taken in stream order, before the next chunk overwrites ``t``; on
+    the CPU it is a copy made at once."""
 
     def __init__(self, t: torch.Tensor):
         if t.device.type == "cuda":
@@ -182,7 +193,7 @@ class _HostCopy:
             self._event = torch.cuda.Event()
             self._event.record()
         else:
-            self._host, self._event = t, None
+            self._host, self._event = t.clone(), None
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
@@ -228,6 +239,9 @@ class Engine:
         self._pending_first = {}                 # slot -> (device, _HostCopy)
         self._stream_buf = None                  # set by stream()
         self._gen = torch.Generator(device=dev).manual_seed(ecfg.seed)
+        # the decode chunks, and every verify step of speculative decoding
+        self._graphs = graphs.ChunkRunner(dev, self._gen)
+        attn_int8.reserve_tickets(b * cfg.num_key_value_heads, dev)
         # speculative-decoding accounting (filled by serving/spec.py):
         # rounds = verify rounds, accepted = tokens emitted, dispatches =
         # spec chunks (run_spec: verify steps) sent to the device
@@ -273,6 +287,15 @@ class Engine:
             out.append(nxt)
             toks = nxt[:, None]
         return torch.stack(out)
+
+    def _run_chunk(self, key, fn):
+        """``fn`` on the inputs staged for chunk ``key``
+        (``self._graphs.stage``): replayed as a CUDA graph on the card, or
+        op by op over a rank's sharded step, whose collectives are not
+        captured."""
+        if self.ops is llama.WHOLE:
+            return self._graphs.run(key, fn)
+        return self._graphs.eager(key, fn)
 
     def _prefill(self, ids: np.ndarray, length: int, offset: int,
                  slot: int) -> torch.Tensor:
@@ -422,16 +445,18 @@ class Engine:
             use_chain = (fl["active"] & active
                          & (fl["gen"] == self._admit_gen))
         else:
-            chained = torch.zeros((b,), dtype=torch.int32, device=self.device)
+            chained = np.zeros(b, np.int32)
             use_chain = np.zeros(b, bool)
-        host_toks = to_device(self._last_tok, self.device)
+        key = ("decode", horizon)
+        ins = self._graphs.stage(key, chained=chained,
+                                 host_toks=self._last_tok,
+                                 use_chain=use_chain, positions=self._pos,
+                                 active=active)
         for s, (fd, _) in self._pending_first.items():
             if self._slot_uid[s] is not None:
-                host_toks[s] = fd                    # device to device
-        toks = self._decode_chunk(
-            chained, host_toks, to_device(use_chain, self.device),
-            to_device(self._pos, self.device),
-            to_device(active, self.device), horizon)
+                ins["host_toks"][s] = fd             # device to device
+        toks = self._run_chunk(key, functools.partial(self._decode_chunk,
+                                                      horizon=horizon))
         snap = dict(toks=toks, host=_HostCopy(toks), active=active,
                     gen=self._admit_gen.copy(), uids=list(self._slot_uid),
                     horizon=horizon)

@@ -20,12 +20,16 @@ through kernel K11 (``ops.attn_int8.int8_paged_decode_attend_update``),
 once per layer per token; ``paged_attend`` on an int8 pool goes through
 K9. The bf16 pool, for which the JAX version calls upstream Pallas
 ``paged_attention`` on the TPU, is gathered and attended with masked
-einsum attention, its reference path.
+einsum attention, its reference path. On the card each decode chunk of
+:class:`PagedEngine` is a CUDA graph captured once per horizon and replayed
+(``serving/graphs.py``), with the page tables, lengths and masks as its
+staged inputs; the host allocates the chunk's pages before it stages them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import math
 import time
@@ -38,7 +42,7 @@ from mxq_tpu_torch import resolve_device
 from mxq_tpu_torch.models import llama
 from mxq_tpu_torch.ops import attn_int8
 from mxq_tpu_torch.scheme import div_const
-from mxq_tpu_torch.serving import kvcache
+from mxq_tpu_torch.serving import graphs, kvcache
 from mxq_tpu_torch.serving.engine import (NEG, Request, _HostCopy,
                                           sample_token, to_device)
 
@@ -434,6 +438,8 @@ class PagedEngine:
         self._gen = torch.Generator(device=dev).manual_seed(seed)
         self.pool = PagedPool.create(cfg, num_slots, total_pages, page_size,
                                      max_len, kv_bits=kv_bits, device=dev)
+        self._graphs = graphs.ChunkRunner(dev, self._gen)
+        attn_int8.reserve_tickets(num_slots * cfg.num_key_value_heads, dev)
         self.num_slots = num_slots
         self.prefill_bucket = prefill_bucket
         self.slot_req = [None] * num_slots
@@ -562,21 +568,31 @@ class PagedEngine:
             use_chain = (fl["active"] & active
                          & (fl["gen"] == self._admit_gen))
         else:
-            chained = torch.zeros((b,), dtype=torch.int32, device=self.device)
+            chained = np.zeros(b, np.int32)
             use_chain = np.zeros(b, bool)
-        dev = self.device
-        toks, _, _ = paged_decode_chunk(
-            self.params, self.pool.k_pages, self.pool.v_pages, chained,
-            to_device(self._last_tok, dev), to_device(use_chain, dev),
-            to_device(self.pool.lengths.astype(np.int32), dev),
-            to_device(active, dev), to_device(self.pool.page_tables, dev),
-            self._gen, self.cfg, horizon, sample=self.sample)
+        key = ("decode", horizon)
+        self._graphs.stage(key, chained=chained, host_toks=self._last_tok,
+                           use_chain=use_chain,
+                           positions=self.pool.lengths.astype(np.int32),
+                           active=active, page_tables=self.pool.page_tables)
+        toks = self._graphs.run(key, functools.partial(self._decode_chunk,
+                                                       horizon=horizon))
         snap = dict(toks=toks, host=_HostCopy(toks), active=active,
                     gen=self._admit_gen.copy(), reqs=list(self.slot_req),
                     horizon=horizon)
         for s in np.where(active)[0]:
             self.pool.lengths[s] += horizon
         return snap
+
+    def _decode_chunk(self, chained, host_toks, use_chain, positions, active,
+                      page_tables, horizon: int) -> torch.Tensor:
+        """:func:`paged_decode_chunk` over the engine's pool: the eager
+        chunk that the graph of each horizon is captured from. Returns
+        tokens [horizon, B] on the device."""
+        return paged_decode_chunk(
+            self.params, self.pool.k_pages, self.pool.v_pages, chained,
+            host_toks, use_chain, positions, active, page_tables, self._gen,
+            self.cfg, horizon, sample=self.sample)[0]
 
     def _process_inflight(self) -> list:
         fl = self._inflight

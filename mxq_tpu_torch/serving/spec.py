@@ -19,7 +19,10 @@ Two loops: :func:`run_spec_pipelined` drafts, verifies and accepts
 chunk, and chains chunk k+1 before it reads chunk k (the engine's
 pipelined pattern, through ``_HostCopy``); it falls back to the engine's
 plain chunks while the acceptance EMA is below the breakeven. :func:`run_spec`
-is the synchronous oracle and the near-cache-end fallback.
+is the synchronous oracle and the near-cache-end fallback. On the card both
+go through the engine's CUDA graphs (``serving/graphs.py``): a spec chunk
+is captured once per (draft length, rounds, n-gram) with the device state
+as its staged inputs, a verify step once per token count.
 """
 
 from __future__ import annotations
@@ -185,7 +188,6 @@ def run_spec_pipelined(engine: "eng.Engine", draft_len: int = 4,
     done: list = []
     b = engine.ecfg.num_slots
     max_len = engine.ecfg.max_len
-    dev = engine.device
     d = draft_len
     worst = rounds * (d + 1)
     if min_accept is None:
@@ -234,6 +236,10 @@ def run_spec_pipelined(engine: "eng.Engine", draft_len: int = 4,
                         retired = True
                         break
         return retired
+
+    def chunk(hist, hist_len, pos, last_tok, active):
+        return _spec_chunk(engine, (hist, hist_len, pos, last_tok), active,
+                           d, rounds, ngram)
 
     state = None       # device-chained (hist, hist_len, pos, last_tok)
     state_uids = None  # slot occupancy the chained state was built for
@@ -292,8 +298,12 @@ def run_spec_pipelined(engine: "eng.Engine", draft_len: int = 4,
                      and all(pos_bound[s] + worst <= max_len - 1
                              for s in np.where(active)[0]))
         if can_chain:
-            state, toks, nacc = _spec_chunk(
-                engine, state, eng.to_device(active, dev), d, rounds, ngram)
+            key = ("spec", d, rounds, ngram)
+            engine._graphs.stage(key, hist=state[0], hist_len=state[1],
+                                 pos=state[2], last_tok=state[3],
+                                 active=active)
+            # the next chunk stages this state before it runs: no clone
+            state, toks, nacc = engine._run_chunk(key, chunk)
             snap = dict(toks=eng._HostCopy(toks), nacc=eng._HostCopy(nacc),
                         uids=list(engine._slot_uid))
             for s in np.where(active)[0]:
@@ -334,9 +344,8 @@ def run_spec_pipelined(engine: "eng.Engine", draft_len: int = 4,
             state = None
             continue
         hist, hist_len = _build_hist(engine, HIST_WINDOW)
-        state = tuple(eng.to_device(a, dev) for a in (
-            hist, hist_len, engine._pos.astype(np.int32),
-            engine._last_tok.astype(np.int32)))
+        state = (hist, hist_len, engine._pos.astype(np.int32),
+                 engine._last_tok.astype(np.int32))
         state_uids = list(engine._slot_uid)
         pos_bound = engine._pos.astype(int).copy()
     return done
@@ -355,7 +364,6 @@ def run_spec(engine: "eng.Engine", draft_len: int = 4,
     engine._flush_pending_first(done)
     b = engine.ecfg.num_slots
     max_len = engine.ecfg.max_len
-    dev = engine.device
     while engine._active_mask().any() or engine._sched.pending > 0:
         active = engine._active_mask()
         if not active.any():
@@ -375,11 +383,11 @@ def run_spec(engine: "eng.Engine", draft_len: int = 4,
             if d_eff:
                 drafts[s] = ngram_draft(hist, ngram, d_eff)
         toks = np.concatenate([engine._last_tok[:, None], drafts], axis=1)
-        preds = engine._verify(
-            eng.to_device(toks, dev),
-            eng.to_device(np.where(active, engine._pos, 0).astype(np.int32),
-                          dev),
-            eng.to_device(active, dev)).cpu().numpy()   # [B, d_eff+1]
+        key = ("verify", d_eff + 1)
+        engine._graphs.stage(
+            key, toks=toks, active=active,
+            positions=np.where(active, engine._pos, 0).astype(np.int32))
+        preds = engine._run_chunk(key, engine._verify).cpu().numpy()
         now = time.monotonic()
         engine._spec_stats["dispatches"] += 1
         for s in act_idx:

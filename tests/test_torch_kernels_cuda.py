@@ -481,3 +481,71 @@ def test_fake_quants_on_the_card_equal_the_cpu(gen, name):
         card, host = (card,), (host,)
     for c, h in zip(card, host):
         assert torch.equal(c.cpu(), h)
+
+
+@pytest.fixture(scope="module")
+def llama7b_2():
+    """llama2_7b's widths at 2 layers, packed, random weights from seed 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import dataclasses
+
+    from mxq_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(),
+                              num_hidden_layers=2)
+    params = llama.quantize_params_packed(
+        llama.init_params(cfg, 0, torch.bfloat16, "cuda"), cfg,
+        device="cuda")
+    return cfg, params
+
+
+def _drive(kind, cfg, params):
+    """One engine of ``kind`` over six 40-token prompts (a 16-token
+    pattern repeated for the speculative run): its tokens and its runner."""
+    import numpy as np
+
+    from mxq_tpu_torch.serving import engine as eng
+    from mxq_tpu_torch.serving import paged, spec
+    rng = np.random.default_rng(0)
+    pattern = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+    prompts = ([np.roll(np.tile(pattern, 3)[:40], i) for i in range(6)]
+               if kind == "spec" else
+               [rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+                for _ in range(6)])
+    if kind == "paged":
+        e = paged.PagedEngine(params, cfg, num_slots=4, total_pages=9,
+                              max_len=256, kv_bits=8, device="cuda")
+    else:
+        e = eng.Engine(params, cfg, eng.EngineConfig(
+            num_slots=1 if kind == "slot1" else 4, max_len=256,
+            prefill_buckets=(128,)), device="cuda")
+    reqs = [e.submit(p, max_new_tokens=12) for p in prompts]
+    if kind == "spec":
+        spec.run_spec_pipelined(e, auto_disable=False)
+    else:
+        e.run()
+    torch.cuda.synchronize()
+    return [list(map(int, r.generated)) for r in reqs], e._graphs
+
+
+@pytest.mark.parametrize("kind", ["slot4", "slot1", "paged", "spec"])
+def test_replayed_chunks_equal_eager(llama7b_2, kind, monkeypatch):
+    """The engines' decode chunks replayed as CUDA graphs give the greedy
+    tokens and the kernel launches of the same run made op by op (the
+    runner's eager path), at llama2_7b's widths and 2 layers."""
+    from mxq_tpu_torch.serving import graphs
+    runs = {}
+    for mode in ("graphs", "eager"):
+        if mode == "eager":
+            monkeypatch.setattr(graphs.ChunkRunner, "run",
+                                graphs.ChunkRunner.eager)
+        for f in graphs.kernel_wrappers():
+            f.launches = 0
+        tokens, runner = _drive(kind, *llama7b_2)
+        runs[mode] = (tokens, [f.launches for f in graphs.kernel_wrappers()],
+                      dict(runner.replays))
+    (tokens, launches, replays), (want, want_launches, _) = (
+        runs["graphs"], runs["eager"])
+    assert tokens == want
+    assert launches == want_launches and sum(launches) > 0
+    assert replays and all(n > 0 for n in replays.values())
