@@ -9,13 +9,17 @@ Phases, each printing one JSON line:
            and runtime/csrc/mxq_runtime.cc with g++ beside them
   kernels  hold K1-K6, K4a-K4d (K4a also with a verify's 5 query tokens
            in one launch, and with llama2_70b's G = 8 at 9 tokens: two
-           launches of at most 64 query rows), K7, K8 and K9-K11 against
+           launches of at most 64 query rows), K7, K8, K9-K11, K12 (bf16
+           paged decode, 64-row pages, a NaN null page, bf16 and float32
+           q) and K13 (causal attention from position 0 at T = 512 and
+           2048, llama2_70b's G = 8, float32 inputs; and the yardsticks of
+           its backward, K13-bwd, not ported) against
            their plain PyTorch versions at llama2_7b's shapes and time
            kernel, plain version, bound and library call; K1 at 8, 40
            and 128 rows, K6 at 8, 1, 40 and 128; K7 at 1, 8, 40,
            128 and 2048 rows, K8 at 8 and 128; and trace K4's gap to its
            plain version to pass A's scores (``K4-gap``)
-  serve    thirteen runs of llama2_7b at full depth, each with the launch
+  serve    fourteen runs of llama2_7b at full depth, each with the launch
            counts set to 0 before it and read after it, and each made
            twice: with every decode chunk, verify step and spec chunk
            replayed from its CUDA graph (serving/graphs.py), and op by op
@@ -29,7 +33,9 @@ Phases, each printing one JSON line:
            prompts in every prefill bucket (K1, K3, K4), a one-slot Engine
            (K2, K4), the same with MXQ_GEMV_LAYOUT_B1=bfexp (K6-bfexp at
            one row, no K2; its greedy tokens' agreement with the K2 run
-           reported); the same cli serve with --paged (K1, K11), a one-slot
+           reported); the same cli serve with --paged (K1, K11), and with
+           --paged --kv_bits 32 (bf16 pages: K1, K12, 32 launches a decode
+           substep), a one-slot
            PagedEngine (K2, K11), and a PagedEngine whose 8 requests share
            a 512-token prefix (prefix-cache hits, a repeated request's
            tokens equal to its first run's); cli serve --spec_decode (K1,
@@ -38,7 +44,9 @@ Phases, each printing one JSON line:
            every spec token plain decode's greedy choice but where that
            leads it by less than the verify round's limit against decode
            (teacher-forced along the spec tokens); cli serve --prefill_a8
-           --lm_head_bits 4 with 600-token prompts (K1, K4, K5, K7); the
+           --lm_head_bits 4 with 600-token prompts (K1, K4, K5, K7); every
+           run's position-0 prefills of 128+ tokens attend through K13 (one
+           launch a layer), which each run must launch; the
            8-slot Engine's graph pool bytes; a sampled Engine (temperature
            0.8, top_k 40) from a fixed seed twice, equal tokens; then
            where a decode step's time goes, slot (8 slots and one) and
@@ -73,8 +81,10 @@ Phases, each printing one JSON line:
            step at 1 layer and 128 tokens on the card against the CPU;
            `cli generate-data --layers 4`: every greedy-prefix token the
            argmax of a no-cache recompute; where a train step's device
-           time goes. No repo kernel runs on this path (training holds
-           dense weights)
+           time goes. Training holds dense weights: of the repo's kernels
+           only K13 runs, in the KD teacher's forward and the validation
+           (no autograd); the student's attention, under autograd, is
+           PyTorch's SDPA until flash attention's backward is ported
   tasks    task evaluation (eval/harness.py) of llama2_7b at full depth:
            the packed model scores a synthetic multiple-choice task of
            random-token documents (no task data or tokenizer is in the
@@ -90,12 +100,15 @@ Phases, each printing one JSON line:
            eval-tasks --w_bits 2` on the dense model (no repo kernel).
            Alone: `python3 chip_smoke.py --phases build,tasks`
   e2e      at 2 layers of 7B width, one B=8 decode step and one 512-token
-           prefill with the kernels, held against the same forward with
-           the plain versions on the card and against the CPU; one B=8
+           prefill (K13) with the kernels, held against the same forward
+           with the plain versions on the card (K13 kept, then K13's plain
+           version too) and against the CPU, beside the same prefill with
+           SDPA in K13's place; one B=8
            paged decode step (K11) against the same step with the plain
            versions and against the slot engine's step from the same
-           int8 state; the int8-activation prefill (K5), a decode step
-           with the uniform-4b head (K7), a T=5 verify step (K4a)
+           int8 state, and from a bf16 pool of the same rows (K12) against
+           the plain versions; the int8-activation prefill (K5), a decode
+           step with the uniform-4b head (K7), a T=5 verify step (K4a)
            against five decode steps, and a decode step and a 128-row
            forward in each K6 layout
   parallel `cli train` (3 steps) unsharded and, under torchrun at world
@@ -252,6 +265,21 @@ KERNEL_INFO = {
             "mxq_tpu/ops/attn_int8.py:658"),
     "K11": ("cuda", "mxq_tpu_torch/csrc/paged_attn_int8.cu",
             "mxq_tpu/ops/attn_int8.py:773"),
+    # the two upstream Pallas kernels mxq_tpu calls: paged_attend's bf16
+    # pool (paged_attention_kernel.py:376, pallas_call :628) and
+    # attention's use_flash (flash_attention.py:140, forward :758)
+    "K12": ("cuda", "mxq_tpu_torch/csrc/paged_attn_bf16.cu",
+            "mxq_tpu/serving/paged.py:265"),
+    "K13": ("cuda", "mxq_tpu_torch/csrc/flash_attn.cu",
+            "mxq_tpu/models/llama.py:383"),
+    # K12 with float32 q (the float32 model's decode step)
+    "K12-f32": ("cuda", "mxq_tpu_torch/csrc/paged_attn_bf16.cu",
+                "mxq_tpu/serving/paged.py:265"),
+    # K13 at llama2_70b's G = 8, and with float32 inputs (split products)
+    "K13-g8": ("cuda", "mxq_tpu_torch/csrc/flash_attn.cu",
+               "mxq_tpu/models/llama.py:383"),
+    "K13-f32": ("cuda", "mxq_tpu_torch/csrc/flash_attn.cu",
+                "mxq_tpu/models/llama.py:383"),
 }
 
 
@@ -265,21 +293,27 @@ K1_KERNEL_NAMES = ("permute_x_kernel", "gemv_small_kernel",
 K2_KERNEL_NAMES = ("gemv_row_kernel", "gemv_row_sum_kernel")
 # K5's (csrc/mxq_dequant.cu: the bound, then the codes)
 K5_KERNEL_NAMES = ("k5_scale_kernel", "k5_codes_kernel")
+# K13's (csrc/flash_attn.cu); listed before the library's attention,
+# whose kernels' names also hold "flash"
+K13_KERNEL_NAMES = ("flash_kernel<",)
 # the A8 prefill's device time by kind, first match by name; the rest is
 # "other": PyTorch's elementwise ops, copies and reductions
 PREFILL_GROUPS = (("K5", K5_KERNEL_NAMES),
                   ("K7", ("uniform_small_kernel", "uniform_large_kernel")),
+                  ("K13", K13_KERNEL_NAMES),
                   ("attention (library)", ("flash", "fmha", "attention")),
                   ("GEMM (library)", ("gemm", "cutlass", "xmma")))
 
 # a loglikelihood batch's device time by kind (the tasks phase), first
 # match by name
 TASK_GROUPS = (("K1", K1_KERNEL_NAMES), ("K3", ("mxq_dequant_kernel",)),
+               ("K13", K13_KERNEL_NAMES),
                ("attention (library)", ("flash", "fmha", "attention")),
                ("GEMM (library)", ("gemm", "cutlass", "xmma", "nvjet")))
 
 # summary rows counted by another kernel's wrapper
-COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a"}
+COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a", "K13-g8": "K13",
+           "K13-f32": "K13", "K12-f32": "K12"}
 
 
 def emit(obj) -> None:
@@ -491,6 +525,7 @@ def phase_kernels(torch, timer):
         (kcur, kscur, vcur, vscur), idx, positions)
     del kc, vc
     failures += paged_kernels(torch, timer, gen, rows, summary)
+    failures += bf16_kernels(torch, timer, gen, rows, summary)
     failures += uniform_kernels(torch, timer, gen, rows, summary)
     return summary, failures
 
@@ -1062,12 +1097,185 @@ def paged_kernels(torch, timer, gen, rows, summary):
     return failures
 
 
+def bf16_kernels(torch, timer, gen, rows, summary):
+    """K12 and K13 against their plain versions (ops/attn_bf16.py).
+
+    K12 at ``paged_kernels``' shapes and positions with the bf16 pool of
+    ``cli serve --kv_bits 32``: B=8, Hq=Hkv=32, D=128, pages of 64 rows,
+    32 pages a sequence, shuffled tables with the null page 0 past each
+    length. The kernel reads a pool whose null page is NaN (a stray read
+    shows); the plain version, which gathers every page of the table,
+    reads the same pool with the null page zeroed. With bf16 q (row K12)
+    the gate is 1e-2 of max|ctx| (the bf16 output: about one ulp); with
+    float32 q (row K12-f32, the float32 model's decode step, as in
+    ``cli serve --kv_bits 32``) 1e-5, since both sides compute in f32
+    and only the summation order differs (8.5e-8 measured), where a
+    kernel that rounded q or the probabilities to bf16 would carry
+    bf16's relative rounding of up to 2^-9 = 2e-3.
+    Library: SDPA over the gathered pages with the length mask (q in
+    bf16).
+
+    K13 at B=1, D=128: 32 heads at T=512 and 2048 (llama2_7b's prefills),
+    llama2_70b's G=8 (Hq=64, Hkv=8) at 512, and float32 inputs at 2048 (the
+    float32 model's prefill, the split products). Gate at bf16 2e-2 of
+    max|ctx|: the kernel rounds the probabilities to bf16 against the
+    running max, the plain version after normalizing (3.8-4.3e-3
+    measured). Gate at float32 1e-4 (4.3-5.4e-6 measured): the bf16 hi + lo
+    split products keep the f32 result, and a kernel that dropped the
+    hi*lo and lo*hi products or rounded P to bf16 reads ~4e-3 there.
+    Library: SDPA with is_causal=True over k, v repeated to Hq heads (the
+    route before K13)."""
+    from mxq_tpu_torch.ops import attn_bf16 as ab
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cat = dict(generator=gen, device="cuda")
+    failures = []
+
+    B, H, D, PS, PPS = 8, 32, 128, 64, 32
+    LP = 1 + B * PPS
+    plist = [0, 1, 17, 127, 128, 300, 1024, 2046]
+    lengths = torch.tensor(plist, dtype=torch.int32, device="cuda") + 1
+    kp = torch.randn((H, LP, PS, D), **cat).to(torch.bfloat16)
+    vp = torch.randn((H, LP, PS, D), **cat).to(torch.bfloat16)
+    tables = (torch.randperm(LP - 1, **cat)[:B * PPS] + 1).reshape(
+        B, PPS).to(torch.int32)
+    for i, n in enumerate(plist):
+        tables[i, -(-(n + 1) // PS):] = 0
+    kz, vz = kp.clone(), vp.clone()
+    kp[:, 0] = vp[:, 0] = float("nan")
+    nrows = int(lengths.sum())
+    idx = tables.long()
+    kd = kz[:, idx].permute(1, 0, 2, 3, 4).reshape(B, H, PPS * PS, D)
+    vd = vz[:, idx].permute(1, 0, 2, 3, 4).reshape(B, H, PPS * PS, D)
+    amask = (torch.arange(PPS * PS, device="cuda")[None, None, None, :]
+             < lengths[:, None, None, None])
+    for key, dtype, gate in (("K12", torch.bfloat16, 1e-2),
+                             ("K12-f32", torch.float32, 1e-5)):
+        q = torch.randn((B, H, D), **cat).to(dtype)
+        out = ab.paged_decode_attention(q, kp, vp, lengths, tables)
+        ref = ab.paged_decode_attention_plain(q, kz, vz, lengths, tables)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        finite = bool(torch.isfinite(out).all())
+        nbytes = (nrows * H * D * 2 * 2 + 2 * q.numel() * q.element_size()
+                  + B * 4 + B * PPS * 4)
+        bms, by = bound_ms(nbytes, 4.0 * nrows * H * D)
+        qs = q[:, :, None, :].to(torch.bfloat16)
+        row = {"kernel": key, "B": B, "H": H, "D": D, "page": PS,
+               "pages_per_seq": PPS, "lengths": [n + 1 for n in plist],
+               "q_dtype": str(dtype).split(".")[-1], "rel_err": err,
+               "gate": gate, "max_abs_err": float((out.float()
+                                                   - ref.float()).abs().max()),
+               "finite_with_nan_null_page": finite,
+               "kernel_ms": timer(lambda: ab.paged_decode_attention(
+                   q, kp, vp, lengths, tables)),
+               "plain_ms": timer(lambda: ab.paged_decode_attention_plain(
+                   q, kz, vz, lengths, tables), iters=3),
+               "bound_ms": bms, "bound_by": by,
+               "library_ms": timer(lambda: sdpa(qs, kd, vd,
+                                                attn_mask=amask))}
+        rows.append(row)
+        emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
+        if not (err <= gate and finite):
+            failures.append(f"{key}: rel {err:.3g} > {gate} or finite="
+                            f"{finite}")
+        summary[key] = summarise(
+            [row], f"B=8 Hq=Hkv=32 D=128, 32 pages of 64 per sequence, "
+            f"mixed lengths, {row['q_dtype']} q")
+    del kp, vp, kz, vz, kd, vd
+
+    for key, t, hq, hkv, dtype, gate in (
+            ("K13", 512, 32, 32, torch.bfloat16, 2e-2),
+            ("K13", 2048, 32, 32, torch.bfloat16, 2e-2),
+            ("K13-g8", 512, 64, 8, torch.bfloat16, 2e-2),
+            ("K13-f32", 2048, 32, 32, torch.float32, 1e-4)):
+        q = torch.randn((1, t, hq, D), **cat).to(dtype)
+        k = torch.randn((1, t, hkv, D), **cat).to(dtype)
+        v = torch.randn((1, t, hkv, D), **cat).to(dtype)
+        out = ab.flash_prefill_attention(q, k, v)
+        ref = ab.flash_prefill_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        err = rel_err(out, ref)
+        again = ab.flash_prefill_attention(q, k, v)
+        same = torch.equal(out, again)
+        es = q.element_size()
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
+        bms, by = bound_ms(nbytes, 4.0 * hq * D * t * (t + 1) / 2)
+        kr, vr = (a.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                  for a in (k, v))
+        qt = q.transpose(1, 2)
+        row = {"kernel": key, "B": 1, "T": t, "Hq": hq, "Hkv": hkv, "D": D,
+               "dtype": str(dtype).split(".")[-1], "rel_err": err,
+               "gate": gate, "max_abs_err": float((out.float() - ref.float()).abs().max()),
+               "deterministic": same,
+               "kernel_ms": timer(lambda: ab.flash_prefill_attention(q, k,
+                                                                     v)),
+               "plain_ms": timer(lambda: ab.flash_prefill_attention_plain(
+                   q, k, v), iters=3),
+               "bound_ms": bms, "bound_by": by,
+               "library_ms": timer(lambda: sdpa(qt, kr, vr, is_causal=True,
+                                                scale=1.0 / math.sqrt(D)))}
+        rows.append(row)
+        emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
+        if not (err <= gate and same and bool(torch.isfinite(out).all())):
+            failures.append(f"{key} T={t}: rel {err:.3g} > {gate} or "
+                            f"deterministic {same}")
+        del q, k, v, kr, vr, out, ref, again
+    flash_backward_yardsticks(torch, timer, cat, rows)
+    for key, t, what in (("K13", 2048, "B=1 T=2048 Hq=Hkv=32 D=128 bf16"),
+                         ("K13-g8", 512, "B=1 T=512 Hq=64 Hkv=8 D=128 bf16"),
+                         ("K13-f32", 2048,
+                          "B=1 T=2048 Hq=Hkv=32 D=128 float32")):
+        summary[key] = summarise(
+            [r for r in rows if r["kernel"] == key and r["T"] == t],
+            what + ", causal from position 0")
+    return failures
+
+
+def flash_backward_yardsticks(torch, timer, cat, rows):
+    """K13-bwd, flash attention's backward (upstream flash_attention.py
+    :1121 dK/dV and :1456 dQ; only QAT's gradients reach it), is not
+    ported: the QAT student attends through SDPA under autograd. Its row
+    (no kernel, so not in the summary line) holds what a port will be
+    measured against at B=1, T=2048, 32 heads of 128, bf16: the backward
+    of SDPA (the route today) and of K13's plain version, each timed for
+    one torch.autograd.grad from a kept graph, and the bound of five
+    causal products (S and dP recomputed, dQ, dK, dV). Reported, not
+    gated."""
+    from mxq_tpu_torch.ops import attn_bf16 as ab
+    t, h, d = 2048, 32, 128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q, k, v = (torch.randn((1, t, h, d), **cat).to(torch.bfloat16)
+               .requires_grad_() for _ in range(3))
+    go = torch.randn((1, t, h, d), **cat).to(torch.bfloat16)
+    lib = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+               is_causal=True, scale=1.0 / math.sqrt(d)).transpose(1, 2)
+    plain = ab.flash_prefill_attention_plain(q, k, v)
+    g_lib = torch.autograd.grad(lib, (q, k, v), go, retain_graph=True)
+    g_plain = torch.autograd.grad(plain, (q, k, v), go, retain_graph=True)
+    torch.cuda.synchronize()
+    err = max(rel_err(a, b) for a, b in zip(g_lib, g_plain))
+    nbytes = 8 * t * h * d * 2          # q, k, v, o, dO read; dQ, dK, dV
+    bms, by = bound_ms(nbytes, 10.0 * h * d * t * (t + 1) / 2)
+    row = {"kernel": "K13-bwd", "status": "not ported (QAT: SDPA)",
+           "B": 1, "T": t, "Hq": h, "Hkv": h, "D": d, "dtype": "bfloat16",
+           "library_vs_plain_grad_rel_err": err, "kernel_ms": None,
+           "plain_ms": timer(lambda: torch.autograd.grad(
+               plain, (q, k, v), go, retain_graph=True), iters=3),
+           "bound_ms": bms, "bound_by": by,
+           "library_ms": timer(lambda: torch.autograd.grad(
+               lib, (q, k, v), go, retain_graph=True))}
+    rows.append(row)
+    emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
+    del lib, plain, g_lib, g_plain
+
+
 def all_kernels() -> dict:
     """Every kernel wrapper of the port, by kernel ID."""
+    from mxq_tpu_torch.ops import attn_bf16 as ab
     from mxq_tpu_torch.ops import attn_int8 as a8
     from mxq_tpu_torch.ops import mxq_matmul as mm
     from mxq_tpu_torch.ops import uniform4 as u4
-    return {**mm.KERNELS, **a8.KERNELS, **u4.KERNELS}
+    return {**mm.KERNELS, **a8.KERNELS, **u4.KERNELS, **ab.KERNELS}
 
 
 def count_launches(torch, kernels, drive) -> dict:
@@ -1296,7 +1504,7 @@ def serve_runs(torch, schedulers: list):
         failures.extend(graph_failures(name, res))
 
     # the README's main-path command, at the cli's default dtype (float32)
-    counted("cli", ("K1", "K4"), lambda: serve_with_tokens(CLI_SERVE))
+    counted("cli", ("K1", "K4", "K13"), lambda: serve_with_tokens(CLI_SERVE))
     if runs["cli"]["requests"] != 8 or runs["cli"]["tokens"] != 8 * 32:
         failures.append(f"cli serve finished {runs['cli']['requests']} "
                         f"requests, {runs['cli']['tokens']} tokens")
@@ -1314,6 +1522,7 @@ def serve_runs(torch, schedulers: list):
         res["requests_equal_to_slab"] = sum(
             a == b for a, b in zip(got, slab_tokens))
         ok = (res["launches"]["K6-" + layout] > 0
+              and res["launches"]["K13"] > 0
               and res["launches"]["K1"] == 0 and res["tokens"] == 8 * 32)
         if layout == "quad":
             ok = ok and res["requests_equal_to_slab"] >= 7
@@ -1357,15 +1566,15 @@ def serve_runs(torch, schedulers: list):
     # each (32 layers x 4 linears) and K2 never; bfexp is a lossy
     # function, so its greedy tokens' agreement with K2's is only reported
     eight = prompts_of((100, 400, 1500, 100, 400, 1500))
-    counted("engine_slots8", ("K1", "K3", "K4"), lambda: engine_run(
+    counted("engine_slots8", ("K1", "K3", "K4", "K13"), lambda: engine_run(
         8, eight))
     runs["engine_slots8"].pop("generated")
     one = prompts_of((100,))
-    counted("engine_slots1", ("K2", "K4"), lambda: engine_run(1, one))
+    counted("engine_slots1", ("K2", "K4", "K13"), lambda: engine_run(1, one))
     b1 = os.environ.get("MXQ_GEMV_LAYOUT_B1")
     os.environ["MXQ_GEMV_LAYOUT_B1"] = "bfexp"
     try:
-        counted("engine_slots1_bfexp", ("K6-bfexp", "K4"),
+        counted("engine_slots1_bfexp", ("K6-bfexp", "K4", "K13"),
                 lambda: engine_run(1, one))
     finally:
         if b1 is None:
@@ -1384,7 +1593,7 @@ def serve_runs(torch, schedulers: list):
                         f"multiple of 128 > 0 wanted), K2 {n2} (0 wanted)")
 
     # paged serving: the README's paged command, then the PagedEngine
-    counted("cli_paged", ("K1", "K11"), lambda: cli.main(
+    counted("cli_paged", ("K1", "K11", "K13"), lambda: cli.main(
         ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits", "8",
          "--paged", "--slots", "8", "--max_len", "2048", "--requests", "8",
          "--prompt_len", "100", "--max_new_tokens", "32",
@@ -1394,6 +1603,23 @@ def serve_runs(torch, schedulers: list):
         failures.append(f"cli serve --paged finished "
                         f"{runs['cli_paged']['requests']} requests, "
                         f"{runs['cli_paged']['tokens']} tokens")
+
+    # the same command with the bf16 pool of 64-row pages: its decode
+    # attends through K12, 32 launches a decode substep (one a layer)
+    counted("cli_paged_bf16", ("K1", "K12", "K13"), lambda: cli.main(
+        ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits", "32",
+         "--paged", "--slots", "8", "--max_len", "2048", "--requests", "8",
+         "--prompt_len", "100", "--max_new_tokens", "32",
+         "--seed", str(SEED)]))
+    res = runs["cli_paged_bf16"]
+    n12 = res["launches"]["K12"]
+    if res["requests"] != 8 or res["tokens"] != 8 * 32 \
+            or n12 % cfg.num_hidden_layers or res["launches"]["K11"]:
+        failures.append(f"cli serve --paged --kv_bits 32 finished "
+                        f"{res['requests']} requests, {res['tokens']} "
+                        f"tokens, K12 {n12} launches (a multiple of "
+                        f"{cfg.num_hidden_layers} wanted), K11 "
+                        f"{res['launches']['K11']} (0 wanted)")
 
     def paged_engine(slots):
         return paged.PagedEngine(params, cfg, num_slots=slots,
@@ -1416,7 +1642,7 @@ def serve_runs(torch, schedulers: list):
                       "tokens_per_sec": sum(toks) / dt, "stats": e.stats()}
 
     paged_one = [rng.integers(0, cfg.vocab_size, 100).astype(np.int32)]
-    counted("paged_slots1", ("K2", "K11"), lambda: paged_run(
+    counted("paged_slots1", ("K2", "K11", "K13"), lambda: paged_run(
         paged_engine(1), paged_one)[1])
     prefix = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
     prefixed = [np.concatenate([prefix, rng.integers(
@@ -1440,7 +1666,7 @@ def serve_runs(torch, schedulers: list):
                             f"equal {res['repeat_tokens_equal']}")
         return res
 
-    counted("paged_prefix", ("K1", "K11"), prefix_run)
+    counted("paged_prefix", ("K1", "K11", "K13"), prefix_run)
 
     # the slot engine's three serve options at full depth: prompt-lookup
     # speculative decoding through cli serve (random prompts: the drafts
@@ -1448,7 +1674,7 @@ def serve_runs(torch, schedulers: list):
     spec_args = ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits",
                  "8", "--slots", "8", "--max_len", "2048", "--requests", "8",
                  "--seed", str(SEED)]
-    counted("cli_spec", ("K1", "K4a"), lambda: cli.main(
+    counted("cli_spec", ("K1", "K4a", "K13"), lambda: cli.main(
         spec_args + ["--spec_decode", "--prompt_len", "100",
                      "--max_new_tokens", "32"]))
     if runs["cli_spec"]["tokens"] != 8 * 32:
@@ -1479,9 +1705,9 @@ def serve_runs(torch, schedulers: list):
                 "generated": [list(map(int, r.generated)) for r in reqs],
                 "stats": e.stats()}
 
-    counted("engine_spec_repetitive", ("K1", "K4a"),
+    counted("engine_spec_repetitive", ("K1", "K4a", "K13"),
             lambda: repetitive_run(True))
-    counted("engine_plain_repetitive", ("K1", "K4"),
+    counted("engine_plain_repetitive", ("K1", "K4", "K13"),
             lambda: repetitive_run(False))
     got = runs["engine_spec_repetitive"].pop("generated")
     want = runs["engine_plain_repetitive"].pop("generated")
@@ -1496,7 +1722,7 @@ def serve_runs(torch, schedulers: list):
     # ... and the int8-activation prefill with the packed uniform-4b head:
     # 600-token prompts go to the 2048 bucket (K5), the head runs at the
     # bucket's rows in prefill and at 8 rows in decode (K7)
-    counted("cli_a8_u4", ("K1", "K4", "K5", "K7"), lambda: cli.main(
+    counted("cli_a8_u4", ("K1", "K4", "K5", "K7", "K13"), lambda: cli.main(
         spec_args + ["--prefill_a8", "--lm_head_bits", "4",
                      "--prompt_len", "600", "--max_new_tokens", "16"]))
     if runs["cli_a8_u4"]["tokens"] != 8 * 16:
@@ -2294,7 +2520,8 @@ def train_step_card_vs_cpu(torch) -> dict:
 # a train step's device time by kind, first match by name; the rest is
 # PyTorch's elementwise ops, copies and reductions (the fake-quant, the
 # losses, the clip)
-TRAIN_GROUPS = (("attention (library)", ("fmha", "flash", "attention")),
+TRAIN_GROUPS = (("K13", K13_KERNEL_NAMES),
+                ("attention (library)", ("fmha", "flash", "attention")),
                 ("GEMM (library)", ("gemm", "cutlass", "xmma")),
                 ("AdamW (foreach)", ("multi_tensor", "foreach")))
 
@@ -2497,11 +2724,14 @@ def phase_train(torch):
 
 
 @contextlib.contextmanager
-def plain_versions(mm, a8):
-    """Route the packed linears (K1-K3, K5, K6), the K4 family, K11 and the
-    uniform linears (K7, K8) through their plain PyTorch versions on the
-    card, so one forward can be held against the same forward with the
-    kernels on the same device (no kernel launches, no counts)."""
+def plain_versions(mm, a8, flash: bool = True):
+    """Route the packed linears (K1-K3, K5, K6), the K4 family, K11, the
+    uniform linears (K7, K8), K12 and, with ``flash``, K13 through their
+    plain PyTorch versions on the card, so one forward can be held against
+    the same forward with the kernels on the same device (no kernel
+    launches, no counts). ``flash=False`` keeps K13 on both sides, for the
+    gates that isolate another kernel."""
+    from mxq_tpu_torch.ops import attn_bf16 as ab
     from mxq_tpu_torch.ops import uniform4 as u4
     swaps = [(mm, "gemv_batched", mm.gemv_plain),
              (mm, "gemv_single", mm.gemv_plain),
@@ -2518,7 +2748,11 @@ def plain_versions(mm, a8):
              (a8, "int8_paged_decode_attend_update",
               a8.int8_paged_decode_attend_update_plain),
              (u4, "u4_gemv", u4.uniform_matmul_plain),
-             (u4, "u2_gemv", u4.uniform_matmul_plain)]
+             (u4, "u2_gemv", u4.uniform_matmul_plain),
+             (ab, "paged_decode_attention", ab.paged_decode_attention_plain)]
+    if flash:
+        swaps.append((ab, "flash_prefill_attention",
+                      ab.flash_prefill_attention_plain))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -2527,6 +2761,47 @@ def plain_versions(mm, a8):
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def k13_plain():
+    """K13 alone through its plain version on the card (every other
+    kernel stays)."""
+    from mxq_tpu_torch.ops import attn_bf16 as ab
+    fn = ab.flash_prefill_attention
+    ab.flash_prefill_attention = ab.flash_prefill_attention_plain
+    try:
+        yield
+    finally:
+        ab.flash_prefill_attention = fn
+
+
+@contextlib.contextmanager
+def k13_sdpa():
+    """K13's calls through PyTorch's SDPA with is_causal=True (the route
+    before K13), on the card and on the CPU, for the comparisons that
+    hold K13 against it (every other kernel stays)."""
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ops import attn_bf16 as ab
+    fn = ab.flash_prefill_attention
+
+    def sdpa(q, k, v):
+        t, g = q.shape[1], q.shape[2] // k.shape[2]
+        k, v = (a[:, :t].repeat_interleave(g, dim=2) for a in (k, v))
+        return llama._sdpa(q, k, v, q.shape[-1])
+
+    ab.flash_prefill_attention = sdpa
+    try:
+        yield
+    finally:
+        ab.flash_prefill_attention = fn
+
+
+# K13's logits against a reference (the CPU, or the card's plain
+# versions) may sit at most this many times SDPA's on the same inputs
+# (or within that comparison's own gate): both round the probabilities
+# to bf16 against the running max, so K13 should be no further off
+K13_VS_SDPA = 1.5
 
 
 class WordIds:
@@ -3092,13 +3367,20 @@ def phase_vision(torch):
 def phase_e2e(torch):
     """2 layers of 7B width, for two weight seeds and f32 and bf16
     activations: one B=8 decode step from a prefilled int8 cache (K1 + K4)
-    and one 512-token prefill (K3).
+    and one 512-token prefill (K3, K13).
 
     Gates, as rel = max|diff| / max|logit|:
     - on the card, kernels against the plain versions on the card (the same
       forward with every kernel swapped for its plain version): prefill
-      <= 1e-3, which isolates K3 (its planes are bit-equal, so everything
-      else is the same computation); decode <= 1e-2.
+      <= 1e-3 with K13 on both sides, which isolates K3 (its planes are
+      bit-equal, so everything else is the same computation), and with
+      K13's plain version too within max(1e-2, K13_VS_SDPA x the same
+      forward's gap with SDPA in K13's place): K13 rounds the
+      probabilities to bf16 against the running max, its plain version
+      after normalizing, as SDPA does, and a rounding point in the
+      attention flips bf16 roundings of the activations after it (the
+      SDPA forward's gaps to the plain versions and to the CPU are
+      reported beside K13's); decode <= 1e-2.
     - card against CPU from the same weights and state: decode <= 1e-2;
       prefill <= 1e-2 with f32 activations and <= 3e-2 with bf16, where
       the bf16 outputs of the two prefill GEMMs come from cuBLAS on one
@@ -3107,21 +3389,25 @@ def phase_e2e(torch):
       rows: against itself with the plain versions on the card, and
       against the slot engine's K4 step, each <= 1e-2 (K11 rounds
       p * v_scale against the running max of each page, K4 against the
-      global max).
+      global max); the same step from a bf16 pool of 64-row pages holding
+      those rows dequantized (K12) against itself with the plain
+      versions, <= 1e-2.
     - the slot engine's options (:func:`e2e_serve_options`).
     - the K6 layouts (:func:`e2e_layouts`): a decode step and a 128-row
       forward, each <= 1e-2 against the card's plain versions and against
-      the CPU."""
+      the CPU (the forward through K13 against the CPU within max(1e-2,
+      K13_VS_SDPA x SDPA's gap there))."""
     from mxq_tpu_torch import weights
     from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ops import attn_bf16 as ab
     from mxq_tpu_torch.ops import attn_int8 as a8
     from mxq_tpu_torch.ops import mxq_matmul as mm
     from mxq_tpu_torch.serving import kvcache, paged
 
     cfg = llama.LlamaConfig.llama2_7b(num_hidden_layers=2)
-    # both sides attend through SDPA in the prefill ("flash"), so the
-    # kernels are what differs
-    sdpa_cfg = dataclasses.replace(cfg, attn_impl="flash")
+    # the prefill attends through K13 ("flash"; on the CPU its plain
+    # version)
+    flash_cfg = dataclasses.replace(cfg, attn_impl="flash")
     gen = torch.Generator().manual_seed(SEED)
     b, t0, s = 8, 32, 256
     ids = torch.randint(0, cfg.vocab_size, (b, t0 + 1), generator=gen)
@@ -3131,6 +3417,7 @@ def phase_e2e(torch):
     counts = (mm.gemv_batched, a8.int8_decode_attention_fused_write,
               mm.dequant_planes)
     k11 = a8.KERNELS["K11"]
+    k12, k13 = ab.KERNELS["K12"], ab.KERNELS["K13"]
     failures, out = [], {"phase": "e2e"}
 
     def agree(a, ref):
@@ -3160,37 +3447,64 @@ def phase_e2e(torch):
             plain_cache = {k: v.clone() for k, v in cache.items()}
             base = {k: v.clone() for k, v in cache.items()}
             opt_res, opt_fail = e2e_serve_options(
-                torch, cfg, sdpa_cfg, params, cache, ids[:, t0:], vids, pids,
+                torch, cfg, flash_cfg, params, cache, ids[:, t0:], vids, pids,
                 t0)
             failures += [f"e2e {name} {f}" for f in opt_fail]
             pool, tables = pool_from_slot_cache(torch, paged, cfg, cache)
             plain_pool, _ = pool_from_slot_cache(torch, paged, cfg, cache)
+            pool16, tables16 = bf16_pool_from_slot_cache(torch, paged, cfg,
+                                                         cache)
+            plain_pool16, _ = bf16_pool_from_slot_cache(torch, paged, cfg,
+                                                        cache)
             before = [fn.launches for fn in counts]
             k11_before = k11.launches
+            bf_before = [k12.launches, k13.launches]
             card, _ = llama.forward(params, ids[:, t0:], cfg, caches=cache,
                                     cache_pos=t0, device="cuda")
-            card_p, _ = llama.forward(params, pids, sdpa_cfg, device="cuda")
+            card_p, _ = llama.forward(params, pids, flash_cfg, device="cuda")
             card_paged = paged_logits(params, pool, tables)
+            card_paged16 = paged_logits(params, pool16, tables16)
             used = [fn.launches - n for fn, n in zip(counts, before)]
             k11_used = k11.launches - k11_before
-            with plain_versions(mm, a8):
+            bf_used = [k12.launches - bf_before[0],
+                       k13.launches - bf_before[1]]
+            # K13 on both sides: the prefill gate isolates K3
+            with plain_versions(mm, a8, flash=False):
                 plain, _ = llama.forward(params, ids[:, t0:], cfg,
                                          caches=plain_cache, cache_pos=t0,
                                          device="cuda")
-                plain_p, _ = llama.forward(params, pids, sdpa_cfg,
+                plain_p, _ = llama.forward(params, pids, flash_cfg,
                                            device="cuda")
                 plain_paged = paged_logits(params, plain_pool, tables)
+            with plain_versions(mm, a8):
+                plain_pk, _ = llama.forward(params, pids, flash_cfg,
+                                            device="cuda")
+                plain_paged16 = paged_logits(params, plain_pool16, tables16)
             plain_used = [fn.launches - n for fn, n in zip(counts, before)]
             k11_plain_used = k11.launches - k11_before - k11_used
+            # K12 none, K13 only where it stayed (flash=False)
+            bf_plain_used = [k12.launches - bf_before[0] - bf_used[0],
+                             k13.launches - bf_before[1] - bf_used[1]]
+            with k13_sdpa():
+                sdpa_p, _ = llama.forward(params, pids, flash_cfg,
+                                          device="cuda")
             host, _ = llama.forward(cpu_params, ids[:, t0:], cfg,
                                     caches=cpu_cache, cache_pos=t0,
                                     device="cpu")
-            host_p, _ = llama.forward(cpu_params, pids, sdpa_cfg,
+            host_p, _ = llama.forward(cpu_params, pids, flash_cfg,
                                       device="cpu")
             card, card_p = card.cpu(), card_p.cpu()
             plain, plain_p = plain.cpu(), plain_p.cpu()
             res = {"decode_rel_vs_card_plain": rel_err(card, plain),
                    "prefill_rel_vs_card_plain": rel_err(card_p, plain_p),
+                   "prefill_rel_vs_card_plain_k13": rel_err(
+                       card_p, plain_pk.cpu()),
+                   "prefill_sdpa_rel_vs_card_plain_k13": rel_err(
+                       sdpa_p.cpu(), plain_pk.cpu()),
+                   "prefill_sdpa_rel_vs_cpu": rel_err(sdpa_p.cpu(),
+                                                      host_p),
+                   "paged_bf16_rel_vs_card_plain": rel_err(card_paged16,
+                                                           plain_paged16),
                    "decode_rel_vs_cpu": rel_err(card, host),
                    "prefill_rel_vs_cpu": rel_err(card_p, host_p),
                    "decode_argmax_agreement_vs_cpu": agree(card, host),
@@ -3202,15 +3516,17 @@ def phase_e2e(torch):
                                                               card[:, 0]),
                    "k1_k4_k3_launches": used,
                    "k11_launches": k11_used,
+                   "k12_k13_launches": bf_used,
                    "shapes_finite": (
                        tuple(card.shape) == (b, 1, cfg.vocab_size)
                        and tuple(card_p.shape) == (1, 512, cfg.vocab_size)
                        and tuple(card_paged.shape) == (b, cfg.vocab_size)
                        and bool(torch.isfinite(card).all())
                        and bool(torch.isfinite(card_p).all())
-                       and bool(torch.isfinite(card_paged).all())),
+                       and bool(torch.isfinite(card_paged).all())
+                       and bool(torch.isfinite(card_paged16).all())),
                    **opt_res}
-            lay_res, lay_fail = e2e_layouts(torch, cfg, sdpa_cfg, params,
+            lay_res, lay_fail = e2e_layouts(torch, cfg, flash_cfg, params,
                                             cpu_params, base, ids[:, t0:],
                                             rids, t0)
             res.update(lay_res)
@@ -3220,23 +3536,29 @@ def phase_e2e(torch):
                      "prefill_rel_vs_card_plain": 1e-3,
                      "decode_rel_vs_cpu": 1e-2,
                      "prefill_rel_vs_cpu": host_pre_gate,
+                     "prefill_rel_vs_card_plain_k13": max(
+                         1e-2, K13_VS_SDPA
+                         * res["prefill_sdpa_rel_vs_card_plain_k13"]),
                      "paged_rel_vs_card_plain": 1e-2,
+                     "paged_bf16_rel_vs_card_plain": 1e-2,
                      "paged_rel_vs_slot_k4": 1e-2}
             failures += [f"e2e {name} {k} {res[k]:.3g} > {g}"
                          for k, g in gates.items() if not res[k] <= g]
             if not res["shapes_finite"] or min(used) <= 0 \
                     or plain_used != used or k11_plain_used != 0 \
-                    or k11_used != cfg.num_hidden_layers:
+                    or k11_used != cfg.num_hidden_layers \
+                    or bf_used != [cfg.num_hidden_layers] * 2 \
+                    or bf_plain_used != [0, cfg.num_hidden_layers]:
                 failures.append(f"e2e {name}: shapes/launches {res}, "
                                 f"plain run {plain_used}, K11 "
-                                f"{k11_plain_used}")
+                                f"{k11_plain_used}, K12/K13 {bf_plain_used}")
             del params, cpu_params, cache, cpu_cache, plain_cache, pool, base
-            del plain_pool
+            del plain_pool, pool16, plain_pool16
     emit(out)
     return failures
 
 
-def e2e_layouts(torch, cfg, sdpa_cfg, params, cpu_params, base, ids, rids,
+def e2e_layouts(torch, cfg, flash_cfg, params, cpu_params, base, ids, rids,
                 t0):
     """The K6 layouts at 2 layers of 7B width, with ``mm.GEMV_LAYOUT`` set
     to quad, then bfexp: one B=8 decode step of ``ids`` from the prefilled
@@ -3245,8 +3567,16 @@ def e2e_layouts(torch, cfg, sdpa_cfg, params, cpu_params, base, ids, rids,
     packed linear is a K6 GEMV), each against the same with the plain
     versions on the card and against the CPU (which runs the layout's
     plain version): <= 1e-2 of max|logit|, the decode gates of
-    :func:`phase_e2e`. K6 launches 8 times per layer (4 linears in each
-    of the two calls), K1 never. Returns (results, failures)."""
+    :func:`phase_e2e`. The forward attends through K13 on the card: K13
+    stays on both sides against the card's plain versions, and the card's
+    forward with K13's plain version, as the CPU runs it, is held against
+    the CPU at 1e-2, so that both comparisons hold the layout. The card's
+    forward through K13 is held against the CPU within max(1e-2,
+    K13_VS_SDPA x the same forward's gap with SDPA in K13's place);
+    beside it the SDPA forwards on the card and on the CPU (the route
+    and the CPU reference before K13) are reported. K6 launches 8 times
+    per layer (4 linears in each of the two calls), K1 never. Returns
+    (results, failures)."""
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.ops import attn_int8 as a8
     from mxq_tpu_torch.ops import mxq_matmul as mm
@@ -3255,7 +3585,7 @@ def e2e_layouts(torch, cfg, sdpa_cfg, params, cpu_params, base, ids, rids,
         state = {k: v.to(dev, copy=True) for k, v in base.items()}
         dec, _ = llama.forward(p, ids, cfg, caches=state, cache_pos=t0,
                                device=dev)
-        fwd, _ = llama.forward(p, rids, sdpa_cfg, device=dev)
+        fwd, _ = llama.forward(p, rids, flash_cfg, device=dev)
         return dec.cpu(), fwd.cpu()
 
     res, failures = {}, []
@@ -3268,21 +3598,38 @@ def e2e_layouts(torch, cfg, sdpa_cfg, params, cpu_params, base, ids, rids,
             card = run(params, "cuda")
             used = [k6.launches - before[0],
                     mm.gemv_batched.launches - before[1]]
-            with plain_versions(mm, a8):
+            with k13_plain():
+                card_fwd = run(params, "cuda")[1]
+            with plain_versions(mm, a8, flash=False):
                 plain = run(params, "cuda")
             host = run(cpu_params, "cpu")
+            with k13_sdpa():
+                card_sdpa = llama.forward(params, rids, flash_cfg,
+                                          device="cuda")[0].cpu()
+                host_sdpa = llama.forward(cpu_params, rids, flash_cfg,
+                                          device="cpu")[0]
             r = {"decode_rel_vs_card_plain": rel_err(card[0], plain[0]),
                  "forward128_rel_vs_card_plain": rel_err(card[1], plain[1]),
                  "decode_rel_vs_cpu": rel_err(card[0], host[0]),
-                 "forward128_rel_vs_cpu": rel_err(card[1], host[1])}
+                 "forward128_k13_plain_rel_vs_cpu": rel_err(card_fwd,
+                                                            host[1])}
             failures += [f"{layout} {k} {v:.3g} > 0.01" for k, v in r.items()
                          if not v <= 1e-2]
+            r["forward128_rel_vs_cpu"] = rel_err(card[1], host[1])
+            r["forward128_sdpa_rel_vs_cpu"] = rel_err(card_sdpa, host[1])
+            r["forward128_rel_vs_cpu_sdpa"] = rel_err(card[1], host_sdpa)
+            r["forward128_sdpa_rel_vs_cpu_sdpa"] = rel_err(card_sdpa,
+                                                           host_sdpa)
+            gate = max(1e-2, K13_VS_SDPA * r["forward128_sdpa_rel_vs_cpu"])
+            if not r["forward128_rel_vs_cpu"] <= gate:
+                failures.append(f"{layout} forward128_rel_vs_cpu "
+                                f"{r['forward128_rel_vs_cpu']:.3g} > {gate:.3g}")
             finite = all(bool(torch.isfinite(t).all()) for t in card)
             if not finite or used != [8 * cfg.num_hidden_layers, 0]:
                 failures.append(f"{layout}: finite {finite}, K6 and K1 "
                                 f"launches {used}")
             r["forward128_argmax_agreement_vs_cpu"] = float(
-                (card[1].argmax(-1) == host[1].argmax(-1)).float().mean())
+                (card_fwd.argmax(-1) == host[1].argmax(-1)).float().mean())
             r["k6_k1_launches"] = used
             res.update({f"{layout}_{k}": v for k, v in r.items()})
     finally:
@@ -3290,7 +3637,7 @@ def e2e_layouts(torch, cfg, sdpa_cfg, params, cpu_params, base, ids, rids,
     return res, failures
 
 
-def e2e_serve_options(torch, cfg, sdpa_cfg, params, cache, ids, vids, pids,
+def e2e_serve_options(torch, cfg, flash_cfg, params, cache, ids, vids, pids,
                       t0):
     """The slot engine's three serve options at 2 layers of 7B width, from
     the prefilled int8 state ``cache`` (left unchanged):
@@ -3315,7 +3662,7 @@ def e2e_serve_options(torch, cfg, sdpa_cfg, params, cache, ids, vids, pids,
     b = ids.shape[0]
     k5, k7, k4a = mm.KERNELS["K5"], u4.KERNELS["K7"], a8.KERNELS["K4a"]
     state = lambda: {k: v.clone() for k, v in cache.items()}  # noqa: E731
-    a8_cfg = dataclasses.replace(sdpa_cfg, prefill_act_bits=8)
+    a8_cfg = dataclasses.replace(flash_cfg, prefill_act_bits=8)
     params_u4 = dict(params, lm_head=u4.quantize_pack_u4(
         params["lm_head"].T))
     dev_ids = ids.to("cuda", torch.int32)
@@ -3330,10 +3677,10 @@ def e2e_serve_options(torch, cfg, sdpa_cfg, params, cache, ids, vids, pids,
     steps = torch.cat([llama.decode_slots(params, dev_vids[:, i:i + 1], cfg,
                                           seq_cache, pos + i)
                        for i in range(vids.shape[1])], dim=1)
-    with plain_versions(mm, a8):
+    with plain_versions(mm, a8, flash=False):     # K13 on both sides
         plain_a8, _ = llama.forward(params, pids, a8_cfg, device="cuda")
         plain_u4 = llama.decode_slots(params_u4, dev_ids, cfg, state(), pos)
-    k3_pre, _ = llama.forward(params, pids, sdpa_cfg, device="cuda")
+    k3_pre, _ = llama.forward(params, pids, flash_cfg, device="cuda")
     plain_used = [c.launches - n for c, n in zip((k5, k7, k4a), before)]
     res = {"a8_prefill_rel_vs_card_plain": rel_err(card_a8, plain_a8),
            "a8_prefill_rel_vs_k3_prefill": rel_err(card_a8, k3_pre),
@@ -3635,8 +3982,9 @@ def mh_layout_ranks(torch, params, cfg, limit=None,
     (``multihost.run_ranks``: a thread per rank, the collectives'
     arithmetic, concatenation for a gather and addition in rank order for
     a sum): a decode step at 8 slots (K1) and at one (K2) over a random
-    bf16 history of MH_CACHE_ROWS rows, and a 512-token prefill (K3),
-    each against the unsharded step's logits, every rank's logits the
+    bf16 history of MH_CACHE_ROWS rows, and a 512-token prefill (K3; K13
+    over the rank's heads), each against the unsharded step's logits,
+    every rank's logits the
     same bits. ``limit(layout, case)``: the gap each case must stay
     within, over max|logit| (None: not gated); ``plain``: the ranks and
     the unsharded step through the plain versions of the kernels. Each
@@ -3668,7 +4016,7 @@ def mh_layout_ranks(torch, params, cfg, limit=None,
 
     res, failures = {}, []
     kernels = all_kernels()
-    used = {k: 0 for k in ("K1", "K2", "K3")}
+    used = {k: 0 for k in ("K1", "K2", "K3", "K13")}
     swap = plain_versions(mm, a8) if plain else contextlib.nullcontext()
     with swap, torch.inference_mode():
         refs = {name: llama.decode_slots(
@@ -3976,6 +4324,7 @@ def phase_parallel(torch, parts=("parallel", "multihost")):
             ref_train = {"command_seconds": res["seconds"],
                          "peak_memory_gib":
                              torch.cuda.max_memory_allocated() / 2**30,
+                         "launches": res["launches"],
                          **train_metrics(os.path.join(tmp, "train", "logs"),
                                          1)}
             torch.cuda.empty_cache()
@@ -4011,11 +4360,16 @@ def phase_parallel(torch, parts=("parallel", "multihost")):
         gaps = [abs(a - b) / abs(b) for a, b in zip(fsdp_train["loss"],
                                                      ref_train["loss"])]
         runs["train_loss_rel_gap"] = gaps
+        # training holds dense weights: of the repo's kernels only K13
+        # runs, in the KD teacher's forward and the validation
         if (len(gaps) != 3 or not all(g <= PAR_LOSS_GATE for g in gaps)
-                or any(fsdp_train["launches"].values())):
+                or fsdp_train["launches"]["K13"] <= 0
+                or any(n for k, n in fsdp_train["launches"].items()
+                       if k != "K13")):
             failures.append(f"parallel train: FSDP2 losses "
                             f"{fsdp_train['loss']} against "
-                            f"{ref_train['loss']}")
+                            f"{ref_train['loss']}, launches "
+                            f"{fsdp_train['launches']}")
         runs["ptq_sharded"] = dict(child.pop("ptq"), differing=ptq_diff)
         if ptq_diff or not runs["ptq_sharded"]["printed_mesh"]:
             failures.append(f"parallel ptq --shard: {runs['ptq_sharded']}")
@@ -4048,6 +4402,29 @@ def pool_from_slot_cache(torch, paged, cfg, cache):
         scales = cache[f"{name}_scale"].reshape(l, b, h, pps, ps)
         pages["scales"].view(h, l, npg, ps)[:, :, 1:] = scales.permute(
             2, 0, 1, 3, 4).reshape(h, l, b * pps, ps)
+    tables = (1 + torch.arange(b * pps, dtype=torch.int32,
+                               device="cuda")).reshape(b, pps)
+    return pool, tables
+
+
+def bf16_pool_from_slot_cache(torch, paged, cfg, cache):
+    """A bf16 PagedPool of 64-row pages (``cli serve --kv_bits 32``'s)
+    holding the rows of the stacked int8 slot cache dequantized to bf16:
+    slot b's rows in logical pages 1 + b*pps .. (b+1)*pps in order.
+    Returns (pool, page tables [B, pps])."""
+    l, b, h, s, d = cache["k_codes"].shape
+    ps = 64
+    pps = s // ps
+    npg = 1 + b * pps
+    pool = paged.PagedPool.create(cfg, b, npg, page_size=ps, max_len=s,
+                                  kv_bits=32, device="cuda")
+    for name, pages in (("k", pool.k_pages), ("v", pool.v_pages)):
+        rows = (cache[f"{name}_codes"].float()
+                * cache[f"{name}_scale"].float()[..., None]).to(
+                    torch.bfloat16)                 # [L, B, H, S, D]
+        pages.view(h, l, npg, ps, d)[:, :, 1:] = rows.reshape(
+            l, b, h, pps, ps, d).permute(2, 0, 1, 3, 4, 5).reshape(
+                h, l, b * pps, ps, d)
     tables = (1 + torch.arange(b * pps, dtype=torch.int32,
                                device="cuda")).reshape(b, pps)
     return pool, tables

@@ -25,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("mxq_gemv", "mxq_gemv_tc", "mxq_dequant", "attn_int8",
-           "paged_attn_int8", "uniform_gemv")
+           "paged_attn_int8", "uniform_gemv", "paged_attn_bf16", "flash_attn")
 _EXTRA_FLAGS = {
     # K3 and K5 must equal their plain PyTorch versions bit for bit: no
     # FMA fusion.
@@ -35,6 +35,7 @@ _CUTLASS = Path("/usr/local/cutlass/include")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float
 # argtypes of every exported function (pointers and the stream as c_void_p)
 SIGNATURES = {
@@ -55,6 +56,10 @@ SIGNATURES = {
     "uniform_gemv": {
         "uniform_gemv": [I, I, P, I, I, P, P, P, I, I, I, I, I, P, P, P],
         "uniform_gemv_tiles": [P, I]},
+    "paged_attn_bf16": {
+        "paged_attn_bf16": [P] * 5 + [I] * 7 + [F] + [P] * 4},
+    "flash_attn": {
+        "flash_attn": [P] * 4 + [L] * 6 + [I] * 6 + [F, P]},
 }
 
 

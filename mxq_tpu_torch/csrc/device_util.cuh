@@ -1,5 +1,5 @@
 // Device helpers shared by the kernels of this directory: cp.async
-// copies, ldmatrix, bf16x2 arithmetic with one rounding per step, and
+// copies, ldmatrix, mma.sync, bf16x2 arithmetic with one rounding per step, and
 // bfexp's weight pairs.
 // Each source includes it inside its anonymous namespace, after
 // <cuda_bf16.h> and <stdint.h>.
@@ -43,6 +43,38 @@ __device__ __forceinline__ void ldmatrix(uint32_t (&a)[N], const void* p) {
     asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                  : "=r"(a[0]), "=r"(a[1])
                  : "r"(smem_addr(p)));
+}
+
+// four 8x8 b16 matrices, each delivered transposed (.trans): the B
+// operand of mma.sync from a row-major [k][n] tile in shared memory
+__device__ __forceinline__ void ldmatrix_t(uint32_t (&a)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a . b: mma.sync m16n8k16, bf16 in, f32 out (a: the A
+// fragment's 4 registers, b0/b1: the B fragment's 2)
+__device__ __forceinline__ void mma_acc(float (&c)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a . b (C = 0)
+__device__ __forceinline__ void mma_zero(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
 }
 
 // bf16x2 a*b and a-b, each rounded once, in PTX so that ptxas cannot

@@ -85,27 +85,6 @@ constexpr int WROWS = 48 + 32 + 16;   // staged word rows: w2, w4, meta2
 constexpr int SLAB = 0, QUAD = 1, BFEXP = 2;
 constexpr uint32_t MAGIC = 0x43004300u;   // bf16 128.0 in both halves
 
-// c += a . b
-__device__ __forceinline__ void mma_acc(float (&c)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d = a . b (C = 0)
-__device__ __forceinline__ void mma_zero(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f));
-}
-
 // (128 + c) - (128 + z) in both halves: exact
 __device__ __forceinline__ uint32_t sub_zero(uint32_t c, uint32_t zz) {
   const __nv_bfloat162 d =

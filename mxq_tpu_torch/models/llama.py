@@ -21,11 +21,15 @@ view into the stacks, so its gradients land there. A packed
 uniform-4b lm_head goes through K7. Decode with the stacked int8 cache goes
 through K4 (``ops.attn_int8.decode_attend_update``), and a speculative
 verify of T tokens per slot through K4a once per token. Cache-less or
-position-0 prefill
-attention of 128+ tokens on the card uses
-``torch.nn.functional.scaled_dot_product_attention``, the counterpart of the
-library flash attention the JAX version calls; on the CPU it takes the
-einsum path, as JAX does.
+position-0 prefill attention of 128+ tokens on the card (``use_flash``, or
+``attn_impl="flash"`` on any device) goes through K13
+(``ops.attn_bf16.flash_prefill_attention``), the counterpart of the
+upstream Pallas flash attention the JAX version calls; on the CPU
+``attn_impl="auto"`` takes the einsum path, as JAX does, and "flash"
+K13's plain version. Under autograd (QAT's ``forward(train=True)``, with
+``q.requires_grad``) that attention goes to
+``torch.nn.functional.scaled_dot_product_attention`` instead: a route by
+mode, until flash attention's backward is ported.
 """
 
 from __future__ import annotations
@@ -42,7 +46,7 @@ import torch.utils.checkpoint
 from mxq_tpu_torch import resolve_device, scheme
 from mxq_tpu_torch.config import MXQConfig
 from mxq_tpu_torch.packfmt import PackedMXQLinear, quantize_pack, stack_packed
-from mxq_tpu_torch.ops import attn_int8, mxq_matmul, uniform4
+from mxq_tpu_torch.ops import attn_bf16, attn_int8, mxq_matmul, uniform4
 from mxq_tpu_torch.serving import kvcache
 
 
@@ -397,11 +401,16 @@ def _attend_step(cfg: LlamaConfig, mask, cache, cache_pos, dtype, idx, q,
                  or (cfg.attn_impl == "auto" and on_card and t >= 128
                      and (cache is None or prefill_flash)))
     if use_flash:
-        nkv = k.shape[2]
-        if nkv != nh:
-            k = torch.repeat_interleave(k, nh // nkv, dim=2)
-            v = torch.repeat_interleave(v, nh // nkv, dim=2)
-        return _sdpa(q, k, v, d)
+        if torch.is_grad_enabled() and q.requires_grad:
+            # under autograd (QAT) the route is SDPA, whose backward
+            # PyTorch provides, until flash attention's backward is ported
+            nkv = k.shape[2]
+            if nkv != nh:
+                k = torch.repeat_interleave(k, nh // nkv, dim=2)
+                v = torch.repeat_interleave(v, nh // nkv, dim=2)
+            return _sdpa(q, k, v, d)
+        # K13 on the card, its plain version on the CPU
+        return attn_bf16.flash_prefill_attention(q, k, v)
     return masked_attention(q, k, v, mask)
 
 

@@ -438,14 +438,20 @@ def damped_hinv_chol(h: torch.Tensor, percdamp: float):
     """The Hessian preparation of the OBS/GPTQ family (sparsegpt.py:54-101):
     dead inputs (``diag(h) == 0``) get a unit diagonal, ``percdamp`` of the
     mean diagonal is added, and H^-1 is factored as an upper Cholesky
-    factor. Returns ``(dead [K] bool, hinv_chol [K, K])``; the caller zeroes
-    the weight of the dead inputs."""
+    factor (both in float64, the factor returned in h's dtype). Returns
+    ``(dead [K] bool, hinv_chol [K, K])``; the caller zeroes the weight of
+    the dead inputs."""
     k = h.shape[0]
     dead = torch.diagonal(h) == 0
     h = h + torch.diag(dead.to(h.dtype))
     damp = percdamp * torch.diagonal(h).mean()
     h = h + damp * torch.eye(k, dtype=h.dtype, device=h.device)
-    return dead, torch.linalg.cholesky(torch.linalg.inv(h), upper=True)
+    # the inverse and its factor in float64: at K = 4096 and a condition
+    # number near 3e5 (llama2_7b's second o_proj input over 8 x 2048
+    # calibration tokens, random weights) the f32 factor of the f32
+    # inverse fails, where mxq_tpu's f32 jnp.linalg.cholesky returns NaNs
+    hinv = torch.linalg.inv(h.double())
+    return dead, torch.linalg.cholesky(hinv, upper=True).to(h.dtype)
 
 
 def mxq_outlier_quantize(w: torch.Tensor, h: torch.Tensor | None = None,

@@ -53,8 +53,9 @@ from mxq_tpu_torch.ops import count_launch
 def kernel_wrappers() -> list:
     """Every kernel wrapper of the port, once each (a wrapper that serves
     two kernel IDs, K4a/K4c or K4b/K4d, counts its launches once)."""
-    from mxq_tpu_torch.ops import attn_int8, mxq_matmul, uniform4
-    return list(dict.fromkeys(f for mod in (mxq_matmul, attn_int8, uniform4)
+    from mxq_tpu_torch.ops import attn_bf16, attn_int8, mxq_matmul, uniform4
+    return list(dict.fromkeys(f for mod in (mxq_matmul, attn_int8, uniform4,
+                                            attn_bf16)
                               for f in mod.KERNELS.values()))
 
 

@@ -18,12 +18,14 @@ Unlike the JAX version, which returns new pool buffers, every function here
 writes the pool tensors it is given IN PLACE. Decode of the int8 pool goes
 through kernel K11 (``ops.attn_int8.int8_paged_decode_attend_update``),
 once per layer per token; ``paged_attend`` on an int8 pool goes through
-K9. The bf16 pool, for which the JAX version calls upstream Pallas
-``paged_attention`` on the TPU, is gathered and attended with masked
-einsum attention, its reference path. On the card each decode chunk of
-:class:`PagedEngine` is a CUDA graph captured once per horizon and replayed
-(``serving/graphs.py``), with the page tables, lengths and masks as its
-staged inputs; the host allocates the chunk's pages before it stages them.
+K9. Decode of the bf16 pool on the card goes through kernel K12
+(``ops.attn_bf16.paged_decode_attention``), the counterpart of the
+upstream Pallas ``paged_attention`` the JAX version calls on the TPU,
+once per layer per token; on the CPU through its plain version. On the
+card each decode chunk of :class:`PagedEngine` is a CUDA graph captured
+once per horizon and replayed (``serving/graphs.py``), with the page
+tables, lengths and masks as its staged inputs; the host allocates the
+chunk's pages before it stages them.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from __future__ import annotations
 import dataclasses
 import functools
 import hashlib
-import math
 import time
 from typing import Optional
 
@@ -40,8 +41,7 @@ import torch
 
 from mxq_tpu_torch import resolve_device
 from mxq_tpu_torch.models import llama
-from mxq_tpu_torch.ops import attn_int8
-from mxq_tpu_torch.scheme import div_const
+from mxq_tpu_torch.ops import attn_bf16, attn_int8
 from mxq_tpu_torch.serving import graphs, kvcache
 from mxq_tpu_torch.serving.engine import (NEG, Request, _HostCopy,
                                           sample_token, to_device)
@@ -238,35 +238,16 @@ def paged_attend(q, k_pages_l, v_pages_l, lengths, page_indices):
     """q [B, NH, D]; k/v_pages_l: one layer's view [KVH, P, ps, D] or the
     whole folded pool with ``page_indices`` [B, PPS] already physical
     (l*P + p). Rows < lengths[b] are attended. An int8 (dict) pool goes
-    through K9; a bf16 pool through :func:`_paged_attend_reference`.
-    Returns [B, NH, D] in q's type."""
+    through K9; a bf16 pool through K12 on the card (D 64 or 128; any
+    other D raises) and through K12's plain version on the CPU. Returns
+    [B, NH, D] in q's type."""
     if isinstance(k_pages_l, dict):
         return attn_int8.int8_paged_decode_attention(
             q, k_pages_l["codes"], k_pages_l["scales"],
             v_pages_l["codes"], v_pages_l["scales"],
             lengths, page_indices).to(q.dtype)
-    return _paged_attend_reference(q, k_pages_l, v_pages_l, lengths,
-                                   page_indices)
-
-
-def _paged_attend_reference(q, k_pages_l, v_pages_l, lengths, page_indices):
-    """Gather each sequence's pages and attend them with a length mask."""
-    b, nh, d = q.shape
-    kvh, _, ps, _ = k_pages_l.shape
-    pps = page_indices.shape[1]
-    idx = page_indices.long()
-    # gather each sequence's pages -> [B, KVH, pps*ps, D]
-    k = k_pages_l[:, idx].transpose(0, 1).reshape(b, kvh, pps * ps, d)
-    v = v_pages_l[:, idx].transpose(0, 1).reshape(b, kvh, pps * ps, d)
-    rep = nh // kvh
-    k = torch.repeat_interleave(k, rep, dim=1).float()
-    v = torch.repeat_interleave(v, rep, dim=1).float()
-    scores = div_const(torch.einsum("bhd,bhsd->bhs", q.float(), k),
-                       math.sqrt(d))
-    pos = torch.arange(pps * ps, device=q.device)[None, None, :]
-    scores = torch.where(pos < lengths[:, None, None], scores, -1e30)
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhs,bhsd->bhd", probs, v).to(q.dtype)
+    return attn_bf16.paged_decode_attention(q, k_pages_l, v_pages_l,
+                                            lengths, page_indices)
 
 
 def paged_decode_step(params, k_pages, v_pages, tokens, positions,

@@ -1,0 +1,168 @@
+"""K12 (bf16 paged decode attention) and K13 (causal attention from
+position 0) on the CPU, where their wrappers take the plain versions,
+against mxq_tpu from numpy seeds:
+
+- K12's plain version against ``mxq_tpu.serving.paged._paged_attend_reference``
+  over a folded bf16 pool of 64-row pages, tables shuffled with the null
+  page past each length: with q in float32 within 1e-5 of max|ctx| (the
+  f32 result before any bf16 cast: only summation order differs), with q
+  in bf16 within one bf16 ulp of each element (the same f32 result, cast);
+- K13's plain version inside the port's attention (``attn_impl="flash"``)
+  against ``mxq_tpu.models.llama.attention``'s einsum path at the tiny
+  preset, the contexts o_proj receives within 1e-5 of max|ctx| (f32
+  weights: both sides compute in f32, summation order aside), and the
+  port's packed forward against JAX's within 1e-2 of max|logit| (the gate
+  of test_torch_llama.py: packed products round activations to bf16);
+- on the CPU neither route launches a kernel.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from mxq_tpu.models import llama as jl
+from mxq_tpu.serving import paged as jpg
+from mxq_tpu_torch.models import llama as tl
+from mxq_tpu_torch.ops import attn_bf16 as ab
+from mxq_tpu_torch.serving import paged as tpg
+from torch_port_helpers import port_params, rel, to_torch
+
+BF = ml_dtypes.bfloat16
+PS = 64                                  # bf16 pages (cli serve --kv_bits 32)
+PPS = 4
+LENGTHS = [1, 63, 64, 65, PPS * PS]      # full: every page of the table
+
+
+def _pool(rng, hkv, g, d):
+    """q [B, Hq, D] f32, pages [Hkv, LP, 64, D] bf16 (LP = 1 + B * PPS, the
+    null page 0 first), lengths [B], shuffled physical tables with the null
+    page past each length's last page."""
+    b = len(LENGTHS)
+    lp = 1 + b * PPS
+    k = rng.standard_normal((hkv, lp, PS, d)).astype(np.float32).astype(BF)
+    v = rng.standard_normal((hkv, lp, PS, d)).astype(np.float32).astype(BF)
+    q = rng.standard_normal((b, hkv * g, d)).astype(np.float32)
+    tables = (rng.permutation(lp - 1)[:b * PPS] + 1).reshape(b, PPS)
+    for i, n in enumerate(LENGTHS):
+        tables[i, -(-n // PS):] = 0
+    return q, k, v, np.array(LENGTHS, np.int32), tables.astype(np.int32)
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("g,d", [(1, 64), (4, 64), (1, 128), (4, 128)])
+def test_k12_plain_matches_jax_reference(g, d, q_dtype):
+    q, k, v, lengths, tables = _pool(np.random.default_rng(d + g), 2, g, d)
+    if q_dtype == "bfloat16":
+        q = q.astype(BF)
+    want = jpg._paged_attend_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lengths),
+        jnp.asarray(tables))
+    got = ab.paged_decode_attention_plain(
+        to_torch(q), to_torch(k), to_torch(v), to_torch(lengths),
+        to_torch(tables))
+    want = to_torch(want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if q_dtype == "float32":
+        assert rel(got, want) <= 1e-5
+    else:
+        # one bf16 ulp of each element: 2^-7 of its power of two
+        ulp = torch.exp2(torch.floor(torch.log2(want.float().abs()
+                                                .clamp_min(1e-30))) - 7)
+        assert bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+def test_paged_attend_routes_bf16_pool_to_k12_plain_on_cpu():
+    """``paged_attend`` on a bf16 pool on the CPU is K12's plain version
+    (the kernel needs the card), bit for bit."""
+    q, k, v, lengths, tables = _pool(np.random.default_rng(5), 2, 4, 128)
+    args = [to_torch(a) for a in (q, k, v, lengths, tables)]
+    assert torch.equal(tpg.paged_attend(*args),
+                       ab.paged_decode_attention_plain(*args))
+
+
+def _dense_models(kv_heads, seed=0, packed=False):
+    jcfg = jl.LlamaConfig.tiny(num_key_value_heads=kv_heads)
+    tcfg = dataclasses.replace(
+        tl.LlamaConfig.tiny(num_key_value_heads=kv_heads), attn_impl="flash")
+    params = jl.init_params(jcfg, jax.random.PRNGKey(seed))
+    if packed:
+        params = jl.quantize_params_packed(params, jcfg)
+    return jcfg, tcfg, params, port_params(params)
+
+
+@pytest.mark.parametrize("t", [128, 256])
+@pytest.mark.parametrize("kv_heads", [4, 2])
+def test_k13_plain_matches_jax_attention(monkeypatch, kv_heads, t):
+    """Layer 0's attention on the same f32 input: what o_proj receives on
+    each side, JAX's einsum path against the port's K13 route (its plain
+    version on the CPU)."""
+    jcfg, tcfg, jp, tp = _dense_models(kv_heads, seed=kv_heads)
+    ids = np.random.default_rng(t).integers(0, 512, (2, t)).astype(np.int32)
+    x = jp["embed_tokens"][jnp.asarray(ids)]
+    h = jl.rms_norm(x, jp["layers"]["input_layernorm"][0], jcfg.rms_norm_eps)
+    pos = jnp.broadcast_to(jnp.arange(t)[None], (2, t))
+    jcos, jsin = jl.rope_tables(jcfg, pos)
+    jlayer = {k: jax.tree_util.tree_map(lambda a: a[0], v)
+              for k, v in jp["layers"].items()}
+    tlayer = tl.layer_view(tp, 0)
+    tcos, tsin = tl.rope_tables(tcfg, torch.arange(t)[None].expand(2, t))
+    seen = {}
+    for name, mod in (("jax", jl), ("port", tl)):
+        inner = mod.quant_linear
+
+        def record(xx, w, cfg, *rest, _inner=inner, _name=name):
+            seen.setdefault(_name, []).append(xx)
+            return _inner(xx, w, cfg, *rest)
+        monkeypatch.setattr(mod, "quant_linear", record)
+    calls = []
+    plain = ab.flash_prefill_attention_plain
+    monkeypatch.setattr(ab, "flash_prefill_attention_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    jl.attention(h, jlayer, jcfg, jcos, jsin, jl.causal_mask(t))
+    tl.attention(to_torch(h), tlayer, tcfg, tcos, tsin, tl.causal_mask(t))
+    assert calls == [1]
+    ctx_j, ctx_t = to_torch(seen["jax"][-1]), seen["port"][-1]
+    assert ctx_t.dtype == torch.float32 and ctx_t.shape == ctx_j.shape
+    assert rel(ctx_t, ctx_j) <= 1e-5
+
+
+@pytest.mark.parametrize("kv_heads", [4, 2])
+def test_flash_forward_matches_jax(kv_heads):
+    """The packed tiny model's forward at 128 tokens, the port through K13
+    (``attn_impl="flash"``: its plain version on the CPU), JAX through its
+    einsum path."""
+    jcfg, tcfg, jp, tp = _dense_models(kv_heads, seed=7, packed=True)
+    ids = np.random.default_rng(3).integers(0, 512, (2, 128)).astype(np.int32)
+    lj, _ = jl.forward(jp, jnp.asarray(ids), jcfg)
+    lt, _ = tl.forward(tp, ids, tcfg, device="cpu")
+    assert rel(lt, lj) <= 1e-2
+
+
+def test_k13_plain_reads_only_the_first_t_key_rows():
+    """k, v of S > T rows (a cache) give the result of their first T rows:
+    the causal mask from position 0 never reaches row T."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               for shape in ((2, 96, 4, 64), (2, 160, 2, 64), (2, 160, 2, 64)))
+    assert torch.equal(
+        ab.flash_prefill_attention_plain(q, k, v),
+        ab.flash_prefill_attention_plain(q, k[:, :96], v[:, :96]))
+
+
+def test_cpu_calls_launch_nothing():
+    before = [f.launches for f in ab.KERNELS.values()]
+    q, k, v, lengths, tables = _pool(np.random.default_rng(1), 2, 1, 128)
+    args = [to_torch(a) for a in (q, k, v, lengths, tables)]
+    ab.paged_decode_attention(*args)
+    tpg.paged_attend(*args)
+    x = torch.randn(1, 128, 4, 64)
+    ab.flash_prefill_attention(x, x[:, :, :2], x[:, :, 2:])
+    cfg = dataclasses.replace(tl.LlamaConfig.tiny(), attn_impl="flash")
+    tl._attend_step(cfg, None, None, None, torch.float32, 0, x, x, x)
+    assert [f.launches for f in ab.KERNELS.values()] == before
+

@@ -259,8 +259,10 @@ def test_tickets_do_not_grow_during_a_capture(monkeypatch):
 def test_kernel_wrappers_once_each():
     """The launch accounting walks every kernel wrapper once: K4a/K4c and
     K4b/K4d share a wrapper, which must not add its launches twice."""
+    from mxq_tpu_torch.ops import attn_bf16 as ab
     from mxq_tpu_torch.ops import mxq_matmul as mm
     from mxq_tpu_torch.ops import uniform4 as u4
     ws = graphs.kernel_wrappers()
     assert len(ws) == len(set(ws))
-    assert set(ws) == {f for m in (mm, a8, u4) for f in m.KERNELS.values()}
+    assert set(ws) == {f for m in (mm, a8, u4, ab)
+                       for f in m.KERNELS.values()}

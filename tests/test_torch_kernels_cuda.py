@@ -1,5 +1,5 @@
-"""K1-K6, K4a-K4d, K7, K8 and K9-K11 on the card against their plain
-PyTorch versions at small shapes (the one-row kernels also at
+"""K1-K6, K4a-K4d, K7, K8, K9-K11, K12 and K13 on the card against their
+plain PyTorch versions at small shapes (the one-row kernels also at
 llama2_7b down's K of 11008, the attention kernels at histories of up to
 4096 rows, cut at their 128-row split edges), and the quantizers on the
 card against the CPU (the PTQ packer, the QAT fake-quants, the int8 KV
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from mxq_tpu_torch import packfmt
+from mxq_tpu_torch.ops import attn_bf16 as ab
 from mxq_tpu_torch.ops import attn_int8 as a8
 from mxq_tpu_torch.ops import mxq_matmul as mm
 from mxq_tpu_torch.ops import uniform4 as u4
@@ -452,6 +453,68 @@ def test_paged_kernels_match_plain(gen, g, d, pps):
     assert changed <= 2 * len(plist) * hkv * (d + 2)   # the written rows
 
 
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ps,pps", [(64, 3), (64, 32), (16, 9)])
+@pytest.mark.parametrize("g,d", [(1, 64), (4, 128), (8, 128)])
+def test_k12_matches_plain(gen, g, d, ps, pps, q_dtype):
+    """K12 against its plain version: shuffled tables, lengths cut at page
+    and split edges (1, 63-65, 127-129, the whole table); the kernel reads
+    a pool whose null page is NaN, the plain version (which gathers every
+    page) the same pool with it zeroed. float32 q: <= 1e-5 of max|ctx|
+    (summation order); bf16 q: <= 1e-2 (the output's rounding)."""
+    hkv = 2
+    lens = [n for n in (1, 63, 64, 65, 127, 128, 129, pps * ps)
+            if n <= pps * ps]
+    b, lp = len(lens), 1 + len(lens) * pps
+    cat = dict(generator=gen, device="cuda")
+    kz = torch.randn((hkv, lp, ps, d), **cat).to(torch.bfloat16)
+    vz = torch.randn((hkv, lp, ps, d), **cat).to(torch.bfloat16)
+    tables = (torch.randperm(lp - 1, **cat)[:b * pps] + 1).reshape(
+        b, pps).to(torch.int32)
+    for i, n in enumerate(lens):
+        tables[i, -(-n // ps):] = 0
+    kp, vp = kz.clone(), vz.clone()
+    kp[:, 0] = vp[:, 0] = float("nan")
+    q = torch.randn((b, hkv * g, d), **cat).to(q_dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = ab.paged_decode_attention(q, kp, vp, lengths, tables)
+    ref = ab.paged_decode_attention_plain(q, kz, vz, lengths, tables)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dtype and bool(torch.isfinite(got).all())
+    tol = 1e-5 if q_dtype == torch.float32 else 1e-2
+    assert float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 200, 513])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128)])
+def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
+    """K13 against its plain version, with q, k, v as the fused qkv
+    projection's strided slices and k, v 7 rows longer than q (a cache
+    whose rows past T are never read): bf16 <= 2e-2 of max|ctx| (the
+    probabilities rounded to bf16 against the running max, the plain
+    version's after normalizing), float32 <= 1e-4 (bf16 hi + lo split
+    products); the same bits on a second call."""
+    b = 2
+    qkv = torch.randn((b, t + 7, (hq + 2 * hkv) * d), generator=gen,
+                      device="cuda").to(dtype)
+    q = qkv[:, :t, :hq * d].reshape(b, t, hq, d)
+    k = qkv[..., hq * d:(hq + hkv) * d].reshape(b, t + 7, hkv, d)
+    v = qkv[..., (hq + hkv) * d:].reshape(b, t + 7, hkv, d)
+    before = ab.flash_prefill_attention.launches
+    got = ab.flash_prefill_attention(q, k, v)
+    again = ab.flash_prefill_attention(q, k, v)
+    ref = ab.flash_prefill_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert ab.flash_prefill_attention.launches == before + 2
+    assert got.dtype == dtype and got.shape == (b, t, hq, d)
+    assert torch.equal(got, again)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max()) <= tol
+
+
 @pytest.mark.parametrize("name", ["sym8", "sym4", "sym8_layerwise",
                                   "sym8_ref3d", "asym4", "mxq_qat", "mx1",
                                   "kv_int8", "act_int8"])
@@ -515,6 +578,10 @@ def _drive(kind, cfg, params):
     if kind == "paged":
         e = paged.PagedEngine(params, cfg, num_slots=4, total_pages=9,
                               max_len=256, kv_bits=8, device="cuda")
+    elif kind == "paged_bf16":          # K12 inside the captured chunk
+        e = paged.PagedEngine(params, cfg, num_slots=4, total_pages=17,
+                              page_size=64, max_len=256, kv_bits=32,
+                              device="cuda")
     else:
         e = eng.Engine(params, cfg, eng.EngineConfig(
             num_slots=1 if kind == "slot1" else 4, max_len=256,
@@ -528,7 +595,8 @@ def _drive(kind, cfg, params):
     return [list(map(int, r.generated)) for r in reqs], e._graphs
 
 
-@pytest.mark.parametrize("kind", ["slot4", "slot1", "paged", "spec"])
+@pytest.mark.parametrize("kind", ["slot4", "slot1", "paged", "spec",
+                                  "paged_bf16"])
 def test_replayed_chunks_equal_eager(llama7b_2, kind, monkeypatch):
     """The engines' decode chunks replayed as CUDA graphs give the greedy
     tokens and the kernel launches of the same run made op by op (the
@@ -549,3 +617,6 @@ def test_replayed_chunks_equal_eager(llama7b_2, kind, monkeypatch):
     assert tokens == want
     assert launches == want_launches and sum(launches) > 0
     assert replays and all(n > 0 for n in replays.values())
+    if kind == "paged_bf16":
+        k12 = graphs.kernel_wrappers().index(ab.paged_decode_attention)
+        assert launches[k12] > 0

@@ -198,3 +198,49 @@ def test_div_const_is_ieee_division():
     for c in (3, 15, 255, 127.0):
         want = (x.double() / c).float()
         assert torch.equal(ts.div_const(x, c), want)
+
+
+def _jax_damped_hinv_chol(h, percdamp):
+    """mxq_tpu's Hessian preparation in f32 (ptq/prune.py:128-132,
+    scheme.py:551-556)."""
+    k = h.shape[0]
+    dead = jnp.diag(h) == 0
+    h = h + jnp.diag(jnp.where(dead, 1.0, 0.0))
+    h = h + percdamp * jnp.mean(jnp.diag(h)) * jnp.eye(k, dtype=h.dtype)
+    return dead, jnp.linalg.cholesky(jnp.linalg.inv(h), upper=True)
+
+
+def test_damped_hinv_chol_matches_jax_f32():
+    """On a well-conditioned Hessian (cond ~1e3, one dead input) the
+    port's float64 inverse and factor, returned in f32, match mxq_tpu's
+    f32 ones within 1e-6 of max|factor| (7.3e-8 measured)."""
+    x = _w(11, (512, 128))
+    x[:, 5] = 0
+    h = x.T @ x
+    dead, u = ts.damped_hinv_chol(torch.from_numpy(h), 0.01)
+    want_dead, want_u = _jax_damped_hinv_chol(jnp.asarray(h), 0.01)
+    want_u = np.asarray(want_u)
+    assert u.dtype == torch.float32
+    np.testing.assert_array_equal(dead.numpy(), np.asarray(want_dead))
+    assert np.abs(u.numpy() - want_u).max() <= 1e-6 * np.abs(want_u).max()
+
+
+def test_damped_hinv_chol_ill_conditioned_is_finite():
+    """Four outlier input channels 1e5x the others, as LLM activations
+    have, leave a damped Hessian of condition ~2.6e4 at K = 256, where the
+    f32 Cholesky factor of torch's f32 inverse can fail. The float64 route
+    returns a finite upper factor with a positive diagonal whose product
+    gives H^-1 within 1e-3 of max|H^-1| (its f32 rounding: 2.4e-4
+    measured at worst over five seeds)."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((1024, 256)).astype(np.float32) * 1e-3
+    x[:, :4] += rng.standard_normal((1024, 1)).astype(np.float32) * 100
+    h = x.T @ x
+    _, u = ts.damped_hinv_chol(torch.from_numpy(h), 0.01)
+    hd = h.astype(np.float64) + 0.01 * np.diag(h).mean() * np.eye(256)
+    assert np.linalg.cond(hd) > 2e4
+    ud = u.double().numpy()
+    assert np.isfinite(ud).all()
+    assert np.array_equal(ud, np.triu(ud)) and (np.diag(ud) > 0).all()
+    hinv = np.linalg.inv(hd)
+    assert np.abs(ud.T @ ud - hinv).max() <= 1e-3 * np.abs(hinv).max()
