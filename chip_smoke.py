@@ -11,9 +11,11 @@ Phases, each printing one JSON line:
            in one launch, and with llama2_70b's G = 8 at 9 tokens: two
            launches of at most 64 query rows), K7, K8, K9-K11, K12 (bf16
            paged decode, 64-row pages, a NaN null page, bf16 and float32
-           q) and K13 (causal attention from position 0 at T = 512 and
-           2048, llama2_70b's G = 8, float32 inputs; and the yardsticks of
-           its backward, K13-bwd, not ported) against
+           q), K13 (causal attention from position 0 at T = 512 and
+           2048, llama2_70b's G = 8, float32 inputs; the same bits with
+           its row log-sum-exp written) and K13-bwd (its backward, dQ, dK
+           and dV, at T = 2048, at G = 8 and at float32; two calls give
+           equal bits) against
            their plain PyTorch versions at llama2_7b's shapes and time
            kernel, plain version, bound and library call; K1 at 8, 40
            and 128 rows, K6 at 8, 1, 40 and 128; K7 at 1, 8, 40,
@@ -82,9 +84,10 @@ Phases, each printing one JSON line:
            `cli generate-data --layers 4`: every greedy-prefix token the
            argmax of a no-cache recompute; where a train step's device
            time goes. Training holds dense weights: of the repo's kernels
-           only K13 runs, in the KD teacher's forward and the validation
-           (no autograd); the student's attention, under autograd, is
-           PyTorch's SDPA until flash attention's backward is ported
+           only K13 and K13-bwd run, K13 in the KD teacher's forward, the
+           student's forward, remat's recompute of it and the validation,
+           K13-bwd in the student's backward, each run at the launch
+           counts its steps imply (TRAIN_LAUNCHES)
   tasks    task evaluation (eval/harness.py) of llama2_7b at full depth:
            the packed model scores a synthetic multiple-choice task of
            random-token documents (no task data or tokenizer is in the
@@ -113,7 +116,8 @@ Phases, each printing one JSON line:
            forward in each K6 layout
   parallel `cli train` (3 steps) unsharded and, under torchrun at world
            size 1 (NCCL), on FSDP2 shards, both with deterministic
-           algorithms: each step's loss within PAR_LOSS_GATE; `cli ptq
+           algorithms: each step's loss within PAR_LOSS_GATE, each run
+           launching K13 and K13-bwd as TRAIN_LAUNCHES says; `cli ptq
            --shard 1,1,1` byte-equal to the unsharded checkpoint; the TP
            decode layer at 8 slots (K1) and one (K2) and the TP prefill
            layer at 512 rows (K3), and each rank's ring products at tp 2
@@ -194,6 +198,22 @@ TRAIN_ARGV = ["train", "--preset", "llama2_7b", "--layers", "4", "--w_bits",
 # updated params over max|p| (train_step_card_vs_cpu)
 TRAIN_CPU_GATES = {"loss": 1e-4, "grad_norm": 1e-3, "grads": 1e-4,
                    "params": 1e-5}
+# cli train's validation batches (cmd_train: 4 of --batch_size rows)
+TRAIN_VAL_BATCHES = 4
+
+
+def train_launches(layers: int, steps: int, kd: bool = True,
+                   remat: bool = True, val_batches: int = 0) -> dict:
+    """The K13 and K13-bwd launches that ``steps`` train steps and a
+    validation imply: each step runs the KD teacher's forward (no
+    autograd: K13 a layer), the student's forward (FlashAttention: K13 a
+    layer, with its lse), with ``remat`` that forward again in the
+    backward, and the student's backward (K13-bwd a layer); each
+    validation batch one forward (K13 a layer). Every prompt is 128+
+    tokens, so every attention is K13's."""
+    forwards = 1 + int(kd) + int(remat)
+    return {"K13": layers * (forwards * steps + val_batches),
+            "K13-bwd": layers * steps}
 
 # the tasks phase's synthetic task: per class (lo, hi], TASK_DOCS documents
 # of TASK_CHOICES choices whose bos-prefixed requests are lo+1 to hi tokens:
@@ -280,6 +300,16 @@ KERNEL_INFO = {
                "mxq_tpu/models/llama.py:383"),
     "K13-f32": ("cuda", "mxq_tpu_torch/csrc/flash_attn.cu",
                 "mxq_tpu/models/llama.py:383"),
+    # flash attention's backward, which QAT's gradients of attention's
+    # use_flash reach: upstream flash_attention.py's VJP (:254-318), its
+    # dK/dV pallas_call (:1121) and dQ pallas_call (:1456); at T = 2048,
+    # at llama2_70b's G = 8 and with float32 inputs (split products)
+    "K13-bwd": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
+                "mxq_tpu/models/llama.py:383"),
+    "K13-bwd-g8": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
+                   "mxq_tpu/models/llama.py:383"),
+    "K13-bwd-f32": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
+                    "mxq_tpu/models/llama.py:383"),
 }
 
 
@@ -296,6 +326,8 @@ K5_KERNEL_NAMES = ("k5_scale_kernel", "k5_codes_kernel")
 # K13's (csrc/flash_attn.cu); listed before the library's attention,
 # whose kernels' names also hold "flash"
 K13_KERNEL_NAMES = ("flash_kernel<",)
+# K13-bwd's (csrc/flash_attn_bwd.cu: dQ, then dK and dV)
+K13_BWD_KERNEL_NAMES = ("dq_kernel<", "dkv_kernel<")
 # the A8 prefill's device time by kind, first match by name; the rest is
 # "other": PyTorch's elementwise ops, copies and reductions
 PREFILL_GROUPS = (("K5", K5_KERNEL_NAMES),
@@ -313,7 +345,8 @@ TASK_GROUPS = (("K1", K1_KERNEL_NAMES), ("K3", ("mxq_dequant_kernel",)),
 
 # summary rows counted by another kernel's wrapper
 COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a", "K13-g8": "K13",
-           "K13-f32": "K13", "K12-f32": "K12"}
+           "K13-f32": "K13", "K12-f32": "K12", "K13-bwd-g8": "K13-bwd",
+           "K13-bwd-f32": "K13-bwd"}
 
 
 def emit(obj) -> None:
@@ -1124,7 +1157,10 @@ def bf16_kernels(torch, timer, gen, rows, summary):
     split products keep the f32 result, and a kernel that dropped the
     hi*lo and lo*hi products or rounded P to bf16 reads ~4e-3 there.
     Library: SDPA with is_causal=True over k, v repeated to Hq heads (the
-    route before K13)."""
+    route before K13). Row K13-lse: K13 writing its row log-sum-exp (the
+    forward FlashAttention saves) gives the bits it gives without, at
+    T = 2048 bf16 and float32, and that lse is the plain version's within
+    1e-4. Then K13-bwd (:func:`flash_backward_kernels`)."""
     from mxq_tpu_torch.ops import attn_bf16 as ab
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cat = dict(generator=gen, device="cuda")
@@ -1220,7 +1256,24 @@ def bf16_kernels(torch, timer, gen, rows, summary):
             failures.append(f"{key} T={t}: rel {err:.3g} > {gate} or "
                             f"deterministic {same}")
         del q, k, v, kr, vr, out, ref, again
-    flash_backward_yardsticks(torch, timer, cat, rows)
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((1, 2048, 32, D), **cat).to(dtype)
+                   for _ in range(3))
+        out, lse = ab.flash_attention_forward(q, k, v)
+        same = torch.equal(out, ab.flash_prefill_attention(q, k, v))
+        err = float((lse - ab.flash_attention_forward_plain(q, k, v)[1])
+                    .abs().max())
+        row = {"kernel": "K13-lse", "B": 1, "T": 2048, "Hq": 32, "Hkv": 32,
+               "D": D, "dtype": str(dtype).split(".")[-1],
+               "same_bits_as_without_lse": same, "lse_max_abs_err": err,
+               "gate": 1e-4}
+        rows.append(row)
+        emit({"phase": "kernels", **row})
+        if not (same and err <= 1e-4):
+            failures.append(f"K13-lse {dtype}: same bits {same}, lse "
+                            f"{err:.3g} > 1e-4")
+        del q, k, v, out, lse
+    failures += flash_backward_kernels(torch, timer, cat, rows)
     for key, t, what in (("K13", 2048, "B=1 T=2048 Hq=Hkv=32 D=128 bf16"),
                          ("K13-g8", 512, "B=1 T=512 Hq=64 Hkv=8 D=128 bf16"),
                          ("K13-f32", 2048,
@@ -1228,45 +1281,92 @@ def bf16_kernels(torch, timer, gen, rows, summary):
         summary[key] = summarise(
             [r for r in rows if r["kernel"] == key and r["T"] == t],
             what + ", causal from position 0")
+    for key, what in (("K13-bwd", "B=1 T=2048 Hq=Hkv=32 D=128 bf16"),
+                      ("K13-bwd-g8", "B=1 T=512 Hq=64 Hkv=8 D=128 bf16"),
+                      ("K13-bwd-f32", "B=1 T=2048 Hq=Hkv=32 D=128 float32")):
+        summary[key] = summarise([r for r in rows if r["kernel"] == key],
+                                 what + ", dQ, dK and dV of K13")
     return failures
 
 
-def flash_backward_yardsticks(torch, timer, cat, rows):
-    """K13-bwd, flash attention's backward (upstream flash_attention.py
-    :1121 dK/dV and :1456 dQ; only QAT's gradients reach it), is not
-    ported: the QAT student attends through SDPA under autograd. Its row
-    (no kernel, so not in the summary line) holds what a port will be
-    measured against at B=1, T=2048, 32 heads of 128, bf16: the backward
-    of SDPA (the route today) and of K13's plain version, each timed for
-    one torch.autograd.grad from a kept graph, and the bound of five
-    causal products (S and dP recomputed, dQ, dK, dV). Reported, not
-    gated."""
+def flash_backward_kernels(torch, timer, cat, rows):
+    """K13-bwd, flash attention's backward (csrc/flash_attn_bwd.cu, its dQ
+    then its dK/dV kernel), against its plain version on the same o and
+    lse (K13's, from ``flash_attention_forward``) at B=1, D=128: 32 heads
+    at T=2048 bf16 (row K13-bwd), llama2_70b's G=8 (Hq=64, Hkv=8) at 512
+    (K13-bwd-g8) and 32 heads at 2048 float32 (K13-bwd-f32, the QAT
+    student's type). Each gradient within the gate of its max: bf16 2e-2,
+    K13's bf16 gate (P and dS rounded to bf16 as upstream's VJP rounds
+    them, from exp(s - lse) recomputed in another order than the plain
+    version's); float32 1e-4, K13-f32's gate (the bf16 hi + lo split
+    products). Two calls give equal bits (no atomics) and the gradients
+    are finite. kernel_ms is one call (both kernels and the di
+    reduction), the two kernels' device ms from torch.profiler beside it;
+    the bound counts five causal products (S and dP recomputed, dV, dK,
+    dQ) against q, k, v, o, dO, lse and di read once and dQ, dK, dV
+    written; library: one torch.autograd.grad through SDPA (is_causal)
+    over k, v repeated to Hq heads, from a kept graph, the route QAT's
+    student took before K13-bwd. Returns the failures."""
+    from torch.profiler import ProfilerActivity, profile
+
     from mxq_tpu_torch.ops import attn_bf16 as ab
-    t, h, d = 2048, 32, 128
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    q, k, v = (torch.randn((1, t, h, d), **cat).to(torch.bfloat16)
-               .requires_grad_() for _ in range(3))
-    go = torch.randn((1, t, h, d), **cat).to(torch.bfloat16)
-    lib = sdpa(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-               is_causal=True, scale=1.0 / math.sqrt(d)).transpose(1, 2)
-    plain = ab.flash_prefill_attention_plain(q, k, v)
-    g_lib = torch.autograd.grad(lib, (q, k, v), go, retain_graph=True)
-    g_plain = torch.autograd.grad(plain, (q, k, v), go, retain_graph=True)
-    torch.cuda.synchronize()
-    err = max(rel_err(a, b) for a, b in zip(g_lib, g_plain))
-    nbytes = 8 * t * h * d * 2          # q, k, v, o, dO read; dQ, dK, dV
-    bms, by = bound_ms(nbytes, 10.0 * h * d * t * (t + 1) / 2)
-    row = {"kernel": "K13-bwd", "status": "not ported (QAT: SDPA)",
-           "B": 1, "T": t, "Hq": h, "Hkv": h, "D": d, "dtype": "bfloat16",
-           "library_vs_plain_grad_rel_err": err, "kernel_ms": None,
-           "plain_ms": timer(lambda: torch.autograd.grad(
-               plain, (q, k, v), go, retain_graph=True), iters=3),
-           "bound_ms": bms, "bound_by": by,
-           "library_ms": timer(lambda: torch.autograd.grad(
-               lib, (q, k, v), go, retain_graph=True))}
-    rows.append(row)
-    emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
-    del lib, plain, g_lib, g_plain
+    d, failures = 128, []
+    for key, t, hq, hkv, dtype, gate in (
+            ("K13-bwd", 2048, 32, 32, torch.bfloat16, 2e-2),
+            ("K13-bwd-g8", 512, 64, 8, torch.bfloat16, 2e-2),
+            ("K13-bwd-f32", 2048, 32, 32, torch.float32, 1e-4)):
+        q, do = (torch.randn((1, t, hq, d), **cat).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn((1, t, hkv, d), **cat).to(dtype)
+                for _ in range(2))
+        o, lse = ab.flash_attention_forward(q, k, v)
+        args = (q, k, v, o, lse, do)
+        got = ab.flash_attention_backward(*args)
+        again = ab.flash_attention_backward(*args)
+        ref = ab.flash_attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        errs = [rel_err(g, r) for g, r in zip(got, ref)]
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        es = q.element_size()
+        nbytes = 4 * (q.numel() + k.numel()) * es + 2 * lse.numel() * 4
+        bms, by = bound_ms(nbytes, 10.0 * hq * d * t * (t + 1) / 2)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                ab.flash_attention_backward(*args)
+            torch.cuda.synchronize()
+        per_kernel = device_ms_by_name(torch, prof, 3)
+        leaves = [a.detach().requires_grad_() for a in (
+            q.transpose(1, 2), k.repeat_interleave(hq // hkv, dim=2)
+            .transpose(1, 2), v.repeat_interleave(hq // hkv, dim=2)
+            .transpose(1, 2))]
+        lib = sdpa(*leaves, is_causal=True, scale=1.0 / math.sqrt(d))
+        dot = do.transpose(1, 2)
+        row = {"kernel": key, "B": 1, "T": t, "Hq": hq, "Hkv": hkv, "D": d,
+               "dtype": str(dtype).split(".")[-1],
+               "rel_err_dq_dk_dv": errs, "gate": gate,
+               "max_abs_err": max(float((g.float() - r.float()).abs().max())
+                                  for g, r in zip(got, ref)),
+               "deterministic": same, "finite": finite,
+               "kernel_ms": timer(lambda: ab.flash_attention_backward(
+                   *args)),
+               "dq_kernel_ms": sum(ms for n, ms in per_kernel.items()
+                                   if "dq_kernel<" in n),
+               "dkv_kernel_ms": sum(ms for n, ms in per_kernel.items()
+                                    if "dkv_kernel<" in n),
+               "plain_ms": timer(lambda: ab.flash_attention_bwd_plain(
+                   *args), iters=3),
+               "bound_ms": bms, "bound_by": by,
+               "library_ms": timer(lambda: torch.autograd.grad(
+                   lib, leaves, dot, retain_graph=True))}
+        rows.append(row)
+        emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
+        if not (max(errs) <= gate and same and finite):
+            failures.append(f"{key}: rel {errs} > {gate}, deterministic "
+                            f"{same}, finite {finite}")
+        del q, k, v, do, o, lse, args, got, again, ref, leaves, lib, dot
+    return failures
 
 
 def all_kernels() -> dict:
@@ -2465,7 +2565,8 @@ def train_step_card_vs_cpu(torch) -> dict:
     max|g| (the worst leaf), and the updated params: max|card - cpu| over
     all leaves against max|p| over all leaves, and (reported, not gated)
     the worst leaf against its own max|p| and the largest difference in
-    units of the learning rate."""
+    units of the learning rate. The card attends through K13 and K13-bwd
+    (128 tokens: ``use_flash``), the CPU through the einsum path."""
     import dataclasses as dc
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.qat import train
@@ -2521,6 +2622,7 @@ def train_step_card_vs_cpu(torch) -> dict:
 # PyTorch's elementwise ops, copies and reductions (the fake-quant, the
 # losses, the clip)
 TRAIN_GROUPS = (("K13", K13_KERNEL_NAMES),
+                ("K13-bwd", K13_BWD_KERNEL_NAMES),
                 ("attention (library)", ("fmha", "flash", "attention")),
                 ("GEMM (library)", ("gemm", "cutlass", "xmma")),
                 ("AdamW (foreach)", ("multi_tensor", "foreach")))
@@ -2567,7 +2669,7 @@ def train_step_profile(torch, steps=3) -> dict:
     per_kernel = device_ms_by_name(torch, prof, 1)
     busy = sum(per_kernel.values())
     span = statistics.median(ts)
-    groups = {}
+    groups = {g: 0.0 for g, _ in TRAIN_GROUPS}
     for k, v in per_kernel.items():
         g = next((g for g, names in TRAIN_GROUPS
                   if any(n in k.lower() for n in names)),
@@ -2600,8 +2702,10 @@ def phase_train(torch):
        the generator's first draw) equals the argmax of a no-cache
        forward of the tokens before it;
     then where a train step's time goes (``train_step_profile``).
-    No kernel of the repo runs here; the launches are read all the same.
-    Returns the failures."""
+    Steps 2, 3, 4 and 5 run K13 and K13-bwd, each at the launch counts its
+    steps imply (:func:`train_launches`), and nothing else of the repo's
+    kernels. Returns the launches of the counted runs (2, 3, 4, 5 and 6)
+    and the failures."""
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.qat import data as qdata
     from mxq_tpu_torch.qat import train
@@ -2628,6 +2732,9 @@ def phase_train(torch):
             ("result", "printed"), cli_with_output(argv + ["--max_steps",
                                                            "8"]))))
         counted.append(res.pop("launches"))
+        failures += launches_as_implied(
+            "cli_train", counted[-1],
+            train_launches(4, 8, val_batches=TRAIN_VAL_BATCHES))
         m = train_metrics(os.path.join(out, "logs"), 1)
         run = {"command_seconds": res["seconds"], **m,
                "median_seconds_per_step_after_first": statistics.median(
@@ -2645,6 +2752,9 @@ def phase_train(torch):
             ("result", "printed"), cli_with_output(argv + ["--max_steps",
                                                            "12"]))))
         counted.append(res.pop("launches"))
+        failures += launches_as_implied(
+            "cli_train_resume", counted[-1],
+            train_launches(4, 4, val_batches=TRAIN_VAL_BATCHES))
         m = train_metrics(os.path.join(out, "logs"), 9)
         run = {"command_seconds": res["seconds"], **m,
                "resumed": "resumed from step 8" in res["printed"],
@@ -2668,7 +2778,13 @@ def phase_train(torch):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     batch = {"input_ids": torch.randint(0, cfg.vocab_size, (2, 256),
                                         generator=gen, device="cuda")}
-    losses = [float(step(params, None, batch)["loss"]) for _ in range(15)]
+    res = count_launches(torch, kernels, lambda: {"loss": [
+        float(step(params, None, batch)["loss"]) for _ in range(15)]})
+    counted.append(res["launches"])
+    failures += launches_as_implied(
+        "ce_overfit", res["launches"],
+        train_launches(2, 15, kd=False, remat=False))
+    losses = res["loss"]
     runs["ce_overfit"] = {"loss": losses,
                           "last_over_first": losses[-1] / losses[0]}
     if not losses[-1] < 0.9 * losses[0]:
@@ -2677,7 +2793,11 @@ def phase_train(torch):
     torch.cuda.empty_cache()
 
     # 5. card against CPU
-    runs["card_vs_cpu_step"] = r = train_step_card_vs_cpu(torch)
+    runs["card_vs_cpu_step"] = r = count_launches(
+        torch, kernels, lambda: train_step_card_vs_cpu(torch))
+    counted.append(r.pop("launches"))
+    failures += launches_as_implied("card_vs_cpu_step", counted[-1],
+                                    train_launches(1, 1))
     bad = {k: r[k] for k, gate in TRAIN_CPU_GATES.items() if not r[k] <= gate}
     if bad:
         failures.append(f"train card_vs_cpu_step: {bad} beyond "
@@ -2720,17 +2840,26 @@ def phase_train(torch):
     launches = {k: sum(c[k] for c in counted) for k in kernels}
     emit({"phase": "train", **runs, "launches_total": launches,
           "card": smi()})
-    return failures
+    return launches, failures
+
+
+def launches_as_implied(what: str, got: dict, want: dict) -> list:
+    """A failure unless ``got`` holds ``want``'s counts and no launch of
+    any other kernel."""
+    other = {k: n for k, n in got.items() if n and k not in want}
+    if other or any(got.get(k) != n for k, n in want.items()):
+        return [f"{what}: launches {got}, want {want} and no other"]
+    return []
 
 
 @contextlib.contextmanager
 def plain_versions(mm, a8, flash: bool = True):
     """Route the packed linears (K1-K3, K5, K6), the K4 family, K11, the
-    uniform linears (K7, K8), K12 and, with ``flash``, K13 through their
-    plain PyTorch versions on the card, so one forward can be held against
-    the same forward with the kernels on the same device (no kernel
-    launches, no counts). ``flash=False`` keeps K13 on both sides, for the
-    gates that isolate another kernel."""
+    uniform linears (K7, K8), K12 and, with ``flash``, K13 and K13-bwd
+    through their plain PyTorch versions on the card, so one forward can
+    be held against the same forward with the kernels on the same device
+    (no kernel launches, no counts). ``flash=False`` keeps K13 on both
+    sides, for the gates that isolate another kernel."""
     from mxq_tpu_torch.ops import attn_bf16 as ab
     from mxq_tpu_torch.ops import uniform4 as u4
     swaps = [(mm, "gemv_batched", mm.gemv_plain),
@@ -2751,8 +2880,12 @@ def plain_versions(mm, a8, flash: bool = True):
              (u4, "u2_gemv", u4.uniform_matmul_plain),
              (ab, "paged_decode_attention", ab.paged_decode_attention_plain)]
     if flash:
-        swaps.append((ab, "flash_prefill_attention",
-                      ab.flash_prefill_attention_plain))
+        swaps += [(ab, "flash_prefill_attention",
+                   ab.flash_prefill_attention_plain),
+                  (ab, "flash_attention_forward",
+                   ab.flash_attention_forward_plain),
+                  (ab, "flash_attention_backward",
+                   ab.flash_attention_bwd_plain)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -2777,18 +2910,20 @@ def k13_plain():
 
 
 @contextlib.contextmanager
-def k13_sdpa():
+def k13_sdpa(torch):
     """K13's calls through PyTorch's SDPA with is_causal=True (the route
     before K13), on the card and on the CPU, for the comparisons that
     hold K13 against it (every other kernel stays)."""
-    from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.ops import attn_bf16 as ab
     fn = ab.flash_prefill_attention
 
     def sdpa(q, k, v):
         t, g = q.shape[1], q.shape[2] // k.shape[2]
         k, v = (a[:, :t].repeat_interleave(g, dim=2) for a in (k, v))
-        return llama._sdpa(q, k, v, q.shape[-1])
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, scale=1.0 / math.sqrt(q.shape[-1])).transpose(
+                1, 2)
 
     ab.flash_prefill_attention = sdpa
     try:
@@ -3485,7 +3620,7 @@ def phase_e2e(torch):
             # K12 none, K13 only where it stayed (flash=False)
             bf_plain_used = [k12.launches - bf_before[0] - bf_used[0],
                              k13.launches - bf_before[1] - bf_used[1]]
-            with k13_sdpa():
+            with k13_sdpa(torch):
                 sdpa_p, _ = llama.forward(params, pids, flash_cfg,
                                           device="cuda")
             host, _ = llama.forward(cpu_params, ids[:, t0:], cfg,
@@ -3603,7 +3738,7 @@ def e2e_layouts(torch, cfg, flash_cfg, params, cpu_params, base, ids, rids,
             with plain_versions(mm, a8, flash=False):
                 plain = run(params, "cuda")
             host = run(cpu_params, "cpu")
-            with k13_sdpa():
+            with k13_sdpa(torch):
                 card_sdpa = llama.forward(params, rids, flash_cfg,
                                           device="cuda")[0].cpu()
                 host_sdpa = llama.forward(cpu_params, rids, flash_cfg,
@@ -3914,12 +4049,11 @@ def ring_ranks(torch, whole, matmul, dev):
 
 @contextlib.contextmanager
 def deterministic(torch):
-    """Deterministic algorithms on for the block. By default the
-    backward of SDPA's memory-efficient attention (f32 training) is not
-    deterministic, and three AdamW steps on random weights grow its
-    last-bit noise to 1.8e-5 of step 3's loss between the FSDP2 run and the
-    unsharded one, which deterministic algorithms make equal: the noise
-    would hide what FSDP2 itself changes. cuBLAS needs
+    """Deterministic algorithms on for the block, so that run-to-run noise
+    does not hide what FSDP2 itself changes. K13-bwd has no atomics and
+    repeats its bits without them; the backward of SDPA's memory-efficient
+    attention, the student's route before it, did not (three AdamW steps
+    grew its last-bit noise to 1.8e-5 of step 3's loss). cuBLAS needs
     CUBLAS_WORKSPACE_CONFIG (set in :func:`main`)."""
     was = torch.are_deterministic_algorithms_enabled()
     torch.use_deterministic_algorithms(True)
@@ -4361,15 +4495,15 @@ def phase_parallel(torch, parts=("parallel", "multihost")):
                                                      ref_train["loss"])]
         runs["train_loss_rel_gap"] = gaps
         # training holds dense weights: of the repo's kernels only K13
-        # runs, in the KD teacher's forward and the validation
-        if (len(gaps) != 3 or not all(g <= PAR_LOSS_GATE for g in gaps)
-                or fsdp_train["launches"]["K13"] <= 0
-                or any(n for k, n in fsdp_train["launches"].items()
-                       if k != "K13")):
+        # and K13-bwd run (train_launches)
+        want = train_launches(4, 3, val_batches=TRAIN_VAL_BATCHES)
+        for name, run in (("unsharded", ref_train), ("FSDP2", fsdp_train)):
+            failures += launches_as_implied(f"parallel train {name}",
+                                            run["launches"], want)
+        if len(gaps) != 3 or not all(g <= PAR_LOSS_GATE for g in gaps):
             failures.append(f"parallel train: FSDP2 losses "
                             f"{fsdp_train['loss']} against "
-                            f"{ref_train['loss']}, launches "
-                            f"{fsdp_train['launches']}")
+                            f"{ref_train['loss']}")
         runs["ptq_sharded"] = dict(child.pop("ptq"), differing=ptq_diff)
         if ptq_diff or not runs["ptq_sharded"]["printed_mesh"]:
             failures.append(f"parallel ptq --shard: {runs['ptq_sharded']}")
@@ -4495,7 +4629,10 @@ def main(argv=None) -> int:
             launches[k] = launches.get(k, 0) + n
         failures += f
     if "train" in phases:
-        failures += phase_train(torch)
+        more, f = phase_train(torch)
+        for k, n in more.items():
+            launches[k] = launches.get(k, 0) + n
+        failures += f
     if "tasks" in phases:
         more, f = phase_tasks(torch)
         for k, n in more.items():

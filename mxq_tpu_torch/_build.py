@@ -25,7 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("mxq_gemv", "mxq_gemv_tc", "mxq_dequant", "attn_int8",
-           "paged_attn_int8", "uniform_gemv", "paged_attn_bf16", "flash_attn")
+           "paged_attn_int8", "uniform_gemv", "paged_attn_bf16", "flash_attn",
+           "flash_attn_bwd")
 _EXTRA_FLAGS = {
     # K3 and K5 must equal their plain PyTorch versions bit for bit: no
     # FMA fusion.
@@ -59,7 +60,9 @@ SIGNATURES = {
     "paged_attn_bf16": {
         "paged_attn_bf16": [P] * 5 + [I] * 7 + [F] + [P] * 4},
     "flash_attn": {
-        "flash_attn": [P] * 4 + [L] * 6 + [I] * 6 + [F, P]},
+        "flash_attn": [P] * 5 + [L] * 6 + [I] * 6 + [F, P]},
+    "flash_attn_bwd": {
+        "flash_attn_bwd": [P] * 9 + [L] * 9 + [I] * 6 + [F, P]},
 }
 
 

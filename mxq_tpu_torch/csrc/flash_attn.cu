@@ -12,7 +12,10 @@
 //   m_new = max(m, rowmax(s)); p = exp(s - m_new); alpha = exp(m - m_new)
 //   l     = alpha * l + rowsum(p)                  f32, p unrounded
 //   acc   = alpha * acc + p.astype(v.dtype) . v    f32 accumulation
-// and writes acc / l in q's type. Upstream keeps acc divided by l after
+// and writes acc / l in q's type, and where asked the row log-sum-exp
+// lse = m + log(l) in the same scaled units, f32 [B, Hq, T]: what the
+// backward (K13-bwd, flash_attn_bwd.cu) needs of the forward (upstream
+// saves l and m apart, :234-252). Upstream keeps acc divided by l after
 // every block; here the division comes once at the end (the same sum,
 // one rounding instead of one per block). The rounding of p to V's type
 // against the running max is the point where this differs most from the
@@ -22,7 +25,7 @@
 // Bound on the H100: operations. 4 * B * Hq * D * T(T+1)/2 (two products
 // over the causal half), at T = 2048 and 32 heads of 128 34.4 GFLOP a
 // layer: 0.0348 ms at 989 TFLOP/s; the bytes (q, k, v read once, the
-// output written) are 2 MB a layer at bf16.
+// output written) are 67 MB a layer at bf16, 0.020 ms at 3.35 TB/s.
 //
 // Design (FlashAttention-2 on mma.sync, sm_80-style; wgmma, TMA and warp
 // specialisation are later work): one block of 4 warps per (64 query
@@ -59,6 +62,7 @@
 namespace {
 
 #include "device_util.cuh"
+#include "flash_tile.cuh"
 
 constexpr int BQ = 64;                  // query rows per block
 constexpr int BK = 64;                  // keys per tile
@@ -70,65 +74,11 @@ struct Args {
   const void* k;                        // [B, >=T, Hkv, D]
   const void* v;
   void* out;                            // [B, T, Hq, D] contiguous
+  float* lse;                           // [B, Hq, T] or null
   long long qsb, qst, ksb, kst, vsb, vst;   // batch, token strides (elems)
   int T, Hq, Hkv;
   float scale;
 };
-
-// element offset of 16-byte chunk c of row r in a [64][D] bf16 tile
-template <int D>
-__device__ __forceinline__ int sw(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
-}
-
-__device__ __forceinline__ uint32_t pack_bf2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// x = hi + lo, hi = bf16(x), lo = bf16(x - hi), for a pair of values
-__device__ __forceinline__ void split_bf2(float x, float y, uint32_t& hi,
-                                          uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  const float2 f = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf2(x - f.x, y - f.y);
-}
-
-// rows [0, 64) of a tile from src (row r at src + r * rstride); rows >=
-// nrows are zero and read nothing. bf16: cp.async into hi; f32: split
-// into hi and lo planes through registers.
-template <int D, bool SPLIT>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* hi,
-                                          __nv_bfloat16* lo, const void* src,
-                                          long long rstride, int nrows,
-                                          int tid) {
-  constexpr int CPR = D / 8;            // 16-byte bf16 chunks per row
-  for (int i = tid; i < 64 * CPR; i += THREADS) {
-    const int r = i / CPR, c = i % CPR;
-    const bool ok = r < nrows;
-    if constexpr (!SPLIT) {
-      const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(src)
-                               + (ok ? r * rstride + c * 8 : 0);
-      cp16(hi + sw<D>(r, c), g, ok);
-    } else {
-      float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
-      if (ok) {
-        const float4* g = reinterpret_cast<const float4*>(
-            static_cast<const float*>(src) + r * rstride + c * 8);
-        x0 = __ldg(g);
-        x1 = __ldg(g + 1);
-      }
-      uint4 h, l;
-      split_bf2(x0.x, x0.y, h.x, l.x);
-      split_bf2(x0.z, x0.w, h.y, l.y);
-      split_bf2(x1.x, x1.y, h.z, l.z);
-      split_bf2(x1.z, x1.w, h.w, l.w);
-      *reinterpret_cast<uint4*>(hi + sw<D>(r, c)) = h;
-      *reinterpret_cast<uint4*>(lo + sw<D>(r, c)) = l;
-    }
-  }
-}
 
 template <int D, bool SPLIT>
 __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
@@ -151,9 +101,9 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
   const T* kg = static_cast<const T*>(a.k) + b * a.ksb + hk * D;
   const T* vg = static_cast<const T*>(a.v) + b * a.vsb + hk * D;
 
-  load_tile<D, SPLIT>(sq, sq + TILE, qg, a.qst, a.T - q0, tid);
-  load_tile<D, SPLIT>(sk, sk + TILE, kg, a.kst, a.T, tid);
-  load_tile<D, SPLIT>(sv, sv + TILE, vg, a.vst, a.T, tid);
+  load_tile<D, SPLIT, BQ, THREADS>(sq, sq + TILE, qg, a.qst, a.T - q0, tid);
+  load_tile<D, SPLIT, BK, THREADS>(sk, sk + TILE, kg, a.kst, a.T, tid);
+  load_tile<D, SPLIT, BK, THREADS>(sv, sv + TILE, vg, a.vst, a.T, tid);
   cp_commit();
 
   uint32_t qa[NP][KD][4];
@@ -169,10 +119,12 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
     if (kt + 1 < nkt) {                 // the next tile into the other buffer
       const int nb = buf ^ 1;
       const long long k1 = (long long)(kt + 1) * BK;
-      load_tile<D, SPLIT>(sk + nb * NP * TILE, sk + nb * NP * TILE + TILE,
-                          kg + k1 * a.kst, a.kst, a.T - (int)k1, tid);
-      load_tile<D, SPLIT>(sv + nb * NP * TILE, sv + nb * NP * TILE + TILE,
-                          vg + k1 * a.vst, a.vst, a.T - (int)k1, tid);
+      load_tile<D, SPLIT, BK, THREADS>(
+          sk + nb * NP * TILE, sk + nb * NP * TILE + TILE, kg + k1 * a.kst,
+          a.kst, a.T - (int)k1, tid);
+      load_tile<D, SPLIT, BK, THREADS>(
+          sv + nb * NP * TILE, sv + nb * NP * TILE + TILE, vg + k1 * a.vst,
+          a.vst, a.T - (int)k1, tid);
       cp_commit();
       cp_wait<1>();
     } else {
@@ -306,6 +258,11 @@ __global__ void __launch_bounds__(THREADS) flash_kernel(const Args a) {
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  if (a.lse != nullptr && (lane & 3) == 0) {    // m and l are the quad's
+    float* lse = a.lse + ((long long)b * a.Hq + h) * a.T;
+    if (r0 < a.T) lse[r0] = m0 + logf(l0);
+    if (r1 < a.T) lse[r1] = m1 + logf(l1);
+  }
   T* out = static_cast<T*>(a.out);
   const int col = 2 * (lane & 3);
 #pragma unroll
@@ -343,10 +300,11 @@ int launch(const Args& a, int B, void* stream) {
 
 // q [B, T, Hq, D], k/v [B, >=T, Hkv, D] with element strides (batch,
 // token) given and heads and D contiguous, 16-byte aligned rows; out
-// [B, T, Hq, D] contiguous. f32 = 0: bf16 tensors; f32 = 1: float32
-// tensors (the split products). Returns a cudaError_t.
+// [B, T, Hq, D] contiguous; lse [B, Hq, T] f32 or null (not written).
+// f32 = 0: bf16 tensors; f32 = 1: float32 tensors (the split products).
+// Returns a cudaError_t.
 extern "C" int flash_attn(const void* q, const void* k, const void* v,
-                          void* out, long long qsb, long long qst,
+                          void* out, float* lse, long long qsb, long long qst,
                           long long ksb, long long kst, long long vsb,
                           long long vst, int B, int T, int Hq, int Hkv, int D,
                           int f32, float scale, void* stream) {
@@ -354,7 +312,8 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v,
       || Hq > 65535)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
-  const Args a{q, k, v, out, qsb, qst, ksb, kst, vsb, vst, T, Hq, Hkv, scale};
+  const Args a{q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
+               T, Hq, Hkv, scale};
   switch (D * 2 + (f32 ? 1 : 0)) {
     case 128: return launch<64, false>(a, B, stream);
     case 129: return launch<64, true>(a, B, stream);

@@ -26,10 +26,11 @@ position-0 prefill attention of 128+ tokens on the card (``use_flash``, or
 (``ops.attn_bf16.flash_prefill_attention``), the counterpart of the
 upstream Pallas flash attention the JAX version calls; on the CPU
 ``attn_impl="auto"`` takes the einsum path, as JAX does, and "flash"
-K13's plain version. Under autograd (QAT's ``forward(train=True)``, with
-``q.requires_grad``) that attention goes to
-``torch.nn.functional.scaled_dot_product_attention`` instead: a route by
-mode, until flash attention's backward is ported.
+K13's plain version. Under autograd (QAT's ``forward(train=True)``) that
+attention goes through ``ops.attn_bf16.FlashAttention``: K13 with its row
+log-sum-exp forward and K13-bwd (``csrc/flash_attn_bwd.cu``) backward, the
+counterpart of the upstream flash attention's VJP the JAX version
+differentiates; on the CPU both plain versions.
 """
 
 from __future__ import annotations
@@ -254,14 +255,6 @@ def _cache_len(caches: dict) -> int:
             else caches["k"].shape[2])
 
 
-def _sdpa(q, k, v, d):
-    """Causal attention through PyTorch's fused SDPA: q, k, v [B, T, H, D]."""
-    ctx = F.scaled_dot_product_attention(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        is_causal=True, scale=1.0 / math.sqrt(d))
-    return ctx.transpose(1, 2)
-
-
 class Ops:
     """Where the decoder's weights and its cache are used: the embedding,
     every linear of a layer, the head, the attention step and the cache
@@ -365,7 +358,6 @@ def _attend_step(cfg: LlamaConfig, mask, cache, cache_pos, dtype, idx, q,
     ``cache_pos..`` of layer ``idx`` of ``cache`` (if any), read back in
     ``dtype``; the context [B, T, H, D] of q's heads."""
     t = q.shape[1]
-    nh, d = q.shape[2], cfg.head_dim
     on_card = q.device.type == "cuda"
     prefill_flash = (cache is not None and t >= 128 and cache_pos == 0
                      and (cfg.attn_impl == "flash"
@@ -401,14 +393,10 @@ def _attend_step(cfg: LlamaConfig, mask, cache, cache_pos, dtype, idx, q,
                  or (cfg.attn_impl == "auto" and on_card and t >= 128
                      and (cache is None or prefill_flash)))
     if use_flash:
-        if torch.is_grad_enabled() and q.requires_grad:
-            # under autograd (QAT) the route is SDPA, whose backward
-            # PyTorch provides, until flash attention's backward is ported
-            nkv = k.shape[2]
-            if nkv != nh:
-                k = torch.repeat_interleave(k, nh // nkv, dim=2)
-                v = torch.repeat_interleave(v, nh // nkv, dim=2)
-            return _sdpa(q, k, v, d)
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in (q, k, v)):
+            # under autograd (QAT): K13 forward, K13-bwd backward
+            return attn_bf16.FlashAttention.apply(q, k, v)
         # K13 on the card, its plain version on the CPU
         return attn_bf16.flash_prefill_attention(q, k, v)
     return masked_attention(q, k, v, mask)

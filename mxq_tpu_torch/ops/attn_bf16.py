@@ -1,17 +1,20 @@
 """Attention over bf16 (or float32) keys and values: K12, one-token decode
-over the bf16 paged pool (``csrc/paged_attn_bf16.cu``), and K13, causal
+over the bf16 paged pool (``csrc/paged_attn_bf16.cu``); K13, causal
 attention from position 0, the forward of flash attention
-(``csrc/flash_attn.cu``); their plain PyTorch versions and wrappers.
+(``csrc/flash_attn.cu``); and K13-bwd, its backward
+(``csrc/flash_attn_bwd.cu``); their plain PyTorch versions and wrappers,
+and :class:`FlashAttention`, K13 under autograd.
 
-These replace the two upstream Pallas TPU kernels that ``mxq_tpu`` calls
-from JAX's library: ``serving/paged.py`` ``paged_attend`` (:265) sends a
-bf16 pool with head_dim % 128 == 0 to
+These replace the upstream Pallas TPU kernels that ``mxq_tpu`` calls from
+JAX's library: ``serving/paged.py`` ``paged_attend`` (:265) sends a bf16
+pool with head_dim % 128 == 0 to
 ``jax.experimental.pallas.ops.tpu.paged_attention`` (K12), and
 ``models/llama.py`` ``attention`` (:383-396) sends every prefill or
 cache-less forward of 128+ tokens (``use_flash``) to
-``jax.experimental.pallas.ops.tpu.flash_attention`` (K13). The backward of
-flash attention (QAT's gradients) is not ported: under autograd the model
-attends through PyTorch's SDPA (``models/llama.py``).
+``jax.experimental.pallas.ops.tpu.flash_attention`` (K13), whose custom
+VJP runs two more kernels when QAT differentiates it (K13-bwd: the dK/dV
+and dQ ``pallas_call``s, flash_attention.py:1121 and :1456). The port's
+model sends that attention under autograd to :class:`FlashAttention`.
 
 Each wrapper takes its plain version for tensors on the CPU and launches
 its kernel for tensors on the card, where a failed launch raises.
@@ -135,27 +138,88 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices):
 # ---------------------------------------------------------------------------
 
 
+def _causal_scores(q, k):
+    """The f32 scores [B, Hq, T, T] of q [B, T, Hq, D] against the first T
+    rows of k [B, >= T, Hkv, D] (repeated to Hq heads), divided by sqrt(D),
+    with the causal mask added (query row i over key rows j <= i)."""
+    b, t, hq, d = q.shape
+    k = k[:, :t]
+    if k.shape[2] != hq:
+        k = torch.repeat_interleave(k, hq // k.shape[2], dim=2)
+    scores = div_const(torch.einsum("bhtd,bhsd->bhts", q.transpose(1, 2)
+                                    .float(), k.transpose(1, 2).float()),
+                       math.sqrt(d))
+    i = torch.arange(t, device=q.device)
+    return scores + torch.where(i[None, :] <= i[:, None], 0.0, NEG)
+
+
+def _flash_plain(q, k, v):
+    """The context of K13's plain version and the scores it came from."""
+    t, hq = q.shape[1], q.shape[2]
+    v = v[:, :t]
+    if v.shape[2] != hq:
+        v = torch.repeat_interleave(v, hq // v.shape[2], dim=2)
+    vf = v.transpose(1, 2)
+    scores = _causal_scores(q, k)
+    probs = torch.softmax(scores, dim=-1).to(vf.dtype)
+    ctx = torch.einsum("bhts,bhsd->bhtd", probs, vf).transpose(1, 2) \
+        .to(q.dtype)
+    return ctx, scores
+
+
 def flash_prefill_attention_plain(q, k, v):
     """Plain version of K13: ``mxq_tpu``'s einsum attention
     (models/llama.py:397-406) under the causal mask: f32 scores divided by
     sqrt(D), query row i over key rows j <= i, f32 softmax, probabilities
     in V's type, then the product with V; the result in q's type. q
     [B, T, Hq, D], k, v [B, >= T, Hkv, D] (rows < T are read)."""
+    return _flash_plain(q, k, v)[0]
+
+
+def flash_attention_forward_plain(q, k, v):
+    """Plain version of K13 with its row log-sum-exp: the context of
+    :func:`flash_prefill_attention_plain`, bit for bit, and lse [B, Hq, T]
+    f32, the logsumexp of each row's masked scores in the units the
+    backward recomputes them in (divided by sqrt(D))."""
+    ctx, scores = _flash_plain(q, k, v)
+    return ctx, torch.logsumexp(scores, dim=-1)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do):
+    """Plain version of K13-bwd, flash attention's backward as upstream's
+    VJP computes it (flash_attention.py:254-318, :796-939, :1146-1285):
+    di = rowsum(o . dO) in f32, p = exp(s - lse) over the masked scores s
+    of :func:`_causal_scores`, dV = p^T . dO with p in dO's type, dP = dO .
+    V^T, dS = (dP - di) * p / sqrt(D), dK = dS^T . Q and dQ = dS . K with
+    dS in the input type, every product in f32. Takes the shapes and
+    strides of :func:`flash_prefill_attention_plain` with o and dO [B, T,
+    Hq, D] and lse [B, Hq, T] f32; returns dq [B, T, Hq, D] and dk, dv
+    shaped like k, v (summed over each kv head's query heads; rows >= T
+    zero), in q's type."""
     b, t, hq, d = q.shape
-    hkv = k.shape[2]
-    k, v = k[:, :t], v[:, :t]
-    if hkv != hq:
-        k = torch.repeat_interleave(k, hq // hkv, dim=2)
-        v = torch.repeat_interleave(v, hq // hkv, dim=2)
-    qf = q.transpose(1, 2).float()
-    kf = k.transpose(1, 2).float()
-    vf = v.transpose(1, 2)
-    scores = div_const(torch.einsum("bhtd,bhsd->bhts", qf, kf), math.sqrt(d))
-    i = torch.arange(t, device=q.device)
-    scores = scores + torch.where(i[None, :] <= i[:, None], 0.0, NEG)
-    probs = torch.softmax(scores, dim=-1).to(vf.dtype)
-    return torch.einsum("bhts,bhsd->bhtd", probs, vf).transpose(1, 2) \
-        .to(q.dtype)
+    s, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    kf, vf = k[:, :t], v[:, :t]
+    if g > 1:
+        kf = torch.repeat_interleave(kf, g, dim=2)
+        vf = torch.repeat_interleave(vf, g, dim=2)
+    qf, kf, vf, of, dof = (a.transpose(1, 2).float()
+                           for a in (q, kf, vf, o, do))
+    di = (of * dof).sum(-1)                                  # [B, Hq, T]
+    p = torch.exp(_causal_scores(q, k) - lse[..., None])
+    dv = torch.einsum("bhts,bhtd->bhsd", p.to(do.dtype).float(), dof)
+    dp = torch.einsum("bhtd,bhsd->bhts", dof, vf)
+    ds = ((dp - di[..., None]) * p * (1.0 / math.sqrt(d))).to(q.dtype) \
+        .float()
+    dq = torch.einsum("bhts,bhsd->bhtd", ds, kf)
+    dk = torch.einsum("bhts,bhtd->bhsd", ds, qf)
+    dk, dv = (x.view(b, hkv, g, t, d).sum(2).transpose(1, 2)
+              for x in (dk, dv))
+    if s > t:
+        dk, dv = (torch.nn.functional.pad(x, (0, 0, 0, 0, 0, s - t))
+                  for x in (dk, dv))
+    return (dq.transpose(1, 2).to(q.dtype), dk.to(q.dtype),
+            dv.to(q.dtype))
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -170,6 +234,41 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return x.contiguous()
 
 
+def _flash_check(what, q, k, v):
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    if (q.dtype not in (torch.bfloat16, torch.float32)
+            or k.dtype != q.dtype or v.dtype != q.dtype
+            or k.device != q.device or v.device != q.device
+            or tuple(k.shape) != (b, s, hkv, d) or v.shape != k.shape
+            or s < t or hq % hkv or d not in HEAD_DIMS):
+        raise ValueError(
+            f"{what} takes q [B, T, Hq, D], k, v [B, S >= T, Hkv, D] of one "
+            f"type (bfloat16 or float32) on one device, D in {HEAD_DIMS}, "
+            f"Hq a multiple of Hkv; got q {q.dtype} {tuple(q.shape)} on "
+            f"{q.device}, k {k.dtype} {tuple(k.shape)} on {k.device}, v "
+            f"{v.dtype} {tuple(v.shape)} on {v.device}")
+
+
+def _k13_launch(q, k, v, lse):
+    """K13 on the card; ``lse`` [B, Hq, T] f32 receives the row
+    log-sum-exp, or None (the kernel writes none)."""
+    from mxq_tpu_torch import _build
+    _flash_check("K13", q, k, v)
+    b, t, hq, d = q.shape
+    q, k, v = _rows(q), _rows(k), _rows(v)
+    out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
+    err = _build.load("flash_attn").flash_attn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), b, t, hq,
+        k.shape[2], d, int(q.dtype == torch.float32), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "K13")
+    count_launch(flash_prefill_attention)
+    return out
+
+
 def flash_prefill_attention(q, k, v):
     """K13: causal attention from position 0, scale 1/sqrt(D).
 
@@ -180,32 +279,91 @@ def flash_prefill_attention(q, k, v):
     Returns [B, T, Hq, D] in q's type."""
     if q.device.type == "cpu":
         return flash_prefill_attention_plain(q, k, v)
+    return _k13_launch(q, k, v, None)
+
+
+def flash_attention_forward(q, k, v):
+    """K13 with its row log-sum-exp, the forward :class:`FlashAttention`
+    saves for its backward: (ctx, lse [B, Hq, T] f32). The context has the
+    bits of :func:`flash_prefill_attention` on the same inputs; a launch
+    counts as K13's."""
+    if q.device.type == "cpu":
+        return flash_attention_forward_plain(q, k, v)
+    b, t, hq, _ = q.shape
+    lse = torch.empty((b, hq, t), dtype=torch.float32, device=q.device)
+    return _k13_launch(q, k, v, lse), lse
+
+
+def flash_attention_backward(q, k, v, o, lse, do):
+    """K13-bwd: the gradients of K13 (``csrc/flash_attn_bwd.cu``, its dQ
+    kernel then its dK/dV kernel; one launch counted per call).
+
+    q, k, v as :func:`flash_prefill_attention` took them, o its output,
+    lse from :func:`flash_attention_forward`, do the output's gradient
+    [B, T, Hq, D] (any strides). Returns dq [B, T, Hq, D] and dk, dv shaped
+    like k, v (summed over each kv head's query heads; rows >= T zero), in
+    q's type. di = rowsum(o . dO) is one PyTorch reduction, as upstream
+    computes it in jnp outside its kernels."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do)
     from mxq_tpu_torch import _build
+    _flash_check("K13-bwd", q, k, v)
     b, t, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
-    if (q.dtype not in (torch.bfloat16, torch.float32)
-            or k.dtype != q.dtype or v.dtype != q.dtype
-            or k.device != q.device or v.device != q.device
-            or tuple(k.shape) != (b, s, hkv, d) or v.shape != k.shape
-            or s < t or hq % hkv or d not in HEAD_DIMS):
+    if (tuple(o.shape) != (b, t, hq, d) or do.shape != o.shape
+            or o.dtype != q.dtype or do.dtype != q.dtype
+            or lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, t)
+            or not lse.is_contiguous()
+            or any(x.device != q.device for x in (o, lse, do))):
         raise ValueError(
-            f"K13 takes q [B, T, Hq, D], k, v [B, S >= T, Hkv, D] of one "
-            f"type (bfloat16 or float32) on one device, D in {HEAD_DIMS}, "
-            f"Hq a multiple of Hkv; got q {q.dtype} {tuple(q.shape)} on "
-            f"{q.device}, k {k.dtype} {tuple(k.shape)} on {k.device}, v "
-            f"{v.dtype} {tuple(v.shape)} on {v.device}")
-    q, k, v = _rows(q), _rows(k), _rows(v)
-    out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
-    err = _build.load("flash_attn").flash_attn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-        v.stride(1), b, t, hq, hkv, d, int(q.dtype == torch.float32),
-        1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "K13")
-    count_launch(flash_prefill_attention)
-    return out
+            f"K13-bwd takes o and do [B, T, Hq, D] in q's type and lse "
+            f"[B, Hq, T] float32 contiguous, on q's device; got o {o.dtype} "
+            f"{tuple(o.shape)}, do {do.dtype} {tuple(do.shape)}, lse "
+            f"{lse.dtype} {tuple(lse.shape)} for q {q.dtype} "
+            f"{tuple(q.shape)}")
+    q, k, v, do = _rows(q), _rows(k), _rows(v), _rows(do)
+    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if s > t:
+        dk[:, t:].zero_()
+        dv[:, t:].zero_()
+    err = _build.load("flash_attn_bwd").flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+        v.stride(0), v.stride(1), do.stride(0), do.stride(1), s * hkv * d,
+        b, t, hq, hkv, d, int(q.dtype == torch.float32), 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "K13-bwd")
+    count_launch(flash_attention_backward)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """K13 under autograd: the forward is :func:`flash_attention_forward`
+    (K13 with its lse), the backward :func:`flash_attention_backward`
+    (K13-bwd), each its plain version on the CPU; ``apply(q, k, v)`` takes
+    and returns what :func:`flash_prefill_attention` does, and the
+    gradients come shaped like q, k, v. The counterpart of upstream's
+    ``jax.custom_vjp`` around flash attention (flash_attention.py:204-318);
+    it runs under ``torch.utils.checkpoint(use_reentrant=False)``, which
+    calls the forward again in the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = flash_attention_forward(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        return flash_attention_backward(*ctx.saved_tensors, do)
 
 
 paged_decode_attention.launches = 0
 flash_prefill_attention.launches = 0
-KERNELS = {"K12": paged_decode_attention, "K13": flash_prefill_attention}
+flash_attention_backward.launches = 0
+KERNELS = {"K12": paged_decode_attention, "K13": flash_prefill_attention,
+           "K13-bwd": flash_attention_backward}

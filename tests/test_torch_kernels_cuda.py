@@ -1,10 +1,10 @@
-"""K1-K6, K4a-K4d, K7, K8, K9-K11, K12 and K13 on the card against their
-plain PyTorch versions at small shapes (the one-row kernels also at
-llama2_7b down's K of 11008, the attention kernels at histories of up to
-4096 rows, cut at their 128-row split edges), and the quantizers on the
-card against the CPU (the PTQ packer, the QAT fake-quants, the int8 KV
-and activation quantizers). Needs a CUDA device and nvcc (marker
-``cuda``); skips elsewhere. Run on the H100 with
+"""K1-K6, K4a-K4d, K7, K8, K9-K11, K12, K13 and K13-bwd on the card
+against their plain PyTorch versions at small shapes (the one-row kernels
+also at llama2_7b down's K of 11008, the attention kernels at histories
+of up to 4096 rows, cut at their 128-row split edges), and the
+quantizers on the card against the CPU (the PTQ packer, the QAT
+fake-quants, the int8 KV and activation quantizers). Needs a CUDA device
+and nvcc (marker ``cuda``); skips elsewhere. Run on the H100 with
 ``python -m pytest -m cuda tests/test_torch_kernels_cuda.py``;
 ``chip_smoke.py`` holds the same kernels at llama2_7b's shapes."""
 
@@ -513,6 +513,98 @@ def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert float((got.float() - ref.float()).abs().max()
                  / ref.float().abs().max()) <= tol
+
+
+def _qkv(gen, b, t, hq, hkv, d, dtype):
+    """q, k, v as the fused qkv projection's strided slices, k and v 7
+    rows longer than q (a cache whose rows past T are never read)."""
+    qkv = torch.randn((b, t + 7, (hq + 2 * hkv) * d), generator=gen,
+                      device="cuda").to(dtype)
+    return (qkv[:, :t, :hq * d].reshape(b, t, hq, d),
+            qkv[..., hq * d:(hq + hkv) * d].reshape(b, t + 7, hkv, d),
+            qkv[..., (hq + hkv) * d:].reshape(b, t + 7, hkv, d))
+
+
+def _grad_errs(got, ref):
+    """Each gradient's max |got - ref| over its max |ref|. With one key
+    (T = 1) dQ and dK are zero in exact arithmetic (p = 1 and o = v, so
+    dS = p (dP - di) = 0) and their max is rounding noise: there they are
+    measured over max|dV| (= max|dO|) instead."""
+    scale = [float(r.float().abs().max()) for r in ref]
+    if ref[0].shape[1] == 1:
+        scale[0] = scale[1] = scale[2]
+    return [float((g.float() - r.float()).abs().max()) / m
+            for g, r, m in zip(got, ref, scale)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 200, 513])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128)])
+def test_k13_bwd_matches_plain(gen, hq, hkv, d, t, dtype):
+    """K13-bwd against its plain version on the same lse (K13's), q, k, v
+    the fused projection's strided slices and dO a transposed view: each
+    gradient within 2e-2 of its max at bf16 (P and dS rounded to bf16 as
+    upstream does, from exp(s - lse) recomputed in another order), 1e-4 at
+    float32 (the split products, K13-f32's gate); the same bits on a
+    second call, one launch counted per call, dK and dV zero past row T."""
+    b = 2
+    q, k, v = _qkv(gen, b, t, hq, hkv, d, dtype)
+    do = torch.randn((b, hq, t, d), generator=gen, device="cuda").to(
+        dtype).transpose(1, 2)
+    o, lse = ab.flash_attention_forward(q, k, v)
+    before = ab.flash_attention_backward.launches
+    got = ab.flash_attention_backward(q, k, v, o, lse, do)
+    again = ab.flash_attention_backward(q, k, v, o, lse, do)
+    ref = ab.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert ab.flash_attention_backward.launches == before + 2
+    for g, a, r in zip(got, again, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert torch.equal(g, a) and bool(torch.isfinite(g).all())
+    for g in got[1:]:
+        assert not bool(g[:, t:].any())
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert max(_grad_errs(got, ref)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [1, 65, 513])
+def test_k13_lse_keeps_the_output(gen, t, dtype):
+    """K13 writing its row log-sum-exp gives the output bits it gives
+    without, and that lse is the plain version's within 1e-4 (the masked
+    scores' logsumexp: values of a few units, f32 sums in another
+    order)."""
+    q, k, v = _qkv(gen, 2, t, 16, 2, 128, dtype)
+    out, lse = ab.flash_attention_forward(q, k, v)
+    plain = ab.flash_prefill_attention(q, k, v)
+    _, ref = ab.flash_attention_forward_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain)
+    assert lse.shape == (2, 16, t) and lse.dtype == torch.float32
+    assert float((lse - ref).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_autograd_equals_plain_backward(gen, dtype):
+    """torch.autograd.grad through FlashAttention (K13 forward, K13-bwd
+    backward) against the plain backward on the same lse, at the gates of
+    test_k13_bwd_matches_plain; one K13 and one K13-bwd launch."""
+    q, k, v = (x.detach().requires_grad_()
+               for x in _qkv(gen, 2, 200, 16, 2, 128, dtype))
+    do = torch.randn((2, 200, 16, 128), generator=gen, device="cuda").to(
+        dtype)
+    wrappers = (ab.flash_prefill_attention, ab.flash_attention_backward)
+    before = [f.launches for f in wrappers]
+    out = ab.FlashAttention.apply(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert [f.launches - n for f, n in zip(wrappers, before)] == [1, 1]
+    o, lse = ab.flash_attention_forward(q.detach(), k.detach(), v.detach())
+    ref = ab.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                       o, lse, do)
+    torch.cuda.synchronize()
+    assert torch.equal(out.detach(), o)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert max(_grad_errs(got, ref)) <= tol
 
 
 @pytest.mark.parametrize("name", ["sym8", "sym4", "sym8_layerwise",
