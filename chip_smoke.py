@@ -6,14 +6,16 @@
 
 Phases, each printing one JSON line:
   build    compile csrc/*.cu with nvcc (one process per source, in parallel)
-           and runtime/csrc/mxq_runtime.cc with g++ beside them
+           and runtime/csrc/mxq_runtime.cc with g++ beside them; ptxas'
+           registers and spills of K13's kernels (``K13-ptxas``)
   kernels  hold K1-K6, K4a-K4d (K4a also with a verify's 5 query tokens
            in one launch, and with llama2_70b's G = 8 at 9 tokens: two
            launches of at most 64 query rows), K7, K8, K9-K11, K12 (bf16
            paged decode, 64-row pages, a NaN null page, bf16 and float32
            q), K13 (causal attention from position 0 at T = 512 and
-           2048, llama2_70b's G = 8, float32 inputs; the same bits with
-           its row log-sum-exp written) and K13-bwd (its backward, dQ, dK
+           2048, llama2_70b's G = 8, float32 inputs, each with its
+           TFLOP/s and share of the bound; the same bits with its row
+           log-sum-exp written) and K13-bwd (its backward, dQ, dK
            and dV, at T = 2048, at G = 8 and at float32; two calls give
            equal bits) against
            their plain PyTorch versions at llama2_7b's shapes and time
@@ -323,9 +325,10 @@ K1_KERNEL_NAMES = ("permute_x_kernel", "gemv_small_kernel",
 K2_KERNEL_NAMES = ("gemv_row_kernel", "gemv_row_sum_kernel")
 # K5's (csrc/mxq_dequant.cu: the bound, then the codes)
 K5_KERNEL_NAMES = ("k5_scale_kernel", "k5_codes_kernel")
-# K13's (csrc/flash_attn.cu); listed before the library's attention,
-# whose kernels' names also hold "flash"
-K13_KERNEL_NAMES = ("flash_kernel<",)
+# K13's (csrc/flash_attn.cu: bf16 on wgmma, float32's split products);
+# listed before the library's attention, whose kernels' names also hold
+# "flash"
+K13_KERNEL_NAMES = ("flash_wgmma_kernel<", "flash_kernel<")
 # K13-bwd's (csrc/flash_attn_bwd.cu: dQ, then dK and dV)
 K13_BWD_KERNEL_NAMES = ("dq_kernel<", "dkv_kernel<")
 # the A8 prefill's device time by kind, first match by name; the rest is
@@ -396,7 +399,8 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 def phase_build():
     """Every CUDA source with nvcc, in parallel, and the C++ runtime with
-    g++ beside them; a failed build raises."""
+    g++ beside them; a failed build raises. Row K13-ptxas: ptxas'
+    registers and spills of each kernel of flash_attn.cu in this build."""
     from mxq_tpu_torch import _build
     from mxq_tpu_torch.runtime import native
     def runtime():
@@ -406,12 +410,15 @@ def phase_build():
     t0 = time.monotonic()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         gxx = pool.submit(runtime)
-        took = _build.build(verbose=True, force=True)
+        logs = {}
+        took = _build.build(verbose=True, force=True, logs=logs)
         lib, took["mxq_runtime (g++)"] = gxx.result()
     print(f"built {lib}", flush=True)
     emit({"phase": "build", "seconds": round(time.monotonic() - t0, 2),
           "per_source_s": {k: round(v, 2) for k, v in took.items()},
           "runtime_library": str(lib), "card": smi()})
+    emit({"phase": "build", "kernel": "K13-ptxas",
+          **_build.ptxas_report(logs["flash_attn"], "flash_")})
 
 
 def phase_kernels(torch, timer):
@@ -1157,8 +1164,11 @@ def bf16_kernels(torch, timer, gen, rows, summary):
     split products keep the f32 result, and a kernel that dropped the
     hi*lo and lo*hi products or rounded P to bf16 reads ~4e-3 there.
     Library: SDPA with is_causal=True over k, v repeated to Hq heads (the
-    route before K13). Row K13-lse: K13 writing its row log-sum-exp (the
-    forward FlashAttention saves) gives the bits it gives without, at
+    route before K13). Each K13 row also gives its TFLOP/s (the causal
+    half's 4 Hq D T(T+1)/2 operations over its time) and its share of
+    the bound (the build phase gives its registers and spills). Row
+    K13-lse: K13 writing its row log-sum-exp (the forward
+    FlashAttention saves) gives the bits it gives without, at
     T = 2048 bf16 and float32, and that lse is the plain version's within
     1e-4. Then K13-bwd (:func:`flash_backward_kernels`)."""
     from mxq_tpu_torch.ops import attn_bf16 as ab
@@ -1235,7 +1245,8 @@ def bf16_kernels(torch, timer, gen, rows, summary):
         same = torch.equal(out, again)
         es = q.element_size()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
-        bms, by = bound_ms(nbytes, 4.0 * hq * D * t * (t + 1) / 2)
+        flops = 4.0 * hq * D * t * (t + 1) / 2
+        bms, by = bound_ms(nbytes, flops)
         kr, vr = (a.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
                   for a in (k, v))
         qt = q.transpose(1, 2)
@@ -1250,6 +1261,8 @@ def bf16_kernels(torch, timer, gen, rows, summary):
                "bound_ms": bms, "bound_by": by,
                "library_ms": timer(lambda: sdpa(qt, kr, vr, is_causal=True,
                                                 scale=1.0 / math.sqrt(D)))}
+        row["tflops"] = flops / row["kernel_ms"] * 1e-9
+        row["bound_share"] = bms / row["kernel_ms"]
         rows.append(row)
         emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
         if not (err <= gate and same and bool(torch.isfinite(out).all())):

@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -92,6 +93,25 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def ptxas_report(log: str, kernel: str) -> dict:
+    """ptxas' registers and spills for each instantiation of ``kernel`` in
+    an ``-Xptxas -v`` build log (none without ``-v``), and the log's
+    warnings (a serialized wgmma shows there)."""
+    found = {}
+    for block in log.split("ptxas info    : Compiling entry function ")[1:]:
+        name = block.split("'")[1]
+        if kernel not in name:
+            continue
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", block)
+        found[name] = {"registers": int(regs.group(1)) if regs else None,
+                       "spill_stores": int(spill.group(1)) if spill else None,
+                       "spill_loads": int(spill.group(2)) if spill else None}
+    return {"kernels": found,
+            "warnings": [ln for ln in log.splitlines() if "arning" in ln]}
+
+
 def _stale(name: str) -> bool:
     """The library is missing or older than its source or any header."""
     lib = _lib_path(name)
@@ -101,10 +121,12 @@ def _stale(name: str) -> bool:
     return lib.stat().st_mtime < max(p.stat().st_mtime for p in srcs)
 
 
-def build(names=SOURCES, verbose: bool = False, force: bool = False) -> dict:
+def build(names=SOURCES, verbose: bool = False, force: bool = False,
+          logs: dict | None = None) -> dict:
     """Compile the named sources in parallel (one nvcc each). Returns
-    {name: seconds} for the ones built; raises with nvcc's output on a
-    failure."""
+    {name: seconds} for the ones built, and puts nvcc's output of each
+    (with ``verbose``, ptxas' report of every kernel) into ``logs`` where
+    given; raises with nvcc's output on a failure."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if force or _stale(n)]
     procs = {}
@@ -117,6 +139,8 @@ def build(names=SOURCES, verbose: bool = False, force: bool = False) -> dict:
     for name, (tmp, t0, proc) in procs.items():
         log, _ = proc.communicate()
         took[name] = time.monotonic() - t0
+        if logs is not None:
+            logs[name] = log
         if verbose and log:
             print(log, file=sys.stderr)
         if proc.returncode != 0:

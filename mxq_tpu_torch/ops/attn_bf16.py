@@ -223,15 +223,16 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do):
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
-    """x [B, S, H, D] as the kernel reads it: heads and D contiguous, the
-    batch and token strides and the start 16-byte aligned; a copy
-    otherwise."""
+    """x [B, S, H, D] as the kernels read it (K13's tensor maps, K13-bwd's
+    16-byte copies): heads and D contiguous, the batch and token strides
+    and the start 16-byte aligned; else a copy into new contiguous rows (a
+    contiguous view that starts off 16 bytes is copied too)."""
     d, es = x.shape[-1], x.element_size()
     if (x.stride(-1) == 1 and x.stride(-2) == d
             and x.stride(0) * es % 16 == 0 and x.stride(1) * es % 16 == 0
             and x.data_ptr() % 16 == 0):
         return x
-    return x.contiguous()
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device).copy_(x)
 
 
 def _flash_check(what, q, k, v):

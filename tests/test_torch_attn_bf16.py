@@ -13,6 +13,7 @@ against mxq_tpu from numpy seeds:
   weights: both sides compute in f32, summation order aside), and the
   port's packed forward against JAX's within 1e-2 of max|logit| (the gate
   of test_torch_llama.py: packed products round activations to bf16);
+- ``_rows``, which decides which views K13's tensor maps read in place;
 - on the CPU neither route launches a kernel.
 """
 
@@ -152,6 +153,42 @@ def test_k13_plain_reads_only_the_first_t_key_rows():
     assert torch.equal(
         ab.flash_prefill_attention_plain(q, k, v),
         ab.flash_prefill_attention_plain(q, k[:, :96], v[:, :96]))
+
+
+def _views(case):
+    """A [B=2, T=5, H=4, D=64] view of a larger tensor: (view, read in
+    place by K13)."""
+    b, t, h, d = 2, 5, 4, 64
+    if case == "qkv_bf16" or case == "qkv_f32":   # q of the fused qkv
+        dtype = torch.bfloat16 if case == "qkv_bf16" else torch.float32
+        x = torch.randn(b, t, 3 * h * d).to(dtype)
+        return x[..., h * d:2 * h * d].view(b, t, h, d), True
+    x = torch.randn(b * t * h * d + 64).to(torch.bfloat16)
+    if case == "transposed":                      # [B, H, T, D] storage
+        return x[:b * t * h * d].view(b, h, t, d).transpose(1, 2), False
+    if case == "start":                           # 2 bytes off 16
+        return x[1:1 + b * t * h * d].view(b, t, h, d), False
+    if case == "token_stride":                    # h d + 4 elements
+        return x.as_strided((b, t, h, d), (t * (h * d + 4), h * d + 4, d,
+                                           1)), False
+    return x.as_strided((b, t, h, d), (t * h * d + 4, h * d, d, 1)), False
+
+
+@pytest.mark.parametrize("case", ["qkv_bf16", "qkv_f32", "transposed",
+                                  "start", "token_stride", "batch_stride"])
+def test_rows_reads_aligned_views_in_place(case):
+    """``_rows``, the precondition of K13's tensor maps: heads and D
+    contiguous, the start and the batch and token strides 16-byte aligned
+    (the fused qkv projection's slices) are read in place; any other view
+    (transposed, or a start or a stride off 16 bytes) is copied into
+    contiguous rows with its values."""
+    x, in_place = _views(case)
+    y = ab._rows(x)
+    if in_place:
+        assert y is x
+    else:
+        assert y.is_contiguous() and y.data_ptr() != x.data_ptr()
+        assert torch.equal(y, x)
 
 
 def test_cpu_calls_launch_nothing():

@@ -487,7 +487,8 @@ def test_k12_matches_plain(gen, g, d, ps, pps, q_dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("t", [1, 63, 64, 65, 200, 513])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 200, 255, 257,
+                               513])
 @pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128)])
 def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
     """K13 against its plain version, with q, k, v as the fused qkv
@@ -495,7 +496,9 @@ def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
     whose rows past T are never read): bf16 <= 2e-2 of max|ctx| (the
     probabilities rounded to bf16 against the running max, the plain
     version's after normalizing), float32 <= 1e-4 (bf16 hi + lo split
-    products); the same bits on a second call."""
+    products); the same bits on a second call. T straddles the bf16
+    kernel's 128-row blocks and 128-key tiles and the float32 kernel's
+    64-row ones."""
     b = 2
     qkv = torch.randn((b, t + 7, (hq + 2 * hkv) * d), generator=gen,
                       device="cuda").to(dtype)
@@ -513,6 +516,23 @@ def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert float((got.float() - ref.float()).abs().max()
                  / ref.float().abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [1, 100, 128, 257])
+def test_k13_reads_no_row_past_t(gen, t, dtype):
+    """K13 over k, v whose rows past T are NaN gives the bits it gives
+    with zeros there, all finite: no key row >= T is read (the bf16
+    kernel's tensor maps end at T, so TMA fills the tail with zeros)."""
+    q, k, v = _qkv(gen, 2, t, 16, 2, 128, dtype)
+    kn, vn, kz, vz = k.clone(), v.clone(), k.clone(), v.clone()
+    kn[:, t:] = vn[:, t:] = float("nan")
+    kz[:, t:] = vz[:, t:] = 0
+    got = ab.flash_prefill_attention(q, kn, vn)
+    ref = ab.flash_prefill_attention(q, kz, vz)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, ref)
 
 
 def _qkv(gen, b, t, hq, hkv, d, dtype):
