@@ -7,17 +7,20 @@
 Phases, each printing one JSON line:
   build    compile csrc/*.cu with nvcc (one process per source, in parallel)
            and runtime/csrc/mxq_runtime.cc with g++ beside them; ptxas'
-           registers and spills of K13's kernels (``K13-ptxas``)
+           registers and spills of K13's kernels (``K13-ptxas``) and of
+           K13-bwd's (``K13-bwd-ptxas``)
   kernels  hold K1-K6, K4a-K4d (K4a also with a verify's 5 query tokens
            in one launch, and with llama2_70b's G = 8 at 9 tokens: two
            launches of at most 64 query rows), K7, K8, K9-K11, K12 (bf16
            paged decode, 64-row pages, a NaN null page, bf16 and float32
            q), K13 (causal attention from position 0 at T = 512 and
-           2048, llama2_70b's G = 8, float32 inputs, each with its
-           TFLOP/s and share of the bound; the same bits with its row
-           log-sum-exp written) and K13-bwd (its backward, dQ, dK
-           and dV, at T = 2048, at G = 8 and at float32; two calls give
-           equal bits) against
+           2048, llama2_70b's G = 8, float32 inputs, head_dim 96 (run
+           at 128 on zero-padded copies; K12 pads only q and reads the
+           pool in place), each with its TFLOP/s and
+           share of the bound; the same bits with its row log-sum-exp
+           written), K12 also at head_dim 96, and K13-bwd (its backward,
+           dQ, dK and dV, at T = 2048, at G = 8, at float32 and at
+           head_dim 96; two calls give equal bits) against
            their plain PyTorch versions at llama2_7b's shapes and time
            kernel, plain version, bound and library call; K1 at 8, 40
            and 128 rows, K6 at 8, 1, 40 and 128; K7 at 1, 8, 40,
@@ -89,7 +92,9 @@ Phases, each printing one JSON line:
            only K13 and K13-bwd run, K13 in the KD teacher's forward, the
            student's forward, remat's recompute of it and the validation,
            K13-bwd in the student's backward, each run at the launch
-           counts its steps imply (TRAIN_LAUNCHES)
+           counts its steps imply (TRAIN_LAUNCHES); the same `cli train`
+           at --dtype bfloat16 (4 steps: K13-bwd's bf16 kernels), and
+           its train step's device time beside the float32 step's
   tasks    task evaluation (eval/harness.py) of llama2_7b at full depth:
            the packed model scores a synthetic multiple-choice task of
            random-token documents (no task data or tokenizer is in the
@@ -312,6 +317,14 @@ KERNEL_INFO = {
                    "mxq_tpu/models/llama.py:383"),
     "K13-bwd-f32": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
                     "mxq_tpu/models/llama.py:383"),
+    # head_dim 96 (no preset has it; a checkpoint may), run at 128: K13
+    # and K13-bwd on zero-padded copies, K12 on the pool in place
+    "K12-d96": ("cuda", "mxq_tpu_torch/csrc/paged_attn_bf16.cu",
+                "mxq_tpu/serving/paged.py:265"),
+    "K13-d96": ("cuda", "mxq_tpu_torch/csrc/flash_attn.cu",
+                "mxq_tpu/models/llama.py:383"),
+    "K13-bwd-d96": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
+                    "mxq_tpu/models/llama.py:383"),
 }
 
 
@@ -329,8 +342,11 @@ K5_KERNEL_NAMES = ("k5_scale_kernel", "k5_codes_kernel")
 # listed before the library's attention, whose kernels' names also hold
 # "flash"
 K13_KERNEL_NAMES = ("flash_wgmma_kernel<", "flash_kernel<")
-# K13-bwd's (csrc/flash_attn_bwd.cu: dQ, then dK and dV)
-K13_BWD_KERNEL_NAMES = ("dq_kernel<", "dkv_kernel<")
+# K13-bwd's (csrc/flash_attn_bwd.cu: dQ, then dK and dV; bf16 on wgmma,
+# float32's split products)
+K13_BWD_DQ_NAMES = ("dq_wgmma_kernel<", "dq_kernel<")
+K13_BWD_DKV_NAMES = ("dkv_wgmma_kernel<", "dkv_kernel<")
+K13_BWD_KERNEL_NAMES = K13_BWD_DQ_NAMES + K13_BWD_DKV_NAMES
 # the A8 prefill's device time by kind, first match by name; the rest is
 # "other": PyTorch's elementwise ops, copies and reductions
 PREFILL_GROUPS = (("K5", K5_KERNEL_NAMES),
@@ -349,7 +365,8 @@ TASK_GROUPS = (("K1", K1_KERNEL_NAMES), ("K3", ("mxq_dequant_kernel",)),
 # summary rows counted by another kernel's wrapper
 COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a", "K13-g8": "K13",
            "K13-f32": "K13", "K12-f32": "K12", "K13-bwd-g8": "K13-bwd",
-           "K13-bwd-f32": "K13-bwd"}
+           "K13-bwd-f32": "K13-bwd", "K12-d96": "K12", "K13-d96": "K13",
+           "K13-bwd-d96": "K13-bwd"}
 
 
 def emit(obj) -> None:
@@ -399,8 +416,9 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 def phase_build():
     """Every CUDA source with nvcc, in parallel, and the C++ runtime with
-    g++ beside them; a failed build raises. Row K13-ptxas: ptxas'
-    registers and spills of each kernel of flash_attn.cu in this build."""
+    g++ beside them; a failed build raises. Rows K13-ptxas and
+    K13-bwd-ptxas: ptxas' registers and spills of each kernel of
+    flash_attn.cu and flash_attn_bwd.cu in this build."""
     from mxq_tpu_torch import _build
     from mxq_tpu_torch.runtime import native
     def runtime():
@@ -419,6 +437,8 @@ def phase_build():
           "runtime_library": str(lib), "card": smi()})
     emit({"phase": "build", "kernel": "K13-ptxas",
           **_build.ptxas_report(logs["flash_attn"], "flash_")})
+    emit({"phase": "build", "kernel": "K13-bwd-ptxas",
+          **_build.ptxas_report(logs["flash_attn_bwd"], "_kernel")})
 
 
 def phase_kernels(torch, timer):
@@ -1194,30 +1214,35 @@ def bf16_kernels(torch, timer, gen, rows, summary):
     vd = vz[:, idx].permute(1, 0, 2, 3, 4).reshape(B, H, PPS * PS, D)
     amask = (torch.arange(PPS * PS, device="cuda")[None, None, None, :]
              < lengths[:, None, None, None])
-    for key, dtype, gate in (("K12", torch.bfloat16, 1e-2),
-                             ("K12-f32", torch.float32, 1e-5)):
-        q = torch.randn((B, H, D), **cat).to(dtype)
-        out = ab.paged_decode_attention(q, kp, vp, lengths, tables)
-        ref = ab.paged_decode_attention_plain(q, kz, vz, lengths, tables)
+    for key, dtype, gate, d in (("K12", torch.bfloat16, 1e-2, D),
+                                ("K12-f32", torch.float32, 1e-5, D),
+                                ("K12-d96", torch.bfloat16, 1e-2, 96)):
+        # head_dim 96: the first 96 columns of the same pool
+        kpd, vpd, kzd, vzd, kdd, vdd = (
+            x if d == D else x[..., :d].contiguous()
+            for x in (kp, vp, kz, vz, kd, vd))
+        q = torch.randn((B, H, d), **cat).to(dtype)
+        out = ab.paged_decode_attention(q, kpd, vpd, lengths, tables)
+        ref = ab.paged_decode_attention_plain(q, kzd, vzd, lengths, tables)
         torch.cuda.synchronize()
         err = rel_err(out, ref)
         finite = bool(torch.isfinite(out).all())
-        nbytes = (nrows * H * D * 2 * 2 + 2 * q.numel() * q.element_size()
+        nbytes = (nrows * H * d * 2 * 2 + 2 * q.numel() * q.element_size()
                   + B * 4 + B * PPS * 4)
-        bms, by = bound_ms(nbytes, 4.0 * nrows * H * D)
+        bms, by = bound_ms(nbytes, 4.0 * nrows * H * d)
         qs = q[:, :, None, :].to(torch.bfloat16)
-        row = {"kernel": key, "B": B, "H": H, "D": D, "page": PS,
+        row = {"kernel": key, "B": B, "H": H, "D": d, "page": PS,
                "pages_per_seq": PPS, "lengths": [n + 1 for n in plist],
                "q_dtype": str(dtype).split(".")[-1], "rel_err": err,
                "gate": gate, "max_abs_err": float((out.float()
                                                    - ref.float()).abs().max()),
                "finite_with_nan_null_page": finite,
                "kernel_ms": timer(lambda: ab.paged_decode_attention(
-                   q, kp, vp, lengths, tables)),
+                   q, kpd, vpd, lengths, tables)),
                "plain_ms": timer(lambda: ab.paged_decode_attention_plain(
-                   q, kz, vz, lengths, tables), iters=3),
+                   q, kzd, vzd, lengths, tables), iters=3),
                "bound_ms": bms, "bound_by": by,
-               "library_ms": timer(lambda: sdpa(qs, kd, vd,
+               "library_ms": timer(lambda: sdpa(qs, kdd, vdd,
                                                 attn_mask=amask))}
         rows.append(row)
         emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
@@ -1225,18 +1250,20 @@ def bf16_kernels(torch, timer, gen, rows, summary):
             failures.append(f"{key}: rel {err:.3g} > {gate} or finite="
                             f"{finite}")
         summary[key] = summarise(
-            [row], f"B=8 Hq=Hkv=32 D=128, 32 pages of 64 per sequence, "
+            [row], f"B=8 Hq=Hkv=32 D={d}, 32 pages of 64 per sequence, "
             f"mixed lengths, {row['q_dtype']} q")
+        del kpd, vpd, kzd, vzd, kdd, vdd
     del kp, vp, kz, vz, kd, vd
 
-    for key, t, hq, hkv, dtype, gate in (
-            ("K13", 512, 32, 32, torch.bfloat16, 2e-2),
-            ("K13", 2048, 32, 32, torch.bfloat16, 2e-2),
-            ("K13-g8", 512, 64, 8, torch.bfloat16, 2e-2),
-            ("K13-f32", 2048, 32, 32, torch.float32, 1e-4)):
-        q = torch.randn((1, t, hq, D), **cat).to(dtype)
-        k = torch.randn((1, t, hkv, D), **cat).to(dtype)
-        v = torch.randn((1, t, hkv, D), **cat).to(dtype)
+    for key, t, hq, hkv, d, dtype, gate in (
+            ("K13", 512, 32, 32, D, torch.bfloat16, 2e-2),
+            ("K13", 2048, 32, 32, D, torch.bfloat16, 2e-2),
+            ("K13-g8", 512, 64, 8, D, torch.bfloat16, 2e-2),
+            ("K13-f32", 2048, 32, 32, D, torch.float32, 1e-4),
+            ("K13-d96", 2048, 32, 32, 96, torch.bfloat16, 2e-2)):
+        q = torch.randn((1, t, hq, d), **cat).to(dtype)
+        k = torch.randn((1, t, hkv, d), **cat).to(dtype)
+        v = torch.randn((1, t, hkv, d), **cat).to(dtype)
         out = ab.flash_prefill_attention(q, k, v)
         ref = ab.flash_prefill_attention_plain(q, k, v)
         torch.cuda.synchronize()
@@ -1245,12 +1272,12 @@ def bf16_kernels(torch, timer, gen, rows, summary):
         same = torch.equal(out, again)
         es = q.element_size()
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * es
-        flops = 4.0 * hq * D * t * (t + 1) / 2
+        flops = 4.0 * hq * d * t * (t + 1) / 2
         bms, by = bound_ms(nbytes, flops)
         kr, vr = (a.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
                   for a in (k, v))
         qt = q.transpose(1, 2)
-        row = {"kernel": key, "B": 1, "T": t, "Hq": hq, "Hkv": hkv, "D": D,
+        row = {"kernel": key, "B": 1, "T": t, "Hq": hq, "Hkv": hkv, "D": d,
                "dtype": str(dtype).split(".")[-1], "rel_err": err,
                "gate": gate, "max_abs_err": float((out.float() - ref.float()).abs().max()),
                "deterministic": same,
@@ -1260,7 +1287,7 @@ def bf16_kernels(torch, timer, gen, rows, summary):
                    q, k, v), iters=3),
                "bound_ms": bms, "bound_by": by,
                "library_ms": timer(lambda: sdpa(qt, kr, vr, is_causal=True,
-                                                scale=1.0 / math.sqrt(D)))}
+                                                scale=1.0 / math.sqrt(d)))}
         row["tflops"] = flops / row["kernel_ms"] * 1e-9
         row["bound_share"] = bms / row["kernel_ms"]
         rows.append(row)
@@ -1290,13 +1317,17 @@ def bf16_kernels(torch, timer, gen, rows, summary):
     for key, t, what in (("K13", 2048, "B=1 T=2048 Hq=Hkv=32 D=128 bf16"),
                          ("K13-g8", 512, "B=1 T=512 Hq=64 Hkv=8 D=128 bf16"),
                          ("K13-f32", 2048,
-                          "B=1 T=2048 Hq=Hkv=32 D=128 float32")):
+                          "B=1 T=2048 Hq=Hkv=32 D=128 float32"),
+                         ("K13-d96", 2048,
+                          "B=1 T=2048 Hq=Hkv=32 D=96 bf16, padded to 128")):
         summary[key] = summarise(
             [r for r in rows if r["kernel"] == key and r["T"] == t],
             what + ", causal from position 0")
     for key, what in (("K13-bwd", "B=1 T=2048 Hq=Hkv=32 D=128 bf16"),
                       ("K13-bwd-g8", "B=1 T=512 Hq=64 Hkv=8 D=128 bf16"),
-                      ("K13-bwd-f32", "B=1 T=2048 Hq=Hkv=32 D=128 float32")):
+                      ("K13-bwd-f32", "B=1 T=2048 Hq=Hkv=32 D=128 float32"),
+                      ("K13-bwd-d96",
+                       "B=1 T=2048 Hq=Hkv=32 D=96 bf16, padded to 128")):
         summary[key] = summarise([r for r in rows if r["kernel"] == key],
                                  what + ", dQ, dK and dV of K13")
     return failures
@@ -1307,13 +1338,16 @@ def flash_backward_kernels(torch, timer, cat, rows):
     then its dK/dV kernel), against its plain version on the same o and
     lse (K13's, from ``flash_attention_forward``) at B=1, D=128: 32 heads
     at T=2048 bf16 (row K13-bwd), llama2_70b's G=8 (Hq=64, Hkv=8) at 512
-    (K13-bwd-g8) and 32 heads at 2048 float32 (K13-bwd-f32, the QAT
-    student's type). Each gradient within the gate of its max: bf16 2e-2,
+    (K13-bwd-g8: the dK/dV kernel splits each kv head's query heads over
+    blocks), 32 heads at 2048 float32 (K13-bwd-f32, the QAT student's
+    default type) and 32 heads of 96 at 2048 bf16 (K13-bwd-d96, run at
+    128 on zero-padded copies; its bound counts D = 96). Each gradient
+    within the gate of its max: bf16 2e-2,
     K13's bf16 gate (P and dS rounded to bf16 as upstream's VJP rounds
     them, from exp(s - lse) recomputed in another order than the plain
     version's); float32 1e-4, K13-f32's gate (the bf16 hi + lo split
     products). Two calls give equal bits (no atomics) and the gradients
-    are finite. kernel_ms is one call (both kernels and the di
+    are finite. kernel_ms is one call (both kernels, and at float32 the di
     reduction), the two kernels' device ms from torch.profiler beside it;
     the bound counts five causal products (S and dP recomputed, dV, dK,
     dQ) against q, k, v, o, dO, lse and di read once and dQ, dK, dV
@@ -1324,11 +1358,12 @@ def flash_backward_kernels(torch, timer, cat, rows):
 
     from mxq_tpu_torch.ops import attn_bf16 as ab
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    d, failures = 128, []
-    for key, t, hq, hkv, dtype, gate in (
-            ("K13-bwd", 2048, 32, 32, torch.bfloat16, 2e-2),
-            ("K13-bwd-g8", 512, 64, 8, torch.bfloat16, 2e-2),
-            ("K13-bwd-f32", 2048, 32, 32, torch.float32, 1e-4)):
+    failures = []
+    for key, t, hq, hkv, d, dtype, gate in (
+            ("K13-bwd", 2048, 32, 32, 128, torch.bfloat16, 2e-2),
+            ("K13-bwd-g8", 512, 64, 8, 128, torch.bfloat16, 2e-2),
+            ("K13-bwd-f32", 2048, 32, 32, 128, torch.float32, 1e-4),
+            ("K13-bwd-d96", 2048, 32, 32, 96, torch.bfloat16, 2e-2)):
         q, do = (torch.randn((1, t, hq, d), **cat).to(dtype)
                  for _ in range(2))
         k, v = (torch.randn((1, t, hkv, d), **cat).to(dtype)
@@ -1365,9 +1400,10 @@ def flash_backward_kernels(torch, timer, cat, rows):
                "kernel_ms": timer(lambda: ab.flash_attention_backward(
                    *args)),
                "dq_kernel_ms": sum(ms for n, ms in per_kernel.items()
-                                   if "dq_kernel<" in n),
+                                   if any(x in n for x in K13_BWD_DQ_NAMES)),
                "dkv_kernel_ms": sum(ms for n, ms in per_kernel.items()
-                                    if "dkv_kernel<" in n),
+                                    if any(x in n
+                                           for x in K13_BWD_DKV_NAMES)),
                "plain_ms": timer(lambda: ab.flash_attention_bwd_plain(
                    *args), iters=3),
                "bound_ms": bms, "bound_by": by,
@@ -2637,13 +2673,14 @@ def train_step_card_vs_cpu(torch) -> dict:
 TRAIN_GROUPS = (("K13", K13_KERNEL_NAMES),
                 ("K13-bwd", K13_BWD_KERNEL_NAMES),
                 ("attention (library)", ("fmha", "flash", "attention")),
-                ("GEMM (library)", ("gemm", "cutlass", "xmma")),
+                ("GEMM (library)", ("gemm", "cutlass", "xmma", "nvjet")),
                 ("AdamW (foreach)", ("multi_tensor", "foreach")))
 
 
-def train_step_profile(torch, steps=3) -> dict:
+def train_step_profile(torch, steps=3, dtype_name="float32") -> dict:
     """One KD train step as ``cli train`` runs it (TRAIN_ARGV's model and
-    batch: 4 layers of llama2_7b, w_bits 2, remat, [2, 2048]): the
+    batch: 4 layers of llama2_7b, w_bits 2, remat, [2, 2048]) with weights
+    in ``dtype_name`` (float32, or bfloat16 as ``--dtype bfloat16``): the
     CUDA-event span of a step, median of ``steps`` after a warm-up step,
     then one profiled step: device time per kernel (torch.profiler) by
     TRAIN_GROUPS, its top ops and the idle share = 1 - device busy / the
@@ -2654,10 +2691,11 @@ def train_step_profile(torch, steps=3) -> dict:
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.qat import train
 
+    dtype = getattr(torch, dtype_name)
     cfg = llama.LlamaConfig.llama2_7b(num_hidden_layers=4, w_bits=2)
-    params = llama.init_params(cfg, SEED, torch.float32, "cuda")
-    teacher = llama.init_params(dc.replace(cfg, w_bits=32), SEED,
-                                torch.float32, "cuda")
+    params = llama.init_params(cfg, SEED, dtype, "cuda")
+    teacher = llama.init_params(dc.replace(cfg, w_bits=32), SEED, dtype,
+                                "cuda")
     for p in train.leaves(params).values():
         p.requires_grad_(True)
     tc = train.TrainConfig(total_steps=100)
@@ -2688,7 +2726,7 @@ def train_step_profile(torch, steps=3) -> dict:
                   if any(n in k.lower() for n in names)),
                  "elementwise, copies, reductions")
         groups[g] = groups.get(g, 0.0) + v
-    return {"event_ms": span, "event_ms_rounds": ts,
+    return {"dtype": dtype_name, "event_ms": span, "event_ms_rounds": ts,
             "device_busy_ms": busy, "idle_share": 1.0 - busy / span,
             "device_ms_by_group": groups,
             "top_device_ops_ms": top_ms(per_kernel, 12)}
@@ -2705,6 +2743,9 @@ def phase_train(torch):
        device memory, the seconds of the whole command;
     3. the same command with ``--max_steps 12``: "resumed from step 8",
        trained to step 12, checkpoint 12 kept;
+    3b. the same command at ``--dtype bfloat16`` (``--max_steps 4``, its
+       own directory): 4 steps, every loss finite; K13-bwd runs its bf16
+       kernels;
     4. CE training (no KD, w_bits 2, lr 1e-3, no remat) of 2 layers on
        one repeated [2, 256] batch for 15 steps: the last loss below 0.9
        x the first (the criterion of tests/test_qat.py's
@@ -2714,11 +2755,12 @@ def phase_train(torch):
        token of each row's greedy prefix (``qat.data.greedy_lengths``,
        the generator's first draw) equals the argmax of a no-cache
        forward of the tokens before it;
-    then where a train step's time goes (``train_step_profile``).
-    Steps 2, 3, 4 and 5 run K13 and K13-bwd, each at the launch counts its
-    steps imply (:func:`train_launches`), and nothing else of the repo's
-    kernels. Returns the launches of the counted runs (2, 3, 4, 5 and 6)
-    and the failures."""
+    then where a train step's time goes (``train_step_profile``), at
+    float32 and at bfloat16.
+    Steps 2, 3, 3b, 4 and 5 run K13 and K13-bwd, each at the launch
+    counts its steps imply (:func:`train_launches`), and nothing else of
+    the repo's kernels. Returns the launches of the counted runs (2, 3,
+    3b, 4, 5 and 6) and the failures."""
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.qat import data as qdata
     from mxq_tpu_torch.qat import train
@@ -2778,6 +2820,26 @@ def phase_train(torch):
                 or not all(map(math.isfinite, m["loss"]))
                 or run["checkpoints"] != ["12", "logs"]):
             failures.append(f"train cli_train_resume: {run}")
+    torch.cuda.empty_cache()
+
+    # 3b. bf16
+    with tempfile.TemporaryDirectory(prefix="mxq_qat_bf16_") as tmp:
+        out = os.path.join(tmp, "qat")
+        res = count_launches(torch, kernels, lambda: dict(zip(
+            ("result", "printed"), cli_with_output(
+                TRAIN_ARGV + ["--dtype", "bfloat16", "--max_steps", "4",
+                              "--output_dir", out]))))
+        counted.append(res.pop("launches"))
+        failures += launches_as_implied(
+            "cli_train_bf16", counted[-1],
+            train_launches(4, 4, val_batches=TRAIN_VAL_BATCHES))
+        m = train_metrics(os.path.join(out, "logs"), 1)
+        run = {"command_seconds": res["seconds"], **m,
+               "eval_ppl": res["result"].get("eval_ppl")}
+        runs["cli_train_bf16"] = run
+        if (res["result"]["last_step"] != 4 or m["steps"] != [1, 2, 3, 4]
+                or not all(map(math.isfinite, m["loss"]))):
+            failures.append(f"train cli_train_bf16: {run}")
     torch.cuda.empty_cache()
 
     # 4. CE training on one repeated batch
@@ -2848,6 +2910,9 @@ def phase_train(torch):
     del params, tokens, argmax
     torch.cuda.empty_cache()
     runs["train_step_profile"] = train_step_profile(torch)
+    torch.cuda.empty_cache()
+    runs["train_step_profile_bf16"] = train_step_profile(
+        torch, dtype_name="bfloat16")
     torch.cuda.empty_cache()
 
     launches = {k: sum(c[k] for c in counted) for k in kernels}

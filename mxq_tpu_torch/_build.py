@@ -59,11 +59,12 @@ SIGNATURES = {
         "uniform_gemv": [I, I, P, I, I, P, P, P, I, I, I, I, I, P, P, P],
         "uniform_gemv_tiles": [P, I]},
     "paged_attn_bf16": {
-        "paged_attn_bf16": [P] * 5 + [I] * 7 + [F] + [P] * 4},
+        "paged_attn_bf16": [P] * 5 + [I] * 8 + [F] + [P] * 4},
     "flash_attn": {
         "flash_attn": [P] * 5 + [L] * 6 + [I] * 6 + [F, P]},
     "flash_attn_bwd": {
-        "flash_attn_bwd": [P] * 9 + [L] * 9 + [I] * 6 + [F, P]},
+        "flash_attn_bwd": [P] * 12 + [L] * 11 + [I] * 6 + [F, P],
+        "flash_attn_bwd_scratch": [I] * 6 + [P]},
 }
 
 

@@ -119,12 +119,6 @@ struct WsSmem {                         // every tile 1024-byte aligned
       k_empty[STAGES], v_empty[STAGES];
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // One tile's raw scores s (this lane's 64 of the warpgroup's 64 x 128) ->
 // p = 2^(s c - m_new) in place, f32; the running max m (in units of s c)
 // and sum l of the lane's two rows (row0, row0 + 8 of the block) moved on;
@@ -470,10 +464,10 @@ __global__ void __launch_bounds__(SPLIT_THREADS) flash_kernel(const Args a) {
   const float* kg = a.k + b * a.ksb + hk * D;
   const float* vg = a.v + b * a.vsb + hk * D;
 
-  load_tile<D, true, SQ, SPLIT_THREADS>(sq, sq + TILE, qg, a.qst, a.T - q0,
+  load_tile<D, SQ, SPLIT_THREADS>(sq, sq + TILE, qg, a.qst, a.T - q0,
                                         tid);
-  load_tile<D, true, SK, SPLIT_THREADS>(sk, sk + TILE, kg, a.kst, a.T, tid);
-  load_tile<D, true, SK, SPLIT_THREADS>(sv, sv + TILE, vg, a.vst, a.T, tid);
+  load_tile<D, SK, SPLIT_THREADS>(sk, sk + TILE, kg, a.kst, a.T, tid);
+  load_tile<D, SK, SPLIT_THREADS>(sv, sv + TILE, vg, a.vst, a.T, tid);
 
   uint32_t qa[2][KD][4];
   float o[D / 8][4];
@@ -488,10 +482,10 @@ __global__ void __launch_bounds__(SPLIT_THREADS) flash_kernel(const Args a) {
     if (kt + 1 < nkt) {                 // the next tile into the other buffer
       const int nb = buf ^ 1;
       const long long k1 = (long long)(kt + 1) * SK;
-      load_tile<D, true, SK, SPLIT_THREADS>(
+      load_tile<D, SK, SPLIT_THREADS>(
           sk + nb * 2 * TILE, sk + nb * 2 * TILE + TILE, kg + k1 * a.kst,
           a.kst, a.T - (int)k1, tid);
-      load_tile<D, true, SK, SPLIT_THREADS>(
+      load_tile<D, SK, SPLIT_THREADS>(
           sv + nb * 2 * TILE, sv + nb * 2 * TILE + TILE, vg + k1 * a.vst,
           a.vst, a.T - (int)k1, tid);
     }

@@ -1,7 +1,7 @@
-// Tiles of flash attention in shared memory, shared by K13's forward
-// (flash_attn.cu) and its backward, K13-bwd (flash_attn_bwd.cu): the
-// swizzled [rows][D] bf16 layout, bf16 pairs and the hi + lo split of
-// float32 values, and the tile loader.
+// Tiles of flash attention in shared memory, shared by the float32
+// kernels of K13's forward (flash_attn.cu) and its backward, K13-bwd
+// (flash_attn_bwd.cu): the swizzled [rows][D] bf16 layout, bf16 pairs and
+// the hi + lo split of float32 values, and the tile loader.
 // Each source includes it inside its anonymous namespace, after
 // device_util.cuh.
 
@@ -29,37 +29,30 @@ __device__ __forceinline__ void split_bf2(float x, float y, uint32_t& hi,
   lo = pack_bf2(x - f.x, y - f.y);
 }
 
-// rows [0, ROWS) of a tile from src (row r at src + r * rstride), by NT
-// threads; rows >= nrows are zero and read nothing. bf16: cp.async into
-// hi; f32: split into hi and lo planes through registers.
-template <int D, bool SPLIT, int ROWS, int NT>
+// rows [0, ROWS) of a tile from f32 src (row r at src + r * rstride), by
+// NT threads, split into bf16 hi and lo planes through registers; rows >=
+// nrows are zero and read nothing
+template <int D, int ROWS, int NT>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* hi,
-                                          __nv_bfloat16* lo, const void* src,
+                                          __nv_bfloat16* lo, const float* src,
                                           long long rstride, int nrows,
                                           int tid) {
   constexpr int CPR = D / 8;            // 16-byte bf16 chunks per row
   for (int i = tid; i < ROWS * CPR; i += NT) {
     const int r = i / CPR, c = i % CPR;
-    const bool ok = r < nrows;
-    if constexpr (!SPLIT) {
-      const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(src)
-                               + (ok ? r * rstride + c * 8 : 0);
-      cp16(hi + sw<D>(r, c), g, ok);
-    } else {
-      float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
-      if (ok) {
-        const float4* g = reinterpret_cast<const float4*>(
-            static_cast<const float*>(src) + r * rstride + c * 8);
-        x0 = __ldg(g);
-        x1 = __ldg(g + 1);
-      }
-      uint4 h, l;
-      split_bf2(x0.x, x0.y, h.x, l.x);
-      split_bf2(x0.z, x0.w, h.y, l.y);
-      split_bf2(x1.x, x1.y, h.z, l.z);
-      split_bf2(x1.z, x1.w, h.w, l.w);
-      *reinterpret_cast<uint4*>(hi + sw<D>(r, c)) = h;
-      *reinterpret_cast<uint4*>(lo + sw<D>(r, c)) = l;
+    float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
+    if (r < nrows) {
+      const float4* g = reinterpret_cast<const float4*>(src + r * rstride
+                                                        + c * 8);
+      x0 = __ldg(g);
+      x1 = __ldg(g + 1);
     }
+    uint4 h, l;
+    split_bf2(x0.x, x0.y, h.x, l.x);
+    split_bf2(x0.z, x0.w, h.y, l.y);
+    split_bf2(x1.x, x1.y, h.z, l.z);
+    split_bf2(x1.z, x1.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + sw<D>(r, c)) = h;
+    *reinterpret_cast<uint4*>(lo + sw<D>(r, c)) = l;
   }
 }

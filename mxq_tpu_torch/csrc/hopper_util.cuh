@@ -1,8 +1,9 @@
 // Hopper's building blocks, for kernels of this directory that run on
-// wgmma, TMA and mbarriers (sm_90a): the host's tensor maps, TMA loads,
-// mbarrier init, arrive and wait, wgmma descriptors over 128-byte
-// swizzled tiles, wgmma fence, commit and wait, the m64nNk16 bf16
-// products, setmaxnreg and named barriers.
+// wgmma, TMA and mbarriers (sm_90a): the host's tensor maps, TMA loads
+// (tiles and 1-D bulk copies), mbarrier init, arrive and wait, wgmma
+// descriptors over 128-byte swizzled tiles, wgmma fence, commit and
+// wait, the m64nNk16 bf16 products, setmaxnreg, named barriers and the
+// base-2 exponential.
 // Each source includes it inside its anonymous namespace, after
 // <cuda.h>, <cuda_runtime.h>, <stdint.h> and device_util.cuh.
 
@@ -112,6 +113,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // ---- warp specialisation ---------------------------------------------------
 
 template <int N>
@@ -131,6 +143,12 @@ __device__ __forceinline__ void named_sync(int id, int n) {
 
 __device__ __forceinline__ void named_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- wgmma -----------------------------------------------------------------
@@ -204,6 +222,30 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A . B^T over k16: m64n64k16, A [64][16] and B [64][16] both
+// K-major in shared memory (descriptors a, b); d = A . B^T when
+// accumulate is 0
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 

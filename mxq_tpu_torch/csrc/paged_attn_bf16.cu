@@ -14,13 +14,19 @@
 // before the kernel; its CPU reference, which this follows, divides the
 // f32 scores.
 //
-// Pool layout (serving/paged.py, folded): k/v pages [Hkv, LP, ps, D]
-// bf16, tables [B, pps] int32 physical page ids, any page size.
+// Pool layout (serving/paged.py, folded): k/v pages [Hkv, LP, ps, dp]
+// bf16, tables [B, pps] int32 physical page ids, any page size. The
+// kernel is a template at D = 64 or 128 and reads pages of any row width
+// dp <= D in place: columns dp..D-1 of its shared tiles are zeros, and
+// the wrapper pads q (a few KB) to D with zeros, so those columns add
+// nothing to q . k and give zero context columns. Each copy moves V
+// elements, the most (8, 4, 2 or 1) that divide dp and keep the pages'
+// start aligned to a copy.
 //
 // Design (split history, "flash-decoding"): one block of 128 threads per
 // (split of CH = 128 history rows, kv head, batch row). A block copies
-// its rows of K and V into shared memory with cp.async (16 bytes a copy,
-// all in flight at once, each row found through the table), then scores
+// its rows of K and V into shared memory with cp.async (16 bytes a copy
+// at D = 64 or 128, all in flight at once, each row found through the table), then scores
 // every row for all G = Hq / Hkv query heads of its kv head (a warp per
 // row, a lane per D/32 columns), so each page is read once for the G
 // heads. It writes its split's max m_j, sum l_j = sum exp(s - m_j) and
@@ -54,11 +60,11 @@ constexpr int GMAX = 16;                // query heads per kv head
 
 struct Args {
   const float* q;                       // [B, Hkv, G, D] f32
-  const __nv_bfloat16* kp;              // [Hkv, LP, ps, D]
+  const __nv_bfloat16* kp;              // [Hkv, LP, ps, dp]
   const __nv_bfloat16* vp;
   const int* lengths;                   // [B]
   const int* tables;                    // [B, pps]
-  int B, Hkv, G, LP, ps, pps, NS;
+  int B, Hkv, G, dp, LP, ps, pps, NS;
   float sqrt_d;
   float* ws;      // maxima [BHG, NS], sums [BHG, NS], contexts [BHG, NS, D]
   int* tickets;                         // [B * Hkv], 0 between calls
@@ -78,9 +84,26 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <int D>
+// V bf16 elements (2V bytes) from global to shared memory, zeros where
+// !valid: cp.async for 16, 8 and 4 bytes, a plain load for one element
+template <int V>
+__device__ __forceinline__ void cp_elems(__nv_bfloat16* dst,
+                                         const __nv_bfloat16* src,
+                                         bool valid) {
+  if constexpr (V == 8) {
+    cp16(dst, src, valid);
+  } else if constexpr (V == 1) {
+    *dst = valid ? *src : __float2bfloat16(0.f);
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::
+                     "r"(smem_addr(dst)), "l"(src), "n"(2 * V),
+                     "r"(valid ? 2 * V : 0));
+  }
+}
+
+template <int D, int V>
 __global__ void __launch_bounds__(THREADS) paged_bf16_kernel(const Args a) {
-  constexpr int CPR = D / 8;            // 16-byte chunks per row
+  constexpr int CPR = D / V;            // copies per shared row
   constexpr int EPL = D / 32;           // columns per lane in the scores
   constexpr int RS = THREADS / D;       // row slices in the context sum
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -105,15 +128,15 @@ __global__ void __launch_bounds__(THREADS) paged_bf16_kernel(const Args a) {
 
   for (int i = tid; i < CH * CPR; i += THREADS) {
     const int r = i / CPR, c = i % CPR;
-    const bool ok = r < nv;
+    const bool ok = r < nv && c * V < a.dp;
     size_t off = 0;
     if (ok) {
       const int row = c0 + r;
       const int page = a.tables[(size_t)b * a.pps + row / a.ps];
-      off = (((size_t)h * a.LP + page) * a.ps + row % a.ps) * D + c * 8;
+      off = (((size_t)h * a.LP + page) * a.ps + row % a.ps) * a.dp + c * V;
     }
-    cp16(sk + r * D + c * 8, a.kp + off, ok);
-    cp16(sv + r * D + c * 8, a.vp + off, ok);
+    cp_elems<V>(sk + r * D + c * V, a.kp + off, ok);
+    cp_elems<V>(sv + r * D + c * V, a.vp + off, ok);
   }
   cp_commit();
   const float* qb = a.q + (size_t)bh * a.G * D;
@@ -212,12 +235,12 @@ __global__ void __launch_bounds__(THREADS) paged_bf16_kernel(const Args a) {
   if (tid == 0) a.tickets[bh] = 0;
 }
 
-template <int D>
+template <int D, int V>
 int launch(const Args& a, void* stream) {
   const size_t smem = (size_t)2 * CH * D * 2
                       + sizeof(float) * ((size_t)a.G * D + (size_t)a.G * CH
                                          + (size_t)(THREADS / D - 1) * a.G * D);
-  auto kern = paged_bf16_kernel<D>;
+  auto kern = paged_bf16_kernel<D, V>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -228,29 +251,44 @@ int launch(const Args& a, void* stream) {
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_width(const Args& a, int v, void* stream) {
+  switch (v) {
+    case 8: return launch<D, 8>(a, stream);
+    case 4: return launch<D, 4>(a, stream);
+    case 2: return launch<D, 2>(a, stream);
+    default: return launch<D, 1>(a, stream);
+  }
+}
+
 }  // namespace
 
-// q [B, Hkv, G, D] f32; k/v pages [Hkv, LP, ps, D] bf16; lengths [B];
-// tables [B, pps] physical page ids; ws the scratch of B * Hkv * G * NS *
-// (D + 2) floats, NS = ceil(pps * ps / 128); tickets [B * Hkv] int32, 0
-// between calls; out [B, Hkv, G, D] f32. Returns a cudaError_t.
+// q [B, Hkv, G, D] f32 (columns >= dp zero); k/v pages [Hkv, LP, ps, dp]
+// bf16, dp <= D; lengths [B]; tables [B, pps] physical page ids; ws the
+// scratch of B * Hkv * G * NS * (D + 2) floats, NS = ceil(pps * ps / 128);
+// tickets [B * Hkv] int32, 0 between calls; out [B, Hkv, G, D] f32.
+// Returns a cudaError_t.
 extern "C" int paged_attn_bf16(const void* q, const void* kp, const void* vp,
                                const void* lengths, const void* tables, int B,
-                               int Hkv, int G, int D, int LP, int ps, int pps,
-                               float sqrt_d, void* ws, void* tickets,
+                               int Hkv, int G, int D, int dp, int LP, int ps,
+                               int pps, float sqrt_d, void* ws, void* tickets,
                                void* out, void* stream) {
   if (B < 0 || B > 65535 || Hkv < 1 || Hkv > 65535 || G < 1 || G > GMAX
-      || LP < 1 || ps < 1 || pps < 1)
+      || dp < 1 || dp > D || LP < 1 || ps < 1 || pps < 1)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const Args a{(const float*)q, (const __nv_bfloat16*)kp,
                (const __nv_bfloat16*)vp, (const int*)lengths,
-               (const int*)tables, B, Hkv, G, LP, ps, pps,
+               (const int*)tables, B, Hkv, G, dp, LP, ps, pps,
                (pps * ps + CH - 1) / CH, sqrt_d, (float*)ws, (int*)tickets,
                (float*)out};
+  // the widest copy that divides a row and keeps both pools aligned to it
+  const uintptr_t starts = (uintptr_t)kp | (uintptr_t)vp;
+  int v = 8;
+  while (v > 1 && (dp % v || starts % (2 * v))) v >>= 1;
   switch (D) {
-    case 64: return launch<64>(a, stream);
-    case 128: return launch<128>(a, stream);
+    case 64: return launch_width<64>(a, v, stream);
+    case 128: return launch_width<128>(a, v, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -68,8 +68,9 @@ class LlamaConfig:
     kv_bits: int = 32
     a_symmetric: bool = True
     scheme: MXQConfig = dataclasses.field(default_factory=MXQConfig)
-    # "auto": SDPA on the card for cache-less / position-0 prefill of 128+
-    # tokens, einsum elsewhere; "xla": always einsum; "flash": always SDPA
+    # "auto": K13 (ops/attn_bf16.py) on the card for cache-less /
+    # position-0 prefill of 128+ tokens, einsum elsewhere; "xla": always
+    # einsum; "flash": always K13 (its plain version on the CPU)
     attn_impl: str = "auto"
     # 8 routes packed linears of 512+ tokens through int8 GEMMs (kernel K5)
     prefill_act_bits: int = 32

@@ -17,7 +17,11 @@ and dQ ``pallas_call``s, flash_attention.py:1121 and :1456). The port's
 model sends that attention under autograd to :class:`FlashAttention`.
 
 Each wrapper takes its plain version for tensors on the CPU and launches
-its kernel for tensors on the card, where a failed launch raises.
+its kernel for tensors on the card, where a failed launch raises. The
+kernels are templates at head_dim 64 and 128; the wrappers run every other
+D <= 128 at the next of them, as upstream takes every D <= 128, and refuse
+D > 128: K13 and K13-bwd on zero-padded copies (:func:`pad_head_dim`), K12
+on a padded q, reading the pool's pages in place.
 """
 
 from __future__ import annotations
@@ -32,8 +36,32 @@ from mxq_tpu_torch.scheme import div_const
 
 NEG = torch.finfo(torch.float32).min
 SPLIT_ROWS = 128    # history rows per block of K12 (paged_attn_bf16.cu CH)
-GMAX = 16           # query heads per kv head K12 takes
-HEAD_DIMS = (64, 128)
+GMAX = 16           # query heads per kv head of one K12 launch
+HEAD_DIMS = (64, 128)   # the kernels' head_dim templates
+MAX_HEAD_DIM = HEAD_DIMS[-1]
+
+
+def kernel_head_dim(d: int) -> int:
+    """The template width the kernels run a head_dim ``d`` at: the
+    smallest of HEAD_DIMS that holds it. Upstream takes every D <= 128
+    and multiples of 128 above; K13's wgmma tiles at D = 256 outgrow
+    shared memory, so D > 128 is refused."""
+    for w in HEAD_DIMS:
+        if 1 <= d <= w:
+            return w
+    raise ValueError(f"the bf16 attention kernels take head_dim 1.."
+                     f"{MAX_HEAD_DIM}, got {d}: D > {MAX_HEAD_DIM} does not "
+                     f"fit their shared-memory tiles")
+
+
+def pad_head_dim(x: torch.Tensor, w: int) -> torch.Tensor:
+    """x [..., D] with zero columns up to ``w`` (one copy; x itself when D
+    is w). Zero columns add nothing to q . k, and give zero context and
+    zero dQ, dK and dV columns, so the kernels run a head_dim D < w at w
+    on padded copies (with 1/sqrt(D) of the true D) and the wrappers slice
+    the results back to D."""
+    d = x.shape[-1]
+    return x if d == w else torch.nn.functional.pad(x, (0, w - d))
 
 
 # ---------------------------------------------------------------------------
@@ -41,11 +69,14 @@ HEAD_DIMS = (64, 128)
 # ---------------------------------------------------------------------------
 
 
-def paged_decode_attention_plain(q, k_pages, v_pages, lengths, page_indices):
+def paged_decode_attention_plain(q, k_pages, v_pages, lengths, page_indices,
+                                 head_dim=None):
     """Plain version of K12 (``mxq_tpu``'s ``_paged_attend_reference``,
     serving/paged.py:301-318): gather each sequence's pages, f32 scores
     divided by sqrt(D), rows >= lengths[b] masked, f32 softmax, f32
-    probabilities times f32 V, cast to q's type."""
+    probabilities times f32 V, cast to q's type. ``head_dim``: the D of
+    the scale, q's last dimension by default (zero-padded inputs give it
+    their true D)."""
     b, nh, d = q.shape
     kvh, _, ps, _ = k_pages.shape
     pps = page_indices.shape[1]
@@ -57,7 +88,7 @@ def paged_decode_attention_plain(q, k_pages, v_pages, lengths, page_indices):
     k = torch.repeat_interleave(k, rep, dim=1).float()
     v = torch.repeat_interleave(v, rep, dim=1).float()
     scores = div_const(torch.einsum("bhd,bhsd->bhs", q.float(), k),
-                       math.sqrt(d))
+                       math.sqrt(head_dim or d))
     pos = torch.arange(pps * ps, device=q.device)[None, None, :]
     scores = torch.where(pos < lengths[:, None, None], scores, -1e30)
     probs = torch.softmax(scores, dim=-1)
@@ -85,33 +116,41 @@ def _check(what, want):
                              f"want {dt} {shape} contiguous on {dev}")
 
 
-def _paged_launch(q, k_pages, v_pages, lengths, page_indices):
-    from mxq_tpu_torch import _build
+def _paged_check(q, k_pages, v_pages, lengths, page_indices):
+    """K12's checks on its inputs (q float32 contiguous): G, the query
+    heads per kv head, or a ValueError."""
     b, hq, d = q.shape
     hkv, lp, ps, _ = k_pages.shape
     pps = page_indices.shape[1]
-    qf = q.float().contiguous()
-    _check("K12", [("q", qf, torch.float32, (b, hq, d)),
+    _check("K12", [("q", q, torch.float32, (b, hq, d)),
                    ("k_pages", k_pages, torch.bfloat16, (hkv, lp, ps, d)),
                    ("v_pages", v_pages, torch.bfloat16, (hkv, lp, ps, d)),
                    ("lengths", lengths, torch.int32, (b,)),
                    ("page_indices", page_indices, torch.int32, (b, pps))])
-    g = hq // hkv
-    if hq % hkv or not 1 <= g <= GMAX or d not in HEAD_DIMS or pps < 1:
-        raise ValueError(f"K12 takes D in {HEAD_DIMS}, 1..{GMAX} query heads "
-                         f"per kv head and a table of >= 1 page, got D={d}, "
+    if hq % hkv or pps < 1 or not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"K12 takes D in 1..{MAX_HEAD_DIM}, Hq a multiple "
+                         f"of Hkv and a table of >= 1 page, got D={d}, "
                          f"Hq={hq}, Hkv={hkv}, pages={pps}")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("K12: the pages must start 16-byte aligned (the "
-                         "kernel copies 16 bytes at once)")
-    ws, tickets = _paged_scratch(b, hq, hkv, pps, ps, d, q.device)
-    out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
+    return hq // hkv
+
+
+def _paged_launch(q, k_pages, v_pages, lengths, page_indices, sqrt_d):
+    """One K12 launch: q [B, Hkv * G, W] float32 contiguous with G <=
+    GMAX and W one of HEAD_DIMS, zero past the pages' row width D <= W;
+    the kernel reads the pages [Hkv, LP, ps, D] in place."""
+    from mxq_tpu_torch import _build
+    b, hq, w = q.shape
+    hkv, lp, ps, d = k_pages.shape
+    pps = page_indices.shape[1]
+    ws, tickets = _paged_scratch(b, hq, hkv, pps, ps, w, q.device)
+    out = torch.empty((b, hq, w), dtype=torch.float32, device=q.device)
     err = _build.load("paged_attn_bf16").paged_attn_bf16(
-        qf.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        lengths.data_ptr(), page_indices.data_ptr(), b, hkv, g, d, lp, ps,
-        pps, math.sqrt(d), ws.data_ptr(), tickets.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        lengths.data_ptr(), page_indices.data_ptr(), b, hkv, hq // hkv, w,
+        d, lp, ps, pps, sqrt_d, ws.data_ptr(), tickets.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "K12")
+    count_launch(paged_decode_attention)
     return out
 
 
@@ -124,13 +163,36 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices):
     lengths[b] are attended); page_indices [B, PPS] int32 physical page ids.
     Returns [B, Hq, D] in q's type. On the card the rows must be at least
     1 long (a row of length <= 0 gets zeros) and an engine reserves the
-    tickets before it captures a chunk (``attn_int8.reserve_tickets``)."""
+    tickets before it captures a chunk (``attn_int8.reserve_tickets``).
+    A D below 128 other than 64 runs at the next of HEAD_DIMS: q is
+    padded with zeros (:func:`pad_head_dim`) and the kernel reads the
+    pages in place, zeros past D in its tiles; more than GMAX query heads
+    per kv head take one launch per GMAX of them, each launch counted."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, lengths,
                                             page_indices)
-    out = _paged_launch(q, k_pages, v_pages, lengths, page_indices)
-    count_launch(paged_decode_attention)
-    return out.to(q.dtype)
+    qf = q.float().contiguous()
+    g = _paged_check(qf, k_pages, v_pages, lengths, page_indices)
+    b, hq, d = q.shape
+    hkv = k_pages.shape[0]
+    w = kernel_head_dim(d)
+    qf = pad_head_dim(qf, w)
+    if g <= GMAX:
+        out = _paged_launch(qf, k_pages, v_pages, lengths, page_indices,
+                            math.sqrt(d))
+    else:
+        # each kv head's query heads in groups of up to GMAX, one launch a
+        # group, put back in head order
+        qg = qf.view(b, hkv, g, w)
+        out = torch.empty_like(qg)
+        for g0 in range(0, g, GMAX):
+            g1 = min(g, g0 + GMAX)
+            part = _paged_launch(
+                qg[:, :, g0:g1].reshape(b, hkv * (g1 - g0), w), k_pages,
+                v_pages, lengths, page_indices, math.sqrt(d))
+            out[:, :, g0:g1] = part.view(b, hkv, g1 - g0, w)
+        out = out.view(b, hq, w)
+    return out[..., :d].to(q.dtype).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -138,54 +200,58 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices):
 # ---------------------------------------------------------------------------
 
 
-def _causal_scores(q, k):
+def _causal_scores(q, k, head_dim=None):
     """The f32 scores [B, Hq, T, T] of q [B, T, Hq, D] against the first T
-    rows of k [B, >= T, Hkv, D] (repeated to Hq heads), divided by sqrt(D),
-    with the causal mask added (query row i over key rows j <= i)."""
+    rows of k [B, >= T, Hkv, D] (repeated to Hq heads), divided by
+    sqrt(head_dim) (D by default), with the causal mask added (query row i
+    over key rows j <= i)."""
     b, t, hq, d = q.shape
     k = k[:, :t]
     if k.shape[2] != hq:
         k = torch.repeat_interleave(k, hq // k.shape[2], dim=2)
     scores = div_const(torch.einsum("bhtd,bhsd->bhts", q.transpose(1, 2)
                                     .float(), k.transpose(1, 2).float()),
-                       math.sqrt(d))
+                       math.sqrt(head_dim or d))
     i = torch.arange(t, device=q.device)
     return scores + torch.where(i[None, :] <= i[:, None], 0.0, NEG)
 
 
-def _flash_plain(q, k, v):
+def _flash_plain(q, k, v, head_dim=None):
     """The context of K13's plain version and the scores it came from."""
     t, hq = q.shape[1], q.shape[2]
     v = v[:, :t]
     if v.shape[2] != hq:
         v = torch.repeat_interleave(v, hq // v.shape[2], dim=2)
     vf = v.transpose(1, 2)
-    scores = _causal_scores(q, k)
+    scores = _causal_scores(q, k, head_dim)
     probs = torch.softmax(scores, dim=-1).to(vf.dtype)
     ctx = torch.einsum("bhts,bhsd->bhtd", probs, vf).transpose(1, 2) \
         .to(q.dtype)
     return ctx, scores
 
 
-def flash_prefill_attention_plain(q, k, v):
+def flash_prefill_attention_plain(q, k, v, head_dim=None):
     """Plain version of K13: ``mxq_tpu``'s einsum attention
     (models/llama.py:397-406) under the causal mask: f32 scores divided by
     sqrt(D), query row i over key rows j <= i, f32 softmax, probabilities
     in V's type, then the product with V; the result in q's type. q
-    [B, T, Hq, D], k, v [B, >= T, Hkv, D] (rows < T are read)."""
-    return _flash_plain(q, k, v)[0]
+    [B, T, Hq, D], k, v [B, >= T, Hkv, D] (rows < T are read).
+    ``head_dim``: the D of the scale, q's last dimension by default
+    (zero-padded inputs give it their true D), here and in the other
+    plain versions."""
+    return _flash_plain(q, k, v, head_dim)[0]
 
 
-def flash_attention_forward_plain(q, k, v):
+def flash_attention_forward_plain(q, k, v, head_dim=None):
     """Plain version of K13 with its row log-sum-exp: the context of
     :func:`flash_prefill_attention_plain`, bit for bit, and lse [B, Hq, T]
     f32, the logsumexp of each row's masked scores in the units the
     backward recomputes them in (divided by sqrt(D))."""
-    ctx, scores = _flash_plain(q, k, v)
+    ctx, scores = _flash_plain(q, k, v, head_dim)
     return ctx, torch.logsumexp(scores, dim=-1)
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do):
+def flash_attention_bwd_plain(q, k, v, o, lse, do, head_dim=None):
     """Plain version of K13-bwd, flash attention's backward as upstream's
     VJP computes it (flash_attention.py:254-318, :796-939, :1146-1285):
     di = rowsum(o . dO) in f32, p = exp(s - lse) over the masked scores s
@@ -206,11 +272,11 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do):
     qf, kf, vf, of, dof = (a.transpose(1, 2).float()
                            for a in (q, kf, vf, o, do))
     di = (of * dof).sum(-1)                                  # [B, Hq, T]
-    p = torch.exp(_causal_scores(q, k) - lse[..., None])
+    p = torch.exp(_causal_scores(q, k, head_dim) - lse[..., None])
     dv = torch.einsum("bhts,bhtd->bhsd", p.to(do.dtype).float(), dof)
     dp = torch.einsum("bhtd,bhsd->bhts", dof, vf)
-    ds = ((dp - di[..., None]) * p * (1.0 / math.sqrt(d))).to(q.dtype) \
-        .float()
+    ds = ((dp - di[..., None]) * p * (1.0 / math.sqrt(head_dim or d))) \
+        .to(q.dtype).float()
     dq = torch.einsum("bhts,bhsd->bhtd", ds, kf)
     dk = torch.einsum("bhts,bhtd->bhsd", ds, qf)
     dk, dv = (x.view(b, hkv, g, t, d).sum(2).transpose(1, 2)
@@ -236,38 +302,42 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
 
 
 def _flash_check(what, q, k, v):
+    """K13's and K13-bwd's checks on q, k, v; the kernels' head_dim
+    (:func:`kernel_head_dim`) or a ValueError."""
     b, t, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     if (q.dtype not in (torch.bfloat16, torch.float32)
             or k.dtype != q.dtype or v.dtype != q.dtype
             or k.device != q.device or v.device != q.device
             or tuple(k.shape) != (b, s, hkv, d) or v.shape != k.shape
-            or s < t or hq % hkv or d not in HEAD_DIMS):
+            or s < t or hq % hkv or not 1 <= d <= MAX_HEAD_DIM):
         raise ValueError(
             f"{what} takes q [B, T, Hq, D], k, v [B, S >= T, Hkv, D] of one "
-            f"type (bfloat16 or float32) on one device, D in {HEAD_DIMS}, "
-            f"Hq a multiple of Hkv; got q {q.dtype} {tuple(q.shape)} on "
-            f"{q.device}, k {k.dtype} {tuple(k.shape)} on {k.device}, v "
-            f"{v.dtype} {tuple(v.shape)} on {v.device}")
+            f"type (bfloat16 or float32) on one device, D in 1.."
+            f"{MAX_HEAD_DIM}, Hq a multiple of Hkv; got q {q.dtype} "
+            f"{tuple(q.shape)} on {q.device}, k {k.dtype} {tuple(k.shape)} "
+            f"on {k.device}, v {v.dtype} {tuple(v.shape)} on {v.device}")
+    return kernel_head_dim(d)
 
 
 def _k13_launch(q, k, v, lse):
     """K13 on the card; ``lse`` [B, Hq, T] f32 receives the row
-    log-sum-exp, or None (the kernel writes none)."""
+    log-sum-exp, or None (the kernel writes none). A head_dim D that is not
+    one of HEAD_DIMS runs at the next one on zero-padded copies."""
     from mxq_tpu_torch import _build
-    _flash_check("K13", q, k, v)
+    w = _flash_check("K13", q, k, v)
     b, t, hq, d = q.shape
-    q, k, v = _rows(q), _rows(k), _rows(v)
-    out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
+    q, k, v = (_rows(pad_head_dim(x, w)) for x in (q, k, v))
+    out = torch.empty((b, t, hq, w), dtype=q.dtype, device=q.device)
     err = _build.load("flash_attn").flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), v.stride(0), v.stride(1), b, t, hq,
-        k.shape[2], d, int(q.dtype == torch.float32), 1.0 / math.sqrt(d),
+        k.shape[2], w, int(q.dtype == torch.float32), 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "K13")
     count_launch(flash_prefill_attention)
-    return out
+    return out if w == d else out[..., :d].contiguous()
 
 
 def flash_prefill_attention(q, k, v):
@@ -275,9 +345,9 @@ def flash_prefill_attention(q, k, v):
 
     q [B, T, Hq, D]; k, v [B, S, Hkv, D] with S >= T (query row i sees key
     rows j <= i, so rows >= T are never read), one type, bfloat16 or
-    float32; query head h reads kv head h // (Hq // Hkv) in place. Strided
-    views (the fused qkv projection's slices) are read as they are.
-    Returns [B, T, Hq, D] in q's type."""
+    float32, D <= 128; query head h reads kv head h // (Hq // Hkv) in
+    place. Strided views (the fused qkv projection's slices) are read as
+    they are. Returns [B, T, Hq, D] in q's type."""
     if q.device.type == "cpu":
         return flash_prefill_attention_plain(q, k, v)
     return _k13_launch(q, k, v, None)
@@ -295,6 +365,22 @@ def flash_attention_forward(q, k, v):
     return _k13_launch(q, k, v, lse), lse
 
 
+def _bwd_scratch(lib, b, t, hq, hkv, w, f32, device):
+    """K13-bwd's f32 scratch and tickets, as the library sizes them for
+    this card (``flash_attn_bwd_scratch``): none for float32; for bf16 the
+    row log-sum-exp and di that the dQ kernel writes for the dK/dV kernel,
+    and, where a kv head's query heads are split over blocks, the partial
+    dK and dV and one ticket per (key tile, kv head, batch row)."""
+    import ctypes
+    sizes = (ctypes.c_longlong * 3)()
+    err = lib.flash_attn_bwd_scratch(b, t, hq, hkv, w, f32, sizes)
+    if err:
+        raise RuntimeError(f"K13-bwd: CUDA error {err} sizing its scratch")
+    ws = torch.empty(sizes[0], dtype=torch.float32, device=device)
+    tickets = reserve_tickets(sizes[1], device) if sizes[1] else None
+    return ws, tickets
+
+
 def flash_attention_backward(q, k, v, o, lse, do):
     """K13-bwd: the gradients of K13 (``csrc/flash_attn_bwd.cu``, its dQ
     kernel then its dK/dV kernel; one launch counted per call).
@@ -303,12 +389,14 @@ def flash_attention_backward(q, k, v, o, lse, do):
     lse from :func:`flash_attention_forward`, do the output's gradient
     [B, T, Hq, D] (any strides). Returns dq [B, T, Hq, D] and dk, dv shaped
     like k, v (summed over each kv head's query heads; rows >= T zero), in
-    q's type. di = rowsum(o . dO) is one PyTorch reduction, as upstream
-    computes it in jnp outside its kernels."""
+    q's type. di = rowsum(o . dO): at bf16 the dQ kernel computes it from
+    the o and dO tiles it loads; at float32 it is one PyTorch reduction,
+    as upstream computes it in jnp outside its kernels. A head_dim that is
+    not one of HEAD_DIMS runs at the next one on zero-padded copies."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do)
     from mxq_tpu_torch import _build
-    _flash_check("K13-bwd", q, k, v)
+    w = _flash_check("K13-bwd", q, k, v)
     b, t, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     if (tuple(o.shape) != (b, t, hq, d) or do.shape != o.shape
@@ -322,23 +410,34 @@ def flash_attention_backward(q, k, v, o, lse, do):
             f"{tuple(o.shape)}, do {do.dtype} {tuple(do.shape)}, lse "
             f"{lse.dtype} {tuple(lse.shape)} for q {q.dtype} "
             f"{tuple(q.shape)}")
-    q, k, v, do = _rows(q), _rows(k), _rows(v), _rows(do)
-    di = (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
+    f32 = int(q.dtype == torch.float32)
+    q, k, v, o, do = (_rows(pad_head_dim(x, w)) for x in (q, k, v, o, do))
+    lib = _build.load("flash_attn_bwd")
+    if f32:
+        di = (o * do).sum(-1).transpose(1, 2).contiguous()
+        ws, tickets = None, None
+    else:
+        di = None
+        ws, tickets = _bwd_scratch(lib, b, t, hq, hkv, w, f32, q.device)
+    dq = torch.empty((b, t, hq, w), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hkv, w), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if s > t:
         dk[:, t:].zero_()
         dv[:, t:].zero_()
-    err = _build.load("flash_attn_bwd").flash_attn_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), do.stride(0), do.stride(1), s * hkv * d,
-        b, t, hq, hkv, d, int(q.dtype == torch.float32), 1.0 / math.sqrt(d),
+    ptr = (lambda x: None if x is None else x.data_ptr())
+    err = lib.flash_attn_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), ptr(di), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), ptr(ws), ptr(tickets), q.stride(0),
+        q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        o.stride(0), o.stride(1), do.stride(0), do.stride(1), s * hkv * w,
+        b, t, hq, hkv, w, f32, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "K13-bwd")
     count_launch(flash_attention_backward)
+    if w != d:
+        dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 

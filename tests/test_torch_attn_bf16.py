@@ -55,8 +55,12 @@ def _pool(rng, hkv, g, d):
 
 
 @pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("g,d", [(1, 64), (4, 64), (1, 128), (4, 128)])
+@pytest.mark.parametrize("g,d", [(1, 64), (4, 64), (1, 128), (4, 128),
+                                 (1, 96), (4, 100), (1, 99), (32, 64)])
 def test_k12_plain_matches_jax_reference(g, d, q_dtype):
+    """Also at head_dims the kernel reads at a wider template (96-100)
+    and at more query heads per kv head than one launch takes (G = 32):
+    the reference's jnp route takes every shape."""
     q, k, v, lengths, tables = _pool(np.random.default_rng(d + g), 2, g, d)
     if q_dtype == "bfloat16":
         q = q.astype(BF)
@@ -86,23 +90,22 @@ def test_paged_attend_routes_bf16_pool_to_k12_plain_on_cpu():
                        ab.paged_decode_attention_plain(*args))
 
 
-def _dense_models(kv_heads, seed=0, packed=False):
-    jcfg = jl.LlamaConfig.tiny(num_key_value_heads=kv_heads)
+def _dense_models(kv_heads, seed=0, packed=False, **cfg):
+    jcfg = jl.LlamaConfig.tiny(num_key_value_heads=kv_heads, **cfg)
     tcfg = dataclasses.replace(
-        tl.LlamaConfig.tiny(num_key_value_heads=kv_heads), attn_impl="flash")
+        tl.LlamaConfig.tiny(num_key_value_heads=kv_heads, **cfg),
+        attn_impl="flash")
     params = jl.init_params(jcfg, jax.random.PRNGKey(seed))
     if packed:
         params = jl.quantize_params_packed(params, jcfg)
     return jcfg, tcfg, params, port_params(params)
 
 
-@pytest.mark.parametrize("t", [128, 256])
-@pytest.mark.parametrize("kv_heads", [4, 2])
-def test_k13_plain_matches_jax_attention(monkeypatch, kv_heads, t):
+def _k13_against_jax_attention(monkeypatch, kv_heads, t, **cfg):
     """Layer 0's attention on the same f32 input: what o_proj receives on
     each side, JAX's einsum path against the port's K13 route (its plain
-    version on the CPU)."""
-    jcfg, tcfg, jp, tp = _dense_models(kv_heads, seed=kv_heads)
+    version on the CPU), within 1e-5 of max|ctx|."""
+    jcfg, tcfg, jp, tp = _dense_models(kv_heads, seed=kv_heads, **cfg)
     ids = np.random.default_rng(t).integers(0, 512, (2, t)).astype(np.int32)
     x = jp["embed_tokens"][jnp.asarray(ids)]
     h = jl.rms_norm(x, jp["layers"]["input_layernorm"][0], jcfg.rms_norm_eps)
@@ -130,6 +133,19 @@ def test_k13_plain_matches_jax_attention(monkeypatch, kv_heads, t):
     ctx_j, ctx_t = to_torch(seen["jax"][-1]), seen["port"][-1]
     assert ctx_t.dtype == torch.float32 and ctx_t.shape == ctx_j.shape
     assert rel(ctx_t, ctx_j) <= 1e-5
+
+
+@pytest.mark.parametrize("t", [128, 256])
+@pytest.mark.parametrize("kv_heads", [4, 2])
+def test_k13_plain_matches_jax_attention(monkeypatch, kv_heads, t):
+    _k13_against_jax_attention(monkeypatch, kv_heads, t)
+
+
+@pytest.mark.parametrize("kv_heads", [4, 2])
+def test_k13_plain_matches_jax_attention_head_dim_96(monkeypatch, kv_heads):
+    """The same at head_dim 96 (hidden 384 over 4 heads), a D the kernels
+    run at their 128 template."""
+    _k13_against_jax_attention(monkeypatch, kv_heads, 128, hidden_size=384)
 
 
 @pytest.mark.parametrize("kv_heads", [4, 2])
@@ -203,3 +219,70 @@ def test_cpu_calls_launch_nothing():
     tl._attend_step(cfg, None, None, None, torch.float32, 0, x, x, x)
     assert [f.launches for f in ab.KERNELS.values()] == before
 
+
+
+def _pad(x, w):
+    return ab.pad_head_dim(x, w)
+
+
+@pytest.mark.parametrize("d", [80, 96, 100])
+def test_padded_plain_versions_equal_unpadded(d):
+    """What the wrappers do on the card for a head_dim D that is not 64 or
+    128, run through the plain versions: K12, K13 (with and without its
+    lse) and K13-bwd at the kernels' width (128) on zero-padded copies of
+    their inputs, with 1/sqrt(D) of the true D, give after slicing back to
+    D the plain versions' results on the unpadded tensors, within 1e-6 of
+    each result's max (f32: the padded sums only add exact zeros, so only
+    the einsums' order of summation may differ), and zero padded columns
+    of dQ, dK and dV."""
+    w = ab.kernel_head_dim(d)
+    assert w == 128
+    rng = np.random.default_rng(d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((2, 130, 4, d), (2, 133, 2, d),
+                               (2, 133, 2, d), (2, 130, 4, d)))
+    ctx = ab.flash_prefill_attention_plain(q, k, v)
+    got = ab.flash_prefill_attention_plain(_pad(q, w), _pad(k, w),
+                                           _pad(v, w), head_dim=d)
+    assert rel(got[..., :d], ctx) <= 1e-6
+    assert not bool(got[..., d:].any())
+    o, lse = ab.flash_attention_forward_plain(q, k, v)
+    po, plse = ab.flash_attention_forward_plain(
+        _pad(q, w), _pad(k, w), _pad(v, w), head_dim=d)
+    assert rel(po[..., :d], o) <= 1e-6 and rel(plse, lse) <= 1e-6
+    want = ab.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    grads = ab.flash_attention_bwd_plain(
+        *(_pad(x, w) for x in (q, k, v, o)), lse, _pad(do, w), head_dim=d)
+    for g, r in zip(grads, want):
+        assert g.shape[:-1] == r.shape[:-1]
+        assert rel(g[..., :d], r) <= 1e-6
+        assert not bool(g[..., d:].any())
+    qd, kp, vp, lengths, tables = _pool(rng, 2, 4, d)
+    args = [to_torch(a) for a in (qd, kp, vp, lengths, tables)]
+    ref = ab.paged_decode_attention_plain(*args)
+    padded = ab.paged_decode_attention_plain(
+        *(_pad(a, w) for a in args[:3]), *args[3:], head_dim=d)
+    assert rel(padded[..., :d], ref) <= 1e-6
+
+
+@pytest.mark.parametrize("d,w", [(80, 128), (96, 128), (100, 128),
+                                 (33, 64), (64, 64), (128, 128)])
+def test_shape_checks_take_every_head_dim_up_to_128(d, w):
+    """K12's and K13's checks (K13-bwd's is K13's) take every D <= 128 and
+    give the template width the kernels run it at; D = 192 is refused, as
+    the kernels' tiles at D = 256 would not fit shared memory."""
+    q, k = torch.zeros(1, 4, 8, d), torch.zeros(1, 4, 2, d)
+    assert ab._flash_check("K13", q, k, k) == w
+    qp, kp, vp, lengths, tables = (to_torch(a) for a in _pool(
+        np.random.default_rng(0), 2, 4, d))
+    assert ab._paged_check(qp, kp, vp, lengths, tables) == 4
+    assert ab.kernel_head_dim(d) == w
+    big, bigk = torch.zeros(1, 4, 8, 192), torch.zeros(1, 4, 2, 192)
+    with pytest.raises(ValueError, match="D in 1..128"):
+        ab._flash_check("K13", big, bigk, bigk)
+    qb, kb, vb, lb, tb = (to_torch(a) for a in _pool(
+        np.random.default_rng(0), 2, 1, 192))
+    with pytest.raises(ValueError, match="D in 1..128"):
+        ab._paged_check(qb, kb, vb, lb, tb)
+    with pytest.raises(ValueError, match="head_dim 1..128"):
+        ab.kernel_head_dim(192)

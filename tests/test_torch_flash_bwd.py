@@ -64,18 +64,16 @@ def routes(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("hkv", [2, 1])
-def test_bwd_plain_matches_upstream_flash_vjp(hkv):
+def _bwd_against_upstream(seed, hkv, d, hq=2, t=256):
     """flash_attention_bwd_plain on the plain forward's o and lse against
     ``jax.vjp`` of upstream flash_attention (causal, sm_scale 1/sqrt(D),
     default 128-row blocks) in interpret mode, at B=1, T=256 (two blocks:
-    the grid crosses the diagonal), 2 query heads of 64, f32, k and v
-    repeated by JAX (Hkv 1: JAX's autograd sums the repeats, the plain
-    version sums the group): each gradient within 1e-5 of its max
-    (measured <= 6.9e-7: f32 sums in other orders, and upstream's
-    exp(s - m) / l against exp(s - lse))."""
-    t, hq, d = 256, 2, 64
-    q, k, v, do = _inputs(hkv, t, hq, hkv, d)
+    the grid crosses the diagonal), f32, k and v repeated by JAX (Hkv 1:
+    JAX's autograd sums the repeats, the plain version sums the group):
+    each gradient within 1e-5 of its max (measured <= 6.9e-7 at D = 64:
+    f32 sums in other orders, and upstream's exp(s - m) / l against
+    exp(s - lse))."""
+    q, k, v, do = _inputs(seed, t, hq, hkv, d)
 
     def upstream(q, k, v):
         k, v = _repeat(k, v, hq // hkv)
@@ -94,6 +92,19 @@ def test_bwd_plain_matches_upstream_flash_vjp(hkv):
     for g, w, x in zip(got, want, (q, k, v)):
         assert g.dtype == torch.float32 and tuple(g.shape) == x.shape
         assert rel(g, w) <= 1e-5
+
+
+@pytest.mark.parametrize("hkv", [2, 1])
+def test_bwd_plain_matches_upstream_flash_vjp(hkv):
+    """2 query heads of 64 (see :func:`_bwd_against_upstream`)."""
+    _bwd_against_upstream(hkv, hkv, 64)
+
+
+@pytest.mark.parametrize("hkv,d", [(2, 80), (2, 96), (1, 100)])
+def test_bwd_plain_matches_upstream_flash_vjp_head_dims(hkv, d):
+    """The same at head_dims the kernels run at their 128 template:
+    upstream takes every D <= 128."""
+    _bwd_against_upstream(d, hkv, d)
 
 
 def _einsum_attention(q, k, v):

@@ -455,13 +455,17 @@ def test_paged_kernels_match_plain(gen, g, d, pps):
 
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("ps,pps", [(64, 3), (64, 32), (16, 9)])
-@pytest.mark.parametrize("g,d", [(1, 64), (4, 128), (8, 128)])
+@pytest.mark.parametrize("g,d", [(1, 64), (4, 128), (8, 128), (4, 96),
+                                 (32, 128), (4, 100), (2, 98), (1, 99)])
 def test_k12_matches_plain(gen, g, d, ps, pps, q_dtype):
     """K12 against its plain version: shuffled tables, lengths cut at page
     and split edges (1, 63-65, 127-129, the whole table); the kernel reads
     a pool whose null page is NaN, the plain version (which gathers every
     page) the same pool with it zeroed. float32 q: <= 1e-5 of max|ctx|
-    (summation order); bf16 q: <= 1e-2 (the output's rounding)."""
+    (summation order); bf16 q: <= 1e-2 (the output's rounding). D = 96,
+    100, 98 and 99 run at 128 with q padded, the kernel reading the pages
+    in place by copies of 16, 8, 4 and 2 bytes; G = 32 as two launches of
+    16 query heads per kv head."""
     hkv = 2
     lens = [n for n in (1, 63, 64, 65, 127, 128, 129, pps * ps)
             if n <= pps * ps]
@@ -477,10 +481,13 @@ def test_k12_matches_plain(gen, g, d, ps, pps, q_dtype):
     kp[:, 0] = vp[:, 0] = float("nan")
     q = torch.randn((b, hkv * g, d), **cat).to(q_dtype)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    before = ab.paged_decode_attention.launches
     got = ab.paged_decode_attention(q, kp, vp, lengths, tables)
     ref = ab.paged_decode_attention_plain(q, kz, vz, lengths, tables)
     torch.cuda.synchronize()
-    assert got.dtype == q_dtype and bool(torch.isfinite(got).all())
+    assert ab.paged_decode_attention.launches == before + -(-g // ab.GMAX)
+    assert got.dtype == q_dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
     tol = 1e-5 if q_dtype == torch.float32 else 1e-2
     assert float((got.float() - ref.float()).abs().max()
                  / ref.float().abs().max()) <= tol
@@ -489,7 +496,8 @@ def test_k12_matches_plain(gen, g, d, ps, pps, q_dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 200, 255, 257,
                                513])
-@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128)])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128),
+                                      (8, 2, 80), (4, 4, 96)])
 def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
     """K13 against its plain version, with q, k, v as the fused qkv
     projection's strided slices and k, v 7 rows longer than q (a cache
@@ -498,7 +506,7 @@ def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
     version's after normalizing), float32 <= 1e-4 (bf16 hi + lo split
     products); the same bits on a second call. T straddles the bf16
     kernel's 128-row blocks and 128-key tiles and the float32 kernel's
-    64-row ones."""
+    64-row ones; D = 80 and 96 run at 128 on zero-padded copies."""
     b = 2
     qkv = torch.randn((b, t + 7, (hq + 2 * hkv) * d), generator=gen,
                       device="cuda").to(dtype)
@@ -558,15 +566,19 @@ def _grad_errs(got, ref):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("t", [1, 63, 64, 65, 200, 513])
-@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128)])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 200, 255, 257,
+                               513])
+@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128),
+                                      (8, 2, 80), (4, 4, 96)])
 def test_k13_bwd_matches_plain(gen, hq, hkv, d, t, dtype):
     """K13-bwd against its plain version on the same lse (K13's), q, k, v
     the fused projection's strided slices and dO a transposed view: each
     gradient within 2e-2 of its max at bf16 (P and dS rounded to bf16 as
     upstream does, from exp(s - lse) recomputed in another order), 1e-4 at
     float32 (the split products, K13-f32's gate); the same bits on a
-    second call, one launch counted per call, dK and dV zero past row T."""
+    second call, one launch counted per call, dK and dV zero past row T.
+    T straddles the bf16 kernels' 128-row items and 64-row tiles; D = 80
+    and 96 run at 128 on zero-padded copies."""
     b = 2
     q, k, v = _qkv(gen, b, t, hq, hkv, d, dtype)
     do = torch.randn((b, hq, t, d), generator=gen, device="cuda").to(
@@ -585,6 +597,51 @@ def test_k13_bwd_matches_plain(gen, hq, hkv, d, t, dtype):
         assert not bool(g[:, t:].any())
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert max(_grad_errs(got, ref)) <= tol
+
+
+def _split_heads_case(gen):
+    """llama2_70b's G = 8 at T = 512, bf16: 4 key tiles x 8 kv heads give
+    the dK/dV kernel fewer items than the card has SMs, so each kv head's
+    query heads are split over blocks (the library reports the split)."""
+    import ctypes
+
+    from mxq_tpu_torch import _build
+    sizes = (ctypes.c_longlong * 3)()
+    assert _build.load("flash_attn_bwd").flash_attn_bwd_scratch(
+        1, 512, 64, 8, 128, 0, sizes) == 0
+    assert sizes[2] > 1
+    q, k, v = _qkv(gen, 1, 512, 64, 8, 128, torch.bfloat16)
+    do = torch.randn((1, 512, 64, 128), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    o, lse = ab.flash_attention_forward(q, k, v)
+    return q, k, v, o, lse, do
+
+
+def test_k13_bwd_split_heads_matches_plain(gen):
+    """K13-bwd on the split-and-sum path (G = 8, T = 512) against its
+    plain version, each gradient within 2e-2 of its max (the bf16 gate of
+    test_k13_bwd_matches_plain), finite, dK and dV zero past row T."""
+    args = _split_heads_case(gen)
+    got = ab.flash_attention_backward(*args)
+    ref = ab.flash_attention_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and bool(torch.isfinite(g).all())
+    for g in got[1:]:
+        assert not bool(g[:, 512:].any())
+    assert max(_grad_errs(got, ref)) <= 2e-2
+
+
+def test_k13_bwd_split_heads_same_bits(gen):
+    """Three calls on the split-and-sum path give the same bits: the last
+    block of each key tile sums the partials in split order, whichever
+    block finishes last, and leaves its ticket at 0 for the next call."""
+    args = _split_heads_case(gen)
+    first = ab.flash_attention_backward(*args)
+    for _ in range(2):
+        again = ab.flash_attention_backward(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -672,6 +729,66 @@ def llama7b_2():
         llama.init_params(cfg, 0, torch.bfloat16, "cuda"), cfg,
         device="cuda")
     return cfg, params
+
+
+@pytest.fixture(scope="module")
+def llama_d96_2():
+    """llama2_7b's widths with hidden 3072 over its 32 heads (head_dim 96),
+    2 layers, packed, random weights from seed 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import dataclasses
+
+    from mxq_tpu_torch.models import llama
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(),
+                              num_hidden_layers=2, hidden_size=3072)
+    assert cfg.head_dim == 96
+    params = llama.quantize_params_packed(
+        llama.init_params(cfg, 0, torch.bfloat16, "cuda"), cfg,
+        device="cuda")
+    return cfg, params
+
+
+def test_paged_bf16_engine_at_head_dim_96(llama_d96_2, monkeypatch):
+    """PagedEngine's bf16 pool at head_dim 96: every K12 launch reads the
+    engine's own pages (their storage, 96 wide) with q padded to 128, so
+    no copy of the pool is made; the decode chunks replayed as CUDA graphs
+    give the greedy tokens and K12 launches of the same run op by op."""
+    import numpy as np
+
+    from mxq_tpu_torch.serving import graphs, paged
+    cfg, params = llama_d96_2
+    seen = []
+    launch = ab._paged_launch
+
+    def spy(q, k_pages, v_pages, *rest):
+        seen.append((k_pages.untyped_storage().data_ptr(),
+                     v_pages.untyped_storage().data_ptr(),
+                     k_pages.shape[-1], q.shape[-1]))
+        return launch(q, k_pages, v_pages, *rest)
+    monkeypatch.setattr(ab, "_paged_launch", spy)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, 40).astype(np.int32)
+               for _ in range(6)]
+    runs = {}
+    for mode in ("graphs", "eager"):
+        if mode == "eager":
+            monkeypatch.setattr(graphs.ChunkRunner, "run",
+                                graphs.ChunkRunner.eager)
+        before = ab.paged_decode_attention.launches
+        e = paged.PagedEngine(params, cfg, num_slots=4, total_pages=17,
+                              page_size=64, max_len=256, kv_bits=32,
+                              device="cuda")
+        reqs = [e.submit(p, max_new_tokens=12) for p in prompts]
+        e.run()
+        torch.cuda.synchronize()
+        pool = (e.pool.k_pages.untyped_storage().data_ptr(),
+                e.pool.v_pages.untyped_storage().data_ptr())
+        assert seen and all(x == (*pool, 96, 128) for x in seen)
+        seen.clear()
+        runs[mode] = ([list(map(int, r.generated)) for r in reqs],
+                      ab.paged_decode_attention.launches - before)
+    assert runs["graphs"] == runs["eager"] and runs["graphs"][1] > 0
 
 
 def _drive(kind, cfg, params):
