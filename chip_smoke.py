@@ -338,15 +338,18 @@ K1_KERNEL_NAMES = ("permute_x_kernel", "gemv_small_kernel",
 K2_KERNEL_NAMES = ("gemv_row_kernel", "gemv_row_sum_kernel")
 # K5's (csrc/mxq_dequant.cu: the bound, then the codes)
 K5_KERNEL_NAMES = ("k5_scale_kernel", "k5_codes_kernel")
-# K13's (csrc/flash_attn.cu: bf16 on wgmma, float32's split products);
+# K13's (csrc/flash_attn.cu on wgmma; at float32 after its split pass);
 # listed before the library's attention, whose kernels' names also hold
 # "flash"
-K13_KERNEL_NAMES = ("flash_wgmma_kernel<", "flash_kernel<")
-# K13-bwd's (csrc/flash_attn_bwd.cu: dQ, then dK and dV; bf16 on wgmma,
-# float32's split products)
-K13_BWD_DQ_NAMES = ("dq_wgmma_kernel<", "dq_kernel<")
-K13_BWD_DKV_NAMES = ("dkv_wgmma_kernel<", "dkv_kernel<")
-K13_BWD_KERNEL_NAMES = K13_BWD_DQ_NAMES + K13_BWD_DKV_NAMES
+K13_SPLIT_NAMES = ("fwd_split_kernel<",)
+K13_KERNEL_NAMES = ("flash_wgmma_kernel<",) + K13_SPLIT_NAMES
+# K13-bwd's (csrc/flash_attn_bwd.cu: at float32 its split pass, then dQ,
+# then dK and dV, on wgmma)
+K13_BWD_DQ_NAMES = ("dq_wgmma_kernel<",)
+K13_BWD_DKV_NAMES = ("dkv_wgmma_kernel<",)
+K13_BWD_SPLIT_NAMES = ("bwd_split_kernel<",)
+K13_BWD_KERNEL_NAMES = (K13_BWD_DQ_NAMES + K13_BWD_DKV_NAMES
+                        + K13_BWD_SPLIT_NAMES)
 # the A8 prefill's device time by kind, first match by name; the rest is
 # "other": PyTorch's elementwise ops, copies and reductions
 PREFILL_GROUPS = (("K5", K5_KERNEL_NAMES),
@@ -436,7 +439,7 @@ def phase_build():
           "per_source_s": {k: round(v, 2) for k, v in took.items()},
           "runtime_library": str(lib), "card": smi()})
     emit({"phase": "build", "kernel": "K13-ptxas",
-          **_build.ptxas_report(logs["flash_attn"], "flash_")})
+          **_build.ptxas_report(logs["flash_attn"], "_kernel")})
     emit({"phase": "build", "kernel": "K13-bwd-ptxas",
           **_build.ptxas_report(logs["flash_attn_bwd"], "_kernel")})
 
@@ -1176,8 +1179,10 @@ def bf16_kernels(torch, timer, gen, rows, summary):
     bf16).
 
     K13 at B=1, D=128: 32 heads at T=512 and 2048 (llama2_7b's prefills),
-    llama2_70b's G=8 (Hq=64, Hkv=8) at 512, and float32 inputs at 2048 (the
-    float32 model's prefill, the split products). Gate at bf16 2e-2 of
+    llama2_70b's G=8 (Hq=64, Hkv=8) at 512, and float32 inputs at 2048 and
+    512 (the float32 model's prefill, the split products; the split pass's
+    and the wgmma kernel's device ms by torch.profiler, and the split pass
+    alone held to its plain version bit for bit). Gate at bf16 2e-2 of
     max|ctx|: the kernel rounds the probabilities to bf16 against the
     running max, the plain version after normalizing (3.8-4.3e-3
     measured). Gate at float32 1e-4 (4.3-5.4e-6 measured): the bf16 hi + lo
@@ -1260,6 +1265,7 @@ def bf16_kernels(torch, timer, gen, rows, summary):
             ("K13", 2048, 32, 32, D, torch.bfloat16, 2e-2),
             ("K13-g8", 512, 64, 8, D, torch.bfloat16, 2e-2),
             ("K13-f32", 2048, 32, 32, D, torch.float32, 1e-4),
+            ("K13-f32", 512, 32, 32, D, torch.float32, 1e-4),
             ("K13-d96", 2048, 32, 32, 96, torch.bfloat16, 2e-2)):
         q = torch.randn((1, t, hq, d), **cat).to(dtype)
         k = torch.randn((1, t, hkv, d), **cat).to(dtype)
@@ -1290,11 +1296,16 @@ def bf16_kernels(torch, timer, gen, rows, summary):
                                                 scale=1.0 / math.sqrt(d)))}
         row["tflops"] = flops / row["kernel_ms"] * 1e-9
         row["bound_share"] = bms / row["kernel_ms"]
+        split_ok = True
+        if dtype == torch.float32:
+            split_ok = split_pass_row(torch, ab, q, k, v, row)
         rows.append(row)
         emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
-        if not (err <= gate and same and bool(torch.isfinite(out).all())):
+        if not (err <= gate and same and bool(torch.isfinite(out).all())
+                and split_ok):
             failures.append(f"{key} T={t}: rel {err:.3g} > {gate} or "
-                            f"deterministic {same}")
+                            f"deterministic {same} or split pass bit-equal "
+                            f"{split_ok}")
         del q, k, v, kr, vr, out, ref, again
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = (torch.randn((1, 2048, 32, D), **cat).to(dtype)
@@ -1328,9 +1339,35 @@ def bf16_kernels(torch, timer, gen, rows, summary):
                       ("K13-bwd-f32", "B=1 T=2048 Hq=Hkv=32 D=128 float32"),
                       ("K13-bwd-d96",
                        "B=1 T=2048 Hq=Hkv=32 D=96 bf16, padded to 128")):
-        summary[key] = summarise([r for r in rows if r["kernel"] == key],
-                                 what + ", dQ, dK and dV of K13")
+        summary[key] = summarise(
+            [r for r in rows if r["kernel"] == key
+             and r["T"] == (512 if key == "K13-bwd-g8" else 2048)],
+            what + ", dQ, dK and dV of K13")
     return failures
+
+
+def split_pass_row(torch, ab, q, k, v, row) -> bool:
+    """K13's float32 device time by kernel (torch.profiler over 3 calls on
+    q, k, v: the split pass, then the wgmma kernel) into ``row``, and
+    whether the split pass alone (``flash_split``) gives its plain
+    version's planes bit for bit on q."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            ab.flash_prefill_attention(q, k, v)
+        torch.cuda.synchronize()
+    per_kernel = device_ms_by_name(torch, prof, 3)
+    row["split_kernel_ms"] = sum(ms for n, ms in per_kernel.items()
+                                 if any(x in n for x in K13_SPLIT_NAMES))
+    row["wgmma_kernel_ms"] = sum(ms for n, ms in per_kernel.items()
+                                 if "flash_wgmma_kernel<" in n)
+    got = ab.flash_split(q, 128)
+    want = ab.flash_split_plain(q, 128)
+    torch.cuda.synchronize()
+    row["split_bit_equal"] = all(torch.equal(g.view(torch.int16),
+                                             w.view(torch.int16))
+                                 for g, w in zip(got, want))
+    return row["split_bit_equal"]
 
 
 def flash_backward_kernels(torch, timer, cat, rows):
@@ -1339,16 +1376,17 @@ def flash_backward_kernels(torch, timer, cat, rows):
     lse (K13's, from ``flash_attention_forward``) at B=1, D=128: 32 heads
     at T=2048 bf16 (row K13-bwd), llama2_70b's G=8 (Hq=64, Hkv=8) at 512
     (K13-bwd-g8: the dK/dV kernel splits each kv head's query heads over
-    blocks), 32 heads at 2048 float32 (K13-bwd-f32, the QAT student's
-    default type) and 32 heads of 96 at 2048 bf16 (K13-bwd-d96, run at
-    128 on zero-padded copies; its bound counts D = 96). Each gradient
+    blocks), 32 heads at 2048 and 512 float32 (K13-bwd-f32, the QAT
+    student's default type) and 32 heads of 96 at 2048 bf16 (K13-bwd-d96,
+    run at 128 on zero-padded copies; its bound counts D = 96). Each gradient
     within the gate of its max: bf16 2e-2,
     K13's bf16 gate (P and dS rounded to bf16 as upstream's VJP rounds
     them, from exp(s - lse) recomputed in another order than the plain
     version's); float32 1e-4, K13-f32's gate (the bf16 hi + lo split
     products). Two calls give equal bits (no atomics) and the gradients
-    are finite. kernel_ms is one call (both kernels, and at float32 the di
-    reduction), the two kernels' device ms from torch.profiler beside it;
+    are finite. kernel_ms is one call (both kernels, and at float32 the
+    split pass, which also computes di), the kernels' device ms from
+    torch.profiler beside it;
     the bound counts five causal products (S and dP recomputed, dV, dK,
     dQ) against q, k, v, o, dO, lse and di read once and dQ, dK, dV
     written; library: one torch.autograd.grad through SDPA (is_causal)
@@ -1363,6 +1401,7 @@ def flash_backward_kernels(torch, timer, cat, rows):
             ("K13-bwd", 2048, 32, 32, 128, torch.bfloat16, 2e-2),
             ("K13-bwd-g8", 512, 64, 8, 128, torch.bfloat16, 2e-2),
             ("K13-bwd-f32", 2048, 32, 32, 128, torch.float32, 1e-4),
+            ("K13-bwd-f32", 512, 32, 32, 128, torch.float32, 1e-4),
             ("K13-bwd-d96", 2048, 32, 32, 96, torch.bfloat16, 2e-2)):
         q, do = (torch.randn((1, t, hq, d), **cat).to(dtype)
                  for _ in range(2))
@@ -1404,6 +1443,9 @@ def flash_backward_kernels(torch, timer, cat, rows):
                "dkv_kernel_ms": sum(ms for n, ms in per_kernel.items()
                                     if any(x in n
                                            for x in K13_BWD_DKV_NAMES)),
+               "split_kernel_ms": sum(ms for n, ms in per_kernel.items()
+                                      if any(x in n
+                                             for x in K13_BWD_SPLIT_NAMES)),
                "plain_ms": timer(lambda: ab.flash_attention_bwd_plain(
                    *args), iters=3),
                "bound_ms": bms, "bound_by": by,

@@ -1,6 +1,7 @@
-"""Check and time K13's bf16 kernel (``mxq_tpu_torch/csrc/flash_attn.cu``)
-and K13-bwd's (``csrc/flash_attn_bwd.cu``) on the card beside SDPA, and
-beside the same kernels of other trees of the package.
+"""Check and time K13's kernels (``mxq_tpu_torch/csrc/flash_attn.cu``)
+and K13-bwd's (``csrc/flash_attn_bwd.cu``), at bfloat16 and float32, on
+the card beside SDPA, and beside the same kernels of other trees of the
+package.
 
     python3 flash_probe.py                             # this tree alone
     python3 flash_probe.py --trees parent=out/parent   # and a parent's
@@ -14,25 +15,28 @@ and ``flash_attention_backward``, whatever their C entries take. With
 other trees the processes run as the others, this, this, then the others
 in reverse, so that a drift of the card over the call falls on both sides.
 A tree prints ptxas' registers and spills for the kernels it built, then
-per case one JSON line: the forward's max error over max|ctx| against the
+per case and type one JSON line: the forward's max error over max|ctx| against the
 plain version (``flash_prefill_attention_plain``) on q, k, v sliced from
 one fused qkv tensor with k, v 7 rows longer than q, whether two calls
 give the same bits, and whether k, v rows past T filled with NaN give the
 bits that zeros there give; the backward's max error of dQ, dK and dV over
 each one's max against ``flash_attention_bwd_plain`` on the tree's own o
-and lse, and whether two calls give the same bits. Then per shape
-(llama2_7b's prefills at T = 512 and 2048, 32 heads of 128, and
-llama2_70b's G = 8 at 512) the CUDA-event median with the L2 flushed
-before each call (``utils.benchlib.Timer``, as ``chip_smoke.py``'s kernels
-phase times K13 and K13-bwd) of the forward and of the backward, the
-TFLOP/s of each over the causal half (4 and 10 Hq D T(T+1)/2 operations),
-and SDPA's times on the same inputs (``is_causal``, k and v repeated to Hq
-heads; its backward one ``torch.autograd.grad`` from a kept graph). Needs
-a CUDA device."""
+and lse, and whether two calls give the same bits (gates: bf16 2e-2,
+float32 1e-4). Then per type and shape (llama2_7b's prefills at T = 512
+and 2048, 32 heads of 128, and llama2_70b's G = 8 at 512) the CUDA-event
+median with the L2 flushed before each call (``utils.benchlib.Timer``, as
+``chip_smoke.py``'s kernels phase times K13 and K13-bwd) of the forward
+and of the backward, the TFLOP/s of each over the causal half (4 and 10
+Hq D T(T+1)/2 operations), at float32 the device ms of each kernel of one
+call by name (torch.profiler: the split pass's share), and SDPA's times on
+the same inputs (``is_causal``, k and v repeated to Hq heads; its
+backward one ``torch.autograd.grad`` from a kept graph). Needs a CUDA
+device."""
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import subprocess
@@ -46,15 +50,16 @@ CHECKS = [(2, 1, 4, 2, 64), (2, 127, 8, 8, 128), (2, 129, 16, 2, 128),
           (1, 257, 4, 2, 64), (1, 2048, 32, 32, 128), (1, 512, 64, 8, 128)]
 # (T, Hq, Hkv) timed at B = 1, D = 128
 TIMED = [(2048, 32, 32), (512, 32, 32), (512, 64, 8)]
+DTYPES = {"bfloat16": 2e-2, "float32": 1e-4}   # and each one's gate
 SOURCES = ("flash_attn", "flash_attn_bwd")
 HERE = Path(__file__).resolve().parent
 
 
-def qkv(gen, b, t, hq, hkv, d):
+def qkv(gen, b, t, hq, hkv, d, dtype):
     """q, k, v as the fused qkv projection's strided slices, k and v 7
     rows longer than q."""
     x = torch.randn((b, t + 7, (hq + 2 * hkv) * d), generator=gen,
-                    device="cuda").to(torch.bfloat16)
+                    device="cuda").to(dtype)
     return (x[:, :t, :hq * d].reshape(b, t, hq, d),
             x[..., hq * d:(hq + hkv) * d].reshape(b, t + 7, hkv, d),
             x[..., (hq + hkv) * d:].reshape(b, t + 7, hkv, d))
@@ -68,6 +73,28 @@ def grad_errs(got, ref) -> list:
         scale[0] = scale[1] = scale[2]
     return [float((g.float() - r.float()).abs().max()) / m
             for g, r, m in zip(got, ref, scale)]
+
+
+def by_name(fn, calls=3) -> dict:
+    """Device ms a call of ``fn`` by kernel name (torch.profiler over
+    ``calls`` calls after one warm-up), the first 60 characters of each
+    name."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        out[e.key[:60]] = out.get(e.key[:60], 0.0) + us / 1e3 / calls
+    return out
 
 
 def probe_tree(name: str, root: str) -> int:
@@ -85,15 +112,17 @@ def probe_tree(name: str, root: str) -> int:
                           **_build.ptxas_report(log, "kernel")}), flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for b, t, hq, hkv, d in CHECKS:
-        q, k, v = qkv(gen, b, t, hq, hkv, d)
+    for (b, t, hq, hkv, d), (dname, gate) in itertools.product(
+            CHECKS, DTYPES.items()):
+        dtype = getattr(torch, dname)
+        q, k, v = qkv(gen, b, t, hq, hkv, d, dtype)
         ref = ab.flash_prefill_attention_plain(q, k, v).float()
         kn, vn = k.clone(), v.clone()
         kn[:, t:] = vn[:, t:] = float("nan")
         kz, vz = k.clone(), v.clone()
         kz[:, t:] = vz[:, t:] = 0
         do = torch.randn((b, t, hq, d), generator=gen, device="cuda").to(
-            torch.bfloat16)
+            dtype)
         got = ab.flash_prefill_attention(q, k, v)
         again = ab.flash_prefill_attention(q, k, v)
         nan_tail = ab.flash_prefill_attention(q, kn, vn)
@@ -105,6 +134,7 @@ def probe_tree(name: str, root: str) -> int:
         torch.cuda.synchronize()
         print(json.dumps({
             "tree": name, "B": b, "T": t, "Hq": hq, "Hkv": hkv, "D": d,
+            "dtype": dname, "gate": gate,
             "rel_err": float((got.float() - ref).abs().max()
                              / ref.abs().max()),
             "deterministic": torch.equal(got, again),
@@ -118,19 +148,26 @@ def probe_tree(name: str, root: str) -> int:
 
     timer = Timer()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for t, hq, hkv in TIMED:
+    for dname, (t, hq, hkv) in itertools.product(DTYPES, TIMED):
         d = 128
         q, k, v, do = (torch.randn((1, t, h, d), generator=gen,
-                                   device="cuda").to(torch.bfloat16)
+                                   device="cuda").to(getattr(torch, dname))
                        for h in (hq, hkv, hkv, hq))
         o, lse = ab.flash_attention_forward(q, k, v)
         flops = 4.0 * hq * d * t * (t + 1) / 2
-        row = {"tree": name, "T": t, "Hq": hq, "Hkv": hkv, "D": d}
+        row = {"tree": name, "dtype": dname, "T": t, "Hq": hq, "Hkv": hkv,
+               "D": d}
         ms = timer(lambda: ab.flash_prefill_attention(q, k, v))
         bms = timer(lambda: ab.flash_attention_backward(q, k, v, o, lse, do))
         row["kernels"] = {"ms": ms, "tflops": flops / ms * 1e-9,
                           "bwd_ms": bms, "bwd_tflops": 2.5 * flops / bms
                           * 1e-9}
+        if dname == "float32":
+            row["kernels"]["device_ms_by_name"] = {
+                "forward": by_name(lambda: ab.flash_prefill_attention(
+                    q, k, v)),
+                "backward": by_name(lambda: ab.flash_attention_backward(
+                    q, k, v, o, lse, do))}
         kr, vr = (a.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
                   for a in (k, v))
         ms = timer(lambda: sdpa(q.transpose(1, 2), kr, vr, is_causal=True,

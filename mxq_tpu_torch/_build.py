@@ -61,9 +61,10 @@ SIGNATURES = {
     "paged_attn_bf16": {
         "paged_attn_bf16": [P] * 5 + [I] * 8 + [F] + [P] * 4},
     "flash_attn": {
-        "flash_attn": [P] * 5 + [L] * 6 + [I] * 6 + [F, P]},
+        "flash_attn": [P] * 5 + [L] * 6 + [I] * 7 + [F, P, P],
+        "flash_split": [P, L, L, P] + [I] * 5 + [P]},
     "flash_attn_bwd": {
-        "flash_attn_bwd": [P] * 12 + [L] * 11 + [I] * 6 + [F, P],
+        "flash_attn_bwd": [P] * 12 + [L] * 11 + [I] * 7 + [F, P],
         "flash_attn_bwd_scratch": [I] * 6 + [P]},
 }
 

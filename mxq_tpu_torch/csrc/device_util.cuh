@@ -45,16 +45,6 @@ __device__ __forceinline__ void ldmatrix(uint32_t (&a)[N], const void* p) {
                  : "r"(smem_addr(p)));
 }
 
-// four 8x8 b16 matrices, each delivered transposed (.trans): the B
-// operand of mma.sync from a row-major [k][n] tile in shared memory
-__device__ __forceinline__ void ldmatrix_t(uint32_t (&a)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(smem_addr(p)));
-}
-
 // c += a . b: mma.sync m16n8k16, bf16 in, f32 out (a: the A
 // fragment's 4 registers, b0/b1: the B fragment's 2)
 __device__ __forceinline__ void mma_acc(float (&c)[4], const uint32_t (&a)[4],

@@ -66,16 +66,22 @@
 // No atomics and no split of the keys: the same bits on every call, and
 // writing lse leaves the output's bits as they are.
 //
-// float32 inputs (the float32 model; flash_kernel) stay on the mma.sync
-// design of the first port: TMA copies bytes, and cannot split an f32
-// tile into the bf16 hi and lo planes the split products take
-// (hi.hi + hi.lo + lo.hi, ~16 significant bits, as the TPU's f32 matmul
-// is bf16 passes too). One block of 4 warps per 64 query rows, 16 rows a
-// warp; 64-key K and V tiles split into hi and lo on their way into
-// swizzled shared memory, double-buffered; Q fragments kept in registers;
-// S's accumulator registers turned straight into P's A operand; V through
-// ldmatrix .trans. Shared memory: Q, two K and two V tiles of 64 x D, each
-// a hi and a lo plane (160 KB at D = 128).
+// float32 inputs (the float32 model, the CLI's default) run the same
+// kernel (F32 = true) on bf16 hi and lo planes (flash_split.cuh): one
+// launch of fwd_split_kernel writes q's, k's and v's planes [2B, T, H, W]
+// (the first T rows of k and v only, zeros past the true head_dim D in
+// columns D .. W, so no padded copy is made), then the kernel's tensor
+// maps read the planes as they read bf16 rows. Every plane doubles the
+// tiles, so K and V come in 64-key tiles through two stages: per tile S =
+// Q K^T is three SS products (hi.lo, lo.hi, hi.hi) into one accumulator, P
+// is split into hi and lo bf16 pairs straight from S's registers, and O
+// += P V is three register-A products; the item's last two key tiles are
+// masked (for the first warpgroup the last one entirely). The output is
+// written in f32. Shared memory at D = 128: Q hi and lo 64 KB, two stages
+// of K and V hi and lo, 64 KB each (192 KB); consumer registers: O 64, S
+// 32, P's hi and lo pairs 32. The design's floor is three times the
+// bf16 bound (0.104 ms at T = 2048, 32 heads of 128) plus the split
+// pass's bytes (201 MB there, 0.06 ms).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -86,50 +92,60 @@
 namespace {
 
 #include "device_util.cuh"
-#include "flash_tile.cuh"
 #include "hopper_util.cuh"
+#include "flash_split.cuh"
 
 // ---------------------------------------------------------------------------
-// bf16: wgmma, TMA, warp specialisation
+// wgmma, TMA, warp specialisation: bf16 rows, or float32's hi and lo planes
 // ---------------------------------------------------------------------------
 
 constexpr int BM = 128;                 // query rows a work item
-constexpr int BN = 128;                 // keys a tile
-constexpr int STAGES = 3;               // K and V tiles in flight
 constexpr int WG = 128;                 // threads of a warpgroup
 constexpr int WS_THREADS = 3 * WG;      // producer + two consumers
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
 constexpr int CONSUMER_WARPS = 8;       // arrivals that empty a stage
 constexpr int BAR_TURN = 1;             // named barriers 1, 2: whose turn
 
+// The tiles of each path: planes (hi, and lo for float32), keys a tile,
+// K and V tiles in flight
+template <bool F32>
+struct Tiles {
+  static constexpr int NP = F32 ? 2 : 1;
+  static constexpr int BN = F32 ? 64 : 128;
+  static constexpr int STAGES = F32 ? 2 : 3;
+};
+
 struct WsParams {
-  CUtensorMap q, k, v;                  // 4-D (D, heads, T, B) maps
-  __nv_bfloat16* out;                   // [B, T, Hq, D] contiguous
+  CUtensorMap q, k, v;                  // 4-D (D, heads, T, B) maps; at
+                                        // float32 over the planes (2B)
+  void* out;                            // [B, T, Hq, D] contiguous, bf16
+                                        // or float32
   float* lse;                           // [B, Hq, T] or null
   int nq, B, T, Hq, Hkv;                // nq: row blocks, ceil(T / BM)
   float scale_log2;                     // scale * log2(e)
 };
 
-template <int D>
+template <int D, bool F32>
 struct WsSmem {                         // every tile 1024-byte aligned
-  __nv_bfloat16 q[BM * D];              // D / 64 boxes of [BM][64]
-  __nv_bfloat16 k[STAGES][BN * D];      // D / 64 boxes of [BN][64]
-  __nv_bfloat16 v[STAGES][BN * D];
-  uint64_t q_full, q_empty, k_full[STAGES], v_full[STAGES],
-      k_empty[STAGES], v_empty[STAGES];
+  using C = Tiles<F32>;
+  __nv_bfloat16 q[C::NP * BM * D];      // per plane D / 64 boxes of [BM][64]
+  __nv_bfloat16 k[C::STAGES][C::NP * C::BN * D];   // [BN][64] boxes
+  __nv_bfloat16 v[C::STAGES][C::NP * C::BN * D];
+  uint64_t q_full, q_empty, k_full[C::STAGES], v_full[C::STAGES],
+      k_empty[C::STAGES], v_empty[C::STAGES];
 };
 
-// One tile's raw scores s (this lane's 64 of the warpgroup's 64 x 128) ->
+// One tile's raw scores s (this lane's N / 2 of the warpgroup's 64 x N) ->
 // p = 2^(s c - m_new) in place, f32; the running max m (in units of s c)
-// and sum l of the lane's two rows (row0, row0 + 8 of the block) moved on;
-// alpha = 2^(m_old - m_new) for the rows' context. On the diagonal tile
-// (DIAG) key j of the tile is masked for block row i when j > i; key 0 is
-// visible to every row, so m is finite after the first tile. Maxima and
-// sums run in four partials a row, so that no chain of dependent adds is
-// longer than eight.
-template <bool DIAG>
-__device__ __forceinline__ void online_softmax(float (&s)[64], float c,
-                                               int row0, int lane,
+// and sum l of the lane's two rows (row, row + 8 of the block) moved on;
+// alpha = 2^(m_old - m_new) for the rows' context. With DIAG key j of the
+// tile is masked for block row i when j > i - koff (koff: the tile's first
+// key less the block's first row); every row sees a key of the item's
+// first tile, so m is finite after it. Maxima and sums run in four
+// partials a row, so that no chain of dependent adds is longer than N / 16.
+template <bool DIAG, int N>
+__device__ __forceinline__ void online_softmax(float (&s)[N / 2], float c,
+                                               int row, int lane,
                                                float (&m)[2], float (&l)[2],
                                                float (&alpha)[2]) {
   float mx[2][4], ps[2][4];
@@ -139,9 +155,9 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float c,
     ps[0][j] = ps[1][j] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     const int r = (i >> 1) & 1;
-    if (DIAG && 8 * (i >> 2) + 2 * (lane & 3) + (i & 1) > row0 + 8 * r)
+    if (DIAG && 8 * (i >> 2) + 2 * (lane & 3) + (i & 1) > row + 8 * r)
       s[i] = -INFINITY;
     mx[r][(i >> 2) & 3] = fmaxf(mx[r][(i >> 2) & 3], s[i]);
   }
@@ -155,7 +171,7 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float c,
     m[r] = mn;
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     const int r = (i >> 1) & 1;
     s[i] = ex2(fmaf(s[i], c, -m[r]));
     ps[r][(i >> 2) & 3] += s[i];
@@ -163,17 +179,6 @@ __device__ __forceinline__ void online_softmax(float (&s)[64], float c,
 #pragma unroll
   for (int r = 0; r < 2; ++r)
     l[r] = l[r] * alpha[r] + ((ps[r][0] + ps[r][1]) + (ps[r][2] + ps[r][3]));
-}
-
-// p (f32, S's accumulator layout) -> bf16 pairs as wgmma's A operand, one
-// k16 slice of keys a row of pa
-__device__ __forceinline__ void to_a(const float (&s)[64],
-                                     uint32_t (&pa)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      pa[kk][j] = pack_bf2(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
 }
 
 // Work item w (0 <= w < nq * B * Hq) in order of work, longest first: every
@@ -195,14 +200,16 @@ __device__ __forceinline__ Item item_of(const WsParams& p, int w) {
   return {p.nq - 1 - w / heads, w % p.Hq, w % heads / p.Hq};
 }
 
-template <int D>
+template <int D, bool F32>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ WsParams p) {
+  using C = Tiles<F32>;
+  constexpr int NP = C::NP, BN = C::BN, STAGES = C::STAGES;
   constexpr int BOXES = D / 64;
-  constexpr uint32_t TILE_BYTES = BN * D * 2;
-  static_assert(BM == BN, "the diagonal tile is the last tile of an item");
+  constexpr int DIAG_TILES = BM / BN;   // the item's last tiles, masked
+  constexpr uint32_t Q_BYTES = NP * BM * D * 2, TILE_BYTES = NP * BN * D * 2;
   extern __shared__ __align__(1024) unsigned char ws_smem[];
-  WsSmem<D>& sm = *reinterpret_cast<WsSmem<D>*>(
+  WsSmem<D, F32>& sm = *reinterpret_cast<WsSmem<D, F32>*>(
       (reinterpret_cast<uintptr_t>(ws_smem) + 1023) & ~uintptr_t(1023));
   const int items = p.nq * p.B * p.Hq;
   const int wg = threadIdx.x / WG;
@@ -228,26 +235,35 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         const Item e = item_of(p, w);
         const int hk = e.h / (p.Hq / p.Hkv);
         mbar_wait(&sm.q_empty, (j & 1) ^ 1);   // the last item's S done
-        mbar_expect(&sm.q_full, TILE_BYTES);
+        mbar_expect(&sm.q_full, Q_BYTES);
 #pragma unroll
-        for (int c = 0; c < BOXES; ++c)
-          tma_load_4d(sm.q + c * BM * 64, &p.q, &sm.q_full, c * 64, e.h,
-                      e.qt * BM, e.b);
-        for (int kt = 0; kt <= e.qt; ++kt, ++it) {
+        for (int pl = 0; pl < NP; ++pl)  // plane pl of batch row b: b + pl B
+#pragma unroll
+          for (int c = 0; c < BOXES; ++c)
+            tma_load_4d(sm.q + (pl * BOXES + c) * BM * 64, &p.q, &sm.q_full,
+                        c * 64, e.h, e.qt * BM, e.b + pl * p.B);
+        const int nkt = (e.qt + 1) * DIAG_TILES;
+        for (int kt = 0; kt < nkt; ++kt, ++it) {
           const int st = it % STAGES;
           const uint32_t ph = (it / STAGES) & 1;
           mbar_wait(&sm.k_empty[st], ph ^ 1);   // the stage's last use done
           mbar_expect(&sm.k_full[st], TILE_BYTES);
 #pragma unroll
-          for (int c = 0; c < BOXES; ++c)
-            tma_load_4d(sm.k[st] + c * BN * 64, &p.k, &sm.k_full[st],
-                        c * 64, hk, kt * BN, e.b);
+          for (int pl = 0; pl < NP; ++pl)
+#pragma unroll
+            for (int c = 0; c < BOXES; ++c)
+              tma_load_4d(sm.k[st] + (pl * BOXES + c) * BN * 64, &p.k,
+                          &sm.k_full[st], c * 64, hk, kt * BN,
+                          e.b + pl * p.B);
           mbar_wait(&sm.v_empty[st], ph ^ 1);
           mbar_expect(&sm.v_full[st], TILE_BYTES);
 #pragma unroll
-          for (int c = 0; c < BOXES; ++c)
-            tma_load_4d(sm.v[st] + c * BN * 64, &p.v, &sm.v_full[st],
-                        c * 64, hk, kt * BN, e.b);
+          for (int pl = 0; pl < NP; ++pl)
+#pragma unroll
+            for (int c = 0; c < BOXES; ++c)
+              tma_load_4d(sm.v[st] + (pl * BOXES + c) * BN * 64, &p.v,
+                          &sm.v_full[st], c * 64, hk, kt * BN,
+                          e.b + pl * p.B);
         }
       }
     }
@@ -267,44 +283,32 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(bar);
   };
-  // S = Q K^T over stage st: D / 16 k16 slices, box kk / 4 of each tile
-  auto gemm_s = [&](float (&s)[64], int st) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n128(
-          s,
-          wgmma_desc(sm.q + (kk / 4) * BM * 64 + cw * 64 * 64 + (kk % 4) * 16,
-                     16, 1024),
-          wgmma_desc(sm.k[st] + (kk / 4) * BN * 64 + (kk % 4) * 16, 16,
-                     1024),
-          kk);
-  };
-  // O += P V over stage st: 8 k16 slices of keys, V read transposed (the
-  // next 64 columns of D one box, BN lines of 128 bytes, on)
-  auto gemm_o = [&](float (&o)[D / 2], const uint32_t (&pa)[8][4], int st) {
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint64_t dv = wgmma_desc(sm.v[st] + kk * 16 * 64, BN * 128, 1024);
-      if constexpr (D == 128) wgmma_rs_n128(o, pa[kk], dv);
-      else wgmma_rs_n64(o, pa[kk], dv);
-    }
-  };
 
-  float o[D / 2], s[64], m[2], l[2], alpha[2];
-  uint32_t pa[8][4];
+  float o[D / 2], s[BN / 2], m[2], l[2], alpha[2];
+  uint32_t pa[NP][BN / 16][4];
+  // S = Q K^T over stage st (BN keys), the warpgroup's 64 rows of Q
+  auto gemm_s = [&](int st) {
+    gemm_abt<D, BM, BN, NP>(s, sm.q, 64 * cw, sm.k[st]);
+  };
+  // O += P V over stage st, V read transposed (no copy of V made)
+  auto gemm_o = [&](int st) { gemm_xb<D, BN, NP>(o, pa, sm.v[st]); };
   auto rescale = [&] {
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
   };
-  auto softmax = [&](bool diag) {
-    if (diag) online_softmax<true>(s, c, row0, lane, m, l, alpha);
-    else online_softmax<false>(s, c, row0, lane, m, l, alpha);
+  // key tile kt of nkt: the last DIAG_TILES are masked, key j of the tile
+  // seen by item row i when j <= i - koff
+  auto softmax = [&](int kt, int nkt) {
+    const int koff = (kt - (nkt - DIAG_TILES)) * BN;
+    if (koff >= 0)
+      online_softmax<true, BN>(s, c, row0 - koff, lane, m, l, alpha);
+    else online_softmax<false, BN>(s, c, row0, lane, m, l, alpha);
   };
   if (cw == 1) named_arrive(BAR_TURN, 2 * WG);   // warpgroup 0 first
   int it = 0;                           // tiles consumed: the ring's position
   for (int j = 0, w; (w = item_index(j)) < items; ++j) {
     const Item e = item_of(p, w);
-    const int nkt = e.qt + 1;           // key tiles 0..qt
+    const int nkt = (e.qt + 1) * DIAG_TILES;   // key tiles of the item
     // warpgroup 1 starts the last products of the block's last item
     const bool pass_last = cw == 0 || item_index(j + 1) < items;
 #pragma unroll
@@ -319,15 +323,15 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     turn_wait();
     reg_fence(s);
     wgmma_fence();
-    gemm_s(s, it % STAGES);
+    gemm_s(it % STAGES);
     wgmma_commit();
     turn_pass();
     wgmma_wait<0>();
     reg_fence(s);
     release(&sm.k_empty[it % STAGES]);
     if (nkt == 1) release(&sm.q_empty);
-    softmax(nkt == 1);
-    to_a(s, pa);
+    softmax(0, nkt);
+    to_pairs<NP, BN>(s, pa);
     for (int kt = 1; kt < nkt; ++kt) {
       const int st = (it + kt) % STAGES;
       const int pst = (it + kt - 1) % STAGES;
@@ -336,29 +340,29 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       turn_wait();
       reg_fence(s);
       wgmma_fence();
-      gemm_s(s, st);
+      gemm_s(st);
       wgmma_commit();
       rescale();
       wgmma_fence();
-      gemm_o(o, pa, pst);
+      gemm_o(pst);
       wgmma_commit();
       turn_pass();
       wgmma_wait<1>();                  // S done, P V still running
       reg_fence(s);
       release(&sm.k_empty[st]);
       if (kt == nkt - 1) release(&sm.q_empty);
-      softmax(kt == nkt - 1);
+      softmax(kt, nkt);
       wgmma_wait<0>();
       reg_fence(o);
       release(&sm.v_empty[pst]);
-      to_a(s, pa);
+      to_pairs<NP, BN>(s, pa);
     }
     const int lst = (it + nkt - 1) % STAGES;
     mbar_wait(&sm.v_full[lst], ((it + nkt - 1) / STAGES) & 1);
     turn_wait();
     rescale();
     wgmma_fence();
-    gemm_o(o, pa, lst);
+    gemm_o(lst);
     wgmma_commit();
     if (pass_last) turn_pass();
     wgmma_wait<0>();
@@ -379,35 +383,32 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         p.lse[((long long)e.b * p.Hq + e.h) * p.T + row] =
             m[r] * 0.69314718055994531f + logf(l[r]);
       const float inv = 1.f / l[r];
-      __nv_bfloat16* out = p.out
-                           + (((long long)e.b * p.T + row) * p.Hq + e.h) * D
+      const long long at = (((long long)e.b * p.T + row) * p.Hq + e.h) * D
                            + 2 * (lane & 3);
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i)
-        *reinterpret_cast<uint32_t*>(out + 8 * i) =
-            pack_bf2(o[4 * i + 2 * r] * inv, o[4 * i + 2 * r + 1] * inv);
+      for (int i = 0; i < D / 8; ++i) {
+        const float x = o[4 * i + 2 * r] * inv, y = o[4 * i + 2 * r + 1] * inv;
+        if constexpr (F32)
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + at
+                                     + 8 * i) = make_float2(x, y);
+        else
+          *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.out)
+                                       + at + 8 * i) = pack_bf2(x, y);
+      }
     }
   }
 }
 
-template <int D>
-int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 float* lse, long long qsb, long long qst, long long ksb,
-                 long long kst, long long vsb, long long vst, int B, int T,
-                 int Hq, int Hkv, float scale, void* stream) {
-  WsParams p;
-  if (!tensor_map_rows(&p.q, q, D, Hq, T, B, qst, qsb, BM)
-      || !tensor_map_rows(&p.k, k, D, Hkv, T, B, kst, ksb, BN)
-      || !tensor_map_rows(&p.v, v, D, Hkv, T, B, vst, vsb, BN))
-    return (int)cudaErrorInvalidValue;
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.lse = lse;
+// The kernel over p's maps: one persistent block an SM.
+template <int D, bool F32>
+int launch_wgmma(WsParams& p, int B, int T, int Hq, int Hkv, float scale,
+                 cudaStream_t stream) {
   p.nq = (T + BM - 1) / BM;
   p.B = B;
   p.T = T;
   p.Hq = Hq;
   p.Hkv = Hkv;
-  p.scale_log2 = scale * 1.4426950408889634f;
+  p.scale_log2 = scale * LOG2E;
   const long long items = (long long)p.nq * Hq * B;
   if (items > 0x7fffffff) return (int)cudaErrorInvalidValue;
   int dev, sms;
@@ -415,257 +416,126 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = sizeof(WsSmem<D>) + 1024;  // + the 1024 alignment
-  auto kern = flash_wgmma_kernel<D>;
+  const size_t smem = sizeof(WsSmem<D, F32>) + 1024;  // + the alignment
+  auto kern = flash_wgmma_kernel<D, F32>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
   // one block an SM walks its items
   const int blocks = items > sms ? sms : (int)items;
-  kern<<<blocks, WS_THREADS, smem, (cudaStream_t)stream>>>(p);
+  kern<<<blocks, WS_THREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// float32: bf16 hi + lo split products on mma.sync
-// ---------------------------------------------------------------------------
-
-constexpr int SQ = 64;                  // query rows per block
-constexpr int SK = 64;                  // keys per tile
-constexpr int SPLIT_THREADS = 32 * SQ / 16;   // 16 query rows a warp
-
-struct Args {
-  const float* q;                       // [B, T, Hq, D], strides below
-  const float* k;                       // [B, >=T, Hkv, D]
-  const float* v;
-  float* out;                           // [B, T, Hq, D] contiguous
-  float* lse;                           // [B, Hq, T] or null
-  long long qsb, qst, ksb, kst, vsb, vst;   // batch, token strides (elems)
-  int T, Hq, Hkv;
-  float scale;
-};
-
+// bf16: the maps over q, k, v on their strides
 template <int D>
-__global__ void __launch_bounds__(SPLIT_THREADS) flash_kernel(const Args a) {
-  constexpr int TILE = 64 * D;          // elements of one plane of a tile
-  constexpr int KD = D / 16;            // mma k-steps over D
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sk = sq + 2 * TILE;    // [2 buffers][hi, lo][64][D]
-  __nv_bfloat16* sv = sk + 4 * TILE;
-
-  const int qt = gridDim.x - 1 - blockIdx.x;     // longest rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = qt * SQ;
-  const int nkt = (min(q0 + SQ, a.T) + SK - 1) / SK;   // key tiles read
-  const float* qg = a.q + b * a.qsb + q0 * a.qst + h * D;
-  const float* kg = a.k + b * a.ksb + hk * D;
-  const float* vg = a.v + b * a.vsb + hk * D;
-
-  load_tile<D, SQ, SPLIT_THREADS>(sq, sq + TILE, qg, a.qst, a.T - q0,
-                                        tid);
-  load_tile<D, SK, SPLIT_THREADS>(sk, sk + TILE, kg, a.kst, a.T, tid);
-  load_tile<D, SK, SPLIT_THREADS>(sv, sv + TILE, vg, a.vst, a.T, tid);
-
-  uint32_t qa[2][KD][4];
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  // this lane's rows: r0 (accumulator registers 0, 1) and r0 + 8 (2, 3)
-  const int r0 = q0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nkt) {                 // the next tile into the other buffer
-      const int nb = buf ^ 1;
-      const long long k1 = (long long)(kt + 1) * SK;
-      load_tile<D, SK, SPLIT_THREADS>(
-          sk + nb * 2 * TILE, sk + nb * 2 * TILE + TILE, kg + k1 * a.kst,
-          a.kst, a.T - (int)k1, tid);
-      load_tile<D, SK, SPLIT_THREADS>(
-          sv + nb * 2 * TILE, sv + nb * 2 * TILE + TILE, vg + k1 * a.vst,
-          a.vst, a.T - (int)k1, tid);
-    }
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int pl = 0; pl < 2; ++pl)
-#pragma unroll
-        for (int kk = 0; kk < KD; ++kk)
-          ldmatrix<4>(qa[pl][kk], sq + pl * TILE
-                      + sw<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
-    }
-    const __nv_bfloat16* kb = sk + buf * 2 * TILE;
-    const __nv_bfloat16* vb = sv + buf * 2 * TILE;
-
-    // S = Q K^T: 16 rows x 64 keys a warp, 8 accumulator tiles of n8
-    float s[SK / 8][4];
-#pragma unroll
-    for (int i = 0; i < SK / 8; ++i)
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int np = 0; np < SK / 16; ++np) {
-        const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
-        const int ch = 2 * kk + ((lane >> 3) & 1);
-        uint32_t bh[4], bl[4];
-        ldmatrix<4>(bh, kb + sw<D>(key, ch));
-        ldmatrix<4>(bl, kb + TILE + sw<D>(key, ch));
-        mma_acc(s[2 * np], qa[0][kk], bl[0], bl[1]);
-        mma_acc(s[2 * np + 1], qa[0][kk], bl[2], bl[3]);
-        mma_acc(s[2 * np], qa[1][kk], bh[0], bh[1]);
-        mma_acc(s[2 * np + 1], qa[1][kk], bh[2], bh[3]);
-        mma_acc(s[2 * np], qa[0][kk], bh[0], bh[1]);
-        mma_acc(s[2 * np + 1], qa[0][kk], bh[2], bh[3]);
-      }
-    }
-
-    // scale, the causal mask on the last tile, the running max and sum
-    const bool edge = kt == nkt - 1;
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < SK / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * a.scale;
-        if (edge) {
-          const int key = kt * SK + nt * 8 + 2 * (lane & 3) + (e & 1);
-          if (key > (e < 2 ? r0 : r1) || key >= a.T) x = -INFINITY;
-        }
-        s[nt][e] = x;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    // key kt * SK is visible to every row of the block: the max is finite
-    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
-    m0 = mn0;
-    m1 = mn1;
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < SK / 8; ++nt) {
-      s[nt][0] = expf(s[nt][0] - mn0);
-      s[nt][1] = expf(s[nt][1] - mn0);
-      s[nt][2] = expf(s[nt][2] - mn1);
-      s[nt][3] = expf(s[nt][3] - mn1);
-      ps0 += s[nt][0] + s[nt][1];
-      ps1 += s[nt][2] + s[nt][3];
-    }
-    l0 = l0 * al0 + ps0;
-    l1 = l1 * al1 + ps1;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) {
-      o[i][0] *= al0;
-      o[i][1] *= al0;
-      o[i][2] *= al1;
-      o[i][3] *= al1;
-    }
-
-    // O += P V: P split into hi and lo as the A operand, straight from S's
-    // registers
-#pragma unroll
-    for (int kk = 0; kk < SK / 16; ++kk) {
-      uint32_t pa[2][4];
-      split_bf2(s[2 * kk][0], s[2 * kk][1], pa[0][0], pa[1][0]);
-      split_bf2(s[2 * kk][2], s[2 * kk][3], pa[0][1], pa[1][1]);
-      split_bf2(s[2 * kk + 1][0], s[2 * kk + 1][1], pa[0][2], pa[1][2]);
-      split_bf2(s[2 * kk + 1][2], s[2 * kk + 1][3], pa[0][3], pa[1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-        const int ch = 2 * dp + (lane >> 4);
-        uint32_t bh[4], bl[4];
-        ldmatrix_t(bh, vb + sw<D>(key, ch));
-        ldmatrix_t(bl, vb + TILE + sw<D>(key, ch));
-        mma_acc(o[2 * dp], pa[0], bl[0], bl[1]);
-        mma_acc(o[2 * dp + 1], pa[0], bl[2], bl[3]);
-        mma_acc(o[2 * dp], pa[1], bh[0], bh[1]);
-        mma_acc(o[2 * dp + 1], pa[1], bh[2], bh[3]);
-        mma_acc(o[2 * dp], pa[0], bh[0], bh[1]);
-        mma_acc(o[2 * dp + 1], pa[0], bh[2], bh[3]);
-      }
-    }
-    __syncthreads();                    // this buffer is refilled next
-  }
-
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-  if (a.lse != nullptr && (lane & 3) == 0) {    // m and l are the quad's
-    float* lse = a.lse + ((long long)b * a.Hq + h) * a.T;
-    if (r0 < a.T) lse[r0] = m0 + logf(l0);
-    if (r1 < a.T) lse[r1] = m1 + logf(l1);
-  }
-  const int col = 2 * (lane & 3);
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = half ? r1 : r0;
-    if (r >= a.T) continue;
-    const float l = half ? l1 : l0;
-    float* row = a.out + (((long long)b * a.T + r) * a.Hq + h) * D + col;
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      *reinterpret_cast<float2*>(row + i * 8) =
-          make_float2(o[i][2 * half] / l, o[i][2 * half + 1] / l);
-  }
+int launch_bf16(const void* q, const void* k, const void* v, void* out,
+                float* lse, long long qsb, long long qst, long long ksb,
+                long long kst, long long vsb, long long vst, int B, int T,
+                int Hq, int Hkv, float scale, cudaStream_t stream) {
+  WsParams p;
+  if (!tensor_map_rows(&p.q, q, D, Hq, T, B, qst, qsb, BM)
+      || !tensor_map_rows(&p.k, k, D, Hkv, T, B, kst, ksb, Tiles<false>::BN)
+      || !tensor_map_rows(&p.v, v, D, Hkv, T, B, vst, vsb, Tiles<false>::BN))
+    return (int)cudaErrorInvalidValue;
+  p.out = out;
+  p.lse = lse;
+  return launch_wgmma<D, false>(p, B, T, Hq, Hkv, scale, stream);
 }
 
-template <int D>
-int launch_split(const Args& a, int B, void* stream) {
-  const size_t smem = (size_t)10 * 64 * D * 2;
-  auto kern = flash_kernel<D>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid((a.T + SQ - 1) / SQ, a.Hq, B);
-  kern<<<grid, SPLIT_THREADS, smem, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+// float32: the split pass into planes (q's, then k's, then v's, each
+// [2B, T, H, W]), then the kernel over maps of the planes
+template <int W>
+int launch_f32(const void* q, const void* k, const void* v, void* out,
+               float* lse, long long qsb, long long qst, long long ksb,
+               long long kst, long long vsb, long long vst, int B, int T,
+               int Hq, int Hkv, int d, float scale, __nv_bfloat16* planes,
+               cudaStream_t stream) {
+  constexpr int BN = Tiles<true>::BN;
+  __nv_bfloat16* qp = planes;
+  __nv_bfloat16* kp = qp + 2LL * B * T * Hq * W;
+  __nv_bfloat16* vp = kp + 2LL * B * T * Hkv * W;
+  SplitParams sp{};
+  sp.job[0] = split_job(q, qsb, qst, qp, Hq, d);
+  sp.job[1] = split_job(k, ksb, kst, kp, Hkv, d);
+  sp.job[2] = split_job(v, vsb, vst, vp, Hkv, d);
+  sp.B = B;
+  sp.T = T;
+  sp.D = d;
+  sp.di_job = -1;
+  int err = launch_split<W, false>(sp, 3, (long long)B * T * Hq, stream);
+  if (err) return err;
+  WsParams p;
+  if (!tensor_map_planes(&p.q, qp, W, Hq, T, B, BM)
+      || !tensor_map_planes(&p.k, kp, W, Hkv, T, B, BN)
+      || !tensor_map_planes(&p.v, vp, W, Hkv, T, B, BN))
+    return (int)cudaErrorInvalidValue;
+  p.out = out;
+  p.lse = lse;
+  return launch_wgmma<W, true>(p, B, T, Hq, Hkv, scale, stream);
 }
 
 }  // namespace
 
-// q [B, T, Hq, D], k/v [B, >=T, Hkv, D] with element strides (batch,
-// token) given and heads and D contiguous, 16-byte aligned rows and
-// strides; out [B, T, Hq, D] contiguous; lse [B, Hq, T] f32 or null (not
-// written). f32 = 0: bf16 tensors (wgmma; the tensor maps' encoding
-// failing returns cudaErrorInvalidValue); f32 = 1: float32 tensors (the
-// split products). Returns a cudaError_t.
+// q [B, T, Hq, d], k/v [B, >=T, Hkv, d] with element strides (batch,
+// token) given and heads and d contiguous; out [B, T, Hq, W] contiguous in
+// the inputs' type; lse [B, Hq, T] f32 or null (not written). W (64 or
+// 128) is the kernel's head_dim template; scale is 1/sqrt(d). f32 = 0:
+// bf16 tensors with d = W, 16-byte aligned rows and strides (the tensor
+// maps' encoding failing returns cudaErrorInvalidValue); planes is not
+// read. f32 = 1: float32 tensors, any d <= W (columns d .. W of the output
+// are zero); planes: bf16 scratch of 2 B T (Hq + 2 Hkv) W elements, 16-byte
+// aligned, for the split pass. Returns a cudaError_t.
 extern "C" int flash_attn(const void* q, const void* k, const void* v,
                           void* out, float* lse, long long qsb, long long qst,
                           long long ksb, long long kst, long long vsb,
-                          long long vst, int B, int T, int Hq, int Hkv, int D,
-                          int f32, float scale, void* stream) {
+                          long long vst, int B, int T, int Hq, int Hkv, int W,
+                          int d, int f32, float scale, void* planes,
+                          void* stream) {
   if (B < 0 || T < 0 || Hkv < 1 || Hq < Hkv || Hq % Hkv || B > 65535
-      || Hq > 65535)
+      || Hq > 65535 || d < 1 || d > W || (!f32 && d != W))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
   if (f32) {
-    const Args a{static_cast<const float*>(q), static_cast<const float*>(k),
-                 static_cast<const float*>(v), static_cast<float*>(out),
-                 lse, qsb, qst, ksb, kst, vsb, vst, T, Hq, Hkv, scale};
-    if (D == 64) return launch_split<64>(a, B, stream);
-    if (D == 128) return launch_split<128>(a, B, stream);
+    auto* pl = static_cast<__nv_bfloat16*>(planes);
+    if (pl == nullptr) return (int)cudaErrorInvalidValue;
+    if (W == 64)
+      return launch_f32<64>(q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
+                            B, T, Hq, Hkv, d, scale, pl, st);
+    if (W == 128)
+      return launch_f32<128>(q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
+                             B, T, Hq, Hkv, d, scale, pl, st);
     return (int)cudaErrorInvalidValue;
   }
-  if (D == 64)
-    return launch_wgmma<64>(q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
-                            B, T, Hq, Hkv, scale, stream);
-  if (D == 128)
-    return launch_wgmma<128>(q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
-                             B, T, Hq, Hkv, scale, stream);
+  if (W == 64)
+    return launch_bf16<64>(q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
+                           B, T, Hq, Hkv, scale, st);
+  if (W == 128)
+    return launch_bf16<128>(q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
+                            B, T, Hq, Hkv, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split pass alone, over one float32 tensor x [B, T, H, d] (element
+// strides sb, st; heads and d contiguous) into planes [2B, T, H, W] bf16
+// (hi, then lo; zeros in columns d .. W). Returns a cudaError_t.
+extern "C" int flash_split(const void* x, long long sb, long long st,
+                           void* planes, int B, int T, int H, int d, int W,
+                           void* stream) {
+  if (B < 0 || T < 0 || H < 1 || d < 1 || d > W || planes == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || T == 0) return 0;
+  SplitParams sp{};
+  sp.job[0] = split_job(x, sb, st, static_cast<__nv_bfloat16*>(planes), H,
+                        d);
+  sp.B = B;
+  sp.T = T;
+  sp.D = d;
+  sp.di_job = -1;
+  const long long rows = (long long)B * T * H;
+  if (W == 64) return launch_split<64, false>(sp, 1, rows, (cudaStream_t)stream);
+  if (W == 128)
+    return launch_split<128, false>(sp, 1, rows, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

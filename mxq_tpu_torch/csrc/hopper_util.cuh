@@ -225,6 +225,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (+)= A . B^T over k16: m64n32k16, A [64][16] and B [32][16] both
+// K-major in shared memory (descriptors a, b); d = A . B^T when
+// accumulate is 0
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (+)= A . B^T over k16: m64n64k16, A [64][16] and B [64][16] both
 // K-major in shared memory (descriptors a, b); d = A . B^T when
 // accumulate is 0
@@ -311,4 +329,22 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(1));
+}
+
+// the m64nNk16 products by N: SS over N rows of B, RS over N columns
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int accumulate) {
+  static_assert(N == 32 || N == 64 || N == 128, "m64n{32,64,128}k16");
+  if constexpr (N == 32) wgmma_ss_n32(d, a, b, accumulate);
+  else if constexpr (N == 64) wgmma_ss_n64(d, a, b, accumulate);
+  else wgmma_ss_n128(d, a, b, accumulate);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b) {
+  static_assert(N == 64 || N == 128, "m64n{64,128}k16");
+  if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n128(d, a, b);
 }

@@ -20,8 +20,13 @@ Each wrapper takes its plain version for tensors on the CPU and launches
 its kernel for tensors on the card, where a failed launch raises. The
 kernels are templates at head_dim 64 and 128; the wrappers run every other
 D <= 128 at the next of them, as upstream takes every D <= 128, and refuse
-D > 128: K13 and K13-bwd on zero-padded copies (:func:`pad_head_dim`), K12
-on a padded q, reading the pool's pages in place.
+D > 128: K13 and K13-bwd at bfloat16 on zero-padded copies
+(:func:`pad_head_dim`), K12 on a padded q, reading the pool's pages in
+place. At float32, K13 and K13-bwd first run the split pass
+(:func:`flash_split`'s kernel, inside the same launch), which writes the
+inputs' bf16 hi and lo planes with zeros past D, so no padded copy is
+made: the kernels then run the bf16 design's products three times (hi.lo
++ lo.hi + hi.hi).
 """
 
 from __future__ import annotations
@@ -58,8 +63,9 @@ def pad_head_dim(x: torch.Tensor, w: int) -> torch.Tensor:
     """x [..., D] with zero columns up to ``w`` (one copy; x itself when D
     is w). Zero columns add nothing to q . k, and give zero context and
     zero dQ, dK and dV columns, so the kernels run a head_dim D < w at w
-    on padded copies (with 1/sqrt(D) of the true D) and the wrappers slice
-    the results back to D."""
+    on padded copies (with 1/sqrt(D) of the true D; K12's q, and K13's and
+    K13-bwd's bf16 inputs: at float32 the split pass writes the zeros
+    itself) and the wrappers slice the results back to D."""
     d = x.shape[-1]
     return x if d == w else torch.nn.functional.pad(x, (0, w - d))
 
@@ -288,11 +294,54 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, head_dim=None):
             dv.to(q.dtype))
 
 
+def flash_split_plain(x: torch.Tensor, w: int):
+    """Plain version of the split pass (``csrc/flash_split.cuh``): float32
+    x [B, T, H, D] -> bf16 planes hi = bf16(x) and lo = bf16(x - hi),
+    each [B, T, H, w] with zeros in columns D .. w. x = hi + lo to about
+    16 significant bits (|x - hi - lo| <= 2^-16 |x|)."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    return pad_head_dim(hi, w), pad_head_dim(lo, w)
+
+
+def split_plane_elems(b, t, hq, hkv, w, backward=False) -> int:
+    """The bf16 elements of the planes K13 (or, with ``backward``, K13-bwd)
+    takes at float32: hi and lo of q, k and v (and dO), each [B, T, H, w];
+    k's and v's first T rows only."""
+    return 2 * b * t * w * ((2 if backward else 1) * hq + 2 * hkv)
+
+
+def flash_split(x: torch.Tensor, w: int):
+    """The split pass alone (the kernel K13 and K13-bwd launch first at
+    float32): float32 x [B, T, H, D] (heads and D contiguous, any batch and
+    token strides) -> (hi, lo), bf16 [B, T, H, w] each, zeros past D, the
+    bits of :func:`flash_split_plain`. It runs inside K13's and K13-bwd's
+    launches and counts none of its own."""
+    if x.device.type == "cpu":
+        return flash_split_plain(x, w)
+    from mxq_tpu_torch import _build
+    b, t, h, d = x.shape
+    if x.dtype != torch.float32 or not 1 <= d <= w or w not in HEAD_DIMS:
+        raise ValueError(f"the split pass takes float32 [B, T, H, D], D <= "
+                         f"w in {HEAD_DIMS}; got {x.dtype} {tuple(x.shape)}, "
+                         f"w={w}")
+    x = _rows(x)
+    planes = torch.empty((2, b, t, h, w), dtype=torch.bfloat16,
+                         device=x.device)
+    err = _build.load("flash_attn").flash_split(
+        x.data_ptr(), x.stride(0), x.stride(1), planes.data_ptr(), b, t, h,
+        d, w, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "K13 split pass")
+    return planes[0], planes[1]
+
+
 def _rows(x: torch.Tensor) -> torch.Tensor:
-    """x [B, S, H, D] as the kernels read it (K13's tensor maps, K13-bwd's
-    16-byte copies): heads and D contiguous, the batch and token strides
-    and the start 16-byte aligned; else a copy into new contiguous rows (a
-    contiguous view that starts off 16 bytes is copied too)."""
+    """x [B, S, H, D] as the kernels read it (the bf16 tensor maps, the
+    split pass's 16-byte loads): heads and D contiguous, the batch and
+    token strides and the start 16-byte aligned; else a copy into new
+    contiguous rows (a contiguous view that starts off 16 bytes is copied
+    too; where D is not a multiple of 4 the split pass reads a float at a
+    time)."""
     d, es = x.shape[-1], x.element_size()
     if (x.stride(-1) == 1 and x.stride(-2) == d
             and x.stride(0) * es % 16 == 0 and x.stride(1) * es % 16 == 0
@@ -323,17 +372,26 @@ def _flash_check(what, q, k, v):
 def _k13_launch(q, k, v, lse):
     """K13 on the card; ``lse`` [B, Hq, T] f32 receives the row
     log-sum-exp, or None (the kernel writes none). A head_dim D that is not
-    one of HEAD_DIMS runs at the next one on zero-padded copies."""
+    one of HEAD_DIMS runs at the next one: at bfloat16 on zero-padded
+    copies, at float32 on the split pass's planes, zeros past D."""
     from mxq_tpu_torch import _build
     w = _flash_check("K13", q, k, v)
     b, t, hq, d = q.shape
-    q, k, v = (_rows(pad_head_dim(x, w)) for x in (q, k, v))
+    f32 = q.dtype == torch.float32
+    planes = None
+    if f32:
+        q, k, v = (_rows(x) for x in (q, k, v))
+        planes = torch.empty(split_plane_elems(b, t, hq, k.shape[2], w),
+                             dtype=torch.bfloat16, device=q.device)
+    else:
+        q, k, v = (_rows(pad_head_dim(x, w)) for x in (q, k, v))
     out = torch.empty((b, t, hq, w), dtype=q.dtype, device=q.device)
     err = _build.load("flash_attn").flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), v.stride(0), v.stride(1), b, t, hq,
-        k.shape[2], w, int(q.dtype == torch.float32), 1.0 / math.sqrt(d),
+        k.shape[2], w, d if f32 else w, int(f32), 1.0 / math.sqrt(d),
+        None if planes is None else planes.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "K13")
     count_launch(flash_prefill_attention)
@@ -367,10 +425,11 @@ def flash_attention_forward(q, k, v):
 
 def _bwd_scratch(lib, b, t, hq, hkv, w, f32, device):
     """K13-bwd's f32 scratch and tickets, as the library sizes them for
-    this card (``flash_attn_bwd_scratch``): none for float32; for bf16 the
-    row log-sum-exp and di that the dQ kernel writes for the dK/dV kernel,
-    and, where a kv head's query heads are split over blocks, the partial
-    dK and dV and one ticket per (key tile, kv head, batch row)."""
+    this card (``flash_attn_bwd_scratch``, the same at both types): the
+    row log-sum-exp and di that the dQ kernel (bf16) or the split pass
+    (float32) writes for the dK/dV kernel, and, where a kv head's query
+    heads are split over blocks, the partial dK and dV and one ticket per
+    (key tile, kv head, batch row)."""
     import ctypes
     sizes = (ctypes.c_longlong * 3)()
     err = lib.flash_attn_bwd_scratch(b, t, hq, hkv, w, f32, sizes)
@@ -390,9 +449,11 @@ def flash_attention_backward(q, k, v, o, lse, do):
     [B, T, Hq, D] (any strides). Returns dq [B, T, Hq, D] and dk, dv shaped
     like k, v (summed over each kv head's query heads; rows >= T zero), in
     q's type. di = rowsum(o . dO): at bf16 the dQ kernel computes it from
-    the o and dO tiles it loads; at float32 it is one PyTorch reduction,
-    as upstream computes it in jnp outside its kernels. A head_dim that is
-    not one of HEAD_DIMS runs at the next one on zero-padded copies."""
+    the o and dO tiles it loads; at float32 the split pass computes it in
+    f32 from o and dO as it splits q, k, v and dO into their bf16 hi and
+    lo planes. A head_dim that is not one of HEAD_DIMS runs at the next
+    one: at bfloat16 on zero-padded copies, at float32 on the planes,
+    zeros past D."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do)
     from mxq_tpu_torch import _build
@@ -411,14 +472,16 @@ def flash_attention_backward(q, k, v, o, lse, do):
             f"{lse.dtype} {tuple(lse.shape)} for q {q.dtype} "
             f"{tuple(q.shape)}")
     f32 = int(q.dtype == torch.float32)
-    q, k, v, o, do = (_rows(pad_head_dim(x, w)) for x in (q, k, v, o, do))
-    lib = _build.load("flash_attn_bwd")
+    planes = None
     if f32:
-        di = (o * do).sum(-1).transpose(1, 2).contiguous()
-        ws, tickets = None, None
+        q, k, v, o, do = (_rows(x) for x in (q, k, v, o, do))
+        planes = torch.empty(split_plane_elems(b, t, hq, hkv, w, True),
+                             dtype=torch.bfloat16, device=q.device)
     else:
-        di = None
-        ws, tickets = _bwd_scratch(lib, b, t, hq, hkv, w, f32, q.device)
+        q, k, v, o, do = (_rows(pad_head_dim(x, w))
+                          for x in (q, k, v, o, do))
+    lib = _build.load("flash_attn_bwd")
+    ws, tickets = _bwd_scratch(lib, b, t, hq, hkv, w, f32, q.device)
     dq = torch.empty((b, t, hq, w), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, s, hkv, w), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
@@ -428,11 +491,11 @@ def flash_attention_backward(q, k, v, o, lse, do):
     ptr = (lambda x: None if x is None else x.data_ptr())
     err = lib.flash_attn_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), ptr(di), dq.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), ptr(planes), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), ptr(ws), ptr(tickets), q.stride(0),
         q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         o.stride(0), o.stride(1), do.stride(0), do.stride(1), s * hkv * w,
-        b, t, hq, hkv, w, f32, 1.0 / math.sqrt(d),
+        b, t, hq, hkv, w, d if f32 else w, f32, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "K13-bwd")
     count_launch(flash_attention_backward)

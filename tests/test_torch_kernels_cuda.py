@@ -495,7 +495,7 @@ def test_k12_matches_plain(gen, g, d, ps, pps, q_dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 200, 255, 257,
-                               513])
+                               513, 1000])
 @pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128),
                                       (8, 2, 80), (4, 4, 96)])
 def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
@@ -504,9 +504,10 @@ def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
     whose rows past T are never read): bf16 <= 2e-2 of max|ctx| (the
     probabilities rounded to bf16 against the running max, the plain
     version's after normalizing), float32 <= 1e-4 (bf16 hi + lo split
-    products); the same bits on a second call. T straddles the bf16
-    kernel's 128-row blocks and 128-key tiles and the float32 kernel's
-    64-row ones; D = 80 and 96 run at 128 on zero-padded copies."""
+    products); the same bits on a second call. T straddles the 128-row
+    items, the bf16 kernel's 128-key tiles and the float32 kernel's 64-key
+    ones; D = 80 and 96 run at 128 (bf16 on zero-padded copies, float32 on
+    the split pass's planes, zeros past D); G = 8 at (16, 2)."""
     b = 2
     qkv = torch.randn((b, t + 7, (hq + 2 * hkv) * d), generator=gen,
                       device="cuda").to(dtype)
@@ -527,12 +528,14 @@ def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("t", [1, 100, 128, 257])
-def test_k13_reads_no_row_past_t(gen, t, dtype):
+@pytest.mark.parametrize("t", [1, 63, 65, 100, 128, 129, 257, 1000])
+@pytest.mark.parametrize("d", [128, 80])
+def test_k13_reads_no_row_past_t(gen, d, t, dtype):
     """K13 over k, v whose rows past T are NaN gives the bits it gives
-    with zeros there, all finite: no key row >= T is read (the bf16
-    kernel's tensor maps end at T, so TMA fills the tail with zeros)."""
-    q, k, v = _qkv(gen, 2, t, 16, 2, 128, dtype)
+    with zeros there, all finite: no key row >= T is read (the tensor
+    maps end at T, so TMA fills the tail with zeros; at float32 the split
+    pass splits the first T rows only)."""
+    q, k, v = _qkv(gen, 2, t, 16, 2, d, dtype)
     kn, vn, kz, vz = k.clone(), v.clone(), k.clone(), v.clone()
     kn[:, t:] = vn[:, t:] = float("nan")
     kz[:, t:] = vz[:, t:] = 0
@@ -567,7 +570,7 @@ def _grad_errs(got, ref):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 200, 255, 257,
-                               513])
+                               513, 1000])
 @pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128),
                                       (8, 2, 80), (4, 4, 96)])
 def test_k13_bwd_matches_plain(gen, hq, hkv, d, t, dtype):
@@ -577,8 +580,9 @@ def test_k13_bwd_matches_plain(gen, hq, hkv, d, t, dtype):
     upstream does, from exp(s - lse) recomputed in another order), 1e-4 at
     float32 (the split products, K13-f32's gate); the same bits on a
     second call, one launch counted per call, dK and dV zero past row T.
-    T straddles the bf16 kernels' 128-row items and 64-row tiles; D = 80
-    and 96 run at 128 on zero-padded copies."""
+    T straddles the 128-row items and the ring's tiles (bf16 64 rows,
+    float32 32); D = 80 and 96 run at 128 (bf16 on zero-padded copies,
+    float32 on the split pass's planes)."""
     b = 2
     q, k, v = _qkv(gen, b, t, hq, hkv, d, dtype)
     do = torch.randn((b, hq, t, d), generator=gen, device="cuda").to(
@@ -599,29 +603,32 @@ def test_k13_bwd_matches_plain(gen, hq, hkv, d, t, dtype):
     assert max(_grad_errs(got, ref)) <= tol
 
 
-def _split_heads_case(gen):
-    """llama2_70b's G = 8 at T = 512, bf16: 4 key tiles x 8 kv heads give
-    the dK/dV kernel fewer items than the card has SMs, so each kv head's
-    query heads are split over blocks (the library reports the split)."""
+def _split_heads_case(gen, dtype):
+    """llama2_70b's G = 8 at T = 512: 4 key tiles x 8 kv heads give the
+    dK/dV kernel fewer items than the card has SMs, so each kv head's
+    query heads are split over blocks (the library reports the split, the
+    same at both types)."""
     import ctypes
 
     from mxq_tpu_torch import _build
     sizes = (ctypes.c_longlong * 3)()
     assert _build.load("flash_attn_bwd").flash_attn_bwd_scratch(
-        1, 512, 64, 8, 128, 0, sizes) == 0
+        1, 512, 64, 8, 128, int(dtype == torch.float32), sizes) == 0
     assert sizes[2] > 1
-    q, k, v = _qkv(gen, 1, 512, 64, 8, 128, torch.bfloat16)
+    q, k, v = _qkv(gen, 1, 512, 64, 8, 128, dtype)
     do = torch.randn((1, 512, 64, 128), generator=gen, device="cuda").to(
-        torch.bfloat16)
+        dtype)
     o, lse = ab.flash_attention_forward(q, k, v)
     return q, k, v, o, lse, do
 
 
-def test_k13_bwd_split_heads_matches_plain(gen):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k13_bwd_split_heads_matches_plain(gen, dtype):
     """K13-bwd on the split-and-sum path (G = 8, T = 512) against its
-    plain version, each gradient within 2e-2 of its max (the bf16 gate of
-    test_k13_bwd_matches_plain), finite, dK and dV zero past row T."""
-    args = _split_heads_case(gen)
+    plain version, each gradient within the gate of
+    test_k13_bwd_matches_plain (bf16 2e-2, float32 1e-4) of its max,
+    finite, dK and dV zero past row T."""
+    args = _split_heads_case(gen, dtype)
     got = ab.flash_attention_backward(*args)
     ref = ab.flash_attention_bwd_plain(*args)
     torch.cuda.synchronize()
@@ -629,19 +636,61 @@ def test_k13_bwd_split_heads_matches_plain(gen):
         assert g.shape == r.shape and bool(torch.isfinite(g).all())
     for g in got[1:]:
         assert not bool(g[:, 512:].any())
-    assert max(_grad_errs(got, ref)) <= 2e-2
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert max(_grad_errs(got, ref)) <= tol
 
 
-def test_k13_bwd_split_heads_same_bits(gen):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_k13_bwd_split_heads_same_bits(gen, dtype):
     """Three calls on the split-and-sum path give the same bits: the last
     block of each key tile sums the partials in split order, whichever
     block finishes last, and leaves its ticket at 0 for the next call."""
-    args = _split_heads_case(gen)
+    args = _split_heads_case(gen, dtype)
     first = ab.flash_attention_backward(*args)
     for _ in range(2):
         again = ab.flash_attention_backward(*args)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [1, 63, 65, 129, 513, 1000])
+def test_k13_bwd_reads_no_row_past_t(gen, t, dtype):
+    """K13-bwd over k, v whose rows past T are NaN gives the bits it gives
+    with zeros there, all finite (dK and dV zero past T): no key row >= T
+    is read, at G = 8 and D = 96 (float32: the split pass splits the first
+    T rows only, zeros past D)."""
+    q, k, v = _qkv(gen, 2, t, 16, 2, 96, dtype)
+    do = torch.randn((2, t, 16, 96), generator=gen, device="cuda").to(dtype)
+    kn, vn, kz, vz = k.clone(), v.clone(), k.clone(), v.clone()
+    kn[:, t:] = vn[:, t:] = float("nan")
+    kz[:, t:] = vz[:, t:] = 0
+    o, lse = ab.flash_attention_forward(q, kz, vz)
+    got = ab.flash_attention_backward(q, kn, vn, o, lse, do)
+    ref = ab.flash_attention_backward(q, kz, vz, o, lse, do)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all()) and torch.equal(g, r)
+
+
+@pytest.mark.parametrize("d", [1, 64, 80, 96, 98, 100, 128])
+def test_k13_split_pass_bit_equal(gen, d):
+    """The float32 path's split pass against its plain version bit for
+    bit (hi = bf16(x), lo = bf16(x - hi), zeros past D in the kernels'
+    width), on q sliced from a fused qkv tensor 7 rows longer than q
+    with values over six decades: 16-byte loads where D and the strides
+    allow (D % 4 == 0), one float at a time otherwise (D = 1, 98)."""
+    w = ab.kernel_head_dim(d)
+    qkv = torch.randn((2, 84, 10 * d), generator=gen, device="cuda")
+    qkv *= torch.exp(3 * torch.randn(qkv.shape, generator=gen,
+                                     device="cuda"))
+    q = qkv[:, :77, :6 * d].reshape(2, 77, 6, d)
+    got = ab.flash_split(q, w)
+    want = ab.flash_split_plain(q, w)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        assert g.shape == (2, 77, 6, w)
+        assert torch.equal(g.view(torch.int16), r.view(torch.int16))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
