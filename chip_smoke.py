@@ -12,13 +12,16 @@ Phases, each printing one JSON line:
   kernels  hold K1-K6, K4a-K4d (K4a also with a verify's 5 query tokens
            in one launch, and with llama2_70b's G = 8 at 9 tokens: two
            launches of at most 64 query rows), K7, K8, K9-K11, K12 (bf16
-           paged decode, 64-row pages, a NaN null page, bf16 and float32
-           q), K13 (causal attention from position 0 at T = 512 and
-           2048, llama2_70b's G = 8, float32 inputs, head_dim 96 (run
-           at 128 on zero-padded copies; K12 pads only q and reads the
-           pool in place), each with its TFLOP/s and
+           paged decode, 64-row pages, NaN in the null page and past
+           each length, bf16 and float32 q, head_dim 96 read in place,
+           the serve decode's lengths, llama2_70b's G = 8 and one layer
+           of the profiled paged bf16 step; two calls give equal bits;
+           the kernel's own device ms beside the wrapper's), K13
+           (causal attention from position 0 at T = 512 and 2048,
+           llama2_70b's G = 8, float32 inputs, head_dim 96 (run at 128
+           on zero-padded copies), each with its TFLOP/s and
            share of the bound; the same bits with its row log-sum-exp
-           written), K12 also at head_dim 96, and K13-bwd (its backward,
+           written), and K13-bwd (its backward,
            dQ, dK and dV, at T = 2048, at G = 8, at float32 and at
            head_dim 96; two calls give equal bits) against
            their plain PyTorch versions at llama2_7b's shapes and time
@@ -57,8 +60,9 @@ Phases, each printing one JSON line:
            8-slot Engine's graph pool bytes; a sampled Engine (temperature
            0.8, top_k 40) from a fixed seed twice, equal tokens; then
            where a decode step's time goes, slot (8 slots and one) and
-           paged, and where a speculative verify round's does, each op by
-           op and replayed, and the
+           paged (the int8 pool, and the bf16 pool of 64-row pages with
+           K12's device ms and share of busy), and where a speculative
+           verify round's does, each op by op and replayed, and the
            device time of one 2048-token prefill as cli_a8_u4 runs it,
            with its top device ops and idle share; every Engine of the
            phase schedules through the C++ scheduler, which decides as
@@ -318,9 +322,20 @@ KERNEL_INFO = {
     "K13-bwd-f32": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
                     "mxq_tpu/models/llama.py:383"),
     # head_dim 96 (no preset has it; a checkpoint may), run at 128: K13
-    # and K13-bwd on zero-padded copies, K12 on the pool in place
+    # and K13-bwd on zero-padded copies, K12 reading q, the pool and its
+    # output at their width
     "K12-d96": ("cuda", "mxq_tpu_torch/csrc/paged_attn_bf16.cu",
                 "mxq_tpu/serving/paged.py:265"),
+    # K12 at cli serve --paged --kv_bits 32's decode (lengths 101-132)
+    # and at llama2_70b's G = 8, both with float32 q
+    "K12-serve": ("cuda", "mxq_tpu_torch/csrc/paged_attn_bf16.cu",
+                  "mxq_tpu/serving/paged.py:265"),
+    "K12-g8": ("cuda", "mxq_tpu_torch/csrc/paged_attn_bf16.cu",
+               "mxq_tpu/serving/paged.py:265"),
+    # K12 at one layer of the profiled paged bf16 decode step (8 slots at
+    # row 1000), float32 q
+    "K12-step": ("cuda", "mxq_tpu_torch/csrc/paged_attn_bf16.cu",
+                 "mxq_tpu/serving/paged.py:265"),
     "K13-d96": ("cuda", "mxq_tpu_torch/csrc/flash_attn.cu",
                 "mxq_tpu/models/llama.py:383"),
     "K13-bwd-d96": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -336,6 +351,9 @@ K1_KERNEL_NAMES = ("permute_x_kernel", "gemv_small_kernel",
 # K2's (csrc/mxq_gemv.cu: the one-row kernel and its split sum); in the
 # profiled one-slot step no other wrapper launches a kernel of these names
 K2_KERNEL_NAMES = ("gemv_row_kernel", "gemv_row_sum_kernel")
+# K12's (csrc/paged_attn_bf16.cu, one kernel; no other wrapper launches a
+# kernel of this name)
+K12_KERNEL_NAMES = ("paged_bf16_kernel",)
 # K5's (csrc/mxq_dequant.cu: the bound, then the codes)
 K5_KERNEL_NAMES = ("k5_scale_kernel", "k5_codes_kernel")
 # K13's (csrc/flash_attn.cu on wgmma; at float32 after its split pass);
@@ -369,7 +387,8 @@ TASK_GROUPS = (("K1", K1_KERNEL_NAMES), ("K3", ("mxq_dequant_kernel",)),
 COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a", "K13-g8": "K13",
            "K13-f32": "K13", "K12-f32": "K12", "K13-bwd-g8": "K13-bwd",
            "K13-bwd-f32": "K13-bwd", "K12-d96": "K12", "K13-d96": "K13",
-           "K13-bwd-d96": "K13-bwd"}
+           "K13-bwd-d96": "K13-bwd", "K12-serve": "K12", "K12-g8": "K12",
+           "K12-step": "K12"}
 
 
 def emit(obj) -> None:
@@ -419,9 +438,10 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 def phase_build():
     """Every CUDA source with nvcc, in parallel, and the C++ runtime with
-    g++ beside them; a failed build raises. Rows K13-ptxas and
-    K13-bwd-ptxas: ptxas' registers and spills of each kernel of
-    flash_attn.cu and flash_attn_bwd.cu in this build."""
+    g++ beside them; a failed build raises. Rows K13-ptxas,
+    K13-bwd-ptxas and K12-ptxas: ptxas' registers and spills of each
+    kernel of flash_attn.cu, flash_attn_bwd.cu and paged_attn_bf16.cu in
+    this build."""
     from mxq_tpu_torch import _build
     from mxq_tpu_torch.runtime import native
     def runtime():
@@ -442,6 +462,8 @@ def phase_build():
           **_build.ptxas_report(logs["flash_attn"], "_kernel")})
     emit({"phase": "build", "kernel": "K13-bwd-ptxas",
           **_build.ptxas_report(logs["flash_attn_bwd"], "_kernel")})
+    emit({"phase": "build", "kernel": "K12-ptxas",
+          **_build.ptxas_report(logs["paged_attn_bf16"], "_kernel")})
 
 
 def phase_kernels(torch, timer):
@@ -1163,20 +1185,26 @@ def paged_kernels(torch, timer, gen, rows, summary):
 def bf16_kernels(torch, timer, gen, rows, summary):
     """K12 and K13 against their plain versions (ops/attn_bf16.py).
 
-    K12 at ``paged_kernels``' shapes and positions with the bf16 pool of
-    ``cli serve --kv_bits 32``: B=8, Hq=Hkv=32, D=128, pages of 64 rows,
-    32 pages a sequence, shuffled tables with the null page 0 past each
-    length. The kernel reads a pool whose null page is NaN (a stray read
-    shows); the plain version, which gathers every page of the table,
-    reads the same pool with the null page zeroed. With bf16 q (row K12)
-    the gate is 1e-2 of max|ctx| (the bf16 output: about one ulp); with
-    float32 q (row K12-f32, the float32 model's decode step, as in
-    ``cli serve --kv_bits 32``) 1e-5, since both sides compute in f32
-    and only the summation order differs (8.5e-8 measured), where a
-    kernel that rounded q or the probabilities to bf16 would carry
-    bf16's relative rounding of up to 2^-9 = 2e-3.
-    Library: SDPA over the gathered pages with the length mask (q in
-    bf16).
+    K12 at ``flash_probe.K12_CASES`` with the bf16 pool of ``cli serve
+    --kv_bits 32``: B=8, pages of 64 rows, 32 pages a sequence, shuffled
+    tables with the null page 0 past each length; llama2_7b's heads
+    (Hq=Hkv=32, D=128) at ``paged_kernels``' mixed lengths with bf16 q
+    (row K12), float32 q (K12-f32, the float32 model's decode step) and
+    head_dim 96 (K12-d96); at the serve decode's lengths 101-132
+    (K12-serve), llama2_70b's heads (Hq=64, Hkv=8: K12-g8) and one layer
+    of the profiled paged bf16 decode step (8 rows of 1001: K12-step), all
+    float32 q. The kernel reads a pool with NaN in the null page and past
+    each length in its last live page (a stray read shows); the plain
+    version, which gathers every page of the table, reads the same pool
+    with finite rows there. With bf16 q the gate is 1e-2 of max|ctx|
+    (the bf16 output: about one ulp); with float32 q 1e-5, since both
+    sides compute in f32 and only the summation order differs, where a
+    kernel that rounded q or the probabilities to bf16 would carry bf16's
+    relative rounding of up to 2^-9 = 2e-3. Two calls give the same
+    bits. Each row gives the wrapper's time, the kernel's own device ms
+    (torch.profiler over 3 calls) and the blocks an SM holds. Library:
+    SDPA over the gathered pages with the length mask (q in bf16, k and
+    v repeated to Hq heads).
 
     K13 at B=1, D=128: 32 heads at T=512 and 2048 (llama2_7b's prefills),
     llama2_70b's G=8 (Hq=64, Hkv=8) at 512, and float32 inputs at 2048 and
@@ -1201,64 +1229,57 @@ def bf16_kernels(torch, timer, gen, rows, summary):
     cat = dict(generator=gen, device="cuda")
     failures = []
 
-    B, H, D, PS, PPS = 8, 32, 128, 64, 32
-    LP = 1 + B * PPS
-    plist = [0, 1, 17, 127, 128, 300, 1024, 2046]
-    lengths = torch.tensor(plist, dtype=torch.int32, device="cuda") + 1
-    kp = torch.randn((H, LP, PS, D), **cat).to(torch.bfloat16)
-    vp = torch.randn((H, LP, PS, D), **cat).to(torch.bfloat16)
-    tables = (torch.randperm(LP - 1, **cat)[:B * PPS] + 1).reshape(
-        B, PPS).to(torch.int32)
-    for i, n in enumerate(plist):
-        tables[i, -(-(n + 1) // PS):] = 0
-    kz, vz = kp.clone(), vp.clone()
-    kp[:, 0] = vp[:, 0] = float("nan")
-    nrows = int(lengths.sum())
-    idx = tables.long()
-    kd = kz[:, idx].permute(1, 0, 2, 3, 4).reshape(B, H, PPS * PS, D)
-    vd = vz[:, idx].permute(1, 0, 2, 3, 4).reshape(B, H, PPS * PS, D)
-    amask = (torch.arange(PPS * PS, device="cuda")[None, None, None, :]
-             < lengths[:, None, None, None])
-    for key, dtype, gate, d in (("K12", torch.bfloat16, 1e-2, D),
-                                ("K12-f32", torch.float32, 1e-5, D),
-                                ("K12-d96", torch.bfloat16, 1e-2, 96)):
-        # head_dim 96: the first 96 columns of the same pool
-        kpd, vpd, kzd, vzd, kdd, vdd = (
-            x if d == D else x[..., :d].contiguous()
-            for x in (kp, vp, kz, vz, kd, vd))
-        q = torch.randn((B, H, d), **cat).to(dtype)
-        out = ab.paged_decode_attention(q, kpd, vpd, lengths, tables)
-        ref = ab.paged_decode_attention_plain(q, kzd, vzd, lengths, tables)
+    from flash_probe import K12_CASES, k12_inputs
+    from torch.profiler import ProfilerActivity, profile
+    D, PPS = 128, 32
+    for key, hq, hkv, d, dname, lengths in K12_CASES:
+        dtype = getattr(torch, dname)
+        gate = 1e-5 if dtype == torch.float32 else 1e-2
+        q, nan, zero, lens, tables, (kd, vd, amask) = k12_inputs(
+            gen, hq, hkv, d, dtype, lengths, pps=PPS)
+        out = ab.paged_decode_attention(q, *nan, lens, tables)
+        again = ab.paged_decode_attention(q, *nan, lens, tables)
+        ref = ab.paged_decode_attention_plain(q, *zero, lens, tables)
         torch.cuda.synchronize()
         err = rel_err(out, ref)
         finite = bool(torch.isfinite(out).all())
-        nbytes = (nrows * H * d * 2 * 2 + 2 * q.numel() * q.element_size()
-                  + B * 4 + B * PPS * 4)
-        bms, by = bound_ms(nbytes, 4.0 * nrows * H * d)
+        same = torch.equal(out, again)
+        nrows, b = sum(lengths), len(lengths)
+        nbytes = (nrows * hkv * d * 2 * 2 + 2 * q.numel() * q.element_size()
+                  + b * 4 + b * PPS * 4)
+        bms, by = bound_ms(nbytes, 4.0 * nrows * hq * d)
+        call = (lambda: ab.paged_decode_attention(q, *nan, lens, tables))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
         qs = q[:, :, None, :].to(torch.bfloat16)
-        row = {"kernel": key, "B": B, "H": H, "D": d, "page": PS,
-               "pages_per_seq": PPS, "lengths": [n + 1 for n in plist],
-               "q_dtype": str(dtype).split(".")[-1], "rel_err": err,
-               "gate": gate, "max_abs_err": float((out.float()
-                                                   - ref.float()).abs().max()),
-               "finite_with_nan_null_page": finite,
-               "kernel_ms": timer(lambda: ab.paged_decode_attention(
-                   q, kpd, vpd, lengths, tables)),
+        row = {"kernel": key, "B": b, "Hq": hq, "Hkv": hkv, "D": d,
+               "page": 64, "pages_per_seq": PPS, "lengths": lengths,
+               "q_dtype": dname, "rel_err": err, "gate": gate,
+               "max_abs_err": float((out.float() - ref.float()).abs().max()),
+               "finite_with_nan_past_lengths": finite, "deterministic": same,
+               "kernel_ms": timer(call),
+               "kernel_device_ms": sum(
+                   v for k, v in device_ms_by_name(torch, prof, 3).items()
+                   if any(n in k for n in K12_KERNEL_NAMES)),
+               "blocks_per_sm": ab.paged_decode_blocks(
+                   ab.kernel_head_dim(d), min(hq // hkv, ab.GMAX)),
                "plain_ms": timer(lambda: ab.paged_decode_attention_plain(
-                   q, kzd, vzd, lengths, tables), iters=3),
+                   q, *zero, lens, tables), iters=3),
                "bound_ms": bms, "bound_by": by,
-               "library_ms": timer(lambda: sdpa(qs, kdd, vdd,
+               "library_ms": timer(lambda: sdpa(qs, kd, vd,
                                                 attn_mask=amask))}
         rows.append(row)
         emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
-        if not (err <= gate and finite):
+        if not (err <= gate and finite and same):
             failures.append(f"{key}: rel {err:.3g} > {gate} or finite="
-                            f"{finite}")
+                            f"{finite} or deterministic={same}")
         summary[key] = summarise(
-            [row], f"B=8 Hq=Hkv=32 D={d}, 32 pages of 64 per sequence, "
-            f"mixed lengths, {row['q_dtype']} q")
-        del kpd, vpd, kzd, vzd, kdd, vdd
-    del kp, vp, kz, vz, kd, vd
+            [row], f"B=8 Hq={hq} Hkv={hkv} D={d}, {PPS} pages of 64 per "
+            f"sequence, lengths {lengths[0]}-{lengths[-1]} "
+            f"({nrows} rows), {dname} q")
+        del q, nan, zero, kd, vd, amask
 
     for key, t, hq, hkv, d, dtype, gate in (
             ("K13", 512, 32, 32, D, torch.bfloat16, 2e-2),
@@ -1948,11 +1969,13 @@ def serve_runs(torch, schedulers: list):
     # the two engines' decode steps and one speculative verify round, each
     # op by op and replayed from a CUDA graph, wall-clocked in turns (the
     # host's speed drifts between seconds), then profiled
-    slots = {"slot": 8, "slot1": 1, "paged": 8, "spec": 8}
+    slots = {"slot": 8, "slot1": 1, "paged": 8, "paged_bf16": 8, "spec": 8}
     step_fns = {}
     for k, fns in (("slot", slot_step(torch, params, cfg)),
                    ("slot1", slot_step(torch, params, cfg, b=1)),
                    ("paged", paged_step(torch, params, cfg)),
+                   ("paged_bf16", paged_step(torch, params, cfg, kv_bits=32,
+                                             page_size=64)),
                    ("spec", slot_step(torch, params, cfg, t=5))):
         step_fns[k], step_fns[k + "_graph"] = fns
         slots[k + "_graph"] = slots[k]
@@ -2073,18 +2096,24 @@ def slot_step(torch, params, cfg, b=8, pos=1000, t=1):
         params, toks, cfg, cache, positions), b, pos, t)
 
 
-def paged_step(torch, params, cfg, b=8, pos=1000):
-    """One decode step of the paged engine (``paged.paged_decode_step``,
-    K11 per layer) for ``b`` slots at row ``pos + i``, int8 pool, each slot
-    holding 16 pages of 128 rows. (op by op, replayed): :func:`step_pair`."""
+def paged_step(torch, params, cfg, b=8, pos=1000, kv_bits=8,
+               page_size=128):
+    """One decode step of the paged engine (``paged.paged_decode_step``)
+    for ``b`` slots at row ``pos + i``: the int8 pool (K11 per layer, pages
+    of 128 rows), or with ``kv_bits`` 32 the bf16 pool of ``cli serve
+    --paged --kv_bits 32`` (K12 per layer, pages of ``page_size`` rows),
+    each slot's table 2048 rows long. (op by op, replayed):
+    :func:`step_pair`."""
     from mxq_tpu_torch.ops import attn_int8
     from mxq_tpu_torch.serving import paged
 
-    pool = paged.PagedPool.create(cfg, b, 1 + 16 * b, page_size=128,
-                                  max_len=2048, kv_bits=8, device="cuda")
+    npp = 2048 // page_size
+    pool = paged.PagedPool.create(cfg, b, 1 + npp * b, page_size=page_size,
+                                  max_len=2048, kv_bits=kv_bits,
+                                  device="cuda")
     attn_int8.reserve_tickets(b * cfg.num_key_value_heads, "cuda")
-    tables = (1 + torch.arange(16 * b, dtype=torch.int32,
-                               device="cuda")).reshape(b, 16)
+    tables = (1 + torch.arange(npp * b, dtype=torch.int32,
+                               device="cuda")).reshape(b, npp)
     toks = torch.zeros((b, 1), dtype=torch.int32, device="cuda")
     return step_pair(torch, lambda positions: paged.paged_decode_step(
         params, pool.k_pages, pool.v_pages, toks, positions, tables,
@@ -2201,8 +2230,8 @@ def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
     per step from :func:`wall_ms`, without the profiler. The CUDA-event
     span per step over ``steps`` steps (the device timeline, gaps where
     the host lags included); device time per kernel from torch.profiler,
-    K1's and K2's kernels summed by name; idle share = 1 - device busy /
-    median wall."""
+    K1's, K2's and K12's kernels summed by name; idle share = 1 - device
+    busy / median wall."""
     from torch.profiler import ProfilerActivity, profile
 
     e0 = torch.cuda.Event(enable_timing=True)
@@ -2220,9 +2249,10 @@ def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
     per_kernel = device_ms_by_name(torch, prof, steps)
     busy = sum(per_kernel.values())
     wall = statistics.median(walls)
-    k1, k2 = (sum(v for k, v in per_kernel.items()
-                  if any(name in k for name in names))
-              for names in (K1_KERNEL_NAMES, K2_KERNEL_NAMES))
+    k1, k2, k12 = (sum(v for k, v in per_kernel.items()
+                       if any(name in k for name in names))
+                   for names in (K1_KERNEL_NAMES, K2_KERNEL_NAMES,
+                                 K12_KERNEL_NAMES))
     return {"slots": b, "position": pos, "wall_ms_per_step": wall,
             "wall_ms_per_step_rounds": walls,
             "event_ms_per_step": e0.elapsed_time(e1) / steps,
@@ -2230,6 +2260,7 @@ def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
             "idle_share": 1.0 - busy / wall if wall else None,
             "k1_ms_per_step": k1, "k1_share_of_busy": k1 / busy,
             "k2_ms_per_step": k2, "k2_share_of_busy": k2 / busy,
+            "k12_ms_per_step": k12, "k12_share_of_busy": k12 / busy,
             "top_kernels_ms_per_step": top_ms(per_kernel, 8)}
 
 

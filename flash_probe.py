@@ -1,10 +1,11 @@
 """Check and time K13's kernels (``mxq_tpu_torch/csrc/flash_attn.cu``)
-and K13-bwd's (``csrc/flash_attn_bwd.cu``), at bfloat16 and float32, on
-the card beside SDPA, and beside the same kernels of other trees of the
-package.
+and K13-bwd's (``csrc/flash_attn_bwd.cu``), at bfloat16 and float32, and
+K12's (``csrc/paged_attn_bf16.cu``), on the card beside SDPA, and beside
+the same kernels of other trees of the package.
 
     python3 flash_probe.py                             # this tree alone
     python3 flash_probe.py --trees parent=out/parent   # and a parent's
+    python3 flash_probe.py --kernels k12               # K12 alone
 
 Each tree (this one as ``this``; ``--trees NAME=ROOT,...`` adds other
 trees, a ``git archive`` of the parent, say) runs in a process of its own
@@ -30,8 +31,19 @@ and of the backward, the TFLOP/s of each over the causal half (4 and 10
 Hq D T(T+1)/2 operations), at float32 the device ms of each kernel of one
 call by name (torch.profiler: the split pass's share), and SDPA's times on
 the same inputs (``is_causal``, k and v repeated to Hq heads; its
-backward one ``torch.autograd.grad`` from a kept graph). Needs a CUDA
-device."""
+backward one ``torch.autograd.grad`` from a kept graph).
+
+K12 (``paged_decode_attention``) at K12_CASES, pages of 64 rows, 32 a
+sequence, shuffled tables: its max error over max|ctx| against the plain
+version (gates: bf16 q 1e-2, float32 q 1e-5), the kernel reading a pool
+with NaN in the null page and past each length in its last live page,
+the plain version the same pool with finite rows there; whether two
+calls give the same bits and the output is finite; the wrapper's
+CUDA-event median (``Timer``), the device ms of one call by kernel name
+(torch.profiler) and the kernel's own; the bound (K and V rows below the
+lengths read once, q read and the output written once, over 3.35 TB/s);
+SDPA over the gathered pages with the length mask (bf16 q, k and v
+repeated to Hq heads). Needs a CUDA device."""
 
 from __future__ import annotations
 
@@ -51,8 +63,69 @@ CHECKS = [(2, 1, 4, 2, 64), (2, 127, 8, 8, 128), (2, 129, 16, 2, 128),
 # (T, Hq, Hkv) timed at B = 1, D = 128
 TIMED = [(2048, 32, 32), (512, 32, 32), (512, 64, 8)]
 DTYPES = {"bfloat16": 2e-2, "float32": 1e-4}   # and each one's gate
-SOURCES = ("flash_attn", "flash_attn_bwd")
+SOURCES = {"k13": ("flash_attn", "flash_attn_bwd"),
+           "k12": ("paged_attn_bf16",)}
 HERE = Path(__file__).resolve().parent
+# K12's mixed lengths (chip_smoke's K12 rows: rows 1 .. 2047, 3,651 in
+# all) and cli serve --paged --kv_bits 32's decode (100-token prompts, 32
+# new tokens: lengths 101 .. 132)
+K12_LENGTHS = [1, 2, 18, 128, 129, 301, 1025, 2047]
+K12_SERVE = [101, 105, 110, 114, 119, 123, 128, 132]
+# (name, Hq, Hkv, D, q's type, lengths) at B = 8: llama2_7b's heads at
+# bf16 and float32 q, head_dim 96, the serve decode (float32, the serving
+# path's default type), llama2_70b's G = 8, and one layer of the paged
+# bf16 decode step that chip_smoke profiles (8 slots at row 1000)
+K12_CASES = [("K12", 32, 32, 128, "bfloat16", K12_LENGTHS),
+             ("K12-f32", 32, 32, 128, "float32", K12_LENGTHS),
+             ("K12-d96", 32, 32, 96, "bfloat16", K12_LENGTHS),
+             ("K12-serve", 32, 32, 128, "float32", K12_SERVE),
+             ("K12-g8", 64, 8, 128, "float32", K12_LENGTHS),
+             ("K12-step", 32, 32, 128, "float32", [1001] * 8)]
+K12_GATES = {"bfloat16": 1e-2, "float32": 1e-5}
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
+
+
+def k12_inputs(gen, hq, hkv, d, dtype, lengths, ps=64, pps=32):
+    """K12's inputs at B = len(lengths): q [B, Hq, D] of ``dtype``; k, v
+    pages [Hkv, 1 + B * pps, ps, D] bf16 with NaN in the null page 0 and
+    past each length in its last live page (what the kernel reads), the
+    same pages with those rows finite (what the plain version, which
+    gathers every page, reads); lengths; shuffled tables with the null
+    page past each length; and for SDPA k, v gathered to [B, Hq, pps * ps,
+    D] and the length mask."""
+    b = len(lengths)
+    lp = 1 + b * pps
+    cat = dict(generator=gen, device="cuda")
+    kz, vz = (torch.randn((hkv, lp, ps, d), **cat).to(torch.bfloat16)
+              for _ in range(2))
+    tables = (torch.randperm(lp - 1, **cat)[:b * pps] + 1).reshape(
+        b, pps).to(torch.int32)
+    kn, vn = kz.clone(), vz.clone()
+    kn[:, 0] = vn[:, 0] = float("nan")
+    for i, n in enumerate(lengths):
+        tables[i, -(-n // ps):] = 0
+        if n % ps and n < pps * ps:
+            last = int(tables[i, n // ps])
+            kn[:, last, n % ps:] = vn[:, last, n % ps:] = float("nan")
+    q = torch.randn((b, hq, d), **cat).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    idx = tables.long()
+    kd, vd = (x[:, idx].permute(1, 0, 2, 3, 4).reshape(b, hkv, pps * ps, d)
+              .repeat_interleave(hq // hkv, dim=1) for x in (kz, vz))
+    amask = (torch.arange(pps * ps, device="cuda")[None, None, None, :]
+             < lens[:, None, None, None])
+    return q, (kn, vn), (kz, vz), lens, tables, (kd, vd, amask)
+
+
+def k12_bound_ms(q, hkv, lengths, pps) -> float:
+    """The least time of K12's work on the card: each K and V row below
+    the lengths read once, q, lengths and tables read and the output
+    written once, over the HBM rate (operations: 4 Hq D a row, far below
+    the tensor rate)."""
+    b, _, d = q.shape
+    nbytes = (sum(lengths) * hkv * d * 2 * 2 + 2 * q.numel()
+              * q.element_size() + b * 4 + b * pps * 4)
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def qkv(gen, b, t, hq, hkv, d, dtype):
@@ -97,7 +170,41 @@ def by_name(fn, calls=3) -> dict:
     return out
 
 
-def probe_tree(name: str, root: str) -> int:
+def probe_k12(name: str, ab, timer) -> None:
+    """K12 of one tree at K12_CASES: one JSON line a case."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for key, hq, hkv, d, dname, lengths in K12_CASES:
+        q, nan, zero, lens, tables, (kd, vd, amask) = k12_inputs(
+            gen, hq, hkv, d, getattr(torch, dname), lengths)
+        got = ab.paged_decode_attention(q, *nan, lens, tables)
+        again = ab.paged_decode_attention(q, *nan, lens, tables)
+        ref = ab.paged_decode_attention_plain(q, *zero, lens, tables).float()
+        torch.cuda.synchronize()
+        call = (lambda: ab.paged_decode_attention(q, *nan, lens, tables))
+        per_name = by_name(call)
+        qs = q[:, :, None, :].to(torch.bfloat16)
+        row = {"tree": name, "kernel": key, "B": len(lengths), "Hq": hq,
+               "Hkv": hkv, "D": d, "q_dtype": dname, "lengths": lengths,
+               "gate": K12_GATES[dname],
+               "rel_err": float((got.float() - ref).abs().max()
+                                / ref.abs().max()),
+               "deterministic": torch.equal(got, again),
+               "finite": bool(torch.isfinite(got).all()),
+               "ms": timer(call),
+               "kernel_device_ms": sum(v for k, v in per_name.items()
+                                       if "paged_bf16_kernel" in k),
+               "device_ms_by_name": per_name,
+               "bound_ms": k12_bound_ms(q, hkv, lengths, tables.shape[1]),
+               "sdpa_ms": timer(lambda: sdpa(qs, kd, vd, attn_mask=amask))}
+        if hasattr(ab, "paged_decode_blocks"):
+            row["blocks_per_sm"] = ab.paged_decode_blocks(
+                ab.kernel_head_dim(d), min(hq // hkv, ab.GMAX))
+        print(json.dumps(row), flush=True)
+        del q, nan, zero, kd, vd
+
+
+def probe_tree(name: str, root: str, kernels=("k13", "k12")) -> int:
     """Build, check and time one tree's kernels through its own package."""
     sys.path.insert(0, str(Path(root).resolve()))
     from mxq_tpu_torch import _build
@@ -106,10 +213,15 @@ def probe_tree(name: str, root: str) -> int:
     if not Path(ab.__file__).resolve().is_relative_to(Path(root).resolve()):
         raise RuntimeError(f"tree {name}: imported {ab.__file__}")
     logs = {}
-    _build.build(SOURCES, verbose=True, logs=logs)
+    _build.build([s for k in kernels for s in SOURCES[k]], verbose=True,
+                 logs=logs)
     for src, log in logs.items():
         print(json.dumps({"tree": name, "source": src,
                           **_build.ptxas_report(log, "kernel")}), flush=True)
+    if "k12" in kernels:
+        probe_k12(name, ab, Timer())
+    if "k13" not in kernels:
+        return 0
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for (b, t, hq, hkv, d), (dname, gate) in itertools.product(
@@ -189,10 +301,14 @@ def main(argv=None) -> int:
     ap.add_argument("--trees", default="",
                     help="NAME=ROOT,...: other trees of the package, each "
                          "built and timed as NAME")
+    ap.add_argument("--kernels", default="k13,k12",
+                    help="comma-separated subset of k13 (K13 and K13-bwd) "
+                         "and k12")
     ap.add_argument("--tree", help=argparse.SUPPRESS)   # NAME=ROOT: one tree
     args = ap.parse_args(argv)
+    kernels = [k for k in args.kernels.split(",") if k]
     if args.tree:
-        return probe_tree(*args.tree.split("=", 1))
+        return probe_tree(*args.tree.split("=", 1), kernels=kernels)
     others = [t.split("=", 1) for t in filter(None, args.trees.split(","))]
     order = [*others, ("this", str(HERE))]
     if others:
@@ -203,7 +319,8 @@ def main(argv=None) -> int:
     print(json.dumps({"card": smi}), flush=True)
     for name, root in order:
         subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        "--tree", f"{name}={root}"], check=True)
+                        "--tree", f"{name}={root}", "--kernels",
+                        args.kernels], check=True)
     return 0
 
 

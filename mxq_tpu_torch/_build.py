@@ -59,7 +59,8 @@ SIGNATURES = {
         "uniform_gemv": [I, I, P, I, I, P, P, P, I, I, I, I, I, P, P, P],
         "uniform_gemv_tiles": [P, I]},
     "paged_attn_bf16": {
-        "paged_attn_bf16": [P] * 5 + [I] * 8 + [F] + [P] * 4},
+        "paged_attn_bf16": [P, I] + [P] * 4 + [I] * 10 + [F] + [P] * 4,
+        "paged_attn_bf16_blocks": [I, I, P]},
     "flash_attn": {
         "flash_attn": [P] * 5 + [L] * 6 + [I] * 7 + [F, P, P],
         "flash_split": [P, L, L, P] + [I] * 5 + [P]},

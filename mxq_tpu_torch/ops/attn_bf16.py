@@ -21,12 +21,12 @@ its kernel for tensors on the card, where a failed launch raises. The
 kernels are templates at head_dim 64 and 128; the wrappers run every other
 D <= 128 at the next of them, as upstream takes every D <= 128, and refuse
 D > 128: K13 and K13-bwd at bfloat16 on zero-padded copies
-(:func:`pad_head_dim`), K12 on a padded q, reading the pool's pages in
-place. At float32, K13 and K13-bwd first run the split pass
-(:func:`flash_split`'s kernel, inside the same launch), which writes the
-inputs' bf16 hi and lo planes with zeros past D, so no padded copy is
-made: the kernels then run the bf16 design's products three times (hi.lo
-+ lo.hi + hi.hi).
+(:func:`pad_head_dim`); K12 reads q, the pool's pages and its output at
+their width, zeros past D in its tiles. At float32, K13 and K13-bwd
+first run the split pass (:func:`flash_split`'s kernel, inside the same
+launch), which writes the inputs' bf16 hi and lo planes with zeros past
+D, so no padded copy is made: the kernels then run the bf16 design's
+products three times (hi.lo + lo.hi + hi.hi).
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ from mxq_tpu_torch.ops.attn_int8 import reserve_tickets
 from mxq_tpu_torch.scheme import div_const
 
 NEG = torch.finfo(torch.float32).min
-SPLIT_ROWS = 128    # history rows per block of K12 (paged_attn_bf16.cu CH)
+SPLIT_ROWS = 256    # history rows per K12 work item (paged_attn_bf16.cu SPLIT)
 GMAX = 16           # query heads per kv head of one K12 launch
 HEAD_DIMS = (64, 128)   # the kernels' head_dim templates
 MAX_HEAD_DIM = HEAD_DIMS[-1]
@@ -101,13 +101,14 @@ def paged_decode_attention_plain(q, k_pages, v_pages, lengths, page_indices,
     return torch.einsum("bhs,bhsd->bhd", probs, v).to(q.dtype)
 
 
-def _paged_scratch(b, hq, hkv, pps, ps, d, device):
+def _paged_scratch(b, g, hkv, pps, ps, w, device):
     """K12's f32 scratch (each split's max, sum and partial context per
-    (row, query head), one split per ``SPLIT_ROWS`` history rows) and the
-    tickets of :func:`attn_int8.reserve_tickets`. Inside a captured chunk
-    the scratch comes from the graph's pool, as K9-K11's does."""
+    (row, kv head, query head of the launch), one split per ``SPLIT_ROWS``
+    history rows the table holds) and the tickets of
+    :func:`attn_int8.reserve_tickets`. Inside a captured chunk the scratch
+    comes from the graph's pool, as K9-K11's does."""
     tickets = reserve_tickets(b * hkv, device)
-    ws = torch.empty(b * hq * -(-pps * ps // SPLIT_ROWS) * (d + 2),
+    ws = torch.empty(b * hkv * g * -(-pps * ps // SPLIT_ROWS) * (w + 2),
                      dtype=torch.float32, device=device)
     return ws, tickets
 
@@ -123,12 +124,14 @@ def _check(what, want):
 
 
 def _paged_check(q, k_pages, v_pages, lengths, page_indices):
-    """K12's checks on its inputs (q float32 contiguous): G, the query
-    heads per kv head, or a ValueError."""
+    """K12's checks on its inputs (q bf16 or float32, contiguous): G, the
+    query heads per kv head, or a ValueError."""
     b, hq, d = q.shape
     hkv, lp, ps, _ = k_pages.shape
     pps = page_indices.shape[1]
-    _check("K12", [("q", q, torch.float32, (b, hq, d)),
+    qt = q.dtype if q.dtype in (torch.bfloat16, torch.float32) \
+        else torch.float32
+    _check("K12", [("q", q, qt, (b, hq, d)),
                    ("k_pages", k_pages, torch.bfloat16, (hkv, lp, ps, d)),
                    ("v_pages", v_pages, torch.bfloat16, (hkv, lp, ps, d)),
                    ("lengths", lengths, torch.int32, (b,)),
@@ -140,24 +143,38 @@ def _paged_check(q, k_pages, v_pages, lengths, page_indices):
     return hq // hkv
 
 
-def _paged_launch(q, k_pages, v_pages, lengths, page_indices, sqrt_d):
-    """One K12 launch: q [B, Hkv * G, W] float32 contiguous with G <=
-    GMAX and W one of HEAD_DIMS, zero past the pages' row width D <= W;
-    the kernel reads the pages [Hkv, LP, ps, D] in place."""
+def _paged_launch(q, k_pages, v_pages, lengths, page_indices, out, g0, g):
+    """One K12 launch: query heads g0 .. g0 + g - 1 (g <= GMAX) of each kv
+    head, q [B, Hq, D] bf16 or float32 contiguous read at its width D,
+    the pages [Hkv, LP, ps, D] read in place, those heads of ``out``
+    (shaped and typed as q) written."""
     from mxq_tpu_torch import _build
-    b, hq, w = q.shape
-    hkv, lp, ps, d = k_pages.shape
+    b, hq, d = q.shape
+    hkv, lp, ps, _ = k_pages.shape
     pps = page_indices.shape[1]
-    ws, tickets = _paged_scratch(b, hq, hkv, pps, ps, w, q.device)
-    out = torch.empty((b, hq, w), dtype=torch.float32, device=q.device)
+    w = kernel_head_dim(d)
+    ws, tickets = _paged_scratch(b, g, hkv, pps, ps, w, q.device)
     err = _build.load("paged_attn_bf16").paged_attn_bf16(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        lengths.data_ptr(), page_indices.data_ptr(), b, hkv, hq // hkv, w,
-        d, lp, ps, pps, sqrt_d, ws.data_ptr(), tickets.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
+        q.data_ptr(), int(q.dtype == torch.float32), k_pages.data_ptr(),
+        v_pages.data_ptr(), lengths.data_ptr(), page_indices.data_ptr(), b,
+        hkv, hq // hkv, g0, g, w, d, lp, ps, pps, math.sqrt(d),
+        ws.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "K12")
     count_launch(paged_decode_attention)
-    return out
+
+
+def paged_decode_blocks(w: int, g: int) -> int:
+    """Blocks of K12's kernel at template width ``w`` and ``g`` query
+    heads a launch that one SM of the current card holds at once (the
+    grid is this times the SMs, or the most items a call can have)."""
+    import ctypes
+
+    from mxq_tpu_torch import _build
+    n = ctypes.c_int(0)
+    _build.check(_build.load("paged_attn_bf16").paged_attn_bf16_blocks(
+        w, g, ctypes.byref(n)), "K12 occupancy")
+    return n.value
 
 
 def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices):
@@ -170,35 +187,21 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices):
     Returns [B, Hq, D] in q's type. On the card the rows must be at least
     1 long (a row of length <= 0 gets zeros) and an engine reserves the
     tickets before it captures a chunk (``attn_int8.reserve_tickets``).
-    A D below 128 other than 64 runs at the next of HEAD_DIMS: q is
-    padded with zeros (:func:`pad_head_dim`) and the kernel reads the
-    pages in place, zeros past D in its tiles; more than GMAX query heads
-    per kv head take one launch per GMAX of them, each launch counted."""
+    The kernel reads q and writes the result in q's type at its width D
+    (any D <= 128, run at the next of HEAD_DIMS with zeros past D in its
+    tiles) and reads the pages in place: one launch a call, and one more
+    per GMAX query heads of a kv head beyond the first GMAX, each
+    counted."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, lengths,
                                             page_indices)
-    qf = q.float().contiguous()
-    g = _paged_check(qf, k_pages, v_pages, lengths, page_indices)
-    b, hq, d = q.shape
-    hkv = k_pages.shape[0]
-    w = kernel_head_dim(d)
-    qf = pad_head_dim(qf, w)
-    if g <= GMAX:
-        out = _paged_launch(qf, k_pages, v_pages, lengths, page_indices,
-                            math.sqrt(d))
-    else:
-        # each kv head's query heads in groups of up to GMAX, one launch a
-        # group, put back in head order
-        qg = qf.view(b, hkv, g, w)
-        out = torch.empty_like(qg)
-        for g0 in range(0, g, GMAX):
-            g1 = min(g, g0 + GMAX)
-            part = _paged_launch(
-                qg[:, :, g0:g1].reshape(b, hkv * (g1 - g0), w), k_pages,
-                v_pages, lengths, page_indices, math.sqrt(d))
-            out[:, :, g0:g1] = part.view(b, hkv, g1 - g0, w)
-        out = out.view(b, hq, w)
-    return out[..., :d].to(q.dtype).contiguous()
+    q = q.contiguous()
+    g = _paged_check(q, k_pages, v_pages, lengths, page_indices)
+    out = torch.empty_like(q)
+    for g0 in range(0, g, GMAX):
+        _paged_launch(q, k_pages, v_pages, lengths, page_indices, out, g0,
+                      min(GMAX, g - g0))
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -238,8 +238,8 @@ def paged_attend(q, k_pages_l, v_pages_l, lengths, page_indices):
     """q [B, NH, D]; k/v_pages_l: one layer's view [KVH, P, ps, D] or the
     whole folded pool with ``page_indices`` [B, PPS] already physical
     (l*P + p). Rows < lengths[b] are attended. An int8 (dict) pool goes
-    through K9; a bf16 pool through K12 on the card (D 64 or 128; any
-    other D raises) and through K12's plain version on the CPU. Returns
+    through K9; a bf16 pool through K12 on the card (any D <= 128) and
+    through K12's plain version on the CPU. Returns
     [B, NH, D] in q's type."""
     if isinstance(k_pages_l, dict):
         return attn_int8.int8_paged_decode_attention(

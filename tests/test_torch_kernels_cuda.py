@@ -453,22 +453,11 @@ def test_paged_kernels_match_plain(gen, g, d, pps):
     assert changed <= 2 * len(plist) * hkv * (d + 2)   # the written rows
 
 
-@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("ps,pps", [(64, 3), (64, 32), (16, 9)])
-@pytest.mark.parametrize("g,d", [(1, 64), (4, 128), (8, 128), (4, 96),
-                                 (32, 128), (4, 100), (2, 98), (1, 99)])
-def test_k12_matches_plain(gen, g, d, ps, pps, q_dtype):
-    """K12 against its plain version: shuffled tables, lengths cut at page
-    and split edges (1, 63-65, 127-129, the whole table); the kernel reads
-    a pool whose null page is NaN, the plain version (which gathers every
-    page) the same pool with it zeroed. float32 q: <= 1e-5 of max|ctx|
-    (summation order); bf16 q: <= 1e-2 (the output's rounding). D = 96,
-    100, 98 and 99 run at 128 with q padded, the kernel reading the pages
-    in place by copies of 16, 8, 4 and 2 bytes; G = 32 as two launches of
-    16 query heads per kv head."""
-    hkv = 2
-    lens = [n for n in (1, 63, 64, 65, 127, 128, 129, pps * ps)
-            if n <= pps * ps]
+def _k12_pool(gen, lens, hkv, g, d, ps, pps, q_dtype):
+    """K12's inputs: shuffled tables with the null page 0 past each
+    length; pages with NaN in the null page and past each length in its
+    last live page (what the kernel reads), the same pages with zeros
+    there (what the plain version, which gathers every page, reads)."""
     b, lp = len(lens), 1 + len(lens) * pps
     cat = dict(generator=gen, device="cuda")
     kz = torch.randn((hkv, lp, ps, d), **cat).to(torch.bfloat16)
@@ -479,18 +468,72 @@ def test_k12_matches_plain(gen, g, d, ps, pps, q_dtype):
         tables[i, -(-n // ps):] = 0
     kp, vp = kz.clone(), vz.clone()
     kp[:, 0] = vp[:, 0] = float("nan")
+    kz[:, 0] = vz[:, 0] = 0
+    for i, n in enumerate(lens):
+        if 0 < n < pps * ps and n % ps:
+            last = int(tables[i, n // ps])
+            kp[:, last, n % ps:] = vp[:, last, n % ps:] = float("nan")
+            kz[:, last, n % ps:] = vz[:, last, n % ps:] = 0
     q = torch.randn((b, hkv * g, d), **cat).to(q_dtype)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    return q, (kp, vp), (kz, vz), lengths, tables
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("ps,pps", [(64, 3), (64, 32), (16, 9)])
+@pytest.mark.parametrize("g,d,hkv", [(1, 64, 2), (4, 128, 2), (8, 128, 2),
+                                     (8, 128, 8), (4, 96, 2), (32, 128, 2),
+                                     (4, 100, 2), (2, 98, 2), (1, 99, 2)])
+def test_k12_matches_plain(gen, g, d, hkv, ps, pps, q_dtype):
+    """K12 against its plain version: shuffled tables, lengths cut at page,
+    tile and split edges (1, 63-65, 127-129, 255-257, the whole table);
+    the kernel reads
+    a pool with NaN in the null page and past each length in its last
+    live page, the plain version (which gathers every page) the same pool
+    with zeros there. float32 q: <= 1e-5 of max|ctx| (summation order);
+    bf16 q: <= 1e-2 (the output's rounding). Two calls give the same
+    bits. D = 96 and 100, 98 and 99 run at 128, the kernel reading the
+    pages in place by bulk copies a row, and by copies of 8, 4 and 2
+    bytes; G = 32 as two launches of 16 query heads per kv head;
+    llama2_70b's heads at (8, 128) with 8 kv heads."""
+    lens = [n for n in (1, 63, 64, 65, 127, 128, 129, 255, 256, 257,
+                        pps * ps) if n <= pps * ps]
+    q, nan, zero, lengths, tables = _k12_pool(gen, lens, hkv, g, d, ps,
+                                              pps, q_dtype)
     before = ab.paged_decode_attention.launches
-    got = ab.paged_decode_attention(q, kp, vp, lengths, tables)
-    ref = ab.paged_decode_attention_plain(q, kz, vz, lengths, tables)
+    got = ab.paged_decode_attention(q, *nan, lengths, tables)
+    ref = ab.paged_decode_attention_plain(q, *zero, lengths, tables)
+    again = ab.paged_decode_attention(q, *nan, lengths, tables)
     torch.cuda.synchronize()
-    assert ab.paged_decode_attention.launches == before + -(-g // ab.GMAX)
+    assert ab.paged_decode_attention.launches == before + 2 * -(-g // ab.GMAX)
     assert got.dtype == q_dtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
     tol = 1e-5 if q_dtype == torch.float32 else 1e-2
     assert float((got.float() - ref.float()).abs().max()
                  / ref.float().abs().max()) <= tol
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g,d", [(1, 128), (8, 128), (4, 64), (2, 96)])
+def test_k12_row_bits_independent_of_batch(gen, g, d, q_dtype):
+    """A row of 300 rows (two splits, a cut tile) gives the same bits
+    alone as row 3 of a batch of other lengths (1, 129, 2000, 64, 2047,
+    1000, 5) over the same pages, whose work spreads over every block of
+    the grid; a batch row of length 0 gives zeros."""
+    ps, pps = 64, 32
+    lens = [1, 129, 2000, 300, 64, 2047, 1000, 5]
+    q, nan, _, lengths, tables = _k12_pool(gen, lens, 2, g, d, ps, pps,
+                                           q_dtype)
+    inside = ab.paged_decode_attention(q, *nan, lengths, tables)
+    alone = ab.paged_decode_attention(q[3:4].clone(), *nan, lengths[3:4],
+                                      tables[3:4].clone())
+    lengths[0] = 0
+    zeroed = ab.paged_decode_attention(q, *nan, lengths, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(alone[0], inside[3])
+    assert torch.equal(zeroed[1:], inside[1:])
+    assert not bool(zeroed[0].any())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -800,9 +843,10 @@ def llama_d96_2():
 
 def test_paged_bf16_engine_at_head_dim_96(llama_d96_2, monkeypatch):
     """PagedEngine's bf16 pool at head_dim 96: every K12 launch reads the
-    engine's own pages (their storage, 96 wide) with q padded to 128, so
-    no copy of the pool is made; the decode chunks replayed as CUDA graphs
-    give the greedy tokens and K12 launches of the same run op by op."""
+    engine's own pages (their storage, 96 wide) and q at its width 96, so
+    no copy of the pool or of q is made; the decode chunks replayed as CUDA
+    graphs give the greedy tokens and K12 launches of the same run op by
+    op."""
     import numpy as np
 
     from mxq_tpu_torch.serving import graphs, paged
@@ -833,7 +877,7 @@ def test_paged_bf16_engine_at_head_dim_96(llama_d96_2, monkeypatch):
         torch.cuda.synchronize()
         pool = (e.pool.k_pages.untyped_storage().data_ptr(),
                 e.pool.v_pages.untyped_storage().data_ptr())
-        assert seen and all(x == (*pool, 96, 128) for x in seen)
+        assert seen and all(x == (*pool, 96, 96) for x in seen)
         seen.clear()
         runs[mode] = ([list(map(int, r.generated)) for r in reqs],
                       ab.paged_decode_attention.launches - before)
