@@ -25,7 +25,12 @@ Phases, each printing one JSON line:
            dQ, dK and dV, at T = 2048, at G = 8, at float32 and at
            head_dim 96; two calls give equal bits) against
            their plain PyTorch versions at llama2_7b's shapes and time
-           kernel, plain version, bound and library call; K1 at 8, 40
+           kernel, plain version, bound and library call; the head_dims
+           past 64 and 128 at the widths phase head_dims serves: K4,
+           K4a (a verify) and K11 at open_llama_3b's 32 heads of 100
+           (read in place at 128), K4, K11, K12, K13 and K13-bwd (bf16
+           and float32) at Gemma-2B's 8 heads of 256 over one kv head
+           (rows K4-d100 .. K13-bwd-f32-d256); K1 at 8, 40
            and 128 rows, K6 at 8, 1, 40 and 128; K7 at 1, 8, 40,
            128 and 2048 rows, K8 at 8 and 128; and trace K4's gap to its
            plain version to pass A's scores (``K4-gap``)
@@ -67,6 +72,22 @@ Phases, each printing one JSON line:
            with its top device ops and idle share; every Engine of the
            phase schedules through the C++ scheduler, which decides as
            its plain Python version on 20,000 random operations
+  head_dims the head_dims past 64 and 128 through the engines, each run
+           counted (launches set to 0 before it, read after) and then
+           made again with the attention kernels' plain versions on the
+           card, op by op, greedy tokens equal (a parting only at a near
+           tie, TIE_GATE): open_llama_3b's widths (OPEN_LLAMA_3B, D = 100,
+           full depth, packed from float32 weights): the slot Engine
+           with the int8 cache (K1, K4), the PagedEngine's int8 pool
+           (K11) and bf16 pool (K12), pipelined speculative decoding on
+           repetitive prompts (K4a), each prefill at the 128 bucket
+           through K13; Gemma-2B's widths (GEMMA_2B, D = 256, G = 8,
+           full depth, packed from float32 weights): the slot Engine
+           (K4), both pools (K11, K12), K13 in the prefills;
+           `cli train --model` on a 2-layer HF checkpoint at Gemma-2B's
+           widths, KD, 2 steps of 512 tokens at float32 and bfloat16
+           (K13 and K13-bwd at 256). Its launches are the kernels line's
+           for the rows K4-d100 .. K13-bwd-f32-d256
   eval     perplexity of llama2_7b at full depth: `cli eval-ppl --w_bits 2`
            (the fake-quant forward), the packed model at seqlen 128 once
            per GEMV layout (slab K1, quad and bfexp K6) and at seqlen 2048
@@ -161,6 +182,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -180,8 +202,8 @@ CLI_SERVE = ["serve", "--preset", "llama2_7b", "--packed", "--kv_bits", "8",
              "--slots", "8", "--max_len", "2048", "--requests", "8",
              "--prompt_len", "100", "--max_new_tokens", "32",
              "--seed", str(SEED)]
-PHASES = ("build", "kernels", "serve", "eval", "ptq", "train", "tasks",
-          "parallel", "multihost", "vision", "e2e")
+PHASES = ("build", "kernels", "serve", "head_dims", "eval", "ptq", "train",
+          "tasks", "parallel", "multihost", "vision", "e2e")
 
 # the ptq phase's cli ptq run (its --save_model is added at run time)
 PTQ_ARGV = ["ptq", "--preset", "llama2_7b", "--dtype", "bfloat16", "--mode",
@@ -196,6 +218,29 @@ PTQ_PREFILL_GATE = 3e-2
 # the verify round's logits against decode's, over max|logit|
 # (phase_e2e's limit)
 SPEC_GATE = 1e-2
+
+# phase head_dims' configurations, each a LlamaConfig at a published
+# model's widths with random weights from SEED: openlm-research/
+# open_llama_3b's config.json (head_dim 100, 26 layers), and google/
+# gemma-2b's attention widths as a Llama (head_dim 256 = 2048 / 8 over one
+# kv head; its GeGLU, norm offset and embedding scale are not modelled)
+OPEN_LLAMA_3B = dict(vocab_size=32000, hidden_size=3200,
+                     intermediate_size=8640, num_hidden_layers=26,
+                     num_attention_heads=32, num_key_value_heads=32,
+                     max_position_embeddings=2048)
+GEMMA_2B = dict(vocab_size=256000, hidden_size=2048,
+                intermediate_size=16384, num_hidden_layers=18,
+                num_attention_heads=8, num_key_value_heads=1,
+                max_position_embeddings=8192)
+# phase head_dims' cli train at Gemma-2B's widths: layers of the
+# checkpoint it writes (the f32 student, teacher, gradients and AdamW
+# moments at 18 layers, 63 GB, nearly fill a card)
+GEMMA_TRAIN_LAYERS = 2
+# where greedy tokens of a run with the kernels part from the same run
+# through the plain versions, the plain versions' top-two logit gap at the
+# parting token, over max|logit|, at most this: a near tie, which
+# summation order may break either way (SPEC_GATE's form)
+TIE_GATE = SPEC_GATE
 
 # the train phase's cli train run: llama2_7b's widths at 4 layers (its
 # f32 weights, gradients and AdamW moments at full depth, 108 GB, outgrow
@@ -340,6 +385,29 @@ KERNEL_INFO = {
                 "mxq_tpu/models/llama.py:383"),
     "K13-bwd-d96": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
                     "mxq_tpu/models/llama.py:383"),
+    # the head_dims past 128 and between the templates (phase kernels'
+    # rows at open_llama_3b's D = 100 and Gemma-2B's D = 256; their
+    # launches are phase head_dims' runs at those widths)
+    "K4-d100": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
+                "mxq_tpu/ops/attn_int8.py:318"),
+    "K4a-d100": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
+                 "mxq_tpu/ops/attn_int8.py:97"),
+    "K11-d100": ("cuda", "mxq_tpu_torch/csrc/paged_attn_int8.cu",
+                 "mxq_tpu/ops/attn_int8.py:773"),
+    "K4-d256": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
+                "mxq_tpu/ops/attn_int8.py:318"),
+    "K11-d256": ("cuda", "mxq_tpu_torch/csrc/paged_attn_int8.cu",
+                 "mxq_tpu/ops/attn_int8.py:773"),
+    "K12-d256": ("cuda", "mxq_tpu_torch/csrc/paged_attn_bf16.cu",
+                 "mxq_tpu/serving/paged.py:265"),
+    "K13-d256": ("cuda", "mxq_tpu_torch/csrc/flash_attn.cu",
+                 "mxq_tpu/models/llama.py:383"),
+    "K13-f32-d256": ("cuda", "mxq_tpu_torch/csrc/flash_attn.cu",
+                     "mxq_tpu/models/llama.py:383"),
+    "K13-bwd-d256": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
+                     "mxq_tpu/models/llama.py:383"),
+    "K13-bwd-f32-d256": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
+                         "mxq_tpu/models/llama.py:383"),
 }
 
 
@@ -610,6 +678,7 @@ def phase_kernels(torch, timer):
         (kcur, kscur, vcur, vscur), idx, positions)
     del kc, vc
     failures += paged_kernels(torch, timer, gen, rows, summary)
+    failures += head_dim_int8_kernels(torch, timer, gen, rows, summary)
     failures += bf16_kernels(torch, timer, gen, rows, summary)
     failures += uniform_kernels(torch, timer, gen, rows, summary)
     return summary, failures
@@ -1182,6 +1251,135 @@ def paged_kernels(torch, timer, gen, rows, summary):
     return failures
 
 
+# the int8 family at the head_dims past 64 and 128 (B = 8, S = 2048,
+# flash_probe.INT8_POSITIONS): open_llama_3b's 32 heads of 100 (rows read
+# in place at the 128 template; K4a as the speculative verify's 5 query
+# tokens) and Gemma-2B's 8 heads of 256 over one kv head
+INT8_WIDTHS = (("d100", 32, 32, 100, ("K4", "K4a", "K11")),
+               ("d256", 8, 1, 256, ("K4", "K11")))
+
+
+def head_dim_int8_kernels(torch, timer, gen, rows, summary):
+    """K4 (the current token folded in and its code rows written in
+    place), K4a (a verify of 5 query tokens per slot in one launch, token
+    t over rows <= pos + t) and K11 (the paged pool of 128-row pages under
+    shuffled tables, the current row and scales written) at INT8_WIDTHS,
+    against their plain versions: ctx within 1e-3 of max|ctx| (K4's
+    gate), K4's and K11's written bytes equal to the plain version's, K4a
+    leaving the cache as it was. Library: SDPA over the dequantized
+    layer (k, v repeated to Hq heads), masked to the rows each query
+    attends (with the current row spliced in at pos for K4 and K11)."""
+    from flash_probe import int8_bytes, int8_inputs
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    failures = []
+    for suffix, hq, hkv, d, keys in INT8_WIDTHS:
+        x = int8_inputs(gen, a8, hq, hkv, d)
+        q, cur, pos, tables = x["q"], x["cur"], x["pos"], x["tables"]
+        kc, ks, vc, vs = x["kc"], x["ks"], x["vc"], x["vs"]
+        b, s, g = q.shape[0], kc.shape[3], hq // hkv
+        rws, p = torch.arange(b, device="cuda"), pos.long()
+
+        def dequant(c, sc):
+            return (c.float() * sc.float()[..., None]).to(
+                torch.bfloat16).repeat_interleave(g, dim=1)
+        spliced = [t[0].clone() for t in (kc, ks, vc, vs)]
+        for t, c in zip(spliced, cur):
+            t[rws, :, p] = c[:, :, 0]
+        lib_now = (dequant(kc[0], ks[0]), dequant(vc[0], vs[0]))
+        lib_cur = (dequant(spliced[0], spliced[1]),
+                   dequant(spliced[2], spliced[3]))
+        del spliced
+        keys_s = torch.arange(s, device="cuda")
+        verify_pos = pos.clamp(max=s - 5)
+        qv = torch.randn((b, 5, hq, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for key in keys:
+            name = f"{key}-{suffix}"
+            mine, theirs, check = None, None, None
+            if key == "K4":
+                mine, theirs = [kc.clone(), vc.clone()], [kc.clone(),
+                                                          vc.clone()]
+
+                def fn(c=mine):
+                    return a8.int8_decode_attention_fused_write(
+                        q, c[0], ks, c[1], vs, *cur, 0, pos)[0]
+
+                def plain(c=theirs):
+                    return a8.int8_decode_attention_fused_write_plain(
+                        q, c[0], ks, c[1], vs, *cur, 0, pos)[0]
+                nrows = int(pos.sum())
+                lib, amask, qs = lib_cur, keys_s <= pos[:, None, None], \
+                    q[:, :, None]
+            elif key == "K4a":
+                fn = lambda: a8.int8_decode_attention_stacked(  # noqa
+                    qv, kc, ks, vc, vs, 0, verify_pos)
+                plain = lambda: a8.int8_decode_attention_stacked_plain(  # noqa
+                    qv, kc, ks, vc, vs, 0, verify_pos)
+                nrows = int((verify_pos + 5).sum())
+                kc0 = kc.clone()
+                check = lambda: torch.equal(kc, kc0)  # noqa: E731
+                lib = lib_now
+                amask = (keys_s <= (verify_pos[:, None] + torch.arange(
+                    5, device="cuda"))[..., None])
+                qs = qv.transpose(1, 2)
+            else:
+                mine = [t.clone() for t in x["pool"]]
+                theirs = [t.clone() for t in x["pool"]]
+
+                def fn(c=mine):
+                    return a8.int8_paged_decode_attend_update(
+                        q, *c, *x["pcur"], pos, tables)[0]
+
+                def plain(c=theirs):
+                    return a8.int8_paged_decode_attend_update_plain(
+                        q, *c, *x["pcur"], pos, tables)[0]
+                nrows = int(pos.sum())
+                lib, amask, qs = lib_cur, keys_s <= pos[:, None, None], \
+                    q[:, :, None]
+            out, ref = fn(), plain()
+            torch.cuda.synchronize()
+            err = rel_err(out, ref)
+            if mine is not None:
+                written = all(torch.equal(a.view(torch.uint8),
+                                          c.view(torch.uint8))
+                              for a, c in zip(mine, theirs))
+            else:
+                written = check()
+            # the bound: rows read once; operations 4 Hq D a row scored (a
+            # verify scores token i's rows <= pos + i, reads q of 5 tokens
+            # and writes their f32 contexts, and has no current token)
+            if key == "K4a":
+                scored = sum(int((verify_pos + i + 1).sum())
+                             for i in range(5))
+                nbytes = nrows * hkv * (2 * d + 4) + 5 * b * hq * d * 6
+            else:
+                scored, nbytes = nrows, int8_bytes(hq, hkv, d, nrows)
+            bms, by = bound_ms(nbytes, 4.0 * scored * hq * d)
+            row = {"kernel": name, "B": b, "Hq": hq, "Hkv": hkv, "S": s,
+                   "D": d, "rel_err": err,
+                   "max_abs_err": float((out - ref).abs().max()),
+                   ("cache_untouched" if key == "K4a"
+                    else "written_equal_to_plain"): written,
+                   "kernel_ms": timer(fn), "plain_ms": timer(plain, iters=3),
+                   "bound_ms": bms, "bound_by": by,
+                   "library_ms": timer(lambda: sdpa(
+                       qs, *lib, attn_mask=amask[:, None]))}
+            rows.append(row)
+            emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
+            if not (err <= 1e-3 and written):
+                failures.append(f"{name}: rel {err:.3g}, written/untouched "
+                                f"{written}")
+            summary[name] = summarise(
+                [row], f"B=8 Hq={hq} Hkv={hkv} D={d} S=2048, mixed "
+                "positions" + (", 5 query tokens per slot (a verify)"
+                               if key == "K4a" else "")
+                + (", 16 pages of 128 per sequence" if key == "K11"
+                   else ""))
+        del x, lib_now, lib_cur, kc, vc
+    return failures
+
+
 def bf16_kernels(torch, timer, gen, rows, summary):
     """K12 and K13 against their plain versions (ops/attn_bf16.py).
 
@@ -1287,7 +1485,9 @@ def bf16_kernels(torch, timer, gen, rows, summary):
             ("K13-g8", 512, 64, 8, D, torch.bfloat16, 2e-2),
             ("K13-f32", 2048, 32, 32, D, torch.float32, 1e-4),
             ("K13-f32", 512, 32, 32, D, torch.float32, 1e-4),
-            ("K13-d96", 2048, 32, 32, 96, torch.bfloat16, 2e-2)):
+            ("K13-d96", 2048, 32, 32, 96, torch.bfloat16, 2e-2),
+            ("K13-d256", 2048, 8, 1, 256, torch.bfloat16, 2e-2),
+            ("K13-f32-d256", 2048, 8, 1, 256, torch.float32, 1e-4)):
         q = torch.randn((1, t, hq, d), **cat).to(dtype)
         k = torch.randn((1, t, hkv, d), **cat).to(dtype)
         v = torch.randn((1, t, hkv, d), **cat).to(dtype)
@@ -1351,7 +1551,11 @@ def bf16_kernels(torch, timer, gen, rows, summary):
                          ("K13-f32", 2048,
                           "B=1 T=2048 Hq=Hkv=32 D=128 float32"),
                          ("K13-d96", 2048,
-                          "B=1 T=2048 Hq=Hkv=32 D=96 bf16, padded to 128")):
+                          "B=1 T=2048 Hq=Hkv=32 D=96 bf16, padded to 128"),
+                         ("K13-d256", 2048, "B=1 T=2048 Hq=8 Hkv=1 D=256 "
+                          "bf16 (Gemma-2B's attention)"),
+                         ("K13-f32-d256", 2048, "B=1 T=2048 Hq=8 Hkv=1 "
+                          "D=256 float32")):
         summary[key] = summarise(
             [r for r in rows if r["kernel"] == key and r["T"] == t],
             what + ", causal from position 0")
@@ -1359,7 +1563,11 @@ def bf16_kernels(torch, timer, gen, rows, summary):
                       ("K13-bwd-g8", "B=1 T=512 Hq=64 Hkv=8 D=128 bf16"),
                       ("K13-bwd-f32", "B=1 T=2048 Hq=Hkv=32 D=128 float32"),
                       ("K13-bwd-d96",
-                       "B=1 T=2048 Hq=Hkv=32 D=96 bf16, padded to 128")):
+                       "B=1 T=2048 Hq=Hkv=32 D=96 bf16, padded to 128"),
+                      ("K13-bwd-d256", "B=1 T=2048 Hq=8 Hkv=1 D=256 bf16 "
+                       "(Gemma-2B's attention)"),
+                      ("K13-bwd-f32-d256",
+                       "B=1 T=2048 Hq=8 Hkv=1 D=256 float32")):
         summary[key] = summarise(
             [r for r in rows if r["kernel"] == key
              and r["T"] == (512 if key == "K13-bwd-g8" else 2048)],
@@ -1382,8 +1590,9 @@ def split_pass_row(torch, ab, q, k, v, row) -> bool:
                                  if any(x in n for x in K13_SPLIT_NAMES))
     row["wgmma_kernel_ms"] = sum(ms for n, ms in per_kernel.items()
                                  if "flash_wgmma_kernel<" in n)
-    got = ab.flash_split(q, 128)
-    want = ab.flash_split_plain(q, 128)
+    w = ab.kernel_head_dim(q.shape[-1])
+    got = ab.flash_split(q, w)
+    want = ab.flash_split_plain(q, w)
     torch.cuda.synchronize()
     row["split_bit_equal"] = all(torch.equal(g.view(torch.int16),
                                              w.view(torch.int16))
@@ -1423,7 +1632,9 @@ def flash_backward_kernels(torch, timer, cat, rows):
             ("K13-bwd-g8", 512, 64, 8, 128, torch.bfloat16, 2e-2),
             ("K13-bwd-f32", 2048, 32, 32, 128, torch.float32, 1e-4),
             ("K13-bwd-f32", 512, 32, 32, 128, torch.float32, 1e-4),
-            ("K13-bwd-d96", 2048, 32, 32, 96, torch.bfloat16, 2e-2)):
+            ("K13-bwd-d96", 2048, 32, 32, 96, torch.bfloat16, 2e-2),
+            ("K13-bwd-d256", 2048, 8, 1, 256, torch.bfloat16, 2e-2),
+            ("K13-bwd-f32-d256", 2048, 8, 1, 256, torch.float32, 1e-4)):
         q, do = (torch.randn((1, t, hq, d), **cat).to(dtype)
                  for _ in range(2))
         k, v = (torch.randn((1, t, hkv, d), **cat).to(dtype)
@@ -2264,6 +2475,271 @@ def decode_step_profile(torch, step, walls, b=8, pos=1000, steps=4):
             "top_kernels_ms_per_step": top_ms(per_kernel, 8)}
 
 
+# phase head_dims' gates for an attention launch against its plain
+# version on the same inputs (max|kernel - plain| over max|plain|), by
+# the output's type: the K4 family and K11 (f32 out) 1e-3 as in phase
+# kernels; K12 and K13 float32 1e-5 and 1e-4, bfloat16 1e-2 and 2e-2
+SHADOW_GATES = {"K4": 1e-3, "K4a": 1e-3, "K11": 1e-3,
+                "K12": {"float32": 1e-5, "bfloat16": 1e-2},
+                "K13": {"float32": 1e-4, "bfloat16": 2e-2}}
+
+
+@contextlib.contextmanager
+def shadowed(torch, worst: dict):
+    """Each attention kernel the block launches (K4, K4a, K11, K12, K13)
+    also runs its plain version on the same inputs right after, and
+    ``worst`` keeps the largest error over max|plain| by kernel. K4's
+    and K11's plain versions are the ones without the write (K4b's,
+    K10's): they read the rows below each position, which the launch
+    left as they were. Outside CUDA graphs only (``eager_chunks``)."""
+    from mxq_tpu_torch.ops import attn_bf16 as ab
+    from mxq_tpu_torch.ops import attn_int8 as a8
+
+    def note(key, out, ref):
+        err = rel_err(out, ref)
+        worst[key] = max(worst.get(key, 0.0), err)
+
+    def wrap(mod, name, key, plain, pick=lambda r: r):
+        fn = getattr(mod, name)
+
+        def checked(*args):
+            res = fn(*args)
+            note(key, pick(res), pick(plain(*args)))
+            return res
+        # the wrapper counts its launches on the name it is bound to
+        checked.launches = 0
+        return mod, name, fn, checked
+    swaps = [
+        wrap(a8, "int8_decode_attention_fused_write", "K4",
+             lambda *a: (a8.int8_decode_attention_cur_folded_plain(*a),),
+             lambda r: r[0]),
+        wrap(a8, "int8_decode_attention_stacked", "K4a",
+             a8.int8_decode_attention_stacked_plain),
+        wrap(a8, "int8_paged_decode_attend_update", "K11",
+             lambda *a: (a8.int8_paged_decode_attention_cur_plain(*a),),
+             lambda r: r[0]),
+        wrap(ab, "paged_decode_attention", "K12",
+             ab.paged_decode_attention_plain),
+        wrap(ab, "flash_prefill_attention", "K13",
+             ab.flash_prefill_attention_plain)]
+    for mod, name, _, checked in swaps:
+        setattr(mod, name, checked)
+    try:
+        yield
+    finally:
+        for mod, name, fn, _ in swaps:
+            setattr(mod, name, fn)
+
+
+def tokens_against_plain(torch, params, cfg, prompts, got, want) -> dict:
+    """Greedy tokens of a run through the kernels (``got``) against the
+    same run through the attention kernels' plain versions (``want``),
+    request by request; where a request's tokens part, the top-two gap
+    over max|logit| of the no-cache forward of its prompt and the tokens
+    both runs agree on (attention's plain versions), at the parting
+    token. ``tokens_ok``: every request equal, or parted at a near tie
+    (<= TIE_GATE)."""
+    import numpy as np
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    from mxq_tpu_torch.ops import mxq_matmul as mm
+    parted = []
+    for n, (p, g, w) in enumerate(zip(prompts, got, want)):
+        if g == w:
+            continue
+        i = next((i for i, (x, y) in enumerate(zip(g, w)) if x != y),
+                 min(len(g), len(w)))
+        ids = np.concatenate([p, np.asarray(g[:i], np.int32)])[None]
+        with plain_versions(mm, a8, linears=False):
+            last = llama.forward(params, ids, cfg, device="cuda")[0][0, -1]
+        top = torch.topk(last, 2).values
+        parted.append({"request": n, "token": i,
+                       "gap": float((top[0] - top[1]) / last.abs().max())})
+    return {"requests": len(got), "requests_equal": len(got) - len(parted),
+            "parted": parted,
+            "tokens_ok": len(got) == len(want) and bool(got)
+            and all(x["gap"] <= TIE_GATE for x in parted)}
+
+
+def phase_head_dims(torch):
+    """The head_dims past 64 and 128 through the entry points a user
+    calls, each run three times: with the launch counts set to 0 just
+    before it and read just after (every kernel of the run launched);
+    op by op with every attention launch held against its plain version
+    on the same inputs (:func:`shadowed`, SHADOW_GATES) and the greedy
+    tokens of the first run; and op by op with the attention kernels'
+    plain versions (K4-K4d, K11, K12, K13; the linears' kernels on both
+    sides): greedy tokens equal, or parted at a near tie
+    (:func:`tokens_against_plain`: the linears round activations to
+    bf16, so a last-bit difference in attention can move a logit by
+    ulps and part the tokens where the top two nearly tie).
+    1. open_llama_3b's widths (OPEN_LLAMA_3B: head_dim 100, run in place
+       at the 128 templates), packed from float32 weights (cli serve's
+       default type), full depth, 8 prompts of 100
+       tokens (K13's position-0 prefill at the 128 bucket), 16 new tokens
+       each: the slot Engine with the int8 cache (K1, K4), the
+       PagedEngine with the int8 pool (K11) and with the bf16 pool of
+       64-row pages (K12), and the Engine at repetitive prompts through
+       pipelined speculative decoding (K4a: each verify round one launch
+       a layer).
+    2. Gemma-2B's widths (GEMMA_2B: head_dim 256, G = 8), packed from
+       float32 weights, full depth: the same prompts through the slot
+       Engine (int8 cache: K4; K13-f32 at 256), the PagedEngine's int8
+       pool (K11) and bf16 pool (K12).
+    3. ``cli train --model`` on a GEMMA_TRAIN_LAYERS-layer HF checkpoint
+       at Gemma-2B's widths (``write_hf_checkpoint``), KD, w_bits 2, 2
+       steps of 512 tokens, at float32 (the default) and bfloat16: K13
+       and K13-bwd at 256 launch, every loss finite.
+    Returns the launches of the kernel rows these widths add
+    (K4-d100, K4a-d100, K11-d100, K4-d256, K11-d256, K12-d256, K13-d256,
+    K13-f32-d256, K13-bwd-d256, K13-bwd-f32-d256) and the failures."""
+    import numpy as np
+    from mxq_tpu_torch.models import llama
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    from mxq_tpu_torch.ops import mxq_matmul as mm
+    from mxq_tpu_torch.serving import engine as eng
+    from mxq_tpu_torch.serving import paged, spec
+
+    kernels = all_kernels()
+    runs, failures, launches = {}, [], {}
+    rng = np.random.default_rng(SEED)
+    torch.cuda.empty_cache()
+
+    def counted(name, need, cfg, params, prompts, make, drive, new=16):
+        """``drive(make())`` after ``prompts`` were submitted, counted;
+        then op by op, shadowed; then through the plain versions."""
+        def run():
+            e = make()
+            reqs = [e.submit(p, max_new_tokens=new) for p in prompts]
+            drive(e)
+            torch.cuda.synchronize()
+            return [list(map(int, r.generated)) for r in reqs]
+        res = count_launches(torch, kernels, lambda: {"generated": run()})
+        got = res.pop("generated")
+        worst = {}
+        with shadowed(torch, worst), eager_chunks():
+            res["shadowed_tokens_equal"] = run() == got
+        dtype = "float32" if params["embed_tokens"].dtype == torch.float32 \
+            else "bfloat16"
+        gates = {k: g[dtype] if isinstance(g, dict) else g
+                 for k, g in SHADOW_GATES.items()}
+        res["shadow_worst_rel_err"] = worst
+        t0 = time.monotonic()
+        with plain_versions(mm, a8, linears=False), eager_chunks():
+            want = run()
+        res["plain_seconds"] = time.monotonic() - t0
+        res.update(tokens_against_plain(torch, params, cfg, prompts, got,
+                                        want))
+        res["tokens"] = sum(map(len, got))
+        runs[name] = res
+        failures.extend(f"{name}: {k} never launched" for k in need
+                        if res["launches"][k] <= 0)
+        failures.extend(f"{name}: {k} against its plain version {e:.3g} > "
+                        f"{gates[k]}" for k, e in worst.items()
+                        if not e <= gates[k])
+        if not (set(need) & set(gates)) <= set(worst):
+            failures.append(f"{name}: shadowed {sorted(worst)}, want {need}")
+        if not (res["tokens_ok"] and res["shadowed_tokens_equal"]
+                and res["tokens"] == new * len(prompts)):
+            failures.append(f"{name}: tokens {res}")
+        return res["launches"]
+
+    def engines(cfg, params):
+        slot = lambda: eng.Engine(params, cfg, eng.EngineConfig(  # noqa
+            num_slots=8, max_len=2048, seed=SEED), device="cuda")
+        int8 = lambda: paged.PagedEngine(  # noqa: E731
+            params, cfg, num_slots=8, total_pages=8 * 16 + 1, max_len=2048,
+            kv_bits=8, seed=SEED, device="cuda")
+        bf16 = lambda: paged.PagedEngine(  # noqa: E731
+            params, cfg, num_slots=8, total_pages=8 * 32 + 1, page_size=64,
+            max_len=2048, kv_bits=32, seed=SEED, device="cuda")
+        return slot, int8, bf16
+
+    def packed(widths):
+        # float32, cli serve's default type: its logits have no bf16
+        # ties for summation order to break
+        t0 = time.monotonic()
+        cfg = llama.LlamaConfig(**widths)
+        params = llama.quantize_params_packed(
+            llama.init_params(cfg, SEED, torch.float32, "cuda"), cfg,
+            device="cuda")
+        runs[f"model_d{cfg.head_dim}_seconds"] = time.monotonic() - t0
+        return cfg, params
+
+    # 1. open_llama_3b
+    cfg, params = packed(OPEN_LLAMA_3B)
+    prompts = [rng.integers(0, cfg.vocab_size, 100).astype(np.int32)
+               for _ in range(8)]
+    slot, int8, bf16 = engines(cfg, params)
+    run = lambda e: e.run()  # noqa: E731
+    got = counted("d100_slot", ("K1", "K4", "K13"), cfg, params, prompts,
+                  slot, run)
+    launches["K4-d100"] = got["K4"]
+    got = counted("d100_paged", ("K1", "K11", "K13"), cfg, params, prompts,
+                  int8, run)
+    launches["K11-d100"] = got["K11"]
+    counted("d100_paged_bf16", ("K1", "K12", "K13"), cfg, params, prompts,
+            bf16, run)
+    pattern = rng.integers(0, cfg.vocab_size, 16).astype(np.int32)
+    repetitive = [np.roll(np.tile(pattern, 8), i) for i in range(8)]
+    got = counted("d100_spec", ("K1", "K4a", "K13"), cfg, params,
+                  repetitive, slot, lambda e: spec.run_spec_pipelined(
+                      e, auto_disable=False))
+    launches["K4a-d100"] = got["K4a"]
+    del params, slot, int8, bf16
+    torch.cuda.empty_cache()
+
+    # 2. Gemma-2B
+    cfg, params = packed(GEMMA_2B)
+    slot, int8, bf16 = engines(cfg, params)
+    got = counted("d256_slot", ("K1", "K4", "K13"), cfg, params, prompts,
+                  slot, run)
+    launches["K4-d256"] = got["K4"]
+    launches["K13-f32-d256"] = got["K13"]
+    got = counted("d256_paged", ("K1", "K11", "K13"), cfg, params, prompts,
+                  int8, run)
+    launches["K11-d256"] = got["K11"]
+    launches["K13-f32-d256"] += got["K13"]
+    got = counted("d256_paged_bf16", ("K1", "K12", "K13"), cfg, params,
+                  prompts, bf16, run)
+    launches["K12-d256"] = got["K12"]
+    launches["K13-f32-d256"] += got["K13"]
+    del params, slot, int8, bf16
+    torch.cuda.empty_cache()
+
+    # 3. cli train at Gemma-2B's widths
+    tcfg = dataclasses.replace(cfg, num_hidden_layers=GEMMA_TRAIN_LAYERS)
+    with tempfile.TemporaryDirectory(prefix="mxq_d256_") as tmp:
+        ckpt = os.path.join(tmp, "hf")
+        write_hf_checkpoint(torch, ckpt, tcfg)
+        for dtype, keys in (("float32", ("K13-f32-d256", "K13-bwd-f32-d256")),
+                            ("bfloat16", ("K13-d256", "K13-bwd-d256"))):
+            out = os.path.join(tmp, dtype)
+            argv = ["train", "--model", ckpt, "--dtype", dtype, "--w_bits",
+                    "2", "--use_kd", "--batch_size", "1", "--block_size",
+                    "512", "--max_steps", "2", "--log_steps", "1",
+                    "--seed", str(SEED), "--output_dir", out]
+            torch.cuda.reset_peak_memory_stats()
+            res = count_launches(torch, kernels, lambda: dict(zip(
+                ("result", "printed"), cli_with_output(argv))))
+            m = train_metrics(os.path.join(out, "logs"), 1)
+            name = f"d256_train_{dtype}"
+            runs[name] = {"command_seconds": res["seconds"], **m,
+                          "launches": res["launches"],
+                          "peak_memory_gib":
+                              torch.cuda.max_memory_allocated() / 2**30}
+            n13, nb = res["launches"]["K13"], res["launches"]["K13-bwd"]
+            launches[keys[0]] = launches.get(keys[0], 0) + n13
+            launches[keys[1]] = nb
+            if not (n13 > 0 and nb > 0 and len(m["loss"]) == 2
+                    and all(math.isfinite(x) for x in m["loss"])):
+                failures.append(f"{name}: K13 {n13}, K13-bwd {nb}, losses "
+                                f"{m['loss']}")
+            shutil.rmtree(out, ignore_errors=True)
+    emit({"phase": "head_dims", **runs, "launches_total": launches})
+    return launches, failures
+
+
 def phase_eval(torch):
     """Perplexity of llama2_7b at full depth on ptq.data's synthetic eval
     stream, each run with its own launch counts:
@@ -3004,13 +3480,14 @@ def launches_as_implied(what: str, got: dict, want: dict) -> list:
 
 
 @contextlib.contextmanager
-def plain_versions(mm, a8, flash: bool = True):
+def plain_versions(mm, a8, flash: bool = True, linears: bool = True):
     """Route the packed linears (K1-K3, K5, K6), the K4 family, K11, the
     uniform linears (K7, K8), K12 and, with ``flash``, K13 and K13-bwd
     through their plain PyTorch versions on the card, so one forward can
     be held against the same forward with the kernels on the same device
     (no kernel launches, no counts). ``flash=False`` keeps K13 on both
-    sides, for the gates that isolate another kernel."""
+    sides, ``linears=False`` the linears' kernels (K1-K3, K5-K8), for the
+    gates that isolate another kernel."""
     from mxq_tpu_torch.ops import attn_bf16 as ab
     from mxq_tpu_torch.ops import uniform4 as u4
     swaps = [(mm, "gemv_batched", mm.gemv_plain),
@@ -3019,17 +3496,17 @@ def plain_versions(mm, a8, flash: bool = True):
              (mm, "gemv_bfexp", mm.gemv_bfexp_plain),
              (mm, "dequant_planes", mm.dequant_planes_plain),
              (mm, "dequant_int8_planes", mm.dequant_int8_planes_plain),
-             (a8, "int8_decode_attention_fused_write",
-              a8.int8_decode_attention_fused_write_plain),
-             (a8, "int8_decode_attention_stacked",
-              a8.int8_decode_attention_stacked_plain),
-             (a8, "int8_decode_attention_cur_folded",
-              a8.int8_decode_attention_cur_folded_plain),
-             (a8, "int8_paged_decode_attend_update",
-              a8.int8_paged_decode_attend_update_plain),
              (u4, "u4_gemv", u4.uniform_matmul_plain),
-             (u4, "u2_gemv", u4.uniform_matmul_plain),
-             (ab, "paged_decode_attention", ab.paged_decode_attention_plain)]
+             (u4, "u2_gemv", u4.uniform_matmul_plain)] if linears else []
+    swaps += [(a8, "int8_decode_attention_fused_write",
+               a8.int8_decode_attention_fused_write_plain),
+              (a8, "int8_decode_attention_stacked",
+               a8.int8_decode_attention_stacked_plain),
+              (a8, "int8_decode_attention_cur_folded",
+               a8.int8_decode_attention_cur_folded_plain),
+              (a8, "int8_paged_decode_attend_update",
+               a8.int8_paged_decode_attend_update_plain),
+              (ab, "paged_decode_attention", ab.paged_decode_attention_plain)]
     if flash:
         swaps += [(ab, "flash_prefill_attention",
                    ab.flash_prefill_attention_plain),
@@ -4768,6 +5245,10 @@ def main(argv=None) -> int:
         failures += f
     if "serve" in phases:
         launches, f = phase_serve(torch)
+        failures += f
+    if "head_dims" in phases:
+        more, f = phase_head_dims(torch)
+        launches.update(more)
         failures += f
     if "eval" in phases:
         more, f = phase_eval(torch)

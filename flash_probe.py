@@ -1,11 +1,16 @@
 """Check and time K13's kernels (``mxq_tpu_torch/csrc/flash_attn.cu``)
-and K13-bwd's (``csrc/flash_attn_bwd.cu``), at bfloat16 and float32, and
-K12's (``csrc/paged_attn_bf16.cu``), on the card beside SDPA, and beside
-the same kernels of other trees of the package.
+and K13-bwd's (``csrc/flash_attn_bwd.cu``), at bfloat16 and float32,
+K12's (``csrc/paged_attn_bf16.cu``) and the int8 family's K4 and K11
+(``csrc/attn_int8.cu``, ``csrc/paged_attn_int8.cu``), on the card beside
+SDPA, and beside the same kernels of other trees of the package.
 
     python3 flash_probe.py                             # this tree alone
     python3 flash_probe.py --trees parent=out/parent   # and a parent's
     python3 flash_probe.py --kernels k12               # K12 alone
+    python3 flash_probe.py --kernels int8              # K4 and K11 alone
+
+A case at a head_dim a tree's wrappers refuse (D > 128 before they took
+it) prints one line with the tree's ValueError under ``refused``.
 
 Each tree (this one as ``this``; ``--trees NAME=ROOT,...`` adds other
 trees, a ``git archive`` of the parent, say) runs in a process of its own
@@ -24,7 +29,9 @@ bits that zeros there give; the backward's max error of dQ, dK and dV over
 each one's max against ``flash_attention_bwd_plain`` on the tree's own o
 and lse, and whether two calls give the same bits (gates: bf16 2e-2,
 float32 1e-4). Then per type and shape (llama2_7b's prefills at T = 512
-and 2048, 32 heads of 128, and llama2_70b's G = 8 at 512) the CUDA-event
+and 2048, 32 heads of 128, and llama2_70b's G = 8 at 512; 32 heads of
+64 at 2048; Gemma-2B's 8 heads of 256 over one kv head at 512 and 2048)
+the CUDA-event
 median with the L2 flushed before each call (``utils.benchlib.Timer``, as
 ``chip_smoke.py``'s kernels phase times K13 and K13-bwd) of the forward
 and of the backward, the TFLOP/s of each over the causal half (4 and 10
@@ -43,7 +50,14 @@ CUDA-event median (``Timer``), the device ms of one call by kernel name
 (torch.profiler) and the kernel's own; the bound (K and V rows below the
 lengths read once, q read and the output written once, over 3.35 TB/s);
 SDPA over the gathered pages with the length mask (bf16 q, k and v
-repeated to Hq heads). Needs a CUDA device."""
+repeated to Hq heads).
+
+K4 (``int8_decode_attention_fused_write``) and K11
+(``int8_paged_decode_attend_update``) at INT8_CASES, 8 sequences at the
+positions of chip_smoke.py's K4 row: the max error over max|ctx| against
+the plain version (gate 1e-3), the written rows equal to the plain
+version's, the CUDA-event median and the bound (the history's codes and
+scales read once). Needs a CUDA device."""
 
 from __future__ import annotations
 
@@ -58,13 +72,17 @@ from pathlib import Path
 import torch
 
 # (B, T, Hq, Hkv, D) held against the plain versions: tile and block edges
+# (at D = 256 the items are 64 rows and the tiles fewer keys)
 CHECKS = [(2, 1, 4, 2, 64), (2, 127, 8, 8, 128), (2, 129, 16, 2, 128),
-          (1, 257, 4, 2, 64), (1, 2048, 32, 32, 128), (1, 512, 64, 8, 128)]
-# (T, Hq, Hkv) timed at B = 1, D = 128
-TIMED = [(2048, 32, 32), (512, 32, 32), (512, 64, 8)]
+          (1, 257, 4, 2, 64), (1, 2048, 32, 32, 128), (1, 512, 64, 8, 128),
+          (1, 257, 8, 1, 256), (2, 129, 4, 2, 192), (1, 2048, 8, 1, 256)]
+# (T, Hq, Hkv, D) timed at B = 1
+TIMED = [(2048, 32, 32, 128), (512, 32, 32, 128), (512, 64, 8, 128),
+         (2048, 32, 32, 64), (2048, 8, 1, 256), (512, 8, 1, 256)]
 DTYPES = {"bfloat16": 2e-2, "float32": 1e-4}   # and each one's gate
 SOURCES = {"k13": ("flash_attn", "flash_attn_bwd"),
-           "k12": ("paged_attn_bf16",)}
+           "k12": ("paged_attn_bf16",),
+           "int8": ("attn_int8", "paged_attn_int8")}
 HERE = Path(__file__).resolve().parent
 # K12's mixed lengths (chip_smoke's K12 rows: rows 1 .. 2047, 3,651 in
 # all) and cli serve --paged --kv_bits 32's decode (100-token prompts, 32
@@ -80,7 +98,17 @@ K12_CASES = [("K12", 32, 32, 128, "bfloat16", K12_LENGTHS),
              ("K12-d96", 32, 32, 96, "bfloat16", K12_LENGTHS),
              ("K12-serve", 32, 32, 128, "float32", K12_SERVE),
              ("K12-g8", 64, 8, 128, "float32", K12_LENGTHS),
-             ("K12-step", 32, 32, 128, "float32", [1001] * 8)]
+             ("K12-step", 32, 32, 128, "float32", [1001] * 8),
+             ("K12-d256", 8, 1, 256, "bfloat16", K12_LENGTHS)]
+# and probed here alone: 32 heads of 64, Gemma-2B's heads with float32 q
+K12_PROBE_EXTRA = [("K12-d64", 32, 32, 64, "bfloat16", K12_LENGTHS),
+                   ("K12-d256-f32", 8, 1, 256, "float32", K12_LENGTHS)]
+# (name, Hq, Hkv, D) of K4 and K11 at B = 8, S = 2048: llama2_7b's heads,
+# 64 heads of 64, open_llama_3b's 32 heads of 100 (in place at 128) and
+# Gemma-2B's 8 heads of 256 over one kv head
+INT8_CASES = [("d128", 32, 32, 128), ("d64", 64, 64, 64),
+              ("d100", 32, 32, 100), ("d256", 8, 1, 256)]
+INT8_POSITIONS = [0, 1, 17, 300, 1024, 1500, 2000, 2046]
 K12_GATES = {"bfloat16": 1e-2, "float32": 1e-5}
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (data sheet)
 
@@ -174,10 +202,16 @@ def probe_k12(name: str, ab, timer) -> None:
     """K12 of one tree at K12_CASES: one JSON line a case."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for key, hq, hkv, d, dname, lengths in K12_CASES:
+    for key, hq, hkv, d, dname, lengths in K12_CASES + K12_PROBE_EXTRA:
         q, nan, zero, lens, tables, (kd, vd, amask) = k12_inputs(
             gen, hq, hkv, d, getattr(torch, dname), lengths)
-        got = ab.paged_decode_attention(q, *nan, lens, tables)
+        out = {}
+        if refused(name, {"kernel": key, "Hq": hq, "Hkv": hkv, "D": d,
+                          "q_dtype": dname},
+                   lambda: out.update(got=ab.paged_decode_attention(
+                       q, *nan, lens, tables))):
+            continue
+        got = out["got"]
         again = ab.paged_decode_attention(q, *nan, lens, tables)
         ref = ab.paged_decode_attention_plain(q, *zero, lens, tables).float()
         torch.cuda.synchronize()
@@ -198,10 +232,121 @@ def probe_k12(name: str, ab, timer) -> None:
                "bound_ms": k12_bound_ms(q, hkv, lengths, tables.shape[1]),
                "sdpa_ms": timer(lambda: sdpa(qs, kd, vd, attn_mask=amask))}
         if hasattr(ab, "paged_decode_blocks"):
+            w = ab.kernel_head_dim(d)
+            per = (ab.heads_per_launch(w) if hasattr(ab, "heads_per_launch")
+                   else ab.GMAX)
             row["blocks_per_sm"] = ab.paged_decode_blocks(
-                ab.kernel_head_dim(d), min(hq // hkv, ab.GMAX))
+                w, min(hq // hkv, per))
         print(json.dumps(row), flush=True)
         del q, nan, zero, kd, vd
+
+
+def refused(name: str, case: dict, fn) -> bool:
+    """Run ``fn``; where the tree's wrappers refuse the case's head_dim
+    (a ValueError), print that and return True."""
+    try:
+        fn()
+    except ValueError as e:
+        print(json.dumps({"tree": name, **case, "refused": str(e)}),
+              flush=True)
+        return True
+    return False
+
+
+def int8_inputs(gen, a8, hq, hkv, d, s=2048):
+    """K4's and K11's inputs at B = len(INT8_POSITIONS): q [B, Hq, D]
+    bf16; one layer of codes [1, B, Hkv, S, D] int8 and scales [1, B,
+    Hkv, S] bf16; the current token's rows for K4 ([B, Hkv, 1, D], [B,
+    Hkv, 1]) and for K11 ([B, Hkv, D], [B, Hkv]); the same history as a
+    pool of 128-row pages under shuffled tables (a sequence's S rows on
+    its S / 128 pages, the null page 0 unused); the positions."""
+    cat = dict(generator=gen, device="cuda")
+    b, ps = len(INT8_POSITIONS), a8.PAGE_INT8
+    codes = lambda *sh: torch.randint(  # noqa: E731
+        -127, 128, sh, dtype=torch.int8, **cat)
+    scales = lambda *sh: (torch.rand(sh, **cat) * 0.02  # noqa: E731
+                          + 1e-3).to(torch.bfloat16)
+    kc, vc = codes(1, b, hkv, s, d), codes(1, b, hkv, s, d)
+    ks, vs = scales(1, b, hkv, s), scales(1, b, hkv, s)
+    cur = [codes(b, hkv, 1, d), scales(b, hkv, 1), codes(b, hkv, 1, d),
+           scales(b, hkv, 1)]
+    pps = s // ps
+    lp = 1 + b * pps
+    tables = (torch.randperm(lp - 1, **cat)[:b * pps] + 1).reshape(
+        b, pps).to(torch.int32)
+    idx = tables.long()
+
+    def paged(x):                        # [1, B, Hkv, S, ...] -> pages
+        out = x.new_zeros((hkv, lp, ps) + tuple(x.shape[4:]))
+        out[:, idx] = x[0].transpose(0, 1).reshape(
+            (hkv, b, pps, ps) + tuple(x.shape[4:]))
+        return out
+    pool = [paged(kc), paged(ks)[:, :, None], paged(vc),
+            paged(vs)[:, :, None]]
+    return dict(q=torch.randn((b, hq, d), **cat).to(torch.bfloat16),
+                kc=kc, ks=ks, vc=vc, vs=vs, cur=cur,
+                pcur=[x[:, :, 0].contiguous() for x in cur],
+                pool=[x.contiguous() for x in pool], tables=tables,
+                pos=torch.tensor(INT8_POSITIONS, dtype=torch.int32,
+                                 device="cuda"))
+
+
+def int8_bytes(hq, hkv, d, rows) -> int:
+    """The bytes K4's or K11's work at B = len(INT8_POSITIONS) must move:
+    the codes and scales of ``rows`` history rows a kv head read once, q
+    read, the current token's rows read and written, the f32 output
+    written (operations, 4 Hq D a row, sit far below the tensor rate)."""
+    b = len(INT8_POSITIONS)
+    return (rows * hkv * (2 * d + 4) + b * hq * d * (2 + 4)
+            + 4 * b * hkv * (d + 2))
+
+
+def probe_int8(name: str, a8, timer) -> None:
+    """K4 and K11 of one tree at INT8_CASES: one JSON line each."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for key, hq, hkv, d in INT8_CASES:
+        x = int8_inputs(gen, a8, hq, hkv, d)
+        q, cur, pos, tables = x["q"], x["cur"], x["pos"], x["tables"]
+        case = {"kernel": "K4", "case": key, "B": len(INT8_POSITIONS),
+                "Hq": hq, "Hkv": hkv, "D": d,
+                "bound_ms": int8_bytes(hq, hkv, d, int(pos.sum()))
+                / HBM_BYTES_PER_S * 1e3}
+        mine = [x["kc"].clone(), x["vc"].clone()]
+        out = {}
+        if refused(name, case, lambda: out.update(ctx=(
+                a8.int8_decode_attention_fused_write(
+                    q, mine[0], x["ks"], mine[1], x["vs"], *cur, 0,
+                    pos)[0]))):
+            continue
+        theirs = [x["kc"].clone(), x["vc"].clone()]
+        ref = a8.int8_decode_attention_fused_write_plain(
+            q, theirs[0], x["ks"], theirs[1], x["vs"], *cur, 0, pos)[0]
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "tree": name, **case, "gate": 1e-3,
+            "rel_err": float((out["ctx"] - ref).abs().max()
+                             / ref.abs().max()),
+            "written_equal": all(torch.equal(a, b)
+                                 for a, b in zip(mine, theirs)),
+            "ms": timer(lambda: a8.int8_decode_attention_fused_write(
+                q, mine[0], x["ks"], mine[1], x["vs"], *cur, 0, pos))}),
+            flush=True)
+        pool = [t.clone() for t in x["pool"]]
+        theirs = [t.clone() for t in x["pool"]]
+        ctx = a8.int8_paged_decode_attend_update(q, *pool, *x["pcur"], pos,
+                                                 tables)[0]
+        ref = a8.int8_paged_decode_attend_update_plain(
+            q, *theirs, *x["pcur"], pos, tables)[0]
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "tree": name, **case, "kernel": "K11", "gate": 1e-3,
+            "rel_err": float((ctx - ref).abs().max() / ref.abs().max()),
+            "written_equal": all(torch.equal(a.view(torch.uint8),
+                                             b.view(torch.uint8))
+                                 for a, b in zip(pool, theirs)),
+            "ms": timer(lambda: a8.int8_paged_decode_attend_update(
+                q, *pool, *x["pcur"], pos, tables))}), flush=True)
+        del x, mine, theirs, pool
 
 
 def probe_tree(name: str, root: str, kernels=("k13", "k12")) -> int:
@@ -209,6 +354,7 @@ def probe_tree(name: str, root: str, kernels=("k13", "k12")) -> int:
     sys.path.insert(0, str(Path(root).resolve()))
     from mxq_tpu_torch import _build
     from mxq_tpu_torch.ops import attn_bf16 as ab
+    from mxq_tpu_torch.ops import attn_int8 as a8
     from mxq_tpu_torch.utils.benchlib import Timer
     if not Path(ab.__file__).resolve().is_relative_to(Path(root).resolve()):
         raise RuntimeError(f"tree {name}: imported {ab.__file__}")
@@ -218,6 +364,8 @@ def probe_tree(name: str, root: str, kernels=("k13", "k12")) -> int:
     for src, log in logs.items():
         print(json.dumps({"tree": name, "source": src,
                           **_build.ptxas_report(log, "kernel")}), flush=True)
+    if "int8" in kernels:
+        probe_int8(name, a8, Timer())
     if "k12" in kernels:
         probe_k12(name, ab, Timer())
     if "k13" not in kernels:
@@ -235,7 +383,13 @@ def probe_tree(name: str, root: str, kernels=("k13", "k12")) -> int:
         kz[:, t:] = vz[:, t:] = 0
         do = torch.randn((b, t, hq, d), generator=gen, device="cuda").to(
             dtype)
-        got = ab.flash_prefill_attention(q, k, v)
+        out = {}
+        if refused(name, {"B": b, "T": t, "Hq": hq, "Hkv": hkv, "D": d,
+                          "dtype": dname},
+                   lambda: out.update(got=ab.flash_prefill_attention(
+                       q, k, v))):
+            continue
+        got = out["got"]
         again = ab.flash_prefill_attention(q, k, v)
         nan_tail = ab.flash_prefill_attention(q, kn, vn)
         zero_tail = ab.flash_prefill_attention(q, kz, vz)
@@ -260,12 +414,17 @@ def probe_tree(name: str, root: str, kernels=("k13", "k12")) -> int:
 
     timer = Timer()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for dname, (t, hq, hkv) in itertools.product(DTYPES, TIMED):
-        d = 128
+    for dname, (t, hq, hkv, d) in itertools.product(DTYPES, TIMED):
         q, k, v, do = (torch.randn((1, t, h, d), generator=gen,
                                    device="cuda").to(getattr(torch, dname))
                        for h in (hq, hkv, hkv, hq))
-        o, lse = ab.flash_attention_forward(q, k, v)
+        out = {}
+        if refused(name, {"dtype": dname, "T": t, "Hq": hq, "Hkv": hkv,
+                          "D": d},
+                   lambda: out.update(fwd=ab.flash_attention_forward(
+                       q, k, v))):
+            continue
+        o, lse = out["fwd"]
         flops = 4.0 * hq * d * t * (t + 1) / 2
         row = {"tree": name, "dtype": dname, "T": t, "Hq": hq, "Hkv": hkv,
                "D": d}
@@ -301,9 +460,9 @@ def main(argv=None) -> int:
     ap.add_argument("--trees", default="",
                     help="NAME=ROOT,...: other trees of the package, each "
                          "built and timed as NAME")
-    ap.add_argument("--kernels", default="k13,k12",
-                    help="comma-separated subset of k13 (K13 and K13-bwd) "
-                         "and k12")
+    ap.add_argument("--kernels", default="k13,k12,int8",
+                    help="comma-separated subset of k13 (K13 and K13-bwd), "
+                         "k12 and int8 (K4 and K11)")
     ap.add_argument("--tree", help=argparse.SUPPRESS)   # NAME=ROOT: one tree
     args = ap.parse_args(argv)
     kernels = [k for k in args.kernels.split(",") if k]

@@ -52,9 +52,9 @@ SIGNATURES = {
     "mxq_dequant": {"mxq_dequant_k3": [P, P, P, P, P, P, I, I, P, P, P],
                     "mxq_dequant_k5": [P, P, P, P, P, P, I, I, P, P, P]},
     "attn_int8": {
-        "attn_int8": [P] * 10 + [I] * 8 + [F] + [P] * 4},
+        "attn_int8": [P] * 10 + [I] * 9 + [F] + [P] * 4},
     "paged_attn_int8": {
-        "paged_attn_int8": [P] * 11 + [I] * 8 + [F] + [P] * 4},
+        "paged_attn_int8": [P] * 11 + [I] * 9 + [F] + [P] * 4},
     "uniform_gemv": {
         "uniform_gemv": [I, I, P, I, I, P, P, P, I, I, I, I, I, P, P, P],
         "uniform_gemv_tiles": [P, I]},

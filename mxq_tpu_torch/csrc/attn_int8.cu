@@ -48,12 +48,17 @@
 // when cur); positions [B]; ws the scratch of attn_split::carve with
 // NS = ceil(S / 128); tickets [B * Hkv] int32, 0 between calls; out
 // [B, T, Hkv, G, D] f32. cur, write: K4 1, 1; K4a/K4c 0, 0; K4b/K4d 1, 0.
+// D: any head_dim 1..256 (attn_split.cuh: 64, 128 and 256 at their
+// templates, the others in place at the next); vec: bytes a code load
+// (16, 4 or 1), dividing D and the alignment of every code tensor's start
+// (16 at D = 64, 128, 256).
 extern "C" int attn_int8(const void* q, void* kc, void* ks, void* vc,
                          void* vs, const void* kcur, const void* kscur,
                          const void* vcur, const void* vscur,
                          const void* positions, int B, int Hkv, int G, int T,
-                         int S, int D, int cur, int write, float scale,
-                         void* ws, void* tickets, void* out, void* stream) {
+                         int S, int D, int cur, int write, int vec,
+                         float scale, void* ws, void* tickets, void* out,
+                         void* stream) {
   if (S < 1) return (int)cudaErrorInvalidValue;
   attn_split::Args a{
       (const __nv_bfloat16*)q, (int8_t*)kc, (__nv_bfloat16*)ks,
@@ -61,6 +66,6 @@ extern "C" int attn_int8(const void* q, void* kc, void* ks, void* vc,
       (const __nv_bfloat16*)kscur, (const int8_t*)vcur,
       (const __nv_bfloat16*)vscur, (const int*)positions, nullptr,
       B, Hkv, G, T, S, 0, (S + attn_split::CHUNK - 1) / attn_split::CHUNK,
-      scale, (float*)ws, (int*)tickets, (float*)out};
-  return attn_split::dispatch<false>(a, D, cur, write, stream);
+      scale, (float*)ws, (int*)tickets, (float*)out, D, vec};
+  return attn_split::dispatch<false>(a, cur, write, stream);
 }

@@ -89,7 +89,13 @@ struct Args {
   float* ws;                  // scratch, see carve()
   int* tickets;               // [B * Hkv], 0 between calls
   float* out;                 // [B, T, Hkv, G, D] f32
+  int D;                      // the true head_dim d (<= the tile width)
+  int vec;                    // RAG: bytes a code load (16, 4 or 1)
 };
+
+// blocks an SM holds at once: the register cap of each tile width
+template <int D>
+constexpr int min_blocks() { return D > 128 ? 2 : MIN_BLOCKS; }
 
 template <int D>
 struct Geo {
@@ -101,20 +107,20 @@ struct Geo {
 
 // the scratch: f32 scores [BHQ, NS, 128], split maxima [BHQ, NS], current
 // logits [BHQ], partial contexts [BHQ, NS, D], partial denominators
-// [BHQ, NS]; BHQ = B * Hkv * Q. The wrapper sizes it the same way.
+// [BHQ, NS]; BHQ = B * Hkv * Q; D the true head_dim d. The wrapper sizes
+// it the same way.
 struct WS {
   float *sc, *mx, *stc, *pctx, *pden;
 };
 
-template <int D>
-__device__ __forceinline__ WS carve(const Args& a) {
+__device__ __forceinline__ WS carve(const Args& a, int d) {
   const size_t bhq = (size_t)a.B * a.Hkv * a.G * a.T;
   WS w;
   w.sc = a.ws;
   w.mx = w.sc + bhq * a.NS * CHUNK;
   w.stc = w.mx + bhq * a.NS;
   w.pctx = w.stc + bhq;
-  w.pden = w.pctx + bhq * a.NS * D;
+  w.pden = w.pctx + bhq * a.NS * d;
   return w;
 }
 
@@ -174,10 +180,40 @@ __device__ __forceinline__ size_t row0(const Args& a, int b, int h, int j) {
   return ((size_t)b * a.Hkv + h) * a.S + (size_t)j * CHUNK;
 }
 
-template <int D>
-__device__ __forceinline__ size_t qoff(const Args& a, int b, int h, int r) {
+__device__ __forceinline__ size_t qoff(const Args& a, int b, int h, int r,
+                                       int d) {
   const int t = r / a.G, g = r % a.G;
-  return ((((size_t)b * a.T + t) * a.Hkv + h) * a.G + g) * D;
+  return ((((size_t)b * a.T + t) * a.Hkv + h) * a.G + g) * d;
+}
+
+// the head_dim of the call: the tile width, or (RAG) the true d
+template <int D, bool RAG>
+__device__ __forceinline__ int width(const Args& a) {
+  return RAG ? a.D : D;
+}
+
+// 16 code bytes at column col of the row at p (a row of width(a) bytes):
+// one 16-byte load, or (RAG) the bytes below d by loads of a.vec bytes,
+// zeros at and past d
+template <bool RAG>
+__device__ __forceinline__ uint4 load16(const int8_t* p, int col,
+                                        const Args& a) {
+  if (!RAG) return __ldg(reinterpret_cast<const uint4*>(p + col));
+  if (col >= a.D) return make_uint4(0u, 0u, 0u, 0u);
+  if (a.vec == 16) return __ldg(reinterpret_cast<const uint4*>(p + col));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (a.vec == 4) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (col + 4 * k < a.D)
+        w[k] = __ldg(reinterpret_cast<const unsigned int*>(p + col) + k);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 16; ++k)
+      if (col + k < a.D)
+        w[k / 4] |= (uint32_t)(uint8_t)__ldg(p + col + k) << (8 * (k % 4));
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // the row of this thread in step i of a split
@@ -188,23 +224,26 @@ __device__ __forceinline__ int row_of(int i, int warp, int lane) {
 }
 
 // this thread's 16 bytes of each of its rows < nv of the split at r0
-template <int D>
-__device__ __forceinline__ void load_rows(const int8_t* codes, size_t r0,
-                                          int nv, int warp, int lane,
+template <int D, bool RAG>
+__device__ __forceinline__ void load_rows(const Args& a, const int8_t* codes,
+                                          size_t r0, int nv, int warp,
+                                          int lane,
                                           uint4 (&c)[Geo<D>::NSTEP]) {
   const int col = (lane % Geo<D>::LPR) * 16;
+  const int d = width<D, RAG>(a);
 #pragma unroll
   for (int i = 0; i < Geo<D>::NSTEP; ++i) {
     const int s = row_of<D>(i, warp, lane);
-    c[i] = s < nv ? __ldg(reinterpret_cast<const uint4*>(
-                        codes + (r0 + s) * D + col))
+    c[i] = s < nv ? load16<RAG>(codes + (r0 + s) * d, col, a)
                   : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-template <int D, bool PAGED, bool CUR>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) scores_kernel(const Args a) {
+template <int D, bool RAG, bool PAGED, bool CUR>
+__global__ void __launch_bounds__(THREADS, min_blocks<D>())
+    scores_kernel(const Args a) {
   using G = Geo<D>;
+  const int d = width<D, RAG>(a);
   extern __shared__ float smem[];
   const int Q = a.G * a.T;
   float* qf = smem;                      // [Q, D]
@@ -218,25 +257,25 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) scores_kernel(const Args 
   const int c0 = j * CHUNK;
   const int nv = min(max(nmax - c0, 0), CHUNK);
   const int col = (lane % G::LPR) * 16;
-  const WS w = carve<D>(a);
+  const WS w = carve(a, d);
 
   uint4 kr[G::NSTEP];
   float ksc[G::NSTEP];
   const size_t r0 = nv > 0 ? row0<PAGED>(a, b, h, j) : 0;
-  load_rows<D>(a.kc, r0, nv, warp, lane, kr);
+  load_rows<D, RAG>(a, a.kc, r0, nv, warp, lane, kr);
 #pragma unroll
   for (int i = 0; i < G::NSTEP; ++i) {
     const int s = row_of<D>(i, warp, lane);
     ksc[i] = s < nv ? bf(a.ks[r0 + s]) * a.scale : 0.f;
   }
   for (int i = tid; i < Q * D; i += THREADS)
-    qf[i] = bf(a.q[qoff<D>(a, b, h, i / D) + i % D]);
+    qf[i] = RAG && i % D >= d ? 0.f
+                              : bf(a.q[qoff(a, b, h, i / D, d) + i % D]);
   __syncthreads();
 
   if (CUR && j == 0) {                   // the current token's logits
     float kf[16];
-    unpack16(__ldg(reinterpret_cast<const uint4*>(a.kcur + (size_t)bh * D
-                                                  + col)), kf);
+    unpack16(load16<RAG>(a.kcur + (size_t)bh * d, col, a), kf);
     for (int r = warp; r < Q; r += NW) {
       float s = 0.f;
 #pragma unroll
@@ -286,10 +325,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) scores_kernel(const Args 
 // K4 / K11: the current token's code rows (and, paged, its scale lanes)
 // stored in place. The call never reads that row: dense rows < pos, paged
 // rows < n.
-template <int D, bool PAGED>
+template <int D, bool RAG, bool PAGED>
 __device__ __forceinline__ void write_current(const Args& a, int b, int h,
                                               int tid) {
   const int bh = b * a.Hkv + h;
+  const int d = width<D, RAG>(a);
   size_t row;
   if (PAGED) {
     const int n = max(a.bound[b], 0);
@@ -305,15 +345,17 @@ __device__ __forceinline__ void write_current(const Args& a, int b, int h,
     if (p < 0 || p >= a.S) return;
     row = (size_t)bh * a.S + p;
   }
-  for (int i = tid; i < D; i += THREADS) {
-    a.kc[row * D + i] = a.kcur[(size_t)bh * D + i];
-    a.vc[row * D + i] = a.vcur[(size_t)bh * D + i];
+  for (int i = tid; i < d; i += THREADS) {
+    a.kc[row * d + i] = a.kcur[(size_t)bh * d + i];
+    a.vc[row * d + i] = a.vcur[(size_t)bh * d + i];
   }
 }
 
-template <int D, bool PAGED, bool CUR, bool WRITE>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) values_kernel(const Args a) {
+template <int D, bool RAG, bool PAGED, bool CUR, bool WRITE>
+__global__ void __launch_bounds__(THREADS, min_blocks<D>())
+    values_kernel(const Args a) {
   using G = Geo<D>;
+  const int d = width<D, RAG>(a);
   extern __shared__ float smem[];
   const int Q = a.G * a.T;
   float* pv = smem;                      // [Q, CHUNK]: scores, then pv
@@ -330,11 +372,11 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) values_kernel(const Args 
   const int c0 = j * CHUNK;
   const int nv = min(max(nmax - c0, 0), CHUNK);
   const int col = (lane % G::LPR) * 16;
-  const WS w = carve<D>(a);
+  const WS w = carve(a, d);
 
   uint4 vr[G::NSTEP];
   const size_t r0 = nv > 0 ? row0<PAGED>(a, b, h, j) : 0;
-  load_rows<D>(a.vc, r0, nv, warp, lane, vr);
+  load_rows<D, RAG>(a, a.vc, r0, nv, warp, lane, vr);
   if (tid < CHUNK) vss[tid] = tid < nv ? bf(a.vs[r0 + tid]) : 0.f;
   for (int r = warp; r < Q; r += NW) {
     const float* mx = w.mx + ((size_t)bh * Q + r) * a.NS;
@@ -397,16 +439,16 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) values_kernel(const Args 
           red[(warp * QT + rr) * D + col + e] = acc[e];
     }
     __syncthreads();
-    for (int i = tid; i < nq * D; i += THREADS) {
-      const int rr = i / D, d = i % D;
+    for (int i = tid; i < nq * d; i += THREADS) {
+      const int rr = i / d, c = i % d;
       float s = 0.f;
 #pragma unroll
-      for (int ww = 0; ww < NW; ++ww) s += red[(ww * QT + rr) * D + d];
-      w.pctx[(((size_t)bh * Q + q0 + rr) * a.NS + j) * D + d] = s;
+      for (int ww = 0; ww < NW; ++ww) s += red[(ww * QT + rr) * D + c];
+      w.pctx[(((size_t)bh * Q + q0 + rr) * a.NS + j) * d + c] = s;
     }
     __syncthreads();
   }
-  if (WRITE && j == 0) write_current<D, PAGED>(a, b, h, tid);
+  if (WRITE && j == 0) write_current<D, RAG, PAGED>(a, b, h, tid);
 
   // the last block of (b, h) to get here combines the splits in order
   __threadfence();
@@ -415,10 +457,10 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) values_kernel(const Args 
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (int i = tid; i < Q * D; i += THREADS) {
-    const int r = i / D, d = i % D;
+  for (int i = tid; i < Q * d; i += THREADS) {
+    const int r = i / d, dc = i % d;
     const size_t br = (size_t)bh * Q + r;
-    const float* pc = w.pctx + br * a.NS * D + d;
+    const float* pc = w.pctx + br * a.NS * d + dc;
     const float* pd = w.pden + br * a.NS;
     float acc = 0.f, l = 0.f, o;
     if (PAGED) {
@@ -431,7 +473,7 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) values_kernel(const Args 
       for (int jj = 0; jj < nlive; ++jj) {
         m = fmaxf(m, __ldcg(mx + jj));
         const float f = expf(m - mfin);
-        acc += __ldcg(pc + (size_t)jj * D) * f;
+        acc += __ldcg(pc + (size_t)jj * d) * f;
         l += __ldcg(pd + jj) * f;
       }
       if (CUR) {
@@ -441,35 +483,35 @@ __global__ void __launch_bounds__(THREADS, MIN_BLOCKS) values_kernel(const Args 
         const float pcur = expf(c - m2);
         l = l * alpha2 + pcur;
         acc = acc * alpha2 + bf16_round(pcur * bf(a.vscur[bh]))
-                             * (float)a.vcur[(size_t)bh * D + d];
+                             * (float)a.vcur[(size_t)bh * d + dc];
       }
       o = acc / fmaxf(l, 1e-30f);
     } else {
       for (int jj = 0; jj < nlive; ++jj) {
-        acc += __ldcg(pc + (size_t)jj * D);
+        acc += __ldcg(pc + (size_t)jj * d);
         l += __ldcg(pd + jj);
       }
       if (CUR) {
         const float ec = expf(__ldcg(w.stc + br) - mr[r]);
         l += ec;
         acc += bf16_round(ec * bf(a.vscur[bh]))
-               * (float)a.vcur[(size_t)bh * D + d];
+               * (float)a.vcur[(size_t)bh * d + dc];
       }
       o = acc / l;
     }
-    a.out[qoff<D>(a, b, h, r) + d] = o;
+    a.out[qoff(a, b, h, r, d) + dc] = o;
   }
   if (tid == 0) a.tickets[bh] = 0;
 }
 
-template <int D, bool PAGED, bool CUR, bool WRITE>
+template <int D, bool RAG, bool PAGED, bool CUR, bool WRITE>
 int launch(const Args& a, void* stream) {
   const int Q = a.G * a.T;
   const size_t sa = sizeof(float) * (size_t)Q * (D + CHUNK);
   const size_t sb = sizeof(float) * ((size_t)Q * (CHUNK + 1) + CHUNK
                                      + (size_t)NW * QT * D);
-  auto ka = scores_kernel<D, PAGED, CUR>;
-  auto kb = values_kernel<D, PAGED, CUR, WRITE>;
+  auto ka = scores_kernel<D, RAG, PAGED, CUR>;
+  auto kb = values_kernel<D, RAG, PAGED, CUR, WRITE>;
   cudaError_t err;
   if (sa > 48 * 1024) {
     err = cudaFuncSetAttribute(
@@ -489,26 +531,35 @@ int launch(const Args& a, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// the flags' three kernels at tile width D
+template <int D, bool RAG, bool PAGED>
+int launch_flags(const Args& a, int cur, int write, void* stream) {
+  if (!cur) return launch<D, RAG, PAGED, false, false>(a, stream);
+  return write ? launch<D, RAG, PAGED, true, true>(a, stream)
+               : launch<D, RAG, PAGED, true, false>(a, stream);
+}
+
 // cur, write: compile-time flags (a write needs the current token; the
-// current token needs T = 1). Returns a cudaError_t.
+// current token needs T = 1); a.D the head_dim: 64, 128 and 256 run their
+// templates, every other d <= 256 the next one with RAG, a.vec bytes a
+// code load. Returns a cudaError_t.
 template <bool PAGED>
-int dispatch(const Args& a, int D, int cur, int write, void* stream) {
+int dispatch(const Args& a, int cur, int write, void* stream) {
+  const int d = a.D;
   if ((write && !cur) || (cur && a.T != 1) || a.G < 1 || a.T < 1
-      || a.G * a.T > QMAX || a.B < 0 || a.Hkv < 1 || a.NS < 1)
+      || a.G * a.T > QMAX || a.B < 0 || a.Hkv < 1 || a.NS < 1 || d < 1
+      || d > 256 || (a.vec != 16 && a.vec != 4 && a.vec != 1)
+      || d % a.vec)
     return (int)cudaErrorInvalidValue;
   if (a.B == 0) return 0;
-  switch (D) {
-    case 64:
-      if (!cur) return launch<64, PAGED, false, false>(a, stream);
-      return write ? launch<64, PAGED, true, true>(a, stream)
-                   : launch<64, PAGED, true, false>(a, stream);
-    case 128:
-      if (!cur) return launch<128, PAGED, false, false>(a, stream);
-      return write ? launch<128, PAGED, true, true>(a, stream)
-                   : launch<128, PAGED, true, false>(a, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
+  switch (d) {
+    case 64: return launch_flags<64, false, PAGED>(a, cur, write, stream);
+    case 128: return launch_flags<128, false, PAGED>(a, cur, write, stream);
+    case 256: return launch_flags<256, false, PAGED>(a, cur, write, stream);
   }
+  if (d < 64) return launch_flags<64, true, PAGED>(a, cur, write, stream);
+  if (d < 128) return launch_flags<128, true, PAGED>(a, cur, write, stream);
+  return launch_flags<256, true, PAGED>(a, cur, write, stream);
 }
 
 }  // namespace attn_split

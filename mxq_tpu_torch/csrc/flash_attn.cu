@@ -82,6 +82,15 @@
 // 32, P's hi and lo pairs 32. The design's floor is three times the
 // bf16 bound (0.104 ms at T = 2048, 32 heads of 128) plus the split
 // pass's bytes (201 MB there, 0.06 ms).
+//
+// head_dim 256 (D in 129..256 runs at it: bf16 on zero-padded copies,
+// float32 on planes zero past D) keeps the design with smaller tiles, as
+// the tiles of D <= 128 outgrow shared memory (Q alone is 64 KB at bf16,
+// 128 KB at float32): bf16 K and V in 64-key tiles through two stages
+// (Q 64 KB, the ring 128 KB: 192 KB), O += P V one m64n256k16 product a
+// k16 slice, O 128 registers of a consumer's 240; float32 in 32-key
+// tiles through one stage (Q's planes 128 KB, the ring 64 KB: 192 KB),
+// so that each tile's copies wait for the last tile's products.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -107,12 +116,12 @@ constexpr int CONSUMER_WARPS = 8;       // arrivals that empty a stage
 constexpr int BAR_TURN = 1;             // named barriers 1, 2: whose turn
 
 // The tiles of each path: planes (hi, and lo for float32), keys a tile,
-// K and V tiles in flight
-template <bool F32>
+// K and V tiles in flight; at D = 256 fewer of each, to fit shared memory
+template <int D, bool F32>
 struct Tiles {
   static constexpr int NP = F32 ? 2 : 1;
-  static constexpr int BN = F32 ? 64 : 128;
-  static constexpr int STAGES = F32 ? 2 : 3;
+  static constexpr int BN = D > 128 ? (F32 ? 32 : 64) : (F32 ? 64 : 128);
+  static constexpr int STAGES = D > 128 ? (F32 ? 1 : 2) : (F32 ? 2 : 3);
 };
 
 struct WsParams {
@@ -127,7 +136,7 @@ struct WsParams {
 
 template <int D, bool F32>
 struct WsSmem {                         // every tile 1024-byte aligned
-  using C = Tiles<F32>;
+  using C = Tiles<D, F32>;
   __nv_bfloat16 q[C::NP * BM * D];      // per plane D / 64 boxes of [BM][64]
   __nv_bfloat16 k[C::STAGES][C::NP * C::BN * D];   // [BN][64] boxes
   __nv_bfloat16 v[C::STAGES][C::NP * C::BN * D];
@@ -203,7 +212,7 @@ __device__ __forceinline__ Item item_of(const WsParams& p, int w) {
 template <int D, bool F32>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ WsParams p) {
-  using C = Tiles<F32>;
+  using C = Tiles<D, F32>;
   constexpr int NP = C::NP, BN = C::BN, STAGES = C::STAGES;
   constexpr int BOXES = D / 64;
   constexpr int DIAG_TILES = BM / BN;   // the item's last tiles, masked
@@ -435,8 +444,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 int Hq, int Hkv, float scale, cudaStream_t stream) {
   WsParams p;
   if (!tensor_map_rows(&p.q, q, D, Hq, T, B, qst, qsb, BM)
-      || !tensor_map_rows(&p.k, k, D, Hkv, T, B, kst, ksb, Tiles<false>::BN)
-      || !tensor_map_rows(&p.v, v, D, Hkv, T, B, vst, vsb, Tiles<false>::BN))
+      || !tensor_map_rows(&p.k, k, D, Hkv, T, B, kst, ksb,
+                          Tiles<D, false>::BN)
+      || !tensor_map_rows(&p.v, v, D, Hkv, T, B, vst, vsb,
+                          Tiles<D, false>::BN))
     return (int)cudaErrorInvalidValue;
   p.out = out;
   p.lse = lse;
@@ -451,7 +462,7 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
                long long kst, long long vsb, long long vst, int B, int T,
                int Hq, int Hkv, int d, float scale, __nv_bfloat16* planes,
                cudaStream_t stream) {
-  constexpr int BN = Tiles<true>::BN;
+  constexpr int BN = Tiles<W, true>::BN;
   __nv_bfloat16* qp = planes;
   __nv_bfloat16* kp = qp + 2LL * B * T * Hq * W;
   __nv_bfloat16* vp = kp + 2LL * B * T * Hkv * W;
@@ -479,8 +490,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
 
 // q [B, T, Hq, d], k/v [B, >=T, Hkv, d] with element strides (batch,
 // token) given and heads and d contiguous; out [B, T, Hq, W] contiguous in
-// the inputs' type; lse [B, Hq, T] f32 or null (not written). W (64 or
-// 128) is the kernel's head_dim template; scale is 1/sqrt(d). f32 = 0:
+// the inputs' type; lse [B, Hq, T] f32 or null (not written). W (64, 128
+// or 256) is the kernel's head_dim template; scale is 1/sqrt(d). f32 = 0:
 // bf16 tensors with d = W, 16-byte aligned rows and strides (the tensor
 // maps' encoding failing returns cudaErrorInvalidValue); planes is not
 // read. f32 = 1: float32 tensors, any d <= W (columns d .. W of the output
@@ -506,6 +517,9 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v,
     if (W == 128)
       return launch_f32<128>(q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
                              B, T, Hq, Hkv, d, scale, pl, st);
+    if (W == 256)
+      return launch_f32<256>(q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
+                             B, T, Hq, Hkv, d, scale, pl, st);
     return (int)cudaErrorInvalidValue;
   }
   if (W == 64)
@@ -513,6 +527,9 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v,
                            B, T, Hq, Hkv, scale, st);
   if (W == 128)
     return launch_bf16<128>(q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
+                            B, T, Hq, Hkv, scale, st);
+  if (W == 256)
+    return launch_bf16<256>(q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
                             B, T, Hq, Hkv, scale, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -537,5 +554,7 @@ extern "C" int flash_split(const void* x, long long sb, long long st,
   if (W == 64) return launch_split<64, false>(sp, 1, rows, (cudaStream_t)stream);
   if (W == 128)
     return launch_split<128, false>(sp, 1, rows, (cudaStream_t)stream);
+  if (W == 256)
+    return launch_split<256, false>(sp, 1, rows, (cudaStream_t)stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -95,6 +95,24 @@
 // The design's floor is three times the bf16 design's (0.366 ms at T =
 // 2048, 32 heads of 128) plus the split pass's bytes (q, k, v and dO
 // split, o read: about 0.09 ms there).
+//
+// head_dim 256 (D in 129..256 runs at it: bf16 on zero-padded copies,
+// float32 on planes zero past D): dK and dV of 64 keys at D = 256 are 256
+// floats a thread, past a consumer's 232 registers, and Q, dO and o of
+// 128 rows alone fill shared memory. So items are 64 rows (IM = 64):
+// - the dQ kernel runs one consumer warpgroup (two warpgroups a block, no
+//   register handover: each thread may hold 255), dQ 128 registers, K and
+//   V in 32-key tiles through three stages (bf16: Q, dO, o 96 KB, the
+//   ring 96 KB) or 16-key tiles through two (float32: Q and dO hi and lo
+//   128 KB, the ring 64 KB);
+// - the dK/dV kernel's two consumer warpgroups take the same 64 keys and
+//   split D: each recomputes S^T and dP^T over all of D (the products
+//   that D's halves do not split) and holds dK and dV of its 128 columns
+//   (64 registers each), the products dV += P^T dO and dK += dS^T Q over
+//   its half of dO's and Q's columns; Q and dO in 32-row tiles through
+//   four stages (bf16: K, V 64 KB, the ring 128 KB) or 16-row tiles
+//   through two (float32: K, V hi and lo 128 KB, the ring 64 KB).
+// Every sum keeps its fixed order, so the bits are the same on every call.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -120,16 +138,27 @@ constexpr int WS_THREADS = 3 * WG;      // producer + two consumers
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int CONSUMER_WARPS = 8;       // arrivals that empty a stage
 constexpr int BAR_CONSUMERS = 1;        // named barrier of the consumers
-constexpr int IM = 128;                 // rows of an item: query rows (dQ
-                                        // kernel) or keys (dK/dV kernel)
 
-// The tiles of each path: planes (hi, and lo for float32), rows of a ring
-// tile (keys of the dQ kernel, query rows of the dK/dV kernel), stages
-template <bool F32>
+// rows of an item at head_dim template D: query rows (dQ kernel) or keys
+// (dK/dV kernel)
+constexpr int item_rows(int D) { return D > 128 ? 64 : 128; }
+
+// The tiles of each path: planes (hi, and lo for float32), rows of an
+// item, rows of a ring tile (keys of the dQ kernel, query rows of the
+// dK/dV kernel), stages; the dQ kernel's consumer warpgroups (64 rows
+// each); the columns of dK and dV a dK/dV consumer holds (at D = 256, WIDE,
+// half of them)
+template <int D, bool F32>
 struct Tiles {
+  static constexpr bool WIDE = D > 128;
   static constexpr int NP = F32 ? 2 : 1;
-  static constexpr int TN = F32 ? 32 : 64;
-  static constexpr int DQ_STAGES = 3, DKV_STAGES = F32 ? 3 : 4;
+  static constexpr int IM = item_rows(D);
+  static constexpr int TN = WIDE ? (F32 ? 16 : 32) : (F32 ? 32 : 64);
+  static constexpr int DQ_STAGES = WIDE && F32 ? 2 : 3;
+  static constexpr int DKV_STAGES = WIDE ? (F32 ? 2 : 4) : (F32 ? 3 : 4);
+  static constexpr int DQ_WGS = IM / 64;
+  static constexpr int DQ_THREADS = (1 + DQ_WGS) * WG;
+  static constexpr int DA = WIDE ? D / 2 : D;
 };
 
 struct DqParams {
@@ -161,18 +190,18 @@ struct DkvParams {
 // a placeholder at float32, which loads none
 template <int D, bool F32>
 struct DqSmem {
-  using C = Tiles<F32>;
-  __nv_bfloat16 q[C::NP * IM * D], dout[C::NP * IM * D];
+  using C = Tiles<D, F32>;
+  __nv_bfloat16 q[C::NP * C::IM * D], dout[C::NP * C::IM * D];
   __nv_bfloat16 k[C::DQ_STAGES][C::NP * C::TN * D];
   __nv_bfloat16 v[C::DQ_STAGES][C::NP * C::TN * D];
-  __nv_bfloat16 o[F32 ? 8 : IM * D];
+  __nv_bfloat16 o[F32 ? 8 : C::IM * D];
   uint64_t q_full, q_empty, kv_full[C::DQ_STAGES], kv_empty[C::DQ_STAGES];
 };
 
 template <int D, bool F32>
 struct DkvSmem {
-  using C = Tiles<F32>;
-  __nv_bfloat16 k[C::NP * IM * D], v[C::NP * IM * D];
+  using C = Tiles<D, F32>;
+  __nv_bfloat16 k[C::NP * C::IM * D], v[C::NP * C::IM * D];
   __nv_bfloat16 q[C::DKV_STAGES][C::NP * C::TN * D];
   __nv_bfloat16 dout[C::DKV_STAGES][C::NP * C::TN * D];
   float lse2[C::DKV_STAGES][C::TN], di[C::DKV_STAGES][C::TN];
@@ -244,17 +273,19 @@ __device__ __forceinline__ void store_acc(OutT* dst, long long rstride,
 }
 
 // key tiles of a dQ item (query rows qt IM ..): keys < min((qt + 1) IM, T)
-template <int TN>
+template <int IM, int TN>
 __device__ __forceinline__ int dq_key_tiles(int qt, int T) {
   return (min((qt + 1) * IM, T) + TN - 1) / TN;
 }
 
 template <int D, bool F32>
-__global__ void __launch_bounds__(WS_THREADS, 1)
+__global__ void __launch_bounds__(Tiles<D, F32>::DQ_THREADS, 1)
     dq_wgmma_kernel(const __grid_constant__ DqParams p) {
-  using C = Tiles<F32>;
+  using C = Tiles<D, F32>;
   using OutT = typename std::conditional<F32, float, __nv_bfloat16>::type;
-  constexpr int NP = C::NP, TN = C::TN, STAGES = C::DQ_STAGES;
+  constexpr int NP = C::NP, TN = C::TN, STAGES = C::DQ_STAGES, IM = C::IM;
+  // arrivals that empty a stage: the consumers' warps
+  constexpr int EMPTY_ARRIVALS = 4 * C::DQ_WGS;
   constexpr uint32_t ROWS_BYTES = NP * IM * D * 2, TILE_BYTES = NP * TN * D * 2;
   extern __shared__ __align__(1024) unsigned char dq_smem[];
   DqSmem<D, F32>& sm = *reinterpret_cast<DqSmem<D, F32>*>(
@@ -264,18 +295,18 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   const int wg = threadIdx.x / WG;
   if (threadIdx.x == 0) {
     mbar_init(&sm.q_full, 1);
-    mbar_init(&sm.q_empty, CONSUMER_WARPS);
+    mbar_init(&sm.q_empty, EMPTY_ARRIVALS);
 #pragma unroll
     for (int st = 0; st < STAGES; ++st) {
       mbar_init(&sm.kv_full[st], 1);
-      mbar_init(&sm.kv_empty[st], CONSUMER_WARPS);
+      mbar_init(&sm.kv_empty[st], EMPTY_ARRIVALS);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   if (wg == 0) {                        // producer: one thread starts TMA
-    regs_dec<PRODUCER_REGS>();
+    if constexpr (C::DQ_WGS > 1) regs_dec<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       int it = 0;                       // tiles loaded: the ring's position
       for (int j = 0, w; (w = item_index(j)) < items; ++j) {
@@ -288,7 +319,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
                              p.B);
         if constexpr (!F32)
           load_tile<D, 1, IM>(sm.o, &p.o, &sm.q_full, h, qt * IM, b, p.B);
-        const int nkt = dq_key_tiles<TN>(qt, p.T);
+        const int nkt = dq_key_tiles<IM, TN>(qt, p.T);
         for (int kt = 0; kt < nkt; ++kt, ++it) {
           const int st = it % STAGES;
           mbar_wait(&sm.kv_empty[st], ((it / STAGES) & 1) ^ 1);
@@ -303,7 +334,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     return;
   }
 
-  regs_inc<CONSUMER_REGS>();
+  if constexpr (C::DQ_WGS > 1) regs_inc<CONSUMER_REGS>();
   const int cw = wg - 1;                // rows 64 cw .. 64 cw + 63
   const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
   const int row0 = 64 * cw + 16 * warp + lane / 4;    // and row0 + 8
@@ -317,7 +348,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   for (int j = 0, w; (w = item_index(j)) < items; ++j) {
     const int qt = p.nq - 1 - w / heads, h = w % p.Hq;
     const int b = w % heads / p.Hq;
-    const int nkt = dq_key_tiles<TN>(qt, p.T);
+    const int nkt = dq_key_tiles<IM, TN>(qt, p.T);
     // the key tile that holds this warpgroup's first row (qt IM + 64 cw)
     // and the tiles that reach its rows (the first warpgroup skips the
     // item's last 64 keys)
@@ -427,9 +458,11 @@ __device__ __forceinline__ KvItem kv_item(const DkvParams& p, int w) {
 template <int D, bool F32>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     dkv_wgmma_kernel(const __grid_constant__ DkvParams p) {
-  using C = Tiles<F32>;
+  using C = Tiles<D, F32>;
   using OutT = typename std::conditional<F32, float, __nv_bfloat16>::type;
-  constexpr int NP = C::NP, TN = C::TN, STAGES = C::DKV_STAGES;
+  constexpr int NP = C::NP, TN = C::TN, STAGES = C::DKV_STAGES, IM = C::IM;
+  constexpr int DA = C::DA;             // columns of dK and dV a consumer
+                                        // holds
   constexpr uint32_t ROWS_BYTES = NP * IM * D * 2, TILE_BYTES = NP * TN * D * 2;
   extern __shared__ __align__(1024) unsigned char dkv_smem[];
   DkvSmem<D, F32>& sm = *reinterpret_cast<DkvSmem<D, F32>*>(
@@ -485,25 +518,29 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
 
   regs_inc<CONSUMER_REGS>();
-  const int cw = wg - 1;                // keys 64 cw .. 64 cw + 63
+  // keys 64 cw .. 64 cw + 63 of the item and every column of dK and dV;
+  // WIDE: the item's 64 keys and columns 128 cw .. 128 cw + 127
+  const int cw = wg - 1;
+  const int kr0 = C::WIDE ? 0 : 64 * cw;   // the warpgroup's first key
+  const int c0 = C::WIDE ? DA * cw : 0;    // and first column
   const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
   const int krow = 16 * warp + lane / 4;   // keys krow (+ 8) of the
-  const int key0 = 64 * cw + krow;         // warpgroup's, key0 of the item
+  const int key0 = kr0 + krow;             // warpgroup's, key0 of the item
   auto release = [&](uint64_t* bar) {
     __syncwarp();
     if (lane == 0) mbar_arrive(bar);
   };
-  float dk[D / 2], dv[D / 2], s[TN / 2], dp[TN / 2];
+  float dk[DA / 2], dv[DA / 2], s[TN / 2], dp[TN / 2];
   uint32_t pa[NP][TN / 16][4], da[NP][TN / 16][4];
   int it = 0;
   for (int j = 0, w; (w = item_index(j)) < items; ++j) {
     const KvItem e = kv_item(p, w);
     // the query tile on this warpgroup's diagonal (that holds its first
-    // key, e.kt IM + 64 cw); the ones before it see none of its keys
-    const int diag = e.kt * (IM / TN) + cw * (64 / TN);
+    // key, e.kt IM + kr0); the ones before it see none of its keys
+    const int diag = e.kt * (IM / TN) + kr0 / TN;
     mbar_wait(&sm.kv_full, j & 1);
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    for (int i = 0; i < DA / 2; ++i) dk[i] = dv[i] = 0.f;
     for (int g = 0; g < g_split; ++g) {
       for (int qt = e.kt * IM / TN; qt < nqt; ++qt, ++it) {
         const int st = it % STAGES;
@@ -515,9 +552,9 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         reg_fence(s);
         reg_fence(dp);
         wgmma_fence();
-        gemm_abt<D, IM, TN, NP>(s, sm.k, 64 * cw, sm.q[st]);     // S^T = K Q^T
+        gemm_abt<D, IM, TN, NP>(s, sm.k, kr0, sm.q[st]);         // S^T = K Q^T
         wgmma_commit();
-        gemm_abt<D, IM, TN, NP>(dp, sm.v, 64 * cw, sm.dout[st]); // dP^T =
+        gemm_abt<D, IM, TN, NP>(dp, sm.v, kr0, sm.dout[st]);     // dP^T =
         wgmma_commit();                                          // V dO^T
         wgmma_wait<1>();
         reg_fence(s);
@@ -530,7 +567,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         for (int i = 0; i < TN / 2; ++i) {
           const int col = acc_col(i, lane), r = (i >> 1) & 1;
           s[i] = ex2(fmaf(s[i], p.scale_log2, -lse2[col]));
-          if constexpr (F32) {
+          if constexpr (F32 || TN < 64) {
             if (qt - diag < 64 / TN
                 && krow + 8 * r > col + (qt - diag) * TN)
               s[i] = 0.f;
@@ -563,8 +600,10 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         reg_fence(dv);
         reg_fence(dk);
         wgmma_fence();
-        gemm_xb<D, TN, NP>(dv, pa, sm.dout[st]);                 // dV += P^T dO
-        gemm_xb<D, TN, NP>(dk, da, sm.q[st]);                    // dK += dS^T Q
+        // dV += P^T dO, dK += dS^T Q over the warpgroup's columns (boxes
+        // c0 / 64 .. of the tiles)
+        gemm_xb<DA, TN, NP, D>(dv, pa, sm.dout[st] + c0 * TN);
+        gemm_xb<DA, TN, NP, D>(dk, da, sm.q[st] + c0 * TN);
         wgmma_commit();
         wgmma_wait<0>();
         reg_fence(dk);
@@ -576,13 +615,13 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
 
     const int keys = p.T - e.kt * IM;   // rows of the item below T
     const long long out0 = (long long)e.b * p.kvsb
-                           + ((long long)e.kt * IM * p.Hkv + e.hk) * D;
+                           + ((long long)e.kt * IM * p.Hkv + e.hk) * D + c0;
     const long long kst = (long long)p.Hkv * D;
     OutT* const dk_out = static_cast<OutT*>(p.dk);
     OutT* const dv_out = static_cast<OutT*>(p.dv);
     if (p.splits == 1) {
-      store_acc<D>(dk_out + out0, kst, key0, keys, dk, lane);
-      store_acc<D>(dv_out + out0, kst, key0, keys, dv, lane);
+      store_acc<DA>(dk_out + out0, kst, key0, keys, dk, lane);
+      store_acc<DA>(dv_out + out0, kst, key0, keys, dv, lane);
       continue;
     }
     // split heads: this block's f32 partials, then the last block of the
@@ -590,14 +629,14 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     const long long plane = (long long)p.splits * p.B * p.Hkv * p.Tp * D;
     const long long own =
         ((((long long)e.s * p.B + e.b) * p.Hkv + e.hk) * p.Tp + e.kt * IM)
-        * D;
+        * D + c0;
     const long long step = (long long)p.B * p.Hkv * p.Tp * D;  // a split
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const long long at = own + (long long)(key0 + 8 * r) * D
                            + 2 * (lane & 3);
 #pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
+      for (int i = 0; i < DA / 8; ++i) {
         *reinterpret_cast<float2*>(p.part + at + 8 * i) =
             make_float2(dk[4 * i + 2 * r], dk[4 * i + 2 * r + 1]);
         *reinterpret_cast<float2*>(p.part + plane + at + 8 * i) =
@@ -613,7 +652,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     if (!sm.last) continue;
     __threadfence();
     // each of the lane's rows of dK, then of dV: split by split, the row's
-    // D / 4 values read at once (loads in flight, not one chain a value),
+    // DA / 4 values read at once (loads in flight, not one chain a value),
     // summed in split order
     const float* first = p.part + own - e.s * step;
 #pragma unroll 1
@@ -622,12 +661,12 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       for (int r = 0; r < 2; ++r) {
         const int key = key0 + 8 * r;
         const float* row = first + pl * plane + key * D + 2 * (lane & 3);
-        float2 acc[D / 8];
+        float2 acc[DA / 8];
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i) acc[i] = make_float2(0.f, 0.f);
+        for (int i = 0; i < DA / 8; ++i) acc[i] = make_float2(0.f, 0.f);
         for (int sp = 0; sp < p.splits; ++sp) {
 #pragma unroll
-          for (int i = 0; i < D / 8; ++i) {
+          for (int i = 0; i < DA / 8; ++i) {
             const float2 x = __ldcg(reinterpret_cast<const float2*>(
                 row + sp * step + 8 * i));
             acc[i].x += x.x;
@@ -637,7 +676,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         if (key >= keys) continue;
         OutT* out = (pl ? dv_out : dk_out) + out0 + key * kst + 2 * (lane & 3);
 #pragma unroll
-        for (int i = 0; i < D / 8; ++i) store2(out + 8 * i, acc[i].x, acc[i].y);
+        for (int i = 0; i < DA / 8; ++i)
+          store2(out + 8 * i, acc[i].x, acc[i].y);
       }
     }
     if (threadIdx.x == WG) *ticket = 0;  // for the next call
@@ -665,8 +705,9 @@ struct Scratch {
 
 Scratch scratch_of(int B, int T, int Hq, int Hkv, int D, int sms) {
   Scratch s;
-  s.nq = (T + IM - 1) / IM;
-  s.Tp = s.nq * IM;
+  const int im = item_rows(D);
+  s.nq = (T + im - 1) / im;
+  s.Tp = s.nq * im;
   const long long items = (long long)s.nq * Hkv * B;
   const int g = Hq / Hkv;
   s.splits = 1;                         // the largest divisor of G that
@@ -692,7 +733,8 @@ int launch_wgmma(const Operand& q, const Operand& k, const Operand& v,
                  void* dq, void* dk, void* dv, float* ws, int* tickets,
                  long long kvsb, int B, int T, int Hq, int Hkv, float scale,
                  int sms, cudaStream_t stream) {
-  using C = Tiles<F32>;
+  using C = Tiles<D, F32>;
+  constexpr int IM = C::IM;
   const Scratch sc = scratch_of(B, T, Hq, Hkv, D, sms);
   if (ws == nullptr || (sc.splits > 1 && tickets == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -743,7 +785,7 @@ int launch_wgmma(const Operand& q, const Operand& k, const Operand& v,
     e = cudaFuncSetAttribute(
         kkv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kv_smem);
   if (e != cudaSuccess) return (int)e;
-  kq<<<(int)(dq_items > sms ? sms : dq_items), WS_THREADS, dq_smem,
+  kq<<<(int)(dq_items > sms ? sms : dq_items), C::DQ_THREADS, dq_smem,
        stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -826,8 +868,8 @@ extern "C" int flash_attn_bwd_scratch(int B, int T, int Hq, int Hkv, int D,
 // element strides (batch, token) given and heads and d contiguous; lse
 // (K13's, flash_attn with its lse) f32 [B, Hq, T]; dq [B, T, Hq, W]
 // contiguous; dk, dv [B, S, Hkv, W] contiguous with batch stride kvsb = S
-// * Hkv * W (rows < T written), all in the inputs' type. W (64 or 128) is
-// the kernels' head_dim template, scale 1/sqrt(d); ws and tickets as
+// * Hkv * W (rows < T written), all in the inputs' type. W (64, 128 or
+// 256) is the kernels' head_dim template, scale 1/sqrt(d); ws and tickets as
 // flash_attn_bwd_scratch sizes them (tickets 0 on entry, left at 0).
 // f32 = 0: bf16 tensors with d = W, 16-byte aligned rows and strides;
 // planes is not read. f32 = 1: float32 tensors, any d <= W (columns d ..
@@ -864,6 +906,10 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
       return launch_f32<128>(q, k, v, o, dout, lse, dq, dk, dv, ws, tickets,
                              pl, qsb, qst, ksb, kst, vsb, vst, osb, ost, dsb,
                              dst, kvsb, B, T, Hq, Hkv, d, scale, sms, st);
+    if (W == 256)
+      return launch_f32<256>(q, k, v, o, dout, lse, dq, dk, dv, ws, tickets,
+                             pl, qsb, qst, ksb, kst, vsb, vst, osb, ost, dsb,
+                             dst, kvsb, B, T, Hq, Hkv, d, scale, sms, st);
     return (int)cudaErrorInvalidValue;
   }
   const Operand qo{q, qsb, qst, Hq, B}, ko{k, ksb, kst, Hkv, B},
@@ -875,6 +921,10 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                                    st);
   if (W == 128)
     return launch_wgmma<128, false>(qo, ko, vo, oo, doo, lse, dq, dk, dv, ws,
+                                    tickets, kvsb, B, T, Hq, Hkv, scale, sms,
+                                    st);
+  if (W == 256)
+    return launch_wgmma<256, false>(qo, ko, vo, oo, doo, lse, dq, dk, dv, ws,
                                     tickets, kvsb, B, T, Hq, Hkv, scale, sms,
                                     st);
   return (int)cudaErrorInvalidValue;

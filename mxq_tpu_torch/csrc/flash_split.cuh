@@ -69,10 +69,11 @@ __device__ __forceinline__ void gemm_abt(float (&acc)[N / 2],
 }
 
 // acc [64 x D] += X . B: X [64 x N] as bf16 pairs, a k16 slice a row of
-// x[plane] (hi, then lo), B an [N][D] tile read transposed (rows 16 kk ..
-// of every box; the next 64 columns one box, N lines of 128 bytes, on).
+// x[plane] (hi, then lo), B D columns of an [N][DS] tile read transposed
+// (rows 16 kk .. of every box; the next 64 columns one box, N lines of
+// 128 bytes, on; b at the first of them, a plane N DS elements long).
 // NP = 2: hi.lo + lo.hi + hi.hi.
-template <int D, int N, int NP>
+template <int D, int N, int NP, int DS = D>
 __device__ __forceinline__ void gemm_xb(float (&acc)[D / 2],
                                         const uint32_t (&x)[NP][N / 16][4],
                                         const __nv_bfloat16* b) {
@@ -82,7 +83,7 @@ __device__ __forceinline__ void gemm_xb(float (&acc)[D / 2],
       wgmma_rs<D>(acc, xp[kk], wgmma_desc(bp + kk * 16 * 64, N * 128, 1024));
   };
   if constexpr (NP == 2) {
-    one(x[0], b + N * D);
+    one(x[0], b + N * DS);
     one(x[1], b);
     one(x[0], b);
   } else {

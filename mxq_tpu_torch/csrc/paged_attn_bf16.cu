@@ -18,10 +18,13 @@
 // bf16, tables [B, pps] int32 physical page ids, any page size. q and the
 // output are [B, Hkv * Gtot, d] in one type, bf16 or float32, read and
 // written at their width d; a launch takes Gtot's heads g0 .. g0 + G - 1
-// of each kv head (G <= 16). The kernel is a template at D = 64 or 128
-// (d <= D) and at GT = 1, 2, 4, 8 or 16 query heads (G <= GT, the heads
-// past G masked): its shared tiles are zero past column d, so narrower
-// pages are read in place and give zero context columns past d.
+// of each kv head (G <= 16; G <= 8 at D = 256). The kernel is a template
+// at D = 64, 128 or 256 (d <= D) and at GT = 1, 2, 4, 8 or 16 query heads
+// (G <= GT, the heads past G masked; GT <= 8 at D = 256, where a lane
+// group holds GT x D of q and of the context in registers, 128 floats a
+// lane at GT = 8): its shared tiles are zero past column d, so narrower
+// pages are read in place and give zero context columns past d. At D =
+// 256 a tile is 16 rows and a lane group one warp (8 columns a lane).
 //
 // Bound on the H100: bytes. Every K and V row below the length is read
 // once (2 * d * 2 bytes per (b, kv head, row)) for 4 * G * d operations:
@@ -87,6 +90,7 @@ constexpr int SPLIT = 256;               // history rows per work item
 constexpr int STAGES = 2;                // tiles of the ring
 constexpr int TILE_BYTES = 8192;         // one K (or V) tile
 constexpr int GMAX = 16;                 // query heads of a launch
+constexpr int GMAX_256 = 8;              // and at D = 256
 // a full barrier's arrivals per phase: the producer's lane 0 (with the
 // bulk copies' bytes) and then each of its 32 lanes
 constexpr int FULL_ARRIVALS = 33;
@@ -513,7 +517,9 @@ template <int D, int GT>
 __device__ __forceinline__ void consume(const Args& a, unsigned char* smem) {
   using L = Layout<D, GT>;
   constexpr int TR = L::TR;
-  constexpr int CPL = GT >= 8 ? 4 : 8;   // columns a lane reads
+  // columns a lane reads: 8, or 4 where GT heads of q and the context
+  // would outgrow the registers (GT >= 8 at D <= 128)
+  constexpr int CPL = GT >= 8 && D <= 128 ? 4 : 8;
   constexpr int LPR = D / CPL;           // lanes of a row (a lane group)
   constexpr int NLG = NCW * 32 / LPR;    // lane groups
   constexpr int R = TR / NLG;            // rows of a lane group per tile
@@ -726,15 +732,20 @@ int launch_heads(const Args& a, void* stream) {
   if (a.G <= 1) return launch<D, 1>(a, stream);
   if (a.G <= 2) return launch<D, 2>(a, stream);
   if (a.G <= 4) return launch<D, 4>(a, stream);
-  if (a.G <= 8) return launch<D, 8>(a, stream);
-  return launch<D, 16>(a, stream);
+  if constexpr (D > 128) {
+    return launch<D, 8>(a, stream);
+  } else {
+    if (a.G <= 8) return launch<D, 8>(a, stream);
+    return launch<D, 16>(a, stream);
+  }
 }
 
 }  // namespace
 
 // q [B, Hkv * Gtot, d] (float32 if qf32, else bf16), contiguous; k/v pages
 // [Hkv, LP, ps, d] bf16, d <= D; lengths [B]; tables [B, pps] physical
-// page ids; query heads g0 .. g0 + G - 1 of each kv head (G <= 16); ws
+// page ids; query heads g0 .. g0 + G - 1 of each kv head (G <= 16, and
+// G <= 8 at D = 256); D the template (64, 128 or 256); ws
 // the scratch of B * Hkv * G * NS * (D + 2) floats, NS = ceil(pps * ps /
 // 256); tickets [B * Hkv] int32, 0 between calls; out shaped and typed as
 // q (only the launch's heads written). Returns a cudaError_t.
@@ -744,7 +755,8 @@ extern "C" int paged_attn_bf16(const void* q, int qf32, const void* kp,
                                int g0, int G, int D, int d, int LP, int ps,
                                int pps, float sqrt_d, void* ws, void* tickets,
                                void* out, void* stream) {
-  if (B < 0 || Hkv < 1 || G < 1 || G > GMAX || g0 < 0 || g0 + G > Gtot
+  if (B < 0 || Hkv < 1 || G < 1 || G > (D > 128 ? GMAX_256 : GMAX)
+      || g0 < 0 || g0 + G > Gtot
       || d < 1 || d > D || LP < 1 || ps < 1 || pps < 1
       || (long long)pps * ps > (1 << 30)
       || (long long)B * Hkv * ((pps * (long long)ps + SPLIT - 1) / SPLIT)
@@ -772,16 +784,24 @@ extern "C" int paged_attn_bf16(const void* q, int qf32, const void* kp,
   switch (D) {
     case 64: return launch_heads<64>(a, stream);
     case 128: return launch_heads<128>(a, stream);
+    case 256: return launch_heads<256>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // blocks of the kernel at head_dim template D and G query heads that one
-// SM holds at once (the wrapper's and chip_smoke's report). Returns a
+// SM holds at once (the wrapper's and chip_smoke's report; G past a
+// launch's most, 16 or at D = 256 8, counts as that most). Returns a
 // cudaError_t.
 extern "C" int paged_attn_bf16_blocks(int D, int G, int* blocks) {
-  if (G < 1 || G > GMAX || (D != 64 && D != 128))
+  if (G < 1 || G > GMAX || (D != 64 && D != 128 && D != 256))
     return (int)cudaErrorInvalidValue;
+  if (D == 256) {
+    if (G <= 1) return blocks_per_sm<256, 1>(blocks);
+    if (G <= 2) return blocks_per_sm<256, 2>(blocks);
+    if (G <= 4) return blocks_per_sm<256, 4>(blocks);
+    return blocks_per_sm<256, 8>(blocks);
+  }
   const int gt = G <= 1 ? 1 : G <= 2 ? 2 : G <= 4 ? 4 : G <= 8 ? 8 : 16;
   switch (D * 32 + gt) {
     case 64 * 32 + 1: return blocks_per_sm<64, 1>(blocks);

@@ -18,15 +18,19 @@ model sends that attention under autograd to :class:`FlashAttention`.
 
 Each wrapper takes its plain version for tensors on the CPU and launches
 its kernel for tensors on the card, where a failed launch raises. The
-kernels are templates at head_dim 64 and 128; the wrappers run every other
-D <= 128 at the next of them, as upstream takes every D <= 128, and refuse
-D > 128: K13 and K13-bwd at bfloat16 on zero-padded copies
+kernels are templates at head_dim 64, 128 and 256; the wrappers run every
+other D <= 256 at the next of them (upstream takes every D <= 128 and
+multiples of 128; ``mxq_tpu``'s paged reference every D) and refuse D >
+256: K13 and K13-bwd at bfloat16 on zero-padded copies
 (:func:`pad_head_dim`); K12 reads q, the pool's pages and its output at
-their width, zeros past D in its tiles. At float32, K13 and K13-bwd
-first run the split pass (:func:`flash_split`'s kernel, inside the same
-launch), which writes the inputs' bf16 hi and lo planes with zeros past
-D, so no padded copy is made: the kernels then run the bf16 design's
-products three times (hi.lo + lo.hi + hi.hi).
+their width, zeros past D in its tiles. At D = 256 K13 and K13-bwd run
+smaller tiles (fewer keys a tile, fewer stages; K13-bwd's items of 64
+rows, its dK/dV kernel's two consumer warpgroups each holding half of
+D's columns), and K12 takes at most 8 query heads a launch. At float32,
+K13 and K13-bwd first run the split pass (:func:`flash_split`'s kernel,
+inside the same launch), which writes the inputs' bf16 hi and lo planes
+with zeros past D, so no padded copy is made: the kernels then run the
+bf16 design's products three times (hi.lo + lo.hi + hi.hi).
 """
 
 from __future__ import annotations
@@ -42,21 +46,29 @@ from mxq_tpu_torch.scheme import div_const
 NEG = torch.finfo(torch.float32).min
 SPLIT_ROWS = 256    # history rows per K12 work item (paged_attn_bf16.cu SPLIT)
 GMAX = 16           # query heads per kv head of one K12 launch
-HEAD_DIMS = (64, 128)   # the kernels' head_dim templates
+GMAX_256 = 8        # and at the D = 256 template (paged_attn_bf16.cu)
+HEAD_DIMS = (64, 128, 256)   # the kernels' head_dim templates
 MAX_HEAD_DIM = HEAD_DIMS[-1]
 
 
 def kernel_head_dim(d: int) -> int:
     """The template width the kernels run a head_dim ``d`` at: the
-    smallest of HEAD_DIMS that holds it. Upstream takes every D <= 128
-    and multiples of 128 above; K13's wgmma tiles at D = 256 outgrow
-    shared memory, so D > 128 is refused."""
+    smallest of HEAD_DIMS that holds it. No Llama configuration has a D
+    above 256, and the kernels have no template for one: D > 256 is
+    refused."""
     for w in HEAD_DIMS:
         if 1 <= d <= w:
             return w
     raise ValueError(f"the bf16 attention kernels take head_dim 1.."
-                     f"{MAX_HEAD_DIM}, got {d}: D > {MAX_HEAD_DIM} does not "
-                     f"fit their shared-memory tiles")
+                     f"{MAX_HEAD_DIM}, got {d}: no template past "
+                     f"{MAX_HEAD_DIM}")
+
+
+def heads_per_launch(w: int) -> int:
+    """The most query heads per kv head one K12 launch takes at template
+    width ``w``: GMAX, or GMAX_256 at 256 (a lane group's q and context
+    registers grow with D)."""
+    return GMAX if w <= 128 else GMAX_256
 
 
 def pad_head_dim(x: torch.Tensor, w: int) -> torch.Tensor:
@@ -144,7 +156,8 @@ def _paged_check(q, k_pages, v_pages, lengths, page_indices):
 
 
 def _paged_launch(q, k_pages, v_pages, lengths, page_indices, out, g0, g):
-    """One K12 launch: query heads g0 .. g0 + g - 1 (g <= GMAX) of each kv
+    """One K12 launch: query heads g0 .. g0 + g - 1 (g <=
+    :func:`heads_per_launch`) of each kv
     head, q [B, Hq, D] bf16 or float32 contiguous read at its width D,
     the pages [Hkv, LP, ps, D] read in place, those heads of ``out``
     (shaped and typed as q) written."""
@@ -188,19 +201,20 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices):
     1 long (a row of length <= 0 gets zeros) and an engine reserves the
     tickets before it captures a chunk (``attn_int8.reserve_tickets``).
     The kernel reads q and writes the result in q's type at its width D
-    (any D <= 128, run at the next of HEAD_DIMS with zeros past D in its
+    (any D <= 256, run at the next of HEAD_DIMS with zeros past D in its
     tiles) and reads the pages in place: one launch a call, and one more
-    per GMAX query heads of a kv head beyond the first GMAX, each
-    counted."""
+    per :func:`heads_per_launch` query heads of a kv head beyond the
+    first, each counted."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, lengths,
                                             page_indices)
     q = q.contiguous()
     g = _paged_check(q, k_pages, v_pages, lengths, page_indices)
     out = torch.empty_like(q)
-    for g0 in range(0, g, GMAX):
+    per = heads_per_launch(kernel_head_dim(q.shape[-1]))
+    for g0 in range(0, g, per):
         _paged_launch(q, k_pages, v_pages, lengths, page_indices, out, g0,
-                      min(GMAX, g - g0))
+                      min(per, g - g0))
     return out
 
 
@@ -406,7 +420,7 @@ def flash_prefill_attention(q, k, v):
 
     q [B, T, Hq, D]; k, v [B, S, Hkv, D] with S >= T (query row i sees key
     rows j <= i, so rows >= T are never read), one type, bfloat16 or
-    float32, D <= 128; query head h reads kv head h // (Hq // Hkv) in
+    float32, D <= 256; query head h reads kv head h // (Hq // Hkv) in
     place. Strided views (the fused qkv projection's slices) are read as
     they are. Returns [B, T, Hq, D] in q's type."""
     if q.device.type == "cpu":

@@ -31,7 +31,10 @@ On the card each wrapper runs two kernels (``csrc/attn_split.cuh``): the
 history is split over blocks of ``CHUNK`` rows, pass A scores every row,
 pass B rounds bf16(p * v_scale) against the max the plain version rounds
 against and sums its split, and the last block of each (batch, kv head)
-adds the splits in order.
+adds the splits in order. The kernels take every head_dim D in
+1..MAX_HEAD_DIM: 64, 128 and 256 at their templates, every other D at the
+next of them, reading and writing the cache's rows in place at their true
+width (``code_load_bytes``).
 """
 
 from __future__ import annotations
@@ -46,6 +49,8 @@ from mxq_tpu_torch.scheme import div_const
 NEG = torch.finfo(torch.float32).min
 CHUNK = 128      # history rows per block of the kernels (attn_split.cuh)
 QMAX = 64        # query rows per (batch, kv head) the kernels take
+TILE_DIMS = (64, 128, 256)   # the kernels' head_dim templates
+MAX_HEAD_DIM = TILE_DIMS[-1]
 _TICKETS: dict = {}
 _RETIRED: list = []
 
@@ -103,10 +108,21 @@ def scratch_scores(ws, b, hkv, nq, nsplit):
     return sc, ws[at:at + bhq].view(b, hkv, nq)
 
 
-def _check_aligned(what, tensors):
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{what}: code tensors must start 16-byte aligned "
-                         "(the kernels load 16 codes at once)")
+def code_load_bytes(what, d, tensors) -> int:
+    """The bytes a code load of the kernels reads (their ``vec``): 16 at a
+    template width (64, 128, 256), whose code tensors must start 16-byte
+    aligned; at any other head_dim d the widest of 16, 4 and 1 bytes that
+    divides d and every code tensor's start, so that each row, at d bytes
+    from the last, starts aligned to it."""
+    if d in TILE_DIMS:
+        if any(t.data_ptr() % 16 for t in tensors):
+            raise ValueError(f"{what}: code tensors must start 16-byte "
+                             "aligned (the kernels load 16 codes at once)")
+        return 16
+    for vec in (16, 4):
+        if d % vec == 0 and not any(t.data_ptr() % vec for t in tensors):
+            return vec
+    return 1
 
 
 def _attend_plain(q, kc, ks, vc, vs, positions, cur=None):
@@ -169,9 +185,9 @@ def _check_k4(what, q, k_codes, k_scale, v_codes, v_scale, cur, positions):
             raise ValueError(f"{what} {name}: {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, contiguous={t.is_contiguous()}; "
                              f"want {dt} {shape} contiguous on {dev}")
-    if hq % hkv or not 1 <= g <= QMAX or d not in (64, 128):
-        raise ValueError(f"{what} takes D in (64, 128) and 1..{QMAX} query "
-                         f"heads per kv head, got D={d}, Hq={hq}, "
+    if hq % hkv or not 1 <= g <= QMAX or not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{what} takes D in 1..{MAX_HEAD_DIM} and 1..{QMAX} "
+                         f"query heads per kv head, got D={d}, Hq={hq}, "
                          f"Hkv={hkv}")
     if cur is not None and nt != 1:
         raise ValueError(f"{what}: the current token takes one query token")
@@ -208,8 +224,8 @@ def _dense_launch(what, q, k_codes, k_scale, v_codes, v_scale, layer_idx,
     if not 0 <= layer_idx < l:
         raise IndexError(f"layer {layer_idx} of {l}")
     kcur, kscur, vcur, vscur = cur if cur is not None else (None,) * 4
-    _check_aligned(what, [k_codes[layer_idx], v_codes[layer_idx]]
-                   + ([kcur, vcur] if cur is not None else []))
+    vec = code_load_bytes(what, d, [k_codes[layer_idx], v_codes[layer_idx]]
+                          + ([kcur, vcur] if cur is not None else []))
     chunks = token_chunks(hq // hkv, t)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     lib = _build.load("attn_int8")
@@ -225,7 +241,7 @@ def _dense_launch(what, q, k_codes, k_scale, v_codes, v_scale, layer_idx,
             k_scale[layer_idx].data_ptr(), v_codes[layer_idx].data_ptr(),
             v_scale[layer_idx].data_ptr(), ptr(kcur), ptr(kscur), ptr(vcur),
             ptr(vscur), pc.data_ptr(), b, hkv, hq // hkv, nt, s, d,
-            int(cur is not None), int(write), 1.0 / math.sqrt(d),
+            int(cur is not None), int(write), vec, 1.0 / math.sqrt(d),
             ws.data_ptr(), tickets.data_ptr(), out.data_ptr(),
             torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(err, what)
@@ -494,13 +510,13 @@ def _check_paged(what, q, k_pages, k_scales, v_pages, v_scales, bound,
             raise ValueError(f"{what} {name}: {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, contiguous={t.is_contiguous()}; "
                              f"want {dt} {shape} contiguous on {dev}")
-    if hq % hkv or not 1 <= g <= QMAX or d not in (64, 128) \
+    if hq % hkv or not 1 <= g <= QMAX or not 1 <= d <= MAX_HEAD_DIM \
             or ps != PAGE_INT8:
-        raise ValueError(f"{what} takes D in (64, 128), 1..{QMAX} query "
-                         f"heads per kv head and pages of {PAGE_INT8} rows, "
-                         f"got D={d}, Hq={hq}, Hkv={hkv}, page={ps}")
-    _check_aligned(what, [k_pages, v_pages]
-                   + ([cur[0], cur[2]] if cur is not None else []))
+        raise ValueError(f"{what} takes D in 1..{MAX_HEAD_DIM}, 1..{QMAX} "
+                         f"query heads per kv head and pages of {PAGE_INT8} "
+                         f"rows, got D={d}, Hq={hq}, Hkv={hkv}, page={ps}")
+    return code_load_bytes(what, d, [k_pages, v_pages]
+                           + ([cur[0], cur[2]] if cur is not None else []))
 
 
 def _paged_launch(what, q, k_pages, k_scales, v_pages, v_scales, bound,
@@ -509,8 +525,8 @@ def _paged_launch(what, q, k_pages, k_scales, v_pages, v_scales, bound,
     ``write`` are its compile-time flags). Returns ctx [B, Hq, D] f32."""
     from mxq_tpu_torch import _build
     qb = q.to(torch.bfloat16).contiguous()
-    _check_paged(what, qb, k_pages, k_scales, v_pages, v_scales, bound,
-                 tables, cur)
+    vec = _check_paged(what, qb, k_pages, k_scales, v_pages, v_scales, bound,
+                       tables, cur)
     b, hq, d = q.shape
     hkv, lp = k_pages.shape[:2]
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
@@ -523,7 +539,7 @@ def _paged_launch(what, q, k_pages, k_scales, v_pages, v_scales, bound,
         v_pages.data_ptr(), v_scales.data_ptr(), ptr(kcur), ptr(kscur),
         ptr(vcur), ptr(vscur), bound.data_ptr(), tables.data_ptr(), b, hkv,
         hq // hkv, d, lp, tables.shape[1], int(cur is not None), int(write),
-        1.0 / math.sqrt(d), ws.data_ptr(), tickets.data_ptr(),
+        vec, 1.0 / math.sqrt(d), ws.data_ptr(), tickets.data_ptr(),
         out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, what)
     return out

@@ -266,23 +266,26 @@ def test_padded_plain_versions_equal_unpadded(d):
 
 
 @pytest.mark.parametrize("d,w", [(80, 128), (96, 128), (100, 128),
-                                 (33, 64), (64, 64), (128, 128)])
+                                 (33, 64), (64, 64), (128, 128), (129, 256),
+                                 (160, 256), (192, 256), (256, 256)])
 def test_shape_checks_take_every_head_dim_up_to_128(d, w):
-    """K12's and K13's checks (K13-bwd's is K13's) take every D <= 128 and
-    give the template width the kernels run it at; D = 192 is refused, as
-    the kernels' tiles at D = 256 would not fit shared memory."""
+    """K12's and K13's checks (K13-bwd's is K13's) take every D <= 256
+    (the name is the test's from when the limit was 128) and give the
+    template width the kernels run it at; D = 384 is refused with a
+    message that names the limit, as no template is wider than 256."""
     q, k = torch.zeros(1, 4, 8, d), torch.zeros(1, 4, 2, d)
     assert ab._flash_check("K13", q, k, k) == w
     qp, kp, vp, lengths, tables = (to_torch(a) for a in _pool(
         np.random.default_rng(0), 2, 4, d))
     assert ab._paged_check(qp, kp, vp, lengths, tables) == 4
     assert ab.kernel_head_dim(d) == w
-    big, bigk = torch.zeros(1, 4, 8, 192), torch.zeros(1, 4, 2, 192)
-    with pytest.raises(ValueError, match="D in 1..128"):
+    assert ab.heads_per_launch(w) == (8 if w == 256 else 16)
+    big, bigk = torch.zeros(1, 4, 8, 384), torch.zeros(1, 4, 2, 384)
+    with pytest.raises(ValueError, match=r"D in 1\.\.256"):
         ab._flash_check("K13", big, bigk, bigk)
     qb, kb, vb, lb, tb = (to_torch(a) for a in _pool(
-        np.random.default_rng(0), 2, 1, 192))
-    with pytest.raises(ValueError, match="D in 1..128"):
+        np.random.default_rng(0), 2, 1, 384))
+    with pytest.raises(ValueError, match=r"D in 1\.\.256"):
         ab._paged_check(qb, kb, vb, lb, tb)
-    with pytest.raises(ValueError, match="head_dim 1..128"):
-        ab.kernel_head_dim(192)
+    with pytest.raises(ValueError, match=r"head_dim 1\.\.256"):
+        ab.kernel_head_dim(384)

@@ -213,12 +213,20 @@ def _edge_positions(s, t=1):
                                            s - 1)})
 
 
+# the int8 family's head_dims: its templates (64, 128, 256) and, read in
+# place at the next template, 80 (16-byte loads), 100 (open_llama_3b: 4-byte
+# loads) and 99 (one byte at a time)
+INT8_DIMS = [(4, 2, 64), (8, 8, 128), (16, 2, 128), (8, 2, 80), (4, 4, 100),
+             (2, 2, 99), (8, 1, 256)]
+
+
 @pytest.mark.parametrize("s", [1, 96, 300, 4096])
-@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128)])
+@pytest.mark.parametrize("hq,hkv,d", INT8_DIMS)
 def test_attention_kernel_matches_plain(gen, hq, hkv, d, s):
     """K4 at histories of 1-4096 rows: ctx within 1e-3 of the plain version
     (expected ~1e-7: no rounding point moves), the written rows
-    bit-exact, every other cache byte untouched."""
+    bit-exact, every other cache byte untouched; at every head_dim of
+    INT8_DIMS."""
     L, S = 2, s
     plist = _edge_positions(S)
     B = len(plist)
@@ -244,7 +252,7 @@ def test_attention_kernel_matches_plain(gen, hq, hkv, d, s):
 
 
 @pytest.mark.parametrize("s", [96, 300, 4096])
-@pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128)])
+@pytest.mark.parametrize("hq,hkv,d", INT8_DIMS)
 def test_attention_flag_kernels_match_plain(gen, hq, hkv, d, s):
     """K4a/K4c (rows <= pos, no current token) and K4b/K4d (rows < pos plus
     the current token, no write) against their plain versions; neither
@@ -415,12 +423,14 @@ def _paged_inputs(gen, pos, hkv, g, d, pps, lp):
 
 
 @pytest.mark.parametrize("pps", [3, 32])
-@pytest.mark.parametrize("g,d", [(1, 64), (4, 128), (8, 128)])
+@pytest.mark.parametrize("g,d", [(1, 64), (4, 128), (8, 128), (4, 80),
+                                 (2, 100), (1, 99), (8, 256)])
 def test_paged_kernels_match_plain(gen, g, d, pps):
     """K9, K10 and K11 against their plain versions, shuffled tables, a
     NaN null page, histories up to 4096 rows cut at page edges (last pages
     with one valid row: positions 129 and 257 attend one row of their
-    page); K11's written rows bit-exact, no other byte changed."""
+    page); K11's written rows bit-exact, no other byte changed; head_dims
+    80, 100 and 99 read in place at the next template, 256 at its own."""
     hkv = 2
     ps = a8.PAGE_INT8
     plist = [0, 1, 127, 128, 129, 257, 300, pps * ps - 1]
@@ -483,7 +493,9 @@ def _k12_pool(gen, lens, hkv, g, d, ps, pps, q_dtype):
 @pytest.mark.parametrize("ps,pps", [(64, 3), (64, 32), (16, 9)])
 @pytest.mark.parametrize("g,d,hkv", [(1, 64, 2), (4, 128, 2), (8, 128, 2),
                                      (8, 128, 8), (4, 96, 2), (32, 128, 2),
-                                     (4, 100, 2), (2, 98, 2), (1, 99, 2)])
+                                     (4, 100, 2), (2, 98, 2), (1, 99, 2),
+                                     (8, 256, 1), (4, 160, 2), (16, 256, 2),
+                                     (2, 256, 2)])
 def test_k12_matches_plain(gen, g, d, hkv, ps, pps, q_dtype):
     """K12 against its plain version: shuffled tables, lengths cut at page,
     tile and split edges (1, 63-65, 127-129, 255-257, the whole table);
@@ -495,7 +507,9 @@ def test_k12_matches_plain(gen, g, d, hkv, ps, pps, q_dtype):
     bits. D = 96 and 100, 98 and 99 run at 128, the kernel reading the
     pages in place by bulk copies a row, and by copies of 8, 4 and 2
     bytes; G = 32 as two launches of 16 query heads per kv head;
-    llama2_70b's heads at (8, 128) with 8 kv heads."""
+    llama2_70b's heads at (8, 128) with 8 kv heads; D = 256 (Gemma-2B's
+    G = 8 over one kv head, and G = 16 as two launches of 8) and 160
+    (at 256, read in place)."""
     lens = [n for n in (1, 63, 64, 65, 127, 128, 129, 255, 256, 257,
                         pps * ps) if n <= pps * ps]
     q, nan, zero, lengths, tables = _k12_pool(gen, lens, hkv, g, d, ps,
@@ -505,7 +519,8 @@ def test_k12_matches_plain(gen, g, d, hkv, ps, pps, q_dtype):
     ref = ab.paged_decode_attention_plain(q, *zero, lengths, tables)
     again = ab.paged_decode_attention(q, *nan, lengths, tables)
     torch.cuda.synchronize()
-    assert ab.paged_decode_attention.launches == before + 2 * -(-g // ab.GMAX)
+    per = ab.heads_per_launch(ab.kernel_head_dim(d))
+    assert ab.paged_decode_attention.launches == before + 2 * -(-g // per)
     assert got.dtype == q_dtype and got.shape == q.shape
     assert bool(torch.isfinite(got).all())
     assert torch.equal(got, again)
@@ -515,7 +530,8 @@ def test_k12_matches_plain(gen, g, d, hkv, ps, pps, q_dtype):
 
 
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("g,d", [(1, 128), (8, 128), (4, 64), (2, 96)])
+@pytest.mark.parametrize("g,d", [(1, 128), (8, 128), (4, 64), (2, 96),
+                                 (8, 256)])
 def test_k12_row_bits_independent_of_batch(gen, g, d, q_dtype):
     """A row of 300 rows (two splits, a cut tile) gives the same bits
     alone as row 3 of a batch of other lengths (1, 129, 2000, 64, 2047,
@@ -540,7 +556,8 @@ def test_k12_row_bits_independent_of_batch(gen, g, d, q_dtype):
 @pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 200, 255, 257,
                                513, 1000])
 @pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128),
-                                      (8, 2, 80), (4, 4, 96)])
+                                      (8, 2, 80), (4, 4, 96), (8, 1, 256),
+                                      (4, 2, 192)])
 def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
     """K13 against its plain version, with q, k, v as the fused qkv
     projection's strided slices and k, v 7 rows longer than q (a cache
@@ -550,7 +567,9 @@ def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
     products); the same bits on a second call. T straddles the 128-row
     items, the bf16 kernel's 128-key tiles and the float32 kernel's 64-key
     ones; D = 80 and 96 run at 128 (bf16 on zero-padded copies, float32 on
-    the split pass's planes, zeros past D); G = 8 at (16, 2)."""
+    the split pass's planes, zeros past D), 192 at 256; G = 8 at (16, 2)
+    and at Gemma-2B's (8, 1, 256), whose tiles are 64 keys (bf16) and 32
+    (float32)."""
     b = 2
     qkv = torch.randn((b, t + 7, (hq + 2 * hkv) * d), generator=gen,
                       device="cuda").to(dtype)
@@ -615,7 +634,8 @@ def _grad_errs(got, ref):
 @pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 200, 255, 257,
                                513, 1000])
 @pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128),
-                                      (8, 2, 80), (4, 4, 96)])
+                                      (8, 2, 80), (4, 4, 96), (8, 1, 256),
+                                      (4, 2, 192)])
 def test_k13_bwd_matches_plain(gen, hq, hkv, d, t, dtype):
     """K13-bwd against its plain version on the same lse (K13's), q, k, v
     the fused projection's strided slices and dO a transposed view: each
@@ -625,7 +645,8 @@ def test_k13_bwd_matches_plain(gen, hq, hkv, d, t, dtype):
     second call, one launch counted per call, dK and dV zero past row T.
     T straddles the 128-row items and the ring's tiles (bf16 64 rows,
     float32 32); D = 80 and 96 run at 128 (bf16 on zero-padded copies,
-    float32 on the split pass's planes)."""
+    float32 on the split pass's planes), 192 at 256, whose items are 64
+    rows, its ring's tiles 32 rows (bf16) and 16 (float32)."""
     b = 2
     q, k, v = _qkv(gen, b, t, hq, hkv, d, dtype)
     do = torch.randn((b, hq, t, d), generator=gen, device="cuda").to(
@@ -716,7 +737,39 @@ def test_k13_bwd_reads_no_row_past_t(gen, t, dtype):
         assert bool(torch.isfinite(g).all()) and torch.equal(g, r)
 
 
-@pytest.mark.parametrize("d", [1, 64, 80, 96, 98, 100, 128])
+def test_head_dim_past_256_refused(gen):
+    """D = 384 on the card: every attention wrapper raises a ValueError
+    that names the limit of 256, and launches nothing."""
+    cat = dict(generator=gen, device="cuda")
+    d = 384
+    q = torch.randn((2, 4, d), **cat).to(torch.bfloat16)
+    codes = torch.zeros((1, 2, 2, 256, d), dtype=torch.int8, device="cuda")
+    scales = torch.ones((1, 2, 2, 256), dtype=torch.bfloat16, device="cuda")
+    pos = torch.tensor([3, 7], dtype=torch.int32, device="cuda")
+    pages = torch.zeros((2, 3, a8.PAGE_INT8, d), dtype=torch.int8,
+                        device="cuda")
+    pscales = torch.ones((2, 3, 1, a8.PAGE_INT8), dtype=torch.bfloat16,
+                         device="cuda")
+    tables = torch.tensor([[1], [2]], dtype=torch.int32, device="cuda")
+    bpages = torch.zeros((2, 3, 16, d), dtype=torch.bfloat16, device="cuda")
+    qkv = torch.randn((1, 128, 2, d), **cat).to(torch.bfloat16)
+    before = [f.launches for f in (*a8.KERNELS.values(),
+                                   *ab.KERNELS.values())]
+    calls = [
+        lambda: a8.int8_decode_attention_stacked(q, codes, scales, codes,
+                                                 scales, 0, pos),
+        lambda: a8.int8_paged_decode_attention(q, pages, pscales, pages,
+                                               pscales, pos, tables),
+        lambda: ab.paged_decode_attention(q, bpages, bpages, pos, tables),
+        lambda: ab.flash_prefill_attention(qkv, qkv, qkv)]
+    for call in calls:
+        with pytest.raises(ValueError, match="256"):
+            call()
+    assert [f.launches for f in (*a8.KERNELS.values(),
+                                 *ab.KERNELS.values())] == before
+
+
+@pytest.mark.parametrize("d", [1, 64, 80, 96, 98, 100, 128, 192, 255, 256])
 def test_k13_split_pass_bit_equal(gen, d):
     """The float32 path's split pass against its plain version bit for
     bit (hi = bf16(x), lo = bf16(x - hi), zeros past D in the kernels'

@@ -51,10 +51,10 @@ def layout(w: int, g: int) -> dict:
     """The kernel's consumer layout at template width ``w`` and ``g``
     query heads a launch (the template's GT: the next power of two): lane
     groups a warp and in all (a row's lanes each read 8 columns, 4 at GT >=
-    8), tile rows, rows a lane group takes per tile and per online
-    step."""
+    8 below the 256 template), tile rows, rows a lane group takes per tile
+    and per online step."""
     gt = 1 << (g - 1).bit_length()
-    cpl = 4 if gt >= 8 else 8
+    cpl = 4 if gt >= 8 and w <= 128 else 8
     rpw = 32 // (w // cpl)
     nlg = NCW * rpw
     tr = TILE_BYTES // (2 * w)
@@ -152,7 +152,8 @@ EDGES = [0, 1, SPLIT - 1, SPLIT, SPLIT + 1]
 
 @pytest.mark.parametrize("ps,pps", [(16, 32), (64, 3), (64, 32),
                                     (128, 2), (128, 32)])
-@pytest.mark.parametrize("d,w", [(128, 128), (64, 64), (96, 128)])
+@pytest.mark.parametrize("d,w", [(128, 128), (64, 64), (96, 128),
+                                 (256, 256)])
 def test_work_list_at_edges(ps, pps, d, w):
     """Lengths 0, 1, ps +- 1, SPLIT +- 1, the whole table and past it
     (cut to the table), and a negative one."""
@@ -253,7 +254,8 @@ def _split_partial(q, kp, vp, h, table, n, j, lay, ps, d, w, sqrt_d):
 
 def k12_emulated(q, kp, vp, lengths, tables):
     """K12's result as its schedule computes it (f32, before the cast to
-    q's type): a launch per 16 query heads of a kv head, each item's
+    q's type): a launch per ``ab.heads_per_launch`` query heads of a kv
+    head (16; 8 at the 256 template), each item's
     split partial, the splits combined in order by the last one, a
     single split written directly, zeros for a length <= 0."""
     b, hq, d = q.shape
@@ -265,8 +267,9 @@ def k12_emulated(q, kp, vp, lengths, tables):
     sqrt_d = torch.tensor(math.sqrt(d), dtype=torch.float32)
     qf = q.float()
     out = torch.zeros(b, hq, w)
-    for g0 in range(0, g_all, ab.GMAX):
-        g = min(ab.GMAX, g_all - g0)
+    per = ab.heads_per_launch(w)
+    for g0 in range(0, g_all, per):
+        g = min(per, g_all - g0)
         lay = layout(w, g)
         for bb in range(b):
             n = live_rows(int(lengths[bb]), cap)
@@ -332,7 +335,8 @@ def _lengths(ps, pps):
 
 @pytest.mark.parametrize("ps,pps", [(64, 5), (16, 12), (128, 3)])
 @pytest.mark.parametrize("g,d", [(1, 128), (4, 64), (8, 128), (2, 96),
-                                 (3, 100), (16, 64), (32, 128), (1, 99)])
+                                 (3, 100), (16, 64), (32, 128), (1, 99),
+                                 (8, 256), (16, 256), (2, 200)])
 def test_emulated_schedule_matches_plain_and_jax(g, d, ps, pps):
     """f32 q: within 1e-6 of max|ctx| of the plain version, within 1e-5 of
     ``mxq_tpu``'s reference; finite with NaN in the null page, past each
