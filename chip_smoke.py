@@ -7,8 +7,9 @@
 Phases, each printing one JSON line:
   build    compile csrc/*.cu with nvcc (one process per source, in parallel)
            and runtime/csrc/mxq_runtime.cc with g++ beside them; ptxas'
-           registers and spills of K13's kernels (``K13-ptxas``) and of
-           K13-bwd's (``K13-bwd-ptxas``)
+           registers and spills of K13's kernels (``K13-ptxas``), of
+           K13-bwd's (``K13-bwd-ptxas``), K12's and the wide path's
+           (``wide-ptxas``)
   kernels  hold K1-K6, K4a-K4d (K4a also with a verify's 5 query tokens
            in one launch, and with llama2_70b's G = 8 at 9 tokens: two
            launches of at most 64 query rows), K7, K8, K9-K11, K12 (bf16
@@ -30,7 +31,10 @@ Phases, each printing one JSON line:
            K4a (a verify) and K11 at open_llama_3b's 32 heads of 100
            (read in place at 128), K4, K11, K12, K13 and K13-bwd (bf16
            and float32) at Gemma-2B's 8 heads of 256 over one kv head
-           (rows K4-d100 .. K13-bwd-f32-d256); K1 at 8, 40
+           (rows K4-d100 .. K13-bwd-f32-d256), and the same six on the
+           wide path at 8 heads of 512 over 2 kv heads (rows K4-d512 ..
+           K13-bwd-f32-d512, each with the SDPA backend its library
+           time took at that D); K1 at 8, 40
            and 128 rows, K6 at 8, 1, 40 and 128; K7 at 1, 8, 40,
            128 and 2048 rows, K8 at 8 and 128; and trace K4's gap to its
            plain version to pass A's scores (``K4-gap``)
@@ -84,10 +88,15 @@ Phases, each printing one JSON line:
            through K13; Gemma-2B's widths (GEMMA_2B, D = 256, G = 8,
            full depth, packed from float32 weights): the slot Engine
            (K4), both pools (K11, K12), K13 in the prefills;
-           `cli train --model` on a 2-layer HF checkpoint at Gemma-2B's
-           widths, KD, 2 steps of 512 tokens at float32 and bfloat16
-           (K13 and K13-bwd at 256). Its launches are the kernels line's
-           for the rows K4-d100 .. K13-bwd-f32-d256
+           the wide path at llama2_7b's widths regrouped as 8 heads of
+           512 over 2 kv heads (LLAMA2_7B_D512, synthetic, full depth):
+           the slot Engine (K4), both pools (K11, K12), K13 in the
+           prefills; `cli train --model` on a 2-layer
+           HF checkpoint at Gemma-2B's widths and at LLAMA2_7B_D512's,
+           KD, 2 steps of 512 tokens at float32 and bfloat16 (K13 and
+           K13-bwd at 256 and 512). Its launches are the kernels line's
+           for the rows K4-d100 .. K13-bwd-f32-d256 and K4-d512 ..
+           K13-bwd-f32-d512
   eval     perplexity of llama2_7b at full depth: `cli eval-ppl --w_bits 2`
            (the fake-quant forward), the packed model at seqlen 128 once
            per GEMV layout (slab K1, quad and bfexp K6) and at seqlen 2048
@@ -232,9 +241,17 @@ GEMMA_2B = dict(vocab_size=256000, hidden_size=2048,
                 intermediate_size=16384, num_hidden_layers=18,
                 num_attention_heads=8, num_key_value_heads=1,
                 max_position_embeddings=8192)
-# phase head_dims' cli train at Gemma-2B's widths: layers of the
-# checkpoint it writes (the f32 student, teacher, gradients and AdamW
-# moments at 18 layers, 63 GB, nearly fill a card)
+# and the wide path's: llama2_7b's widths (hidden 4096, intermediate
+# 11008, vocab 32000, 32 layers) regrouped as 8 heads of 512 over 2 kv
+# heads, a synthetic configuration (no public Llama has head_dim > 256;
+# mxq_tpu serves any D), at full depth
+LLAMA2_7B_D512 = dict(vocab_size=32000, hidden_size=4096,
+                      intermediate_size=11008, num_hidden_layers=32,
+                      num_attention_heads=8, num_key_value_heads=2,
+                      max_position_embeddings=4096)
+# phase head_dims' cli train at Gemma-2B's widths and at LLAMA2_7B_D512's:
+# layers of the checkpoint it writes (the f32 student, teacher, gradients
+# and AdamW moments at 18 layers, 63 GB, nearly fill a card)
 GEMMA_TRAIN_LAYERS = 2
 # where greedy tokens of a run with the kernels part from the same run
 # through the plain versions, the plain versions' top-two logit gap at the
@@ -408,6 +425,23 @@ KERNEL_INFO = {
                      "mxq_tpu/models/llama.py:383"),
     "K13-bwd-f32-d256": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
                          "mxq_tpu/models/llama.py:383"),
+    # the wide path past 256 (phase kernels' rows at D = 512, llama2_7b's
+    # widths as 8 heads of 512 over 2 kv heads; their launches are phase
+    # head_dims' runs at those widths)
+    "K4-d512": ("cuda", "mxq_tpu_torch/csrc/attn_int8_wide.cu",
+                "mxq_tpu/ops/attn_int8.py:318"),
+    "K11-d512": ("cuda", "mxq_tpu_torch/csrc/attn_int8_wide.cu",
+                 "mxq_tpu/ops/attn_int8.py:773"),
+    "K12-d512": ("cuda", "mxq_tpu_torch/csrc/paged_attn_bf16_wide.cu",
+                 "mxq_tpu/serving/paged.py:265"),
+    "K13-d512": ("cuda", "mxq_tpu_torch/csrc/flash_attn_wide.cu",
+                 "mxq_tpu/models/llama.py:383"),
+    "K13-f32-d512": ("cuda", "mxq_tpu_torch/csrc/flash_attn_wide.cu",
+                     "mxq_tpu/models/llama.py:383"),
+    "K13-bwd-d512": ("cuda", "mxq_tpu_torch/csrc/flash_attn_wide.cu",
+                     "mxq_tpu/models/llama.py:383"),
+    "K13-bwd-f32-d512": ("cuda", "mxq_tpu_torch/csrc/flash_attn_wide.cu",
+                         "mxq_tpu/models/llama.py:383"),
 }
 
 
@@ -421,19 +455,22 @@ K1_KERNEL_NAMES = ("permute_x_kernel", "gemv_small_kernel",
 K2_KERNEL_NAMES = ("gemv_row_kernel", "gemv_row_sum_kernel")
 # K12's (csrc/paged_attn_bf16.cu, one kernel; no other wrapper launches a
 # kernel of this name)
-K12_KERNEL_NAMES = ("paged_bf16_kernel",)
+K12_KERNEL_NAMES = ("paged_bf16_kernel", "paged_bf16_wide_kernel")
 # K5's (csrc/mxq_dequant.cu: the bound, then the codes)
 K5_KERNEL_NAMES = ("k5_scale_kernel", "k5_codes_kernel")
 # K13's (csrc/flash_attn.cu on wgmma; at float32 after its split pass);
 # listed before the library's attention, whose kernels' names also hold
 # "flash"
-K13_SPLIT_NAMES = ("fwd_split_kernel<",)
-K13_KERNEL_NAMES = ("flash_wgmma_kernel<",) + K13_SPLIT_NAMES
+K13_SPLIT_NAMES = ("fwd_split_kernel<", "wide_split_kernel")
+K13_KERNEL_NAMES = ("flash_wgmma_kernel<", "flash_wide_fwd_kernel<") \
+    + K13_SPLIT_NAMES
 # K13-bwd's (csrc/flash_attn_bwd.cu: at float32 its split pass, then dQ,
 # then dK and dV, on wgmma)
-K13_BWD_DQ_NAMES = ("dq_wgmma_kernel<",)
-K13_BWD_DKV_NAMES = ("dkv_wgmma_kernel<",)
-K13_BWD_SPLIT_NAMES = ("bwd_split_kernel<",)
+K13_BWD_DQ_NAMES = ("dq_wgmma_kernel<", "flash_wide_dq_kernel<")
+K13_BWD_DKV_NAMES = ("dkv_wgmma_kernel<", "flash_wide_dkv_kernel<")
+# (the wide path's: its di pass and, at float32, its split pass)
+K13_BWD_SPLIT_NAMES = ("bwd_split_kernel<", "flash_wide_di_kernel",
+                       "wide_split_kernel")
 K13_BWD_KERNEL_NAMES = (K13_BWD_DQ_NAMES + K13_BWD_DKV_NAMES
                         + K13_BWD_SPLIT_NAMES)
 # the A8 prefill's device time by kind, first match by name; the rest is
@@ -484,19 +521,36 @@ def summarise(rows, shape: str) -> dict:
     """One kernel's line of the summary: its rows' times added up (one
     layer's linears), the worst error."""
     lib = [r["library_ms"] for r in rows]
-    return dict(max_abs_err=max(r["max_abs_err"] for r in rows),
-                ms=sum(r["kernel_ms"] for r in rows),
-                plain_ms=sum(r["plain_ms"] for r in rows),
-                bound_ms=sum(r["bound_ms"] for r in rows),
-                bound_by=("bytes" if all(r["bound_by"] == "bytes"
-                                         for r in rows) else "operations"),
-                library_ms=None if None in lib else sum(lib), shape=shape)
+    out = dict(max_abs_err=max(r["max_abs_err"] for r in rows),
+               ms=sum(r["kernel_ms"] for r in rows),
+               plain_ms=sum(r["plain_ms"] for r in rows),
+               bound_ms=sum(r["bound_ms"] for r in rows),
+               bound_by=("bytes" if all(r["bound_by"] == "bytes"
+                                        for r in rows) else "operations"),
+               library_ms=None if None in lib else sum(lib), shape=shape)
+    backends = sorted({r["library_backend"] for r in rows
+                       if "library_backend" in r})
+    if backends:
+        out["library_backend"] = ",".join(backends)
+    return out
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sdpa_backend(torch, q, k, v, attn_mask=None, is_causal=False) -> str:
+    """The backend SDPA's dispatcher picks for these inputs (flash,
+    efficient, cudnn or math: the library yardstick's route at a D the
+    flash backend does not take)."""
+    from torch.nn.attention import SDPBackend
+    try:
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, attn_mask=attn_mask, is_causal=is_causal)).name.lower()
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"unknown ({type(e).__name__})"
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +586,10 @@ def phase_build():
           **_build.ptxas_report(logs["flash_attn_bwd"], "_kernel")})
     emit({"phase": "build", "kernel": "K12-ptxas",
           **_build.ptxas_report(logs["paged_attn_bf16"], "_kernel")})
+    emit({"phase": "build", "kernel": "wide-ptxas",
+          **{n: _build.ptxas_report(logs[n], "_kernel")
+             for n in ("attn_int8_wide", "paged_attn_bf16_wide",
+                       "flash_attn_wide")}})
 
 
 def phase_kernels(torch, timer):
@@ -1254,9 +1312,11 @@ def paged_kernels(torch, timer, gen, rows, summary):
 # the int8 family at the head_dims past 64 and 128 (B = 8, S = 2048,
 # flash_probe.INT8_POSITIONS): open_llama_3b's 32 heads of 100 (rows read
 # in place at the 128 template; K4a as the speculative verify's 5 query
-# tokens) and Gemma-2B's 8 heads of 256 over one kv head
+# tokens), Gemma-2B's 8 heads of 256 over one kv head, and the wide
+# path's 8 heads of 512 over 2 kv heads (LLAMA2_7B_D512)
 INT8_WIDTHS = (("d100", 32, 32, 100, ("K4", "K4a", "K11")),
-               ("d256", 8, 1, 256, ("K4", "K11")))
+               ("d256", 8, 1, 256, ("K4", "K11")),
+               ("d512", 8, 2, 512, ("K4", "K11")))
 
 
 def head_dim_int8_kernels(torch, timer, gen, rows, summary):
@@ -1358,6 +1418,8 @@ def head_dim_int8_kernels(torch, timer, gen, rows, summary):
             bms, by = bound_ms(nbytes, 4.0 * scored * hq * d)
             row = {"kernel": name, "B": b, "Hq": hq, "Hkv": hkv, "S": s,
                    "D": d, "rel_err": err,
+                   "library_backend": sdpa_backend(
+                       torch, qs, *lib, attn_mask=amask[:, None]),
                    "max_abs_err": float((out - ref).abs().max()),
                    ("cache_untouched" if key == "K4a"
                     else "written_equal_to_plain"): written,
@@ -1427,10 +1489,13 @@ def bf16_kernels(torch, timer, gen, rows, summary):
     cat = dict(generator=gen, device="cuda")
     failures = []
 
-    from flash_probe import K12_CASES, k12_inputs
+    from flash_probe import K12_CASES, K12_LENGTHS, k12_inputs
     from torch.profiler import ProfilerActivity, profile
     D, PPS = 128, 32
-    for key, hq, hkv, d, dname, lengths in K12_CASES:
+    # the wide path's row: LLAMA2_7B_D512's heads, float32 q (the float32
+    # model's decode step, as phase head_dims runs it)
+    wide_cases = [("K12-d512", 8, 2, 512, "float32", K12_LENGTHS)]
+    for key, hq, hkv, d, dname, lengths in K12_CASES + wide_cases:
         dtype = getattr(torch, dname)
         gate = 1e-5 if dtype == torch.float32 else 1e-2
         q, nan, zero, lens, tables, (kd, vd, amask) = k12_inputs(
@@ -1461,13 +1526,16 @@ def bf16_kernels(torch, timer, gen, rows, summary):
                "kernel_device_ms": sum(
                    v for k, v in device_ms_by_name(torch, prof, 3).items()
                    if any(n in k for n in K12_KERNEL_NAMES)),
-               "blocks_per_sm": ab.paged_decode_blocks(
-                   ab.kernel_head_dim(d), min(hq // hkv, ab.GMAX)),
+               "blocks_per_sm": None if ab.is_wide(ab.kernel_head_dim(d))
+               else ab.paged_decode_blocks(ab.kernel_head_dim(d),
+                                           min(hq // hkv, ab.GMAX)),
                "plain_ms": timer(lambda: ab.paged_decode_attention_plain(
                    q, *zero, lens, tables), iters=3),
                "bound_ms": bms, "bound_by": by,
                "library_ms": timer(lambda: sdpa(qs, kd, vd,
-                                                attn_mask=amask))}
+                                                attn_mask=amask)),
+               "library_backend": sdpa_backend(torch, qs, kd, vd,
+                                               attn_mask=amask)}
         rows.append(row)
         emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
         if not (err <= gate and finite and same):
@@ -1487,7 +1555,9 @@ def bf16_kernels(torch, timer, gen, rows, summary):
             ("K13-f32", 512, 32, 32, D, torch.float32, 1e-4),
             ("K13-d96", 2048, 32, 32, 96, torch.bfloat16, 2e-2),
             ("K13-d256", 2048, 8, 1, 256, torch.bfloat16, 2e-2),
-            ("K13-f32-d256", 2048, 8, 1, 256, torch.float32, 1e-4)):
+            ("K13-f32-d256", 2048, 8, 1, 256, torch.float32, 1e-4),
+            ("K13-d512", 2048, 8, 2, 512, torch.bfloat16, 2e-2),
+            ("K13-f32-d512", 2048, 8, 2, 512, torch.float32, 1e-4)):
         q = torch.randn((1, t, hq, d), **cat).to(dtype)
         k = torch.randn((1, t, hkv, d), **cat).to(dtype)
         v = torch.randn((1, t, hkv, d), **cat).to(dtype)
@@ -1514,7 +1584,9 @@ def bf16_kernels(torch, timer, gen, rows, summary):
                    q, k, v), iters=3),
                "bound_ms": bms, "bound_by": by,
                "library_ms": timer(lambda: sdpa(qt, kr, vr, is_causal=True,
-                                                scale=1.0 / math.sqrt(d)))}
+                                                scale=1.0 / math.sqrt(d))),
+               "library_backend": sdpa_backend(torch, qt, kr, vr,
+                                               is_causal=True)}
         row["tflops"] = flops / row["kernel_ms"] * 1e-9
         row["bound_share"] = bms / row["kernel_ms"]
         split_ok = True
@@ -1555,7 +1627,11 @@ def bf16_kernels(torch, timer, gen, rows, summary):
                          ("K13-d256", 2048, "B=1 T=2048 Hq=8 Hkv=1 D=256 "
                           "bf16 (Gemma-2B's attention)"),
                          ("K13-f32-d256", 2048, "B=1 T=2048 Hq=8 Hkv=1 "
-                          "D=256 float32")):
+                          "D=256 float32"),
+                         ("K13-d512", 2048, "B=1 T=2048 Hq=8 Hkv=2 D=512 "
+                          "bf16 (the wide path)"),
+                         ("K13-f32-d512", 2048, "B=1 T=2048 Hq=8 Hkv=2 "
+                          "D=512 float32 (the wide path)")):
         summary[key] = summarise(
             [r for r in rows if r["kernel"] == key and r["T"] == t],
             what + ", causal from position 0")
@@ -1567,7 +1643,12 @@ def bf16_kernels(torch, timer, gen, rows, summary):
                       ("K13-bwd-d256", "B=1 T=2048 Hq=8 Hkv=1 D=256 bf16 "
                        "(Gemma-2B's attention)"),
                       ("K13-bwd-f32-d256",
-                       "B=1 T=2048 Hq=8 Hkv=1 D=256 float32")):
+                       "B=1 T=2048 Hq=8 Hkv=1 D=256 float32"),
+                      ("K13-bwd-d512", "B=1 T=2048 Hq=8 Hkv=2 D=512 bf16 "
+                       "(the wide path)"),
+                      ("K13-bwd-f32-d512",
+                       "B=1 T=2048 Hq=8 Hkv=2 D=512 float32 (the wide "
+                       "path)")):
         summary[key] = summarise(
             [r for r in rows if r["kernel"] == key
              and r["T"] == (512 if key == "K13-bwd-g8" else 2048)],
@@ -1588,9 +1669,15 @@ def split_pass_row(torch, ab, q, k, v, row) -> bool:
     per_kernel = device_ms_by_name(torch, prof, 3)
     row["split_kernel_ms"] = sum(ms for n, ms in per_kernel.items()
                                  if any(x in n for x in K13_SPLIT_NAMES))
+    w = ab.kernel_head_dim(q.shape[-1])
+    if ab.is_wide(w):
+        # the wide path's split pass has no entry of its own: its planes
+        # are held by the row's float32 gate
+        row["wide_kernel_ms"] = sum(ms for n, ms in per_kernel.items()
+                                    if "flash_wide_fwd_kernel<" in n)
+        return True
     row["wgmma_kernel_ms"] = sum(ms for n, ms in per_kernel.items()
                                  if "flash_wgmma_kernel<" in n)
-    w = ab.kernel_head_dim(q.shape[-1])
     got = ab.flash_split(q, w)
     want = ab.flash_split_plain(q, w)
     torch.cuda.synchronize()
@@ -1634,7 +1721,9 @@ def flash_backward_kernels(torch, timer, cat, rows):
             ("K13-bwd-f32", 512, 32, 32, 128, torch.float32, 1e-4),
             ("K13-bwd-d96", 2048, 32, 32, 96, torch.bfloat16, 2e-2),
             ("K13-bwd-d256", 2048, 8, 1, 256, torch.bfloat16, 2e-2),
-            ("K13-bwd-f32-d256", 2048, 8, 1, 256, torch.float32, 1e-4)):
+            ("K13-bwd-f32-d256", 2048, 8, 1, 256, torch.float32, 1e-4),
+            ("K13-bwd-d512", 2048, 8, 2, 512, torch.bfloat16, 2e-2),
+            ("K13-bwd-f32-d512", 2048, 8, 2, 512, torch.float32, 1e-4)):
         q, do = (torch.randn((1, t, hq, d), **cat).to(dtype)
                  for _ in range(2))
         k, v = (torch.randn((1, t, hkv, d), **cat).to(dtype)
@@ -1682,7 +1771,9 @@ def flash_backward_kernels(torch, timer, cat, rows):
                    *args), iters=3),
                "bound_ms": bms, "bound_by": by,
                "library_ms": timer(lambda: torch.autograd.grad(
-                   lib, leaves, dot, retain_graph=True))}
+                   lib, leaves, dot, retain_graph=True)),
+               "library_backend": sdpa_backend(torch, *leaves,
+                                               is_causal=True)}
         rows.append(row)
         emit({"phase": "kernels", "bound_basis": BOUND_BASIS, **row})
         if not (max(errs) <= gate and same and finite):
@@ -2561,6 +2652,45 @@ def tokens_against_plain(torch, params, cfg, prompts, got, want) -> dict:
             and all(x["gap"] <= TIE_GATE for x in parted)}
 
 
+def head_dim_train(torch, kernels, cfg, tag, runs, launches) -> list:
+    """``cli train --model`` on an HF checkpoint of ``cfg``
+    (``write_hf_checkpoint``), KD, w_bits 2, 2 steps of 512 tokens, at
+    float32 (the default) and bfloat16: K13 and K13-bwd launch (counted
+    into ``launches`` under K13[-f32]-<tag> and K13-bwd[-f32]-<tag>),
+    every loss finite. The runs go into ``runs`` as <tag>_train_<dtype>;
+    returns the failures."""
+    failures = []
+    with tempfile.TemporaryDirectory(prefix=f"mxq_{tag}_") as tmp:
+        ckpt = os.path.join(tmp, "hf")
+        write_hf_checkpoint(torch, ckpt, cfg)
+        for dtype, keys in (("float32", (f"K13-f32-{tag}",
+                                         f"K13-bwd-f32-{tag}")),
+                            ("bfloat16", (f"K13-{tag}", f"K13-bwd-{tag}"))):
+            out = os.path.join(tmp, dtype)
+            argv = ["train", "--model", ckpt, "--dtype", dtype, "--w_bits",
+                    "2", "--use_kd", "--batch_size", "1", "--block_size",
+                    "512", "--max_steps", "2", "--log_steps", "1",
+                    "--seed", str(SEED), "--output_dir", out]
+            torch.cuda.reset_peak_memory_stats()
+            res = count_launches(torch, kernels, lambda: dict(zip(
+                ("result", "printed"), cli_with_output(argv))))
+            m = train_metrics(os.path.join(out, "logs"), 1)
+            name = f"{tag}_train_{dtype}"
+            runs[name] = {"command_seconds": res["seconds"], **m,
+                          "launches": res["launches"],
+                          "peak_memory_gib":
+                              torch.cuda.max_memory_allocated() / 2**30}
+            n13, nb = res["launches"]["K13"], res["launches"]["K13-bwd"]
+            launches[keys[0]] = launches.get(keys[0], 0) + n13
+            launches[keys[1]] = nb
+            if not (n13 > 0 and nb > 0 and len(m["loss"]) == 2
+                    and all(math.isfinite(x) for x in m["loss"])):
+                failures.append(f"{name}: K13 {n13}, K13-bwd {nb}, losses "
+                                f"{m['loss']}")
+            shutil.rmtree(out, ignore_errors=True)
+    return failures
+
+
 def phase_head_dims(torch):
     """The head_dims past 64 and 128 through the entry points a user
     calls, each run three times: with the launch counts set to 0 just
@@ -2586,13 +2716,18 @@ def phase_head_dims(torch):
        float32 weights, full depth: the same prompts through the slot
        Engine (int8 cache: K4; K13-f32 at 256), the PagedEngine's int8
        pool (K11) and bf16 pool (K12).
-    3. ``cli train --model`` on a GEMMA_TRAIN_LAYERS-layer HF checkpoint
-       at Gemma-2B's widths (``write_hf_checkpoint``), KD, w_bits 2, 2
-       steps of 512 tokens, at float32 (the default) and bfloat16: K13
-       and K13-bwd at 256 launch, every loss finite.
+    3. The wide path (LLAMA2_7B_D512: llama2_7b's widths as 8 heads of
+       512 over 2 kv heads), packed from float32 weights, full depth:
+       the slot Engine (K4 at 512), both pools (K11, K12), K13-f32 at
+       512 in the prefills.
+    4. ``cli train --model`` (:func:`head_dim_train`) on a
+       GEMMA_TRAIN_LAYERS-layer HF checkpoint at Gemma-2B's widths and at
+       LLAMA2_7B_D512's, KD, w_bits 2, 2 steps of 512 tokens, at float32
+       (the default) and bfloat16: K13 and K13-bwd at 256 and at 512
+       launch, every loss finite.
     Returns the launches of the kernel rows these widths add
-    (K4-d100, K4a-d100, K11-d100, K4-d256, K11-d256, K12-d256, K13-d256,
-    K13-f32-d256, K13-bwd-d256, K13-bwd-f32-d256) and the failures."""
+    (K4-d100, K4a-d100, K11-d100, K4-d256 .. K13-bwd-f32-d256, K4-d512
+    .. K13-bwd-f32-d512) and the failures."""
     import numpy as np
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.ops import attn_int8 as a8
@@ -2691,6 +2826,7 @@ def phase_head_dims(torch):
 
     # 2. Gemma-2B
     cfg, params = packed(GEMMA_2B)
+    gemma = cfg
     slot, int8, bf16 = engines(cfg, params)
     got = counted("d256_slot", ("K1", "K4", "K13"), cfg, params, prompts,
                   slot, run)
@@ -2707,35 +2843,31 @@ def phase_head_dims(torch):
     del params, slot, int8, bf16
     torch.cuda.empty_cache()
 
-    # 3. cli train at Gemma-2B's widths
-    tcfg = dataclasses.replace(cfg, num_hidden_layers=GEMMA_TRAIN_LAYERS)
-    with tempfile.TemporaryDirectory(prefix="mxq_d256_") as tmp:
-        ckpt = os.path.join(tmp, "hf")
-        write_hf_checkpoint(torch, ckpt, tcfg)
-        for dtype, keys in (("float32", ("K13-f32-d256", "K13-bwd-f32-d256")),
-                            ("bfloat16", ("K13-d256", "K13-bwd-d256"))):
-            out = os.path.join(tmp, dtype)
-            argv = ["train", "--model", ckpt, "--dtype", dtype, "--w_bits",
-                    "2", "--use_kd", "--batch_size", "1", "--block_size",
-                    "512", "--max_steps", "2", "--log_steps", "1",
-                    "--seed", str(SEED), "--output_dir", out]
-            torch.cuda.reset_peak_memory_stats()
-            res = count_launches(torch, kernels, lambda: dict(zip(
-                ("result", "printed"), cli_with_output(argv))))
-            m = train_metrics(os.path.join(out, "logs"), 1)
-            name = f"d256_train_{dtype}"
-            runs[name] = {"command_seconds": res["seconds"], **m,
-                          "launches": res["launches"],
-                          "peak_memory_gib":
-                              torch.cuda.max_memory_allocated() / 2**30}
-            n13, nb = res["launches"]["K13"], res["launches"]["K13-bwd"]
-            launches[keys[0]] = launches.get(keys[0], 0) + n13
-            launches[keys[1]] = nb
-            if not (n13 > 0 and nb > 0 and len(m["loss"]) == 2
-                    and all(math.isfinite(x) for x in m["loss"])):
-                failures.append(f"{name}: K13 {n13}, K13-bwd {nb}, losses "
-                                f"{m['loss']}")
-            shutil.rmtree(out, ignore_errors=True)
+    # 3. the wide path: llama2_7b's widths as 8 heads of 512
+    cfg, params = packed(LLAMA2_7B_D512)
+    wide = cfg
+    slot, int8, bf16 = engines(cfg, params)
+    got = counted("d512_slot", ("K1", "K4", "K13"), cfg, params, prompts,
+                  slot, run)
+    launches["K4-d512"] = got["K4"]
+    launches["K13-f32-d512"] = got["K13"]
+    got = counted("d512_paged", ("K1", "K11", "K13"), cfg, params, prompts,
+                  int8, run)
+    launches["K11-d512"] = got["K11"]
+    launches["K13-f32-d512"] += got["K13"]
+    got = counted("d512_paged_bf16", ("K1", "K12", "K13"), cfg, params,
+                  prompts, bf16, run)
+    launches["K12-d512"] = got["K12"]
+    launches["K13-f32-d512"] += got["K13"]
+    del params, slot, int8, bf16
+    torch.cuda.empty_cache()
+
+    # 4. cli train at Gemma-2B's widths and at the wide path's
+    for tag, base in (("d256", gemma), ("d512", wide)):
+        tcfg = dataclasses.replace(base,
+                                   num_hidden_layers=GEMMA_TRAIN_LAYERS)
+        failures += head_dim_train(torch, kernels, tcfg, tag, runs,
+                                   launches)
     emit({"phase": "head_dims", **runs, "launches_total": launches})
     return launches, failures
 

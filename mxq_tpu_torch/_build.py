@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("mxq_gemv", "mxq_gemv_tc", "mxq_dequant", "attn_int8",
            "paged_attn_int8", "uniform_gemv", "paged_attn_bf16", "flash_attn",
-           "flash_attn_bwd")
+           "flash_attn_bwd", "attn_int8_wide", "paged_attn_bf16_wide",
+           "flash_attn_wide")
 _EXTRA_FLAGS = {
     # K3 and K5 must equal their plain PyTorch versions bit for bit: no
     # FMA fusion.
@@ -67,6 +68,16 @@ SIGNATURES = {
     "flash_attn_bwd": {
         "flash_attn_bwd": [P] * 12 + [L] * 11 + [I] * 7 + [F, P],
         "flash_attn_bwd_scratch": [I] * 6 + [P]},
+    # the wide paths (head_dim > 256) of the int8 family, K12, K13 and
+    # K13-bwd
+    "attn_int8_wide": {
+        "attn_int8_wide": [P] * 10 + [I] * 9 + [F] + [P] * 4,
+        "paged_attn_int8_wide": [P] * 11 + [I] * 9 + [F] + [P] * 4},
+    "paged_attn_bf16_wide": {
+        "paged_attn_bf16_wide": [P, I] + [P] * 4 + [I] * 10 + [F] + [P] * 4},
+    "flash_attn_wide": {
+        "flash_attn_wide": [P] * 5 + [L] * 6 + [I] * 6 + [F, P, P],
+        "flash_attn_bwd_wide": [P] * 11 + [L] * 11 + [I] * 6 + [F, P]},
 }
 
 

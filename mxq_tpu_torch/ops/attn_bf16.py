@@ -19,18 +19,32 @@ model sends that attention under autograd to :class:`FlashAttention`.
 Each wrapper takes its plain version for tensors on the CPU and launches
 its kernel for tensors on the card, where a failed launch raises. The
 kernels are templates at head_dim 64, 128 and 256; the wrappers run every
-other D <= 256 at the next of them (upstream takes every D <= 128 and
-multiples of 128; ``mxq_tpu``'s paged reference every D) and refuse D >
-256: K13 and K13-bwd at bfloat16 on zero-padded copies
-(:func:`pad_head_dim`); K12 reads q, the pool's pages and its output at
-their width, zeros past D in its tiles. At D = 256 K13 and K13-bwd run
-smaller tiles (fewer keys a tile, fewer stages; K13-bwd's items of 64
-rows, its dK/dV kernel's two consumer warpgroups each holding half of
-D's columns), and K12 takes at most 8 query heads a launch. At float32,
-K13 and K13-bwd first run the split pass (:func:`flash_split`'s kernel,
-inside the same launch), which writes the inputs' bf16 hi and lo planes
-with zeros past D, so no padded copy is made: the kernels then run the
-bf16 design's products three times (hi.lo + lo.hi + hi.hi).
+other D <= 256 at the next of them, and every D > 256 on a wide path
+(upstream takes every D <= 128 and multiples of 128, ``mxq_tpu``'s XLA
+attention and paged reference every D): K13 and K13-bwd at bfloat16 on
+zero-padded copies (:func:`pad_head_dim`); K12 reads q, the pool's pages
+and its output at their width, zeros past D in its tiles. At D = 256
+K13 and K13-bwd run smaller tiles (fewer keys a tile, fewer stages;
+K13-bwd's items of 64 rows, its dK/dV kernel's two consumer warpgroups
+each holding half of D's columns), and K12 takes at most 8 query heads a
+launch. At float32, K13 and K13-bwd first run the split pass
+(:func:`flash_split`'s kernel, inside the same launch), which writes the
+inputs' bf16 hi and lo planes with zeros past D, so no padded copy is
+made: the kernels then run the bf16 design's products three times
+(hi.lo + lo.hi + hi.hi).
+
+The wide path (D > 256; ``csrc/paged_attn_bf16_wide.cu`` and
+``csrc/flash_attn_wide.cu``) walks D in column chunks, a work item per
+chunk of the output, each recomputing the scores over all of D in the
+same order so that every chunk sees the same softmax bits: K12 an item
+per (row, kv head, 256-row split, WIDE_CHUNK columns), q staged in
+shared memory (at most ``heads_per_launch`` heads a launch, WIDE_Q_FLOATS
+floats); K13 per (64 query rows, head, WIDE_CHUNK columns of O); K13-bwd
+a dQ item per (64 query rows, head, WIDE_CHUNK columns), a dK/dV item per
+(64 keys, kv head, WIDE_CHUNK_KV columns). bf16 rows are read in place at
+their width (no padded copy); float32 goes through the split pass into
+planes of :func:`plane_width` columns. Launches count under the same
+counters.
 """
 
 from __future__ import annotations
@@ -48,26 +62,43 @@ SPLIT_ROWS = 256    # history rows per K12 work item (paged_attn_bf16.cu SPLIT)
 GMAX = 16           # query heads per kv head of one K12 launch
 GMAX_256 = 8        # and at the D = 256 template (paged_attn_bf16.cu)
 HEAD_DIMS = (64, 128, 256)   # the kernels' head_dim templates
-MAX_HEAD_DIM = HEAD_DIMS[-1]
+MAX_TILE = HEAD_DIMS[-1]     # D past it runs on the wide path
+GMAX_WIDE = 8       # query heads of a K12 launch on the wide path
+WIDE_Q_FLOATS = 32768   # and its q staged in shared memory: G * D floats
+WIDE_CHUNK = 128    # columns of K12's context, K13's O and dQ an item
+WIDE_CHUNK_KV = 64  # columns of dK and dV a K13-bwd item
+WIDE_SLICE = 64     # columns of a depth slice of S (and the planes' unit)
 
 
 def kernel_head_dim(d: int) -> int:
-    """The template width the kernels run a head_dim ``d`` at: the
-    smallest of HEAD_DIMS that holds it. No Llama configuration has a D
-    above 256, and the kernels have no template for one: D > 256 is
-    refused."""
-    for w in HEAD_DIMS:
-        if 1 <= d <= w:
-            return w
-    raise ValueError(f"the bf16 attention kernels take head_dim 1.."
-                     f"{MAX_HEAD_DIM}, got {d}: no template past "
-                     f"{MAX_HEAD_DIM}")
+    """The width the kernels run a head_dim ``d`` at: the smallest of
+    HEAD_DIMS that holds it, or past 256 ``d`` itself (the wide path,
+    which reads rows at their width in column chunks)."""
+    if d < 1:
+        raise ValueError(f"the bf16 attention kernels take head_dim >= 1, "
+                         f"got {d}")
+    return next((w for w in HEAD_DIMS if d <= w), d)
+
+
+def is_wide(w: int) -> bool:
+    """Whether kernel width ``w`` (:func:`kernel_head_dim`) is the wide
+    path's."""
+    return w > MAX_TILE
+
+
+def plane_width(d: int) -> int:
+    """The width of the float32 path's hi and lo planes on the wide path:
+    D rounded up to whole depth slices (zeros past D)."""
+    return -(-d // WIDE_SLICE) * WIDE_SLICE
 
 
 def heads_per_launch(w: int) -> int:
-    """The most query heads per kv head one K12 launch takes at template
-    width ``w``: GMAX, or GMAX_256 at 256 (a lane group's q and context
-    registers grow with D)."""
+    """The most query heads per kv head one K12 launch takes at width
+    ``w``: GMAX, or GMAX_256 at 256 (a lane group's q and context
+    registers grow with D); on the wide path GMAX_WIDE, fewer where their
+    q would pass WIDE_Q_FLOATS (0 past WIDE_Q_FLOATS: refused)."""
+    if is_wide(w):
+        return min(GMAX_WIDE, WIDE_Q_FLOATS // w)
     return GMAX if w <= 128 else GMAX_256
 
 
@@ -148,10 +179,11 @@ def _paged_check(q, k_pages, v_pages, lengths, page_indices):
                    ("v_pages", v_pages, torch.bfloat16, (hkv, lp, ps, d)),
                    ("lengths", lengths, torch.int32, (b,)),
                    ("page_indices", page_indices, torch.int32, (b, pps))])
-    if hq % hkv or pps < 1 or not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"K12 takes D in 1..{MAX_HEAD_DIM}, Hq a multiple "
-                         f"of Hkv and a table of >= 1 page, got D={d}, "
-                         f"Hq={hq}, Hkv={hkv}, pages={pps}")
+    if hq % hkv or pps < 1 or not 1 <= d <= WIDE_Q_FLOATS:
+        raise ValueError(f"K12 takes D in 1..{WIDE_Q_FLOATS} (past that a "
+                         f"query head's q outgrows the wide path's shared "
+                         f"memory), Hq a multiple of Hkv and a table of >= 1 "
+                         f"page, got D={d}, Hq={hq}, Hkv={hkv}, pages={pps}")
     return hq // hkv
 
 
@@ -167,7 +199,8 @@ def _paged_launch(q, k_pages, v_pages, lengths, page_indices, out, g0, g):
     pps = page_indices.shape[1]
     w = kernel_head_dim(d)
     ws, tickets = _paged_scratch(b, g, hkv, pps, ps, w, q.device)
-    err = _build.load("paged_attn_bf16").paged_attn_bf16(
+    name = "paged_attn_bf16_wide" if is_wide(w) else "paged_attn_bf16"
+    err = getattr(_build.load(name), name)(
         q.data_ptr(), int(q.dtype == torch.float32), k_pages.data_ptr(),
         v_pages.data_ptr(), lengths.data_ptr(), page_indices.data_ptr(), b,
         hkv, hq // hkv, g0, g, w, d, lp, ps, pps, math.sqrt(d),
@@ -202,9 +235,9 @@ def paged_decode_attention(q, k_pages, v_pages, lengths, page_indices):
     tickets before it captures a chunk (``attn_int8.reserve_tickets``).
     The kernel reads q and writes the result in q's type at its width D
     (any D <= 256, run at the next of HEAD_DIMS with zeros past D in its
-    tiles) and reads the pages in place: one launch a call, and one more
-    per :func:`heads_per_launch` query heads of a kv head beyond the
-    first, each counted."""
+    tiles; any D > 256 on the wide path) and reads the pages in place:
+    one launch a call, and one more per :func:`heads_per_launch` query
+    heads of a kv head beyond the first, each counted."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pages, v_pages, lengths,
                                             page_indices)
@@ -354,11 +387,11 @@ def flash_split(x: torch.Tensor, w: int):
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
     """x [B, S, H, D] as the kernels read it (the bf16 tensor maps, the
-    split pass's 16-byte loads): heads and D contiguous, the batch and
-    token strides and the start 16-byte aligned; else a copy into new
-    contiguous rows (a contiguous view that starts off 16 bytes is copied
-    too; where D is not a multiple of 4 the split pass reads a float at a
-    time)."""
+    split pass's 16-byte loads, the wide path's 16-byte copies): heads
+    and D contiguous, the batch and token strides and the start 16-byte
+    aligned; else a copy into new contiguous rows (a contiguous view that
+    starts off 16 bytes is copied too; where D is not a multiple of 4 the
+    split pass reads a float at a time)."""
     d, es = x.shape[-1], x.element_size()
     if (x.stride(-1) == 1 and x.stride(-2) == d
             and x.stride(0) * es % 16 == 0 and x.stride(1) * es % 16 == 0
@@ -376,11 +409,11 @@ def _flash_check(what, q, k, v):
             or k.dtype != q.dtype or v.dtype != q.dtype
             or k.device != q.device or v.device != q.device
             or tuple(k.shape) != (b, s, hkv, d) or v.shape != k.shape
-            or s < t or hq % hkv or not 1 <= d <= MAX_HEAD_DIM):
+            or s < t or hq % hkv or d < 1):
         raise ValueError(
             f"{what} takes q [B, T, Hq, D], k, v [B, S >= T, Hkv, D] of one "
-            f"type (bfloat16 or float32) on one device, D in 1.."
-            f"{MAX_HEAD_DIM}, Hq a multiple of Hkv; got q {q.dtype} "
+            f"type (bfloat16 or float32) on one device, D >= 1, Hq a "
+            f"multiple of Hkv; got q {q.dtype} "
             f"{tuple(q.shape)} on {q.device}, k {k.dtype} {tuple(k.shape)} "
             f"on {k.device}, v {v.dtype} {tuple(v.shape)} on {v.device}")
     return kernel_head_dim(d)
@@ -393,6 +426,8 @@ def _k13_launch(q, k, v, lse):
     copies, at float32 on the split pass's planes, zeros past D."""
     from mxq_tpu_torch import _build
     w = _flash_check("K13", q, k, v)
+    if is_wide(w):
+        return _k13_wide_launch(q, k, v, lse)
     b, t, hq, d = q.shape
     f32 = q.dtype == torch.float32
     planes = None
@@ -415,12 +450,39 @@ def _k13_launch(q, k, v, lse):
     return out if w == d else out[..., :d].contiguous()
 
 
+def _k13_wide_launch(q, k, v, lse):
+    """K13's wide path (D > 256, ``csrc/flash_attn_wide.cu``): bf16 rows
+    read in place (:func:`_rows`: by 16-byte copies where D % 8 == 0,
+    else an element at a time), float32 through the split pass's planes
+    of :func:`plane_width` columns; the output [B, T, Hq, D] at its
+    width."""
+    from mxq_tpu_torch import _build
+    b, t, hq, d = q.shape
+    hkv = k.shape[2]
+    f32 = q.dtype == torch.float32
+    q, k, v = (_rows(x) for x in (q, k, v))
+    planes = torch.empty(split_plane_elems(b, t, hq, hkv, plane_width(d)),
+                         dtype=torch.bfloat16, device=q.device) if f32 \
+        else None
+    out = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
+    err = _build.load("flash_attn_wide").flash_attn_wide(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), b, t, hq, hkv, d,
+        int(f32), 1.0 / math.sqrt(d),
+        None if planes is None else planes.data_ptr(),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "K13")
+    count_launch(flash_prefill_attention)
+    return out
+
+
 def flash_prefill_attention(q, k, v):
     """K13: causal attention from position 0, scale 1/sqrt(D).
 
     q [B, T, Hq, D]; k, v [B, S, Hkv, D] with S >= T (query row i sees key
     rows j <= i, so rows >= T are never read), one type, bfloat16 or
-    float32, D <= 256; query head h reads kv head h // (Hq // Hkv) in
+    float32, any D >= 1; query head h reads kv head h // (Hq // Hkv) in
     place. Strided views (the fused qkv projection's slices) are read as
     they are. Returns [B, T, Hq, D] in q's type."""
     if q.device.type == "cpu":
@@ -470,7 +532,8 @@ def flash_attention_backward(q, k, v, o, lse, do):
     f32 from o and dO as it splits q, k, v and dO into their bf16 hi and
     lo planes. A head_dim that is not one of HEAD_DIMS runs at the next
     one: at bfloat16 on zero-padded copies, at float32 on the planes,
-    zeros past D."""
+    zeros past D; past 256 on the wide path (a pass of its own computes
+    di over all of D)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do)
     from mxq_tpu_torch import _build
@@ -488,6 +551,8 @@ def flash_attention_backward(q, k, v, o, lse, do):
             f"{tuple(o.shape)}, do {do.dtype} {tuple(do.shape)}, lse "
             f"{lse.dtype} {tuple(lse.shape)} for q {q.dtype} "
             f"{tuple(q.shape)}")
+    if is_wide(w):
+        return _k13_bwd_wide_launch(q, k, v, o, lse, do)
     f32 = int(q.dtype == torch.float32)
     planes = None
     if f32:
@@ -518,6 +583,40 @@ def flash_attention_backward(q, k, v, o, lse, do):
     count_launch(flash_attention_backward)
     if w != d:
         dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
+    return dq, dk, dv
+
+
+def _k13_bwd_wide_launch(q, k, v, o, lse, do):
+    """K13-bwd's wide path (D > 256, ``csrc/flash_attn_wide.cu``): the di
+    pass, at float32 the split pass, then the dQ and the dK/dV kernels;
+    bf16 rows read in place."""
+    from mxq_tpu_torch import _build
+    b, t, hq, d = q.shape
+    s, hkv = k.shape[1], k.shape[2]
+    f32 = int(q.dtype == torch.float32)
+    q, k, v, o, do = (_rows(x) for x in (q, k, v, o, do))
+    planes = torch.empty(split_plane_elems(b, t, hq, hkv, plane_width(d),
+                                           True),
+                         dtype=torch.bfloat16, device=q.device) if f32 \
+        else None
+    ws = torch.empty(2 * b * hq * t, dtype=torch.float32, device=q.device)
+    dq = torch.empty((b, t, hq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hkv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if s > t:
+        dk[:, t:].zero_()
+        dv[:, t:].zero_()
+    err = _build.load("flash_attn_wide").flash_attn_bwd_wide(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(),
+        None if planes is None else planes.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), q.stride(0),
+        q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
+        o.stride(0), o.stride(1), do.stride(0), do.stride(1), s * hkv * d,
+        b, t, hq, hkv, d, f32, 1.0 / math.sqrt(d),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "K13-bwd")
+    count_launch(flash_attention_backward)
     return dq, dk, dv
 
 

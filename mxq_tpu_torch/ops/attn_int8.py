@@ -31,10 +31,13 @@ On the card each wrapper runs two kernels (``csrc/attn_split.cuh``): the
 history is split over blocks of ``CHUNK`` rows, pass A scores every row,
 pass B rounds bf16(p * v_scale) against the max the plain version rounds
 against and sums its split, and the last block of each (batch, kv head)
-adds the splits in order. The kernels take every head_dim D in
-1..MAX_HEAD_DIM: 64, 128 and 256 at their templates, every other D at the
-next of them, reading and writing the cache's rows in place at their true
-width (``code_load_bytes``).
+adds the splits in order. The kernels take every head_dim D >= 1: 64,
+128 and 256 at their templates, every other D <= 256 at the next of them,
+and every D > 256 on the wide path (``csrc/attn_int8_wide.cu``: pass A
+sums each score over D's chunks of WIDE_CHUNK columns in chunk order,
+pass B runs a block per (split, column chunk)), reading and writing the
+cache's rows in place at their true width (``code_load_bytes``). The
+wide path counts its launches under the same counters.
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ NEG = torch.finfo(torch.float32).min
 CHUNK = 128      # history rows per block of the kernels (attn_split.cuh)
 QMAX = 64        # query rows per (batch, kv head) the kernels take
 TILE_DIMS = (64, 128, 256)   # the kernels' head_dim templates
-MAX_HEAD_DIM = TILE_DIMS[-1]
+MAX_TILE = TILE_DIMS[-1]     # D past it runs on the wide path
+WIDE_CHUNK = 256             # columns a chunk of the wide path
 _TICKETS: dict = {}
 _RETIRED: list = []
 
@@ -108,12 +112,23 @@ def scratch_scores(ws, b, hkv, nq, nsplit):
     return sc, ws[at:at + bhq].view(b, hkv, nq)
 
 
+def kernel_entry(d: int, paged: bool) -> tuple[str, str]:
+    """(library, C function) that runs head_dim ``d``: the templates'
+    (``attn_int8`` / ``paged_attn_int8``) up to MAX_TILE, the wide path's
+    (``attn_int8_wide``) past it."""
+    if d > MAX_TILE:
+        return "attn_int8_wide", ("paged_attn_int8_wide" if paged
+                                  else "attn_int8_wide")
+    name = "paged_attn_int8" if paged else "attn_int8"
+    return name, name
+
+
 def code_load_bytes(what, d, tensors) -> int:
     """The bytes a code load of the kernels reads (their ``vec``): 16 at a
     template width (64, 128, 256), whose code tensors must start 16-byte
-    aligned; at any other head_dim d the widest of 16, 4 and 1 bytes that
-    divides d and every code tensor's start, so that each row, at d bytes
-    from the last, starts aligned to it."""
+    aligned; at any other head_dim d (the wide path's too) the widest of
+    16, 4 and 1 bytes that divides d and every code tensor's start, so
+    that each row, at d bytes from the last, starts aligned to it."""
     if d in TILE_DIMS:
         if any(t.data_ptr() % 16 for t in tensors):
             raise ValueError(f"{what}: code tensors must start 16-byte "
@@ -185,10 +200,9 @@ def _check_k4(what, q, k_codes, k_scale, v_codes, v_scale, cur, positions):
             raise ValueError(f"{what} {name}: {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, contiguous={t.is_contiguous()}; "
                              f"want {dt} {shape} contiguous on {dev}")
-    if hq % hkv or not 1 <= g <= QMAX or not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{what} takes D in 1..{MAX_HEAD_DIM} and 1..{QMAX} "
-                         f"query heads per kv head, got D={d}, Hq={hq}, "
-                         f"Hkv={hkv}")
+    if hq % hkv or not 1 <= g <= QMAX or d < 1:
+        raise ValueError(f"{what} takes D >= 1 and 1..{QMAX} query heads "
+                         f"per kv head, got D={d}, Hq={hq}, Hkv={hkv}")
     if cur is not None and nt != 1:
         raise ValueError(f"{what}: the current token takes one query token")
 
@@ -228,7 +242,8 @@ def _dense_launch(what, q, k_codes, k_scale, v_codes, v_scale, layer_idx,
                           + ([kcur, vcur] if cur is not None else []))
     chunks = token_chunks(hq // hkv, t)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    lib = _build.load("attn_int8")
+    lib, fn = kernel_entry(d, paged=False)
+    launch = getattr(_build.load(lib), fn)
     outs = []
     for t0, nt in chunks:
         qc = qb if len(chunks) == 1 else qb[:, t0:t0 + nt].contiguous()
@@ -236,7 +251,7 @@ def _dense_launch(what, q, k_codes, k_scale, v_codes, v_scale, layer_idx,
         out = torch.empty(qc.shape, dtype=torch.float32, device=q.device)
         ws, tickets = _split_scratch(b, hkv, hq // hkv * nt, -(-s // CHUNK),
                                      d, q.device)
-        err = lib.attn_int8(
+        err = launch(
             qc.data_ptr(), k_codes[layer_idx].data_ptr(),
             k_scale[layer_idx].data_ptr(), v_codes[layer_idx].data_ptr(),
             v_scale[layer_idx].data_ptr(), ptr(kcur), ptr(kscur), ptr(vcur),
@@ -510,11 +525,10 @@ def _check_paged(what, q, k_pages, k_scales, v_pages, v_scales, bound,
             raise ValueError(f"{what} {name}: {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, contiguous={t.is_contiguous()}; "
                              f"want {dt} {shape} contiguous on {dev}")
-    if hq % hkv or not 1 <= g <= QMAX or not 1 <= d <= MAX_HEAD_DIM \
-            or ps != PAGE_INT8:
-        raise ValueError(f"{what} takes D in 1..{MAX_HEAD_DIM}, 1..{QMAX} "
-                         f"query heads per kv head and pages of {PAGE_INT8} "
-                         f"rows, got D={d}, Hq={hq}, Hkv={hkv}, page={ps}")
+    if hq % hkv or not 1 <= g <= QMAX or d < 1 or ps != PAGE_INT8:
+        raise ValueError(f"{what} takes D >= 1, 1..{QMAX} query heads per "
+                         f"kv head and pages of {PAGE_INT8} rows, got D={d}, "
+                         f"Hq={hq}, Hkv={hkv}, page={ps}")
     return code_load_bytes(what, d, [k_pages, v_pages]
                            + ([cur[0], cur[2]] if cur is not None else []))
 
@@ -534,7 +548,8 @@ def _paged_launch(what, q, k_pages, k_scales, v_pages, v_scales, bound,
                                  q.device)
     kcur, kscur, vcur, vscur = cur if cur is not None else (None,) * 4
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = _build.load("paged_attn_int8").paged_attn_int8(
+    lib, fn = kernel_entry(d, paged=True)
+    err = getattr(_build.load(lib), fn)(
         qb.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
         v_pages.data_ptr(), v_scales.data_ptr(), ptr(kcur), ptr(kscur),
         ptr(vcur), ptr(vscur), bound.data_ptr(), tables.data_ptr(), b, hkv,

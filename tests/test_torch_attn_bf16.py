@@ -267,25 +267,33 @@ def test_padded_plain_versions_equal_unpadded(d):
 
 @pytest.mark.parametrize("d,w", [(80, 128), (96, 128), (100, 128),
                                  (33, 64), (64, 64), (128, 128), (129, 256),
-                                 (160, 256), (192, 256), (256, 256)])
+                                 (160, 256), (192, 256), (256, 256),
+                                 (257, 257), (300, 300), (384, 384),
+                                 (512, 512), (1024, 1024)])
 def test_shape_checks_take_every_head_dim_up_to_128(d, w):
-    """K12's and K13's checks (K13-bwd's is K13's) take every D <= 256
-    (the name is the test's from when the limit was 128) and give the
-    template width the kernels run it at; D = 384 is refused with a
-    message that names the limit, as no template is wider than 256."""
+    """K12's and K13's checks (K13-bwd's is K13's) take every D (the name
+    is the test's from when the limit was 128) and give the width the
+    kernels run it at: the next template up to 256, D itself past it (the
+    wide path: ``is_wide``, 8 query heads a K12 launch, float32 planes of
+    whole 64-column slices); D = 0 is refused, and K12 past the q its
+    wide path stages (WIDE_Q_FLOATS)."""
     q, k = torch.zeros(1, 4, 8, d), torch.zeros(1, 4, 2, d)
     assert ab._flash_check("K13", q, k, k) == w
     qp, kp, vp, lengths, tables = (to_torch(a) for a in _pool(
         np.random.default_rng(0), 2, 4, d))
     assert ab._paged_check(qp, kp, vp, lengths, tables) == 4
     assert ab.kernel_head_dim(d) == w
-    assert ab.heads_per_launch(w) == (8 if w == 256 else 16)
-    big, bigk = torch.zeros(1, 4, 8, 384), torch.zeros(1, 4, 2, 384)
-    with pytest.raises(ValueError, match=r"D in 1\.\.256"):
-        ab._flash_check("K13", big, bigk, bigk)
-    qb, kb, vb, lb, tb = (to_torch(a) for a in _pool(
-        np.random.default_rng(0), 2, 1, 384))
-    with pytest.raises(ValueError, match=r"D in 1\.\.256"):
-        ab._paged_check(qb, kb, vb, lb, tb)
-    with pytest.raises(ValueError, match=r"head_dim 1\.\.256"):
-        ab.kernel_head_dim(384)
+    assert ab.is_wide(w) == (d > 256)
+    assert ab.heads_per_launch(w) == (16 if w <= 128 else 8)
+    if d > 256:
+        assert ab.plane_width(d) == -(-d // 64) * 64
+        assert ab.plane_width(d) % ab.WIDE_SLICE == 0
+    with pytest.raises(ValueError, match="head_dim >= 1"):
+        ab.kernel_head_dim(0)
+    big = ab.WIDE_Q_FLOATS + 1
+    assert ab.heads_per_launch(big) == 0
+    pages = torch.zeros((1, 2, 1, big), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=str(ab.WIDE_Q_FLOATS)):
+        ab._paged_check(torch.zeros((1, 1, big)), pages, pages,
+                        torch.ones(1, dtype=torch.int32),
+                        torch.ones((1, 1), dtype=torch.int32))

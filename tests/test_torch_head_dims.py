@@ -20,8 +20,9 @@ seeds:
   PagedEngine (int8 and bf16 pools) equal mxq_tpu's token for token at
   D = 100 (hidden 1600 over 16 heads) and D = 256 (hidden 512 over 2
   heads, 1 kv head);
-- the int8 wrappers' checks take every D in 1..256, pick the code load
-  the rows' alignment allows, and refuse D = 384 naming the limit.
+- the int8 wrappers' checks take every D, pick the code load the rows'
+  alignment allows, and name the wide path's library past 256 (D > 256
+  itself: ``test_torch_wide_head_dims.py``).
 """
 
 import jax
@@ -166,12 +167,14 @@ def test_int8_paged_plain_matches_jax_oracle(d):
                                else np.int16)))
 
 
-@pytest.mark.parametrize("d", [1, 33, 64, 80, 99, 100, 128, 160, 255, 256])
+@pytest.mark.parametrize("d", [1, 33, 64, 80, 99, 100, 128, 160, 255, 256,
+                               257, 300, 384, 512, 1024])
 def test_int8_checks_take_every_head_dim_up_to_256(d):
-    """K4's and K9-K11's checks take every D in 1..256 and choose the code
-    load the kernels make: 16 bytes at the templates (64, 128, 256) and
-    where D % 16 == 0, else 4 bytes where D % 4 == 0, else one; D = 384
-    is refused with a message that names the limit."""
+    """K4's and K9-K11's checks take every D (the name is the test's from
+    when the limit was 256) and choose the code load the kernels make: 16
+    bytes at the templates (64, 128, 256) and where D % 16 == 0, else 4
+    bytes where D % 4 == 0, else one; D <= 256 runs the templates'
+    libraries, D > 256 the wide path's (``attn_int8_wide``)."""
     t = _int8_inputs(d, seed=0, s=8)
     t = {k: to_torch(v) for k, v in t.items()}
     q = t["q"]
@@ -184,15 +187,18 @@ def test_int8_checks_take_every_head_dim_up_to_256(d):
     want = 16 if d % 16 == 0 else 4 if d % 4 == 0 else 1
     assert vec == want
     assert ta8.code_load_bytes("K4", d, [t["kc"][1], t["vc"][1]]) == want
-    big = _int8_inputs(384, seed=0, s=8)
-    big = {k: to_torch(v) for k, v in big.items()}
-    with pytest.raises(ValueError, match=r"D in 1\.\.256"):
-        ta8._check_k4("K4", big["q"], big["kc"], big["ks"], big["vc"],
-                      big["vs"], None, big["pos"])
-    bpages = torch.zeros((2, 3, PS8, 384), dtype=torch.int8)
-    with pytest.raises(ValueError, match=r"D in 1\.\.256"):
-        ta8._check_paged("K9", big["q"], bpages, pscales, bpages, pscales,
-                         big["pos"], tables, None)
+    wide = d > 256
+    assert ta8.kernel_entry(d, paged=False) == (
+        ("attn_int8_wide", "attn_int8_wide") if wide
+        else ("attn_int8", "attn_int8"))
+    assert ta8.kernel_entry(d, paged=True) == (
+        ("attn_int8_wide", "paged_attn_int8_wide") if wide
+        else ("paged_attn_int8", "paged_attn_int8"))
+    # a code tensor starting one byte in takes one-byte loads at every D
+    # off the templates, the wide path's included
+    if d not in ta8.TILE_DIMS:
+        buf = torch.zeros(PS8 * d + 1, dtype=torch.int8)
+        assert ta8.code_load_bytes("K4", d, [buf[1:]]) == 1
 
 
 def test_code_load_bytes_follows_the_rows_alignment():

@@ -215,9 +215,13 @@ def _edge_positions(s, t=1):
 
 # the int8 family's head_dims: its templates (64, 128, 256) and, read in
 # place at the next template, 80 (16-byte loads), 100 (open_llama_3b: 4-byte
-# loads) and 99 (one byte at a time)
+# loads) and 99 (one byte at a time); past 256 the wide path
+# (attn_int8_wide.cu) at 257 and 301 (one byte a load), 300 (4 bytes),
+# 384, 512 and 1024 (16 bytes)
+INT8_WIDE = [(4, 2, 257), (8, 2, 300), (2, 2, 301), (8, 2, 384),
+             (8, 2, 512), (4, 1, 1024)]
 INT8_DIMS = [(4, 2, 64), (8, 8, 128), (16, 2, 128), (8, 2, 80), (4, 4, 100),
-             (2, 2, 99), (8, 1, 256)]
+             (2, 2, 99), (8, 1, 256)] + INT8_WIDE
 
 
 @pytest.mark.parametrize("s", [1, 96, 300, 4096])
@@ -424,7 +428,8 @@ def _paged_inputs(gen, pos, hkv, g, d, pps, lp):
 
 @pytest.mark.parametrize("pps", [3, 32])
 @pytest.mark.parametrize("g,d", [(1, 64), (4, 128), (8, 128), (4, 80),
-                                 (2, 100), (1, 99), (8, 256)])
+                                 (2, 100), (1, 99), (8, 256)]
+                         + [(hq // hkv, d) for hq, hkv, d in INT8_WIDE])
 def test_paged_kernels_match_plain(gen, g, d, pps):
     """K9, K10 and K11 against their plain versions, shuffled tables, a
     NaN null page, histories up to 4096 rows cut at page edges (last pages
@@ -495,7 +500,9 @@ def _k12_pool(gen, lens, hkv, g, d, ps, pps, q_dtype):
                                      (8, 128, 8), (4, 96, 2), (32, 128, 2),
                                      (4, 100, 2), (2, 98, 2), (1, 99, 2),
                                      (8, 256, 1), (4, 160, 2), (16, 256, 2),
-                                     (2, 256, 2)])
+                                     (2, 256, 2), (1, 384, 2), (4, 384, 2),
+                                     (8, 384, 1), (1, 512, 2), (4, 512, 2),
+                                     (8, 512, 2), (16, 300, 1)])
 def test_k12_matches_plain(gen, g, d, hkv, ps, pps, q_dtype):
     """K12 against its plain version: shuffled tables, lengths cut at page,
     tile and split edges (1, 63-65, 127-129, 255-257, the whole table);
@@ -509,7 +516,8 @@ def test_k12_matches_plain(gen, g, d, hkv, ps, pps, q_dtype):
     bytes; G = 32 as two launches of 16 query heads per kv head;
     llama2_70b's heads at (8, 128) with 8 kv heads; D = 256 (Gemma-2B's
     G = 8 over one kv head, and G = 16 as two launches of 8) and 160
-    (at 256, read in place)."""
+    (at 256, read in place); D = 384, 512 and 300 on the wide path (G = 1,
+    4 and 8; 16 as two launches of 8; 300 read one element at a time)."""
     lens = [n for n in (1, 63, 64, 65, 127, 128, 129, 255, 256, 257,
                         pps * ps) if n <= pps * ps]
     q, nan, zero, lengths, tables = _k12_pool(gen, lens, hkv, g, d, ps,
@@ -531,7 +539,7 @@ def test_k12_matches_plain(gen, g, d, hkv, ps, pps, q_dtype):
 
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("g,d", [(1, 128), (8, 128), (4, 64), (2, 96),
-                                 (8, 256)])
+                                 (8, 256), (4, 512)])
 def test_k12_row_bits_independent_of_batch(gen, g, d, q_dtype):
     """A row of 300 rows (two splits, a cut tile) gives the same bits
     alone as row 3 of a batch of other lengths (1, 129, 2000, 64, 2047,
@@ -591,7 +599,7 @@ def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t", [1, 63, 65, 100, 128, 129, 257, 1000])
-@pytest.mark.parametrize("d", [128, 80])
+@pytest.mark.parametrize("d", [128, 80, 384])
 def test_k13_reads_no_row_past_t(gen, d, t, dtype):
     """K13 over k, v whose rows past T are NaN gives the bits it gives
     with zeros there, all finite: no key row >= T is read (the tensor
@@ -738,35 +746,184 @@ def test_k13_bwd_reads_no_row_past_t(gen, t, dtype):
 
 
 def test_head_dim_past_256_refused(gen):
-    """D = 384 on the card: every attention wrapper raises a ValueError
-    that names the limit of 256, and launches nothing."""
+    """D = 384 on the card (the name is the test's from when the wrappers
+    refused it): every attention wrapper (K4, K4a, K4b, K9, K10, K11,
+    K12, K13, K13-bwd) launches its wide kernel once, counted on its own
+    counter, and matches its plain version within its gate (int8 1e-3,
+    K12 and K13 bf16 1e-2 and 2e-2)."""
     cat = dict(generator=gen, device="cuda")
-    d = 384
-    q = torch.randn((2, 4, d), **cat).to(torch.bfloat16)
-    codes = torch.zeros((1, 2, 2, 256, d), dtype=torch.int8, device="cuda")
-    scales = torch.ones((1, 2, 2, 256), dtype=torch.bfloat16, device="cuda")
-    pos = torch.tensor([3, 7], dtype=torch.int32, device="cuda")
-    pages = torch.zeros((2, 3, a8.PAGE_INT8, d), dtype=torch.int8,
-                        device="cuda")
-    pscales = torch.ones((2, 3, 1, a8.PAGE_INT8), dtype=torch.bfloat16,
-                         device="cuda")
-    tables = torch.tensor([[1], [2]], dtype=torch.int32, device="cuda")
-    bpages = torch.zeros((2, 3, 16, d), dtype=torch.bfloat16, device="cuda")
-    qkv = torch.randn((1, 128, 2, d), **cat).to(torch.bfloat16)
-    before = [f.launches for f in (*a8.KERNELS.values(),
-                                   *ab.KERNELS.values())]
-    calls = [
-        lambda: a8.int8_decode_attention_stacked(q, codes, scales, codes,
-                                                 scales, 0, pos),
-        lambda: a8.int8_paged_decode_attention(q, pages, pscales, pages,
-                                               pscales, pos, tables),
-        lambda: ab.paged_decode_attention(q, bpages, bpages, pos, tables),
-        lambda: ab.flash_prefill_attention(qkv, qkv, qkv)]
-    for call in calls:
-        with pytest.raises(ValueError, match="256"):
-            call()
-    assert [f.launches for f in (*a8.KERNELS.values(),
-                                 *ab.KERNELS.values())] == before
+    d, b, hkv, hq, s = 384, 2, 2, 4, 256
+    q = torch.randn((b, hq, d), **cat).to(torch.bfloat16)
+    codes = lambda *sh: torch.randint(-127, 128, sh, dtype=torch.int8,  # noqa
+                                      **cat)
+    scales = lambda *sh: (torch.rand(sh, **cat) * 0.02  # noqa: E731
+                          + 1e-3).to(torch.bfloat16)
+    kc, vc = codes(1, b, hkv, s, d), codes(1, b, hkv, s, d)
+    ks, vs = scales(1, b, hkv, s), scales(1, b, hkv, s)
+    cur = [codes(b, hkv, 1, d), scales(b, hkv, 1), codes(b, hkv, 1, d),
+           scales(b, hkv, 1)]
+    pos = torch.tensor([3, 200], dtype=torch.int32, device="cuda")
+    pk = _paged_inputs(gen, [3, 200], hkv, hq // hkv, d, 2, 5)
+    pool = [pk[n] for n in ("k_pages", "k_scales", "v_pages", "v_scales")]
+    pcur = [pk[n] for n in ("kcur", "kscur", "vcur", "vscur")]
+    bpages = torch.randn((hkv, 5, 16, d), **cat).to(torch.bfloat16)
+    btables = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32,
+                           device="cuda")
+    # q, k and v apart: with q = k the probabilities are nearly one-hot
+    # and dQ, dK cancel to rounding noise
+    qkv = _qkv(gen, 1, 128, 2, 2, d, torch.bfloat16)
+    do = torch.randn((1, 128, 2, d), **cat).to(torch.bfloat16)
+    o, lse = ab.flash_attention_forward_plain(*qkv)
+    cases = [
+        (a8.int8_decode_attention_fused_write, 1e-3, lambda f: f(
+            q, kc.clone(), ks, vc.clone(), vs, *cur, 0, pos)[0],
+         a8.int8_decode_attention_fused_write_plain),
+        (a8.int8_decode_attention_stacked, 1e-3, lambda f: f(
+            q, kc, ks, vc, vs, 0, pos),
+         a8.int8_decode_attention_stacked_plain),
+        (a8.int8_decode_attention_cur_folded, 1e-3, lambda f: f(
+            q, kc, ks, vc, vs, *cur, 0, pos),
+         a8.int8_decode_attention_cur_folded_plain),
+        (a8.int8_paged_decode_attention, 1e-3, lambda f: f(
+            pk["q"], *pool, pos + 1, pk["tables"]),
+         a8.int8_paged_decode_attention_plain),
+        (a8.int8_paged_decode_attention_cur, 1e-3, lambda f: f(
+            pk["q"], *pool, *pcur, pos, pk["tables"]),
+         a8.int8_paged_decode_attention_cur_plain),
+        (a8.int8_paged_decode_attend_update, 1e-3, lambda f: f(
+            pk["q"], *[t.clone() for t in pool], *pcur, pos,
+            pk["tables"])[0],
+         a8.int8_paged_decode_attend_update_plain),
+        (ab.paged_decode_attention, 1e-2, lambda f: f(
+            q, bpages, bpages, torch.tensor([5, 32], dtype=torch.int32,
+                                            device="cuda"), btables),
+         ab.paged_decode_attention_plain),
+        (ab.flash_prefill_attention, 2e-2, lambda f: f(*qkv),
+         ab.flash_prefill_attention_plain),
+        (ab.flash_attention_backward, 2e-2, lambda f: f(*qkv, o, lse, do),
+         ab.flash_attention_bwd_plain)]
+    for fn, gate, call, plain in cases:
+        before = fn.launches
+        got = call(fn)
+        assert fn.launches == before + 1, fn.__name__
+        want = call(plain)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = _grad_errs(got, want)
+        assert max(errs) <= gate, (fn.__name__, errs)
+
+
+@pytest.mark.parametrize("write", [False, True])
+@pytest.mark.parametrize("hq,hkv,d", INT8_WIDE)
+def test_int8_wide_same_bits(gen, hq, hkv, d, write):
+    """The int8 wide path gives the same bits on a second call: K4 (the
+    current row written) or K4b, K4a at a verify's 5 tokens, and K11 or
+    K10 on the paged pool (the splits combined in order by the last
+    block of each (batch, kv head), the chunks' partial contexts
+    independent of which block ran when)."""
+    cat = dict(generator=gen, device="cuda")
+    s, b = 700, 3
+    kc = torch.randint(-127, 128, (1, b, hkv, s, d), dtype=torch.int8, **cat)
+    vc = torch.randint(-127, 128, (1, b, hkv, s, d), dtype=torch.int8, **cat)
+    ks = (torch.rand((1, b, hkv, s), **cat) * 0.02 + 1e-3).to(torch.bfloat16)
+    vs = (torch.rand((1, b, hkv, s), **cat) * 0.02 + 1e-3).to(torch.bfloat16)
+    cur = [torch.randint(-127, 128, (b, hkv, 1, d), dtype=torch.int8, **cat),
+           (torch.rand((b, hkv, 1), **cat) * 0.02 + 1e-3).to(torch.bfloat16),
+           torch.randint(-127, 128, (b, hkv, 1, d), dtype=torch.int8, **cat),
+           (torch.rand((b, hkv, 1), **cat) * 0.02 + 1e-3).to(torch.bfloat16)]
+    q = torch.randn((b, hq, d), **cat).to(torch.bfloat16)
+    qv = torch.randn((b, 5, hq, d), **cat).to(torch.bfloat16)
+    pos = torch.tensor([0, 129, 690], dtype=torch.int32, device="cuda")
+    pk = _paged_inputs(gen, [0, 129, 690], hkv, hq // hkv, d, 6, 19)
+    pool = [pk[n] for n in ("k_pages", "k_scales", "v_pages", "v_scales")]
+    pcur = [pk[n] for n in ("kcur", "kscur", "vcur", "vscur")]
+    if write:
+        dense = lambda: a8.int8_decode_attention_fused_write(  # noqa: E731
+            q, kc.clone(), ks, vc.clone(), vs, *cur, 0, pos)[0]
+        paged = lambda: a8.int8_paged_decode_attend_update(  # noqa: E731
+            pk["q"], *[t.clone() for t in pool], *pcur, pos,
+            pk["tables"])[0]
+    else:
+        dense = lambda: a8.int8_decode_attention_cur_folded(  # noqa: E731
+            q, kc, ks, vc, vs, *cur, 0, pos)
+        paged = lambda: a8.int8_paged_decode_attention_cur(  # noqa: E731
+            pk["q"], *pool, *pcur, pos, pk["tables"])
+    verify = lambda: a8.int8_decode_attention_stacked(  # noqa: E731
+        qv, kc, ks, vc, vs, 0, pos.clamp(max=s - 5))
+    for fn in (dense, paged, verify):
+        first, again = fn(), fn()
+        torch.cuda.synchronize()
+        assert bool(torch.isfinite(first).all())
+        assert torch.equal(first, again)
+
+
+# K13 and K13-bwd's wide path: G = 1 and 4, T at the tiles' edges and
+# llama2's 512 and 2048
+K13_WIDE = [(4, 4, 384), (8, 2, 384), (4, 4, 512), (8, 2, 512),
+            (4, 4, 1024), (8, 2, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [1, 65, 200, 512, 2048])
+@pytest.mark.parametrize("hq,hkv,d", K13_WIDE)
+def test_k13_wide_matches_plain(gen, hq, hkv, d, t, dtype):
+    """K13's wide path against its plain version on the fused qkv
+    projection's strided slices (k, v 7 rows longer than q), at the gates
+    of test_k13_matches_plain (bf16 2e-2, float32 1e-4); the same bits on
+    a second call, one launch a call; its lse the plain version's within
+    1e-4, and the context the bits it has without lse."""
+    q, k, v = _qkv(gen, 1, t, hq, hkv, d, dtype)
+    before = ab.flash_prefill_attention.launches
+    got = ab.flash_prefill_attention(q, k, v)
+    again = ab.flash_prefill_attention(q, k, v)
+    out, lse = ab.flash_attention_forward(q, k, v)
+    ref, ref_lse = ab.flash_attention_forward_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert ab.flash_prefill_attention.launches == before + 3
+    assert got.dtype == dtype and got.shape == (1, t, hq, d)
+    assert torch.equal(got, again) and torch.equal(got, out)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max()) <= tol
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t", [1, 65, 200, 512, 2048])
+@pytest.mark.parametrize("hq,hkv,d", K13_WIDE)
+def test_k13_bwd_wide_matches_plain(gen, hq, hkv, d, t, dtype):
+    """K13-bwd's wide path against its plain version on K13's lse, q, k,
+    v strided slices and dO a transposed view, at the gates of
+    test_k13_bwd_matches_plain (bf16 2e-2, float32 1e-4 of each
+    gradient's max); the same bits on a second call, one launch a call,
+    dK and dV zero past row T; and FlashAttention under autograd reaching
+    it (one K13 and one K13-bwd launch)."""
+    q, k, v = _qkv(gen, 1, t, hq, hkv, d, dtype)
+    do = torch.randn((1, hq, t, d), generator=gen, device="cuda").to(
+        dtype).transpose(1, 2)
+    o, lse = ab.flash_attention_forward(q, k, v)
+    before = ab.flash_attention_backward.launches
+    got = ab.flash_attention_backward(q, k, v, o, lse, do)
+    again = ab.flash_attention_backward(q, k, v, o, lse, do)
+    ref = ab.flash_attention_bwd_plain(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert ab.flash_attention_backward.launches == before + 2
+    for g, a, r in zip(got, again, ref):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert torch.equal(g, a) and bool(torch.isfinite(g).all())
+    for g in got[1:]:
+        assert not bool(g[:, t:].any())
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert max(_grad_errs(got, ref)) <= tol
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    wrappers = (ab.flash_prefill_attention, ab.flash_attention_backward)
+    counts = [f.launches for f in wrappers]
+    grads = torch.autograd.grad(ab.FlashAttention.apply(*leaves), leaves,
+                                do)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(wrappers, counts)] == [1, 1]
+    assert all(torch.equal(g, r) for g, r in zip(grads, got))
 
 
 @pytest.mark.parametrize("d", [1, 64, 80, 96, 98, 100, 128, 192, 255, 256])
