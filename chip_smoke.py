@@ -34,7 +34,8 @@ Phases, each printing one JSON line:
            (rows K4-d100 .. K13-bwd-f32-d256), and the same six on the
            wide path at 8 heads of 512 over 2 kv heads (rows K4-d512 ..
            K13-bwd-f32-d512, each with the SDPA backend its library
-           time took at that D); K1 at 8, 40
+           time took at that D), and K4 and K11 at Falcon-7B's 71 heads
+           of 64 over one kv head (rows K4-g71, K11-g71); K1 at 8, 40
            and 128 rows, K6 at 8, 1, 40 and 128; K7 at 1, 8, 40,
            128 and 2048 rows, K8 at 8 and 128; and trace K4's gap to its
            plain version to pass A's scores (``K4-gap``)
@@ -94,9 +95,12 @@ Phases, each printing one JSON line:
            prefills; `cli train --model` on a 2-layer
            HF checkpoint at Gemma-2B's widths and at LLAMA2_7B_D512's,
            KD, 2 steps of 512 tokens at float32 and bfloat16 (K13 and
-           K13-bwd at 256 and 512). Its launches are the kernels line's
-           for the rows K4-d100 .. K13-bwd-f32-d256 and K4-d512 ..
-           K13-bwd-f32-d512
+           K13-bwd at 256 and 512); Falcon-7B's attention widths
+           (FALCON_7B_ATTN, 71 heads of 64 over one kv head, 4 of its 32
+           layers): the slot Engine (K4) and the int8 pool (K11), a
+           launch per head group. Its launches are the kernels line's
+           for the rows K4-d100 .. K13-bwd-f32-d256, K4-d512 ..
+           K13-bwd-f32-d512, K4-g71 and K11-g71
   eval     perplexity of llama2_7b at full depth: `cli eval-ppl --w_bits 2`
            (the fake-quant forward), the packed model at seqlen 128 once
            per GEMV layout (slab K1, quad and bfexp K6) and at seqlen 2048
@@ -249,6 +253,17 @@ LLAMA2_7B_D512 = dict(vocab_size=32000, hidden_size=4096,
                       intermediate_size=11008, num_hidden_layers=32,
                       num_attention_heads=8, num_key_value_heads=2,
                       max_position_embeddings=4096)
+# and past 64 query heads per kv head: tiiuae/falcon-7b's attention widths
+# (its config.json: hidden_size 4544, n_head 71 of 64, multi_query: one kv
+# head; intermediate 4 x 4544 = 18176, vocab 65024) as a Llama (its
+# parallel attention, LayerNorm and non-gated MLP are not modelled), cut
+# to FALCON_LAYERS of its 32 layers
+FALCON_LAYERS = 4
+FALCON_7B_ATTN = dict(vocab_size=65024, hidden_size=4544,
+                      intermediate_size=18176,
+                      num_hidden_layers=FALCON_LAYERS,
+                      num_attention_heads=71, num_key_value_heads=1,
+                      max_position_embeddings=2048)
 # phase head_dims' cli train at Gemma-2B's widths and at LLAMA2_7B_D512's:
 # layers of the checkpoint it writes (the f32 student, teacher, gradients
 # and AdamW moments at 18 layers, 63 GB, nearly fill a card)
@@ -442,6 +457,13 @@ KERNEL_INFO = {
                      "mxq_tpu/models/llama.py:383"),
     "K13-bwd-f32-d512": ("cuda", "mxq_tpu_torch/csrc/flash_attn_wide.cu",
                          "mxq_tpu/models/llama.py:383"),
+    # past 64 query heads per kv head (Falcon-7B's 71 heads of 64 over one
+    # kv head: a launch per head group, 36 + 35; their launches are phase
+    # head_dims' runs at FALCON_7B_ATTN)
+    "K4-g71": ("cuda", "mxq_tpu_torch/csrc/attn_int8.cu",
+               "mxq_tpu/ops/attn_int8.py:318"),
+    "K11-g71": ("cuda", "mxq_tpu_torch/csrc/paged_attn_int8.cu",
+                "mxq_tpu/ops/attn_int8.py:773"),
 }
 
 
@@ -921,7 +943,7 @@ def verify_g8_kernel(torch, timer, rows, summary, t=9):
     torch.cuda.synchronize()
     err = rel_err(out, ref)
     untouched = torch.equal(kc, kc0) and torch.equal(vc, vc0)
-    want = len(a8.token_chunks(Hq // Hkv, t))
+    want = len(a8.launch_plan(Hq // Hkv, t))
     # the function reads each (b, kv head)'s rows <= pos + t - 1 once
     # (the launches' re-reads are the kernel's cost, not the bound's);
     # token i's scores over pos + i + 1
@@ -1316,7 +1338,8 @@ def paged_kernels(torch, timer, gen, rows, summary):
 # path's 8 heads of 512 over 2 kv heads (LLAMA2_7B_D512)
 INT8_WIDTHS = (("d100", 32, 32, 100, ("K4", "K4a", "K11")),
                ("d256", 8, 1, 256, ("K4", "K11")),
-               ("d512", 8, 2, 512, ("K4", "K11")))
+               ("d512", 8, 2, 512, ("K4", "K11")),
+               ("g71", 71, 1, 64, ("K4", "K11")))
 
 
 def head_dim_int8_kernels(torch, timer, gen, rows, summary):
@@ -2720,14 +2743,18 @@ def phase_head_dims(torch):
        512 over 2 kv heads), packed from float32 weights, full depth:
        the slot Engine (K4 at 512), both pools (K11, K12), K13-f32 at
        512 in the prefills.
-    4. ``cli train --model`` (:func:`head_dim_train`) on a
+    4. Falcon-7B's attention widths (FALCON_7B_ATTN: 71 query heads of 64
+       over one kv head, FALCON_LAYERS of its 32 layers), packed from
+       float32 weights: the slot Engine (K4, a launch per head group) and
+       the PagedEngine's int8 pool (K11).
+    5. ``cli train --model`` (:func:`head_dim_train`) on a
        GEMMA_TRAIN_LAYERS-layer HF checkpoint at Gemma-2B's widths and at
        LLAMA2_7B_D512's, KD, w_bits 2, 2 steps of 512 tokens, at float32
        (the default) and bfloat16: K13 and K13-bwd at 256 and at 512
        launch, every loss finite.
     Returns the launches of the kernel rows these widths add
     (K4-d100, K4a-d100, K11-d100, K4-d256 .. K13-bwd-f32-d256, K4-d512
-    .. K13-bwd-f32-d512) and the failures."""
+    .. K13-bwd-f32-d512, K4-g71, K11-g71) and the failures."""
     import numpy as np
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.ops import attn_int8 as a8
@@ -2862,7 +2889,20 @@ def phase_head_dims(torch):
     del params, slot, int8, bf16
     torch.cuda.empty_cache()
 
-    # 4. cli train at Gemma-2B's widths and at the wide path's
+    # 4. Falcon-7B's 71 query heads over one kv head (the int8 family one
+    # launch per head group)
+    cfg, params = packed(FALCON_7B_ATTN)
+    slot, int8, _ = engines(cfg, params)
+    got = counted("g71_slot", ("K1", "K4", "K13"), cfg, params, prompts,
+                  slot, run)
+    launches["K4-g71"] = got["K4"]
+    got = counted("g71_paged", ("K1", "K11", "K13"), cfg, params, prompts,
+                  int8, run)
+    launches["K11-g71"] = got["K11"]
+    del params, slot, int8
+    torch.cuda.empty_cache()
+
+    # 5. cli train at Gemma-2B's widths and at the wide path's
     for tag, base in (("d256", gemma), ("d512", wide)):
         tcfg = dataclasses.replace(base,
                                    num_hidden_layers=GEMMA_TRAIN_LAYERS)

@@ -53,9 +53,9 @@ SIGNATURES = {
     "mxq_dequant": {"mxq_dequant_k3": [P, P, P, P, P, P, I, I, P, P, P],
                     "mxq_dequant_k5": [P, P, P, P, P, P, I, I, P, P, P]},
     "attn_int8": {
-        "attn_int8": [P] * 10 + [I] * 9 + [F] + [P] * 4},
+        "attn_int8": [P] * 10 + [I] * 13 + [F] + [P] * 4},
     "paged_attn_int8": {
-        "paged_attn_int8": [P] * 11 + [I] * 9 + [F] + [P] * 4},
+        "paged_attn_int8": [P] * 11 + [I] * 11 + [F] + [P] * 4},
     "uniform_gemv": {
         "uniform_gemv": [I, I, P, I, I, P, P, P, I, I, I, I, I, P, P, P],
         "uniform_gemv_tiles": [P, I]},
@@ -71,8 +71,8 @@ SIGNATURES = {
     # the wide paths (head_dim > 256) of the int8 family, K12, K13 and
     # K13-bwd
     "attn_int8_wide": {
-        "attn_int8_wide": [P] * 10 + [I] * 9 + [F] + [P] * 4,
-        "paged_attn_int8_wide": [P] * 11 + [I] * 9 + [F] + [P] * 4},
+        "attn_int8_wide": [P] * 10 + [I] * 13 + [F] + [P] * 4,
+        "paged_attn_int8_wide": [P] * 11 + [I] * 11 + [F] + [P] * 4},
     "paged_attn_bf16_wide": {
         "paged_attn_bf16_wide": [P, I] + [P] * 4 + [I] * 10 + [F] + [P] * 4},
     "flash_attn_wide": {

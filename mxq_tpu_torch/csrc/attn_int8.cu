@@ -43,11 +43,14 @@
 
 #include "attn_split.cuh"
 
-// q [B, T, Hkv, G, D] bf16; kc/vc [B, Hkv, S, D] int8 and ks/vs [B, Hkv, S]
-// bf16 (one layer); kcur/vcur [B, Hkv, D], kscur/vscur [B, Hkv] (read only
-// when cur); positions [B]; ws the scratch of attn_split::carve with
-// NS = ceil(S / 128); tickets [B * Hkv] int32, 0 between calls; out
-// [B, T, Hkv, G, D] f32. cur, write: K4 1, 1; K4a/K4c 0, 0; K4b/K4d 1, 0.
+// q [B, Tq, Hkv, Gq, D] bf16, of which the launch attends tokens t0 ..
+// t0 + T - 1 and query heads g0 .. g0 + G - 1 of each kv head (G T <=
+// 64), their context written into the same rows of out; kc/vc
+// [B, Hkv, S, D] int8 and ks/vs [B, Hkv, S] bf16 (one layer); kcur/vcur
+// [B, Hkv, D], kscur/vscur [B, Hkv] (read only when cur); positions [B]
+// (of token t0); ws the scratch of attn_split::carve with NS = ceil(S /
+// 128); tickets [B * Hkv] int32, 0 between calls; out [B, Tq, Hkv, Gq, D]
+// f32. cur, write: K4 1, 1; K4a/K4c 0, 0; K4b/K4d 1, 0.
 // D: any head_dim 1..256 (attn_split.cuh: 64, 128 and 256 at their
 // templates, the others in place at the next); vec: bytes a code load
 // (16, 4 or 1), dividing D and the alignment of every code tensor's start
@@ -56,7 +59,8 @@ extern "C" int attn_int8(const void* q, void* kc, void* ks, void* vc,
                          void* vs, const void* kcur, const void* kscur,
                          const void* vcur, const void* vscur,
                          const void* positions, int B, int Hkv, int G, int T,
-                         int S, int D, int cur, int write, int vec,
+                         int Gq, int g0, int Tq, int t0, int S, int D,
+                         int cur, int write, int vec,
                          float scale, void* ws, void* tickets, void* out,
                          void* stream) {
   if (S < 1) return (int)cudaErrorInvalidValue;
@@ -66,6 +70,7 @@ extern "C" int attn_int8(const void* q, void* kc, void* ks, void* vc,
       (const __nv_bfloat16*)kscur, (const int8_t*)vcur,
       (const __nv_bfloat16*)vscur, (const int*)positions, nullptr,
       B, Hkv, G, T, S, 0, (S + attn_split::CHUNK - 1) / attn_split::CHUNK,
-      scale, (float*)ws, (int*)tickets, (float*)out, D, vec};
+      scale, (float*)ws, (int*)tickets, (float*)out, D, vec, Gq, g0, Tq,
+      t0};
   return attn_split::dispatch<false>(a, cur, write, stream);
 }

@@ -339,8 +339,8 @@ int launch(const Args& a, void* stream) {
 template <bool PAGED>
 int dispatch(const Args& a, int cur, int write, void* stream) {
   const int d = a.D;
-  if ((write && !cur) || (cur && a.T != 1) || a.G < 1 || a.T < 1
-      || a.G * a.T > QMAX || a.B < 0 || a.B > 65535 || a.Hkv < 1
+  if ((write && !cur) || (cur && a.T != 1) || !rows_ok(a) || a.B < 0
+      || a.B > 65535 || a.Hkv < 1
       || a.Hkv > 65535 || a.NS < 1 || d <= 256
       || (long long)a.NS * ((d + C - 1) / C) > 0x7fffffffLL
       || (a.vec != 16 && a.vec != 4 && a.vec != 1) || d % a.vec)
@@ -359,7 +359,8 @@ extern "C" int attn_int8_wide(const void* q, void* kc, void* ks, void* vc,
                               void* vs, const void* kcur, const void* kscur,
                               const void* vcur, const void* vscur,
                               const void* positions, int B, int Hkv, int G,
-                              int T, int S, int D, int cur, int write,
+                              int T, int Gq, int g0, int Tq, int t0, int S,
+                              int D, int cur, int write,
                               int vec, float scale, void* ws, void* tickets,
                               void* out, void* stream) {
   if (S < 1) return (int)cudaErrorInvalidValue;
@@ -369,7 +370,8 @@ extern "C" int attn_int8_wide(const void* q, void* kc, void* ks, void* vc,
       (const __nv_bfloat16*)kscur, (const int8_t*)vcur,
       (const __nv_bfloat16*)vscur, (const int*)positions, nullptr,
       B, Hkv, G, T, S, 0, (S + attn_split::CHUNK - 1) / attn_split::CHUNK,
-      scale, (float*)ws, (int*)tickets, (float*)out, D, vec};
+      scale, (float*)ws, (int*)tickets, (float*)out, D, vec, Gq, g0, Tq,
+      t0};
   return attn_wide::dispatch<false>(a, cur, write, stream);
 }
 
@@ -380,7 +382,8 @@ extern "C" int paged_attn_int8_wide(const void* q, void* kp, void* ks,
                                     const void* kscur, const void* vcur,
                                     const void* vscur, const void* bound,
                                     const void* tables, int B, int Hkv, int G,
-                                    int D, int LP, int pps, int cur,
+                                    int Gq, int g0, int D, int LP, int pps,
+                                    int cur,
                                     int write, int vec, float scale, void* ws,
                                     void* tickets, void* out, void* stream) {
   attn_split::Args a{
@@ -389,6 +392,6 @@ extern "C" int paged_attn_int8_wide(const void* q, void* kp, void* ks,
       (const __nv_bfloat16*)kscur, (const int8_t*)vcur,
       (const __nv_bfloat16*)vscur, (const int*)bound, (const int*)tables,
       B, Hkv, G, 1, 0, LP, pps, scale, (float*)ws, (int*)tickets,
-      (float*)out, D, vec};
+      (float*)out, D, vec, Gq, g0, 1, 0};
   return attn_wide::dispatch<true>(a, cur, write, stream);
 }

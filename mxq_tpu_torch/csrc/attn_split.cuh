@@ -40,8 +40,11 @@
 // replace. Query rows are accumulated QT = 8 at a time (registers), so Q
 // is bounded only by shared memory (QMAX = 64; llama2_70b's G = 8 with
 // five verify tokens is 40). A call of more query rows is cut by its
-// wrapper into launches of floor(64 / G) tokens (ops/attn_int8.py
-// token_chunks), each at positions + its first token.
+// wrapper's launch plan (ops/attn_int8.py launch_plan) into launches of
+// floor(64 / G) tokens, or at G > 64 of one token and a group of at most
+// 64 of a kv head's query heads (Falcon-7B's 71 as 36 + 35), each at
+// positions + its first token, reading q and writing out in place
+// (Args' Gq, g0, Tq, t0); only a token's first launch writes its row.
 //
 // Bound on the H100: bytes (two multiply-adds per code byte, one query
 // row per head: no tensor-core work). Two launches per call. What bounds
@@ -72,7 +75,7 @@ constexpr int QMAX = 64;                   // query rows per (b, kv head)
 constexpr float NEG = -3.402823466e38f;    // f32 min, the TPU kernels' NEG
 
 struct Args {
-  const __nv_bfloat16* q;     // [B, T, Hkv, G, D]
+  const __nv_bfloat16* q;     // [B, Tq, Hkv, Gq, D]
   int8_t* kc;                 // dense [B, Hkv, S, D]; paged [Hkv, LP, 128, D]
   __nv_bfloat16* ks;          // dense [B, Hkv, S];    paged [Hkv, LP, 128]
   int8_t* vc;
@@ -88,9 +91,14 @@ struct Args {
   float scale;
   float* ws;                  // scratch, see carve()
   int* tickets;               // [B * Hkv], 0 between calls
-  float* out;                 // [B, T, Hkv, G, D] f32
+  float* out;                 // [B, Tq, Hkv, Gq, D] f32
   int D;                      // the true head_dim d (<= the tile width)
   int vec;                    // RAG: bytes a code load (16, 4 or 1)
+  // the launch's query rows within q and out: tokens t0 .. t0 + T - 1 of
+  // Tq and query heads g0 .. g0 + G - 1 of each kv head's Gq, read and
+  // written in place (a call of more than QMAX rows per kv head is cut
+  // into launches by the wrapper's launch plan)
+  int Gq, g0, Tq, t0;
 };
 
 // blocks an SM holds at once: the register cap of each tile width
@@ -180,10 +188,12 @@ __device__ __forceinline__ size_t row0(const Args& a, int b, int h, int j) {
   return ((size_t)b * a.Hkv + h) * a.S + (size_t)j * CHUNK;
 }
 
+// where query row r (token r / G, head r % G) of the launch starts in q
+// and out
 __device__ __forceinline__ size_t qoff(const Args& a, int b, int h, int r,
                                        int d) {
-  const int t = r / a.G, g = r % a.G;
-  return ((((size_t)b * a.T + t) * a.Hkv + h) * a.G + g) * d;
+  const int t = a.t0 + r / a.G, g = a.g0 + r % a.G;
+  return ((((size_t)b * a.Tq + t) * a.Hkv + h) * a.Gq + g) * d;
 }
 
 // the head_dim of the call: the tile width, or (RAG) the true d
@@ -539,6 +549,12 @@ int launch_flags(const Args& a, int cur, int write, void* stream) {
                : launch<D, RAG, PAGED, true, false>(a, stream);
 }
 
+// the launch's query rows: at most QMAX per (b, kv head), inside q
+inline bool rows_ok(const Args& a) {
+  return a.G >= 1 && a.T >= 1 && a.G * a.T <= QMAX && a.g0 >= 0
+         && a.t0 >= 0 && a.g0 + a.G <= a.Gq && a.t0 + a.T <= a.Tq;
+}
+
 // cur, write: compile-time flags (a write needs the current token; the
 // current token needs T = 1); a.D the head_dim: 64, 128 and 256 run their
 // templates, every other d <= 256 the next one with RAG, a.vec bytes a
@@ -546,10 +562,9 @@ int launch_flags(const Args& a, int cur, int write, void* stream) {
 template <bool PAGED>
 int dispatch(const Args& a, int cur, int write, void* stream) {
   const int d = a.D;
-  if ((write && !cur) || (cur && a.T != 1) || a.G < 1 || a.T < 1
-      || a.G * a.T > QMAX || a.B < 0 || a.Hkv < 1 || a.NS < 1 || d < 1
-      || d > 256 || (a.vec != 16 && a.vec != 4 && a.vec != 1)
-      || d % a.vec)
+  if ((write && !cur) || (cur && a.T != 1) || !rows_ok(a) || a.B < 0
+      || a.Hkv < 1 || a.NS < 1 || d < 1 || d > 256
+      || (a.vec != 16 && a.vec != 4 && a.vec != 1) || d % a.vec)
     return (int)cudaErrorInvalidValue;
   if (a.B == 0) return 0;
   switch (d) {

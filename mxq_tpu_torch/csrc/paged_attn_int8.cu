@@ -44,18 +44,21 @@
 
 #include "attn_split.cuh"
 
-// q [B, Hkv, G, D] bf16; kp/vp [Hkv, LP, 128, D] int8; ks/vs [Hkv, LP, 128]
+// q [B, Hkv, Gq, D] bf16, of which the launch attends query heads g0 ..
+// g0 + G - 1 of each kv head (G <= 64), their context written into the
+// same rows of out; kp/vp [Hkv, LP, 128, D] int8; ks/vs [Hkv, LP, 128]
 // bf16; kcur/vcur [B, Hkv, D], kscur/vscur [B, Hkv] (may be null when cur is
 // 0); bound [B]; tables [B, pps]; ws the scratch of attn_split::carve with
 // T = 1, NS = pps; tickets [B * Hkv] int32, 0 between calls; out
-// [B, Hkv, G, D] f32. cur = 0: K9 (bound = lengths); cur = 1: K10 (bound =
+// [B, Hkv, Gq, D] f32. cur = 0: K9 (bound = lengths); cur = 1: K10 (bound =
 // positions); cur = 1, write = 1: K11. D: any head_dim 1..256 and vec
 // the bytes a code load, as attn_int8.cu takes them.
 extern "C" int paged_attn_int8(const void* q, void* kp, void* ks, void* vp,
                                void* vs, const void* kcur, const void* kscur,
                                const void* vcur, const void* vscur,
                                const void* bound, const void* tables, int B,
-                               int Hkv, int G, int D, int LP, int pps, int cur,
+                               int Hkv, int G, int Gq, int g0, int D, int LP,
+                               int pps, int cur,
                                int write, int vec, float scale, void* ws,
                                void* tickets, void* out, void* stream) {
   attn_split::Args a{
@@ -64,6 +67,6 @@ extern "C" int paged_attn_int8(const void* q, void* kp, void* ks, void* vp,
       (const __nv_bfloat16*)kscur, (const int8_t*)vcur,
       (const __nv_bfloat16*)vscur, (const int*)bound, (const int*)tables,
       B, Hkv, G, 1, 0, LP, pps, scale, (float*)ws, (int*)tickets,
-      (float*)out, D, vec};
+      (float*)out, D, vec, Gq, g0, 1, 0};
   return attn_split::dispatch<true>(a, cur, write, stream);
 }

@@ -13,8 +13,10 @@ fused write (K4) is the only T=1 decode path: the TPU's "folded" and
 (K4b, K4d) are ported as flags but have no serving caller. The
 speculative verify attends all of its T queries in one K4a launch (query t
 over rows s <= positions[b] + t) while G * T <= QMAX = 64, and in one
-launch per floor(64 / G) tokens beyond (``token_chunks``), where
-``mxq_tpu`` makes one call per query. Per (batch, kv head), with the
+launch per floor(64 / G) tokens beyond, where ``mxq_tpu`` makes one call
+per query; past 64 query heads per kv head (Falcon-7B's 71 over one) a
+launch takes one token and a group of at most 64 of each kv head's query
+heads (``launch_plan``), reading q and writing the context in place. Per (batch, kv head), with the
 current token out of cache (K4, K4b/K4d):
 
     st  = (q . K_codes^T) * k_scale / sqrt(D)     cache rows s < pos
@@ -200,34 +202,48 @@ def _check_k4(what, q, k_codes, k_scale, v_codes, v_scale, cur, positions):
             raise ValueError(f"{what} {name}: {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, contiguous={t.is_contiguous()}; "
                              f"want {dt} {shape} contiguous on {dev}")
-    if hq % hkv or not 1 <= g <= QMAX or d < 1:
-        raise ValueError(f"{what} takes D >= 1 and 1..{QMAX} query heads "
-                         f"per kv head, got D={d}, Hq={hq}, Hkv={hkv}")
+    if hq % hkv or g < 1 or d < 1:
+        raise ValueError(f"{what} takes D >= 1 and Hq a multiple of Hkv, "
+                         f"got D={d}, Hq={hq}, Hkv={hkv}")
     if cur is not None and nt != 1:
         raise ValueError(f"{what}: the current token takes one query token")
 
 
-def token_chunks(g: int, t: int) -> list[tuple[int, int]]:
-    """(first token, tokens) of each launch that a call of ``t`` query
-    tokens at ``g`` query heads per kv head makes: floor(QMAX / g) tokens a
-    launch, so that no launch holds more than QMAX query rows per kv head
-    (a verify of draft_len + 1 tokens at llama2_70b's G = 8 takes two
-    launches from 9 tokens on)."""
-    if not 1 <= g <= QMAX or t < 1:
-        raise ValueError(f"G={g} (1..{QMAX}), T={t} (>= 1)")
-    per = QMAX // g
-    return [(i, min(per, t - i)) for i in range(0, t, per)]
+def launch_plan(g: int, t: int) -> list[tuple[int, int, int, int, bool]]:
+    """(t0, nt, g0, ng, write) of each launch that a call of ``t`` query
+    tokens at ``g`` query heads per kv head makes, so that no launch holds
+    more than QMAX query rows per kv head: tokens t0 .. t0 + nt - 1 and
+    query heads g0 .. g0 + ng - 1 of each kv head. At G <= QMAX
+    floor(QMAX / G) tokens a launch, every head (a verify of draft_len + 1
+    tokens at llama2_70b's G = 8 takes two launches from 9 tokens on); past
+    QMAX one token a launch and the heads in ceil(G / QMAX) groups of
+    sizes that differ by at most one (Falcon-7B's 71 as 36 + 35), in order.
+    ``write``: whether the launch may write the current token's row (K4,
+    K11): only a token's first launch; the others fold the current token
+    in without writing it (they read only rows before it). The plan
+    depends on shapes alone, so a captured CUDA graph replays it."""
+    if g < 1 or t < 1:
+        raise ValueError(f"G={g} (>= 1), T={t} (>= 1)")
+    if g <= QMAX:
+        per = QMAX // g
+        return [(i, min(per, t - i), 0, g, True) for i in range(0, t, per)]
+    n = -(-g // QMAX)
+    sizes = [g // n + (i < g % n) for i in range(n)]
+    starts = [sum(sizes[:i]) for i in range(n)]
+    return [(i, 1, g0, ng, g0 == 0) for i in range(t)
+            for g0, ng in zip(starts, sizes)]
 
 
 def _dense_launch(what, q, k_codes, k_scale, v_codes, v_scale, layer_idx,
                   positions, cur=None, write=False, scratch=None):
     """Check the arguments and launch the K4-family kernel over layer
     ``layer_idx`` of the stacked cache (``cur`` and ``write`` are its
-    compile-time flags), once per chunk of ``token_chunks``: the chunk of
-    tokens t0.. is a call at positions + t0, which is what token t0 + i
-    attends (rows <= pos + t0 + i), so no rounding point moves. q
-    [B, Hq, D] or [B, T, Hq, D]; returns (ctx of q's shape, f32; the
-    number of launches). A list given as ``scratch`` receives each
+    compile-time flags), once per launch of :func:`launch_plan`: the
+    launch of tokens t0.. is a call at positions + t0, which is what token
+    t0 + i attends (rows <= pos + t0 + i), so no rounding point moves; it
+    reads its tokens' and head group's q and writes their context in
+    place. q [B, Hq, D] or [B, T, Hq, D]; returns (ctx of q's shape, f32;
+    the number of launches). A list given as ``scratch`` receives each
     launch's scratch (read it with ``scratch_scores``)."""
     from mxq_tpu_torch import _build
     b, hq, d = q.shape[0], q.shape[-2], q.shape[-1]
@@ -240,31 +256,28 @@ def _dense_launch(what, q, k_codes, k_scale, v_codes, v_scale, layer_idx,
     kcur, kscur, vcur, vscur = cur if cur is not None else (None,) * 4
     vec = code_load_bytes(what, d, [k_codes[layer_idx], v_codes[layer_idx]]
                           + ([kcur, vcur] if cur is not None else []))
-    chunks = token_chunks(hq // hkv, t)
+    g = hq // hkv
+    plan = launch_plan(g, t)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     lib, fn = kernel_entry(d, paged=False)
     launch = getattr(_build.load(lib), fn)
-    outs = []
-    for t0, nt in chunks:
-        qc = qb if len(chunks) == 1 else qb[:, t0:t0 + nt].contiguous()
+    out = torch.empty(qb.shape, dtype=torch.float32, device=q.device)
+    for t0, nt, g0, ng, first in plan:
         pc = positions if t0 == 0 else positions + t0
-        out = torch.empty(qc.shape, dtype=torch.float32, device=q.device)
-        ws, tickets = _split_scratch(b, hkv, hq // hkv * nt, -(-s // CHUNK),
-                                     d, q.device)
+        ws, tickets = _split_scratch(b, hkv, ng * nt, -(-s // CHUNK), d,
+                                     q.device)
         err = launch(
-            qc.data_ptr(), k_codes[layer_idx].data_ptr(),
+            qb.data_ptr(), k_codes[layer_idx].data_ptr(),
             k_scale[layer_idx].data_ptr(), v_codes[layer_idx].data_ptr(),
             v_scale[layer_idx].data_ptr(), ptr(kcur), ptr(kscur), ptr(vcur),
-            ptr(vscur), pc.data_ptr(), b, hkv, hq // hkv, nt, s, d,
-            int(cur is not None), int(write), vec, 1.0 / math.sqrt(d),
-            ws.data_ptr(), tickets.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            ptr(vscur), pc.data_ptr(), b, hkv, ng, nt, g, g0, t, t0, s, d,
+            int(cur is not None), int(write and first), vec,
+            1.0 / math.sqrt(d), ws.data_ptr(), tickets.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
         _build.check(err, what)
         if scratch is not None:
             scratch.append(ws)
-        outs.append(out)
-    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
-    return out, len(chunks)
+    return out, len(plan)
 
 
 def _stacked_plain(q, k_codes, k_scale, v_codes, v_scale, layer_idx,
@@ -525,10 +538,10 @@ def _check_paged(what, q, k_pages, k_scales, v_pages, v_scales, bound,
             raise ValueError(f"{what} {name}: {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}, contiguous={t.is_contiguous()}; "
                              f"want {dt} {shape} contiguous on {dev}")
-    if hq % hkv or not 1 <= g <= QMAX or d < 1 or ps != PAGE_INT8:
-        raise ValueError(f"{what} takes D >= 1, 1..{QMAX} query heads per "
-                         f"kv head and pages of {PAGE_INT8} rows, got D={d}, "
-                         f"Hq={hq}, Hkv={hkv}, page={ps}")
+    if hq % hkv or g < 1 or d < 1 or ps != PAGE_INT8:
+        raise ValueError(f"{what} takes D >= 1, Hq a multiple of Hkv and "
+                         f"pages of {PAGE_INT8} rows, got D={d}, Hq={hq}, "
+                         f"Hkv={hkv}, page={ps}")
     return code_load_bytes(what, d, [k_pages, v_pages]
                            + ([cur[0], cur[2]] if cur is not None else []))
 
@@ -536,28 +549,36 @@ def _check_paged(what, q, k_pages, k_scales, v_pages, v_scales, bound,
 def _paged_launch(what, q, k_pages, k_scales, v_pages, v_scales, bound,
                   tables, cur=None, write=False):
     """Check the arguments and launch the K9/K10/K11 kernel (``cur`` and
-    ``write`` are its compile-time flags). Returns ctx [B, Hq, D] f32."""
+    ``write`` are its compile-time flags) once per launch of
+    :func:`launch_plan` (one token; past QMAX query heads per kv head one
+    launch per head group, in place). Returns (ctx [B, Hq, D] f32, the
+    number of launches)."""
     from mxq_tpu_torch import _build
     qb = q.to(torch.bfloat16).contiguous()
     vec = _check_paged(what, qb, k_pages, k_scales, v_pages, v_scales, bound,
                        tables, cur)
     b, hq, d = q.shape
     hkv, lp = k_pages.shape[:2]
+    g = hq // hkv
+    plan = launch_plan(g, 1)
     out = torch.empty((b, hq, d), dtype=torch.float32, device=q.device)
-    ws, tickets = _split_scratch(b, hkv, hq // hkv, tables.shape[1], d,
-                                 q.device)
     kcur, kscur, vcur, vscur = cur if cur is not None else (None,) * 4
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     lib, fn = kernel_entry(d, paged=True)
-    err = getattr(_build.load(lib), fn)(
-        qb.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
-        v_pages.data_ptr(), v_scales.data_ptr(), ptr(kcur), ptr(kscur),
-        ptr(vcur), ptr(vscur), bound.data_ptr(), tables.data_ptr(), b, hkv,
-        hq // hkv, d, lp, tables.shape[1], int(cur is not None), int(write),
-        vec, 1.0 / math.sqrt(d), ws.data_ptr(), tickets.data_ptr(),
-        out.data_ptr(), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, what)
-    return out
+    launch = getattr(_build.load(lib), fn)
+    for _, _, g0, ng, first in plan:
+        ws, tickets = _split_scratch(b, hkv, ng, tables.shape[1], d,
+                                     q.device)
+        err = launch(
+            qb.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(),
+            v_pages.data_ptr(), v_scales.data_ptr(), ptr(kcur), ptr(kscur),
+            ptr(vcur), ptr(vscur), bound.data_ptr(), tables.data_ptr(), b,
+            hkv, ng, g, g0, d, lp, tables.shape[1], int(cur is not None),
+            int(write and first), vec, 1.0 / math.sqrt(d), ws.data_ptr(),
+            tickets.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        _build.check(err, what)
+    return out, len(plan)
 
 
 def int8_paged_decode_attention(q, k_pages, k_scales, v_pages, v_scales,
@@ -571,9 +592,9 @@ def int8_paged_decode_attention(q, k_pages, k_scales, v_pages, v_scales,
     if q.device.type == "cpu":
         return int8_paged_decode_attention_plain(
             q, k_pages, k_scales, v_pages, v_scales, lengths, page_tables)
-    out = _paged_launch("K9", q, k_pages, k_scales, v_pages, v_scales,
-                        lengths, page_tables)
-    count_launch(int8_paged_decode_attention)
+    out, n = _paged_launch("K9", q, k_pages, k_scales, v_pages, v_scales,
+                           lengths, page_tables)
+    count_launch(int8_paged_decode_attention, n)
     return out
 
 
@@ -587,9 +608,9 @@ def int8_paged_decode_attention_cur(q, k_pages, k_scales, v_pages, v_scales,
         return int8_paged_decode_attention_cur_plain(
             q, k_pages, k_scales, v_pages, v_scales, kcur, kscur, vcur, vscur,
             positions, page_tables)
-    out = _paged_launch("K10", q, k_pages, k_scales, v_pages, v_scales,
-                        positions, page_tables, (kcur, kscur, vcur, vscur))
-    count_launch(int8_paged_decode_attention_cur)
+    out, n = _paged_launch("K10", q, k_pages, k_scales, v_pages, v_scales,
+                           positions, page_tables, (kcur, kscur, vcur, vscur))
+    count_launch(int8_paged_decode_attention_cur, n)
     return out
 
 
@@ -607,10 +628,10 @@ def int8_paged_decode_attend_update(q, k_pages, k_scales, v_pages, v_scales,
         return int8_paged_decode_attend_update_plain(
             q, k_pages, k_scales, v_pages, v_scales, kcur, kscur, vcur, vscur,
             positions, page_tables)
-    out = _paged_launch("K11", q, k_pages, k_scales, v_pages, v_scales,
-                        positions, page_tables, (kcur, kscur, vcur, vscur),
-                        write=True)
-    count_launch(int8_paged_decode_attend_update)
+    out, n = _paged_launch("K11", q, k_pages, k_scales, v_pages, v_scales,
+                           positions, page_tables, (kcur, kscur, vcur, vscur),
+                           write=True)
+    count_launch(int8_paged_decode_attend_update, n)
     return out, k_pages, k_scales, v_pages, v_scales
 
 

@@ -280,18 +280,35 @@ def test_k4a_multi_query_equals_single_queries(hq, hkv, positions):
         assert rel(got[:, i], want) <= 1e-6, i
 
 
-@pytest.mark.parametrize("g", [1, 8, 64])
+@pytest.mark.parametrize("g", [1, 8, 64, 65, 71, 128])
 @pytest.mark.parametrize("t_q", [1, 9, 65])
 def test_k4a_token_chunks_cover_t_once(g, t_q):
-    """K4a's launches for G * T > QMAX = 64 query rows per kv head:
-    floor(64 / G) tokens a launch, the chunks covering the T tokens once,
-    in order; the plain version applied per chunk at positions + its first
-    token equals the whole call bit for bit. G > 64 is refused."""
-    chunks = ta8.token_chunks(g, t_q)
-    assert [i for t0, n in chunks for i in range(t0, t0 + n)] \
-        == list(range(t_q))
-    assert all(1 <= n and g * n <= ta8.QMAX for _, n in chunks)
-    assert len(chunks) == -(-t_q // (ta8.QMAX // g))
+    """The int8 family's launches (``launch_plan``) for more than QMAX = 64
+    query rows per kv head: each (token, query head) covered once and in
+    order, at most QMAX rows a launch, exactly one writing launch per
+    token (its first); at G <= 64 floor(64 / G) tokens a launch, past it
+    one token a launch and ceil(G / 64) head groups of sizes that differ by
+    at most one (71 as 36 + 35). The plain version applied launch by
+    launch (tokens at positions + t0, the group's heads) equals the whole
+    call bit for bit."""
+    plan = ta8.launch_plan(g, t_q)
+    cover = [(t0 + i, g0 + j) for t0, nt, g0, ng, _ in plan
+             for i in range(nt) for j in range(ng)]
+    assert sorted(cover) == [(i, j) for i in range(t_q) for j in range(g)]
+    assert cover == sorted(cover)           # in order
+    assert all(1 <= nt * ng <= ta8.QMAX for _, nt, _, ng, _ in plan)
+    for i in range(t_q):
+        firsts = [w for t0, nt, _, _, w in plan if t0 <= i < t0 + nt]
+        assert firsts[0] and sum(firsts) == 1, i
+    if g <= ta8.QMAX:
+        assert len(plan) == -(-t_q // (ta8.QMAX // g))
+        assert all(ng == g for *_, ng, _ in plan)
+    else:
+        sizes = [ng for _, _, _, ng, _ in plan[:-(-g // ta8.QMAX)]]
+        assert len(plan) == t_q * len(sizes)
+        assert max(sizes) - min(sizes) <= 1 and sum(sizes) == g
+        if g == 71:
+            assert sizes == [36, 35]
     rng = np.random.default_rng(g + t_q)
     s, b, hkv = 96, 2, 1
     kc = torch.from_numpy(rng.integers(-127, 128, (1, b, hkv, s, D))
@@ -307,12 +324,112 @@ def test_k4a_token_chunks_cover_t_once(g, t_q):
     pos = torch.tensor([0, s - t_q], dtype=torch.int32)
     whole = ta8.int8_decode_attention_stacked_plain(q, kc, ks, vc, vs, 0,
                                                     pos)
-    parts = torch.cat([ta8.int8_decode_attention_stacked_plain(
-        q[:, t0:t0 + n], kc, ks, vc, vs, 0, pos + t0) for t0, n in chunks],
-        dim=1)
-    assert torch.equal(parts, whole)
+    parts = torch.empty_like(whole).view(b, t_q, hkv, g, D)
+    q5 = q.view(b, t_q, hkv, g, D)
+    for t0, nt, g0, ng, _ in plan:
+        qs = q5[:, t0:t0 + nt, :, g0:g0 + ng].reshape(b, nt, hkv * ng, D)
+        parts[:, t0:t0 + nt, :, g0:g0 + ng] = \
+            ta8.int8_decode_attention_stacked_plain(
+                qs, kc, ks, vc, vs, 0, pos + t0).view(b, nt, hkv, ng, D)
+    assert torch.equal(parts.view(whole.shape), whole)
     with pytest.raises(ValueError):
-        ta8.token_chunks(ta8.QMAX + 1, 1)
+        ta8.launch_plan(0, 1)
+
+
+def _oracle(q, kc, ks, vc, vs, pos, cur=None):
+    """mxq_tpu's ``_attend`` per batch row: q [B, Hkv, G, D], kc/vc
+    [B, Hkv, S, D] int8, ks/vs [B, Hkv, S] bf16, pos [B] (with ``cur`` =
+    (kcur [B, Hkv, 1, D], kscur [B, Hkv, 1], vcur, vscur) rows < pos and
+    the current token) -> [B, Hkv, G, D] f32."""
+    j = lambda x: jnp.asarray(x.numpy() if x.dtype != torch.bfloat16  # noqa
+                              else x.float().numpy().astype(
+                                  ml_dtypes.bfloat16))
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    out = []
+    for i in range(q.shape[0]):
+        c = None if cur is None else (j(cur[0][i]), j(cur[1][i][..., None]),
+                                      j(cur[2][i]), j(cur[3][i][..., None]))
+        out.append(np.asarray(ja8._attend(
+            j(q[i].to(torch.bfloat16)), j(kc[i]), j(ks[i][:, None]),
+            j(vc[i]), j(vs[i][:, None]), int(pos[i]), scale, c)))
+    return torch.from_numpy(np.stack(out))
+
+
+@pytest.mark.parametrize("hq", [71, 128])
+def test_int8_plain_past_64_heads_match_jax_oracle(hq):
+    """K4 (the current token out of cache, its code rows written), K4a
+    (a 5-token verify) and K11 (the paged pool, its row and scale lanes
+    written) at Hq = 71 (Falcon-7B's multi-query attention) and 128 query
+    heads over one kv head, D = 64: the plain versions against mxq_tpu's
+    ``_attend`` (the dense ones within 1e-3 of max|ctx|: the two sum the
+    f32 dot products in another order, so a bf16(p * v_scale) may round
+    the other way; K11's page fold also rounds p * v_scale against each
+    page's running max where ``_attend`` rounds against the row's max,
+    within 2e-3) and K11 against mxq_tpu's
+    paged kernel in interpret mode (within 1e-3, the paged tests' gate),
+    the written bytes equal to the current token's."""
+    a = _inputs(seed=hq, positions=(3, 30), hq=hq, hkv=1)
+    t = {k: to_torch(v) for k, v in a.items()}
+    idx, rows, pos = 1, torch.arange(B), t["positions"]
+    cur = (t["kcur"], t["kscur"], t["vcur"], t["vscur"])
+    kc, vc = t["kc"].clone(), t["vc"].clone()
+    ctx, _, _ = ta8.int8_decode_attention_fused_write(
+        t["q"], kc, t["ks"], vc, t["vs"], *cur, idx, pos)
+    want = _oracle(t["q"].view(B, 1, hq, D), t["kc"][idx], t["ks"][idx],
+                   t["vc"][idx], t["vs"][idx], pos, cur)
+    assert rel(ctx, want.view(B, hq, D)) <= 1e-3
+    assert torch.equal(kc[idx, rows, :, pos.long()], t["kcur"][:, :, 0])
+    assert torch.equal(vc[idx, rows, :, pos.long()], t["vcur"][:, :, 0])
+    kc[idx, rows, :, pos.long()] = t["kc"][idx, rows, :, pos.long()]
+    vc[idx, rows, :, pos.long()] = t["vc"][idx, rows, :, pos.long()]
+    assert torch.equal(kc, t["kc"]) and torch.equal(vc, t["vc"])
+
+    t_q = 5
+    qv = torch.from_numpy(np.random.default_rng(hq + 1).standard_normal(
+        (B, t_q, hq, D)).astype(np.float32))
+    vpos = torch.tensor([3, S - t_q], dtype=torch.int32)
+    got = ta8.int8_decode_attention_stacked(qv, t["kc"], t["ks"], t["vc"],
+                                            t["vs"], idx, vpos)
+    for i in range(t_q):
+        want = _oracle(qv[:, i].reshape(B, 1, hq, D), t["kc"][idx],
+                       t["ks"][idx], t["vc"][idx], t["vs"][idx], vpos + i)
+        assert rel(got[:, i], want.view(B, hq, D)) <= 1e-3, i
+
+    ps = ta8.PAGE_INT8
+    pps, lp = 2, 1 + B * 2
+    rng = np.random.default_rng(hq + 2)
+    kp = torch.from_numpy(rng.integers(-127, 128, (1, lp, ps, D))
+                          .astype(np.int8))
+    vp = torch.from_numpy(rng.integers(-127, 128, (1, lp, ps, D))
+                          .astype(np.int8))
+    ksp = torch.from_numpy(rng.random((1, lp, 1, ps)) * 0.02 + 1e-3).to(
+        torch.bfloat16)
+    vsp = torch.from_numpy(rng.random((1, lp, 1, ps)) * 0.02 + 1e-3).to(
+        torch.bfloat16)
+    tables = torch.arange(1, lp, dtype=torch.int32).view(B, pps)
+    ppos = torch.tensor([5, 200], dtype=torch.int32)
+    pcur = (t["kcur"][:, :, 0], t["kscur"][:, :, 0], t["vcur"][:, :, 0],
+            t["vscur"][:, :, 0])
+    pools = [x.clone() for x in (kp, ksp, vp, vsp)]
+    ctx, *_ = ta8.int8_paged_decode_attend_update(
+        t["q"], pools[0], pools[1], pools[2], pools[3], *pcur, ppos, tables)
+    gather = lambda x: x[0, tables.long()].reshape(B, 1, pps * ps, -1)  # noqa
+    want = _oracle(t["q"].view(B, 1, hq, D), gather(kp),
+                   gather(ksp)[..., 0], gather(vp), gather(vsp)[..., 0],
+                   ppos, cur)
+    assert rel(ctx, want.view(B, hq, D)) <= 2e-3
+    jctx = ja8.int8_paged_decode_attend_update(
+        *(jnp.asarray(x.float().numpy().astype(ml_dtypes.bfloat16)
+                      if x.dtype == torch.bfloat16 else x.numpy())
+          for x in (t["q"], kp, ksp, vp, vsp, *pcur, ppos, tables)),
+        jnp.zeros(B, jnp.int32))[0]
+    assert rel(ctx, jctx) <= 1e-3
+    for i in range(B):
+        pid, off = int(tables[i, ppos[i] // ps]), int(ppos[i] % ps)
+        assert torch.equal(pools[0][0, pid, off], pcur[0][i, 0])
+        assert torch.equal(pools[2][0, pid, off], pcur[2][i, 0])
+        assert torch.equal(pools[1][0, pid, 0, off], pcur[1][i, 0])
+        assert torch.equal(pools[3][0, pid, 0, off], pcur[3][i, 0])
 
 
 def test_decode_slots_verify_is_one_k4a_call_per_layer(monkeypatch):

@@ -393,10 +393,68 @@ def test_k4a_verify_beyond_64_query_rows(gen, g, t):
     launched = a8.int8_decode_attention_stacked.launches - before
     ref = a8.int8_decode_attention_stacked_plain(q, kc, ks, vc, vs, 1, pos)
     torch.cuda.synchronize()
-    assert launched == len(a8.token_chunks(g, t)) == -(-t // (64 // g))
+    assert launched == len(a8.launch_plan(g, t)) == -(-t // (64 // g))
     assert got.shape == (B, t, g * hkv, d)
     assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-5
     assert torch.equal(kc, kc0) and torch.equal(vc, vc0)
+
+
+@pytest.mark.parametrize("d", [64, 512])
+@pytest.mark.parametrize("hq", [71, 128])
+def test_int8_past_64_heads_match_plain(gen, hq, d):
+    """The int8 family past 64 query heads per kv head (Falcon-7B's 71
+    over one, and 128), at D = 64 (the templates) and 512 (the wide path):
+    K4 (one launch per head group: 36 + 35 at 71, 64 + 64 at 128; the
+    first writes the current row), K4a as a 5-token verify (one launch
+    per token and head group) and K11 on the paged pool, each within 1e-3
+    of its plain version with the written bytes equal and no other byte
+    changed, its launches counted per ``launch_plan``."""
+    cat = dict(generator=gen, device="cuda")
+    hkv, s, b = 1, 300, 3
+    ng = len(a8.launch_plan(hq, 1))
+    codes = lambda *sh: torch.randint(-127, 128, sh, dtype=torch.int8,  # noqa
+                                      **cat)
+    scales = lambda *sh: (torch.rand(sh, **cat) * 0.02  # noqa: E731
+                          + 1e-3).to(torch.bfloat16)
+    kc, vc = codes(2, b, hkv, s, d), codes(2, b, hkv, s, d)
+    ks, vs = scales(2, b, hkv, s), scales(2, b, hkv, s)
+    cur = [codes(b, hkv, 1, d), scales(b, hkv, 1), codes(b, hkv, 1, d),
+           scales(b, hkv, 1)]
+    q = torch.randn((b, hq, d), **cat).to(torch.bfloat16)
+    pos = torch.tensor([0, 129, 290], dtype=torch.int32, device="cuda")
+    mine, theirs = (kc.clone(), vc.clone()), (kc.clone(), vc.clone())
+    before = a8.int8_decode_attention_fused_write.launches
+    ctx = a8.int8_decode_attention_fused_write(
+        q, mine[0], ks, mine[1], vs, *cur, 1, pos)[0]
+    assert a8.int8_decode_attention_fused_write.launches == before + ng
+    ref = a8.int8_decode_attention_fused_write_plain(
+        q, theirs[0], ks, theirs[1], vs, *cur, 1, pos)[0]
+    torch.cuda.synchronize()
+    assert float((ctx - ref).abs().max() / ref.abs().max()) <= 1e-3
+    assert all(torch.equal(x, y) for x, y in zip(mine, theirs))
+    qv = torch.randn((b, 5, hq, d), **cat).to(torch.bfloat16)
+    before = a8.int8_decode_attention_stacked.launches
+    got = a8.int8_decode_attention_stacked(qv, kc, ks, vc, vs, 0,
+                                           pos.clamp(max=s - 5))
+    assert a8.int8_decode_attention_stacked.launches == before + 5 * ng
+    ref = a8.int8_decode_attention_stacked_plain(qv, kc, ks, vc, vs, 0,
+                                                 pos.clamp(max=s - 5))
+    torch.cuda.synchronize()
+    assert float((got - ref).abs().max() / ref.abs().max()) <= 1e-3
+    pk = _paged_inputs(gen, [0, 129, 290], hkv, hq, d, 3, 10)
+    pool = [pk[n] for n in ("k_pages", "k_scales", "v_pages", "v_scales")]
+    pcur = [pk[n] for n in ("kcur", "kscur", "vcur", "vscur")]
+    mine, theirs = [x.clone() for x in pool], [x.clone() for x in pool]
+    before = a8.int8_paged_decode_attend_update.launches
+    ctx = a8.int8_paged_decode_attend_update(pk["q"], *mine, *pcur, pos,
+                                             pk["tables"])[0]
+    assert a8.int8_paged_decode_attend_update.launches == before + ng
+    ref = a8.int8_paged_decode_attend_update_plain(pk["q"], *theirs, *pcur,
+                                                   pos, pk["tables"])[0]
+    torch.cuda.synchronize()
+    assert float((ctx - ref).abs().max() / ref.abs().max()) <= 1e-3
+    for x, y in zip(mine, theirs):               # bytes: the NaNs compare
+        assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
 
 
 def _paged_inputs(gen, pos, hkv, g, d, pps, lp):
