@@ -16,7 +16,11 @@
 // block each; the grid holds every item a table could have, and a block
 // whose split lies past its row's length (derived from lengths, as the
 // template derives its work list) returns at once. A block
-// - stages q's G heads in f32 (zeros past G are never read);
+// - stages q's G heads in f32 (zeros past G are never read) where they
+//   fit in QFLOATS floats of shared memory; past that (one head of D >
+//   32768, the kernel's QS = false) it reads q from device memory where
+//   it would have read the staged copy, the same values in the same
+//   order, so the same bits come out at every D;
 // - scores its split's rows over ALL of D: a warp takes 4 rows at once
 //   (their loads in flight together), its lanes 8 columns by one 16-byte
 //   load (or one column at a time where D % 8 or the pool's start
@@ -99,13 +103,26 @@ __device__ __forceinline__ void unpack2(uint32_t w, float& x, float& y) {
   y = __uint_as_float(w & 0xffff0000u);
 }
 
-// smem: q [G][d] f32; the split's scores, then probabilities [GW][SPLIT];
-// the warps' partial contexts [NW][GW][C]; the heads' m and l
+// head g's q at column c: staged (QS) or read from q itself at qo, the
+// element offset of the launch's first head
+template <bool QS>
+__device__ __forceinline__ float q_at(const Args& a, const float* qs,
+                                      size_t qo, int g, int c) {
+  if (QS) return qs[g * a.d + c];
+  const size_t o = qo + (size_t)g * a.d + c;
+  return a.qf32 ? __ldg(static_cast<const float*>(a.q) + o)
+                : __bfloat162float(
+                      static_cast<const __nv_bfloat16*>(a.q)[o]);
+}
+
+// smem: q [G][d] f32 (QS); the split's scores, then probabilities
+// [GW][SPLIT]; the warps' partial contexts [NW][GW][C]; the heads' m and l
+template <bool QS>
 __global__ void __launch_bounds__(THREADS)
     paged_bf16_wide_kernel(const Args a) {
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
-  float* sc = qs + (size_t)a.G * a.d;
+  float* sc = qs + (QS ? (size_t)a.G * a.d : 0);
   float* red = sc + GW * SPLIT;
   float* mh = red + NW * GW * C;
   float* lh = mh + GW;
@@ -124,12 +141,10 @@ __global__ void __launch_bounds__(THREADS)
   }
   const int r0 = j * SPLIT, nv = min(n - r0, SPLIT);
   const int* tab = a.tables + (size_t)b * a.pps;
-  for (int i = tid; i < a.G * a.d; i += THREADS) {
-    const size_t o = head_off(a, b, h, 0) + i;
-    qs[i] = a.qf32 ? static_cast<const float*>(a.q)[o]
-                   : __bfloat162float(
-                         static_cast<const __nv_bfloat16*>(a.q)[o]);
-  }
+  const size_t qo = head_off(a, b, h, 0);
+  if (QS)
+    for (int i = tid; i < a.G * a.d; i += THREADS)
+      qs[i] = q_at<false>(a, qs, qo, 0, i);
   __syncthreads();
 
   // scores of the split's rows over all of D: a warp takes RW rows at a
@@ -155,9 +170,21 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int g = 0; g < GW; ++g) {
           if (g >= a.G) break;
-          const float* qg = qs + g * a.d + c;
-          const float4 qa = *reinterpret_cast<const float4*>(qg);
-          const float4 qb = *reinterpret_cast<const float4*>(qg + 4);
+          float4 qa, qb;
+          if (QS) {
+            const float* qg = qs + g * a.d + c;
+            qa = *reinterpret_cast<const float4*>(qg);
+            qb = *reinterpret_cast<const float4*>(qg + 4);
+          } else {
+            qa = make_float4(q_at<QS>(a, qs, qo, g, c),
+                             q_at<QS>(a, qs, qo, g, c + 1),
+                             q_at<QS>(a, qs, qo, g, c + 2),
+                             q_at<QS>(a, qs, qo, g, c + 3));
+            qb = make_float4(q_at<QS>(a, qs, qo, g, c + 4),
+                             q_at<QS>(a, qs, qo, g, c + 5),
+                             q_at<QS>(a, qs, qo, g, c + 6),
+                             q_at<QS>(a, qs, qo, g, c + 7));
+          }
 #pragma unroll
           for (int i = 0; i < RW; ++i) {
             float k0, k1, k2, k3, k4, k5, k6, k7;
@@ -185,7 +212,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
         for (int g = 0; g < GW; ++g) {
           if (g >= a.G) break;
-          const float qv = qs[g * a.d + c];
+          const float qv = q_at<QS>(a, qs, qo, g, c);
 #pragma unroll
           for (int i = 0; i < RW; ++i) p[i][g] = fmaf(qv, kf[i], p[i][g]);
         }
@@ -332,10 +359,10 @@ __global__ void __launch_bounds__(THREADS)
 // Gtot, d] (float32 if qf32, else bf16), contiguous; k/v pages [Hkv, LP,
 // ps, d] bf16; lengths [B]; tables [B, pps]; query heads g0 .. g0 + G - 1
 // of each kv head, G <= 8 and G * d <= 32768 (q staged in shared
-// memory); D, the template argument of paged_attn_bf16, must equal d; ws
-// the scratch of B * Hkv * G * NS * (d + 2) floats, NS = ceil(pps * ps /
-// 256); tickets [B * Hkv] int32, 0 between calls; out shaped and typed as
-// q (only the launch's heads written). Returns a cudaError_t.
+// memory) or G = 1 at any d (q read in place); D, the template argument
+// of paged_attn_bf16, must equal d; ws the scratch of B * Hkv * G * NS *
+// (d + 2) floats, NS = ceil(pps * ps / 256); tickets [B * Hkv] int32, 0
+// between calls; out shaped and typed as q (only the launch's heads written). Returns a cudaError_t.
 extern "C" int paged_attn_bf16_wide(const void* q, int qf32, const void* kp,
                                     const void* vp, const void* lengths,
                                     const void* tables, int B, int Hkv,
@@ -347,7 +374,8 @@ extern "C" int paged_attn_bf16_wide(const void* q, int qf32, const void* kp,
   const int nch = (d + C - 1) / C;
   if (B < 0 || B > 65535 || Hkv < 1 || Hkv > 65535 || G < 1 || G > GW
       || g0 < 0 || g0 + G > Gtot || d <= 256 || D != d
-      || (long long)G * d > QFLOATS || LP < 1 || ps < 1 || pps < 1
+      || ((long long)G * d > QFLOATS && G > 1) || LP < 1 || ps < 1
+      || pps < 1
       || (long long)pps * ps > (1 << 30)
       || (long long)ns * nch > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
@@ -358,10 +386,12 @@ extern "C" int paged_attn_bf16_wide(const void* q, int qf32, const void* kp,
          (int*)tickets, B, Hkv, Gtot, g0, G, d, LP, ps, pps, ns, nch,
          qf32 != 0, d % 8 == 0 && starts % 16 == 0,
          d % 4 == 0 && starts % 8 == 0, sqrt_d};
+  const bool qs = (long long)G * d <= QFLOATS;
   const int bytes = (int)(sizeof(float)
-                          * ((size_t)G * d + GW * SPLIT + NW * GW * C
-                             + 2 * GW));
-  auto kern = paged_bf16_wide_kernel;
+                          * ((qs ? (size_t)G * d : 0) + GW * SPLIT
+                             + NW * GW * C + 2 * GW));
+  auto kern = qs ? paged_bf16_wide_kernel<true>
+                 : paged_bf16_wide_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;

@@ -39,7 +39,7 @@ chunk of the output, each recomputing the scores over all of D in the
 same order so that every chunk sees the same softmax bits: K12 an item
 per (row, kv head, 256-row split, WIDE_CHUNK columns), q staged in
 shared memory (at most ``heads_per_launch`` heads a launch, WIDE_Q_FLOATS
-floats); K13 per (64 query rows, head, WIDE_CHUNK columns of O); K13-bwd
+floats; one head a launch past that, its q read in place); K13 per (64 query rows, head, WIDE_CHUNK columns of O); K13-bwd
 a dQ item per (64 query rows, head, WIDE_CHUNK columns), a dK/dV item per
 (64 keys, kv head, WIDE_CHUNK_KV columns). bf16 rows are read in place at
 their width (no padded copy); float32 goes through the split pass into
@@ -65,6 +65,7 @@ HEAD_DIMS = (64, 128, 256)   # the kernels' head_dim templates
 MAX_TILE = HEAD_DIMS[-1]     # D past it runs on the wide path
 GMAX_WIDE = 8       # query heads of a K12 launch on the wide path
 WIDE_Q_FLOATS = 32768   # and its q staged in shared memory: G * D floats
+                        # (past it one head a launch, q read in place)
 WIDE_CHUNK = 128    # columns of K12's context, K13's O and dQ an item
 WIDE_CHUNK_KV = 64  # columns of dK and dV a K13-bwd item
 WIDE_SLICE = 64     # columns of a depth slice of S (and the planes' unit)
@@ -96,9 +97,10 @@ def heads_per_launch(w: int) -> int:
     """The most query heads per kv head one K12 launch takes at width
     ``w``: GMAX, or GMAX_256 at 256 (a lane group's q and context
     registers grow with D); on the wide path GMAX_WIDE, fewer where their
-    q would pass WIDE_Q_FLOATS (0 past WIDE_Q_FLOATS: refused)."""
+    q would pass WIDE_Q_FLOATS, and one past WIDE_Q_FLOATS (the kernel
+    then reads that head's q in place instead of staging it)."""
     if is_wide(w):
-        return min(GMAX_WIDE, WIDE_Q_FLOATS // w)
+        return max(1, min(GMAX_WIDE, WIDE_Q_FLOATS // w))
     return GMAX if w <= 128 else GMAX_256
 
 
@@ -179,11 +181,10 @@ def _paged_check(q, k_pages, v_pages, lengths, page_indices):
                    ("v_pages", v_pages, torch.bfloat16, (hkv, lp, ps, d)),
                    ("lengths", lengths, torch.int32, (b,)),
                    ("page_indices", page_indices, torch.int32, (b, pps))])
-    if hq % hkv or pps < 1 or not 1 <= d <= WIDE_Q_FLOATS:
-        raise ValueError(f"K12 takes D in 1..{WIDE_Q_FLOATS} (past that a "
-                         f"query head's q outgrows the wide path's shared "
-                         f"memory), Hq a multiple of Hkv and a table of >= 1 "
-                         f"page, got D={d}, Hq={hq}, Hkv={hkv}, pages={pps}")
+    if hq % hkv or pps < 1 or d < 1:
+        raise ValueError(f"K12 takes D >= 1, Hq a multiple of Hkv and a "
+                         f"table of >= 1 page, got D={d}, Hq={hq}, "
+                         f"Hkv={hkv}, pages={pps}")
     return hq // hkv
 
 

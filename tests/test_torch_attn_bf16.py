@@ -55,6 +55,32 @@ def _pool(rng, hkv, g, d):
 
 
 @pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+def test_k12_plain_matches_jax_reference_past_32768(q_dtype):
+    """K12 past the q its wide path stages in shared memory (D = 32832 >
+    WIDE_Q_FLOATS): one query head a launch, and its plain version
+    against ``_paged_attend_reference`` (one head, two pages of 4 rows,
+    lengths 3 and 8) within 1e-5 (float32 q) or, bf16 q, one bf16 ulp of
+    max|ctx| (the two sum 32832 products in another order, and a context
+    of a few rows can cancel to far below its largest element)."""
+    d, ps = 32832, 4
+    assert ab.heads_per_launch(ab.kernel_head_dim(d)) == 1
+    rng = np.random.default_rng(d)
+    k = rng.standard_normal((1, 5, ps, d)).astype(np.float32).astype(BF)
+    v = rng.standard_normal((1, 5, ps, d)).astype(np.float32).astype(BF)
+    q = rng.standard_normal((2, 1, d)).astype(np.float32)
+    if q_dtype == "bfloat16":
+        q = q.astype(BF)
+    lengths = np.array([3, 8], np.int32)
+    tables = np.array([[3, 0], [1, 4]], np.int32)
+    want = to_torch(jpg._paged_attend_reference(*map(jnp.asarray, (
+        q, k, v, lengths, tables))))
+    got = ab.paged_decode_attention(*map(to_torch, (q, k, v, lengths,
+                                                    tables)))
+    assert got.dtype == want.dtype and got.shape == want.shape == (2, 1, d)
+    assert rel(got, want) <= (1e-5 if q_dtype == "float32" else 2 ** -8)
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("g,d", [(1, 64), (4, 64), (1, 128), (4, 128),
                                  (1, 96), (4, 100), (1, 99), (32, 64)])
 def test_k12_plain_matches_jax_reference(g, d, q_dtype):
@@ -275,8 +301,8 @@ def test_shape_checks_take_every_head_dim_up_to_128(d, w):
     is the test's from when the limit was 128) and give the width the
     kernels run it at: the next template up to 256, D itself past it (the
     wide path: ``is_wide``, 8 query heads a K12 launch, float32 planes of
-    whole 64-column slices); D = 0 is refused, and K12 past the q its
-    wide path stages (WIDE_Q_FLOATS)."""
+    whole 64-column slices); D = 0 is refused; K12 past the q its wide
+    path stages (WIDE_Q_FLOATS) takes one query head a launch."""
     q, k = torch.zeros(1, 4, 8, d), torch.zeros(1, 4, 2, d)
     assert ab._flash_check("K13", q, k, k) == w
     qp, kp, vp, lengths, tables = (to_torch(a) for a in _pool(
@@ -291,9 +317,8 @@ def test_shape_checks_take_every_head_dim_up_to_128(d, w):
     with pytest.raises(ValueError, match="head_dim >= 1"):
         ab.kernel_head_dim(0)
     big = ab.WIDE_Q_FLOATS + 1
-    assert ab.heads_per_launch(big) == 0
+    assert ab.heads_per_launch(big) == 1
     pages = torch.zeros((1, 2, 1, big), dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match=str(ab.WIDE_Q_FLOATS)):
-        ab._paged_check(torch.zeros((1, 1, big)), pages, pages,
-                        torch.ones(1, dtype=torch.int32),
-                        torch.ones((1, 1), dtype=torch.int32))
+    assert ab._paged_check(torch.zeros((1, 1, big)), pages, pages,
+                           torch.ones(1, dtype=torch.int32),
+                           torch.ones((1, 1), dtype=torch.int32)) == 1

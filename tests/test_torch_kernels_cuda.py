@@ -596,6 +596,28 @@ def test_k12_matches_plain(gen, g, d, hkv, ps, pps, q_dtype):
 
 
 @pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g", [1, 2])
+def test_k12_past_32768_matches_plain(gen, g, q_dtype):
+    """K12 at D = 32832, past the q its wide path stages in shared memory:
+    one query head a launch, q read in place, against its plain version
+    (lengths 1, 63, 65 and 300 over pages of 64 rows, NaN past each
+    length) at test_k12_matches_plain's gates; two calls equal."""
+    d, lens = 32832, [1, 63, 65, 300]
+    q, nan, zero, lengths, tables = _k12_pool(gen, lens, 1, g, d, 64, 5,
+                                              q_dtype)
+    before = ab.paged_decode_attention.launches
+    got = ab.paged_decode_attention(q, *nan, lengths, tables)
+    assert ab.paged_decode_attention.launches == before + g
+    again = ab.paged_decode_attention(q, *nan, lengths, tables)
+    ref = ab.paged_decode_attention_plain(q, *zero, lengths, tables)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, again)
+    tol = 1e-5 if q_dtype == torch.float32 else 1e-2
+    assert float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max()) <= tol
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("g,d", [(1, 128), (8, 128), (4, 64), (2, 96),
                                  (8, 256), (4, 512)])
 def test_k12_row_bits_independent_of_batch(gen, g, d, q_dtype):
