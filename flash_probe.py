@@ -30,8 +30,9 @@ each one's max against ``flash_attention_bwd_plain`` on the tree's own o
 and lse, and whether two calls give the same bits (gates: bf16 2e-2,
 float32 1e-4). Then per type and shape (llama2_7b's prefills at T = 512
 and 2048, 32 heads of 128, and llama2_70b's G = 8 at 512; 32 heads of
-64 at 2048; Gemma-2B's 8 heads of 256 over one kv head at 512 and 2048)
-the CUDA-event
+64 at 2048; Gemma-2B's 8 heads of 256 over one kv head at 512 and 2048;
+the wide path's 8 heads of 512 over 2 kv heads at 512 and 2048, and of
+384 at 2048) the CUDA-event
 median with the L2 flushed before each call (``utils.benchlib.Timer``, as
 ``chip_smoke.py``'s kernels phase times K13 and K13-bwd) of the forward
 and of the backward, the TFLOP/s of each over the causal half (4 and 10
@@ -78,7 +79,8 @@ CHECKS = [(2, 1, 4, 2, 64), (2, 127, 8, 8, 128), (2, 129, 16, 2, 128),
           (1, 257, 8, 1, 256), (2, 129, 4, 2, 192), (1, 2048, 8, 1, 256)]
 # (T, Hq, Hkv, D) timed at B = 1
 TIMED = [(2048, 32, 32, 128), (512, 32, 32, 128), (512, 64, 8, 128),
-         (2048, 32, 32, 64), (2048, 8, 1, 256), (512, 8, 1, 256)]
+         (2048, 32, 32, 64), (2048, 8, 1, 256), (512, 8, 1, 256),
+         (2048, 8, 2, 512), (512, 8, 2, 512), (2048, 8, 2, 384)]
 DTYPES = {"bfloat16": 2e-2, "float32": 1e-4}   # and each one's gate
 SOURCES = {"k13": ("flash_attn", "flash_attn_bwd"),
            "k12": ("paged_attn_bf16",),

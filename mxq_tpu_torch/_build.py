@@ -76,8 +76,8 @@ SIGNATURES = {
     "paged_attn_bf16_wide": {
         "paged_attn_bf16_wide": [P, I] + [P] * 4 + [I] * 10 + [F] + [P] * 4},
     "flash_attn_wide": {
-        "flash_attn_wide": [P] * 5 + [L] * 6 + [I] * 6 + [F, P, P],
-        "flash_attn_bwd_wide": [P] * 11 + [L] * 11 + [I] * 6 + [F, P]},
+        "flash_attn_wide": [P] * 5 + [L] * 6 + [I] * 7 + [F, P, P],
+        "flash_attn_bwd_wide": [P] * 11 + [L] * 11 + [I] * 7 + [F, P]},
 }
 
 

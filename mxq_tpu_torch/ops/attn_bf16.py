@@ -33,18 +33,23 @@ inputs' bf16 hi and lo planes with zeros past D, so no padded copy is
 made: the kernels then run the bf16 design's products three times
 (hi.lo + lo.hi + hi.hi).
 
-The wide path (D > 256; ``csrc/paged_attn_bf16_wide.cu`` and
-``csrc/flash_attn_wide.cu``) walks D in column chunks, a work item per
-chunk of the output, each recomputing the scores over all of D in the
-same order so that every chunk sees the same softmax bits: K12 an item
-per (row, kv head, 256-row split, WIDE_CHUNK columns), q staged in
-shared memory (at most ``heads_per_launch`` heads a launch, WIDE_Q_FLOATS
-floats; one head a launch past that, its q read in place); K13 per (64 query rows, head, WIDE_CHUNK columns of O); K13-bwd
-a dQ item per (64 query rows, head, WIDE_CHUNK columns), a dK/dV item per
-(64 keys, kv head, WIDE_CHUNK_KV columns). bf16 rows are read in place at
-their width (no padded copy); float32 goes through the split pass into
-planes of :func:`plane_width` columns. Launches count under the same
-counters.
+The wide path (D > 256) has sources of its own. K12's
+(``csrc/paged_attn_bf16_wide.cu``) walks D in column chunks, an item per
+(row, kv head, 256-row split, WIDE_CHUNK columns), each recomputing the
+scores over all of D in the same order so that every chunk sees the same
+softmax bits, q staged in shared memory (at most ``heads_per_launch``
+heads a launch, WIDE_Q_FLOATS floats; one head a launch past that, its q
+read in place). K13's and K13-bwd's (``csrc/flash_attn_wide.cu``) cut D
+into ranges of WIDE_RANGE columns and give one work item (64 query rows
+of a head; the dK/dV kernel 64 keys of a kv head) to a thread-block
+cluster of a block per range (at most WIDE_CLUSTER; past that, groups of
+WIDE_CLUSTER ranges): each block's partial scores are summed over the
+cluster in rank order, so S (and dP) is computed once per tile pair on
+wgmma, and each block writes its range of the output. bf16 rows are read
+in place by TMA where D % 8 == 0 (else from copies zero-padded to a
+multiple of 8, :func:`wide_width`); float32 goes through the split pass
+into planes of :func:`plane_width` columns. Launches count under the
+same counters.
 """
 
 from __future__ import annotations
@@ -66,9 +71,10 @@ MAX_TILE = HEAD_DIMS[-1]     # D past it runs on the wide path
 GMAX_WIDE = 8       # query heads of a K12 launch on the wide path
 WIDE_Q_FLOATS = 32768   # and its q staged in shared memory: G * D floats
                         # (past it one head a launch, q read in place)
-WIDE_CHUNK = 128    # columns of K12's context, K13's O and dQ an item
-WIDE_CHUNK_KV = 64  # columns of dK and dV a K13-bwd item
-WIDE_SLICE = 64     # columns of a depth slice of S (and the planes' unit)
+WIDE_CHUNK = 128    # columns of K12's context an item
+WIDE_RANGE = 256    # columns of a K13 / K13-bwd block's range
+WIDE_CLUSTER = 8    # blocks of a K13 / K13-bwd cluster at most
+WIDE_SLICE = 64     # columns of a TMA box (and the planes' unit)
 
 
 def kernel_head_dim(d: int) -> int:
@@ -89,8 +95,26 @@ def is_wide(w: int) -> bool:
 
 def plane_width(d: int) -> int:
     """The width of the float32 path's hi and lo planes on the wide path:
-    D rounded up to whole depth slices (zeros past D)."""
+    D rounded up to whole TMA boxes (zeros past D)."""
     return -(-d // WIDE_SLICE) * WIDE_SLICE
+
+
+def wide_width(d: int) -> int:
+    """The row width at which K13's and K13-bwd's wide path reads bf16
+    inputs of head_dim ``d``: d itself where rows of d elements are whole
+    16-byte units (what TMA reads), else d rounded up to a multiple of 8
+    on zero-padded copies."""
+    return -(-d // 8) * 8
+
+
+def wide_clusters(d: int) -> tuple[int, int]:
+    """(blocks of a cluster, column groups) of K13's and K13-bwd's wide
+    path at head_dim ``d``: a block per WIDE_RANGE columns, at most
+    WIDE_CLUSTER a cluster; past that, groups of WIDE_CLUSTER ranges, each
+    group's cluster computing the scores over all of D once."""
+    nr = -(-d // WIDE_RANGE)
+    c = min(nr, WIDE_CLUSTER)
+    return c, -(-nr // c)
 
 
 def heads_per_launch(w: int) -> int:
@@ -453,15 +477,16 @@ def _k13_launch(q, k, v, lse):
 
 def _k13_wide_launch(q, k, v, lse):
     """K13's wide path (D > 256, ``csrc/flash_attn_wide.cu``): bf16 rows
-    read in place (:func:`_rows`: by 16-byte copies where D % 8 == 0,
-    else an element at a time), float32 through the split pass's planes
-    of :func:`plane_width` columns; the output [B, T, Hq, D] at its
-    width."""
+    read in place by TMA (:func:`_rows`; at D % 8 != 0 zero-padded copies
+    of :func:`wide_width` columns), float32 through the split pass's
+    planes of :func:`plane_width` columns; the output [B, T, Hq, D] at
+    its width."""
     from mxq_tpu_torch import _build
     b, t, hq, d = q.shape
     hkv = k.shape[2]
     f32 = q.dtype == torch.float32
-    q, k, v = (_rows(x) for x in (q, k, v))
+    w = d if f32 else wide_width(d)
+    q, k, v = (_rows(pad_head_dim(x, w)) for x in (q, k, v))
     planes = torch.empty(split_plane_elems(b, t, hq, hkv, plane_width(d)),
                          dtype=torch.bfloat16, device=q.device) if f32 \
         else None
@@ -469,8 +494,8 @@ def _k13_wide_launch(q, k, v, lse):
     err = _build.load("flash_attn_wide").flash_attn_wide(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), q.stride(0), q.stride(1),
-        k.stride(0), k.stride(1), v.stride(0), v.stride(1), b, t, hq, hkv, d,
-        int(f32), 1.0 / math.sqrt(d),
+        k.stride(0), k.stride(1), v.stride(0), v.stride(1), b, t, hq, hkv, w,
+        d, int(f32), 1.0 / math.sqrt(d),
         None if planes is None else planes.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "K13")
@@ -590,12 +615,15 @@ def flash_attention_backward(q, k, v, o, lse, do):
 def _k13_bwd_wide_launch(q, k, v, o, lse, do):
     """K13-bwd's wide path (D > 256, ``csrc/flash_attn_wide.cu``): the di
     pass, at float32 the split pass, then the dQ and the dK/dV kernels;
-    bf16 rows read in place."""
+    bf16 rows read in place (as :func:`_k13_wide_launch` reads them; o
+    read at its width by the di pass)."""
     from mxq_tpu_torch import _build
     b, t, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     f32 = int(q.dtype == torch.float32)
-    q, k, v, o, do = (_rows(x) for x in (q, k, v, o, do))
+    w = d if f32 else wide_width(d)
+    q, k, v, do = (_rows(pad_head_dim(x, w)) for x in (q, k, v, do))
+    o = _rows(o)
     planes = torch.empty(split_plane_elems(b, t, hq, hkv, plane_width(d),
                                            True),
                          dtype=torch.bfloat16, device=q.device) if f32 \
@@ -614,7 +642,7 @@ def _k13_bwd_wide_launch(q, k, v, o, lse, do):
         dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), q.stride(0),
         q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
         o.stride(0), o.stride(1), do.stride(0), do.stride(1), s * hkv * d,
-        b, t, hq, hkv, d, f32, 1.0 / math.sqrt(d),
+        b, t, hq, hkv, w, d, f32, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "K13-bwd")
     count_launch(flash_attention_backward)

@@ -939,14 +939,17 @@ def test_int8_wide_same_bits(gen, hq, hkv, d, write):
 
 
 # K13 and K13-bwd's wide path: G = 1 and 4, T at the tiles' edges and
-# llama2's 512 and 2048
+# llama2's 512 and 2048; clusters of 2 (300: a last range of 44 columns,
+# bf16 rows read from copies padded to 304; 384, 512), 3 (640) and 4
+# (1024) blocks, and in the forward 2304 (groups of 8 ranges and 1)
 K13_WIDE = [(4, 4, 384), (8, 2, 384), (4, 4, 512), (8, 2, 512),
-            (4, 4, 1024), (8, 2, 1024)]
+            (4, 4, 1024), (8, 2, 1024), (4, 2, 300), (8, 2, 300),
+            (4, 4, 640), (8, 2, 640)]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t", [1, 65, 200, 512, 2048])
-@pytest.mark.parametrize("hq,hkv,d", K13_WIDE)
+@pytest.mark.parametrize("hq,hkv,d", K13_WIDE + [(4, 2, 2304)])
 def test_k13_wide_matches_plain(gen, hq, hkv, d, t, dtype):
     """K13's wide path against its plain version on the fused qkv
     projection's strided slices (k, v 7 rows longer than q), at the gates

@@ -14,10 +14,11 @@ no public Llama configuration has D > 256, but mxq_tpu takes any D):
 - numpy-free torch emulations of each wide kernel's schedule (the int8
   scores summed over 256-column chunks in chunk order, the context per
   column chunk; K12's scores over all of D in every 128-column chunk and
-  its ordered split combine; K13's online softmax over 64-key tiles per
-  128-column chunk of O; K13-bwd's dQ and dK/dV per column chunk, the
-  query heads of a kv head summed in order) equal to the unchunked plain
-  versions within 1e-6;
+  its ordered split combine; K13's and K13-bwd's thread-block clusters,
+  a block per 256-column range, the scores (and dP) summed over the
+  cluster's partials in rank order and shared by every block, each
+  block's range of the output, past 2048 columns in groups of 8 ranges)
+  equal to the plain versions within 1e-6;
 - greedy tokens of the slot Engine and the PagedEngine (int8 and bf16
   caches and pools) equal mxq_tpu's at D = 512 (hidden 1024 over 2
   heads, 1 kv head, 2 layers).
@@ -247,15 +248,69 @@ def _flash_inputs(gen, t, hq, hkv, d):
             torch.randn((1, t, hkv, d), generator=gen))
 
 
-@pytest.mark.parametrize("d", [300, 512])
+def _clusters(d):
+    """K13's and K13-bwd's wide schedule at head_dim d: per column group,
+    per block (cluster rank) the ranges its partial walks (its output
+    range last) and its output range (None past the last range)."""
+    nr = -(-d // ab.WIDE_RANGE)
+    c, ng = ab.wide_clusters(d)
+    assert c == min(nr, ab.WIDE_CLUSTER) and ng == -(-nr // c)
+    groups = []
+    for g in range(ng):
+        blocks = []
+        for r in range(c):
+            out = g * c + r if g * c + r < nr else None
+            own = [x for x in range(r, nr, c) if x != out]
+            blocks.append((own + ([out] if out is not None else []), out))
+        groups.append(blocks)
+    return groups
+
+
+def _wg_cols(rg, wg, d):
+    """The columns of warpgroup wg (two per block, 128 columns each) of
+    range rg, cut at d (empty past it)."""
+    c0 = rg * ab.WIDE_RANGE + wg * ab.WIDE_RANGE // 2
+    return slice(c0, max(c0, min(c0 + ab.WIDE_RANGE // 2, d)))
+
+
+def _summed(a, b, blocks, d):
+    """a [R, D] . b [N, D]^T as a cluster sums it: each (block, warpgroup)
+    a partial over its columns of the block's ranges, a block's two
+    partials added into the block's sum, the block sums added in rank
+    order; every block gets these bits."""
+    total = None
+    for own, _ in blocks:
+        parts = []
+        for wg in (0, 1):
+            part = torch.zeros((a.shape[0], b.shape[0]))
+            for rg in own:
+                c = _wg_cols(rg, wg, d)
+                part = part + a[:, c] @ b[:, c].T
+            parts.append(part)
+        block = parts[0] + parts[1]
+        total = block if total is None else total + block
+    return total
+
+
+def _out_cols(blocks, d):
+    """The columns each block of a group writes."""
+    return [slice(out * ab.WIDE_RANGE, min((out + 1) * ab.WIDE_RANGE, d))
+            for _, out in blocks if out is not None]
+
+
+@pytest.mark.parametrize("d", [300, 512, 640, 2304])
 def test_k13_wide_schedule_equals_plain(d):
     """K13's wide path (``flash_attn_wide.cu``, float32 arithmetic): an
-    item per (64 query rows, head, 128 columns of O); per 64-key tile up
-    to the diagonal the scores over all of D (the same in every chunk),
-    the causal mask, the online softmax (running max and sum), O's chunk
-    rescaled and += P V[:, chunk]; O / l at the end, and lse = m + log l
-    from chunk 0. Against ``flash_attention_forward_plain`` (context and
-    lse) within 1e-6."""
+    item per (64 query rows, head), a cluster of a block per 256-column
+    range (two per block at 640 and less: a partial last range; past 2048
+    groups of 8 ranges, each group's cluster summing over every range);
+    per 64-key tile up to the diagonal S summed over the cluster: each
+    block's two warpgroup partials into a block sum, the block sums in
+    rank order, the same S in every block,
+    the causal mask, the online softmax (running max and sum), each
+    block's range of O rescaled and += P V[:, range]; O / l at the end,
+    and lse = m + log l from group 0. Against
+    ``flash_attention_forward_plain`` (context and lse) within 1e-6."""
     gen = torch.Generator().manual_seed(d + 2)
     t, hq, hkv = 150, 4, 2
     q, k, v = _flash_inputs(gen, t, hq, hkv, d)
@@ -268,40 +323,49 @@ def test_k13_wide_schedule_equals_plain(d):
         for q0 in range(0, t, 64):
             rows = torch.arange(q0, min(q0 + 64, t))
             qi = q[0, rows, h]
-            for c0, c1 in _chunks(d, ab.WIDE_CHUNK):
+            for g, blocks in enumerate(_clusters(d)):
                 m = torch.full((len(rows), 1), -math.inf)
                 l = torch.zeros((len(rows), 1))
-                o = torch.zeros((len(rows), c1 - c0))
+                o = torch.zeros((len(rows), d))
                 for k0 in range(0, min(q0 + 64, t), 64):
                     keys = torch.arange(k0, min(k0 + 64, t))
-                    s = (qi @ k[0, keys, kh].T) * scale
+                    s = _summed(qi, k[0, keys, kh], blocks, d) * scale
                     s = torch.where(keys[None] <= rows[:, None], s,
                                     -math.inf)
                     mn = torch.maximum(m, s.amax(-1, keepdim=True))
                     alpha = torch.exp(m - mn)
                     p = torch.exp(s - mn)
                     l = l * alpha + p.sum(-1, keepdim=True)
-                    o = o * alpha + p @ v[0, keys, kh, c0:c1]
+                    for c in _out_cols(blocks, d):
+                        o[:, c] = o[:, c] * alpha + p @ v[0, keys, kh, c]
                     m = mn
-                out[0, rows, h, c0:c1] = o / l
-                if c0 == 0:
+                for c in _out_cols(blocks, d):
+                    out[0, rows, h, c] = o[:, c] / l
+                if g == 0:
                     lse[0, h, rows] = (m + torch.log(l))[:, 0]
     assert rel(out, want) <= CHUNK_GATE
     assert float((lse - want_lse).abs().max()) <= CHUNK_GATE * float(
         want_lse.abs().max())
 
 
-@pytest.mark.parametrize("d", [300, 512])
+@pytest.mark.parametrize("d", [300, 512, 640])
 def test_k13_bwd_wide_schedule_equals_plain(d):
     """K13-bwd's wide path (float32 arithmetic): di = rowsum(o . dO) over
-    all of D; a dQ item per (64 query rows, head, 128 columns) recomputes
-    S and dP over all of D per 64-key tile and adds dS K[:, chunk]; a
-    dK/dV item per (64 keys, kv head, 64 columns) walks the kv head's
-    query heads in order and the query tiles from the diagonal on, adding
-    P^T dO[:, chunk] and dS^T Q[:, chunk]. Against
-    ``flash_attention_bwd_plain`` within 1e-6 of each gradient's max."""
+    all of D; a dQ item per (64 query rows, head), its cluster's blocks
+    over D's 256-column ranges, per 32-key tile S and dP summed over the
+    cluster (each block's two warpgroup partials, then the block sums in
+    rank order), dS = P (dP - di) / sqrt(D), each block's range of dQ += dS K[:, range]; a dK/dV item
+    per (64 keys, kv head) walks the kv head's query heads in order and
+    the 32-row query tiles from the diagonal on, S^T and dP^T summed the
+    same way, each block's range of dV += P^T dO[:, range] and of dK +=
+    dS^T Q[:, range]. Against ``flash_attention_bwd_plain`` within 1e-6
+    of each gradient's max beyond the plain version's own float32 error
+    (its distance from the same formulas in float64): S and dP summed in
+    another order than the plain version sums them move dS = P (dP - di)
+    by their rounding, and at D = 640 the plain version itself is 1.8e-6
+    of max|dQ| from the float64 values."""
     gen = torch.Generator().manual_seed(d + 3)
-    t, hq, hkv = 150, 4, 2
+    t, hq, hkv, n = 150, 4, 2, 32
     g = hq // hkv
     q, k, v = _flash_inputs(gen, t, hq, hkv, d)
     do = torch.randn((1, t, hq, d), generator=gen)
@@ -310,40 +374,66 @@ def test_k13_bwd_wide_schedule_equals_plain(d):
     scale = 1.0 / math.sqrt(d)
     di = (o * do).sum(-1)[0]                          # [T, Hq]
     dq, dk, dv = (torch.zeros_like(x) for x in want)
+    (blocks,) = _clusters(d)
+    outs = _out_cols(blocks, d)
 
-    def probs(h, qrows, keys):
-        kh = h // g
-        s = (q[0, qrows, h] @ k[0, keys, kh].T) * scale
-        p = torch.exp(s - lse[0, h, qrows][:, None])
+    def probs(h, qrows, keys, s, dp):
+        p = torch.exp(s * scale - lse[0, h, qrows][:, None])
         p = torch.where(keys[None] <= qrows[:, None], p, 0.0)
-        dp = do[0, qrows, h] @ v[0, keys, kh].T
         return p, p * (dp - di[qrows, h][:, None]) * scale
     for h in range(hq):
         for q0 in range(0, t, 64):
             rows = torch.arange(q0, min(q0 + 64, t))
-            for c0, c1 in _chunks(d, ab.WIDE_CHUNK):
-                acc = torch.zeros((len(rows), c1 - c0))
-                for k0 in range(0, min(q0 + 64, t), 64):
-                    keys = torch.arange(k0, min(k0 + 64, t))
-                    _, ds = probs(h, rows, keys)
-                    acc = acc + ds @ k[0, keys, h // g, c0:c1]
-                dq[0, rows, h, c0:c1] = acc
+            acc = torch.zeros((len(rows), d))
+            for k0 in range(0, min(q0 + 64, t), n):
+                keys = torch.arange(k0, min(k0 + n, t))
+                kk, vv = k[0, keys, h // g], v[0, keys, h // g]
+                _, ds = probs(h, rows, keys,
+                              _summed(q[0, rows, h], kk, blocks, d),
+                              _summed(do[0, rows, h], vv, blocks, d))
+                for c in outs:
+                    acc[:, c] = acc[:, c] + ds @ kk[:, c]
+            dq[0, rows, h] = acc
     for kh in range(hkv):
         for k0 in range(0, t, 64):
             keys = torch.arange(k0, min(k0 + 64, t))
-            for c0, c1 in _chunks(d, ab.WIDE_CHUNK_KV):
-                ak = torch.zeros((len(keys), c1 - c0))
-                av = torch.zeros((len(keys), c1 - c0))
-                for h in range(kh * g, kh * g + g):
-                    for q0 in range(k0, t, 64):
-                        rows = torch.arange(q0, min(q0 + 64, t))
-                        p, ds = probs(h, rows, keys)
-                        av = av + p.T @ do[0, rows, h, c0:c1]
-                        ak = ak + ds.T @ q[0, rows, h, c0:c1]
-                dk[0, keys, kh, c0:c1] = ak
-                dv[0, keys, kh, c0:c1] = av
-    for got, ref in zip((dq, dk, dv), want):
-        assert rel(got, ref) <= CHUNK_GATE
+            ak = torch.zeros((len(keys), d))
+            av = torch.zeros((len(keys), d))
+            for h in range(kh * g, kh * g + g):
+                for q0 in range(k0, t, n):
+                    rows = torch.arange(q0, min(q0 + n, t))
+                    qq, dd = q[0, rows, h], do[0, rows, h]
+                    st = _summed(k[0, keys, kh], qq, blocks, d)
+                    dpt = _summed(v[0, keys, kh], dd, blocks, d)
+                    p, ds = probs(h, rows, keys, st.T, dpt.T)
+                    for c in outs:
+                        av[:, c] = av[:, c] + p.T @ dd[:, c]
+                        ak[:, c] = ak[:, c] + ds.T @ qq[:, c]
+            dk[0, keys, kh] = ak
+            dv[0, keys, kh] = av
+    for got, ref, exact in zip((dq, dk, dv), want,
+                               _bwd_float64(q, k, v, o, lse, do)):
+        assert rel(got, ref) <= CHUNK_GATE + rel(ref, exact)
+
+
+def _bwd_float64(q, k, v, o, lse, do):
+    """``flash_attention_bwd_plain``'s formulas in float64 (dq, dk, dv)."""
+    t, hq, d = q.shape[1], q.shape[2], q.shape[3]
+    hkv = k.shape[2]
+    g = hq // hkv
+    qd, kd, vd, od, dod = (x[0].double() for x in (q, k, v, o, do))
+    kr, vr = kd.repeat_interleave(g, 1), vd.repeat_interleave(g, 1)
+    i = torch.arange(t)
+    s = torch.einsum("thd,shd->hts", qd, kr) / math.sqrt(d)
+    s = s.masked_fill(i[None, :] > i[:, None], -math.inf)
+    p = torch.exp(s - lse[0].double()[..., None])
+    di = (od * dod).sum(-1).T
+    ds = p * (torch.einsum("thd,shd->hts", dod, vr) - di[..., None]) \
+        / math.sqrt(d)
+    dq = torch.einsum("hts,shd->thd", ds, kr)
+    dk = torch.einsum("hts,thd->shd", ds, qd).view(t, hkv, g, d).sum(2)
+    dv = torch.einsum("hts,thd->shd", p, dod).view(t, hkv, g, d).sum(2)
+    return (dq[None].float(), dk[None].float(), dv[None].float())
 
 
 # ---------------------------------------------------------------------------
