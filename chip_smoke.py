@@ -2645,14 +2645,51 @@ def shadowed(torch, worst: dict):
             setattr(mod, name, fn)
 
 
-def tokens_against_plain(torch, params, cfg, prompts, got, want) -> dict:
+def plain_picks(torch, make, prompt, new) -> tuple[list, list]:
+    """One request alone through a fresh engine of ``make`` with the
+    attention kernels' plain versions, op by op: its greedy tokens and the
+    logits each was picked from (every ``sample_token`` call's row of
+    slot 0, the request's slot: its prefill's, then each decode step's).
+    Prefills run a slot at a time and decode rows do not mix, so its
+    tokens are the batched plain run's where the engine's picks are
+    ``sample_token``'s."""
+    from mxq_tpu_torch.ops import attn_int8 as a8
+    from mxq_tpu_torch.ops import mxq_matmul as mm
+    from mxq_tpu_torch.serving import engine as eng
+    from mxq_tpu_torch.serving import paged
+    picked = []
+    pick = eng.sample_token
+
+    def recording(logits, *args, **kw):
+        picked.append(logits[0].float().clone())
+        return pick(logits, *args, **kw)
+    eng.sample_token = paged.sample_token = recording
+    try:
+        with plain_versions(mm, a8, linears=False), eager_chunks():
+            e = make()
+            req = e.submit(prompt, max_new_tokens=new)
+            e.run()
+            torch.cuda.synchronize()
+    finally:
+        eng.sample_token = paged.sample_token = pick
+    return list(map(int, req.generated)), picked
+
+
+def tokens_against_plain(torch, params, cfg, prompts, got, want,
+                         make=None) -> dict:
     """Greedy tokens of a run through the kernels (``got``) against the
     same run through the attention kernels' plain versions (``want``),
-    request by request; where a request's tokens part, the top-two gap
-    over max|logit| of the no-cache forward of its prompt and the tokens
-    both runs agree on (attention's plain versions), at the parting
-    token. ``tokens_ok``: every request equal, or parted at a near tie
-    (<= TIE_GATE)."""
+    request by request. Where a request's tokens part, at the parting
+    token: ``gap``, the top-two gap over max|logit| of the no-cache
+    forward of its prompt and the tokens both runs agree on (attention's
+    plain versions); and, given the runs' engine factory ``make``,
+    ``engine_gap``, the gap over max|logit| between the plain run's token
+    and the kernels' in the logits the plain engine picked it from
+    (:func:`plain_picks`; None where that replay does not give the plain
+    run's tokens). The engines keep an int8 cache, which the no-cache
+    forward does not, so only the engine's own logits say whether its
+    choice was a near tie. ``tokens_ok``: every request equal, or parted
+    at a near tie (``gap`` or ``engine_gap`` <= TIE_GATE)."""
     import numpy as np
     from mxq_tpu_torch.models import llama
     from mxq_tpu_torch.ops import attn_int8 as a8
@@ -2667,12 +2704,22 @@ def tokens_against_plain(torch, params, cfg, prompts, got, want) -> dict:
         with plain_versions(mm, a8, linears=False):
             last = llama.forward(params, ids, cfg, device="cuda")[0][0, -1]
         top = torch.topk(last, 2).values
-        parted.append({"request": n, "token": i,
-                       "gap": float((top[0] - top[1]) / last.abs().max())})
+        row = {"request": n, "token": i,
+               "gap": float((top[0] - top[1]) / last.abs().max()),
+               "engine_gap": None}
+        if make is not None and i < min(len(g), len(w)):
+            toks, picked = plain_picks(torch, make, p, i + 1)
+            if toks == w[:i + 1] and len(picked) > i:
+                lg = picked[i]
+                row["engine_gap"] = float((lg[w[i]] - lg[g[i]])
+                                          / lg.abs().max())
+        parted.append(row)
+    near = [x["gap"] <= TIE_GATE or (x["engine_gap"] is not None
+                                     and x["engine_gap"] <= TIE_GATE)
+            for x in parted]
     return {"requests": len(got), "requests_equal": len(got) - len(parted),
             "parted": parted,
-            "tokens_ok": len(got) == len(want) and bool(got)
-            and all(x["gap"] <= TIE_GATE for x in parted)}
+            "tokens_ok": len(got) == len(want) and bool(got) and all(near)}
 
 
 def head_dim_train(torch, kernels, cfg, tag, runs, launches) -> list:
@@ -2791,7 +2838,7 @@ def phase_head_dims(torch):
             want = run()
         res["plain_seconds"] = time.monotonic() - t0
         res.update(tokens_against_plain(torch, params, cfg, prompts, got,
-                                        want))
+                                        want, make))
         res["tokens"] = sum(map(len, got))
         runs[name] = res
         failures.extend(f"{name}: {k} never launched" for k in need
