@@ -142,15 +142,6 @@ __device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
   return out;
 }
 
-// one arrival on barrier `bar` of block `rank`, releasing this thread's
-// (and, through the warpgroup's barrier before it, its warpgroup's)
-// writes and reads at cluster scope
-__device__ __forceinline__ void arrive_at(uint64_t* bar, int rank) {
-  asm volatile(
-      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::
-          "r"(mapa(smem_addr(bar), rank)) : "memory");
-}
-
 // until phase `parity` of this block's barrier has completed, acquiring
 // at cluster scope what the arrivals released (measured: polling this way
 // cost less than polling at block scope and one cluster fence after)
@@ -293,19 +284,15 @@ __device__ __forceinline__ void online_softmax(float (&s)[N / 2], float c,
 // finished reading slot s.
 constexpr int BAR_BLOCK = 3;            // named barrier of both consumers
 
-// remote arrivals after one cluster fence: relaxed where the PTX ISA has
-// them (8.6, CUDA 12.8 on), else each releasing at cluster scope
+// one cluster fence (this warpgroup's writes, ordered before it by the
+// block barrier, released at cluster scope), then a relaxed arrival on
+// barrier `bar` of every block of the cluster
 __device__ __forceinline__ void signal_cluster(uint64_t* bar, int C) {
-#if __CUDACC_VER_MAJOR__ > 12 || \
-    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 8)
   asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
   for (int c = 0; c < C; ++c)
     asm volatile(
         "mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [%0];\n" ::
             "r"(mapa(smem_addr(bar), c)) : "memory");
-#else
-  for (int c = 0; c < C; ++c) arrive_at(bar, c);
-#endif
 }
 
 template <int N, int NM>
@@ -526,13 +513,13 @@ __device__ __forceinline__ void wide_body(const Params& p) {
           dr[r] = p.di[i];
         }
       }
-    // tile u's partials over the block's ranges (nr steps), then summed
-    // over the cluster
-    float x[NM][N / 2];
-    auto partials = [&](int u) {
+    for (int o = 0; o < ntiles; ++o) {
+      // tile o's partials over the block's ranges (nr steps), then summed
+      // over the cluster
+      float x[NM][N / 2];
       bool fresh = true;
       for (int j = 0; j < nr; ++j) {
-        const int s = u * nr + j, rg = range_at(j);
+        const int s = o * nr + j, rg = range_at(j);
         if (s == 0 || nr > 1) mbar_wait(res_full, (nr > 1 ? s : 0) & 1);
         const int st = s % STAGES;
         mbar_wait(&full[st], (s / STAGES) & 1);
@@ -561,10 +548,7 @@ __device__ __forceinline__ void wide_body(const Params& p) {
         for (int mt = 0; mt < NM; ++mt)
 #pragma unroll
           for (int i = 0; i < N / 2; ++i) x[mt][i] = 0.f;
-      exchange<N, NM>(x, xb, ready, u, C, rank, cw, t);
-    };
-    for (int o = 0; o < ntiles; ++o) {
-      partials(o);
+      exchange<N, NM>(x, xb, ready, o, C, rank, cw, t);
       const int st = (o * nr + nr - 1) % STAGES;   // tile o's held stage
       if (nbo > 0) {
         uint32_t pa[NP][N / 16][4];

@@ -35,14 +35,17 @@ from mxq_tpu_torch.ops import attn_bf16 as ab
 # in PERF.md
 VARIANTS = {
     "base": [],
-    "noexch": ["      exchange<N, NM>(x, xb, ready, u, C, rank, cw, t);\n"],
+    "noexch": ["      exchange<N, NM>(x, xb, ready, o, C, rank, cw, t);\n"],
     "nopartial": [
-        "          partial<N, NP>(x[0], sa, sx + st * K::X, 2 * cw, nb, f0);\n",
+        "          partial<N, NP>(x[0], sa, sx + st * K::X, 2 * cw, nb, "
+        "f0);\n",
         "            partial<N, NP>(x[1], sb, sy + st * K::X, 2 * cw, nb, "
         "f1);\n"],
     "noout": [
-        "          out_product<N, NP>(acc0, pa, sy + st * K::X, 2 * cw);\n",
-        "          out_product<N, NP>(acc0, pa, sx + st * K::X, 2 * cw);\n",
+        "          out_product<N, NP>(acc0, pa, sy + st * K::X, 2 * cw);"
+        "\n",
+        "          out_product<N, NP>(acc0, pa, sx + st * K::X, 2 * cw);"
+        "\n",
         "          out_product<N, NP>(acc1, pa, sy + st * K::X, 2 * cw);"
         "   // dV\n",
         "          out_product<N, NP>(acc0, da, sx + st * K::X, 2 * cw);"
