@@ -1009,6 +1009,34 @@ def test_k13_bwd_wide_matches_plain(gen, hq, hkv, d, t, dtype):
     assert all(torch.equal(g, r) for g, r in zip(grads, got))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [300, 512])
+def test_k13_wide_batch_rows_same_bits_alone(gen, d, dtype):
+    """K13 and K13-bwd's wide path over a batch of 3 (T = 200, 8 heads
+    over 2 kv heads): within their gates of the plain versions, and each
+    batch row's context, lse and gradients the same bits as that row
+    alone (a cluster's item is one (rows, head, batch row))."""
+    q, k, v = _qkv(gen, 3, 200, 8, 2, d, dtype)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(dtype)
+    out, lse = ab.flash_attention_forward(q, k, v)
+    grads = ab.flash_attention_backward(q, k, v, out, lse, do)
+    ref, ref_lse = ab.flash_attention_forward_plain(q, k, v)
+    gref = ab.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((out.float() - ref.float()).abs().max()
+                 / ref.float().abs().max()) <= tol
+    assert max(_grad_errs(grads, gref)) <= tol
+    for b in range(3):
+        one = [x[b:b + 1].clone() for x in (q, k, v, do)]
+        o1, l1 = ab.flash_attention_forward(*one[:3])
+        g1 = ab.flash_attention_backward(*one[:3], out[b:b + 1].clone(),
+                                         lse[b:b + 1].clone(), one[3])
+        torch.cuda.synchronize()
+        assert torch.equal(o1, out[b:b + 1]) and torch.equal(l1, lse[b:b + 1])
+        assert all(torch.equal(x, y[b:b + 1]) for x, y in zip(g1, grads))
+
+
 @pytest.mark.parametrize("d", [1, 64, 80, 96, 98, 100, 128, 192, 255, 256])
 def test_k13_split_pass_bit_equal(gen, d):
     """The float32 path's split pass against its plain version bit for
