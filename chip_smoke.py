@@ -269,9 +269,10 @@ FALCON_7B_ATTN = dict(vocab_size=65024, hidden_size=4544,
 # and AdamW moments at 18 layers, 63 GB, nearly fill a card)
 GEMMA_TRAIN_LAYERS = 2
 # where greedy tokens of a run with the kernels part from the same run
-# through the plain versions, the plain versions' top-two logit gap at the
-# parting token, over max|logit|, at most this: a near tie, which
-# summation order may break either way (SPEC_GATE's form)
+# through the plain versions, the gap between the two runs' tokens in the
+# logits the plain engine picked its token from, over max|logit|, at most
+# this: a near tie, which summation order may break either way
+# (SPEC_GATE's form)
 TIE_GATE = SPEC_GATE
 
 # the train phase's cli train run: llama2_7b's widths at 4 layers (its
@@ -2645,19 +2646,21 @@ def shadowed(torch, worst: dict):
             setattr(mod, name, fn)
 
 
-def plain_picks(torch, make, prompt, new) -> tuple[list, list]:
-    """One request alone through a fresh engine of ``make`` with the
-    attention kernels' plain versions, op by op: its greedy tokens and the
-    logits each was picked from (every ``sample_token`` call's row of
-    slot 0, the request's slot: its prefill's, then each decode step's).
-    Prefills run a slot at a time and decode rows do not mix, so its
-    tokens are the batched plain run's where the engine's picks are
-    ``sample_token``'s."""
+def plain_picks(torch, make, drive, prompt, new) -> tuple[list, list]:
+    """One request alone through a fresh engine of ``make``, driven by
+    ``drive``, with the attention kernels' plain versions, op by op: its
+    greedy tokens and, for each, the logits it was picked from, in slot 0,
+    the request's slot: the prefill's ``sample_token`` row for the first;
+    for the others the slot Engine's last decode or verify row whose input
+    sits at the position before the token's (a verify's rejected rows are
+    made again by the next round), the PagedEngine's ``sample_token`` rows
+    in order. Prefills run a slot at a time and decode rows do not mix,
+    so its tokens are the batched plain run's."""
     from mxq_tpu_torch.ops import attn_int8 as a8
     from mxq_tpu_torch.ops import mxq_matmul as mm
     from mxq_tpu_torch.serving import engine as eng
     from mxq_tpu_torch.serving import paged
-    picked = []
+    picked, rows = [], {}
     pick = eng.sample_token
 
     def recording(logits, *args, **kw):
@@ -2667,55 +2670,53 @@ def plain_picks(torch, make, prompt, new) -> tuple[list, list]:
     try:
         with plain_versions(mm, a8, linears=False), eager_chunks():
             e = make()
+            step = getattr(e, "_decode_fn", None)
+            if step is not None:
+                def decode(params, toks, cfg, caches, positions, **kw):
+                    logits = step(params, toks, cfg, caches, positions, **kw)
+                    p0 = int(positions[0])
+                    for t in range(toks.shape[1]):
+                        rows[p0 + t] = logits[0, t].float().clone()
+                    return logits
+                e._decode_fn = decode
             req = e.submit(prompt, max_new_tokens=new)
-            e.run()
+            drive(e)
             torch.cuda.synchronize()
     finally:
         eng.sample_token = paged.sample_token = pick
-    return list(map(int, req.generated)), picked
+    if step is None:
+        return list(map(int, req.generated)), picked
+    return (list(map(int, req.generated)),
+            picked[:1] + [rows.get(len(prompt) + k) for k in range(new - 1)])
 
 
-def tokens_against_plain(torch, params, cfg, prompts, got, want,
-                         make=None) -> dict:
+def tokens_against_plain(torch, prompts, got, want, make, drive) -> dict:
     """Greedy tokens of a run through the kernels (``got``) against the
     same run through the attention kernels' plain versions (``want``),
     request by request. Where a request's tokens part, at the parting
-    token: ``gap``, the top-two gap over max|logit| of the no-cache
-    forward of its prompt and the tokens both runs agree on (attention's
-    plain versions); and, given the runs' engine factory ``make``,
-    ``engine_gap``, the gap over max|logit| between the plain run's token
-    and the kernels' in the logits the plain engine picked it from
-    (:func:`plain_picks`; None where that replay does not give the plain
-    run's tokens). The engines keep an int8 cache, which the no-cache
-    forward does not, so only the engine's own logits say whether its
-    choice was a near tie. ``tokens_ok``: every request equal, or parted
-    at a near tie (``gap`` or ``engine_gap`` <= TIE_GATE)."""
-    import numpy as np
-    from mxq_tpu_torch.models import llama
-    from mxq_tpu_torch.ops import attn_int8 as a8
-    from mxq_tpu_torch.ops import mxq_matmul as mm
+    token: ``engine_gap``, the gap over max|logit| between the plain run's
+    token and the kernels' in the logits the plain engine picked it from
+    (:func:`plain_picks`, the request replayed alone with the run's engine
+    factory ``make`` and ``drive``; None where that replay does not give
+    the plain run's tokens, or the runs' token counts differ).
+    ``tokens_ok``: every request equal, or parted at a near tie
+    (``engine_gap`` <= TIE_GATE)."""
     parted = []
     for n, (p, g, w) in enumerate(zip(prompts, got, want)):
         if g == w:
             continue
         i = next((i for i, (x, y) in enumerate(zip(g, w)) if x != y),
                  min(len(g), len(w)))
-        ids = np.concatenate([p, np.asarray(g[:i], np.int32)])[None]
-        with plain_versions(mm, a8, linears=False):
-            last = llama.forward(params, ids, cfg, device="cuda")[0][0, -1]
-        top = torch.topk(last, 2).values
-        row = {"request": n, "token": i,
-               "gap": float((top[0] - top[1]) / last.abs().max()),
-               "engine_gap": None}
-        if make is not None and i < min(len(g), len(w)):
-            toks, picked = plain_picks(torch, make, p, i + 1)
-            if toks == w[:i + 1] and len(picked) > i:
+        row = {"request": n, "token": i, "engine_gap": None}
+        if i < min(len(g), len(w)):
+            toks, picked = plain_picks(torch, make, drive, p, i + 1)
+            if toks == w[:i + 1] and len(picked) > i \
+                    and picked[i] is not None:
                 lg = picked[i]
                 row["engine_gap"] = float((lg[w[i]] - lg[g[i]])
                                           / lg.abs().max())
         parted.append(row)
-    near = [x["gap"] <= TIE_GATE or (x["engine_gap"] is not None
-                                     and x["engine_gap"] <= TIE_GATE)
+    near = [x["engine_gap"] is not None and x["engine_gap"] <= TIE_GATE
             for x in parted]
     return {"requests": len(got), "requests_equal": len(got) - len(parted),
             "parted": parted,
@@ -2837,8 +2838,8 @@ def phase_head_dims(torch):
         with plain_versions(mm, a8, linears=False), eager_chunks():
             want = run()
         res["plain_seconds"] = time.monotonic() - t0
-        res.update(tokens_against_plain(torch, params, cfg, prompts, got,
-                                        want, make))
+        res.update(tokens_against_plain(torch, prompts, got, want, make,
+                                        drive))
         res["tokens"] = sum(map(len, got))
         runs[name] = res
         failures.extend(f"{name}: {k} never launched" for k in need
