@@ -49,9 +49,11 @@
 // Past the cluster limit (D > 2048, NR > 8) the output columns are cut
 // into NG = ceil(NR / 8) groups of 8 ranges, a cluster of 8 blocks per
 // group: block r of group g writes range 8 g + r and sums its partials
-// over ranges r, r + 8, ... (that range last), so each group computes S
-// once (NG times in all); there the resident operand is reloaded for
-// every (tile, range) step.
+// over ranges r, r + 8, ... in that order in every group, so each group
+// computes S once (NG times in all) with the same bits as the others;
+// there the resident operand is reloaded for every (tile, range) step,
+// and the backward loads the output range's tiles once more, in a step
+// of their own, where that range is not the block's last.
 // Items run longest first; a cluster walks one item. Tiles: forward N =
 // 64 keys (float32 32), two stages; backward N = 32 rows (float32 16),
 // three stages (float32 two). No atomics: the same bits on every call,
@@ -414,17 +416,19 @@ __device__ __forceinline__ void wide_body(const Params& p) {
   const int out_rg = g * C + rank;             // the range this block writes
   const bool has_out = out_rg < p.NR;
   const int nr = (p.NR - rank + C - 1) / C;    // ranges it sums over
-  // range of step j of a tile: rank, rank + C, ..., its output range last
-  auto range_at = [&](int j) {
-    if (!has_out) return rank + j * C;
-    return j == nr - 1 ? out_rg : rank + (j < g ? j : j + 1) * C;
-  };
+  // steps of a tile: ranges rank, rank + C, ... in that order in every
+  // column group, so that every group's blocks hold S with the same bits;
+  // in the backward, where the output range is not the last of them, one
+  // more step loads its tiles again (the products after the exchange
+  // read them from the tile's last stage)
+  const int ns = nr + (MODE != FWD && has_out && g != nr - 1 ? 1 : 0);
+  auto range_at = [&](int j) { return j < nr ? rank + j * C : out_rg; };
   // tiles of the item: forward and dQ key tiles to the diagonal; dK/dV
   // (query head of the kv head, query tile from the diagonal)
   const int nqt = MODE == DKV ? (p.T + N - 1) / N - e.r0 / N : 0;
   const int ntiles = MODE == DKV ? p.G * nqt
                                  : (min(e.r0 + RA, p.T) + N - 1) / N;
-  const int steps = ntiles * nr;
+  const int steps = ntiles * ns;
   const int kh = MODE == DKV ? e.h : e.h / p.G;
 
   if (threadIdx.x == 0) {
@@ -458,9 +462,10 @@ __device__ __forceinline__ void wide_body(const Params& p) {
         return (uint32_t)(NP * nb * R * 128);
       };
       for (int s = 0; s < steps; ++s) {
-        const int o = s / nr, j = s % nr, rg = range_at(j);
-        if (s == 0 || nr > 1) {                // the resident rows
-          mbar_wait(res_empty, ((nr > 1 ? s : 0) & 1) ^ 1);
+        const int o = s / ns, j = s % ns, rg = range_at(j);
+        const int ra = o * nr + j;             // the resident rows' load
+        if (j < nr && (ra == 0 || nr > 1)) {
+          mbar_wait(res_empty, ((nr > 1 ? ra : 0) & 1) ^ 1);
           const uint32_t nbytes = (uint32_t)(NP * range_boxes(p, rg) * RA
                                              * 128 * (MODE == FWD ? 1 : 2));
           mbar_expect(res_full, nbytes);
@@ -518,13 +523,14 @@ __device__ __forceinline__ void wide_body(const Params& p) {
       // over the cluster
       float x[NM][N / 2];
       bool fresh = true;
-      for (int j = 0; j < nr; ++j) {
-        const int s = o * nr + j, rg = range_at(j);
-        if (s == 0 || nr > 1) mbar_wait(res_full, (nr > 1 ? s : 0) & 1);
+      for (int j = 0; j < ns; ++j) {
+        const int s = o * ns + j, rg = range_at(j), ra = o * nr + j;
+        if (j < nr && (ra == 0 || nr > 1))
+          mbar_wait(res_full, (nr > 1 ? ra : 0) & 1);
         const int st = s % STAGES;
         mbar_wait(&full[st], (s / STAGES) & 1);
         const int nb = min(max(range_boxes(p, rg) - 2 * cw, 0), 2);
-        if (nb > 0) {
+        if (j < nr && nb > 0) {
           reg_fence(x[0]);
           if (NM == 2) reg_fence(x[NM - 1]);
           wgmma_fence();
@@ -540,8 +546,8 @@ __device__ __forceinline__ void wide_body(const Params& p) {
           reg_fence(x[0]);
           if (NM == 2) reg_fence(x[NM - 1]);
         }
-        if (nr > 1) release(res_empty);
-        if (j < nr - 1) release(&empty[st]);
+        if (j < nr && nr > 1) release(res_empty);
+        if (j < ns - 1) release(&empty[st]);
       }
       if (fresh)
 #pragma unroll
@@ -549,7 +555,7 @@ __device__ __forceinline__ void wide_body(const Params& p) {
 #pragma unroll
           for (int i = 0; i < N / 2; ++i) x[mt][i] = 0.f;
       exchange<N, NM>(x, xb, ready, o, C, rank, cw, t);
-      const int st = (o * nr + nr - 1) % STAGES;   // tile o's held stage
+      const int st = (o * ns + ns - 1) % STAGES;   // tile o's held stage
       if (nbo > 0) {
         uint32_t pa[NP][N / 16][4];
         if constexpr (MODE == FWD) {

@@ -1037,6 +1037,38 @@ def test_k13_wide_batch_rows_same_bits_alone(gen, d, dtype):
         assert all(torch.equal(x, y[b:b + 1]) for x, y in zip(g1, grads))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("copied", ["kv", "q_do"])
+def test_k13_wide_column_groups_same_bits(gen, copied, dtype):
+    """Past 2048 columns (D = 2304: a group of 8 ranges and one of 1) each
+    column group's cluster computes S and dP itself, and block 0 of
+    either group sums ranges 0 and 8. Where the operand an output's last
+    256 columns are made from copies its first 256 (k and v: the context
+    and dQ; q and dO: dK and dV) while the others differ there (so the
+    two ranges' partial sums differ and their order shows), those
+    columns equal the first 256's bits: every group holds the same S, dP,
+    m and l. All within the gates of the plain versions (T = 200, 4
+    heads over 2)."""
+    d, t = 2304, 200
+    q, k, v, do = (torch.randn((1, t, h, d), generator=gen, device="cuda")
+                   .to(dtype) for h in (4, 2, 2, 4))
+    same = (k, v) if copied == "kv" else (q, do)
+    for x in same:
+        x[..., 2048:] = x[..., :256]
+    out, lse = ab.flash_attention_forward(q, k, v)
+    grads = ab.flash_attention_backward(q, k, v, out, lse, do)
+    ref, ref_lse = ab.flash_attention_forward_plain(q, k, v)
+    gref = ab.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((out.float() - ref.float()).abs().max()
+                 / ref.float().abs().max()) <= tol
+    assert float((lse - ref_lse).abs().max()) <= 1e-4
+    assert max(_grad_errs(grads, gref)) <= tol
+    for x in ((out, grads[0]) if copied == "kv" else grads[1:]):
+        assert torch.equal(x[..., 2048:], x[..., :256])
+
+
 @pytest.mark.parametrize("d", [1, 64, 80, 96, 98, 100, 128, 192, 255, 256])
 def test_k13_split_pass_bit_equal(gen, d):
     """The float32 path's split pass against its plain version bit for

@@ -18,7 +18,9 @@ no public Llama configuration has D > 256, but mxq_tpu takes any D):
   a block per 256-column range, the scores (and dP) summed over the
   cluster's partials in rank order and shared by every block, each
   block's range of the output, past 2048 columns in groups of 8 ranges)
-  equal to the plain versions within 1e-6;
+  equal to the plain versions within 1e-6 (K13-bwd's emulation within
+  1e-6 of the plain version's formulas in float64, and the plain version
+  within 2e-6 of them);
 - greedy tokens of the slot Engine and the PagedEngine (int8 and bf16
   caches and pools) equal mxq_tpu's at D = 512 (hidden 1024 over 2
   heads, 1 kv head, 2 layers).
@@ -46,6 +48,11 @@ from torch_port_helpers import port_params, rel
 
 WIDE = [300, 384, 512]
 CHUNK_GATE = 1e-6
+RANGE = 256     # columns of a block's range (flash_attn_wide.cu's DR)
+CLUSTER = 8     # blocks of a cluster at most (its CMAX)
+# flash_attention_bwd_plain's float32 gradients from the same formulas in
+# float64, over each gradient's max (measured at most 1.83e-6, at D = 640)
+PLAIN_BWD_GATE = 2e-6
 
 
 # ---------------------------------------------------------------------------
@@ -249,19 +256,21 @@ def _flash_inputs(gen, t, hq, hkv, d):
 
 
 def _clusters(d):
-    """K13's and K13-bwd's wide schedule at head_dim d: per column group,
-    per block (cluster rank) the ranges its partial walks (its output
-    range last) and its output range (None past the last range)."""
-    nr = -(-d // ab.WIDE_RANGE)
-    c, ng = ab.wide_clusters(d)
-    assert c == min(nr, ab.WIDE_CLUSTER) and ng == -(-nr // c)
+    """K13's and K13-bwd's wide schedule at head_dim d
+    (``flash_attn_wide.cu``'s ``set_ranges``): a block per RANGE columns,
+    at most CLUSTER a cluster, past that groups of CLUSTER ranges; per
+    column group, per block (cluster rank) the ranges its partial walks
+    (rank, rank + CLUSTER, ... in that order in every group) and its
+    output range (None past the last range)."""
+    nr = -(-d // RANGE)
+    c = min(nr, CLUSTER)
+    ng = -(-nr // c)
     groups = []
     for g in range(ng):
         blocks = []
         for r in range(c):
             out = g * c + r if g * c + r < nr else None
-            own = [x for x in range(r, nr, c) if x != out]
-            blocks.append((own + ([out] if out is not None else []), out))
+            blocks.append((list(range(r, nr, c)), out))
         groups.append(blocks)
     return groups
 
@@ -269,8 +278,8 @@ def _clusters(d):
 def _wg_cols(rg, wg, d):
     """The columns of warpgroup wg (two per block, 128 columns each) of
     range rg, cut at d (empty past it)."""
-    c0 = rg * ab.WIDE_RANGE + wg * ab.WIDE_RANGE // 2
-    return slice(c0, max(c0, min(c0 + ab.WIDE_RANGE // 2, d)))
+    c0 = rg * RANGE + wg * RANGE // 2
+    return slice(c0, max(c0, min(c0 + RANGE // 2, d)))
 
 
 def _summed(a, b, blocks, d):
@@ -294,7 +303,7 @@ def _summed(a, b, blocks, d):
 
 def _out_cols(blocks, d):
     """The columns each block of a group writes."""
-    return [slice(out * ab.WIDE_RANGE, min((out + 1) * ab.WIDE_RANGE, d))
+    return [slice(out * RANGE, min((out + 1) * RANGE, d))
             for _, out in blocks if out is not None]
 
 
@@ -348,22 +357,23 @@ def test_k13_wide_schedule_equals_plain(d):
         want_lse.abs().max())
 
 
-@pytest.mark.parametrize("d", [300, 512, 640])
+@pytest.mark.parametrize("d", [300, 512, 640, 2304])
 def test_k13_bwd_wide_schedule_equals_plain(d):
     """K13-bwd's wide path (float32 arithmetic): di = rowsum(o . dO) over
     all of D; a dQ item per (64 query rows, head), its cluster's blocks
-    over D's 256-column ranges, per 32-key tile S and dP summed over the
+    over D's 256-column ranges (past 2048 a cluster per group of 8
+    ranges), per 32-key tile S and dP summed over the
     cluster (each block's two warpgroup partials, then the block sums in
     rank order), dS = P (dP - di) / sqrt(D), each block's range of dQ += dS K[:, range]; a dK/dV item
     per (64 keys, kv head) walks the kv head's query heads in order and
     the 32-row query tiles from the diagonal on, S^T and dP^T summed the
     same way, each block's range of dV += P^T dO[:, range] and of dK +=
-    dS^T Q[:, range]. Against ``flash_attention_bwd_plain`` within 1e-6
-    of each gradient's max beyond the plain version's own float32 error
-    (its distance from the same formulas in float64): S and dP summed in
-    another order than the plain version sums them move dS = P (dP - di)
-    by their rounding, and at D = 640 the plain version itself is 1.8e-6
-    of max|dQ| from the float64 values."""
+    dS^T Q[:, range]. The emulation and ``flash_attention_bwd_plain``
+    are each held to the plain version's formulas in float64: the
+    emulation within CHUNK_GATE of each gradient's max, the plain version
+    within PLAIN_BWD_GATE (its S and dP over all of D in one product; at
+    D = 640 it is 1.83e-6 of max|dQ| from the float64 values, at 512
+    1.10e-6, where the emulation is at most 7.8e-7)."""
     gen = torch.Generator().manual_seed(d + 3)
     t, hq, hkv, n = 150, 4, 2, 32
     g = hq // hkv
@@ -374,8 +384,7 @@ def test_k13_bwd_wide_schedule_equals_plain(d):
     scale = 1.0 / math.sqrt(d)
     di = (o * do).sum(-1)[0]                          # [T, Hq]
     dq, dk, dv = (torch.zeros_like(x) for x in want)
-    (blocks,) = _clusters(d)
-    outs = _out_cols(blocks, d)
+    groups = [(blocks, _out_cols(blocks, d)) for blocks in _clusters(d)]
 
     def probs(h, qrows, keys, s, dp):
         p = torch.exp(s * scale - lse[0, h, qrows][:, None])
@@ -385,35 +394,38 @@ def test_k13_bwd_wide_schedule_equals_plain(d):
         for q0 in range(0, t, 64):
             rows = torch.arange(q0, min(q0 + 64, t))
             acc = torch.zeros((len(rows), d))
-            for k0 in range(0, min(q0 + 64, t), n):
-                keys = torch.arange(k0, min(k0 + n, t))
-                kk, vv = k[0, keys, h // g], v[0, keys, h // g]
-                _, ds = probs(h, rows, keys,
-                              _summed(q[0, rows, h], kk, blocks, d),
-                              _summed(do[0, rows, h], vv, blocks, d))
-                for c in outs:
-                    acc[:, c] = acc[:, c] + ds @ kk[:, c]
+            for blocks, outs in groups:
+                for k0 in range(0, min(q0 + 64, t), n):
+                    keys = torch.arange(k0, min(k0 + n, t))
+                    kk, vv = k[0, keys, h // g], v[0, keys, h // g]
+                    _, ds = probs(h, rows, keys,
+                                  _summed(q[0, rows, h], kk, blocks, d),
+                                  _summed(do[0, rows, h], vv, blocks, d))
+                    for c in outs:
+                        acc[:, c] = acc[:, c] + ds @ kk[:, c]
             dq[0, rows, h] = acc
     for kh in range(hkv):
         for k0 in range(0, t, 64):
             keys = torch.arange(k0, min(k0 + 64, t))
             ak = torch.zeros((len(keys), d))
             av = torch.zeros((len(keys), d))
-            for h in range(kh * g, kh * g + g):
-                for q0 in range(k0, t, n):
-                    rows = torch.arange(q0, min(q0 + n, t))
-                    qq, dd = q[0, rows, h], do[0, rows, h]
-                    st = _summed(k[0, keys, kh], qq, blocks, d)
-                    dpt = _summed(v[0, keys, kh], dd, blocks, d)
-                    p, ds = probs(h, rows, keys, st.T, dpt.T)
-                    for c in outs:
-                        av[:, c] = av[:, c] + p.T @ dd[:, c]
-                        ak[:, c] = ak[:, c] + ds.T @ qq[:, c]
+            for blocks, outs in groups:
+                for h in range(kh * g, kh * g + g):
+                    for q0 in range(k0, t, n):
+                        rows = torch.arange(q0, min(q0 + n, t))
+                        qq, dd = q[0, rows, h], do[0, rows, h]
+                        st = _summed(k[0, keys, kh], qq, blocks, d)
+                        dpt = _summed(v[0, keys, kh], dd, blocks, d)
+                        p, ds = probs(h, rows, keys, st.T, dpt.T)
+                        for c in outs:
+                            av[:, c] = av[:, c] + p.T @ dd[:, c]
+                            ak[:, c] = ak[:, c] + ds.T @ qq[:, c]
             dk[0, keys, kh] = ak
             dv[0, keys, kh] = av
     for got, ref, exact in zip((dq, dk, dv), want,
                                _bwd_float64(q, k, v, o, lse, do)):
-        assert rel(got, ref) <= CHUNK_GATE + rel(ref, exact)
+        assert rel(got, exact) <= CHUNK_GATE
+        assert rel(ref, exact) <= PLAIN_BWD_GATE
 
 
 def _bwd_float64(q, k, v, o, lse, do):
