@@ -40,10 +40,10 @@ scores over all of D in the same order so that every chunk sees the same
 softmax bits, q staged in shared memory (at most ``heads_per_launch``
 heads a launch, WIDE_Q_FLOATS floats; one head a launch past that, its q
 read in place). K13's and K13-bwd's (``csrc/flash_attn_wide.cu``) cut D
-into ranges of WIDE_RANGE columns and give one work item (64 query rows
-of a head; the dK/dV kernel 64 keys of a kv head) to a thread-block
-cluster of a block per range (at most WIDE_CLUSTER; past that, groups of
-WIDE_CLUSTER ranges): each block's partial scores are summed over the
+into ranges of 256 columns and give one work item (64 query rows of a
+head; the dK/dV kernel 64 keys of a kv head) to a thread-block cluster
+of a block per range (at most 8; past that, groups of 8 ranges): each
+block's partial scores are summed over the
 cluster in rank order, so S (and dP) is computed once per tile pair on
 wgmma, and each block writes its range of the output. bf16 rows are read
 in place by TMA where D % 8 == 0 (else from copies zero-padded to a
@@ -72,8 +72,6 @@ GMAX_WIDE = 8       # query heads of a K12 launch on the wide path
 WIDE_Q_FLOATS = 32768   # and its q staged in shared memory: G * D floats
                         # (past it one head a launch, q read in place)
 WIDE_CHUNK = 128    # columns of K12's context an item
-WIDE_RANGE = 256    # columns of a K13 / K13-bwd block's range
-WIDE_CLUSTER = 8    # blocks of a K13 / K13-bwd cluster at most
 WIDE_SLICE = 64     # columns of a TMA box (and the planes' unit)
 
 
@@ -105,16 +103,6 @@ def wide_width(d: int) -> int:
     16-byte units (what TMA reads), else d rounded up to a multiple of 8
     on zero-padded copies."""
     return -(-d // 8) * 8
-
-
-def wide_clusters(d: int) -> tuple[int, int]:
-    """(blocks of a cluster, column groups) of K13's and K13-bwd's wide
-    path at head_dim ``d``: a block per WIDE_RANGE columns, at most
-    WIDE_CLUSTER a cluster; past that, groups of WIDE_CLUSTER ranges, each
-    group's cluster computing the scores over all of D once."""
-    nr = -(-d // WIDE_RANGE)
-    c = min(nr, WIDE_CLUSTER)
-    return c, -(-nr // c)
 
 
 def heads_per_launch(w: int) -> int:
