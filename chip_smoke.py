@@ -19,12 +19,13 @@ Phases, each printing one JSON line:
            of the profiled paged bf16 step; two calls give equal bits;
            the kernel's own device ms beside the wrapper's), K13
            (causal attention from position 0 at T = 512 and 2048,
-           llama2_70b's G = 8, float32 inputs, head_dim 96 (run at 128
-           on zero-padded copies), each with its TFLOP/s and
+           llama2_70b's G = 8, float32 inputs, head_dims 96 and 100
+           (run at 128 on their rows read in place, by TMA and by
+           cp.async), each with its TFLOP/s and
            share of the bound; the same bits with its row log-sum-exp
            written), and K13-bwd (its backward,
            dQ, dK and dV, at T = 2048, at G = 8, at float32 and at
-           head_dim 96; two calls give equal bits) against
+           head_dims 96 and 100; two calls give equal bits) against
            their plain PyTorch versions at llama2_7b's shapes and time
            kernel, plain version, bound and library call; the head_dims
            past 64 and 128 at the widths phase head_dims serves: K4,
@@ -400,8 +401,9 @@ KERNEL_INFO = {
     "K13-bwd-f32": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
                     "mxq_tpu/models/llama.py:383"),
     # head_dim 96 (no preset has it; a checkpoint may), run at 128: K13
-    # and K13-bwd on zero-padded copies, K12 reading q, the pool and its
-    # output at their width
+    # and K13-bwd reading their rows in place by TMA, K12 reading q, the
+    # pool and its output at their width; and open_llama_3b's 100, K13
+    # and K13-bwd reading by cp.async
     "K12-d96": ("cuda", "mxq_tpu_torch/csrc/paged_attn_bf16.cu",
                 "mxq_tpu/serving/paged.py:265"),
     # K12 at cli serve --paged --kv_bits 32's decode (lengths 101-132)
@@ -418,6 +420,10 @@ KERNEL_INFO = {
                 "mxq_tpu/models/llama.py:383"),
     "K13-bwd-d96": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
                     "mxq_tpu/models/llama.py:383"),
+    "K13-d100": ("cuda", "mxq_tpu_torch/csrc/flash_attn.cu",
+                 "mxq_tpu/models/llama.py:383"),
+    "K13-bwd-d100": ("cuda", "mxq_tpu_torch/csrc/flash_attn_bwd.cu",
+                     "mxq_tpu/models/llama.py:383"),
     # the head_dims past 128 and between the templates (phase kernels'
     # rows at open_llama_3b's D = 100 and Gemma-2B's D = 256; their
     # launches are phase head_dims' runs at those widths)
@@ -515,7 +521,8 @@ TASK_GROUPS = (("K1", K1_KERNEL_NAMES), ("K3", ("mxq_dequant_kernel",)),
 COUNTER = {"K4a-verify": "K4a", "K4a-verify-g8": "K4a", "K13-g8": "K13",
            "K13-f32": "K13", "K12-f32": "K12", "K13-bwd-g8": "K13-bwd",
            "K13-bwd-f32": "K13-bwd", "K12-d96": "K12", "K13-d96": "K13",
-           "K13-bwd-d96": "K13-bwd", "K12-serve": "K12", "K12-g8": "K12",
+           "K13-bwd-d96": "K13-bwd", "K13-d100": "K13",
+           "K13-bwd-d100": "K13-bwd", "K12-serve": "K12", "K12-g8": "K12",
            "K12-step": "K12"}
 
 
@@ -1578,6 +1585,7 @@ def bf16_kernels(torch, timer, gen, rows, summary):
             ("K13-f32", 2048, 32, 32, D, torch.float32, 1e-4),
             ("K13-f32", 512, 32, 32, D, torch.float32, 1e-4),
             ("K13-d96", 2048, 32, 32, 96, torch.bfloat16, 2e-2),
+            ("K13-d100", 2048, 32, 32, 100, torch.bfloat16, 2e-2),
             ("K13-d256", 2048, 8, 1, 256, torch.bfloat16, 2e-2),
             ("K13-f32-d256", 2048, 8, 1, 256, torch.float32, 1e-4),
             ("K13-d512", 2048, 8, 2, 512, torch.bfloat16, 2e-2),
@@ -1647,7 +1655,11 @@ def bf16_kernels(torch, timer, gen, rows, summary):
                          ("K13-f32", 2048,
                           "B=1 T=2048 Hq=Hkv=32 D=128 float32"),
                          ("K13-d96", 2048,
-                          "B=1 T=2048 Hq=Hkv=32 D=96 bf16, padded to 128"),
+                          "B=1 T=2048 Hq=Hkv=32 D=96 bf16, read in place "
+                          "by TMA at the 128 template"),
+                         ("K13-d100", 2048,
+                          "B=1 T=2048 Hq=Hkv=32 D=100 bf16 (open_llama_3b's "
+                          "heads), read in place by cp.async at 128"),
                          ("K13-d256", 2048, "B=1 T=2048 Hq=8 Hkv=1 D=256 "
                           "bf16 (Gemma-2B's attention)"),
                          ("K13-f32-d256", 2048, "B=1 T=2048 Hq=8 Hkv=1 "
@@ -1663,7 +1675,11 @@ def bf16_kernels(torch, timer, gen, rows, summary):
                       ("K13-bwd-g8", "B=1 T=512 Hq=64 Hkv=8 D=128 bf16"),
                       ("K13-bwd-f32", "B=1 T=2048 Hq=Hkv=32 D=128 float32"),
                       ("K13-bwd-d96",
-                       "B=1 T=2048 Hq=Hkv=32 D=96 bf16, padded to 128"),
+                       "B=1 T=2048 Hq=Hkv=32 D=96 bf16, read in place by "
+                       "TMA at the 128 template"),
+                      ("K13-bwd-d100",
+                       "B=1 T=2048 Hq=Hkv=32 D=100 bf16 (open_llama_3b's "
+                       "heads), read in place by cp.async at 128"),
                       ("K13-bwd-d256", "B=1 T=2048 Hq=8 Hkv=1 D=256 bf16 "
                        "(Gemma-2B's attention)"),
                       ("K13-bwd-f32-d256",
@@ -1718,8 +1734,9 @@ def flash_backward_kernels(torch, timer, cat, rows):
     at T=2048 bf16 (row K13-bwd), llama2_70b's G=8 (Hq=64, Hkv=8) at 512
     (K13-bwd-g8: the dK/dV kernel splits each kv head's query heads over
     blocks), 32 heads at 2048 and 512 float32 (K13-bwd-f32, the QAT
-    student's default type) and 32 heads of 96 at 2048 bf16 (K13-bwd-d96,
-    run at 128 on zero-padded copies; its bound counts D = 96). Each gradient
+    student's default type) and 32 heads of 96 and of 100 at 2048 bf16
+    (K13-bwd-d96 and -d100, run at 128 on their rows read in place, by TMA
+    and by cp.async; their bounds count the true D). Each gradient
     within the gate of its max: bf16 2e-2,
     K13's bf16 gate (P and dS rounded to bf16 as upstream's VJP rounds
     them, from exp(s - lse) recomputed in another order than the plain
@@ -1744,6 +1761,7 @@ def flash_backward_kernels(torch, timer, cat, rows):
             ("K13-bwd-f32", 2048, 32, 32, 128, torch.float32, 1e-4),
             ("K13-bwd-f32", 512, 32, 32, 128, torch.float32, 1e-4),
             ("K13-bwd-d96", 2048, 32, 32, 96, torch.bfloat16, 2e-2),
+            ("K13-bwd-d100", 2048, 32, 32, 100, torch.bfloat16, 2e-2),
             ("K13-bwd-d256", 2048, 8, 1, 256, torch.bfloat16, 2e-2),
             ("K13-bwd-f32-d256", 2048, 8, 1, 256, torch.float32, 1e-4),
             ("K13-bwd-d512", 2048, 8, 2, 512, torch.bfloat16, 2e-2),

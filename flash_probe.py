@@ -32,7 +32,9 @@ float32 1e-4). Then per type and shape (llama2_7b's prefills at T = 512
 and 2048, 32 heads of 128, and llama2_70b's G = 8 at 512; 32 heads of
 64 at 2048; Gemma-2B's 8 heads of 256 over one kv head at 512 and 2048;
 the wide path's 8 heads of 512 over 2 kv heads at 512 and 2048, and of
-384 at 2048) the CUDA-event
+384 at 2048; 32 heads of 80, 96 and 100 at 2048, the head_dims between
+the templates: bf16 rows read by TMA at 80 and 96, by cp.async at 100,
+a tree before that on zero-padded copies) the CUDA-event
 median with the L2 flushed before each call (``utils.benchlib.Timer``, as
 ``chip_smoke.py``'s kernels phase times K13 and K13-bwd) of the forward
 and of the backward, the TFLOP/s of each over the causal half (4 and 10
@@ -76,11 +78,13 @@ import torch
 # (at D = 256 the items are 64 rows and the tiles fewer keys)
 CHECKS = [(2, 1, 4, 2, 64), (2, 127, 8, 8, 128), (2, 129, 16, 2, 128),
           (1, 257, 4, 2, 64), (1, 2048, 32, 32, 128), (1, 512, 64, 8, 128),
-          (1, 257, 8, 1, 256), (2, 129, 4, 2, 192), (1, 2048, 8, 1, 256)]
+          (1, 257, 8, 1, 256), (2, 129, 4, 2, 192), (1, 2048, 8, 1, 256),
+          (2, 129, 4, 4, 100), (1, 257, 2, 2, 98), (1, 2048, 32, 32, 96)]
 # (T, Hq, Hkv, D) timed at B = 1
 TIMED = [(2048, 32, 32, 128), (512, 32, 32, 128), (512, 64, 8, 128),
          (2048, 32, 32, 64), (2048, 8, 1, 256), (512, 8, 1, 256),
-         (2048, 8, 2, 512), (512, 8, 2, 512), (2048, 8, 2, 384)]
+         (2048, 8, 2, 512), (512, 8, 2, 512), (2048, 8, 2, 384),
+         (2048, 32, 32, 80), (2048, 32, 32, 96), (2048, 32, 32, 100)]
 DTYPES = {"bfloat16": 2e-2, "float32": 1e-4}   # and each one's gate
 SOURCES = {"k13": ("flash_attn", "flash_attn_bwd"),
            "k12": ("paged_attn_bf16",),

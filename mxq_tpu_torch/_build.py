@@ -63,10 +63,10 @@ SIGNATURES = {
         "paged_attn_bf16": [P, I] + [P] * 4 + [I] * 10 + [F] + [P] * 4,
         "paged_attn_bf16_blocks": [I, I, P]},
     "flash_attn": {
-        "flash_attn": [P] * 5 + [L] * 6 + [I] * 7 + [F, P, P],
+        "flash_attn": [P] * 5 + [L] * 6 + [I] * 8 + [F, P, P],
         "flash_split": [P, L, L, P] + [I] * 5 + [P]},
     "flash_attn_bwd": {
-        "flash_attn_bwd": [P] * 12 + [L] * 11 + [I] * 7 + [F, P],
+        "flash_attn_bwd": [P] * 12 + [L] * 11 + [I] * 8 + [F, P],
         "flash_attn_bwd_scratch": [I] * 6 + [P]},
     # the wide paths (head_dim > 256) of the int8 family, K12, K13 and
     # K13-bwd

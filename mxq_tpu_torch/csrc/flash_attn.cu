@@ -83,20 +83,41 @@
 // bf16 bound (0.104 ms at T = 2048, 32 heads of 128) plus the split
 // pass's bytes (201 MB there, 0.06 ms).
 //
-// head_dim 256 (D in 129..256 runs at it: bf16 on zero-padded copies,
-// float32 on planes zero past D) keeps the design with smaller tiles, as
-// the tiles of D <= 128 outgrow shared memory (Q alone is 64 KB at bf16,
-// 128 KB at float32): bf16 K and V in 64-key tiles through two stages
-// (Q 64 KB, the ring 128 KB: 192 KB), O += P V one m64n256k16 product a
-// k16 slice, O 128 registers of a consumer's 240; float32 in 32-key
-// tiles through one stage (Q's planes 128 KB, the ring 64 KB: 192 KB),
-// so that each tile's copies wait for the last tile's products.
+// A head_dim D that is not a template width runs at the next one, W, with
+// zeros past D in every tile, reading its rows in place (no padded copy)
+// and writing its output D columns wide (NARROW):
+// - bf16, D % 8 == 0 (80, 96, 192): the tensor maps' column extent is D,
+//   so TMA fills columns D .. W of each 64-column box with zeros;
+// - bf16, D even otherwise (open_llama_3b's 100: a head stride of 200
+//   bytes, which a tensor map refuses, and TMA faults on a box that
+//   starts off 16 bytes): the producer warpgroup's 128 threads copy the
+//   rows by cp.async of 8 bytes (D % 4 == 0) or 4 into the same swizzled
+//   layout (CPA), zero-filling columns >= D and tokens >= T; each thread's
+//   copies complete on the stage's full mbarrier
+//   (cp.async.mbarrier.arrive.noinc, 128 arrivals), and the consumers
+//   fence the generic proxy's writes before wgmma reads them. The
+//   producer computes addresses, so it keeps 40 registers (consumers
+//   232); cp.async costs more than TMA (about 1.4x at D = 100 against
+//   TMA at 96, PERF.md), the price of rows TMA cannot address;
+// - float32: the split pass writes the planes W wide, zeros past D.
+// An odd D, or a view whose rows start off 4 bytes, reaches the kernels
+// on zero-padded copies at W (ops/attn_bf16.py load_route).
+//
+// head_dim 256 (D in 129..256 runs at it) keeps the design with smaller
+// tiles, as the tiles of D <= 128 outgrow shared memory (Q alone is 64 KB
+// at bf16, 128 KB at float32): bf16 K and V in 64-key tiles through two
+// stages (Q 64 KB, the ring 128 KB: 192 KB), O += P V one m64n256k16
+// product a k16 slice, O 128 registers of a consumer's 240; float32 in
+// 32-key tiles through one stage (Q's planes 128 KB, the ring 64 KB: 192
+// KB), so that each tile's copies wait for the last tile's products.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -111,9 +132,16 @@ namespace {
 constexpr int BM = 128;                 // query rows a work item
 constexpr int WG = 128;                 // threads of a warpgroup
 constexpr int WS_THREADS = 3 * WG;      // producer + two consumers
-constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+// registers of a producer and a consumer thread after setmaxnreg (the
+// block's 384 x 168 shared out again): a TMA producer needs few, a
+// cp.async producer (CPA) computes addresses for its 128 threads' copies
+template <bool CPA>
+struct Regs {
+  static constexpr int PRODUCER = CPA ? 40 : 24, CONSUMER = CPA ? 232 : 240;
+};
 constexpr int CONSUMER_WARPS = 8;       // arrivals that empty a stage
 constexpr int BAR_TURN = 1;             // named barriers 1, 2: whose turn
+constexpr int BAR_PRODUCER = 3;         // a cp.async producer's threads
 
 // The tiles of each path: planes (hi, and lo for float32), keys a tile,
 // K and V tiles in flight; at D = 256 fewer of each, to fit shared memory
@@ -125,12 +153,14 @@ struct Tiles {
 };
 
 struct WsParams {
-  CUtensorMap q, k, v;                  // 4-D (D, heads, T, B) maps; at
+  CUtensorMap q, k, v;                  // 4-D (d, heads, T, B) maps; at
                                         // float32 over the planes (2B)
-  void* out;                            // [B, T, Hq, D] contiguous, bf16
+  Rows qr, kr, vr;                      // or bf16 rows read by cp.async
+  void* out;                            // [B, T, Hq, d] contiguous, bf16
                                         // or float32
   float* lse;                           // [B, Hq, T] or null
   int nq, B, T, Hq, Hkv;                // nq: row blocks, ceil(T / BM)
+  int d, gran;                          // head_dim, cp.async bytes
   float scale_log2;                     // scale * log2(e)
 };
 
@@ -209,11 +239,19 @@ __device__ __forceinline__ Item item_of(const WsParams& p, int w) {
   return {p.nq - 1 - w / heads, w % p.Hq, w % heads / p.Hq};
 }
 
-template <int D, bool F32>
+// CPA: the producer warpgroup copies bf16 rows by cp.async (else one
+// thread by TMA); NARROW: the output is d < D columns wide (else the
+// template's own code, d = D: an epilogue that took any d cost the
+// template widths 3-10%, PERF.md)
+template <int D, bool F32, bool CPA, bool NARROW>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     flash_wgmma_kernel(const __grid_constant__ WsParams p) {
   using C = Tiles<D, F32>;
+  using OutT = typename std::conditional<F32, float, __nv_bfloat16>::type;
   constexpr int NP = C::NP, BN = C::BN, STAGES = C::STAGES;
+  // a full barrier's arrivals: TMA's one expect, or each producer thread's
+  // cp.async arrival
+  constexpr int FULL_ARRIVALS = CPA ? CP_THREADS : 1;
   constexpr int BOXES = D / 64;
   constexpr int DIAG_TILES = BM / BN;   // the item's last tiles, masked
   constexpr uint32_t Q_BYTES = NP * BM * D * 2, TILE_BYTES = NP * BN * D * 2;
@@ -223,12 +261,12 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   const int items = p.nq * p.B * p.Hq;
   const int wg = threadIdx.x / WG;
   if (threadIdx.x == 0) {
-    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.q_full, FULL_ARRIVALS);
     mbar_init(&sm.q_empty, CONSUMER_WARPS);
 #pragma unroll
     for (int st = 0; st < STAGES; ++st) {
-      mbar_init(&sm.k_full[st], 1);
-      mbar_init(&sm.v_full[st], 1);
+      mbar_init(&sm.k_full[st], FULL_ARRIVALS);
+      mbar_init(&sm.v_full[st], FULL_ARRIVALS);
       mbar_init(&sm.k_empty[st], CONSUMER_WARPS);
       mbar_init(&sm.v_empty[st], CONSUMER_WARPS);
     }
@@ -236,9 +274,33 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
   __syncthreads();
 
-  if (wg == 0) {                        // producer: one thread starts TMA
-    regs_dec<PRODUCER_REGS>();
-    if (threadIdx.x == 0) {
+  if (wg == 0) {                        // producer
+    regs_dec<Regs<CPA>::PRODUCER>();
+    if constexpr (CPA) {                // every thread copies by cp.async
+      const int t = threadIdx.x;
+      int it = 0;
+      for (int j = 0, w; (w = item_index(j)) < items; ++j) {
+        const Item e = item_of(p, w);
+        const int hk = e.h / (p.Hq / p.Hkv);
+        producer_wait(&sm.q_empty, (j & 1) ^ 1, t, BAR_PRODUCER);
+        cp_rows<D, BM>(sm.q, p.qr, p.d, p.T, p.gran, e.h, e.qt * BM, e.b,
+                       t);
+        cp_async_arrive_noinc(&sm.q_full);
+        const int nkt = (e.qt + 1) * DIAG_TILES;
+        for (int kt = 0; kt < nkt; ++kt, ++it) {
+          const int st = it % STAGES;
+          const uint32_t ph = (it / STAGES) & 1;
+          producer_wait(&sm.k_empty[st], ph ^ 1, t, BAR_PRODUCER);
+          cp_rows<D, BN>(sm.k[st], p.kr, p.d, p.T, p.gran, hk, kt * BN, e.b,
+                         t);
+          cp_async_arrive_noinc(&sm.k_full[st]);
+          producer_wait(&sm.v_empty[st], ph ^ 1, t, BAR_PRODUCER);
+          cp_rows<D, BN>(sm.v[st], p.vr, p.d, p.T, p.gran, hk, kt * BN, e.b,
+                         t);
+          cp_async_arrive_noinc(&sm.v_full[st]);
+        }
+      }
+    } else if (threadIdx.x == 0) {      // one thread starts TMA
       int it = 0;                       // tiles loaded: the ring's position
       for (int j = 0, w; (w = item_index(j)) < items; ++j) {
         const Item e = item_of(p, w);
@@ -279,7 +341,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     return;
   }
 
-  regs_inc<CONSUMER_REGS>();
+  regs_inc<Regs<CPA>::CONSUMER>();
   const int cw = wg - 1;                // rows 64 cw .. 64 cw + 63
   const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
   const int row0 = 64 * cw + 16 * warp + lane / 4;    // and row0 + 8
@@ -324,11 +386,11 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     m[0] = m[1] = -INFINITY;
     l[0] = l[1] = 0.f;
-    mbar_wait(&sm.q_full, j & 1);
+    wait_tile<CPA>(&sm.q_full, j & 1);
 
     // tile 0's S alone; then S of tile kt with P V of tile kt - 1 (the
     // context rescaled between the two); then the last P V
-    mbar_wait(&sm.k_full[it % STAGES], (it / STAGES) & 1);
+    wait_tile<CPA>(&sm.k_full[it % STAGES], (it / STAGES) & 1);
     turn_wait();
     reg_fence(s);
     wgmma_fence();
@@ -344,8 +406,8 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     for (int kt = 1; kt < nkt; ++kt) {
       const int st = (it + kt) % STAGES;
       const int pst = (it + kt - 1) % STAGES;
-      mbar_wait(&sm.k_full[st], ((it + kt) / STAGES) & 1);
-      mbar_wait(&sm.v_full[pst], ((it + kt - 1) / STAGES) & 1);
+      wait_tile<CPA>(&sm.k_full[st], ((it + kt) / STAGES) & 1);
+      wait_tile<CPA>(&sm.v_full[pst], ((it + kt - 1) / STAGES) & 1);
       turn_wait();
       reg_fence(s);
       wgmma_fence();
@@ -367,7 +429,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
       to_pairs<NP, BN>(s, pa);
     }
     const int lst = (it + nkt - 1) % STAGES;
-    mbar_wait(&sm.v_full[lst], ((it + nkt - 1) / STAGES) & 1);
+    wait_tile<CPA>(&sm.v_full[lst], ((it + nkt - 1) / STAGES) & 1);
     turn_wait();
     rescale();
     wgmma_fence();
@@ -392,6 +454,17 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         p.lse[((long long)e.b * p.Hq + e.h) * p.T + row] =
             m[r] * 0.69314718055994531f + logf(l[r]);
       const float inv = 1.f / l[r];
+      if constexpr (NARROW) {           // columns < d, the output's width
+        OutT* const out = static_cast<OutT*>(p.out)
+                          + (((long long)e.b * p.T + row) * p.Hq + e.h) * p.d;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          const int col = 8 * i + 2 * (lane & 3);
+          store_cols(out + col, col, p.d, o[4 * i + 2 * r] * inv,
+                     o[4 * i + 2 * r + 1] * inv);
+        }
+        continue;
+      }
       const long long at = (((long long)e.b * p.T + row) * p.Hq + e.h) * D
                            + 2 * (lane & 3);
 #pragma unroll
@@ -408,11 +481,13 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
 }
 
-// The kernel over p's maps: one persistent block an SM.
-template <int D, bool F32>
-int launch_wgmma(WsParams& p, int B, int T, int Hq, int Hkv, float scale,
-                 cudaStream_t stream) {
+// The kernel over p's maps (or, CPA, rows), its output d columns wide:
+// one persistent block an SM.
+template <int D, bool F32, bool CPA>
+int launch_wgmma(WsParams& p, int B, int T, int Hq, int Hkv, int d,
+                 float scale, cudaStream_t stream) {
   p.nq = (T + BM - 1) / BM;
+  p.d = d;
   p.B = B;
   p.T = T;
   p.Hq = Hq;
@@ -426,7 +501,12 @@ int launch_wgmma(WsParams& p, int B, int T, int Hq, int Hkv, float scale,
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const size_t smem = sizeof(WsSmem<D, F32>) + 1024;  // + the alignment
-  auto kern = flash_wgmma_kernel<D, F32>;
+  void (*kern)(WsParams);               // cp.async only at NARROW
+  if constexpr (CPA)
+    kern = flash_wgmma_kernel<D, F32, true, true>;
+  else
+    kern = d < D ? flash_wgmma_kernel<D, F32, false, true>
+                 : flash_wgmma_kernel<D, F32, false, false>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -436,22 +516,34 @@ int launch_wgmma(WsParams& p, int B, int T, int Hq, int Hkv, float scale,
   return (int)cudaGetLastError();
 }
 
-// bf16: the maps over q, k, v on their strides
+// bf16 rows of head_dim d <= D read in place: gran 0, the maps over q, k,
+// v on their strides (column extent d: TMA fills columns d .. D with
+// zeros); gran 4 or 8, the producer's cp.async of that many bytes
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out,
                 float* lse, long long qsb, long long qst, long long ksb,
                 long long kst, long long vsb, long long vst, int B, int T,
-                int Hq, int Hkv, float scale, cudaStream_t stream) {
+                int Hq, int Hkv, int d, int gran, float scale,
+                cudaStream_t stream) {
   WsParams p;
-  if (!tensor_map_rows(&p.q, q, D, Hq, T, B, qst, qsb, BM)
-      || !tensor_map_rows(&p.k, k, D, Hkv, T, B, kst, ksb,
-                          Tiles<D, false>::BN)
-      || !tensor_map_rows(&p.v, v, D, Hkv, T, B, vst, vsb,
-                          Tiles<D, false>::BN))
-    return (int)cudaErrorInvalidValue;
   p.out = out;
   p.lse = lse;
-  return launch_wgmma<D, false>(p, B, T, Hq, Hkv, scale, stream);
+  p.gran = gran;
+  if (gran) {
+    p.qr = {static_cast<const __nv_bfloat16*>(q), qsb, qst};
+    p.kr = {static_cast<const __nv_bfloat16*>(k), ksb, kst};
+    p.vr = {static_cast<const __nv_bfloat16*>(v), vsb, vst};
+    return launch_wgmma<D, false, true>(p, B, T, Hq, Hkv, d, scale,
+                                        stream);
+  }
+  if (!tensor_map_rows(&p.q, q, d, Hq, T, B, qst, qsb, BM)
+      || !tensor_map_rows(&p.k, k, d, Hkv, T, B, kst, ksb,
+                          Tiles<D, false>::BN)
+      || !tensor_map_rows(&p.v, v, d, Hkv, T, B, vst, vsb,
+                          Tiles<D, false>::BN))
+    return (int)cudaErrorInvalidValue;
+  return launch_wgmma<D, false, false>(p, B, T, Hq, Hkv, d, scale,
+                                       stream);
 }
 
 // float32: the split pass into planes (q's, then k's, then v's, each
@@ -483,28 +575,45 @@ int launch_f32(const void* q, const void* k, const void* v, void* out,
     return (int)cudaErrorInvalidValue;
   p.out = out;
   p.lse = lse;
-  return launch_wgmma<W, true>(p, B, T, Hq, Hkv, scale, stream);
+  return launch_wgmma<W, true, false>(p, B, T, Hq, Hkv, d, scale,
+                                      stream);
+}
+
+// Whether bf16 rows x (element strides sb, st; heads d apart) start and
+// step on multiples of `bytes`
+inline bool rows_aligned(const void* x, long long sb, long long st, int d,
+                         int bytes) {
+  return reinterpret_cast<uintptr_t>(x) % bytes == 0 && sb * 2 % bytes == 0
+         && st * 2 % bytes == 0 && d * 2 % bytes == 0;
 }
 
 }  // namespace
 
 // q [B, T, Hq, d], k/v [B, >=T, Hkv, d] with element strides (batch,
-// token) given and heads and d contiguous; out [B, T, Hq, W] contiguous in
+// token) given and heads and d contiguous; out [B, T, Hq, d] contiguous in
 // the inputs' type; lse [B, Hq, T] f32 or null (not written). W (64, 128
-// or 256) is the kernel's head_dim template; scale is 1/sqrt(d). f32 = 0:
-// bf16 tensors with d = W, 16-byte aligned rows and strides (the tensor
-// maps' encoding failing returns cudaErrorInvalidValue); planes is not
-// read. f32 = 1: float32 tensors, any d <= W (columns d .. W of the output
-// are zero); planes: bf16 scratch of 2 B T (Hq + 2 Hkv) W elements, 16-byte
-// aligned, for the split pass. Returns a cudaError_t.
+// or 256) is the kernel's head_dim template, d <= W the true head_dim (the
+// kernel's tiles hold zeros in columns d .. W); scale is 1/sqrt(d). f32 =
+// 0: bf16 tensors read in place, `load` says how: 0 by TMA (d % 8 == 0,
+// 16-byte aligned rows and strides; the tensor maps' encoding failing
+// returns cudaErrorInvalidValue), 8 or 4 by the producer's cp.async of
+// that many bytes (d even, d % 4 == 0 for 8; rows and strides aligned to
+// them); planes is not read. f32 = 1: float32 tensors; planes: bf16
+// scratch of 2 B T (Hq + 2 Hkv) W elements, 16-byte aligned, for the split
+// pass; load is not read. Returns a cudaError_t.
 extern "C" int flash_attn(const void* q, const void* k, const void* v,
                           void* out, float* lse, long long qsb, long long qst,
                           long long ksb, long long kst, long long vsb,
                           long long vst, int B, int T, int Hq, int Hkv, int W,
-                          int d, int f32, float scale, void* planes,
-                          void* stream) {
+                          int d, int f32, int load, float scale,
+                          void* planes, void* stream) {
   if (B < 0 || T < 0 || Hkv < 1 || Hq < Hkv || Hq % Hkv || B > 65535
-      || Hq > 65535 || d < 1 || d > W || (!f32 && d != W))
+      || Hq > 65535 || d < 1 || d > W)
+    return (int)cudaErrorInvalidValue;
+  if (!f32 && load
+      && ((load != 4 && load != 8) || !rows_aligned(q, qsb, qst, d, load)
+          || !rows_aligned(k, ksb, kst, d, load)
+          || !rows_aligned(v, vsb, vst, d, load)))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -524,13 +633,13 @@ extern "C" int flash_attn(const void* q, const void* k, const void* v,
   }
   if (W == 64)
     return launch_bf16<64>(q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
-                           B, T, Hq, Hkv, scale, st);
+                           B, T, Hq, Hkv, d, load, scale, st);
   if (W == 128)
     return launch_bf16<128>(q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
-                            B, T, Hq, Hkv, scale, st);
+                            B, T, Hq, Hkv, d, load, scale, st);
   if (W == 256)
     return launch_bf16<256>(q, k, v, out, lse, qsb, qst, ksb, kst, vsb, vst,
-                            B, T, Hq, Hkv, scale, st);
+                            B, T, Hq, Hkv, d, load, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

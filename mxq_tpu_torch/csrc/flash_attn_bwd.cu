@@ -96,10 +96,30 @@
 // 2048, 32 heads of 128) plus the split pass's bytes (q, k, v and dO
 // split, o read: about 0.09 ms there).
 //
-// head_dim 256 (D in 129..256 runs at it: bf16 on zero-padded copies,
-// float32 on planes zero past D): dK and dV of 64 keys at D = 256 are 256
-// floats a thread, past a consumer's 232 registers, and Q, dO and o of
-// 128 rows alone fill shared memory. So items are 64 rows (IM = 64):
+// A head_dim D that is not a template width runs at the next one, W, with
+// zeros past D in every tile, reading its rows in place (no padded copy)
+// and writing dQ, dK and dV D columns wide (NARROW):
+// - bf16, D % 8 == 0 (80, 96, 192): the tensor maps' column extent is D,
+//   so TMA fills columns D .. W of each 64-column box with zeros;
+// - bf16, D even otherwise (open_llama_3b's 100: a head stride of 200
+//   bytes, which a tensor map refuses, and TMA faults on a box that
+//   starts off 16 bytes): the producer warpgroup's 128 threads copy the
+//   rows by cp.async of 8 bytes (D % 4 == 0) or 4 into the same swizzled
+//   layout (CPA), zero-filling columns >= D and tokens >= T; each thread's
+//   copies complete on the stage's full mbarrier
+//   (cp.async.mbarrier.arrive.noinc, 128 arrivals), and the consumers
+//   fence the generic proxy's writes before wgmma reads them. The
+//   producer computes addresses, so it keeps 40 registers (consumers
+//   232, as with TMA); cp.async costs more than TMA (PERF.md), the price
+//   of rows TMA cannot address; di = rowsum(o . dO) sums the zeros too;
+// - float32: the split pass writes the planes W wide, zeros past D.
+// An odd D, or a view whose rows start off 4 bytes, reaches the kernels
+// on zero-padded copies at W (ops/attn_bf16.py load_route).
+//
+// head_dim 256 (D in 129..256 runs at it): dK and dV of 64 keys at D =
+// 256 are 256 floats a thread, past a consumer's 232 registers, and Q, dO
+// and o of 128 rows alone fill shared memory. So items are 64 rows (IM =
+// 64):
 // - the dQ kernel runs one consumer warpgroup (two warpgroups a block, no
 //   register handover: each thread may hold 255), dQ 128 registers, K and
 //   V in 32-key tiles through three stages (bf16: Q, dO, o 96 KB, the
@@ -138,6 +158,7 @@ constexpr int WS_THREADS = 3 * WG;      // producer + two consumers
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr int CONSUMER_WARPS = 8;       // arrivals that empty a stage
 constexpr int BAR_CONSUMERS = 1;        // named barrier of the consumers
+constexpr int BAR_PRODUCER = 2;         // a cp.async producer's threads
 
 // rows of an item at head_dim template D: query rows (dQ kernel) or keys
 // (dK/dV kernel)
@@ -162,27 +183,31 @@ struct Tiles {
 };
 
 struct DqParams {
-  CUtensorMap q, dout, o;               // 4-D (D, heads, T, B), IM-row boxes
+  CUtensorMap q, dout, o;               // 4-D (d, heads, T, B), IM-row boxes
   CUtensorMap k, v;                     // TN-row boxes
+  Rows qr, dor, orw, kr, vr;            // or bf16 rows read by cp.async
   const float* lse;                     // [B, Hq, T]
   float* lse2;                          // [B, Hq, Tp]: lse log2(e); +inf
   float* di;                            // and 0 at rows >= T
-  void* dq;                             // [B, T, Hq, D] contiguous
+  void* dq;                             // [B, T, Hq, d] contiguous
   int nq, B, T, Tp, Hq, Hkv;            // nq = Tp / IM = ceil(T / IM)
+  int d, gran;                          // head_dim, cp.async bytes
   float scale, scale_log2;
 };
 
 struct DkvParams {
   CUtensorMap k, v;                     // IM-row boxes
   CUtensorMap q, dout;                  // TN-row boxes
+  Rows kr, vr, qr, dor;                 // or bf16 rows read by cp.async
   const float* lse2;                    // [B, Hq, Tp]
   const float* di;
   float* part;                          // [2][S][B][Hkv][Tp][D] when S > 1
   int* tickets;                         // [nq][Hkv][B] when S > 1
-  void* dk;                             // [B, S rows, Hkv, D]
+  void* dk;                             // [B, S rows, Hkv, d]
   void* dv;
   long long kvsb;                       // their batch stride
   int nq, B, T, Tp, Hq, Hkv, splits;
+  int d, gran;                          // head_dim, cp.async bytes
   float scale, scale_log2;
 };
 
@@ -216,15 +241,6 @@ __device__ __forceinline__ int item_index(int j) {
   return j * g + ((j & 1) ? g - 1 - i : i);
 }
 
-// element offset of (row r, column c) of a [R][D] bf16 tile as TMA leaves
-// it: D / 64 boxes of R lines of 128 bytes, 16-byte chunk j of line r at
-// chunk j ^ (r % 8)
-template <int R>
-__device__ __forceinline__ int tile_at(int r, int c) {
-  return (c >> 6) * R * 64 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3)
-         + (c & 7);
-}
-
 // one tile's NP planes through TMA: plane pl of batch row b is the map's
 // batch row b + pl B
 template <int D, int NP, int ROWS>
@@ -246,31 +262,34 @@ __device__ __forceinline__ int acc_col(int i, int lane) {
   return 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
 }
 
-__device__ __forceinline__ void store2(__nv_bfloat16* at, float x, float y) {
-  *reinterpret_cast<uint32_t*>(at) = pack_bf2(x, y);
-}
-
-__device__ __forceinline__ void store2(float* at, float x, float y) {
-  *reinterpret_cast<float2*>(at) = make_float2(x, y);
-}
-
 // the lane's two rows of a [64 x D] accumulator, rows < nrows, to dst +
-// row * rstride in OutT
-template <int D, typename OutT>
+// row * rstride in OutT; NARROW: only columns < ncols
+template <int D, bool NARROW, typename OutT>
 __device__ __forceinline__ void store_acc(OutT* dst, long long rstride,
-                                          int row0, int nrows,
+                                          int row0, int nrows, int ncols,
                                           const float (&acc)[D / 2],
                                           int lane) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= nrows) continue;
-    OutT* out = dst + row * rstride + 2 * (lane & 3);
+    if constexpr (NARROW) {
+      OutT* out = dst + row * rstride;
 #pragma unroll
-    for (int i = 0; i < D / 8; ++i)
-      store2(out + 8 * i, acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+      for (int i = 0; i < D / 8; ++i) {
+        const int col = 8 * i + 2 * (lane & 3);
+        store_cols(out + col, col, ncols, acc[4 * i + 2 * r],
+                   acc[4 * i + 2 * r + 1]);
+      }
+    } else {
+      OutT* out = dst + row * rstride + 2 * (lane & 3);
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i)
+        store2(out + 8 * i, acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
+    }
   }
 }
+
 
 // key tiles of a dQ item (query rows qt IM ..): keys < min((qt + 1) IM, T)
 template <int IM, int TN>
@@ -278,12 +297,18 @@ __device__ __forceinline__ int dq_key_tiles(int qt, int T) {
   return (min((qt + 1) * IM, T) + TN - 1) / TN;
 }
 
-template <int D, bool F32>
+// CPA: the producer warpgroup copies bf16 rows by cp.async (else one
+// thread by TMA); NARROW: dQ is d < D columns wide (else the template's
+// own code, d = D)
+template <int D, bool F32, bool CPA, bool NARROW>
 __global__ void __launch_bounds__(Tiles<D, F32>::DQ_THREADS, 1)
     dq_wgmma_kernel(const __grid_constant__ DqParams p) {
   using C = Tiles<D, F32>;
   using OutT = typename std::conditional<F32, float, __nv_bfloat16>::type;
   constexpr int NP = C::NP, TN = C::TN, STAGES = C::DQ_STAGES, IM = C::IM;
+  // a full barrier's arrivals: TMA's one expect, or each producer thread's
+  // cp.async arrival
+  constexpr int FULL_ARRIVALS = CPA ? CP_THREADS : 1;
   // arrivals that empty a stage: the consumers' warps
   constexpr int EMPTY_ARRIVALS = 4 * C::DQ_WGS;
   constexpr uint32_t ROWS_BYTES = NP * IM * D * 2, TILE_BYTES = NP * TN * D * 2;
@@ -294,20 +319,43 @@ __global__ void __launch_bounds__(Tiles<D, F32>::DQ_THREADS, 1)
   const int items = p.nq * heads;
   const int wg = threadIdx.x / WG;
   if (threadIdx.x == 0) {
-    mbar_init(&sm.q_full, 1);
+    mbar_init(&sm.q_full, FULL_ARRIVALS);
     mbar_init(&sm.q_empty, EMPTY_ARRIVALS);
 #pragma unroll
     for (int st = 0; st < STAGES; ++st) {
-      mbar_init(&sm.kv_full[st], 1);
+      mbar_init(&sm.kv_full[st], FULL_ARRIVALS);
       mbar_init(&sm.kv_empty[st], EMPTY_ARRIVALS);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (wg == 0) {                        // producer: one thread starts TMA
+  if (wg == 0) {                        // producer
     if constexpr (C::DQ_WGS > 1) regs_dec<PRODUCER_REGS>();
-    if (threadIdx.x == 0) {
+    if constexpr (CPA) {                // every thread copies by cp.async
+      const int t = threadIdx.x;
+      int it = 0;
+      for (int j = 0, w; (w = item_index(j)) < items; ++j) {
+        const int qt = p.nq - 1 - w / heads, h = w % p.Hq;
+        const int b = w % heads / p.Hq, hk = h / (p.Hq / p.Hkv);
+        producer_wait(&sm.q_empty, (j & 1) ^ 1, t, BAR_PRODUCER);
+        cp_rows<D, IM>(sm.q, p.qr, p.d, p.T, p.gran, h, qt * IM, b, t);
+        cp_rows<D, IM>(sm.dout, p.dor, p.d, p.T, p.gran, h, qt * IM, b, t);
+        cp_rows<D, IM>(sm.o, p.orw, p.d, p.T, p.gran, h, qt * IM, b, t);
+        cp_async_arrive_noinc(&sm.q_full);
+        const int nkt = dq_key_tiles<IM, TN>(qt, p.T);
+        for (int kt = 0; kt < nkt; ++kt, ++it) {
+          const int st = it % STAGES;
+          producer_wait(&sm.kv_empty[st], ((it / STAGES) & 1) ^ 1, t,
+                        BAR_PRODUCER);
+          cp_rows<D, TN>(sm.k[st], p.kr, p.d, p.T, p.gran, hk, kt * TN, b,
+                         t);
+          cp_rows<D, TN>(sm.v[st], p.vr, p.d, p.T, p.gran, hk, kt * TN, b,
+                         t);
+          cp_async_arrive_noinc(&sm.kv_full[st]);
+        }
+      }
+    } else if (threadIdx.x == 0) {      // one thread starts TMA
       int it = 0;                       // tiles loaded: the ring's position
       for (int j = 0, w; (w = item_index(j)) < items; ++j) {
         const int qt = p.nq - 1 - w / heads, h = w % p.Hq;
@@ -355,7 +403,7 @@ __global__ void __launch_bounds__(Tiles<D, F32>::DQ_THREADS, 1)
     const int diag = qt * (IM / TN) + cw * (64 / TN);
     const int mine = min(diag + 64 / TN, nkt);
     const long long rows = ((long long)b * p.Hq + h);
-    mbar_wait(&sm.q_full, j & 1);
+    wait_tile<CPA>(&sm.q_full, j & 1);
 
     // di = rowsum(o . dO) and lse in base 2 of the lane's two rows: at
     // float32 the split pass wrote them; at bf16 from the o and dO tiles
@@ -395,7 +443,7 @@ __global__ void __launch_bounds__(Tiles<D, F32>::DQ_THREADS, 1)
     int pending = -1;                   // the stage dQ's product still reads
     for (int kt = 0; kt < nkt; ++kt, ++it) {
       const int st = it % STAGES;
-      mbar_wait(&sm.kv_full[st], (it / STAGES) & 1);
+      wait_tile<CPA>(&sm.kv_full[st], (it / STAGES) & 1);
       if (kt >= mine) {                 // all keys past this warpgroup's rows
         release(&sm.kv_empty[st]);
         continue;
@@ -437,9 +485,11 @@ __global__ void __launch_bounds__(Tiles<D, F32>::DQ_THREADS, 1)
     wgmma_wait<0>();
     reg_fence(dq);
     if (pending >= 0) release(&sm.kv_empty[pending]);
-    store_acc<D>(static_cast<OutT*>(p.dq)
-                 + (((long long)b * p.T + qt * IM) * p.Hq + h) * D,
-                 (long long)p.Hq * D, row0, p.T - qt * IM, dq, lane);
+    const int dw = NARROW ? p.d : D;   // dQ's width
+    store_acc<D, NARROW>(static_cast<OutT*>(p.dq)
+                         + (((long long)b * p.T + qt * IM) * p.Hq + h) * dw,
+                         (long long)p.Hq * dw, row0, p.T - qt * IM, dw, dq,
+                         lane);
   }
 }
 
@@ -455,12 +505,17 @@ __device__ __forceinline__ KvItem kv_item(const DkvParams& p, int w) {
   return {w / per, r % p.Hkv, r / p.Hkv % p.B, r / (p.Hkv * p.B)};
 }
 
-template <int D, bool F32>
+// CPA and NARROW as for dq_wgmma_kernel (dK and dV d columns wide)
+template <int D, bool F32, bool CPA, bool NARROW>
 __global__ void __launch_bounds__(WS_THREADS, 1)
     dkv_wgmma_kernel(const __grid_constant__ DkvParams p) {
   using C = Tiles<D, F32>;
   using OutT = typename std::conditional<F32, float, __nv_bfloat16>::type;
   constexpr int NP = C::NP, TN = C::TN, STAGES = C::DKV_STAGES, IM = C::IM;
+  // a full barrier's arrivals: TMA's one expect, or each producer thread's
+  // cp.async arrival (and for the ring's, its first thread's expect of lse
+  // and di)
+  constexpr int FULL_ARRIVALS = CPA ? CP_THREADS : 1;
   constexpr int DA = C::DA;             // columns of dK and dV a consumer
                                         // holds
   constexpr uint32_t ROWS_BYTES = NP * IM * D * 2, TILE_BYTES = NP * TN * D * 2;
@@ -472,20 +527,53 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   const int nqt = (p.T + TN - 1) / TN;  // query tiles
   const int wg = threadIdx.x / WG;
   if (threadIdx.x == 0) {
-    mbar_init(&sm.kv_full, 1);
+    mbar_init(&sm.kv_full, FULL_ARRIVALS);
     mbar_init(&sm.kv_empty, CONSUMER_WARPS);
 #pragma unroll
     for (int st = 0; st < STAGES; ++st) {
-      mbar_init(&sm.full[st], 1);
+      mbar_init(&sm.full[st], FULL_ARRIVALS + (CPA ? 1 : 0));
       mbar_init(&sm.empty[st], CONSUMER_WARPS);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (wg == 0) {                        // producer: one thread starts TMA
+  if (wg == 0) {                        // producer
     regs_dec<PRODUCER_REGS>();
-    if (threadIdx.x == 0) {
+    if constexpr (CPA) {                // every thread copies by cp.async
+      const int t = threadIdx.x;
+      int it = 0;
+      for (int j = 0, w; (w = item_index(j)) < items; ++j) {
+        const KvItem e = kv_item(p, w);
+        producer_wait(&sm.kv_empty, (j & 1) ^ 1, t, BAR_PRODUCER);
+        cp_rows<D, IM>(sm.k, p.kr, p.d, p.T, p.gran, e.hk, e.kt * IM, e.b,
+                       t);
+        cp_rows<D, IM>(sm.v, p.vr, p.d, p.T, p.gran, e.hk, e.kt * IM, e.b,
+                       t);
+        cp_async_arrive_noinc(&sm.kv_full);
+        for (int g = e.s * g_split; g < (e.s + 1) * g_split; ++g) {
+          const int h = e.hk * g_all + g;
+          for (int qt = e.kt * IM / TN; qt < nqt; ++qt, ++it) {
+            const int st = it % STAGES;
+            producer_wait(&sm.empty[st], ((it / STAGES) & 1) ^ 1, t,
+                          BAR_PRODUCER);
+            if (t == 0) {
+              const long long rows = ((long long)e.b * p.Hq + h) * p.Tp;
+              mbar_expect(&sm.full[st], 2 * TN * 4);
+              bulk_load(sm.lse2[st], p.lse2 + rows + qt * TN, TN * 4,
+                        &sm.full[st]);
+              bulk_load(sm.di[st], p.di + rows + qt * TN, TN * 4,
+                        &sm.full[st]);
+            }
+            cp_rows<D, TN>(sm.q[st], p.qr, p.d, p.T, p.gran, h, qt * TN,
+                           e.b, t);
+            cp_rows<D, TN>(sm.dout[st], p.dor, p.d, p.T, p.gran, h, qt * TN,
+                           e.b, t);
+            cp_async_arrive_noinc(&sm.full[st]);
+          }
+        }
+      }
+    } else if (threadIdx.x == 0) {      // one thread starts TMA
       int it = 0;
       for (int j = 0, w; (w = item_index(j)) < items; ++j) {
         const KvItem e = kv_item(p, w);
@@ -538,13 +626,13 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     // the query tile on this warpgroup's diagonal (that holds its first
     // key, e.kt IM + kr0); the ones before it see none of its keys
     const int diag = e.kt * (IM / TN) + kr0 / TN;
-    mbar_wait(&sm.kv_full, j & 1);
+    wait_tile<CPA>(&sm.kv_full, j & 1);
 #pragma unroll
     for (int i = 0; i < DA / 2; ++i) dk[i] = dv[i] = 0.f;
     for (int g = 0; g < g_split; ++g) {
       for (int qt = e.kt * IM / TN; qt < nqt; ++qt, ++it) {
         const int st = it % STAGES;
-        mbar_wait(&sm.full[st], (it / STAGES) & 1);
+        wait_tile<CPA>(&sm.full[st], (it / STAGES) & 1);
         if (qt < diag) {
           release(&sm.empty[st]);
           continue;
@@ -614,14 +702,16 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
     release(&sm.kv_empty);
 
     const int keys = p.T - e.kt * IM;   // rows of the item below T
+    const int dw = NARROW ? p.d : D;   // dK's and dV's width
     const long long out0 = (long long)e.b * p.kvsb
-                           + ((long long)e.kt * IM * p.Hkv + e.hk) * D + c0;
-    const long long kst = (long long)p.Hkv * D;
+                           + ((long long)e.kt * IM * p.Hkv + e.hk) * dw + c0;
+    const long long kst = (long long)p.Hkv * dw;
+    const int ncols = dw - c0;          // of the warpgroup's columns
     OutT* const dk_out = static_cast<OutT*>(p.dk);
     OutT* const dv_out = static_cast<OutT*>(p.dv);
     if (p.splits == 1) {
-      store_acc<DA>(dk_out + out0, kst, key0, keys, dk, lane);
-      store_acc<DA>(dv_out + out0, kst, key0, keys, dv, lane);
+      store_acc<DA, NARROW>(dk_out + out0, kst, key0, keys, ncols, dk, lane);
+      store_acc<DA, NARROW>(dv_out + out0, kst, key0, keys, ncols, dv, lane);
       continue;
     }
     // split heads: this block's f32 partials, then the last block of the
@@ -674,10 +764,15 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
           }
         }
         if (key >= keys) continue;
-        OutT* out = (pl ? dv_out : dk_out) + out0 + key * kst + 2 * (lane & 3);
+        OutT* out = (pl ? dv_out : dk_out) + out0 + key * kst;
 #pragma unroll
-        for (int i = 0; i < DA / 8; ++i)
-          store2(out + 8 * i, acc[i].x, acc[i].y);
+        for (int i = 0; i < DA / 8; ++i) {
+          const int col = 8 * i + 2 * (lane & 3);
+          if constexpr (NARROW)
+            store_cols(out + col, col, ncols, acc[i].x, acc[i].y);
+          else
+            store2(out + col, acc[i].x, acc[i].y);
+        }
       }
     }
     if (threadIdx.x == WG) *ticket = 0;  // for the next call
@@ -720,19 +815,28 @@ Scratch scratch_of(int B, int T, int Hq, int Hkv, int D, int sms) {
 }
 
 // The tensors the two kernels read, as the maps see them: bf16 rows on
-// their strides, or float32's planes ([2B, T, H, D], contiguous)
+// their strides, heads d apart, or float32's planes ([2B, T, H, D],
+// contiguous, d = D)
 struct Operand {
   const void* x;
   long long sb, st;
-  int heads, batch;
+  int heads, batch, d;
+
+  Rows rows() const {
+    return {static_cast<const __nv_bfloat16*>(x), sb, st};
+  }
 };
 
-template <int D, bool F32>
+// The two kernels over bf16 rows of head_dim d <= D (or the planes, d =
+// D), read by TMA (CPA false: maps of column extent d, zeros past it) or
+// the producers' cp.async of `gran` bytes (CPA); dQ, dK and dV written at
+// width d
+template <int D, bool F32, bool CPA>
 int launch_wgmma(const Operand& q, const Operand& k, const Operand& v,
                  const Operand& o, const Operand& dout, const float* lse,
                  void* dq, void* dk, void* dv, float* ws, int* tickets,
-                 long long kvsb, int B, int T, int Hq, int Hkv, float scale,
-                 int sms, cudaStream_t stream) {
+                 long long kvsb, int B, int T, int Hq, int Hkv, int d,
+                 int gran, float scale, int sms, cudaStream_t stream) {
   using C = Tiles<D, F32>;
   constexpr int IM = C::IM;
   const Scratch sc = scratch_of(B, T, Hq, Hkv, D, sms);
@@ -744,15 +848,26 @@ int launch_wgmma(const Operand& q, const Operand& k, const Operand& v,
     return (int)cudaErrorInvalidValue;
 
   auto map = [&](CUtensorMap* m, const Operand& x, int rows) {
-    return tensor_map_rows(m, x.x, D, x.heads, T, x.batch, x.st, x.sb, rows);
+    return tensor_map_rows(m, x.x, x.d, x.heads, T, x.batch, x.st, x.sb,
+                           rows);
   };
   DqParams a;
   DkvParams c;
-  if (!map(&a.q, q, IM) || !map(&a.dout, dout, IM)
-      || (!F32 && !map(&a.o, o, IM)) || !map(&a.k, k, C::TN)
-      || !map(&a.v, v, C::TN) || !map(&c.k, k, IM) || !map(&c.v, v, IM)
-      || !map(&c.q, q, C::TN) || !map(&c.dout, dout, C::TN))
+  if constexpr (CPA) {
+    a.qr = c.qr = q.rows();
+    a.dor = c.dor = dout.rows();
+    a.orw = o.rows();
+    a.kr = c.kr = k.rows();
+    a.vr = c.vr = v.rows();
+  } else if (!map(&a.q, q, IM) || !map(&a.dout, dout, IM)
+             || (!F32 && !map(&a.o, o, IM)) || !map(&a.k, k, C::TN)
+             || !map(&a.v, v, C::TN) || !map(&c.k, k, IM)
+             || !map(&c.v, v, IM) || !map(&c.q, q, C::TN)
+             || !map(&c.dout, dout, C::TN)) {
     return (int)cudaErrorInvalidValue;
+  }
+  a.d = c.d = d;
+  a.gran = c.gran = gran;
   const long long rows = (long long)B * Hq * sc.Tp;
   a.lse = lse;
   a.lse2 = ws;
@@ -777,8 +892,18 @@ int launch_wgmma(const Operand& q, const Operand& k, const Operand& v,
 
   const size_t dq_smem = sizeof(DqSmem<D, F32>) + 1024;   // + the alignment
   const size_t kv_smem = sizeof(DkvSmem<D, F32>) + 1024;
-  auto kq = dq_wgmma_kernel<D, F32>;
-  auto kkv = dkv_wgmma_kernel<D, F32>;
+  void (*kq)(DqParams);                 // cp.async only at NARROW
+  void (*kkv)(DkvParams);
+  if constexpr (CPA) {
+    kq = dq_wgmma_kernel<D, F32, true, true>;
+    kkv = dkv_wgmma_kernel<D, F32, true, true>;
+  } else if (d < D) {
+    kq = dq_wgmma_kernel<D, F32, false, true>;
+    kkv = dkv_wgmma_kernel<D, F32, false, true>;
+  } else {
+    kq = dq_wgmma_kernel<D, F32, false, false>;
+    kkv = dkv_wgmma_kernel<D, F32, false, false>;
+  }
   cudaError_t e = cudaFuncSetAttribute(
       kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
   if (e == cudaSuccess)
@@ -831,13 +956,36 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o,
   int err = launch_split<W, true>(sp, 4, (long long)B * sc.Tp * Hq, stream);
   if (err) return err;
   const long long pst = (long long)Hq * W, kvst = (long long)Hkv * W;
-  const Operand qo{qp, T * pst, pst, Hq, 2 * B};
-  const Operand ko{kp, T * kvst, kvst, Hkv, 2 * B};
-  const Operand vo{vp, T * kvst, kvst, Hkv, 2 * B};
-  const Operand doo{dp, T * pst, pst, Hq, 2 * B};
-  return launch_wgmma<W, true>(qo, ko, vo, qo, doo, lse, dq, dk, dv, ws,
-                               tickets, kvsb, B, T, Hq, Hkv, scale, sms,
-                               stream);
+  const Operand qo{qp, T * pst, pst, Hq, 2 * B, W};
+  const Operand ko{kp, T * kvst, kvst, Hkv, 2 * B, W};
+  const Operand vo{vp, T * kvst, kvst, Hkv, 2 * B, W};
+  const Operand doo{dp, T * pst, pst, Hq, 2 * B, W};
+  return launch_wgmma<W, true, false>(qo, ko, vo, qo, doo, lse, dq, dk, dv,
+                                      ws, tickets, kvsb, B, T, Hq, Hkv, d, 0,
+                                      scale, sms, stream);
+}
+
+// bf16 rows read in place: by TMA (load 0) or cp.async of `load` bytes
+template <int W>
+int launch_bf16(const Operand& q, const Operand& k, const Operand& v,
+                const Operand& o, const Operand& dout, const float* lse,
+                void* dq, void* dk, void* dv, float* ws, int* tickets,
+                long long kvsb, int B, int T, int Hq, int Hkv, int d,
+                int load, float scale, int sms, cudaStream_t stream) {
+  if (load)
+    return launch_wgmma<W, false, true>(q, k, v, o, dout, lse, dq, dk, dv,
+                                        ws, tickets, kvsb, B, T, Hq, Hkv, d,
+                                        load, scale, sms, stream);
+  return launch_wgmma<W, false, false>(q, k, v, o, dout, lse, dq, dk, dv, ws,
+                                       tickets, kvsb, B, T, Hq, Hkv, d, 0,
+                                       scale, sms, stream);
+}
+
+// Whether x's rows start and step on multiples of `bytes`
+inline bool rows_aligned(const Operand& x, int bytes) {
+  return reinterpret_cast<uintptr_t>(x.x) % bytes == 0
+         && x.sb * 2 % bytes == 0 && x.st * 2 % bytes == 0
+         && x.d * 2 % bytes == 0;
 }
 
 }  // namespace
@@ -866,15 +1014,18 @@ extern "C" int flash_attn_bwd_scratch(int B, int T, int Hq, int Hkv, int D,
 
 // q [B, T, Hq, d], k/v [B, >=T, Hkv, d], o and dout [B, T, Hq, d] with
 // element strides (batch, token) given and heads and d contiguous; lse
-// (K13's, flash_attn with its lse) f32 [B, Hq, T]; dq [B, T, Hq, W]
-// contiguous; dk, dv [B, S, Hkv, W] contiguous with batch stride kvsb = S
-// * Hkv * W (rows < T written), all in the inputs' type. W (64, 128 or
-// 256) is the kernels' head_dim template, scale 1/sqrt(d); ws and tickets as
-// flash_attn_bwd_scratch sizes them (tickets 0 on entry, left at 0).
-// f32 = 0: bf16 tensors with d = W, 16-byte aligned rows and strides;
-// planes is not read. f32 = 1: float32 tensors, any d <= W (columns d ..
-// W of the gradients are zero); planes: bf16 scratch of 2 B T (2 Hq +
-// 2 Hkv) W elements, 16-byte aligned, for the split pass. Launches the
+// (K13's, flash_attn with its lse) f32 [B, Hq, T]; dq [B, T, Hq, d]
+// contiguous; dk, dv [B, S, Hkv, d] contiguous with batch stride kvsb = S
+// * Hkv * d (rows < T written), all in the inputs' type. W (64, 128 or
+// 256) is the kernels' head_dim template, d <= W the true head_dim (the
+// kernels' tiles hold zeros in columns d .. W), scale 1/sqrt(d); ws and
+// tickets as flash_attn_bwd_scratch sizes them (tickets 0 on entry, left
+// at 0). f32 = 0: bf16 tensors read in place, `load` says how: 0 by TMA
+// (d % 8 == 0, 16-byte aligned rows and strides), 8 or 4 by the
+// producers' cp.async of that many bytes (d even, d % 4 == 0 for 8; rows
+// and strides aligned to them); planes is not read. f32 = 1: float32
+// tensors; planes: bf16 scratch of 2 B T (2 Hq + 2 Hkv) W elements,
+// 16-byte aligned, for the split pass; load is not read. Launches the
 // split pass (float32), the dQ kernel, then the dK/dV kernel. Returns a
 // cudaError_t.
 extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
@@ -886,9 +1037,9 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                               long long osb, long long ost, long long dsb,
                               long long dst, long long kvsb, int B, int T,
                               int Hq, int Hkv, int W, int d, int f32,
-                              float scale, void* stream) {
+                              int load, float scale, void* stream) {
   if (B < 0 || T < 0 || Hkv < 1 || Hq < Hkv || Hq % Hkv || B > 65535
-      || Hq > 65535 || d < 1 || d > W || (!f32 && d != W))
+      || Hq > 65535 || d < 1 || d > W)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
   int sms;
@@ -912,20 +1063,23 @@ extern "C" int flash_attn_bwd(const void* q, const void* k, const void* v,
                              dst, kvsb, B, T, Hq, Hkv, d, scale, sms, st);
     return (int)cudaErrorInvalidValue;
   }
-  const Operand qo{q, qsb, qst, Hq, B}, ko{k, ksb, kst, Hkv, B},
-      vo{v, vsb, vst, Hkv, B}, oo{o, osb, ost, Hq, B},
-      doo{dout, dsb, dst, Hq, B};
+  const Operand qo{q, qsb, qst, Hq, B, d}, ko{k, ksb, kst, Hkv, B, d},
+      vo{v, vsb, vst, Hkv, B, d}, oo{o, osb, ost, Hq, B, d},
+      doo{dout, dsb, dst, Hq, B, d};
+  if (load && ((load != 4 && load != 8) || !rows_aligned(qo, load)
+               || !rows_aligned(ko, load) || !rows_aligned(vo, load)
+               || !rows_aligned(oo, load) || !rows_aligned(doo, load)))
+    return (int)cudaErrorInvalidValue;
   if (W == 64)
-    return launch_wgmma<64, false>(qo, ko, vo, oo, doo, lse, dq, dk, dv, ws,
-                                   tickets, kvsb, B, T, Hq, Hkv, scale, sms,
-                                   st);
+    return launch_bf16<64>(qo, ko, vo, oo, doo, lse, dq, dk, dv, ws, tickets,
+                           kvsb, B, T, Hq, Hkv, d, load, scale, sms, st);
   if (W == 128)
-    return launch_wgmma<128, false>(qo, ko, vo, oo, doo, lse, dq, dk, dv, ws,
-                                    tickets, kvsb, B, T, Hq, Hkv, scale, sms,
-                                    st);
+    return launch_bf16<128>(qo, ko, vo, oo, doo, lse, dq, dk, dv, ws,
+                            tickets, kvsb, B, T, Hq, Hkv, d, load, scale, sms,
+                            st);
   if (W == 256)
-    return launch_wgmma<256, false>(qo, ko, vo, oo, doo, lse, dq, dk, dv, ws,
-                                    tickets, kvsb, B, T, Hq, Hkv, scale, sms,
-                                    st);
+    return launch_bf16<256>(qo, ko, vo, oo, doo, lse, dq, dk, dv, ws,
+                            tickets, kvsb, B, T, Hq, Hkv, d, load, scale, sms,
+                            st);
   return (int)cudaErrorInvalidValue;
 }

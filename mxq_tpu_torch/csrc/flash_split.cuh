@@ -1,7 +1,10 @@
 // Flash attention's tiles on wgmma, shared by K13 (flash_attn.cu) and
 // K13-bwd (flash_attn_bwd.cu): bf16 pairs and the hi + lo split of float32
 // values, the products over TMA-loaded tiles with one bf16 plane (the bf16
-// path) or two (the float32 path's split products), and the split pass.
+// path) or two (the float32 path's split products), the producer's
+// cp.async of bf16 rows into the same tile layout (head_dims whose rows
+// TMA cannot address), stores of outputs at their true width, and the
+// split pass.
 //
 // The float32 path runs the bf16 kernels on bf16 planes hi = bf16(x) and
 // lo = bf16(x - hi) (x = hi + lo to about 16 significant bits, as the
@@ -107,6 +110,115 @@ __device__ __forceinline__ void to_pairs(const float (&x)[N / 2],
       else
         a[0][kk][j] = pack_bf2(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
     }
+}
+
+// ---- bf16 rows by cp.async, and outputs at their width --------------------
+
+// element offset of (row r, column c) of a [R][D] bf16 tile as TMA leaves
+// it: D / 64 boxes of R lines of 128 bytes, 16-byte chunk j of line r at
+// chunk j ^ (r % 8)
+template <int R>
+__device__ __forceinline__ int tile_at(int r, int c) {
+  return (c >> 6) * R * 64 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3)
+         + (c & 7);
+}
+
+// bf16 rows x[b][token][head][0, d) (heads d apart, d contiguous) that the
+// producer reads in place by cp.async where TMA cannot (d * 2 bytes, the
+// head stride, not a multiple of 16)
+struct Rows {
+  const __nv_bfloat16* x;
+  long long sb, st;                     // batch and token strides, elements
+};
+
+constexpr int CP_THREADS = 128;         // the producer warpgroup
+
+// Tokens row0 .. row0 + R of head h, batch row b of x into an R x W tile
+// laid out as TMA lays its boxes (tile_at), by the producer warpgroup's
+// threads (t: this one), a cp.async of G bytes each, neighbouring threads
+// on neighbouring columns: columns >= d and tokens >= T are filled with
+// zeros, the bits TMA leaves past its maps' extents. A thread keeps its
+// column for the whole tile and steps RS rows a copy, so a copy costs its
+// row's swizzle and a pointer step; the loop is not unrolled, which keeps
+// the producer within its 40 registers.
+template <int W, int R, int G>
+__device__ __forceinline__ void cp_rows_g(__nv_bfloat16* dst, const Rows& x,
+                                          int d, int T, int h, int row0,
+                                          int b, int t) {
+  constexpr int E = G / 2, PER_ROW = W / E, RS = CP_THREADS / PER_ROW;
+  static_assert(RS >= 1 && RS * PER_ROW == CP_THREADS && R % RS == 0,
+                "whole passes of the tile");
+  const int c = t % PER_ROW * E, chunk = (c >> 3) & 7;
+  const uint32_t bytes = c < d ? G : 0;  // a column past d reads nothing
+  const uint32_t at = smem_addr(dst) + ((c >> 6) * R * 64 + (c & 7)) * 2;
+  const int rows = min(R, T - row0);     // tokens below T
+  const long long step = RS * x.st;
+  const __nv_bfloat16* src = x.x + b * x.sb + (long long)h * d
+                             + (c < d ? c : 0) + (row0 + t / PER_ROW) * x.st;
+  int r = t / PER_ROW;
+#pragma unroll 1
+  for (; r < rows; r += RS, src += step)
+    cp_async_zfill<G>(at + r * 128 + ((chunk ^ (r & 7)) << 4), src, bytes);
+#pragma unroll 1
+  for (; r < R; r += RS)
+    cp_async_zfill<G>(at + r * 128 + ((chunk ^ (r & 7)) << 4), x.x, 0);
+}
+
+// A cp.async producer warpgroup's wait for a stage (t: this thread): one
+// thread waits on the mbarrier, the others at named barrier `id`
+__device__ __forceinline__ void producer_wait(uint64_t* bar, uint32_t parity,
+                                              int t, int id) {
+  if (t == 0) mbar_wait(bar, parity);
+  __syncwarp();
+  named_sync(id, CP_THREADS);
+}
+
+// A consumer's wait for a tile; where the producer copied it by cp.async
+// (CPA), its stores (the generic proxy) then made visible to wgmma's reads
+// (the async proxy)
+template <bool CPA>
+__device__ __forceinline__ void wait_tile(uint64_t* bar, uint32_t parity) {
+  mbar_wait(bar, parity);
+  if constexpr (CPA) fence_proxy_async();
+}
+
+// the same by the granule a call takes: 8 bytes (d % 4 == 0, rows 8-byte
+// aligned) or 4
+template <int W, int R>
+__device__ __forceinline__ void cp_rows(__nv_bfloat16* dst, const Rows& x,
+                                        int d, int T, int gran, int h,
+                                        int row0, int b, int t) {
+  if (gran == 8) cp_rows_g<W, R, 8>(dst, x, d, T, h, row0, b, t);
+  else cp_rows_g<W, R, 4>(dst, x, d, T, h, row0, b, t);
+}
+
+__device__ __forceinline__ void store1(__nv_bfloat16* at, float x) {
+  *at = __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ void store1(float* at, float x) { *at = x; }
+
+__device__ __forceinline__ void store2(__nv_bfloat16* at, float x, float y) {
+  *reinterpret_cast<uint32_t*>(at) = pack_bf2(x, y);
+}
+
+__device__ __forceinline__ void store2(float* at, float x, float y) {
+  *reinterpret_cast<float2*>(at) = make_float2(x, y);
+}
+
+// columns col (even) and col + 1 of an output row d columns wide, `at` at
+// column col: one pair where d is even (rows d apart keep it aligned),
+// else one at a time; nothing at or past d
+template <typename OutT>
+__device__ __forceinline__ void store_cols(OutT* at, int col, int d, float x,
+                                           float y) {
+  if (col >= d) return;
+  if (!(d & 1)) {
+    store2(at, x, y);
+    return;
+  }
+  store1(at, x);
+  if (col + 1 < d) store1(at + 1, y);
 }
 
 // ---- the split pass --------------------------------------------------------

@@ -1,6 +1,7 @@
 // Hopper's building blocks, for kernels of this directory that run on
 // wgmma, TMA and mbarriers (sm_90a): the host's tensor maps, TMA loads
-// (tiles and 1-D bulk copies), mbarrier init, arrive and wait, wgmma
+// (tiles and 1-D bulk copies), cp.async of 4 or 8 bytes with its
+// mbarrier arrival and the proxy fence, mbarrier init, arrive and wait, wgmma
 // descriptors over 128-byte swizzled tiles, wgmma fence, commit and
 // wait, the m64nNk16 bf16 products (N = 16 to 256), setmaxnreg, named
 // barriers and the base-2 exponential.
@@ -41,8 +42,9 @@ inline EncodeTiledFn encode_tiled() {
 // one head x `rows` tokens x one batch row, stored as `rows` lines of 128
 // bytes with the 128-byte swizzle (16-byte chunk c of line r at chunk
 // c ^ (r % 8)), the layout wgmma's descriptors below read. Tokens >=
-// `tokens` are never read: TMA fills them with zeros. Returns false if
-// the map is refused.
+// `tokens` and columns >= d (a box reaching past a head of d < 64 boxes'
+// width) are never read: TMA fills them with zeros. Returns false if the
+// map is refused (d * 2 bytes, the head stride, must be a multiple of 16).
 inline bool tensor_map_rows(CUtensorMap* map, const void* x, int d,
                             int heads, int tokens, int batch,
                             long long token_stride, long long batch_stride,
@@ -122,6 +124,31 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// G bytes (4 or 8) from global src to shared memory at address dst (a
+// shared-window address, as smem_addr gives), both aligned to them, by
+// cp.async; the first `bytes` (G or 0) copied, zeros after them (src is
+// not read at 0)
+template <int G>
+__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src,
+                                               uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(src), "n"(G), "r"(bytes)
+               : "memory");
+}
+
+// one arrival on `bar`, made once every cp.async this thread started
+// before it has landed (the barrier counts it among its arrivals)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_addr(bar)) : "memory");
+}
+
+// shared memory written through the generic proxy (cp.async, stores)
+// before it, seen by wgmma's reads (the async proxy) after it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- warp specialisation ---------------------------------------------------

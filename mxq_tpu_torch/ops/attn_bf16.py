@@ -21,10 +21,13 @@ its kernel for tensors on the card, where a failed launch raises. The
 kernels are templates at head_dim 64, 128 and 256; the wrappers run every
 other D <= 256 at the next of them, and every D > 256 on a wide path
 (upstream takes every D <= 128 and multiples of 128, ``mxq_tpu``'s XLA
-attention and paged reference every D): K13 and K13-bwd at bfloat16 on
-zero-padded copies (:func:`pad_head_dim`); K12 reads q, the pool's pages
-and its output at their width, zeros past D in its tiles. At D = 256
-K13 and K13-bwd run smaller tiles (fewer keys a tile, fewer stages;
+attention and paged reference every D), zeros past D in their tiles:
+K12 reads q, the pool's pages and its output at their width; K13 and
+K13-bwd read bfloat16 q, k, v (and o, dO) in place and write the context
+and the gradients at width D, by TMA where D % 8 == 0, else by the
+producer warpgroup's cp.async (:func:`load_route`; only an odd D or a
+view off 4 bytes takes zero-padded copies, :func:`pad_head_dim`). At D =
+256 K13 and K13-bwd run smaller tiles (fewer keys a tile, fewer stages;
 K13-bwd's items of 64 rows, its dK/dV kernel's two consumer warpgroups
 each holding half of D's columns), and K12 takes at most 8 query heads a
 launch. At float32, K13 and K13-bwd first run the split pass
@@ -119,10 +122,13 @@ def heads_per_launch(w: int) -> int:
 def pad_head_dim(x: torch.Tensor, w: int) -> torch.Tensor:
     """x [..., D] with zero columns up to ``w`` (one copy; x itself when D
     is w). Zero columns add nothing to q . k, and give zero context and
-    zero dQ, dK and dV columns, so the kernels run a head_dim D < w at w
-    on padded copies (with 1/sqrt(D) of the true D; K12's q, and K13's and
-    K13-bwd's bf16 inputs: at float32 the split pass writes the zeros
-    itself) and the wrappers slice the results back to D."""
+    zero dQ, dK and dV columns, so a head_dim D < w runs at w on padded
+    copies (with 1/sqrt(D) of the true D) with the results sliced back to
+    D. The kernels' tiles hold such zeros when they read rows in place;
+    real copies are left only to K13 and K13-bwd on :func:`load_route`'s
+    "copy" route (an odd D, a view off 4 bytes) and on their wide path at
+    D % 8 != 0. The split pass's planes and the plain versions' tests pad
+    the same way."""
     d = x.shape[-1]
     return x if d == w else torch.nn.functional.pad(x, (0, w - d))
 
@@ -413,6 +419,65 @@ def _rows(x: torch.Tensor) -> torch.Tensor:
     return torch.empty(x.shape, dtype=x.dtype, device=x.device).copy_(x)
 
 
+def _head_rows(x: torch.Tensor) -> torch.Tensor:
+    """x [B, S, H, D] with heads and D contiguous, as the bf16 kernels
+    read rows in place: x itself, or (a transposed view, say) a copy into
+    new contiguous rows of its width."""
+    if x.stride(-1) == 1 and x.stride(-2) == x.shape[-1]:
+        return x
+    return x.contiguous()
+
+
+def _aligned(x: torch.Tensor, nbytes: int) -> bool:
+    """Whether rows x [B, S, H, D] (heads and D contiguous) start and step
+    (batch, token and head strides) on multiples of ``nbytes``."""
+    es = x.element_size()
+    return (x.data_ptr() % nbytes == 0 and x.stride(0) * es % nbytes == 0
+            and x.stride(1) * es % nbytes == 0
+            and x.shape[-1] * es % nbytes == 0)
+
+
+def load_route(d: int, tensors) -> str:
+    """How K13 and K13-bwd read bf16 tensors [B, S, H, d] of head_dim d <=
+    256 (q, k, v; and o, dO for the backward): "tma", by tensor maps, where
+    a row of d is whole 16-byte units (d % 8 == 0) and every tensor's start
+    and batch and token strides are 16-byte aligned; "cp_async", by the
+    producer warpgroup's cp.async of :func:`cp_async_bytes` each, where d is
+    even and they are 4-byte aligned (open_llama_3b's d = 100: a head
+    stride of 200 bytes, which TMA refuses); else "copy" (an odd d, a start
+    off 4 bytes, heads and d not contiguous): zero-padded copies at the
+    template width. Each route but "copy" reads the rows in place and
+    leaves zeros past d in the kernels' tiles."""
+    if any(x.stride(-1) != 1 or x.stride(-2) != d for x in tensors):
+        return "copy"
+    if d % 8 == 0 and all(_aligned(x, 16) for x in tensors):
+        return "tma"
+    if d % 2 == 0 and all(_aligned(x, 4) for x in tensors):
+        return "cp_async"
+    return "copy"
+
+
+def cp_async_bytes(d: int, tensors) -> int:
+    """The bytes of each cp.async on the "cp_async" route: 8 where d % 4 ==
+    0 and every tensor is 8-byte aligned (:func:`load_route`), else 4."""
+    return 8 if d % 4 == 0 and all(_aligned(x, 8) for x in tensors) else 4
+
+
+def _bf16_loads(d: int, w: int, tensors):
+    """The bf16 tensors as K13 and K13-bwd read them: (tensors, the
+    head_dim the kernels take, the C entries' ``load``: 0 TMA, 8 or 4
+    cp.async bytes). Rows are read in place at width d (a view whose heads
+    and d are not contiguous first copied into contiguous rows); only on
+    the "copy" route of :func:`load_route` are they zero-padded copies at
+    width w, which the kernels then take as their head_dim."""
+    tensors = [_head_rows(x) for x in tensors]
+    route = load_route(d, tensors)
+    if route == "copy":
+        return [_rows(pad_head_dim(x, w)) for x in tensors], w, 0
+    return tensors, d, (cp_async_bytes(d, tensors) if route == "cp_async"
+                        else 0)
+
+
 def _flash_check(what, q, k, v):
     """K13's and K13-bwd's checks on q, k, v; the kernels' head_dim
     (:func:`kernel_head_dim`) or a ValueError."""
@@ -435,8 +500,9 @@ def _flash_check(what, q, k, v):
 def _k13_launch(q, k, v, lse):
     """K13 on the card; ``lse`` [B, Hq, T] f32 receives the row
     log-sum-exp, or None (the kernel writes none). A head_dim D that is not
-    one of HEAD_DIMS runs at the next one: at bfloat16 on zero-padded
-    copies, at float32 on the split pass's planes, zeros past D."""
+    one of HEAD_DIMS runs at the next one with zeros past D in the kernel's
+    tiles: bfloat16 rows read in place (:func:`_bf16_loads`), float32 on
+    the split pass's planes; the output is written at width D."""
     from mxq_tpu_torch import _build
     w = _flash_check("K13", q, k, v)
     if is_wide(w):
@@ -444,23 +510,24 @@ def _k13_launch(q, k, v, lse):
     b, t, hq, d = q.shape
     f32 = q.dtype == torch.float32
     planes = None
+    dw, load = d, 0                     # the output's width
     if f32:
         q, k, v = (_rows(x) for x in (q, k, v))
         planes = torch.empty(split_plane_elems(b, t, hq, k.shape[2], w),
                              dtype=torch.bfloat16, device=q.device)
     else:
-        q, k, v = (_rows(pad_head_dim(x, w)) for x in (q, k, v))
-    out = torch.empty((b, t, hq, w), dtype=q.dtype, device=q.device)
+        (q, k, v), dw, load = _bf16_loads(d, w, (q, k, v))
+    out = torch.empty((b, t, hq, dw), dtype=q.dtype, device=q.device)
     err = _build.load("flash_attn").flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), q.stride(0), q.stride(1),
         k.stride(0), k.stride(1), v.stride(0), v.stride(1), b, t, hq,
-        k.shape[2], w, d if f32 else w, int(f32), 1.0 / math.sqrt(d),
+        k.shape[2], w, dw, int(f32), load, 1.0 / math.sqrt(d),
         None if planes is None else planes.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "K13")
     count_launch(flash_prefill_attention)
-    return out if w == d else out[..., :d].contiguous()
+    return out if dw == d else out[..., :d].contiguous()
 
 
 def _k13_wide_launch(q, k, v, lse):
@@ -545,9 +612,10 @@ def flash_attention_backward(q, k, v, o, lse, do):
     the o and dO tiles it loads; at float32 the split pass computes it in
     f32 from o and dO as it splits q, k, v and dO into their bf16 hi and
     lo planes. A head_dim that is not one of HEAD_DIMS runs at the next
-    one: at bfloat16 on zero-padded copies, at float32 on the planes,
-    zeros past D; past 256 on the wide path (a pass of its own computes
-    di over all of D)."""
+    one with zeros past D in the kernels' tiles (bfloat16 rows read in
+    place, :func:`_bf16_loads`; float32 on the planes) and the gradients
+    written at width D; past 256 on the wide path (a pass of its own
+    computes di over all of D)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do)
     from mxq_tpu_torch import _build
@@ -569,17 +637,17 @@ def flash_attention_backward(q, k, v, o, lse, do):
         return _k13_bwd_wide_launch(q, k, v, o, lse, do)
     f32 = int(q.dtype == torch.float32)
     planes = None
+    dw, load = d, 0                     # the gradients' width
     if f32:
         q, k, v, o, do = (_rows(x) for x in (q, k, v, o, do))
         planes = torch.empty(split_plane_elems(b, t, hq, hkv, w, True),
                              dtype=torch.bfloat16, device=q.device)
     else:
-        q, k, v, o, do = (_rows(pad_head_dim(x, w))
-                          for x in (q, k, v, o, do))
+        (q, k, v, o, do), dw, load = _bf16_loads(d, w, (q, k, v, o, do))
     lib = _build.load("flash_attn_bwd")
     ws, tickets = _bwd_scratch(lib, b, t, hq, hkv, w, f32, q.device)
-    dq = torch.empty((b, t, hq, w), dtype=q.dtype, device=q.device)
-    dk = torch.empty((b, s, hkv, w), dtype=q.dtype, device=q.device)
+    dq = torch.empty((b, t, hq, dw), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, s, hkv, dw), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if s > t:
         dk[:, t:].zero_()
@@ -590,12 +658,12 @@ def flash_attention_backward(q, k, v, o, lse, do):
         do.data_ptr(), lse.data_ptr(), ptr(planes), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), ptr(ws), ptr(tickets), q.stride(0),
         q.stride(1), k.stride(0), k.stride(1), v.stride(0), v.stride(1),
-        o.stride(0), o.stride(1), do.stride(0), do.stride(1), s * hkv * w,
-        b, t, hq, hkv, w, d if f32 else w, f32, 1.0 / math.sqrt(d),
+        o.stride(0), o.stride(1), do.stride(0), do.stride(1), s * hkv * dw,
+        b, t, hq, hkv, w, dw, f32, load, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "K13-bwd")
     count_launch(flash_attention_backward)
-    if w != d:
+    if dw != d:
         dq, dk, dv = (x[..., :d].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 

@@ -13,7 +13,9 @@ against mxq_tpu from numpy seeds:
   weights: both sides compute in f32, summation order aside), and the
   port's packed forward against JAX's within 1e-2 of max|logit| (the gate
   of test_torch_llama.py: packed products round activations to bf16);
-- ``_rows``, which decides which views K13's tensor maps read in place;
+- ``_rows``, which decides which views K13's tensor maps read in place,
+  and ``load_route``, how K13 and K13-bwd read bf16 rows between the
+  templates (TMA, cp.async or zero-padded copies);
 - on the CPU neither route launches a kernel.
 """
 
@@ -231,6 +233,109 @@ def test_rows_reads_aligned_views_in_place(case):
     else:
         assert y.is_contiguous() and y.data_ptr() != x.data_ptr()
         assert torch.equal(y, x)
+
+
+def _fused(d, hq, hkv, start=0):
+    """q, k, v [2, 5, H, d] bf16 as the slices of one fused qkv row, its
+    storage starting ``start`` elements into an allocation."""
+    n = 2 * 5 * (hq + 2 * hkv) * d
+    x = torch.zeros(n + start, dtype=torch.bfloat16)[start:].view(
+        2, 5, (hq + 2 * hkv) * d)
+    return (x[..., :hq * d].view(2, 5, hq, d),
+            x[..., hq * d:(hq + hkv) * d].view(2, 5, hkv, d),
+            x[..., (hq + hkv) * d:].view(2, 5, hkv, d))
+
+
+@pytest.mark.parametrize("d,hq,hkv,start,route,load", [
+    (80, 4, 2, 0, "tma", 0), (96, 4, 4, 0, "tma", 0),
+    (192, 2, 1, 0, "tma", 0), (128, 4, 4, 0, "tma", 0),
+    (100, 4, 4, 0, "cp_async", 8), (100, 1, 1, 0, "cp_async", 8),
+    (98, 2, 2, 0, "cp_async", 4), (96, 4, 4, 4, "cp_async", 8),
+    (99, 1, 1, 0, "copy", 0), (96, 4, 4, 1, "copy", 0),
+    (100, 4, 4, 1, "copy", 0)])
+def test_load_route(d, hq, hkv, start, route, load):
+    """How K13 and K13-bwd read bf16 rows between the templates: by TMA
+    where D % 8 == 0 and every slice of the fused qkv row starts and steps
+    on 16 bytes (80, 96, 192, and the templates); by cp.async where D is
+    even and they are 4-byte aligned, 8 bytes a copy where D % 4 == 0 and
+    they are 8-byte aligned (open_llama_3b's 100; 96 off 16 bytes by 8),
+    else 4 (98: k starts 392 bytes in); zero-padded copies at the template
+    width for an odd D (99) and a view one element off 16 bytes. The
+    routes that read in place hand the tensors on as they are, with the
+    true D as the kernels' head_dim."""
+    tensors = _fused(d, hq, hkv, start)
+    assert ab.load_route(d, tensors) == route
+    w = ab.kernel_head_dim(d)
+    got, dk, code = ab._bf16_loads(d, w, tensors)
+    assert code == load
+    if route == "copy":
+        assert dk == w
+        for g, x in zip(got, tensors):
+            assert g.shape == x.shape[:-1] + (w,) and g.is_contiguous()
+            assert torch.equal(g[..., :d], x) and not bool(g[..., d:].any())
+    else:
+        assert dk == d and all(g is x for g, x in zip(got, tensors))
+        assert code == (ab.cp_async_bytes(d, tensors)
+                        if route == "cp_async" else 0)
+
+
+@pytest.mark.parametrize("d,route", [(96, "tma"), (100, "cp_async"),
+                                     (99, "copy")])
+def test_load_route_copies_a_transposed_view_into_rows(d, route):
+    """dO as a transposed view ([B, H, T, D] storage): its heads and D
+    are not contiguous, so it alone is copied into contiguous rows of
+    width D, and the call then reads every tensor in place (a copy at the
+    template width only where D is odd)."""
+    q, k, v = _fused(d, 4, 4)
+    do = torch.randn(2, 4, 5, d).to(torch.bfloat16).transpose(1, 2)
+    assert ab.load_route(d, (q, k, v, do)) == "copy"
+    got, dk, _ = ab._bf16_loads(d, ab.kernel_head_dim(d), (q, k, v, do))
+    assert ab.load_route(dk, got) == ("tma" if route == "copy" else route)
+    assert torch.equal(got[3][..., :d], do)
+    if route != "copy":
+        assert dk == d and all(g is x for g, x in zip(got[:3], (q, k, v)))
+
+
+def _tile_at(r, c, rows):
+    """``csrc/flash_split.cuh`` tile_at: element offset of (row r, column
+    c) of a [rows][W] bf16 tile as TMA's 128-byte swizzle lays it."""
+    return ((c >> 6) * rows * 64 + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3)
+            + (c & 7))
+
+
+@pytest.mark.parametrize("w,rows,g,d", [
+    (128, 128, 8, 100), (128, 64, 8, 100), (128, 128, 4, 98),
+    (128, 64, 4, 98), (64, 128, 8, 36), (64, 64, 4, 50),
+    (256, 64, 8, 196), (256, 32, 4, 250), (256, 32, 8, 132)])
+def test_cp_rows_emulation_fills_the_tma_layout(w, rows, g, d):
+    """The producer's cp.async of bf16 rows (``cp_rows_g``: thread t keeps
+    column (t % (W / E)) E, E = G / 2 elements a copy, and steps 128 E / W
+    rows a pass) emulated in numpy over 128 threads: every element of the
+    [rows][W] tile is written exactly once, and the tile holds, in TMA's
+    swizzled layout, the rows of a head of d columns (of a fused row of 3
+    heads, the neighbours' columns never copied) with zeros past d and
+    past T."""
+    e = g // 2
+    per_row = w // e
+    rs = 128 // per_row
+    t_rows = rows - 3                      # the last 3 rows past T
+    src = np.arange(1, rows * 3 * d + 1, dtype=np.int64).reshape(rows, 3, d)
+    tile = np.zeros(rows * w, np.int64)
+    writes = np.zeros(rows * w, np.int64)
+    for t in range(128):
+        c, r0 = t % per_row * e, t // per_row
+        for r in range(r0, rows, rs):
+            ok = c < d and r < t_rows
+            for k in range(e):
+                at = _tile_at(r, c, rows) + k
+                tile[at] = src[r, 1, c + k] if ok else 0
+                writes[at] += 1
+    assert bool((writes == 1).all())
+    want = np.zeros(rows * w, np.int64)
+    for r in range(t_rows):
+        for c in range(d):
+            want[_tile_at(r, c, rows)] = src[r, 1, c]
+    assert np.array_equal(tile, want)
 
 
 def test_cpu_calls_launch_nothing():

@@ -645,7 +645,8 @@ def test_k12_row_bits_independent_of_batch(gen, g, d, q_dtype):
                                513, 1000])
 @pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128),
                                       (8, 2, 80), (4, 4, 96), (8, 1, 256),
-                                      (4, 2, 192)])
+                                      (4, 2, 192), (4, 4, 100), (2, 2, 98),
+                                      (1, 1, 99)])
 def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
     """K13 against its plain version, with q, k, v as the fused qkv
     projection's strided slices and k, v 7 rows longer than q (a cache
@@ -654,10 +655,12 @@ def test_k13_matches_plain(gen, hq, hkv, d, t, dtype):
     version's after normalizing), float32 <= 1e-4 (bf16 hi + lo split
     products); the same bits on a second call. T straddles the 128-row
     items, the bf16 kernel's 128-key tiles and the float32 kernel's 64-key
-    ones; D = 80 and 96 run at 128 (bf16 on zero-padded copies, float32 on
-    the split pass's planes, zeros past D), 192 at 256; G = 8 at (16, 2)
-    and at Gemma-2B's (8, 1, 256), whose tiles are 64 keys (bf16) and 32
-    (float32)."""
+    ones; D = 80, 96, 98, 99 and 100 run at 128, 192 at 256, zeros past D
+    in the tiles (bf16 rows read in place by TMA at 80, 96 and 192, by
+    cp.async of 8 bytes at 100 and of 4 at 98, zero-padded copies at 99;
+    float32 on the split pass's planes), the context written at width D;
+    G = 8 at (16, 2) and at Gemma-2B's (8, 1, 256), whose tiles are 64
+    keys (bf16) and 32 (float32)."""
     b = 2
     qkv = torch.randn((b, t + 7, (hq + 2 * hkv) * d), generator=gen,
                       device="cuda").to(dtype)
@@ -723,7 +726,8 @@ def _grad_errs(got, ref):
                                513, 1000])
 @pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128),
                                       (8, 2, 80), (4, 4, 96), (8, 1, 256),
-                                      (4, 2, 192)])
+                                      (4, 2, 192), (4, 4, 100), (2, 2, 98),
+                                      (1, 1, 99)])
 def test_k13_bwd_matches_plain(gen, hq, hkv, d, t, dtype):
     """K13-bwd against its plain version on the same lse (K13's), q, k, v
     the fused projection's strided slices and dO a transposed view: each
@@ -732,9 +736,11 @@ def test_k13_bwd_matches_plain(gen, hq, hkv, d, t, dtype):
     float32 (the split products, K13-f32's gate); the same bits on a
     second call, one launch counted per call, dK and dV zero past row T.
     T straddles the 128-row items and the ring's tiles (bf16 64 rows,
-    float32 32); D = 80 and 96 run at 128 (bf16 on zero-padded copies,
-    float32 on the split pass's planes), 192 at 256, whose items are 64
-    rows, its ring's tiles 32 rows (bf16) and 16 (float32)."""
+    float32 32); D = 80, 96, 98, 99 and 100 run at 128 (bf16 read in
+    place as K13 reads it, dO first copied into contiguous rows; float32
+    on the split pass's planes), 192 at 256, whose items are 64 rows, its
+    ring's tiles 32 rows (bf16) and 16 (float32); the gradients written at
+    width D."""
     b = 2
     q, k, v = _qkv(gen, b, t, hq, hkv, d, dtype)
     do = torch.randn((b, hq, t, d), generator=gen, device="cuda").to(
@@ -753,6 +759,65 @@ def test_k13_bwd_matches_plain(gen, hq, hkv, d, t, dtype):
         assert not bool(g[:, t:].any())
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     assert max(_grad_errs(got, ref)) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [96, 100])
+def test_k13_neighbour_heads_nan_same_bits(gen, d, dtype):
+    """K13 and K13-bwd read only their head's d columns: with every head
+    but one of the fused qkv row NaN (q, k and v; o and dO too for the
+    backward), that head's context, dQ, dK and dV are finite and the bits
+    a run with zeros there gives (D = 96 read by TMA, 100 by cp.async,
+    both at the 128 template: a tile's columns past D are zeros, never a
+    neighbour's values)."""
+    b, t, h, keep = 2, 200, 4, 1
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda").to(
+        dtype)
+    do = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dtype)
+    others = [i for i in range(h) if i != keep]
+
+    def run(fill):
+        x = qkv.clone()
+        x.view(b, t, 3, h, d)[:, :, :, others] = fill
+        q, k, v = (x[..., i * h * d:(i + 1) * h * d].view(b, t, h, d)
+                   for i in range(3))
+        ctx, lse = ab.flash_attention_forward(q, k, v)
+        o, dof = ctx.clone(), do.clone()
+        o[:, :, others] = dof[:, :, others] = fill
+        grads = ab.flash_attention_backward(q, k, v, o, lse, dof)
+        return [x[:, :, keep] for x in (ctx, *grads)]
+    nan, zero = run(float("nan")), run(0.0)
+    torch.cuda.synchronize()
+    for a, z in zip(nan, zero):
+        assert bool(torch.isfinite(a).all()) and torch.equal(a, z)
+
+
+@pytest.mark.parametrize("d,route", [(96, "tma"), (100, "cp_async")])
+def test_k13_between_templates_makes_no_copy(gen, d, route):
+    """K13 and K13-bwd at bf16 and D between the templates read q, k, v,
+    o and dO in place and write the context and the gradients at width D:
+    one call of each under torch.profiler (q, k, v the fused projection's
+    slices, k and v longer than T) runs no pad and no copy, on the host
+    or the card, only the kernels (and the zeroing of dK's and dV's rows
+    past T)."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v = _qkv(gen, 1, 256, 4, 4, d, torch.bfloat16)
+    do = torch.randn((1, 256, 4, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    assert ab.load_route(d, (q, k, v)) == route
+    o, lse = ab.flash_attention_forward(q, k, v)
+    assert ab.load_route(d, (q, k, v, o, do)) == route
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ab.flash_prefill_attention(q, k, v)
+        ab.flash_attention_forward(q, k, v)
+        ab.flash_attention_backward(q, k, v, o, lse, do)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert any("flash_wgmma_kernel" in n for n in names)
+    assert any("dkv_wgmma_kernel" in n for n in names)
+    assert not [n for n in names if "pad" in n or "copy" in n], names
 
 
 def _split_heads_case(gen, dtype):
