@@ -495,8 +495,10 @@ K13_KERNEL_NAMES = ("flash_wgmma_kernel<", "flash_wide_fwd_kernel<") \
     + K13_SPLIT_NAMES
 # K13-bwd's (csrc/flash_attn_bwd.cu: at float32 its split pass, then dQ,
 # then dK and dV, on wgmma)
-K13_BWD_DQ_NAMES = ("dq_wgmma_kernel<", "flash_wide_dq_kernel<")
-K13_BWD_DKV_NAMES = ("dkv_wgmma_kernel<", "flash_wide_dkv_kernel<")
+K13_BWD_DQ_NAMES = ("dq_wgmma_kernel<", "dq_d256_kernel<",
+                    "flash_wide_dq_kernel<")
+K13_BWD_DKV_NAMES = ("dkv_wgmma_kernel<", "dkv_d256_kernel<",
+                     "flash_wide_dkv_kernel<")
 # (the wide path's: its di pass and, at float32, its split pass)
 K13_BWD_SPLIT_NAMES = ("bwd_split_kernel<", "flash_wide_di_kernel",
                        "wide_split_kernel")

@@ -8,6 +8,8 @@ SDPA, and beside the same kernels of other trees of the package.
     python3 flash_probe.py --trees parent=out/parent   # and a parent's
     python3 flash_probe.py --kernels k12               # K12 alone
     python3 flash_probe.py --kernels int8              # K4 and K11 alone
+    python3 flash_probe.py --kernels k13 --timed 2048:8:1:256,512:8:1:256
+                                # K13 checked and timed at these cases only
 
 A case at a head_dim a tree's wrappers refuse (D > 128 before they took
 it) prints one line with the tree's ValueError under ``refused``.
@@ -30,16 +32,19 @@ each one's max against ``flash_attention_bwd_plain`` on the tree's own o
 and lse, and whether two calls give the same bits (gates: bf16 2e-2,
 float32 1e-4). Then per type and shape (llama2_7b's prefills at T = 512
 and 2048, 32 heads of 128, and llama2_70b's G = 8 at 512; 32 heads of
-64 at 2048; Gemma-2B's 8 heads of 256 over one kv head at 512 and 2048;
-the wide path's 8 heads of 512 over 2 kv heads at 512 and 2048, and of
-384 at 2048; 32 heads of 80, 96 and 100 at 2048, the head_dims between
-the templates: bf16 rows read by TMA at 80 and 96, by cp.async at 100,
-a tree before that on zero-padded copies) the CUDA-event
+64 at 2048; Gemma-2B's 8 heads of 256 over one kv head at 512 and 2048,
+Gemma-7B's 16 heads of 256 over 16 kv heads at 2048; the wide path's 8
+heads of 512 over 2 kv heads at 512 and 2048, and of 384 at 2048; 32
+heads of 80, 96 and 100 at 2048, the head_dims between the templates:
+bf16 rows read by TMA at 80 and 96, by cp.async at 100, a tree before
+that on zero-padded copies) the CUDA-event
 median with the L2 flushed before each call (``utils.benchlib.Timer``, as
 ``chip_smoke.py``'s kernels phase times K13 and K13-bwd) of the forward
 and of the backward, the TFLOP/s of each over the causal half (4 and 10
-Hq D T(T+1)/2 operations), at float32 the device ms of each kernel of one
-call by name (torch.profiler: the split pass's share), and SDPA's times on
+Hq D T(T+1)/2 operations), the device ms of each kernel of one call by
+name (torch.profiler) with the backward's dQ and dK/dV kernels summed
+(``bwd_dq_ms``, ``bwd_dkv_ms``; at float32 the split pass's share), and
+SDPA's times on
 the same inputs (``is_causal``, k and v repeated to Hq heads; its
 backward one ``torch.autograd.grad`` from a kept graph).
 
@@ -83,6 +88,7 @@ CHECKS = [(2, 1, 4, 2, 64), (2, 127, 8, 8, 128), (2, 129, 16, 2, 128),
 # (T, Hq, Hkv, D) timed at B = 1
 TIMED = [(2048, 32, 32, 128), (512, 32, 32, 128), (512, 64, 8, 128),
          (2048, 32, 32, 64), (2048, 8, 1, 256), (512, 8, 1, 256),
+         (2048, 16, 16, 256),
          (2048, 8, 2, 512), (512, 8, 2, 512), (2048, 8, 2, 384),
          (2048, 32, 32, 80), (2048, 32, 32, 96), (2048, 32, 32, 100)]
 DTYPES = {"bfloat16": 2e-2, "float32": 1e-4}   # and each one's gate
@@ -355,8 +361,13 @@ def probe_int8(name: str, a8, timer) -> None:
         del x, mine, theirs, pool
 
 
-def probe_tree(name: str, root: str, kernels=("k13", "k12")) -> int:
-    """Build, check and time one tree's kernels through its own package."""
+def probe_tree(name: str, root: str, kernels=("k13", "k12"),
+               timed=None) -> int:
+    """Build, check and time one tree's kernels through its own package
+    (K13's and K13-bwd's: CHECKS and TIMED, or only the cases ``timed``,
+    each checked at B = 1 before it is timed)."""
+    checks = CHECKS if timed is None else [(1, *c) for c in timed]
+    timed = TIMED if timed is None else timed
     sys.path.insert(0, str(Path(root).resolve()))
     from mxq_tpu_torch import _build
     from mxq_tpu_torch.ops import attn_bf16 as ab
@@ -379,7 +390,7 @@ def probe_tree(name: str, root: str, kernels=("k13", "k12")) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for (b, t, hq, hkv, d), (dname, gate) in itertools.product(
-            CHECKS, DTYPES.items()):
+            checks, DTYPES.items()):
         dtype = getattr(torch, dname)
         q, k, v = qkv(gen, b, t, hq, hkv, d, dtype)
         ref = ab.flash_prefill_attention_plain(q, k, v).float()
@@ -420,7 +431,7 @@ def probe_tree(name: str, root: str, kernels=("k13", "k12")) -> int:
 
     timer = Timer()
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for dname, (t, hq, hkv, d) in itertools.product(DTYPES, TIMED):
+    for dname, (t, hq, hkv, d) in itertools.product(DTYPES, timed):
         q, k, v, do = (torch.randn((1, t, h, d), generator=gen,
                                    device="cuda").to(getattr(torch, dname))
                        for h in (hq, hkv, hkv, hq))
@@ -439,12 +450,14 @@ def probe_tree(name: str, root: str, kernels=("k13", "k12")) -> int:
         row["kernels"] = {"ms": ms, "tflops": flops / ms * 1e-9,
                           "bwd_ms": bms, "bwd_tflops": 2.5 * flops / bms
                           * 1e-9}
-        if dname == "float32":
-            row["kernels"]["device_ms_by_name"] = {
-                "forward": by_name(lambda: ab.flash_prefill_attention(
-                    q, k, v)),
-                "backward": by_name(lambda: ab.flash_attention_backward(
-                    q, k, v, o, lse, do))}
+        names = {"forward": by_name(lambda: ab.flash_prefill_attention(
+                     q, k, v)),
+                 "backward": by_name(lambda: ab.flash_attention_backward(
+                     q, k, v, o, lse, do))}
+        row["kernels"]["device_ms_by_name"] = names
+        for key, part in (("bwd_dq_ms", "dq_"), ("bwd_dkv_ms", "dkv_")):
+            row["kernels"][key] = sum(ms for n, ms in names["backward"].items()
+                                      if part in n)
         kr, vr = (a.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
                   for a in (k, v))
         ms = timer(lambda: sdpa(q.transpose(1, 2), kr, vr, is_causal=True,
@@ -469,11 +482,17 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", default="k13,k12,int8",
                     help="comma-separated subset of k13 (K13 and K13-bwd), "
                          "k12 and int8 (K4 and K11)")
+    ap.add_argument("--timed", default="",
+                    help="T:Hq:Hkv:D,...: K13's cases, checked and timed "
+                         "(default CHECKS and TIMED)")
     ap.add_argument("--tree", help=argparse.SUPPRESS)   # NAME=ROOT: one tree
     args = ap.parse_args(argv)
     kernels = [k for k in args.kernels.split(",") if k]
+    timed = [tuple(int(x) for x in c.split(":"))
+             for c in args.timed.split(",") if c] or None
     if args.tree:
-        return probe_tree(*args.tree.split("=", 1), kernels=kernels)
+        return probe_tree(*args.tree.split("=", 1), kernels=kernels,
+                          timed=timed)
     others = [t.split("=", 1) for t in filter(None, args.trees.split(","))]
     order = [*others, ("this", str(HERE))]
     if others:
@@ -485,7 +504,7 @@ def main(argv=None) -> int:
     for name, root in order:
         subprocess.run([sys.executable, str(Path(__file__).resolve()),
                         "--tree", f"{name}={root}", "--kernels",
-                        args.kernels], check=True)
+                        args.kernels, "--timed", args.timed], check=True)
     return 0
 
 

@@ -119,19 +119,83 @@
 // head_dim 256 (D in 129..256 runs at it): dK and dV of 64 keys at D =
 // 256 are 256 floats a thread, past a consumer's 232 registers, and Q, dO
 // and o of 128 rows alone fill shared memory. So items are 64 rows (IM =
-// 64):
+// 64), and the two consumer warpgroups of a block share an item's 64 rows
+// (wgmma's M) and split the columns of every product over D.
+// float32 (dq_wgmma_kernel, dkv_wgmma_kernel at F32):
 // - the dQ kernel runs one consumer warpgroup (two warpgroups a block, no
 //   register handover: each thread may hold 255), dQ 128 registers, K and
-//   V in 32-key tiles through three stages (bf16: Q, dO, o 96 KB, the
-//   ring 96 KB) or 16-key tiles through two (float32: Q and dO hi and lo
-//   128 KB, the ring 64 KB);
-// - the dK/dV kernel's two consumer warpgroups take the same 64 keys and
-//   split D: each recomputes S^T and dP^T over all of D (the products
-//   that D's halves do not split) and holds dK and dV of its 128 columns
-//   (64 registers each), the products dV += P^T dO and dK += dS^T Q over
-//   its half of dO's and Q's columns; Q and dO in 32-row tiles through
-//   four stages (bf16: K, V 64 KB, the ring 128 KB) or 16-row tiles
-//   through two (float32: K, V hi and lo 128 KB, the ring 64 KB).
+//   V in 16-key tiles through two stages (Q and dO hi and lo 128 KB, the
+//   ring 64 KB);
+// - the dK/dV kernel's two consumers each compute S^T and dP^T over all
+//   of D (both of them: the products that D's halves do not split) and
+//   hold dK and dV of their 128 columns (64 registers each); Q and dO in
+//   16-row tiles through two stages (K, V hi and lo 128 KB, the ring 64
+//   KB).
+// bf16 (dq_d256_kernel, dkv_d256_kernel): no product is made twice. Every
+// tile is 64 rows (keys of the dQ kernel's ring, query rows of the dK/dV
+// kernel's), two stages. The consumers split the tile's 64 rows for S and
+// dP and D's columns for the products over D:
+// - consumer c computes S (dK/dV: S^T) and dP (dP^T) for rows 32 c .. 32 c
+//   + 31 of the tile over all of D (m64n32k16, B at line 32 c of the
+//   tile), then P and dS (P^T and dS^T) for them in f32 and their bf16
+//   pairs, where upstream rounds them. A consumer's pairs for its 32 rows
+//   are the k16 slices 2 c and 2 c + 1 of the A operand over the tile's
+//   64 rows, in the very registers the other consumer would hold them in
+//   (both take the item's same 64 rows as wgmma's M: thread t of each
+//   holds the same elements). So each writes its pairs to shared memory
+//   (16-byte stores, thread-major, a double buffer by tile parity), the
+//   two meet at a named barrier, and each reads the four slices back
+//   (its own too: fewer live registers than keeping them): slices 0 and
+//   1 are consumer 0's, 2 and 3 consumer 1's, summed in that order by
+//   both;
+// - consumer c then adds its 128 columns (128 c ..) of dQ += dS K (dK/dV:
+//   dV += P^T dO, dK += dS^T Q) over the tile's 64 rows, wgmma RS, the
+//   tile read transposed; it holds dQ (dK and dV) of those columns, 64
+//   (128) registers.
+//   Of the two ways to share the products (each consumer S and dP over
+//   half of D, the halves summed in f32; or one consumer S, the other
+//   dP), this is the second's exchange of bf16 P^T and dS^T, with the
+//   tile's rows split instead of the two products: dS needs P, so a
+//   consumer making S alone would hold the other up for every tile, and
+//   the f32 halves of S and dP would be 32 KB a tile through shared
+//   memory where the bf16 pairs are 16 KB.
+// - The dQ kernel's ring brings each item's o tile first, into a K slot:
+//   both consumers compute di = rowsum(o . dO) of the item's rows from it
+//   (the first writes di and lse log2(e) to the scratch) and free the
+//   stage. Shared memory: Q, dO 64 KB, the ring 128 KB, the exchange 16
+//   KB; registers: dQ 64, S and dP 16 each, the pairs 24.
+// - The dK/dV kernel: K, V 64 KB, the ring 128 KB with lse and di, the
+//   exchange 32 KB (with the barriers, the ticket's flag and the
+//   alignment 231,480 bytes of the 232,448 a block may have); registers:
+//   dK, dV 128, S^T and dP^T 16 each, the pairs 48. Registers by
+//   setmaxnreg: with TMA the producer keeps 24 and the consumers 240,
+//   with cp.async 56 and 224 (ptxas spilled 4-36 bytes at 40 and 232).
+// - A stage is freed as soon as the last tile's products over it are
+//   done (wgmma_wait<2> after the next tile's S and dP are issued), so the
+//   producer's next copies start under that tile's S. What holds these
+//   two kernels on the H100 is the tiles' copies from L2, not the
+//   products: each 64-row tile (64 KB of Q and dO, or K and V) serves 2 x
+//   64 x 64 x 256 products of S and dP and one of dV and dK (dQ), so at
+//   T = 2048 the dK/dV kernel moves 270 MB through L2 for 34 GFLOP; copies
+//   of the kernel without the dV and dK products ran 7% faster, without
+//   dP^T 10%, without the exchange's barrier no faster (PERF.md).
+// - dK/dV items of equal work. The item of key tile kt walks (nq - kt)
+//   query tiles a query head: at Gemma-2B's widths (T = 2048, 8 query
+//   heads over one kv head) key tile 0's item carries 32 times key tile
+//   31's. So an item may take a unit of two key tiles, kt and nq - 1 - kt
+//   (nq + 1 query tiles a head; the middle tile alone when nq is odd), one
+//   after the other (each its own K and V, dK and dV); and each kv head's
+//   G query heads may be split over S blocks. scratch_of picks pairing
+//   and S from the item lengths: the least of max(longest item, all tiles
+//   over the blocks), S > 1 only where the items fit one wave (a second
+//   wave would add its partials' traffic to the imbalance). Gemma-2B at
+//   T = 2048: 16 units x 8 splits, 128 items of 33 query tiles each
+//   (unpaired: 64 at most; the parent's design 2 x 64 of 32 rows).
+// - Split heads, as dkv_wgmma_kernel: each block writes its f32 partial
+//   dK and dV of a key tile (8 splits there: 2 x 8 x 2048 x 256 floats,
+//   33.5 MB) and takes a ticket; the last of the S blocks sums the tile's
+//   partials in split order, writes dK and dV, and sets the ticket back
+//   to 0. No block waits on another, so any residency is safe.
 // Every sum keeps its fixed order, so the bits are the same on every call.
 
 #include <cuda.h>
@@ -167,20 +231,33 @@ constexpr int item_rows(int D) { return D > 128 ? 64 : 128; }
 // The tiles of each path: planes (hi, and lo for float32), rows of an
 // item, rows of a ring tile (keys of the dQ kernel, query rows of the
 // dK/dV kernel), stages; the dQ kernel's consumer warpgroups (64 rows
-// each); the columns of dK and dV a dK/dV consumer holds (at D = 256, WIDE,
-// half of them)
+// each, or at bf16 D = 256 two on the same 64); the columns of dK and dV
+// a dK/dV consumer holds (at D = 256, WIDE, half of them). D256: the bf16
+// kernels of D = 256 (dq_d256_kernel, dkv_d256_kernel)
 template <int D, bool F32>
 struct Tiles {
   static constexpr bool WIDE = D > 128;
+  static constexpr bool D256 = WIDE && !F32;
   static constexpr int NP = F32 ? 2 : 1;
   static constexpr int IM = item_rows(D);
-  static constexpr int TN = WIDE ? (F32 ? 16 : 32) : (F32 ? 32 : 64);
-  static constexpr int DQ_STAGES = WIDE && F32 ? 2 : 3;
-  static constexpr int DKV_STAGES = WIDE ? (F32 ? 2 : 4) : (F32 ? 3 : 4);
-  static constexpr int DQ_WGS = IM / 64;
+  static constexpr int TN = WIDE ? (F32 ? 16 : 64) : (F32 ? 32 : 64);
+  static constexpr int DQ_STAGES = WIDE ? 2 : 3;
+  static constexpr int DKV_STAGES = WIDE ? 2 : (F32 ? 3 : 4);
+  static constexpr int DQ_WGS = D256 ? 2 : IM / 64;
   static constexpr int DQ_THREADS = (1 + DQ_WGS) * WG;
   static constexpr int DA = WIDE ? D / 2 : D;
 };
+
+// rows a consumer of the D = 256 bf16 kernels takes of a tile's 64 for S
+// and dP; those kernels' registers a producer and a consumer thread
+// (setmaxnreg moves whole blocks: 128 P + 256 C = 384 x 168): with TMA
+// one producer thread issues the copies (24), a cp.async producer's
+// threads compute addresses (56). ptxas spilled 4-36 bytes at 40 and 232.
+constexpr int HALF = 32;
+template <bool CPA>
+constexpr int D256_PRODUCER_REGS = CPA ? 56 : 24;
+template <bool CPA>
+constexpr int D256_CONSUMER_REGS = CPA ? 224 : 240;
 
 struct DqParams {
   CUtensorMap q, dout, o;               // 4-D (d, heads, T, B), IM-row boxes
@@ -207,6 +284,8 @@ struct DkvParams {
   void* dv;
   long long kvsb;                       // their batch stride
   int nq, B, T, Tp, Hq, Hkv, splits;
+  int pairs;                            // D = 256 bf16: items of two key
+                                        // tiles (scratch_of)
   int d, gran;                          // head_dim, cp.async bytes
   float scale, scale_log2;
 };
@@ -232,6 +311,29 @@ struct DkvSmem {
   float lse2[C::DKV_STAGES][C::TN], di[C::DKV_STAGES][C::TN];
   uint64_t kv_full, kv_empty, full[C::DKV_STAGES], empty[C::DKV_STAGES];
   int last;                             // this block sums the partials
+};
+
+// The D = 256 bf16 kernels' shared memory: tiles of 64 rows, two stages,
+// and the consumers' bf16 pairs exchanged through x[tile parity][consumer]
+// [slice][thread] (dQ: dS's two k16 slices; dK/dV: P^T's, then dS^T's)
+struct Dq256Smem {
+  using C = Tiles<256, false>;
+  __nv_bfloat16 q[C::IM * 256], dout[C::IM * 256];
+  __nv_bfloat16 k[C::DQ_STAGES][C::TN * 256];   // an item's o, then K
+  __nv_bfloat16 v[C::DQ_STAGES][C::TN * 256];
+  uint4 x[2][2][2][WG];
+  uint64_t q_full, q_empty, kv_full[C::DQ_STAGES], kv_empty[C::DQ_STAGES];
+};
+
+struct Dkv256Smem {
+  using C = Tiles<256, false>;
+  __nv_bfloat16 k[C::IM * 256], v[C::IM * 256];
+  __nv_bfloat16 q[C::DKV_STAGES][C::TN * 256];
+  __nv_bfloat16 dout[C::DKV_STAGES][C::TN * 256];
+  float lse2[C::DKV_STAGES][C::TN], di[C::DKV_STAGES][C::TN];
+  uint4 x[2][2][4][WG];
+  uint64_t kv_full, kv_empty, full[C::DKV_STAGES], empty[C::DKV_STAGES];
+  int last;                             // this block sums a split tile
 };
 
 // Work item j of this block: items j G + i and j G + G - 1 - i in turn (G
@@ -655,7 +757,7 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
         for (int i = 0; i < TN / 2; ++i) {
           const int col = acc_col(i, lane), r = (i >> 1) & 1;
           s[i] = ex2(fmaf(s[i], p.scale_log2, -lse2[col]));
-          if constexpr (F32 || TN < 64) {
+          if constexpr (TN < 64) {        // float32's tiles
             if (qt - diag < 64 / TN
                 && krow + 8 * r > col + (qt - diag) * TN)
               s[i] = 0.f;
@@ -779,6 +881,515 @@ __global__ void __launch_bounds__(WS_THREADS, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 at head_dim 256: the consumers share every tile (see the header)
+// ---------------------------------------------------------------------------
+
+// The consumers' bf16 pairs through shared memory: x[consumer][slot]
+// [thread], 16 bytes a thread and slot. put_pairs writes this consumer's
+// two k16 slices (its 32 rows of the tile) at slots s0, s0 + 1;
+// take_pairs reads the A operand over the tile's 64 rows from both
+// consumers' slots s0, s0 + 1: consumer 0's slices first, then consumer
+// 1's, in that order in both
+template <int SLOTS>
+__device__ __forceinline__ void put_pairs(uint4 (*x)[SLOTS][WG], int cw,
+                                          int s0,
+                                          const uint32_t (&own)[1][2][4],
+                                          int t) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    x[cw][s0 + kk][t] = make_uint4(own[0][kk][0], own[0][kk][1],
+                                   own[0][kk][2], own[0][kk][3]);
+}
+
+template <int SLOTS>
+__device__ __forceinline__ void take_pairs(uint32_t (&a)[1][4][4],
+                                           uint4 (*x)[SLOTS][WG],
+                                           int s0, int t) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c)
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint4 v = x[c][s0 + kk][t];
+      a[0][2 * c + kk][0] = v.x;
+      a[0][2 * c + kk][1] = v.y;
+      a[0][2 * c + kk][2] = v.z;
+      a[0][2 * c + kk][3] = v.w;
+    }
+}
+
+// CPA and NARROW as for dq_wgmma_kernel. An item is 64 query rows of one
+// (query head, batch row); the ring brings its o tile (into a K slot),
+// then its K and V tiles of 64 keys up to the diagonal.
+template <bool CPA, bool NARROW>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    dq_d256_kernel(const __grid_constant__ DqParams p) {
+  using C = Tiles<256, false>;
+  constexpr int D = 256, R = C::IM, ST = C::DQ_STAGES;
+  static_assert(C::TN == R && C::DQ_WGS == 2 && C::NP == 1
+                    && C::DA == D / 2,
+                "64-row tiles, two consumers, 128 columns each");
+  constexpr int FULL_ARRIVALS = CPA ? CP_THREADS : 1;
+  constexpr uint32_t TILE_BYTES = R * D * 2;
+  extern __shared__ __align__(1024) unsigned char dq256_smem[];
+  Dq256Smem& sm = *reinterpret_cast<Dq256Smem*>(
+      (reinterpret_cast<uintptr_t>(dq256_smem) + 1023) & ~uintptr_t(1023));
+  const int heads = p.B * p.Hq;
+  const int items = p.nq * heads;
+  const int wg = threadIdx.x / WG;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.q_full, FULL_ARRIVALS);
+    mbar_init(&sm.q_empty, CONSUMER_WARPS);
+#pragma unroll
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&sm.kv_full[st], FULL_ARRIVALS);
+      mbar_init(&sm.kv_empty[st], CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {                        // producer: kt = -1 is o's tile
+    regs_dec<D256_PRODUCER_REGS<CPA>>();
+    if constexpr (CPA) {
+      const int t = threadIdx.x;
+      int it = 0;
+      for (int j = 0, w; (w = item_index(j)) < items; ++j) {
+        const int qt = p.nq - 1 - w / heads, h = w % p.Hq;
+        const int b = w % heads / p.Hq, hk = h / (p.Hq / p.Hkv);
+        producer_wait(&sm.q_empty, (j & 1) ^ 1, t, BAR_PRODUCER);
+        cp_rows<D, R>(sm.q, p.qr, p.d, p.T, p.gran, h, qt * R, b, t);
+        cp_rows<D, R>(sm.dout, p.dor, p.d, p.T, p.gran, h, qt * R, b, t);
+        cp_async_arrive_noinc(&sm.q_full);
+        const int nkt = dq_key_tiles<R, R>(qt, p.T);
+        for (int kt = -1; kt < nkt; ++kt, ++it) {
+          const int st = it % ST;
+          producer_wait(&sm.kv_empty[st], ((it / ST) & 1) ^ 1, t,
+                        BAR_PRODUCER);
+          if (kt < 0) {
+            cp_rows<D, R>(sm.k[st], p.orw, p.d, p.T, p.gran, h, qt * R, b,
+                          t);
+          } else {
+            cp_rows<D, R>(sm.k[st], p.kr, p.d, p.T, p.gran, hk, kt * R, b,
+                          t);
+            cp_rows<D, R>(sm.v[st], p.vr, p.d, p.T, p.gran, hk, kt * R, b,
+                          t);
+          }
+          cp_async_arrive_noinc(&sm.kv_full[st]);
+        }
+      }
+    } else if (threadIdx.x == 0) {
+      int it = 0;
+      for (int j = 0, w; (w = item_index(j)) < items; ++j) {
+        const int qt = p.nq - 1 - w / heads, h = w % p.Hq;
+        const int b = w % heads / p.Hq, hk = h / (p.Hq / p.Hkv);
+        mbar_wait(&sm.q_empty, (j & 1) ^ 1);
+        mbar_expect(&sm.q_full, 2 * TILE_BYTES);
+        load_tile<D, 1, R>(sm.q, &p.q, &sm.q_full, h, qt * R, b, p.B);
+        load_tile<D, 1, R>(sm.dout, &p.dout, &sm.q_full, h, qt * R, b, p.B);
+        const int nkt = dq_key_tiles<R, R>(qt, p.T);
+        for (int kt = -1; kt < nkt; ++kt, ++it) {
+          const int st = it % ST;
+          mbar_wait(&sm.kv_empty[st], ((it / ST) & 1) ^ 1);
+          if (kt < 0) {
+            mbar_expect(&sm.kv_full[st], TILE_BYTES);
+            load_tile<D, 1, R>(sm.k[st], &p.o, &sm.kv_full[st], h, qt * R, b,
+                               p.B);
+          } else {
+            mbar_expect(&sm.kv_full[st], 2 * TILE_BYTES);
+            load_tile<D, 1, R>(sm.k[st], &p.k, &sm.kv_full[st], hk, kt * R,
+                               b, p.B);
+            load_tile<D, 1, R>(sm.v[st], &p.v, &sm.kv_full[st], hk, kt * R,
+                               b, p.B);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<D256_CONSUMER_REGS<CPA>>();
+  const int cw = wg - 1;                // keys 32 cw .. of each tile; dQ's
+  const int c0 = (D / 2) * cw;          // columns c0 .. c0 + 127
+  const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
+  const int row0 = 16 * warp + lane / 4;   // and row0 + 8, of the item's
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  float dq[D / 4], s[HALF / 2], dp[HALF / 2];
+  uint32_t mine[1][2][4], ds[1][4][4];
+  int it = 0, x = 0;                    // the ring's and the exchange's turns
+  for (int j = 0, w; (w = item_index(j)) < items; ++j) {
+    const int qt = p.nq - 1 - w / heads, h = w % p.Hq;
+    const int b = w % heads / p.Hq;
+    const int nkt = dq_key_tiles<R, R>(qt, p.T);
+    const long long rows = ((long long)b * p.Hq + h);
+    wait_tile<CPA>(&sm.q_full, j & 1);
+
+    // di = rowsum(o . dO) and lse in base 2 of the lane's two rows, from
+    // the o tile the ring brought first (a quad's four lanes split D;
+    // both consumers, the first writes them to the scratch)
+    float di[2], lse2[2];
+    {
+      const int st = it % ST;
+      wait_tile<CPA>(&sm.kv_full[st], (it / ST) & 1);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rr = row0 + 8 * r, row = qt * R + rr;
+        float acc = 0.f;
+#pragma unroll
+        for (int i = 0; i < D / 8; ++i) {
+          const int at = tile_at<R>(rr, 8 * i + 2 * (lane & 3));
+          const float2 a = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(sm.k[st] + at));
+          const float2 y = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(sm.dout + at));
+          acc = fmaf(a.x, y.x, acc);
+          acc = fmaf(a.y, y.y, acc);
+        }
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        di[r] = row < p.T ? acc : 0.f;
+        lse2[r] = row < p.T ? p.lse[rows * p.T + row] * LOG2E : INFINITY;
+        if (cw == 0 && (lane & 3) == 0) {
+          p.lse2[rows * p.Tp + row] = lse2[r];
+          p.di[rows * p.Tp + row] = di[r];
+        }
+      }
+      release(&sm.kv_empty[st]);
+      ++it;
+    }
+
+#pragma unroll
+    for (int i = 0; i < D / 4; ++i) dq[i] = 0.f;
+    int pending = -1;                   // the stage dQ's product still reads
+    for (int kt = 0; kt < nkt; ++kt, ++it) {
+      const int st = it % ST;
+      wait_tile<CPA>(&sm.kv_full[st], (it / ST) & 1);
+      reg_fence(s);
+      reg_fence(dp);
+      wgmma_fence();
+      // S = Q K^T, dP = dO V^T over this consumer's 32 keys
+      gemm_abt<D, R, HALF, 1, R>(s, sm.q, 0, sm.k[st] + HALF * cw * 64);
+      wgmma_commit();
+      gemm_abt<D, R, HALF, 1, R>(dp, sm.dout, 0, sm.v[st] + HALF * cw * 64);
+      wgmma_commit();
+      wgmma_wait<2>();                  // the last tile's dQ: its K and V
+      reg_fence(dq);                    // free for the producer
+      if (pending >= 0) release(&sm.kv_empty[pending]);
+      wgmma_wait<1>();                  // S
+      reg_fence(s);
+      // P = 2^(S scale log2(e) - lse log2(e)), masked on the diagonal
+      // tile where the key follows the row, under dP's product
+#pragma unroll
+      for (int i = 0; i < HALF / 2; ++i) {
+        const int r = (i >> 1) & 1;
+        s[i] = ex2(fmaf(s[i], p.scale_log2, -lse2[r]));
+        if (kt == qt && HALF * cw + acc_col(i, lane) > row0 + 8 * r)
+          s[i] = 0.f;
+      }
+      wgmma_wait<0>();
+      reg_fence(dp);
+      if (kt == nkt - 1) release(&sm.q_empty);   // Q, dO read for good
+      // dS = (dP - di) P scale as bf16 pairs, exchanged: the A operand
+      // over the tile's 64 keys
+#pragma unroll
+      for (int i = 0; i < HALF / 2; ++i)
+        dp[i] = (dp[i] - di[(i >> 1) & 1]) * s[i] * p.scale;
+      to_pairs<1, HALF>(dp, mine);
+      put_pairs(sm.x[x & 1], cw, 0, mine, t);
+      named_sync(BAR_CONSUMERS, 2 * WG);
+      take_pairs(ds, sm.x[x & 1], 0, t);
+      ++x;
+      wgmma_fence();
+      // dQ[:, c0 ..] += dS K, under the next S and dP
+      gemm_xb<D / 2, R, 1, D>(dq, ds, sm.k[st] + c0 * R);
+      wgmma_commit();
+      pending = st;
+    }
+    wgmma_wait<0>();
+    reg_fence(dq);
+    if (pending >= 0) release(&sm.kv_empty[pending]);
+    const int dw = NARROW ? p.d : D;   // dQ's width
+    store_acc<D / 2, NARROW>(static_cast<__nv_bfloat16*>(p.dq)
+                             + (((long long)b * p.T + qt * R) * p.Hq + h)
+                                   * dw + c0,
+                             (long long)p.Hq * dw, row0, p.T - qt * R,
+                             dw - c0, dq, lane);
+  }
+}
+
+// Key tiles of the dK/dV items' unit u (KvItem::kt): u, and with pairs nq
+// - 1 - u where that is another tile
+__device__ __forceinline__ int unit_tiles(const DkvParams& p, int u) {
+  return p.pairs && p.nq - 1 - u != u ? 2 : 1;
+}
+
+__device__ __forceinline__ int unit_tile(const DkvParams& p, int u, int i) {
+  return i ? p.nq - 1 - u : u;
+}
+
+// CPA and NARROW as for dq_wgmma_kernel. An item is split e.s of the
+// query heads of kv head e.hk, batch row e.b, over the key tiles of unit
+// e.kt; per key tile K and V come once, Q, dO, lse and di in 64-row tiles
+// from the diagonal on, query head by query head.
+template <bool CPA, bool NARROW>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+    dkv_d256_kernel(const __grid_constant__ DkvParams p) {
+  using C = Tiles<256, false>;
+  constexpr int D = 256, R = C::IM, ST = C::DKV_STAGES;
+  static_assert(C::TN == R, "64-row tiles");
+  constexpr int FULL_ARRIVALS = CPA ? CP_THREADS : 1;
+  constexpr uint32_t TILE_BYTES = R * D * 2;
+  extern __shared__ __align__(1024) unsigned char dkv256_smem[];
+  Dkv256Smem& sm = *reinterpret_cast<Dkv256Smem*>(
+      (reinterpret_cast<uintptr_t>(dkv256_smem) + 1023) & ~uintptr_t(1023));
+  const int units = p.pairs ? (p.nq + 1) / 2 : p.nq;
+  const int items = units * p.Hkv * p.B * p.splits;
+  const int g_all = p.Hq / p.Hkv, g_split = g_all / p.splits;
+  const int wg = threadIdx.x / WG;
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, FULL_ARRIVALS);
+    mbar_init(&sm.kv_empty, CONSUMER_WARPS);
+#pragma unroll
+    for (int st = 0; st < ST; ++st) {
+      mbar_init(&sm.full[st], FULL_ARRIVALS + (CPA ? 1 : 0));
+      mbar_init(&sm.empty[st], CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 0) {                        // producer
+    regs_dec<D256_PRODUCER_REGS<CPA>>();
+    const int t = threadIdx.x;
+    if (!CPA && t != 0) return;         // one thread starts TMA
+    int it = 0, sub = 0;                // ring tiles, key tiles loaded
+    for (int j = 0, w; (w = item_index(j)) < items; ++j) {
+      const KvItem e = kv_item(p, w);
+      for (int u = 0; u < unit_tiles(p, e.kt); ++u, ++sub) {
+        const int kt = unit_tile(p, e.kt, u);
+        if constexpr (CPA) {
+          producer_wait(&sm.kv_empty, (sub & 1) ^ 1, t, BAR_PRODUCER);
+          cp_rows<D, R>(sm.k, p.kr, p.d, p.T, p.gran, e.hk, kt * R, e.b, t);
+          cp_rows<D, R>(sm.v, p.vr, p.d, p.T, p.gran, e.hk, kt * R, e.b, t);
+          cp_async_arrive_noinc(&sm.kv_full);
+        } else {
+          mbar_wait(&sm.kv_empty, (sub & 1) ^ 1);
+          mbar_expect(&sm.kv_full, 2 * TILE_BYTES);
+          load_tile<D, 1, R>(sm.k, &p.k, &sm.kv_full, e.hk, kt * R, e.b,
+                             p.B);
+          load_tile<D, 1, R>(sm.v, &p.v, &sm.kv_full, e.hk, kt * R, e.b,
+                             p.B);
+        }
+        for (int g = e.s * g_split; g < (e.s + 1) * g_split; ++g) {
+          const int h = e.hk * g_all + g;
+          const long long rows = ((long long)e.b * p.Hq + h) * p.Tp;
+          for (int qt = kt; qt < p.nq; ++qt, ++it) {
+            const int st = it % ST;
+            if constexpr (CPA) {
+              producer_wait(&sm.empty[st], ((it / ST) & 1) ^ 1, t,
+                            BAR_PRODUCER);
+              if (t == 0) mbar_expect(&sm.full[st], 2 * R * 4);
+            } else {
+              mbar_wait(&sm.empty[st], ((it / ST) & 1) ^ 1);
+              mbar_expect(&sm.full[st], 2 * TILE_BYTES + 2 * R * 4);
+            }
+            if (t == 0) {
+              bulk_load(sm.lse2[st], p.lse2 + rows + qt * R, R * 4,
+                        &sm.full[st]);
+              bulk_load(sm.di[st], p.di + rows + qt * R, R * 4,
+                        &sm.full[st]);
+            }
+            if constexpr (CPA) {
+              cp_rows<D, R>(sm.q[st], p.qr, p.d, p.T, p.gran, h, qt * R,
+                            e.b, t);
+              cp_rows<D, R>(sm.dout[st], p.dor, p.d, p.T, p.gran, h, qt * R,
+                            e.b, t);
+              cp_async_arrive_noinc(&sm.full[st]);
+            } else {
+              load_tile<D, 1, R>(sm.q[st], &p.q, &sm.full[st], h, qt * R,
+                                 e.b, p.B);
+              load_tile<D, 1, R>(sm.dout[st], &p.dout, &sm.full[st], h,
+                                 qt * R, e.b, p.B);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  regs_inc<D256_CONSUMER_REGS<CPA>>();
+  const int cw = wg - 1;                // query rows 32 cw .. of each tile;
+  const int c0 = (D / 2) * cw;          // dK's, dV's columns c0 .. c0 + 127
+  const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
+  const int krow = 16 * warp + lane / 4;   // keys krow (+ 8) of the tile
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+  float dk[D / 4], dv[D / 4], s[HALF / 2], dp[HALF / 2];
+  uint32_t mp[1][2][4], md[1][2][4], pa[1][4][4], da[1][4][4];
+  int it = 0, sub = 0, x = 0;
+  __nv_bfloat16* const dk_out = static_cast<__nv_bfloat16*>(p.dk);
+  __nv_bfloat16* const dv_out = static_cast<__nv_bfloat16*>(p.dv);
+  const int dw = NARROW ? p.d : D;     // dK's and dV's width
+  const long long kst = (long long)p.Hkv * dw;
+  for (int j = 0, w; (w = item_index(j)) < items; ++j) {
+    const KvItem e = kv_item(p, w);
+    for (int u = 0; u < unit_tiles(p, e.kt); ++u, ++sub) {
+      const int kt = unit_tile(p, e.kt, u);
+      wait_tile<CPA>(&sm.kv_full, sub & 1);
+#pragma unroll
+      for (int i = 0; i < D / 4; ++i) dk[i] = dv[i] = 0.f;
+      const int n = g_split * (p.nq - kt);   // query tiles of the key tile
+      int pending = -1;
+      for (int i = 0; i < n; ++i, ++it) {
+        const int st = it % ST, qt = kt + i % (p.nq - kt);
+        wait_tile<CPA>(&sm.full[st], (it / ST) & 1);
+        reg_fence(s);
+        reg_fence(dp);
+        wgmma_fence();
+        // S^T = K Q^T, dP^T = V dO^T over this consumer's 32 query rows
+        gemm_abt<D, R, HALF, 1, R>(s, sm.k, 0, sm.q[st] + HALF * cw * 64);
+        wgmma_commit();
+        gemm_abt<D, R, HALF, 1, R>(dp, sm.v, 0,
+                                   sm.dout[st] + HALF * cw * 64);
+        wgmma_commit();
+        wgmma_wait<2>();                // the last tile's dV, dK: its Q
+        reg_fence(dk);                  // and dO free for the producer
+        reg_fence(dv);
+        if (pending >= 0) release(&sm.empty[pending]);
+        wgmma_wait<1>();                // S^T
+        reg_fence(s);
+        // P^T = 2^(S^T scale log2(e) - lse log2(e)) (a query row's lse a
+        // column), masked on the diagonal tile where a key follows the
+        // query row, under dP^T's product
+        const float* lse2 = sm.lse2[st] + HALF * cw;
+        const float* dis = sm.di[st] + HALF * cw;
+#pragma unroll
+        for (int ii = 0; ii < HALF / 2; ++ii) {
+          const int col = acc_col(ii, lane), r = (ii >> 1) & 1;
+          s[ii] = ex2(fmaf(s[ii], p.scale_log2, -lse2[col]));
+          if (qt == kt && krow + 8 * r > HALF * cw + col) s[ii] = 0.f;
+        }
+        wgmma_wait<0>();
+        reg_fence(dp);
+        // P^T and dS^T = (dP^T - di) P^T scale as bf16 pairs, exchanged:
+        // the A operands over the tile's 64 query rows
+#pragma unroll
+        for (int kk = 0; kk < HALF / 16; ++kk)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int ii = 8 * kk + 2 * jj, col = acc_col(ii, lane);
+            mp[0][kk][jj] = pack_bf2(s[ii], s[ii + 1]);
+            md[0][kk][jj] = pack_bf2(
+                (dp[ii] - dis[col]) * s[ii] * p.scale,
+                (dp[ii + 1] - dis[col + 1]) * s[ii + 1] * p.scale);
+          }
+        put_pairs(sm.x[x & 1], cw, 0, mp, t);
+        put_pairs(sm.x[x & 1], cw, 2, md, t);
+        named_sync(BAR_CONSUMERS, 2 * WG);
+        take_pairs(pa, sm.x[x & 1], 0, t);
+        take_pairs(da, sm.x[x & 1], 2, t);
+        ++x;
+        wgmma_fence();
+        // dV += P^T dO, dK += dS^T Q over this consumer's columns, under
+        // the next S^T and dP^T
+        gemm_xb<D / 2, R, 1, D>(dv, pa, sm.dout[st] + c0 * R);
+        gemm_xb<D / 2, R, 1, D>(dk, da, sm.q[st] + c0 * R);
+        wgmma_commit();
+        pending = st;
+      }
+      wgmma_wait<0>();
+      reg_fence(dk);
+      reg_fence(dv);
+      if (pending >= 0) release(&sm.empty[pending]);
+      release(&sm.kv_empty);
+
+      const int keys = p.T - kt * R;   // rows of the tile below T
+      const long long out0 = (long long)e.b * p.kvsb
+                             + ((long long)kt * R * p.Hkv + e.hk) * dw;
+      if (p.splits == 1) {
+        store_acc<D / 2, NARROW>(dk_out + out0 + c0, kst, krow, keys,
+                                 dw - c0, dk, lane);
+        store_acc<D / 2, NARROW>(dv_out + out0 + c0, kst, krow, keys,
+                                 dw - c0, dv, lane);
+        continue;
+      }
+      // split heads: this block's f32 partials, then the last block of the
+      // (key tile, kv head, batch row) sums all of them in split order
+      const long long plane = (long long)p.splits * p.B * p.Hkv * p.Tp * D;
+      const long long step = (long long)p.B * p.Hkv * p.Tp * D;  // a split
+      const long long first =
+          (((long long)e.b * p.Hkv + e.hk) * p.Tp + kt * R) * D;
+      const long long own = first + e.s * step + c0;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const long long at = own + (long long)(krow + 8 * r) * D
+                             + 2 * (lane & 3);
+#pragma unroll
+        for (int i = 0; i < D / 16; ++i) {
+          *reinterpret_cast<float2*>(p.part + at + 8 * i) =
+              make_float2(dk[4 * i + 2 * r], dk[4 * i + 2 * r + 1]);
+          *reinterpret_cast<float2*>(p.part + plane + at + 8 * i) =
+              make_float2(dv[4 * i + 2 * r], dv[4 * i + 2 * r + 1]);
+        }
+      }
+      __threadfence();
+      named_sync(BAR_CONSUMERS, 2 * WG);
+      int* ticket = p.tickets + ((long long)kt * p.Hkv + e.hk) * p.B + e.b;
+      if (threadIdx.x == WG)
+        sm.last = atomicAdd(ticket, 1) == p.splits - 1;
+      named_sync(BAR_CONSUMERS, 2 * WG);
+      if (!sm.last) continue;
+      __threadfence();
+      // the tile's 2 x 64 x 256 sums, four columns a thread at a time and
+      // eight of them at once: 64 KB of loads in flight, not one chain a
+      // value (one block reads all S partials, 1 MB a tile at S = 8)
+      constexpr int TILE4 = R * D / 4, ILP = 8;  // a plane's quads
+#pragma unroll 1
+      for (int q0 = threadIdx.x - WG; q0 < 2 * TILE4; q0 += ILP * 2 * WG) {
+        float4 acc[ILP];
+#pragma unroll
+        for (int u = 0; u < ILP; ++u)
+          acc[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+        for (int sp = 0; sp < p.splits; ++sp) {
+#pragma unroll
+          for (int u = 0; u < ILP; ++u) {
+            const int qd = q0 + u * 2 * WG;
+            const float4 v = __ldcg(reinterpret_cast<const float4*>(
+                p.part + first + sp * step + (qd / TILE4) * plane
+                + 4 * (qd % TILE4)));
+            acc[u].x += v.x;
+            acc[u].y += v.y;
+            acc[u].z += v.z;
+            acc[u].w += v.w;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < ILP; ++u) {
+          const int qd = q0 + u * 2 * WG, pl = qd / TILE4;
+          const int row = qd % TILE4 / (D / 4), col = 4 * (qd % (D / 4));
+          if (row >= keys) continue;
+          __nv_bfloat16* out = (pl ? dv_out : dk_out) + out0 + row * kst;
+          if constexpr (NARROW) {
+            store_cols(out + col, col, dw, acc[u].x, acc[u].y);
+            store_cols(out + col + 2, col + 2, dw, acc[u].z, acc[u].w);
+          } else {
+            store2(out + col, acc[u].x, acc[u].y);
+            store2(out + col + 2, acc[u].z, acc[u].w);
+          }
+        }
+      }
+      if (threadIdx.x == WG) *ticket = 0;  // for the next call
+    }
+  }
+}
+
 int sm_count(int* sms) {
   int dev;
   cudaError_t err = cudaGetDevice(&dev);
@@ -789,25 +1400,62 @@ int sm_count(int* sms) {
 
 // The scratch of both paths: lse log2(e) and di [B, Hq, Tp], and with S >
 // 1 the partial dK and dV [2][S][B][Hkv][Tp][D] (floats) and the tickets
-// [nq][Hkv][B]. S splits each kv head's query heads: the largest divisor
-// of G for which S x the items (key tiles x kv heads x batch) still fit
-// the SMs in one wave, else 1. (At G = 8, T = 512: S = 4, 128 items; S =
-// 8 took two waves and twice the partials, and was slower than S = 1.)
+// [nq][Hkv][B]. S splits each kv head's query heads. dq_wgmma_kernel's
+// and dkv_wgmma_kernel's plan: the largest divisor of G for which S x the
+// items (key tiles x kv heads x batch) still fit the SMs in one wave, else
+// 1. (At G = 8, T = 512, D = 128: S = 4, 128 items; S = 8 took two waves
+// and twice the partials, and was slower than S = 1.) The D = 256 bf16
+// kernels': plan_d256.
 struct Scratch {
-  int nq, Tp, splits;
+  int nq, Tp, splits, pairs;
   long long floats, tickets;
 };
 
-Scratch scratch_of(int B, int T, int Hq, int Hkv, int D, int sms) {
+// dkv_d256_kernel's items (see the header): with or without pairs of key
+// tiles, and S, the plan whose estimate of the busiest block's query tiles
+// is least, max(the longest item, all tiles over the blocks), S > 1 only
+// where the items fit the SMs; ties to no pairs and the fewer splits.
+// tests/flash_bwd_plan.py bwd_plan_d256 is this plan for the tests.
+void plan_d256(Scratch& s, int B, int Hq, int Hkv, int sms) {
+  const long long nk = s.nq, g = Hq / Hkv, kv = (long long)Hkv * B;
+  const long long tiles = g * kv * nk * (nk + 1) / 2;
+  long long best = -1;
+  for (int pair = 0; pair < 2; ++pair) {
+    const long long units = pair ? (nk + 1) / 2 : nk;
+    const long long len = pair && nk > 1 ? nk + 1 : nk;  // a head's tiles
+    for (int d = 1; d <= g; ++d) {
+      if (g % d) continue;
+      const long long items = units * kv * d;
+      if (d > 1 && items > sms) break;
+      const long long blocks = items < sms ? items : sms;
+      const long long longest = len * (g / d);
+      const long long spread = (tiles + blocks - 1) / blocks;
+      const long long est = longest > spread ? longest : spread;
+      if (best < 0 || est < best) {
+        best = est;
+        s.pairs = pair;
+        s.splits = d;
+      }
+    }
+  }
+}
+
+Scratch scratch_of(int B, int T, int Hq, int Hkv, int D, int f32,
+                   int sms) {
   Scratch s;
   const int im = item_rows(D);
   s.nq = (T + im - 1) / im;
   s.Tp = s.nq * im;
   const long long items = (long long)s.nq * Hkv * B;
   const int g = Hq / Hkv;
-  s.splits = 1;                         // the largest divisor of G that
-  for (int d = 2; d <= g; ++d)          // keeps the items in one wave
-    if (g % d == 0 && items * d <= sms) s.splits = d;
+  s.splits = 1;
+  s.pairs = 0;
+  if (D > 128 && !f32) {
+    plan_d256(s, B, Hq, Hkv, sms);
+  } else {
+    for (int d = 2; d <= g; ++d)        // the largest divisor of G that
+      if (g % d == 0 && items * d <= sms) s.splits = d;  // keeps one wave
+  }
   s.floats = 2LL * B * Hq * s.Tp
              + (s.splits > 1 ? 2LL * s.splits * B * Hkv * s.Tp * D : 0);
   s.tickets = s.splits > 1 ? items : 0;
@@ -839,11 +1487,12 @@ int launch_wgmma(const Operand& q, const Operand& k, const Operand& v,
                  int gran, float scale, int sms, cudaStream_t stream) {
   using C = Tiles<D, F32>;
   constexpr int IM = C::IM;
-  const Scratch sc = scratch_of(B, T, Hq, Hkv, D, sms);
+  const Scratch sc = scratch_of(B, T, Hq, Hkv, D, F32, sms);
   if (ws == nullptr || (sc.splits > 1 && tickets == nullptr))
     return (int)cudaErrorInvalidValue;
   const long long dq_items = (long long)sc.nq * Hq * B;
-  const long long kv_items = (long long)sc.nq * Hkv * B * sc.splits;
+  const long long units = sc.pairs ? (sc.nq + 1) / 2 : sc.nq;
+  const long long kv_items = units * Hkv * B * sc.splits;
   if (dq_items > 0x7fffffff || kv_items > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
 
@@ -887,22 +1536,39 @@ int launch_wgmma(const Operand& q, const Operand& k, const Operand& v,
   a.Hq = c.Hq = Hq;
   a.Hkv = c.Hkv = Hkv;
   c.splits = sc.splits;
+  c.pairs = sc.pairs;
   a.scale = c.scale = scale;
   a.scale_log2 = c.scale_log2 = scale * LOG2E;
 
-  const size_t dq_smem = sizeof(DqSmem<D, F32>) + 1024;   // + the alignment
-  const size_t kv_smem = sizeof(DkvSmem<D, F32>) + 1024;
+  size_t dq_smem, kv_smem;              // + 1024 for the alignment
   void (*kq)(DqParams);                 // cp.async only at NARROW
   void (*kkv)(DkvParams);
-  if constexpr (CPA) {
-    kq = dq_wgmma_kernel<D, F32, true, true>;
-    kkv = dkv_wgmma_kernel<D, F32, true, true>;
-  } else if (d < D) {
-    kq = dq_wgmma_kernel<D, F32, false, true>;
-    kkv = dkv_wgmma_kernel<D, F32, false, true>;
+  if constexpr (C::D256) {
+    dq_smem = sizeof(Dq256Smem) + 1024;
+    kv_smem = sizeof(Dkv256Smem) + 1024;
+    if constexpr (CPA) {
+      kq = dq_d256_kernel<true, true>;
+      kkv = dkv_d256_kernel<true, true>;
+    } else if (d < D) {
+      kq = dq_d256_kernel<false, true>;
+      kkv = dkv_d256_kernel<false, true>;
+    } else {
+      kq = dq_d256_kernel<false, false>;
+      kkv = dkv_d256_kernel<false, false>;
+    }
   } else {
-    kq = dq_wgmma_kernel<D, F32, false, false>;
-    kkv = dkv_wgmma_kernel<D, F32, false, false>;
+    dq_smem = sizeof(DqSmem<D, F32>) + 1024;
+    kv_smem = sizeof(DkvSmem<D, F32>) + 1024;
+    if constexpr (CPA) {
+      kq = dq_wgmma_kernel<D, F32, true, true>;
+      kkv = dkv_wgmma_kernel<D, F32, true, true>;
+    } else if (d < D) {
+      kq = dq_wgmma_kernel<D, F32, false, true>;
+      kkv = dkv_wgmma_kernel<D, F32, false, true>;
+    } else {
+      kq = dq_wgmma_kernel<D, F32, false, false>;
+      kkv = dkv_wgmma_kernel<D, F32, false, false>;
+    }
   }
   cudaError_t e = cudaFuncSetAttribute(
       kq, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_smem);
@@ -930,7 +1596,7 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o,
                long long dsb, long long dst, long long kvsb, int B, int T,
                int Hq, int Hkv, int d, float scale, int sms,
                cudaStream_t stream) {
-  const Scratch sc = scratch_of(B, T, Hq, Hkv, W, sms);
+  const Scratch sc = scratch_of(B, T, Hq, Hkv, W, 1, sms);
   if (ws == nullptr) return (int)cudaErrorInvalidValue;
   __nv_bfloat16* qp = planes;
   __nv_bfloat16* kp = qp + 2LL * B * T * Hq * W;
@@ -991,24 +1657,25 @@ inline bool rows_aligned(const Operand& x, int bytes) {
 }  // namespace
 
 // The floats of f32 scratch and the int32 tickets flash_attn_bwd takes for
-// these shapes on the current device, and the splits of each kv head's
-// query heads: out[0], out[1], out[2] (the same at f32 = 0 and 1; the
-// float32 path's bf16 planes are the caller's too, 2 B T (2 Hq + 2 Hkv) D
-// elements). Returns a cudaError_t.
+// these shapes and type on the current device, the splits of each kv
+// head's query heads, and whether the dK/dV items pair key tiles (the
+// D = 256 bf16 plan): out[0] .. out[3] (the float32 path's bf16 planes
+// are the caller's too, 2 B T (2 Hq + 2 Hkv) D elements). Returns a
+// cudaError_t.
 extern "C" int flash_attn_bwd_scratch(int B, int T, int Hq, int Hkv, int D,
                                       int f32, long long* out) {
-  (void)f32;
-  out[0] = out[1] = out[2] = 0;
+  out[0] = out[1] = out[2] = out[3] = 0;
   if (B < 0 || T < 0 || Hkv < 1 || Hq < Hkv || Hq % Hkv)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
   int sms;
   const int err = sm_count(&sms);
   if (err) return err;
-  const Scratch s = scratch_of(B, T, Hq, Hkv, D, sms);
+  const Scratch s = scratch_of(B, T, Hq, Hkv, D, f32, sms);
   out[0] = s.floats;
   out[1] = s.tickets;
   out[2] = s.splits;
+  out[3] = s.pairs;
   return 0;
 }
 

@@ -45,9 +45,10 @@ __device__ __forceinline__ void split_bf2(float x, float y, uint32_t& hi,
 // follows its hi plane, R D elements on.
 
 // acc (+)= A[row0 .. row0 + 64) . B^T over D, both K-major: A rows of an
-// [RA][D] tile, B an [N][D] tile (k16 slice kk: box kk / 4, 32 (kk % 4)
+// [RA][D] tile, B N rows of an [RB][D] tile (b at the first of them, a
+// multiple of 8 lines into its box; k16 slice kk: box kk / 4, 32 (kk % 4)
 // bytes into the line); acc is overwritten. NP = 2: hi.lo + lo.hi + hi.hi.
-template <int D, int RA, int N, int NP>
+template <int D, int RA, int N, int NP, int RB = N>
 __device__ __forceinline__ void gemm_abt(float (&acc)[N / 2],
                                          const __nv_bfloat16* a, int row0,
                                          const __nv_bfloat16* b) {
@@ -58,12 +59,12 @@ __device__ __forceinline__ void gemm_abt(float (&acc)[N / 2],
       wgmma_ss<N>(acc,
                   wgmma_desc(ap + (kk / 4) * RA * 64 + row0 * 64
                              + (kk % 4) * 16, 16, 1024),
-                  wgmma_desc(bp + (kk / 4) * N * 64 + (kk % 4) * 16, 16,
+                  wgmma_desc(bp + (kk / 4) * RB * 64 + (kk % 4) * 16, 16,
                              1024),
                   first ? kk : 1);
   };
   if constexpr (NP == 2) {
-    one(a, b + N * D, true);
+    one(a, b + RB * D, true);
     one(a + RA * D, b, false);
     one(a, b, false);
   } else {

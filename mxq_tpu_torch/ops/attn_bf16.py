@@ -585,13 +585,13 @@ def flash_attention_forward(q, k, v):
 
 def _bwd_scratch(lib, b, t, hq, hkv, w, f32, device):
     """K13-bwd's f32 scratch and tickets, as the library sizes them for
-    this card (``flash_attn_bwd_scratch``, the same at both types): the
-    row log-sum-exp and di that the dQ kernel (bf16) or the split pass
-    (float32) writes for the dK/dV kernel, and, where a kv head's query
-    heads are split over blocks, the partial dK and dV and one ticket per
-    (key tile, kv head, batch row)."""
+    this card and type (``flash_attn_bwd_scratch``): the row log-sum-exp
+    and di that the dQ kernel (bf16) or the split pass (float32) writes
+    for the dK/dV kernel, and, where a kv head's query heads are split
+    over blocks, the partial dK and dV and one ticket per (key tile, kv
+    head, batch row)."""
     import ctypes
-    sizes = (ctypes.c_longlong * 3)()
+    sizes = (ctypes.c_longlong * 4)()
     err = lib.flash_attn_bwd_scratch(b, t, hq, hkv, w, f32, sizes)
     if err:
         raise RuntimeError(f"K13-bwd: CUDA error {err} sizing its scratch")

@@ -100,10 +100,11 @@ def test_bwd_plain_matches_upstream_flash_vjp(hkv):
     _bwd_against_upstream(hkv, hkv, 64)
 
 
-@pytest.mark.parametrize("hkv,d", [(2, 80), (2, 96), (1, 100)])
+@pytest.mark.parametrize("hkv,d", [(2, 80), (2, 96), (1, 100), (1, 256)])
 def test_bwd_plain_matches_upstream_flash_vjp_head_dims(hkv, d):
-    """The same at head_dims the kernels run at their 128 template:
-    upstream takes every D <= 128."""
+    """The same at head_dims the kernels run at their 128 template
+    (upstream takes every D <= 128) and at 256 (Gemma-2B's, the 256
+    template's own width)."""
     _bwd_against_upstream(d, hkv, d)
 
 

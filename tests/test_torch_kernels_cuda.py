@@ -723,11 +723,11 @@ def _grad_errs(got, ref):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t", [1, 63, 64, 65, 127, 128, 129, 200, 255, 257,
-                               513, 1000])
+                               513, 1000, 1025])
 @pytest.mark.parametrize("hq,hkv,d", [(4, 2, 64), (8, 8, 128), (16, 2, 128),
                                       (8, 2, 80), (4, 4, 96), (8, 1, 256),
                                       (4, 2, 192), (4, 4, 100), (2, 2, 98),
-                                      (1, 1, 99)])
+                                      (1, 1, 99), (8, 2, 256), (2, 1, 250)])
 def test_k13_bwd_matches_plain(gen, hq, hkv, d, t, dtype):
     """K13-bwd against its plain version on the same lse (K13's), q, k, v
     the fused projection's strided slices and dO a transposed view: each
@@ -738,9 +738,13 @@ def test_k13_bwd_matches_plain(gen, hq, hkv, d, t, dtype):
     T straddles the 128-row items and the ring's tiles (bf16 64 rows,
     float32 32); D = 80, 96, 98, 99 and 100 run at 128 (bf16 read in
     place as K13 reads it, dO first copied into contiguous rows; float32
-    on the split pass's planes), 192 at 256, whose items are 64 rows, its
-    ring's tiles 32 rows (bf16) and 16 (float32); the gradients written at
-    width D."""
+    on the split pass's planes), 192 and 250 at 256, whose items are 64
+    rows, its ring's tiles 64 rows (bf16) and 16 (float32); the gradients
+    written at width D. At bf16 and the 256 template T = 1025 gives the
+    dK/dV items an odd number of key tiles, paired with split heads
+    (Hq 8 over 1 or 2 kv heads: 4 or 2 splits, see
+    test_k13_bwd_d256_plan_is_the_cpu_tests'), and D = 250 is read by
+    cp.async."""
     b = 2
     q, k, v = _qkv(gen, b, t, hq, hkv, d, dtype)
     do = torch.randn((b, hq, t, d), generator=gen, device="cuda").to(
@@ -828,7 +832,7 @@ def _split_heads_case(gen, dtype):
     import ctypes
 
     from mxq_tpu_torch import _build
-    sizes = (ctypes.c_longlong * 3)()
+    sizes = (ctypes.c_longlong * 4)()
     assert _build.load("flash_attn_bwd").flash_attn_bwd_scratch(
         1, 512, 64, 8, 128, int(dtype == torch.float32), sizes) == 0
     assert sizes[2] > 1
@@ -868,6 +872,36 @@ def test_k13_bwd_split_heads_same_bits(gen, dtype):
         again = ab.flash_attention_backward(*args)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_k13_bwd_d256_plan_is_the_cpu_tests(gen):
+    """The dK/dV plan the library picks at bf16 and the 256 template on
+    this card (``flash_attn_bwd_scratch``: splits out[2], pairs out[3]) is
+    ``flash_bwd_plan.bwd_plan_d256``'s, the plan the CPU tests emulate,
+    with the scratch it sizes (lse and di, and the partials where heads
+    are split),
+    at Gemma-2B's widths (T = 2048: pairs and 8 splits; 512), the odd key
+    tiles of T = 1025 and 16 kv heads; the float32 path pairs no key
+    tiles."""
+    import ctypes
+
+    from flash_bwd_plan import bwd_plan_d256
+    from mxq_tpu_torch import _build
+    lib = _build.load("flash_attn_bwd")
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    sizes = (ctypes.c_longlong * 4)()
+    for b, t, hq, hkv in [(1, 2048, 8, 1), (1, 512, 8, 1), (2, 1025, 8, 2),
+                          (2, 1025, 8, 1), (1, 2048, 16, 16),
+                          (1, 257, 8, 1)]:
+        assert lib.flash_attn_bwd_scratch(b, t, hq, hkv, 256, 0, sizes) == 0
+        pairs, splits = bwd_plan_d256(b, t, hq, hkv, sms)
+        assert (bool(sizes[3]), sizes[2]) == (pairs, splits)
+        tp = -(-t // 64) * 64
+        parts = 2 * splits * b * hkv * tp * 256 if splits > 1 else 0
+        assert sizes[0] == 2 * b * hq * tp + parts
+        assert lib.flash_attn_bwd_scratch(b, t, hq, hkv, 256, 1, sizes) == 0
+        assert sizes[3] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
